@@ -1,0 +1,86 @@
+"""Carry configurations and states across from the JAX package's plain
+data, so both engines can start from the same point.
+
+``config_from_dict`` rebuilds a port ``SimConfig`` from the reference's
+``farm._config_dict(cfg)`` dump; ``state_from_numpy`` builds a port
+``SimState`` from the reference ``SimState``'s leaves as numpy arrays,
+keyed by field path (``"farm.core_busy_until"``; a leading ``"."`` as
+``jax.tree_util.keystr`` writes it is accepted).  Leaves of the subtrees
+this slice does not model (flows, net, thermal, trace) are ignored.
+Nothing here imports JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .core import types as T
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_NESTED = {"server_power": T.ServerPowerProfile,
+           "switch_power": T.SwitchPowerProfile,
+           "telemetry": T.TelemetryConfig, "thermal": T.ThermalConfig,
+           "trace": T.TraceConfig, "partition": T.PartitionConfig}
+
+
+def _untuple(v):
+    return tuple(_untuple(x) for x in v) if isinstance(v, list) else v
+
+
+def config_from_dict(d: dict) -> T.SimConfig:
+    """A port SimConfig from the reference's ``_config_dict`` dump."""
+    kw = {}
+    for f in dataclasses.fields(T.SimConfig):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        if f.name in _NESTED:
+            v = _NESTED[f.name](**{k: _untuple(x) for k, x in v.items()})
+        elif f.name == "time_dtype":
+            if v not in _DTYPES:
+                raise ValueError(f"unsupported time_dtype {v!r}")
+            v = _DTYPES[v]
+        kw[f.name] = _untuple(v)
+    unknown = set(d) - {f.name for f in dataclasses.fields(T.SimConfig)}
+    if unknown:
+        raise ValueError(f"unknown SimConfig fields: {sorted(unknown)}")
+    return T.SimConfig(**kw)
+
+
+def _tensor(x, device) -> torch.Tensor:
+    # np.array, not np.ascontiguousarray: the latter turns a 0-d leaf
+    # (the clock, counters) into shape (1,)
+    a = np.array(x, order="C")
+    if a.dtype == np.int64:
+        a = a.astype(np.int32)       # the reference's int32 state
+    return torch.from_numpy(a).to(device)
+
+
+def _build(cls, prefix, tree, device):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        key = f"{prefix}.{f.name}" if prefix else f.name
+        sub = {"farm": T.ServerFarm, "jobs": T.JobTable,
+               "sched": T.SchedState, "telem": T.Telemetry}.get(key)
+        if sub is not None:
+            kw[f.name] = _build(sub, key, tree, device)
+        elif key in tree:
+            kw[f.name] = _tensor(tree[key], device)
+        else:
+            raise KeyError(f"state leaf {key!r} missing from the tree")
+    return cls(**kw)
+
+
+def state_from_numpy(tree: dict, cfg: T.SimConfig, device=None) -> T.SimState:
+    """A port SimState from ``{field path: numpy array}`` on ``device`` (the
+    default CUDA device, or the CPU when asked).  Time-typed leaves keep
+    the dtype they come with, which is ``cfg.time_dtype`` for a reference
+    state of the same configuration."""
+    tree = {k.lstrip("."): v for k, v in tree.items()}
+    state = _build(T.SimState, "", tree, T.resolve_device(device))
+    if state.t.dtype != cfg.time_dtype:
+        raise ValueError(f"state clock is {state.t.dtype}, config says "
+                         f"{cfg.time_dtype}")
+    return state

@@ -1,0 +1,500 @@
+"""The event-driven simulation engine in PyTorch, port of
+``repro.core.engine`` for the main path (no network, thermal, trace or
+sharding; those configurations are refused by ``check_scope``).
+
+The paper's sequential priority-queue loop becomes dense tensor work:
+
+    while not done:
+        t_next = min over all dense candidate-event arrays
+        advance the farm to t_next      (one fused kernel: energy accrual,
+                                         completions freed, next candidate)
+        apply ALL events with time <= t_next as masked updates
+
+Every ``lax.cond`` of the reference becomes masked work, so a macro-step
+runs without waiting for the device; ``run``'s Python loop reads the
+``done`` flag and the event count once per macro-step, in place of the
+reference's ``lax.while_loop``.
+
+Macro-stepping (``cfg.events_per_step`` = K): a step runs K-1 cheap passes,
+each gated by ``_cheap_gate``; a pass whose gate (or an earlier one) is
+false is computed and discarded leaf by leaf with ``torch.where`` -- the
+reference's early loop exit, without a host check -- and then one full
+step.  So the advance kernel launches exactly K times per step.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..kernels import ops
+from . import power, scheduler, server, telemetry
+from .server import set_drop
+from .types import (INF, JobTable, SchedPolicy, ServerFarm, SimConfig,
+                    SimState, SrvState, TaskStatus, init_farm, init_sched,
+                    replace, tree_where)
+
+I32 = torch.int32
+I64 = torch.int64
+F32 = torch.float32
+
+
+# ==========================================================================
+# scope and constants
+# ==========================================================================
+
+def check_scope(cfg: SimConfig) -> None:
+    """Refuse configurations this slice of the port does not run yet,
+    naming the ROADMAP item (Queue 1) that will bring them."""
+    refused = [
+        (cfg.has_network, "has_network=True", "item 6 (network mode)"),
+        (cfg.thermal.enabled, "thermal.enabled=True",
+         "item 7 (thermal.py and the control plane)"),
+        (cfg.trace.enabled, "trace.enabled=True",
+         "item 8 (trace.py and traceio.py)"),
+        (cfg.partition.sharded, "partition.n_shards > 1",
+         "item 10 (shard_sim.py)"),
+        (not cfg.use_vectorized_hot_loop, "use_vectorized_hot_loop=False",
+         "item 12 (seed scalar paths)"),
+        (cfg.sched_policy == SchedPolicy.NETWORK_AWARE,
+         "SchedPolicy.NETWORK_AWARE", "item 6 (network mode)"),
+        (cfg.sched_policy == SchedPolicy.THERMAL_AWARE,
+         "SchedPolicy.THERMAL_AWARE", "item 7 (thermal control plane)"),
+        (cfg.sched_policy == SchedPolicy.CARBON_AWARE,
+         "SchedPolicy.CARBON_AWARE", "item 7 (thermal control plane)"),
+    ]
+    for bad, what, item in refused:
+        if bad:
+            raise NotImplementedError(
+                f"repro_torch does not run {what} yet: it comes with "
+                f"ROADMAP.md Queue 1 {item}")
+    if cfg.n_present > cfg.n_servers:
+        raise ValueError(
+            f"n_present={cfg.n_present} exceeds n_servers={cfg.n_servers}")
+
+
+@dataclasses.dataclass
+class EngineConsts:
+    """Per-run device constants: the advance kernel's (6,) f32 state-power
+    table.  Built once (``consts``), so the loop copies nothing from the
+    host."""
+
+    state_power: torch.Tensor
+
+
+def consts(cfg: SimConfig, device) -> EngineConsts:
+    sp = cfg.server_power
+    table = torch.tensor([sp.p_base, sp.p_base, sp.p_pkg_c6, sp.p_s3,
+                          sp.p_off, sp.p_wake], dtype=F32)
+    return EngineConsts(state_power=table.to(device))
+
+
+# ==========================================================================
+# helpers
+# ==========================================================================
+
+def _active_jobs(jobs: JobTable) -> torch.Tensor:
+    """Tasks in flight (READY/QUEUED/RUNNING) -- the provisioning load."""
+    s = jobs.status
+    return ((s == TaskStatus.READY) | (s == TaskStatus.QUEUED)
+            | (s == TaskStatus.RUNNING)).sum(dtype=I32)
+
+
+def _pending_jobs(jobs: JobTable) -> torch.Tensor:
+    """Tasks waiting for a core (READY/QUEUED) -- the WASP pool metric."""
+    s = jobs.status
+    return ((s == TaskStatus.READY) | (s == TaskStatus.QUEUED)).sum(dtype=I32)
+
+
+def _next_arrival(jobs: JobTable) -> torch.Tensor:
+    J = jobs.arrival.shape[0]
+    nxt = jobs.arrival[jobs.arr_ptr.clamp(0, J - 1).to(I64)]
+    return torch.where(jobs.arr_ptr < J, nxt, INF)
+
+
+def _farm_candidates(state: SimState, cfg: SimConfig) -> torch.Tensor:
+    """Candidate next-event time from arrivals + farm sources, with the
+    READY/startable pin to ``now`` -- everything the cheap core handles."""
+    farm = state.farm
+    t_next = torch.minimum(
+        torch.minimum(_next_arrival(state.jobs), farm.core_busy_until.min()),
+        torch.minimum(farm.srv_wake_at.min(),
+                      scheduler.next_timer_event(farm, cfg)))
+    # pending READY tasks (or queued work on awake free cores) run "now"
+    ready = (state.jobs.status == TaskStatus.READY).any()
+    awake = (farm.srv_state == SrvState.ACTIVE) \
+        | (farm.srv_state == SrvState.IDLE)
+    startable = (awake & (farm.q_len > 0)
+                 & (farm.core_busy_until >= INF).any(dim=1)).any()
+    t_next = torch.where(ready | startable, state.t, t_next)
+    return torch.maximum(t_next, state.t).to(cfg.time_dtype)
+
+
+# ==========================================================================
+# interval advance
+# ==========================================================================
+
+def _advance_interval(state: SimState, cfg: SimConfig, tc: EngineConsts,
+                      t_next) -> SimState:
+    """Integrate over the piecewise-constant interval [t, t_next), then set
+    t := t_next.  The fused advance kernel accrues energy and busy
+    core-seconds and frees completed cores (its done mask and candidate
+    are not needed here); residency accrues beside it, and the per-server
+    power feeds the telemetry windows."""
+    farm = state.farm
+    if farm.core_busy_until.is_cuda and cfg.time_dtype != torch.float32:
+        raise ValueError(
+            "the CUDA advance kernel requires time_dtype=float32: it "
+            "computes in f32, and the core_busy_until round-trip would "
+            "silently destroy f64 precision (an f64 clock runs on "
+            "device='cpu')")
+    dt = t_next - state.t
+    dtf = dt.to(F32)                    # physics runs in f32 on any clock
+    onehot = power.state_onehot(farm)
+
+    telem = state.telem
+    if cfg.telemetry.enabled:
+        p_busy = power.server_power(farm, cfg)
+        wvals = telemetry.window_values(state, cfg, dt, p_busy, onehot)
+        widx = telemetry.window_index(state.t, dt, cfg.telemetry)
+        spill = telemetry.window_spill(state.t, dt, cfg.telemetry)
+        telem = replace(telem,
+                        win=telem.win.index_add(0, widx.view(1).to(I64),
+                                                wvals.view(1, -1)),
+                        win_overflow=telem.win_overflow + spill)
+
+    sp = cfg.server_power
+    nb, _done, en, bs, _cand = ops.dcsim_advance(
+        farm.core_busy_until, farm.srv_state, farm.energy,
+        farm.busy_core_seconds, state.t, t_next, tc.state_power,
+        sp.p_core_active, sp.p_core_idle, farm.srv_wake_at,
+        farm.srv_idle_since, farm.srv_tau, None,
+        throttle_power_scale=cfg.thermal.throttle_power_scale)
+    farm = replace(farm, core_busy_until=nb.to(cfg.time_dtype), energy=en,
+                   busy_core_seconds=bs,
+                   residency=farm.residency + onehot * dtf)
+    return replace(state, farm=farm, telem=telem, t=t_next)
+
+
+# ==========================================================================
+# event appliers
+# ==========================================================================
+
+def _rebuild_job_completion(jobs: JobTable, cfg: SimConfig, now):
+    """(tasks_done, job_finish) rebuilt from task statuses; newly complete
+    jobs get job_finish stamped at ``now``."""
+    T = cfg.tasks_per_job
+    tasks_done = ((jobs.status == TaskStatus.DONE)
+                  & jobs.valid).view(-1, T).sum(dim=1, dtype=I32)
+    n_valid_tasks = jobs.valid.view(-1, T).sum(dim=1, dtype=I32)
+    job_complete = (tasks_done >= n_valid_tasks) & (tasks_done > 0)
+    job_finish = torch.where(job_complete & (jobs.job_finish >= INF),
+                             now, jobs.job_finish)
+    return tasks_done, job_finish
+
+
+def _promote_ready(jobs: JobTable, dep_count, cfg: SimConfig):
+    """BLOCKED -> READY where deps are now satisfied (arrived jobs only)."""
+    T = cfg.tasks_per_job
+    tid = torch.arange(jobs.status.shape[0], device=dep_count.device)
+    arrived = tid // T < jobs.arr_ptr
+    ready = (jobs.status == TaskStatus.BLOCKED) & (dep_count <= 0) & arrived
+    return torch.where(ready, TaskStatus.READY, jobs.status).to(I32)
+
+
+def _apply_wakeups(farm: ServerFarm, cfg, now):
+    done = (farm.srv_state == SrvState.WAKING) & (farm.srv_wake_at <= now)
+    return replace(
+        farm,
+        srv_state=torch.where(done, SrvState.IDLE, farm.srv_state).to(I32),
+        srv_wake_at=torch.where(done, INF, farm.srv_wake_at),
+        srv_idle_since=torch.where(done, now, farm.srv_idle_since))
+
+
+def _resolve_edges(jobs: JobTable, cfg: SimConfig, done_task):
+    """DAG edges of the tasks in ``done_task``: every edge resolves
+    immediately (no network), decrementing the child's dep_count, then
+    BLOCKED -> READY.  The reference gates this on ``done_task.any()``;
+    here the promotion is masked by the same predicate.  It walks every
+    task row (the reference's compaction to N*C rows covers every
+    finishing task, so both define the same update)."""
+    ch = jobs.children                                        # (JT, D)
+    ch_valid = (ch >= 0) & done_task[:, None] & ~jobs.edge_sent
+    edge_sent = jobs.edge_sent | ch_valid
+    dep_count = jobs.dep_count.index_add(
+        0, ch.clamp(min=0).view(-1).to(I64),
+        -ch_valid.view(-1).to(I32))
+    status = torch.where(done_task.any(), _promote_ready(jobs, dep_count, cfg),
+                         jobs.status)
+    return replace(jobs, status=status, dep_count=dep_count,
+                   edge_sent=edge_sent)
+
+
+def _apply_completions(state: SimState, cfg: SimConfig) -> SimState:
+    """Handle all tasks whose task_end <= now: mark them DONE, update job
+    bookkeeping, resolve DAG edges.  Elementwise in task space."""
+    farm, jobs = state.farm, state.jobs
+    now = state.t
+    # free the cores (a no-op for slots the advance kernel already freed)
+    done_core = farm.core_busy_until <= now
+    farm = replace(farm, core_busy_until=torch.where(
+        done_core, INF, farm.core_busy_until))
+    done_task = (jobs.status == TaskStatus.RUNNING) & (jobs.task_end <= now)
+    status = torch.where(done_task, TaskStatus.DONE, jobs.status).to(I32)
+    finish = torch.where(done_task, now, jobs.finish)
+    jobs = replace(jobs, status=status, finish=finish)
+    tasks_done, job_finish = _rebuild_job_completion(jobs, cfg, now)
+    jobs = replace(jobs, tasks_done=tasks_done, job_finish=job_finish)
+    if cfg.tasks_per_job > 1:
+        jobs = _resolve_edges(jobs, cfg, done_task)
+    return replace(state, farm=farm, jobs=jobs)
+
+
+def _apply_arrival(state: SimState, cfg: SimConfig) -> SimState:
+    """Admit up to cfg.arrivals_per_step jobs whose arrival <= t in one
+    pass against one scheduler snapshot: assign servers to all their tasks
+    and mark roots READY.  With nothing to admit the pass is the identity
+    (no task is eligible), so the reference's gate needs no mask."""
+    jobs, farm, sched = state.jobs, state.farm, state.sched
+    J = jobs.arrival.shape[0]
+    T = cfg.tasks_per_job
+    K = cfg.arrivals_per_step
+    dev = jobs.status.device
+    JT = jobs.status.shape[0]
+    j0 = jobs.arr_ptr
+    jid = j0 + torch.arange(K, dtype=I32, device=dev)
+    nxt = jobs.arrival[jid.clamp(0, J - 1).to(I64)]
+    elig = (jid < J) & (nxt <= state.t) & (nxt < INF / 2)
+    # arrivals are sorted, so eligibility is a prefix; enforce it anyway
+    elig = torch.cumprod(elig.to(I32), 0).to(torch.bool)
+    n_adm = elig.sum(dtype=I32)
+
+    tids = j0 * T + torch.arange(K * T, dtype=I32, device=dev)
+    in_range = tids < JT
+    sc = torch.where(in_range, tids, JT)                  # scatter sentinel
+    gather = tids.clamp(0, JT - 1).to(I64)
+    elig_t = torch.repeat_interleave(elig, T)
+    is_valid = jobs.valid[gather] & elig_t & in_range
+    root = is_valid & (jobs.dep_count[gather] <= 0)
+
+    if cfg.sched_policy == SchedPolicy.ROUND_ROBIN:
+        # all K*T assignments in one shot (round-robin rank matching)
+        srvs, rr_new = scheduler.pick_servers_for_job(farm, cfg, sched,
+                                                      is_valid)
+        sched = replace(sched, rr_ptr=rr_new)
+    else:
+        # one pick per job against the shared snapshot; job k sees the
+        # roots committed by jobs 0..k-1 of the batch as extra load
+        load = scheduler.server_load(farm, cfg).to(F32)
+        root_k = root.view(K, T).sum(dim=1, dtype=I32).to(F32)
+        ar = torch.arange(cfg.n_servers, device=dev)
+        extra = torch.zeros((cfg.n_servers,), dtype=F32, device=dev)
+        picks = []
+        for k in range(K):                     # static unroll, K small
+            srv_k, _ = scheduler.pick_server(farm, cfg, sched, extra, load)
+            extra = torch.where(ar == srv_k, extra + root_k[k], extra)
+            picks.append(srv_k)
+        srvs = torch.repeat_interleave(torch.stack(picks), T)
+    server_arr = set_drop(jobs.server, sc,
+                          torch.where(is_valid, srvs, jobs.server[gather]))
+    status = set_drop(jobs.status, sc,
+                      torch.where(root, TaskStatus.READY,
+                                  jobs.status[gather]).to(I32))
+    jobs = replace(jobs, server=server_arr, status=status,
+                   arr_ptr=(j0 + n_adm).to(I32))
+    return replace(state, jobs=jobs, sched=sched)
+
+
+def _resolve_drops(state: SimState, cfg: SimConfig, dropped) -> SimState:
+    """Bookkeeping for tasks dropped by a full queue (already marked DONE
+    by the drain): finish stamps, job completion and immediate DAG-edge
+    resolution, masked by ``dropped.any()`` as the reference gates it."""
+    now = state.t
+    jobs = state.jobs
+    any_drop = dropped.any()
+    finish = torch.where(dropped, now, jobs.finish)
+    tasks_done, job_finish = _rebuild_job_completion(jobs, cfg, now)
+    ch = jobs.children
+    ch_valid = (ch >= 0) & dropped[:, None] & ~jobs.edge_sent
+    edge_sent = jobs.edge_sent | ch_valid
+    dep_count = jobs.dep_count.index_add(
+        0, ch.clamp(min=0).view(-1).to(I64), -ch_valid.view(-1).to(I32))
+    status = _promote_ready(jobs, dep_count, cfg)
+    new = replace(jobs, status=status, finish=finish, tasks_done=tasks_done,
+                  job_finish=job_finish, dep_count=dep_count,
+                  edge_sent=edge_sent)
+    return replace(state, jobs=tree_where(any_drop, new, jobs))
+
+
+def _drain_ready(state: SimState, cfg: SimConfig) -> SimState:
+    """Enqueue up to cfg.ready_per_step READY tasks (first K in task-id
+    order) at their servers: FIFO stamps written into their own task rows,
+    sleeping destinations woken.  With no READY task every update below is
+    the identity, so the reference's gate needs no mask."""
+    jobs, farm = state.jobs, state.farm
+    K = cfg.ready_per_step
+    JT = jobs.status.shape[0]
+    N = cfg.n_servers
+    dev = jobs.status.device
+    is_ready = jobs.status == TaskStatus.READY
+    r = torch.cumsum(is_ready, 0, dtype=I32) - 1        # rank among READY
+    sel = is_ready & (r < K)
+    # gather the selected tids into (K,) slots, ascending tid order
+    tids = set_drop(torch.full((K,), -1, dtype=I32, device=dev),
+                    torch.where(sel, r, K),
+                    torch.arange(JT, dtype=I32, device=dev))
+    valid = tids >= 0
+    srv = torch.where(valid, jobs.server[tids.clamp(min=0).to(I64)], -1)
+
+    farm, ok, seq = server.queue_push_many(farm, cfg, srv, tids, valid)
+    dest = set_drop(torch.zeros((N,), dtype=torch.bool, device=dev),
+                    torch.where(valid, srv, N), True)
+    farm = server.begin_wake_mask(farm, cfg, dest, state.t)
+
+    sc = torch.where(valid, tids, JT)
+    status = set_drop(jobs.status, sc,
+                      torch.where(ok, TaskStatus.QUEUED,
+                                  TaskStatus.DONE).to(I32))
+    enq = set_drop(jobs.enqueue_seq, torch.where(valid & ok, tids, JT), seq)
+    state = replace(state, farm=farm,
+                    jobs=replace(jobs, status=status, enqueue_seq=enq))
+    dropped = set_drop(torch.zeros((JT,), dtype=torch.bool, device=dev),
+                       torch.where(valid & ~ok, tids, JT), True)
+    return _resolve_drops(state, cfg, dropped)
+
+
+def _start_tasks(state: SimState, cfg: SimConfig) -> SimState:
+    farm, jobs = server.try_start(state.farm, cfg, state.jobs, state.t)
+    return replace(state, farm=farm, jobs=jobs)
+
+
+def _apply_events(state: SimState, cfg: SimConfig) -> SimState:
+    """The event-application pipeline at the (already advanced) time."""
+    state = replace(state, farm=_apply_wakeups(state.farm, cfg, state.t))
+    state = _apply_completions(state, cfg)
+    state = _apply_arrival(state, cfg)
+    state = _drain_ready(state, cfg)
+    state = _start_tasks(state, cfg)
+    # refresh ACTIVE/IDLE, run local power controllers + pool managers
+    farm = server.refresh_idle_state(state.farm, cfg, state.t)
+    farm, sched = scheduler.provisioning_adjust(farm, cfg, state.sched,
+                                                _active_jobs(state.jobs))
+    farm = scheduler.wasp_adjust(farm, cfg, _pending_jobs(state.jobs),
+                                 state.t)
+    farm = scheduler.timer_transitions(farm, cfg, state.t)
+    return replace(state, farm=farm, sched=sched)
+
+
+# ==========================================================================
+# the step
+# ==========================================================================
+
+def _all_done(jobs: JobTable) -> torch.Tensor:
+    return (~jobs.valid | (jobs.status == TaskStatus.DONE)).all() \
+        & (_next_arrival(jobs) >= INF)
+
+
+def _cheap_gate(state: SimState, cfg: SimConfig):
+    """(consume?, t_next) for one cheap event: False when nothing is
+    pending or consuming the event would finish the simulation (the full
+    step owns the done check)."""
+    t_next = _farm_candidates(state, cfg)
+    jobs = state.jobs
+    will_be_done = (~jobs.valid | (jobs.status == TaskStatus.DONE)
+                    | ((jobs.status == TaskStatus.RUNNING)
+                       & (jobs.task_end <= t_next))).all() \
+        & (_next_arrival(jobs) >= INF)
+    ok = (t_next < INF / 2) & ~will_be_done
+    return ok, t_next
+
+
+def _consume_cheap(state: SimState, cfg: SimConfig, tc, t_next) -> SimState:
+    state = _advance_interval(state, cfg, tc, t_next)
+    state = _apply_events(state, cfg)
+    return replace(state, events=state.events + 1)
+
+
+def _macro_chew(state: SimState, cfg: SimConfig, tc) -> SimState:
+    """K-1 cheap passes.  ``alive`` carries the conjunction of the gates,
+    and each pass's state is kept only while it holds -- the reference's
+    early exit from its inner while_loop, leaf by leaf.  A discarded pass
+    still runs (and still launches the advance kernel)."""
+    alive = torch.ones((), dtype=torch.bool, device=state.t.device)
+    for _ in range(cfg.events_per_step - 1):
+        ok, t_next = _cheap_gate(state, cfg)
+        alive = alive & ok
+        new = _consume_cheap(state, cfg, tc, t_next)
+        state = tree_where(alive, new, state)
+    return state
+
+
+def _full_step(state: SimState, cfg: SimConfig, tc) -> SimState:
+    # the farm and arrival sources are every event source of this slice
+    # (the network and thermal slices add flow completions and throttle
+    # crossings here)
+    t_next = _farm_candidates(state, cfg)
+    # INF means no pending events: freeze time instead of integrating
+    # energy over an unbounded interval
+    t_next = torch.where(t_next >= INF / 2, state.t, t_next)
+    state = _advance_interval(state, cfg, tc, t_next)
+    state = _apply_events(state, cfg)
+    return replace(state, events=state.events + 1,
+                   done=_all_done(state.jobs))
+
+
+def sim_step(state: SimState, cfg: SimConfig,
+             tc: EngineConsts | None = None) -> SimState:
+    """One macro-step: K-1 masked cheap passes, then one full step; latency
+    and QoS binning once over everything that finished since the step
+    began."""
+    if tc is None:
+        tc = consts(cfg, state.t.device)
+    if cfg.telemetry.enabled:
+        old_job_finish = state.jobs.job_finish
+        old_task_finish = state.jobs.finish
+    if cfg.events_per_step > 1:
+        state = _macro_chew(state, cfg, tc)
+    state = _full_step(state, cfg, tc)
+    state = replace(state, steps=state.steps + 1)
+    if cfg.telemetry.enabled:
+        state = replace(state, telem=telemetry.accumulate_finishes(
+            state.telem, cfg, state.jobs, old_job_finish, old_task_finish))
+    return state
+
+
+def init_state(cfg: SimConfig, jobs: JobTable):
+    """Initial state on the job table's device, and the run's device
+    constants.  Returns (state, tc)."""
+    check_scope(cfg)
+    dev = jobs.status.device
+    state = SimState(
+        t=torch.zeros((), dtype=cfg.time_dtype, device=dev),
+        farm=init_farm(cfg, dev),
+        jobs=jobs,
+        sched=init_sched(cfg, dev),
+        telem=telemetry.init_telemetry(cfg, dev),
+        events=torch.zeros((), dtype=I32, device=dev),
+        steps=torch.zeros((), dtype=I32, device=dev),
+        done=torch.zeros((), dtype=torch.bool, device=dev),
+    )
+    return state, consts(cfg, dev)
+
+
+def run(state: SimState, cfg: SimConfig,
+        tc: EngineConsts | None = None) -> SimState:
+    """Run to completion (or cfg.max_events).  The loop reads ``done`` and
+    the event count once per macro-step; with macro-stepping a run may
+    retire up to events_per_step - 1 events past max_events."""
+    check_scope(cfg)
+    if tc is None:
+        tc = consts(cfg, state.t.device)
+    while True:
+        done, events = torch.stack(
+            [state.done.to(I32), state.events]).tolist()
+        if done or events >= cfg.max_events:
+            return state
+        state = sim_step(state, cfg, tc)
+
+
+__all__ = ["check_scope", "consts", "EngineConsts", "sim_step",
+           "init_state", "run"]

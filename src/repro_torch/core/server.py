@@ -1,0 +1,183 @@
+"""Server model primitives (paper §III-A), port of ``repro.core.server``.
+
+Each server has C cores (one task per core), a local FIFO queue and an ACPI
+power state.  Queues are task-major: a queued task has ``status ==
+QUEUED`` and its FIFO position is the global ``enqueue_seq`` stamp it got
+on push; the farm keeps a per-server occupancy counter (``q_len``) and the
+global stamp counter (``q_seq``).  Every operation is dense and masked over
+the whole farm, with no data-dependent shapes, so nothing here waits for
+the device.
+
+Scatters with a drop sentinel (``.at[i].set(..., mode="drop")`` in the
+reference) write into a buffer one row longer than the target and slice the
+sentinel row off.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels.ref import _const
+from .types import (INF, JobTable, ServerFarm, SimConfig, SrvState,
+                    TaskStatus, replace)
+
+__all__ = ["queue_push_many", "queued_rank", "try_start", "wake_latency",
+           "begin_wake_mask", "refresh_idle_state"]
+
+I32 = torch.int32
+I64 = torch.int64
+
+
+def set_drop(base: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
+    """``base.at[idx].set(vals, mode="drop")`` along dim 0 for ``idx`` in
+    [0, len(base)] (``len(base)`` is the drop sentinel).  Indices other
+    than the sentinel must be distinct."""
+    n = base.shape[0]
+    buf = torch.cat([base, base[:1]])
+    if not torch.is_tensor(vals):
+        vals = torch.full(idx.shape, vals, dtype=base.dtype,
+                          device=base.device)
+    buf = buf.index_put((idx.to(I64),), vals.to(base.dtype))
+    return buf[:n]
+
+
+def queue_push_many(farm: ServerFarm, cfg: SimConfig, servers, tids, valid):
+    """Push up to K tasks onto their servers' queues in one pass.
+
+    servers/tids (K,) int32, valid (K,) bool.  Tasks bound for the same
+    server take FIFO stamps in position order; once a queue fills, later
+    same-server tasks drop.  Returns (farm, ok (K,) bool, seq (K,) int32)."""
+    K = tids.shape[0]
+    Q = cfg.local_q
+    s = servers.clamp(min=0)
+    pos = torch.arange(K, device=tids.device)
+    same = valid[None, :] & valid[:, None] & (s[None, :] == s[:, None])
+    rank = (same & (pos[None, :] < pos[:, None])).sum(dim=1, dtype=I32)
+    ok = valid & (farm.q_len[s.to(I64)] + rank < Q)
+    seq = farm.q_seq + torch.cumsum(ok.to(I32), 0, dtype=I32) - 1
+    # a refused push adds 0; duplicate servers accumulate
+    q_len = farm.q_len.index_add(0, s.to(I64), ok.to(I32))
+    q_seq = farm.q_seq + ok.sum(dtype=I32)
+    dropped = farm.dropped + (valid & ~ok).sum(dtype=I32)
+    return (replace(farm, q_len=q_len, q_seq=q_seq, dropped=dropped),
+            ok, seq.to(I32))
+
+
+def wake_latency(cfg: SimConfig, state):
+    """Wake latency of each server's state (time dtype)."""
+    sp = cfg.server_power
+    tdt = cfg.time_dtype
+    lat = torch.zeros(state.shape, dtype=tdt, device=state.device)
+    lat = torch.where(state == SrvState.OFF, sp.t_wake_off, lat)
+    lat = torch.where(state == SrvState.S3, sp.t_wake_s3, lat)
+    return torch.where(state == SrvState.PKG_C6, sp.t_wake_pkg_c6, lat)
+
+
+def begin_wake_mask(farm: ServerFarm, cfg: SimConfig, mask, now):
+    """Start waking every sleeping server in ``mask`` (N,); idempotent."""
+    st = farm.srv_state
+    sleeping = mask & ((st == SrvState.PKG_C6) | (st == SrvState.S3)
+                       | (st == SrvState.OFF))
+    lat = wake_latency(cfg, st)
+    return replace(
+        farm,
+        srv_state=torch.where(sleeping, SrvState.WAKING, st).to(I32),
+        srv_wake_at=torch.where(sleeping, now + lat, farm.srv_wake_at),
+        wake_count=farm.wake_count + sleeping.to(I32))
+
+
+def queued_rank(jobs: JobTable, cfg: SimConfig, queued, q_seq):
+    """(JT,) FIFO rank of each queued task among the queued tasks of its
+    server (0 = head), by enqueue_seq; garbage where ~queued.
+
+    Two stable argsorts give the lexicographic (server, seq) order; stamps
+    sort by their wrap-safe int32 distance to the current counter
+    ``q_seq`` (the reference's wrap-around argument)."""
+    JT = queued.shape[0]
+    N = cfg.n_servers
+    dev = queued.device
+    srv = jobs.server.clamp(min=0)
+    imax = torch.iinfo(I32).max
+    rel_seq = jobs.enqueue_seq - q_seq            # wrap-safe, < 0 for live
+    by_seq = torch.argsort(torch.where(queued, rel_seq, imax), stable=True)
+    order = by_seq[torch.argsort(
+        torch.where(queued[by_seq], srv[by_seq], imax), stable=True)]
+    srv_o = torch.where(queued[order], srv[order], N)      # sentinel last
+    ar = torch.arange(JT, dtype=I32, device=dev)
+    first = torch.full((N + 1,), JT, dtype=I32, device=dev).scatter_reduce(
+        0, srv_o.to(I64), ar, reduce="amin")[:N]
+    rank_o = ar - first[srv_o.clamp(0, N - 1).to(I64)]
+    return torch.zeros((JT,), dtype=I32, device=dev).index_put(
+        (order,), rank_o)
+
+
+def try_start(farm: ServerFarm, cfg: SimConfig, jobs: JobTable, now,
+              freq=None):
+    """Start as many queued tasks as there are free cores, FIFO per server,
+    in one task-space pass: a queued task starts iff its per-server FIFO
+    rank is below its server's count of starts.  The reference switches
+    between a compact pairwise rank and the full argsort rank at run time;
+    both define the same rank, and the port always takes the argsort.
+    Returns (farm, jobs)."""
+    N, C = cfg.n_servers, cfg.n_cores
+    JT = jobs.status.shape[0]
+    dev = jobs.status.device
+    tdt = jobs.task_end.dtype
+    awake = (farm.srv_state == SrvState.ACTIVE) \
+        | (farm.srv_state == SrvState.IDLE)
+    free = farm.core_busy_until >= INF                          # (N, C)
+    n_free = free.sum(dim=1, dtype=I32)
+    n_start = torch.where(awake, torch.minimum(n_free, farm.q_len),
+                          0).to(I32)
+
+    queued = jobs.status == TaskStatus.QUEUED
+    rank = queued_rank(jobs, cfg, queued, farm.q_seq)
+    srv = jobs.server.clamp(min=0).to(I64)
+    # task side: elementwise
+    start_t = queued & (rank < n_start[srv])                    # (JT,)
+    if freq is None:
+        svc = jobs.service / _const(cfg.core_freq, jobs.service)
+    else:
+        svc = jobs.service / freq[srv]
+    end_t = (now + svc.to(now.dtype)).to(tdt)
+    status = torch.where(start_t, TaskStatus.RUNNING, jobs.status).to(I32)
+    task_end = torch.where(start_t, end_t, jobs.task_end)
+    start_at = torch.where(start_t, now.to(jobs.start_at.dtype),
+                           jobs.start_at)
+    jobs = replace(jobs, status=status, task_end=task_end, start_at=start_at)
+
+    # core side: the r-th starting task of server s takes the r-th free
+    # core; a (server, rank) -> task table (sentinel row N) fills the cores
+    row = torch.where(start_t, srv, N)
+    col = torch.where(start_t, rank, 0).clamp(0, C - 1).to(I64)
+    tid_at = torch.full(((N + 1) * C,), JT, dtype=I32, device=dev).index_put(
+        (row * C + col,), torch.arange(JT, dtype=I32, device=dev))
+    tid_at = tid_at[:N * C].view(N, C)
+    fr = torch.cumsum(free, dim=1, dtype=I32) - 1               # free rank
+    start_c = free & (fr < n_start[:, None])                    # (N, C)
+    tid_c = torch.gather(tid_at, 1, fr.clamp(0, C - 1).to(I64))
+    svc_c = jobs.service[tid_c.clamp(0, JT - 1).to(I64)]
+    if freq is None:
+        svc_c = svc_c / _const(cfg.core_freq, svc_c)
+    else:
+        svc_c = svc_c / freq[:, None]
+    busy_until = (now + svc_c.to(now.dtype)).to(farm.core_busy_until.dtype)
+    farm = replace(
+        farm,
+        core_busy_until=torch.where(start_c, busy_until,
+                                    farm.core_busy_until),
+        q_len=farm.q_len - n_start)
+    return farm, jobs
+
+
+def refresh_idle_state(farm: ServerFarm, cfg: SimConfig, now):
+    """Recompute ACTIVE/IDLE for awake servers; stamp idle_since on the
+    ACTIVE->IDLE edge (the delay-timer anchor)."""
+    busy = (farm.core_busy_until < INF).any(dim=1)
+    awake = (farm.srv_state == SrvState.ACTIVE) \
+        | (farm.srv_state == SrvState.IDLE)
+    new_state = torch.where(
+        awake, torch.where(busy, SrvState.ACTIVE, SrvState.IDLE),
+        farm.srv_state).to(I32)
+    went_idle = awake & (farm.srv_state == SrvState.ACTIVE) & ~busy
+    idle_since = torch.where(went_idle, now, farm.srv_idle_since)
+    return replace(farm, srv_state=new_state, srv_idle_since=idle_since)

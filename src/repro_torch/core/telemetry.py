@@ -1,0 +1,285 @@
+"""Device-side telemetry: streaming latency histograms, windowed time series
+and QoS/SLA counters inside the event loop, port of
+``repro.core.telemetry`` (thermal columns stay zero: the thermal slice is
+not ported yet).
+
+Latency binning runs once per macro-step through ``kernels.ops.
+telemetry_accum`` (the CUDA kernel on the card, its plain version on the
+CPU) over the full job and task streams with 0/1 weights; the window
+series accrue per interval inside the engine's advance.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..kernels import ops
+from ..kernels.ref import _const
+from . import power
+from .types import (INF, SimConfig, SrvState, TaskStatus, Telemetry,
+                    TelemetryConfig, replace)
+
+__all__ = ["init_telemetry", "window_values", "window_index", "window_spill",
+           "accumulate_finishes", "summarize", "hist_percentile",
+           "hist_mean", "bin_edges", "TelemetrySummary", "WIN_COLS"]
+
+F32 = torch.float32
+I32 = torch.int32
+
+# ``Telemetry.win`` column layout (the reference's WIN_* constants)
+WIN_OCC = 0
+WIN_ACTIVE_JOBS = 1
+WIN_AWAKE = 2
+WIN_QDEPTH = 3
+WIN_SRV_POWER = 4
+WIN_SW_POWER = 5
+WIN_STATE0 = 6
+WIN_COOL_POWER = WIN_STATE0 + SrvState.NUM
+WIN_MEAN_TEMP = WIN_COOL_POWER + 1
+WIN_MAX_TEMP = WIN_MEAN_TEMP + 1
+WIN_CI = WIN_MAX_TEMP + 1
+WIN_PRICE = WIN_CI + 1
+WIN_CARBON_G = WIN_PRICE + 1
+WIN_COST = WIN_CARBON_G + 1
+WIN_COLS = WIN_COST + 1
+N_THERMAL_COLS = WIN_COLS - WIN_COOL_POWER
+
+
+# ==========================================================================
+# state init
+# ==========================================================================
+
+def init_telemetry(cfg: SimConfig, device) -> Telemetry:
+    """Zeroed telemetry; 1-sized arrays when disabled."""
+    tcfg = cfg.telemetry
+    B = tcfg.n_bins if tcfg.enabled else 1
+    W = tcfg.n_windows if tcfg.enabled else 1
+    return Telemetry(
+        job_hist=torch.zeros((B,), dtype=F32, device=device),
+        task_hist=torch.zeros((B,), dtype=F32, device=device),
+        win=torch.zeros((W, WIN_COLS), dtype=F32, device=device),
+        sla_miss=torch.zeros((), dtype=I32, device=device),
+        sla_total=torch.zeros((), dtype=I32, device=device),
+        tail_viol=torch.zeros((), dtype=I32, device=device),
+        win_overflow=torch.zeros((), dtype=F32, device=device),
+    )
+
+
+# ==========================================================================
+# in-loop accumulation
+# ==========================================================================
+
+def window_values(state, cfg: SimConfig, dt, p_busy=None,
+                  onehot=None) -> torch.Tensor:
+    """(WIN_COLS,) metric·dt vector for the piecewise-constant interval
+    [t, t+dt), from the pre-advance state."""
+    farm = state.farm
+    dtf = dt.to(F32)
+    s = state.jobs.status
+    active = ((s == TaskStatus.READY) | (s == TaskStatus.QUEUED)
+              | (s == TaskStatus.RUNNING)).sum(dtype=I32).to(F32)
+    qdepth = (farm.q_len.sum(dtype=I32) + state.sched.gq_len).to(F32)
+    if p_busy is None:
+        p_busy = power.server_power(farm, cfg)
+    if onehot is None:
+        onehot = power.state_onehot(farm)
+    p_srv = p_busy[0].sum()
+    # padded filler rows are a suffix: keep them out of the state counts
+    per_state = onehot[:cfg.present].sum(dim=0) if cfg.has_padding \
+        else onehot.sum(dim=0)
+    awake = per_state[SrvState.ACTIVE] + per_state[SrvState.IDLE]
+    one = torch.ones((), dtype=F32, device=dtf.device)
+    head = torch.stack([one, active, awake, qdepth, p_srv, one * 0.0])
+    base = torch.cat([head, per_state]) * dtf
+    return torch.cat([base, torch.zeros((N_THERMAL_COLS,), dtype=F32,
+                                        device=dtf.device)])
+
+
+def window_index(t, dt, tcfg: TelemetryConfig) -> torch.Tensor:
+    """Window containing the interval midpoint, clamped into range (0-d
+    int32).  Clamping before the truncating cast is the reference's
+    cast-then-clip for every finite midpoint and never overflows."""
+    mid = t.to(F32) + 0.5 * dt.to(F32)
+    w = mid / _const(tcfg.window_dt, mid)
+    return w.clamp(0, tcfg.n_windows - 1).to(I32)
+
+
+def window_spill(t, dt, tcfg: TelemetryConfig) -> torch.Tensor:
+    """Seconds of this interval clamped into the last window because its
+    midpoint lies past the n_windows·window_dt horizon."""
+    mid = t.to(F32) + 0.5 * dt.to(F32)
+    horizon = float(np.float32(tcfg.n_windows * tcfg.window_dt))
+    dtf = dt.to(F32)
+    return torch.where(mid >= horizon, dtf, torch.zeros_like(dtf))
+
+
+def accumulate_finishes(telem: Telemetry, cfg: SimConfig, jobs,
+                        old_job_finish, old_task_finish) -> Telemetry:
+    """Bin the latencies of every job/task that finished since the finish
+    arrays were captured (the INF -> finite transitions), and bump the QoS
+    counters.  One kernel launch per call, whether or not anything
+    finished: zero weights make a quiet step the identity, so no host
+    check gates it."""
+    tcfg = cfg.telemetry
+    T = cfg.tasks_per_job
+    new_job = (old_job_finish >= INF / 2) & (jobs.job_finish < INF / 2)
+    new_task = (old_task_finish >= INF / 2) & (jobs.finish < INF / 2)
+    job_lat = torch.clamp(jobs.job_finish - jobs.arrival, min=0.0)
+    arr_t = torch.repeat_interleave(jobs.arrival, T)
+    task_lat = torch.clamp(jobs.finish - arr_t, min=0.0)
+
+    has_sla = jobs.sla < INF / 2
+    miss = (new_job & has_sla & (job_lat > jobs.sla)).sum(dtype=I32)
+    tot = (new_job & has_sla).sum(dtype=I32)
+    tail = (new_job & (job_lat > tcfg.tail_thresh)).sum(dtype=I32)
+
+    # the kernel's contract: a dummy one-row window with a zero add
+    K = telem.win.shape[1]
+    zwin = torch.zeros((K,), dtype=F32, device=job_lat.device)
+    widx = torch.zeros((), dtype=I32, device=job_lat.device)
+    jh, th, _ = ops.telemetry_accum(
+        job_lat.to(F32).contiguous(), new_job.to(F32),
+        task_lat.to(F32).contiguous(), new_task.to(F32),
+        telem.job_hist, telem.task_hist, telem.win[:1].contiguous(), widx,
+        zwin, tcfg.lat_lo, tcfg.lat_hi)
+    return replace(telem, job_hist=jh, task_hist=th,
+                   sla_miss=telem.sla_miss + miss,
+                   sla_total=telem.sla_total + tot,
+                   tail_viol=telem.tail_viol + tail)
+
+
+# ==========================================================================
+# host-side summarization
+# ==========================================================================
+
+def bin_edges(tcfg: TelemetryConfig) -> np.ndarray:
+    """(B+1,) log-spaced histogram bin edges in seconds."""
+    return tcfg.lat_lo * (tcfg.lat_hi / tcfg.lat_lo) ** (
+        np.arange(tcfg.n_bins + 1) / tcfg.n_bins)
+
+
+def _centers(lo: float, hi: float, n_bins: int) -> np.ndarray:
+    return lo * (hi / lo) ** ((np.arange(n_bins) + 0.5) / n_bins)
+
+
+def hist_percentile(hist, lo: float, hi: float, q: float) -> np.ndarray:
+    """Percentile(s) from log-spaced histogram(s) (..., B): the geometric
+    center of the first bin whose CDF reaches q%; NaN when empty."""
+    h = np.asarray(hist, np.float64)
+    B = h.shape[-1]
+    total = h.sum(axis=-1)
+    cdf = np.cumsum(h, axis=-1)
+    target = (q / 100.0) * total[..., None]
+    idx = np.clip((cdf < target).sum(axis=-1), 0, B - 1)
+    vals = _centers(lo, hi, B)[idx]
+    return np.where(total > 0, vals, np.nan)
+
+
+def hist_mean(hist, lo: float, hi: float) -> np.ndarray:
+    """Mean latency estimated from log-spaced histogram(s) (..., B)."""
+    h = np.asarray(hist, np.float64)
+    total = h.sum(axis=-1)
+    est = (h * _centers(lo, hi, h.shape[-1])).sum(axis=-1)
+    return np.where(total > 0, est / np.maximum(total, 1.0), np.nan)
+
+
+@dataclasses.dataclass
+class TelemetrySummary:
+    """Host-side view of one run's Telemetry (numpy)."""
+
+    job_p50: float
+    job_p95: float
+    job_p99: float
+    task_p50: float
+    task_p95: float
+    task_p99: float
+    mean_latency: float
+    jobs_binned: int
+    tasks_binned: int
+    sla_miss: int
+    sla_total: int
+    tail_violations: int
+    energy_delay_product: float
+    times: np.ndarray
+    occupancy: np.ndarray
+    active_jobs: np.ndarray
+    awake_servers: np.ndarray
+    queue_depth: np.ndarray
+    server_power: np.ndarray
+    switch_power: np.ndarray
+    state_residency: np.ndarray
+    n_windows_used: int
+    cooling_power: np.ndarray = None
+    mean_temp: np.ndarray = None
+    max_temp: np.ndarray = None
+    carbon_intensity: np.ndarray = None
+    price: np.ndarray = None
+    carbon_per_window: np.ndarray = None
+    cost_per_window: np.ndarray = None
+    win_overflow: float = 0.0
+
+    @property
+    def last_window_contaminated(self) -> bool:
+        return self.win_overflow > 0.0
+
+    @property
+    def sla_miss_rate(self) -> float:
+        return self.sla_miss / max(self.sla_total, 1)
+
+
+def summarize(state, cfg: SimConfig) -> TelemetrySummary:
+    """Summarize a finished SimState's telemetry on the host."""
+    tcfg = cfg.telemetry
+    if not tcfg.enabled:
+        raise ValueError("telemetry was disabled for this run "
+                         "(cfg.telemetry.enabled=False)")
+    telem = state.telem
+    jh = telem.job_hist.cpu().numpy()
+    th = telem.task_hist.cpu().numpy()
+    win = telem.win.cpu().numpy().astype(np.float64)
+    lo, hi = tcfg.lat_lo, tcfg.lat_hi
+
+    occ = win[:, WIN_OCC]
+    norm = np.where(occ > 0, occ, np.nan)
+    used = int((occ > 0).sum())
+    overflow = float(telem.win_overflow)
+    if overflow > 0.0:
+        # the last window absorbed the clamped tail: NaN its averages
+        norm[-1] = np.nan
+    energy = float(state.farm.energy.cpu().numpy().sum())
+    mean_lat = float(hist_mean(jh, lo, hi))
+    return TelemetrySummary(
+        job_p50=float(hist_percentile(jh, lo, hi, 50)),
+        job_p95=float(hist_percentile(jh, lo, hi, 95)),
+        job_p99=float(hist_percentile(jh, lo, hi, 99)),
+        task_p50=float(hist_percentile(th, lo, hi, 50)),
+        task_p95=float(hist_percentile(th, lo, hi, 95)),
+        task_p99=float(hist_percentile(th, lo, hi, 99)),
+        mean_latency=mean_lat,
+        jobs_binned=int(jh.sum()),
+        tasks_binned=int(th.sum()),
+        sla_miss=int(telem.sla_miss),
+        sla_total=int(telem.sla_total),
+        tail_violations=int(telem.tail_viol),
+        energy_delay_product=energy * mean_lat if mean_lat == mean_lat
+        else float("nan"),
+        times=(np.arange(tcfg.n_windows) + 0.5) * tcfg.window_dt,
+        occupancy=occ,
+        active_jobs=win[:, WIN_ACTIVE_JOBS] / norm,
+        awake_servers=win[:, WIN_AWAKE] / norm,
+        queue_depth=win[:, WIN_QDEPTH] / norm,
+        server_power=win[:, WIN_SRV_POWER] / norm,
+        switch_power=win[:, WIN_SW_POWER] / norm,
+        state_residency=win[:, WIN_STATE0:WIN_STATE0 + SrvState.NUM],
+        n_windows_used=used,
+        cooling_power=win[:, WIN_COOL_POWER] / norm,
+        mean_temp=win[:, WIN_MEAN_TEMP] / norm,
+        max_temp=win[:, WIN_MAX_TEMP] / norm,
+        carbon_intensity=win[:, WIN_CI] / norm,
+        price=win[:, WIN_PRICE] / norm,
+        carbon_per_window=win[:, WIN_CARBON_G],
+        cost_per_window=win[:, WIN_COST],
+        win_overflow=overflow,
+    )

@@ -1,0 +1,396 @@
+"""Configuration and state containers of the PyTorch engine.
+
+Static configuration mirrors ``repro.core.types`` field for field (names,
+order and defaults), so one scenario digests identically in both packages
+(``farm.config_digest``).  Dynamic state is a set of plain dataclasses whose
+fields are tensors on one device; the engine builds new states out of place
+(``replace``), so a masked step can select between an old and a new state
+leaf by leaf (``tree_where``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any
+
+import torch
+
+# A "practically infinite" simulation time: finite, so min-reductions stay
+# well defined in f32 and subtraction never produces NaN.
+INF = 1.0e30
+
+# --------------------------------------------------------------------------
+# enums (plain ints so they can live inside integer tensors)
+# --------------------------------------------------------------------------
+
+
+class SrvState:
+    """Hierarchical ACPI-style server power states."""
+
+    ACTIVE = 0        # S0, at least one core in C0
+    IDLE = 1          # S0, all cores idle (C1)
+    PKG_C6 = 2        # package C6: cores+uncore power-gated, fast wake
+    S3 = 3            # suspend-to-RAM, slow wake
+    OFF = 4           # G2 soft-off
+    WAKING = 5        # transitioning to ACTIVE
+    NUM = 6
+
+
+class TaskStatus:
+    BLOCKED = 0       # waiting on DAG parents
+    READY = 1         # deps satisfied, not yet enqueued at its server
+    QUEUED = 2        # sitting in its server's queue
+    RUNNING = 3       # on a core
+    COMM = 4          # finished compute, results in flight to children
+    DONE = 5
+    INVALID = 6       # padding
+    NUM = 7
+
+
+class SchedPolicy:
+    ROUND_ROBIN = 0
+    LOAD_BALANCE = 1
+    NETWORK_AWARE = 2
+    PROVISIONED = 3
+    WASP_POOLS = 4
+    THERMAL_AWARE = 5
+    CARBON_AWARE = 6
+
+
+class SleepPolicy:
+    ALWAYS_ON = 0
+    SINGLE_TIMER = 1
+    DUAL_TIMER = 2
+    WASP = 3
+
+
+def replace(obj, **kw):
+    return dataclasses.replace(obj, **kw)
+
+
+# --------------------------------------------------------------------------
+# static configuration
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ServerPowerProfile:
+    """Per-server power (Watts) by state and wake latencies (seconds)."""
+
+    p_core_active: float = 13.0
+    p_core_idle: float = 2.0
+    p_core_c6: float = 0.3
+    p_base: float = 65.0
+    p_pkg_c6: float = 15.0
+    p_s3: float = 9.0
+    p_off: float = 0.0
+    p_wake: float = 145.0
+    t_wake_pkg_c6: float = 1.0e-3
+    t_wake_s3: float = 1.0
+    t_wake_off: float = 30.0
+    t_core_c6_wake: float = 5.0e-5
+
+
+@dataclass(frozen=True)
+class SwitchPowerProfile:
+    p_chassis: float = 14.7
+    p_port_active: float = 0.23
+    p_port_lpi: float = 0.023
+    p_port_off: float = 0.0
+    p_linecard_active: float = 0.0
+    p_linecard_sleep: float = 0.0
+    t_lpi_wake: float = 5.0e-6
+    t_port_lpi_enter: float = 1.0e-3
+    t_switch_wake: float = 0.5
+
+
+@dataclass(frozen=True)
+class ThermalConfig:
+    """Thermal / cooling / carbon knobs.  Mirrored so configurations and
+    digests carry over; the port's engine refuses ``enabled=True`` until
+    the thermal slice lands (ROADMAP Queue 1 item 7), which brings the
+    derived properties (``throttling``, ``has_ctrl``, ...) with it."""
+
+    enabled: bool = False
+    r_th: float = 0.25
+    tau_th: float = 60.0
+    t_inlet: float = 22.0
+    t_setpoint: object = None
+    ambient_swing: float = 0.0
+    ambient_period: float = 86400.0
+    ambient_phase: float = 0.0
+    ctrl_period: float = 0.0
+    ctrl_target: float = 55.0
+    ctrl_band: float = 2.0
+    ctrl_step: float = 1.0
+    ctrl_min: float = 12.0
+    ctrl_max: float = 27.0
+    defer_threshold: float = INF
+    defer_signal: str = "carbon"
+    recirc: float = 0.2
+    rack_size: int = 8
+    t_throttle: float = INF
+    t_release: float = INF
+    throttle_freq: float = 0.5
+    throttle_power_scale: float = 0.5
+    crossing_guard: float = 8.0
+    cop_a: float = 0.0068
+    cop_b: float = 0.0008
+    cop_c: float = 0.458
+    carbon_base: float = 350.0
+    carbon_swing: float = 0.4
+    carbon_period: float = 86400.0
+    carbon_phase: float = 0.0
+    price_base: float = 0.12
+    price_swing: float = 0.5
+    price_period: float = 86400.0
+    price_phase: float = 0.0
+    sched_temp_weight: float = 100.0
+
+
+@dataclass(frozen=True)
+class TelemetryConfig:
+    """Telemetry knobs.  ``use_kernel`` and ``compact`` choose between
+    accumulation paths that the reference pins equal; the port always bins
+    through ``kernels.ops.telemetry_accum`` (the CUDA kernel on the card,
+    its plain version on the CPU), so both only carry over for the digest."""
+
+    enabled: bool = True
+    n_bins: int = 64
+    lat_lo: float = 1.0e-5
+    lat_hi: float = 1.0e3
+    n_windows: int = 256
+    window_dt: float = 0.1
+    tail_thresh: float = 1.0
+    use_kernel: bool = False
+    compact: int = 32
+
+
+@dataclass(frozen=True)
+class TraceConfig:
+    enabled: bool = False
+    capacity: int = 65536
+
+
+@dataclass(frozen=True)
+class PartitionConfig:
+    n_shards: int = 1
+    axis: str = "racks"
+
+    @property
+    def sharded(self) -> bool:
+        return self.n_shards > 1
+
+
+@dataclass(frozen=True)
+class SimConfig:
+    """Static shape/topology/policy configuration.  ``use_kernel`` carries
+    over for the digest: the port always advances through
+    ``kernels.ops.dcsim_advance``, which the reference pins bit-equal to
+    its plain path."""
+
+    n_servers: int = 50
+    n_cores: int = 4
+    local_q: int = 64
+    global_q: int = 256
+    max_jobs: int = 2048
+    tasks_per_job: int = 1
+    max_children: int = 4
+    max_flows: int = 256
+    max_events: int = 50_000
+    ready_per_step: int = 8
+    arrivals_per_step: int = 8
+    events_per_step: int = 8
+    use_vectorized_hot_loop: bool = True
+    use_kernel: bool = False
+    sched_policy: int = SchedPolicy.LOAD_BALANCE
+    sleep_policy: int = SleepPolicy.ALWAYS_ON
+    sleep_state: int = SrvState.S3
+    use_global_queue: bool = False
+    prov_lo: float = 0.3
+    prov_hi: float = 0.9
+    wasp_t_wakeup: float = 1.5
+    wasp_t_sleep: float = 0.5
+    core_freq: float = 1.0
+    has_network: bool = False
+    flow_mtu: float = 1500.0
+    comm_model: int = 0
+    hop_latency: float = 5.0e-6
+    server_power: ServerPowerProfile = field(default_factory=ServerPowerProfile)
+    switch_power: SwitchPowerProfile = field(default_factory=SwitchPowerProfile)
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
+    thermal: ThermalConfig = field(default_factory=ThermalConfig)
+    trace: TraceConfig = field(default_factory=TraceConfig)
+    partition: PartitionConfig = field(default_factory=PartitionConfig)
+    n_present: int = 0
+    time_dtype: Any = torch.float32
+
+    @property
+    def n_tasks(self) -> int:
+        return self.max_jobs * self.tasks_per_job
+
+    @property
+    def present(self) -> int:
+        """Number of real (schedulable) servers; <= n_servers."""
+        return self.n_present if self.n_present else self.n_servers
+
+    @property
+    def has_padding(self) -> bool:
+        return 0 < self.n_present < self.n_servers
+
+
+# --------------------------------------------------------------------------
+# dynamic state: dataclasses of tensors
+# --------------------------------------------------------------------------
+
+@dataclass
+class ServerFarm:
+    core_busy_until: torch.Tensor   # (N, C) completion time, INF when idle
+    srv_state: torch.Tensor         # (N,) int32 SrvState
+    srv_wake_at: torch.Tensor       # (N,) wake completion time (INF otherwise)
+    srv_idle_since: torch.Tensor    # (N,) time the server last went idle
+    srv_tau: torch.Tensor           # (N,) delay-timer value (INF = never)
+    srv_pool: torch.Tensor          # (N,) int32 pool (0 active / 1 sleep)
+    srv_enabled: torch.Tensor       # (N,) bool: receives new work
+    q_len: torch.Tensor             # (N,) int32 queued-task count
+    q_seq: torch.Tensor             # () int32 global FIFO enqueue counter
+    energy: torch.Tensor            # (N,) f32 joules
+    residency: torch.Tensor         # (N, SrvState.NUM) f32 seconds
+    busy_core_seconds: torch.Tensor  # (N,) f32
+    wake_count: torch.Tensor        # (N,) int32
+    dropped: torch.Tensor           # () int32 tasks dropped on full queues
+
+
+@dataclass
+class JobTable:
+    arrival: torch.Tensor           # (J,) arrival times (INF padded)
+    arr_ptr: torch.Tensor           # () int32 next arrival index
+    service: torch.Tensor           # (J*T,) f32 service time at freq 1.0
+    valid: torch.Tensor             # (J*T,) bool
+    dep_count: torch.Tensor         # (J*T,) int32 unfinished parents
+    children: torch.Tensor          # (J*T, Dmax) int32 flat child ids (-1)
+    edge_bytes: torch.Tensor        # (J*T, Dmax) f32
+    status: torch.Tensor            # (J*T,) int32 TaskStatus
+    edge_sent: torch.Tensor         # (J*T, Dmax) bool
+    server: torch.Tensor            # (J*T,) int32 assigned server (-1)
+    enqueue_seq: torch.Tensor       # (J*T,) int32 FIFO stamp
+    task_end: torch.Tensor          # (J*T,) busy_until stamped at start
+    start_at: torch.Tensor          # (J*T,) start time (INF until started)
+    finish: torch.Tensor            # (J*T,) task finish time
+    job_finish: torch.Tensor        # (J,) completion time (INF if not done)
+    tasks_done: torch.Tensor        # (J,) int32
+    sla: torch.Tensor               # (J,) f32 latency deadline (INF = none)
+    deferrable: torch.Tensor        # (J,) bool
+    deadline: torch.Tensor          # (J,) latest admit time (INF = none)
+    admit_at: torch.Tensor          # (J,) release time of a deferred job
+
+
+@dataclass
+class SchedState:
+    rr_ptr: torch.Tensor            # () int32 round-robin pointer
+    n_enabled: torch.Tensor         # () int32 provisioning active-set size
+    gq_tasks: torch.Tensor          # (GQ,) int32
+    gq_head: torch.Tensor           # () int32
+    gq_len: torch.Tensor            # () int32
+
+
+@dataclass
+class Telemetry:
+    job_hist: torch.Tensor          # (B,) f32 job-latency histogram
+    task_hist: torch.Tensor         # (B,) f32 task-latency histogram
+    win: torch.Tensor               # (W, K) f32 windowed time-weighted series
+    sla_miss: torch.Tensor          # () int32
+    sla_total: torch.Tensor         # () int32
+    tail_viol: torch.Tensor         # () int32
+    win_overflow: torch.Tensor      # () f32 seconds past the window horizon
+
+
+@dataclass
+class SimState:
+    """Engine state of this slice: the reference's SimState without the
+    network, thermal and trace subtrees (refused by the engine)."""
+
+    t: torch.Tensor                 # () current simulation time
+    farm: ServerFarm
+    jobs: JobTable
+    sched: SchedState
+    telem: Telemetry
+    events: torch.Tensor            # () int32 processed event count
+    steps: torch.Tensor             # () int32 sim_step invocations
+    done: torch.Tensor              # () bool all jobs finished
+
+
+def tree_where(mask, new, old):
+    """Leaf-wise ``torch.where(mask, new, old)`` over two states of the
+    same dataclass layout (``mask`` a 0-d bool tensor)."""
+    if dataclasses.is_dataclass(new):
+        return type(new)(**{f.name: tree_where(mask, getattr(new, f.name),
+                                               getattr(old, f.name))
+                            for f in dataclasses.fields(new)})
+    return torch.where(mask, new, old)
+
+
+def tree_leaves(obj, prefix: str = ""):
+    """[(dotted path, tensor)] of every leaf, in field order."""
+    out = []
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        path = f"{prefix}.{f.name}" if prefix else f.name
+        if dataclasses.is_dataclass(v):
+            out.extend(tree_leaves(v, path))
+        else:
+            out.append((path, v))
+    return out
+
+
+# --------------------------------------------------------------------------
+# initializers
+# --------------------------------------------------------------------------
+
+def resolve_device(device=None) -> torch.device:
+    """The device a run uses: CUDA unless the caller asks for the CPU.
+    Without a card and without ``device="cpu"`` this raises; it never
+    moves to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def init_farm(cfg: SimConfig, device) -> ServerFarm:
+    N, C = cfg.n_servers, cfg.n_cores
+    tdt = cfg.time_dtype
+    i32, f32 = torch.int32, torch.float32
+    # padded filler rows (index >= cfg.present) boot OFF and disabled
+    real = torch.arange(N, device=device) < cfg.present
+    return ServerFarm(
+        core_busy_until=torch.full((N, C), INF, dtype=tdt, device=device),
+        srv_state=torch.where(
+            real, SrvState.IDLE, SrvState.OFF).to(i32),
+        srv_wake_at=torch.full((N,), INF, dtype=tdt, device=device),
+        srv_idle_since=torch.zeros((N,), dtype=tdt, device=device),
+        srv_tau=torch.full((N,), INF, dtype=tdt, device=device),
+        srv_pool=torch.zeros((N,), dtype=i32, device=device),
+        srv_enabled=real,
+        q_len=torch.zeros((N,), dtype=i32, device=device),
+        q_seq=torch.zeros((), dtype=i32, device=device),
+        energy=torch.zeros((N,), dtype=f32, device=device),
+        residency=torch.zeros((N, SrvState.NUM), dtype=f32, device=device),
+        busy_core_seconds=torch.zeros((N,), dtype=f32, device=device),
+        wake_count=torch.zeros((N,), dtype=i32, device=device),
+        dropped=torch.zeros((), dtype=i32, device=device),
+    )
+
+
+def init_sched(cfg: SimConfig, device) -> SchedState:
+    i32 = torch.int32
+    return SchedState(
+        rr_ptr=torch.zeros((), dtype=i32, device=device),
+        n_enabled=torch.tensor(cfg.present, dtype=i32, device=device),
+        gq_tasks=torch.full((cfg.global_q,), -1, dtype=i32, device=device),
+        gq_head=torch.zeros((), dtype=i32, device=device),
+        gq_len=torch.zeros((), dtype=i32, device=device),
+    )

@@ -1,0 +1,108 @@
+"""Plain PyTorch versions of the hand-written kernels.
+
+Each function computes what its CUDA kernel computes, with the same
+roundings in the same order, so the kernel can be held against it on the
+card and the CPU engine runs through it (``ops`` dispatches CPU tensors
+here).  They are ports of ``repro.kernels.ref``'s oracles.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+INF = 1.0e30
+
+
+def _const(x: float, like: torch.Tensor) -> torch.Tensor:
+    """``x`` as a 0-d tensor of ``like``'s dtype and device.  Binary ops
+    take it instead of a Python scalar: CUDA turns a division by a host
+    scalar into a multiplication by its reciprocal, which rounds
+    differently from the reference's true division.  ``torch.full`` fills
+    on the device (no host-to-device copy, so no stream sync)."""
+    return torch.full((), x, dtype=like.dtype, device=like.device)
+
+
+def log_bin(vals: torch.Tensor, lo: float, hi: float,
+            n_bins: int) -> torch.Tensor:
+    """Log-spaced histogram bin index (int64) of each value: values below
+    ``lo`` clamp into bin 0, values >= ``hi`` into bin n_bins-1.
+
+    Three roundings in the reference's order: ``max(v, lo) / lo``, then
+    ``log``, then ``* scale`` with ``scale`` the Python float rounded to
+    the values' dtype; then a truncating cast and a clip (clamping before
+    the cast is the same map and never overflows the integer)."""
+    scale = n_bins / math.log(hi / lo)
+    lo_t = _const(lo, vals)
+    raw = torch.log(torch.maximum(vals, lo_t) / lo_t) * _const(scale, vals)
+    return raw.clamp(0, n_bins - 1).to(torch.int64)
+
+
+def telemetry_accum_reference(job_vals, job_wts, task_vals, task_wts,
+                              job_hist, task_hist, win, widx, wvals,
+                              lo, hi):
+    """One fused telemetry update:
+
+      job_hist  += histogram(job_vals, weights=job_wts)   (log-spaced bins)
+      task_hist += histogram(task_vals, weights=task_wts)
+      win[widx] += wvals                                  (dropped when
+                                                           widx is out of
+                                                           range)
+
+    Returns new (job_hist, task_hist, win); the inputs are not modified."""
+    B = job_hist.shape[0]
+    jh = job_hist.index_add(0, log_bin(job_vals, lo, hi, B), job_wts)
+    th = task_hist.index_add(0, log_bin(task_vals, lo, hi, B), task_wts)
+    rows = torch.arange(win.shape[0], device=win.device)
+    w = torch.where((rows == widx)[:, None], win + wvals[None, :], win)
+    return jh, th, w
+
+
+def dcsim_advance_reference(core_busy, srv_state, energy, busy_seconds,
+                            t, t_next, state_power, p_core_active,
+                            p_core_idle, srv_wake_at=None,
+                            srv_idle_since=None, srv_tau=None,
+                            throttled=None, throttle_power_scale=1.0):
+    """One fused farm advance to ``t_next``:
+
+      dt      = t_next - t                                   (f32)
+      power_i = table[0] + busy_i·p_act + idle_i·p_idle  (awake servers;
+                p_act scales by throttle_power_scale where throttled)
+              = table[clip(state_i, 0, 5)]               (otherwise)
+      energy += power·dt ; busy_seconds += busy·dt
+      completions: core slots with busy_until <= t_next -> freed (INF)
+      next candidate = min(surviving busy_until, wake completions,
+                           idle delay-timer expiries)
+
+    Time-typed inputs keep their dtype (an f64 clock stays f64 on the
+    CPU); power and energy are f32.  Returns (new_core_busy, done_mask,
+    energy, busy_seconds, next_cand)."""
+    N, C = core_busy.shape
+    dev, tdt = core_busy.device, core_busy.dtype
+    if srv_wake_at is None:
+        srv_wake_at = torch.full((N,), INF, dtype=tdt, device=dev)
+    if srv_idle_since is None:
+        srv_idle_since = torch.zeros((N,), dtype=tdt, device=dev)
+    if srv_tau is None:
+        srv_tau = torch.full((N,), INF, dtype=tdt, device=dev)
+    f32 = torch.float32
+    dt = (t_next - t).to(f32)
+    busy = (core_busy < INF).sum(dim=1, dtype=torch.int32).to(f32)
+    awake = srv_state <= 1                       # ACTIVE=0 / IDLE=1
+    p_act = _const(p_core_active, busy)
+    if throttled is not None:
+        p_thr = _const(p_core_active * throttle_power_scale, busy)
+        p_act = torch.where(throttled.to(torch.int32) != 0, p_thr, p_act)
+    p_awake = state_power[0] + busy * p_act \
+        + (_const(float(C), busy) - busy) * _const(p_core_idle, busy)
+    p = torch.where(awake, p_awake,
+                    state_power[srv_state.clamp(0, 5).to(torch.int64)])
+    energy = energy + p * dt
+    busy_seconds = busy_seconds + busy * dt
+    done = core_busy <= t_next
+    new_busy = torch.where(done, _const(INF, core_busy), core_busy)
+    timer = torch.where(srv_state == 1, srv_idle_since + srv_tau,
+                        _const(INF, srv_idle_since))
+    next_cand = torch.minimum(new_busy.min(),
+                              torch.minimum(srv_wake_at.min(), timer.min()))
+    return new_busy, done, energy, busy_seconds, next_cand

@@ -13,3 +13,6 @@ sys.path.insert(0, str(pathlib.Path(__file__).parent))
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-device subprocess tests (run explicitly)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA "
+        "kernels); skips without one")

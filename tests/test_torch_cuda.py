@@ -1,0 +1,145 @@
+"""The port on the card: each CUDA kernel against its plain PyTorch version
+on the same inputs, the dispatch's launch counting, and the engine on the
+card against the engine on the CPU.  Every test here needs an NVIDIA GPU
+and skips without one; the file imports no JAX, so it runs on a machine
+with a card and PyTorch alone:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: the kernels repeat the plain versions' roundings operation by
+operation, and the histogram weights are 0/1 (exact integer sums in any
+order), so every output is bitwise equal.  Engine runs: discrete state
+exact, float reductions (energy, residency, windows) rtol 1e-5, since
+PyTorch sums in another order on the card."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import engine, farm, jobs, workload
+from repro_torch.core.types import (SchedPolicy, SimConfig, SleepPolicy,
+                                    SrvState, tree_leaves)
+from repro_torch.kernels import dcsim_step, ops, ref, telemetry_bin
+
+from torch_kernel_inputs import dcsim_inputs, tb_inputs, torch_args
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    """The card, or a skip: the CUDA kernels build and run only there.
+    Decided when the test runs, never at import, so every test worker
+    collects the same tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels are built with "
+                    "nvcc and run only on the card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("n,c,throttled", [
+    (65536, 4, True), (1000, 4, True), (1000, 3, False), (1, 1, True),
+    (257, 8, False)])
+def test_dcsim_advance_matches_plain(cuda, n, c, throttled):
+    a = torch_args(dcsim_inputs(n, c, 7, throttled), cuda)
+    before = dcsim_step.LAUNCHES
+    got = dcsim_step.dcsim_advance(*a, throttle_power_scale=0.6)
+    exp = ref.dcsim_advance_reference(*a, throttle_power_scale=0.6)
+    torch.cuda.synchronize()
+    assert dcsim_step.LAUNCHES == before + 1
+    for g, e in zip(got, exp):
+        assert g.dtype == e.dtype and torch.equal(g, e)
+
+
+def test_dcsim_advance_default_inputs(cuda):
+    """No wake/idle/tau/throttle tensors: INF/0/INF/not throttled."""
+    a = torch_args(dcsim_inputs(300, 4, 8, False), cuda)[:9]
+    for g, e in zip(dcsim_step.dcsim_advance(*a),
+                    ref.dcsim_advance_reference(*a)):
+        assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("J,M,W", [(600, 600, 1), (100_003, 300_009, 256),
+                                   (7, 21, 4)])
+def test_telemetry_accum_matches_plain(cuda, J, M, W):
+    a = torch_args(tb_inputs(J, M, 64, W, 19, 11), cuda)
+    before = telemetry_bin.LAUNCHES
+    got = telemetry_bin.telemetry_accum(*a)
+    exp = ref.telemetry_accum_reference(*a)
+    torch.cuda.synchronize()
+    assert telemetry_bin.LAUNCHES == before + 1
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+    assert torch.equal(a[4], torch_args(tb_inputs(J, M, 64, W, 19, 11),
+                                        cuda)[4])       # inputs untouched
+
+
+def test_wrappers_check_their_inputs(cuda):
+    a = list(torch_args(dcsim_inputs(64, 4, 1), cuda))
+    with pytest.raises(ValueError, match="float32"):
+        dcsim_step.dcsim_advance(a[0].double(), *a[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        dcsim_step.dcsim_advance(a[0].t().contiguous().t(), *a[1:])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dcsim_step.dcsim_advance(a[0], a[1].cpu(), *a[2:])
+    t = list(torch_args(tb_inputs(16, 16, 64, 1, 19, 2), cuda))
+    with pytest.raises(ValueError, match="shape"):
+        telemetry_bin.telemetry_accum(t[0], t[1][:-1], *t[2:])
+
+
+def test_ops_routes_cuda_tensors_to_the_kernels(cuda):
+    ops.reset_launch_counts()
+    a = torch_args(dcsim_inputs(128, 4, 3), cuda)
+    ops.dcsim_advance(*a)
+    ops.telemetry_accum(*torch_args(tb_inputs(32, 32, 64, 1, 19, 4), cuda))
+    assert ops.launch_counts() == {"dcsim_advance": 1, "telemetry_accum": 1}
+
+
+def _scenario(n_jobs=120):
+    cfg = SimConfig(n_servers=6, n_cores=2, max_jobs=128, tasks_per_job=3,
+                    sched_policy=SchedPolicy.LOAD_BALANCE,
+                    sleep_policy=SleepPolicy.SINGLE_TIMER,
+                    sleep_state=SrvState.S3, max_events=50_000)
+    rng = np.random.default_rng(13)
+    arr = workload.poisson_arrivals(40.0, n_jobs, seed=6)
+    specs = [jobs.dag_chain(rng.exponential(0.01, size=3))
+             for _ in range(n_jobs)]
+    return cfg, arr, specs
+
+
+def _run(cfg, arr, specs, dev):
+    jt = jobs.build_jobs(cfg, arr, specs, device=dev)
+    state, tc = engine.init_state(cfg, jt)
+    state.farm.srv_tau = torch.full_like(state.farm.srv_tau, 0.05)
+    return engine.run(state, cfg, tc)
+
+
+def test_engine_on_card_matches_cpu(cuda):
+    cfg, arr, specs = _scenario()
+    cpu = _run(cfg, arr, specs, "cpu")
+    ops.reset_launch_counts()
+    gpu = _run(cfg, arr, specs, cuda)
+    counts = ops.launch_counts()
+    for (path, g), (_, c) in zip(tree_leaves(gpu), tree_leaves(cpu)):
+        g = g.cpu()
+        if path in ("farm.energy", "farm.residency",
+                    "farm.busy_core_seconds", "telem.win",
+                    "telem.win_overflow"):
+            assert torch.allclose(g, c, rtol=1e-5, atol=1e-6), path
+        else:
+            assert torch.equal(g, c), path
+    assert bool(gpu.done)
+    assert counts["dcsim_advance"] == int(gpu.steps) * cfg.events_per_step
+    assert counts["telemetry_accum"] == int(gpu.steps)
+
+
+def test_simulate_defaults_to_the_card(cuda):
+    cfg, arr, specs = _scenario(20)
+    res = farm.simulate(cfg, arr, specs, tau=0.05)
+    assert res.run_info.backend == "cuda" and res.n_finished == 20
+    assert res.run_info.device_name == torch.cuda.get_device_name(0)
+
+
+def test_f64_clock_is_refused_on_the_card(cuda):
+    cfg = SimConfig(n_servers=2, max_jobs=4, time_dtype=torch.float64)
+    with pytest.raises(ValueError, match="float32"):
+        farm.simulate(cfg, [0.1], [jobs.dag_single(0.01)], device=cuda)

@@ -1,0 +1,166 @@
+"""The port's kernels: the plain PyTorch versions (what the CPU engine runs
+and what the CUDA kernels are held against on the card) against the JAX
+package's jnp oracles and its Pallas kernels in interpret mode; dispatch and
+launch counting.  The CUDA kernels themselves are held against the plain
+versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
+
+Tolerances: new_busy, done mask, candidate and histograms exact (values are
+drawn away from bin edges: a 1-ulp difference between two ``log``
+implementations can move an edge value by one bin, which the edge test
+allows with that reason); energy and busy_seconds within 1 ulp, since XLA
+may contract ``e + p*dt`` into an FMA."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.dcsim_step import dcsim_advance as pallas_advance
+from repro.kernels.telemetry_bin import telemetry_accum as pallas_accum
+from repro_torch.kernels import dcsim_step, ops, ref, telemetry_bin
+
+from torch_kernel_inputs import dcsim_inputs, tb_inputs, torch_args
+
+
+def _jax_args(np_args):
+    return tuple(jnp.asarray(a) if isinstance(a, (np.ndarray, np.generic))
+                 else a for a in np_args)
+
+
+def _ulps(got, exp):
+    got, exp = np.float32(got), np.float32(exp)
+    up = np.spacing(np.abs(exp))
+    return float(np.max(np.abs(got - exp) / up))
+
+
+def _assert_advance(got, exp, ctx):
+    names = ("new_busy", "done", "energy", "busy_seconds", "candidate")
+    for name, g, e in zip(names, got, exp):
+        g = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        e = np.asarray(e)
+        if name in ("energy", "busy_seconds"):
+            assert _ulps(g, e) <= 1.0, f"{ctx}: {name}"
+        else:
+            np.testing.assert_array_equal(g.astype(e.dtype), e,
+                                          err_msg=f"{ctx}: {name}")
+
+
+@pytest.mark.parametrize("n,c,seed", [
+    (1, 1, 0), (3, 2, 1), (17, 4, 2), (255, 4, 3), (257, 3, 4), (1000, 4, 5),
+])
+@pytest.mark.parametrize("throttled", [True, False])
+def test_dcsim_plain_matches_jax_ref_and_pallas(n, c, seed, throttled):
+    """Ragged N, all six server states, throttling on/off: the port's plain
+    advance equals the jnp oracle and the Pallas kernel (interpret)."""
+    a = dcsim_inputs(n, c, seed, throttled)
+    got = ref.dcsim_advance_reference(*torch_args(a),
+                                      throttle_power_scale=0.6)
+    ja = _jax_args(a)
+    exp_ref = jref.dcsim_advance_reference(*ja, throttle_power_scale=0.6)
+    _assert_advance(got, exp_ref, "vs repro.kernels.ref")
+    exp_pl = pallas_advance(*ja[:9], ja[9], ja[10], ja[11], ja[12],
+                            throttle_power_scale=0.6, interpret=True)
+    _assert_advance(got, exp_pl, "vs Pallas interpret")
+    assert set(np.unique(a[1])) == set(range(6)) or n < 50
+
+
+def test_dcsim_plain_defaults_and_f64_clock():
+    """Missing wake/idle/tau/throttle inputs mean INF/0/INF/off, and an f64
+    clock keeps f64 times on the CPU while energy stays f32."""
+    a = dcsim_inputs(64, 4, 9, throttled=False)
+    ta = torch_args(a)
+    got = ref.dcsim_advance_reference(*ta[:9])
+    exp = jref.dcsim_advance_reference(*_jax_args(a)[:9])
+    _assert_advance(got, exp, "defaults")
+    busy64 = ta[0].double()
+    nb, done, en, bs, cand = ref.dcsim_advance_reference(
+        busy64, ta[1], ta[2], ta[3], ta[4].double(), ta[5].double(),
+        *ta[6:12])
+    assert nb.dtype == torch.float64 and cand.dtype == torch.float64
+    assert en.dtype == torch.float32
+    np.testing.assert_array_equal(nb.float().numpy(), got[0].numpy())
+    np.testing.assert_array_equal(en.numpy(), got[2].numpy())
+
+
+@pytest.mark.parametrize("J,M,B,W,K", [
+    (64, 64, 32, 16, 12),
+    (200, 700, 64, 1, 19),       # the engine's shape: dummy one-row window
+    (1024, 100, 128, 8, 12),     # job stream longer than task stream
+    (600, 1800, 64, 256, 19),    # J != J*T (T = 3)
+])
+def test_telemetry_plain_matches_jax_ref_and_pallas(J, M, B, W, K):
+    a = tb_inputs(J, M, B, W, K, seed=J + M)
+    got = ref.telemetry_accum_reference(*torch_args(a))
+    ja = _jax_args(a)
+    exp_ref = jref.telemetry_accum_reference(*ja)
+    exp_pl = pallas_accum(*ja, block=256, interpret=True)
+    for name, g, e1, e2 in zip(("job_hist", "task_hist", "win"), got,
+                               exp_ref, exp_pl):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(e1),
+                                      err_msg=f"{name} vs jnp oracle")
+        np.testing.assert_array_equal(g.numpy(), np.asarray(e2),
+                                      err_msg=f"{name} vs Pallas")
+
+
+def test_telemetry_bin_edges_within_one_bin():
+    """Values on (and one ulp either side of) every bin edge.  The port's
+    ``log`` and XLA's may differ by an ulp, which moves an edge value by at
+    most one bin -- so bins agree within +-1 and the mass is conserved."""
+    lo, hi, B = 1e-5, 1e3, 64
+    edges = lo * (hi / lo) ** (np.arange(B + 1) / B)
+    v = np.concatenate([edges, np.nextafter(edges, 0),
+                        np.nextafter(edges, np.inf)]).astype(np.float32)
+    got = ref.log_bin(torch.from_numpy(v), lo, hi, B).numpy()
+    exp = np.asarray(jref.log_bin(jnp.asarray(v), lo, hi, B))
+    assert np.abs(got - exp).max() <= 1
+    assert got.min() >= 0 and got.max() <= B - 1
+    w = np.ones_like(v)
+    z = np.zeros((B,), np.float32)
+    jh, _, _ = ref.telemetry_accum_reference(
+        torch.from_numpy(v), torch.from_numpy(w), torch.zeros(1),
+        torch.zeros(1), torch.from_numpy(z), torch.from_numpy(z),
+        torch.zeros((1, 3)), torch.zeros((), dtype=torch.int32),
+        torch.zeros(3), lo, hi)
+    assert float(jh.sum()) == len(v)
+
+
+def test_telemetry_plain_clamps_and_drops_out_of_range_window():
+    """Out-of-range latencies clamp into the edge bins; an out-of-range
+    window index adds nothing (the reference's drop semantics)."""
+    B, K, W = 16, 12, 4
+    vals = torch.tensor([1e-9, 1e-5, 0.5, 1e3, 1e7])
+    z = torch.zeros(B)
+    win = torch.ones((W, K))
+    jh, _, w = ref.telemetry_accum_reference(
+        vals, torch.ones(5), torch.zeros(1), torch.zeros(1), z, z, win,
+        torch.tensor(W, dtype=torch.int32), torch.ones(K), 1e-5, 1e3)
+    assert float(jh.sum()) == 5.0
+    assert float(jh[0]) >= 2.0 and float(jh[-1]) >= 2.0
+    assert torch.equal(w, win)
+
+
+def test_ops_dispatch_cpu_to_plain_and_counts_nothing():
+    ops.reset_launch_counts()
+    a = torch_args(dcsim_inputs(40, 4, 1))
+    got = ops.dcsim_advance(*a, throttle_power_scale=0.6)
+    exp = ref.dcsim_advance_reference(*a, throttle_power_scale=0.6)
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+    t = torch_args(tb_inputs(50, 50, 64, 1, 19, 3))
+    for g, e in zip(ops.telemetry_accum(*t),
+                    ref.telemetry_accum_reference(*t)):
+        assert torch.equal(g, e)
+    assert ops.launch_counts() == {"dcsim_advance": 0, "telemetry_accum": 0}
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.dcsim_advance(a[0].to("meta"), *a[1:])
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """The kernel wrappers check device, dtype and shape before they build
+    or launch anything."""
+    a = torch_args(dcsim_inputs(8, 4, 2))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dcsim_step.dcsim_advance(*a)
+    t = torch_args(tb_inputs(8, 8, 64, 1, 19, 3))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        telemetry_bin.telemetry_accum(*t)

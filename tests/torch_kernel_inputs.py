@@ -1,0 +1,68 @@
+"""Seeded numpy inputs for the port's kernels: one builder for the CPU
+tests, the card tests (tests/test_torch_cuda.py) and chip_smoke.py.
+Imports neither JAX nor pytest, so it loads on a machine with a card and
+PyTorch alone."""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+INF = 1.0e30
+
+
+def dcsim_inputs(n, c, seed, throttled=True):
+    """A random farm slab: every server state, half the cores busy, some
+    slots finishing exactly at t_next, timers armed on half the servers,
+    ~30% throttled."""
+    rng = np.random.default_rng(seed)
+    t = np.float32(rng.uniform(0, 10))
+    t_next = np.float32(t + rng.uniform(0, 1))
+    busy = np.where(rng.random((n, c)) < 0.5,
+                    rng.uniform(t, t + 2, (n, c)), INF).astype(np.float32)
+    busy[rng.random((n, c)) < 0.05] = t_next
+    state = rng.integers(0, 6, n).astype(np.int32)
+    energy = rng.uniform(0, 100, n).astype(np.float32)
+    bsec = rng.uniform(0, 10, n).astype(np.float32)
+    wake = np.where(state == 5, rng.uniform(t, t + 3, n), INF
+                    ).astype(np.float32)
+    isince = rng.uniform(0, t, n).astype(np.float32)
+    tau = np.where(rng.random(n) < 0.5, rng.uniform(0.1, 2.0, n), INF
+                   ).astype(np.float32)
+    thr = (rng.random(n) < 0.3).astype(np.int32) if throttled else None
+    table = np.asarray([65.0, 65.0, 15.0, 9.0, 0.0, 145.0], np.float32)
+    return (busy, state, energy, bsec, t, t_next, table, 13.0, 2.0, wake,
+            isince, tau, thr)
+
+
+def edge_free_vals(rng, n, lo=1e-5, hi=1e3, B=64):
+    """Log-uniform latencies over [lo/10, 10 hi] (both clamps hit), moved
+    off the bin edges: a 1-ulp difference between two ``log``
+    implementations can move an edge value by one bin."""
+    scale = B / math.log(hi / lo)
+    v = np.exp(rng.uniform(math.log(lo / 10), math.log(hi * 10), n))
+    raw = np.log(np.maximum(v, lo) / lo) * scale
+    near = (np.abs(raw - np.round(raw)) < 1e-3) & (v > lo) & (v < hi)
+    v[near] *= 1.0 + 2e-3 / scale
+    return v.astype(np.float32)
+
+
+def tb_inputs(J, M, B, W, K, seed):
+    """telemetry_accum inputs: 0/1 weights, integer-valued histograms."""
+    rng = np.random.default_rng(seed)
+    return (edge_free_vals(rng, J, B=B),
+            (rng.random(J) < 0.4).astype(np.float32),
+            edge_free_vals(rng, M, B=B),
+            (rng.random(M) < 0.6).astype(np.float32),
+            rng.integers(0, 9, B).astype(np.float32),
+            rng.integers(0, 9, B).astype(np.float32),
+            rng.uniform(0, 1, (W, K)).astype(np.float32),
+            np.int32(rng.integers(0, W)),
+            rng.uniform(0, 1, K).astype(np.float32), 1e-5, 1e3)
+
+
+def torch_args(np_args, device="cpu"):
+    return tuple(torch.from_numpy(np.array(a)).to(device)
+                 if isinstance(a, (np.ndarray, np.generic)) else a
+                 for a in np_args)

@@ -1,0 +1,457 @@
+"""Helpers shared by the PyTorch port's tests (tests/test_torch_*.py): carry
+scenarios and states between the JAX reference and the port, build random
+mid-run states for both, and compare states leaf by leaf.
+
+Inputs are made with numpy from seeds and handed to both packages as
+numpy arrays."""
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.core import engine as jengine
+from repro.core import farm as jfarm
+from repro.core import jobs as jjobs
+from repro.core import workload
+from repro.core.types import (INF, SchedPolicy, SimConfig, SleepPolicy,
+                              SrvState, TaskStatus)
+from repro_torch.convert import config_from_dict, state_from_numpy
+from repro_torch.core.types import tree_leaves
+
+# The tests' tensors are tiny: PyTorch's intra-op threads would only spin
+# beside the other test workers.
+torch.set_num_threads(1)
+
+
+# leaves whose values come from float reductions or products that XLA may
+# fuse or reorder (window power sums, FMA-contracted accruals): rtol 1e-5.
+# Every other leaf -- discrete state, clocks, histograms of integer
+# counts -- must match exactly.
+TOL_LEAVES = {"farm.energy", "farm.residency", "farm.busy_core_seconds",
+              "telem.win", "telem.win_overflow"}
+
+
+def port_cfg(jcfg, **kw):
+    """The port's SimConfig for a reference SimConfig (via its dump)."""
+    cfg = config_from_dict(jfarm._config_dict(jcfg))
+    return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
+def jax_tree(state) -> dict:
+    """{dotted field path: numpy array} of a reference state."""
+    return {jax.tree_util.keystr(kp).lstrip("."): np.asarray(v)
+            for kp, v in jax.tree_util.tree_leaves_with_path(state)}
+
+
+def jax_state_from_tree(template, tree: dict):
+    """The reference state ``template`` with every leaf named in ``tree``
+    replaced (dtypes kept)."""
+    def pick(kp, v):
+        key = jax.tree_util.keystr(kp).lstrip(".")
+        return jnp.asarray(tree[key], v.dtype) if key in tree else v
+    return jax.tree_util.tree_map_with_path(pick, template)
+
+
+def assert_state_matches(port_state, ref_tree: dict, context: str,
+                         skip=()) -> None:
+    for path, v in tree_leaves(port_state):
+        if path in skip:
+            continue
+        got = v.detach().cpu().numpy()
+        exp = ref_tree[path]
+        assert got.shape == exp.shape, f"{context}: {path} shape"
+        if path in TOL_LEAVES:
+            np.testing.assert_allclose(got, exp, rtol=1e-5, atol=1e-6,
+                                       err_msg=f"{context}: {path}")
+        else:
+            np.testing.assert_array_equal(got, exp,
+                                          err_msg=f"{context}: {path}")
+
+
+def random_twin_states(jcfg, seed: int, n_jobs: int = 40, t: float = 1.0):
+    """A random mid-run state, as (reference SimState, port SimState, numpy
+    tree): jobs in every status, servers in every power state, queued tasks
+    with unique FIFO stamps, running tasks whose cores are busy."""
+    rng = np.random.default_rng(seed)
+    N, C, T = jcfg.n_servers, jcfg.n_cores, jcfg.tasks_per_job
+    arr = np.sort(rng.uniform(0.0, 2 * t, n_jobs))
+    specs = [jjobs.dag_chain(rng.exponential(0.05, size=T)) if T > 1
+             else jjobs.dag_single(rng.exponential(0.05),
+                                   sla=float(rng.uniform(0.01, 0.2)))
+             for _ in range(n_jobs)]
+    jt = jjobs.build_jobs(jcfg, arr, specs)
+    st0, _ = jengine.init_state(jcfg, jt)
+    tree = jax_tree(st0)
+    f32 = np.float32
+    tree["t"] = np.asarray(t, f32)
+
+    # farm
+    state = rng.integers(0, 6, N).astype(np.int32)
+    busy = np.where(rng.random((N, C)) < 0.4,
+                    rng.uniform(t, t + 1, (N, C)), INF).astype(f32)
+    busy[(state != 0)] = INF
+    tree["farm.core_busy_until"] = busy
+    tree["farm.srv_state"] = state
+    tree["farm.srv_wake_at"] = np.where(state == 5, rng.uniform(t, t + 1, N),
+                                        INF).astype(f32)
+    tree["farm.srv_idle_since"] = rng.uniform(0, t, N).astype(f32)
+    tree["farm.srv_tau"] = np.where(rng.random(N) < 0.7,
+                                    rng.uniform(0.01, 1.5, N), INF
+                                    ).astype(f32)
+    tree["farm.srv_pool"] = (rng.random(N) < 0.5).astype(np.int32)
+    tree["farm.srv_enabled"] = rng.random(N) < 0.8
+    tree["farm.energy"] = rng.uniform(0, 50, N).astype(f32)
+    tree["farm.residency"] = rng.uniform(0, 1, (N, 6)).astype(f32)
+    tree["farm.busy_core_seconds"] = rng.uniform(0, 2, N).astype(f32)
+    tree["farm.wake_count"] = rng.integers(0, 3, N).astype(np.int32)
+    tree["farm.dropped"] = np.asarray(rng.integers(0, 3), np.int32)
+
+    # jobs: arrived prefix with random statuses
+    JT = jcfg.n_tasks
+    n_arr = int(rng.integers(n_jobs // 2, n_jobs))
+    valid = tree["jobs.valid"]
+    arrived = (np.arange(JT) // T) < n_arr
+    status = np.where(valid, TaskStatus.BLOCKED, TaskStatus.INVALID)
+    pick = rng.choice([TaskStatus.READY, TaskStatus.QUEUED,
+                       TaskStatus.RUNNING, TaskStatus.DONE,
+                       TaskStatus.BLOCKED], JT)
+    status = np.where(valid & arrived, pick, status).astype(np.int32)
+    server = np.where(arrived & valid, rng.integers(0, N, JT), -1)
+    # running tasks sit on busy cores of ACTIVE servers
+    running = status == TaskStatus.RUNNING
+    task_end = np.full(JT, INF, f32)
+    task_end[running] = rng.uniform(t, t + 1, running.sum())
+    queued = np.flatnonzero(status == TaskStatus.QUEUED)
+    q_seq = 500
+    seq = np.zeros(JT, np.int32)
+    seq[queued] = q_seq - 1 - rng.permutation(len(queued))
+    q_len = np.bincount(server[queued], minlength=N).astype(np.int32)
+    finish = np.where(status == TaskStatus.DONE,
+                      rng.uniform(0, t, JT), INF).astype(f32)
+    jf = np.full(tree["jobs.job_finish"].shape, INF, f32)
+    done_jobs = (status.reshape(-1, T) == TaskStatus.DONE).all(axis=1)
+    jf[done_jobs] = rng.uniform(0, t, done_jobs.sum())
+    tree["jobs.arr_ptr"] = np.asarray(n_arr, np.int32)
+    tree["jobs.status"] = status
+    tree["jobs.server"] = server.astype(np.int32)
+    tree["jobs.task_end"] = task_end
+    tree["jobs.start_at"] = np.where(running, t - 0.01, INF).astype(f32)
+    tree["jobs.enqueue_seq"] = seq
+    tree["jobs.finish"] = finish
+    tree["jobs.job_finish"] = jf
+    tree["farm.q_len"] = q_len
+    tree["farm.q_seq"] = np.asarray(q_seq, np.int32)
+    tree["sched.rr_ptr"] = np.asarray(rng.integers(0, N), np.int32)
+    tree["sched.n_enabled"] = np.asarray(rng.integers(1, N + 1), np.int32)
+
+    jstate = jax_state_from_tree(st0, tree)
+    tree = jax_tree(jstate)
+    pstate = state_from_numpy(tree, port_cfg(jcfg), device="cpu")
+    return jstate, pstate, tree
+
+
+# --------------------------------------------------------------------------
+# scenarios: tests/test_engine_oracle.py's, plus the in-scope policies the
+# heapq oracle does not model.  Each function takes a jobs module (the
+# reference's or the port's) and returns (SimConfig kwargs, arrivals, specs,
+# tau, pools).
+# --------------------------------------------------------------------------
+
+def _single(mod, n_jobs, lam, arr_seed, svc_seed, mean):
+    arr = workload.poisson_arrivals(lam, n_jobs, seed=arr_seed)
+    rng = np.random.default_rng(svc_seed)
+    return arr, [mod.dag_single(rng.exponential(mean))
+                 for _ in range(n_jobs)]
+
+
+def _oracle_single(policy, tau, sleep_state):
+    def make(mod):
+        arr, specs = _single(mod, 200, 120.0, 3, 7, 0.02)
+        kw = dict(n_servers=6, n_cores=2, max_jobs=256, tasks_per_job=1,
+                  sched_policy=SchedPolicy.LOAD_BALANCE, sleep_policy=policy,
+                  sleep_state=sleep_state, max_events=50_000)
+        return kw, arr, specs, tau, None
+    return make
+
+
+def _round_robin(mod):
+    arr, specs = _single(mod, 150, 60.0, 5, 11, 0.03)
+    kw = dict(n_servers=5, n_cores=1, max_jobs=256, tasks_per_job=1,
+              sched_policy=SchedPolicy.ROUND_ROBIN,
+              sleep_policy=SleepPolicy.ALWAYS_ON, max_events=50_000)
+    return kw, arr, specs, None, None
+
+
+def _dag_chain(mod):
+    rng = np.random.default_rng(13)
+    arr = workload.poisson_arrivals(40.0, 80, seed=6)
+    specs = [mod.dag_chain(rng.exponential(0.01, size=3)) for _ in range(80)]
+    kw = dict(n_servers=4, n_cores=2, max_jobs=128, tasks_per_job=3,
+              sched_policy=SchedPolicy.LOAD_BALANCE,
+              sleep_policy=SleepPolicy.ALWAYS_ON, max_events=50_000)
+    return kw, arr, specs, None, None
+
+
+def _dag_fanout(mod):
+    rng = np.random.default_rng(17)
+    arr = workload.poisson_arrivals(30.0, 60, seed=8)
+    specs = [mod.dag_fanout(rng.exponential(0.005),
+                            rng.exponential(0.01, size=2),
+                            rng.exponential(0.005)) for _ in range(60)]
+    kw = dict(n_servers=4, n_cores=2, max_jobs=64, tasks_per_job=4,
+              sched_policy=SchedPolicy.LOAD_BALANCE,
+              sleep_policy=SleepPolicy.ALWAYS_ON, max_events=50_000)
+    return kw, arr, specs, None, None
+
+
+def _dual_timer(mod):
+    N = 6
+    arr, specs = _single(mod, 150, 80.0, 9, 23, 0.02)
+    kw = dict(n_servers=N, n_cores=2, max_jobs=256, tasks_per_job=1,
+              sched_policy=SchedPolicy.LOAD_BALANCE,
+              sleep_policy=SleepPolicy.DUAL_TIMER, sleep_state=SrvState.S3,
+              max_events=50_000)
+    tau = np.where(np.arange(N) < N // 2, 1.0, 0.01)   # high-tau pool first
+    pools = (np.arange(N) >= N // 2).astype(np.int32)
+    return kw, arr, specs, tau, pools
+
+
+def _provisioned(mod):
+    arr, specs = _single(mod, 150, 150.0, 12, 31, 0.02)
+    kw = dict(n_servers=8, n_cores=2, max_jobs=160, tasks_per_job=1,
+              sched_policy=SchedPolicy.PROVISIONED,
+              sleep_policy=SleepPolicy.SINGLE_TIMER,
+              sleep_state=SrvState.PKG_C6, prov_lo=0.3, prov_hi=0.7,
+              max_events=50_000)
+    return kw, arr, specs, 0.02, None
+
+
+def _wasp(mod):
+    N = 6
+    arr, specs = _single(mod, 150, 100.0, 14, 37, 0.02)
+    kw = dict(n_servers=N, n_cores=2, max_jobs=160, tasks_per_job=1,
+              sched_policy=SchedPolicy.WASP_POOLS,
+              sleep_policy=SleepPolicy.WASP, wasp_t_wakeup=1.0,
+              wasp_t_sleep=0.3, max_events=50_000)
+    pools = (np.arange(N) >= 2).astype(np.int32)
+    return kw, arr, specs, 0.05, pools
+
+
+def _overflow_dag(mod):
+    """Queue-full drops of DAG tasks (drop resolution frees the children)
+    under delay timers."""
+    rng = np.random.default_rng(3)
+    arr = np.sort(rng.uniform(0, 0.2, 25))
+    specs = [mod.dag_chain(rng.uniform(0.2, 0.6, size=3)) for _ in range(25)]
+    kw = dict(n_servers=2, n_cores=1, local_q=2, max_jobs=32,
+              tasks_per_job=3, sched_policy=SchedPolicy.LOAD_BALANCE,
+              sleep_policy=SleepPolicy.SINGLE_TIMER, sleep_state=SrvState.S3,
+              max_events=50_000)
+    return kw, arr, specs, 0.05, None
+
+
+def _rr_overflow(mod):
+    """ROUND_ROBIN with one-slot queues: drops and the least-loaded
+    fallback when every enabled queue is full."""
+    rng = np.random.default_rng(5)
+    arr = np.sort(rng.uniform(0, 0.5, 40))
+    specs = [mod.dag_single(rng.uniform(0.3, 0.8)) for _ in range(40)]
+    kw = dict(n_servers=3, n_cores=1, local_q=1, max_jobs=64,
+              tasks_per_job=1, sched_policy=SchedPolicy.ROUND_ROBIN,
+              sleep_policy=SleepPolicy.ALWAYS_ON, max_events=50_000)
+    return kw, arr, specs, None, None
+
+
+ORACLE_SCENARIOS = {
+    "always_on": _oracle_single(SleepPolicy.ALWAYS_ON, None, SrvState.S3),
+    "single_timer_s3": _oracle_single(SleepPolicy.SINGLE_TIMER, 0.05,
+                                      SrvState.S3),
+    "single_timer_c6": _oracle_single(SleepPolicy.SINGLE_TIMER, 0.02,
+                                      SrvState.PKG_C6),
+    "round_robin": _round_robin,
+    "dag_chain": _dag_chain,
+    "dag_fanout": _dag_fanout,
+    "dual_timer_pools": _dual_timer,
+}
+JAX_ONLY_SCENARIOS = {"provisioned": _provisioned, "wasp_pools": _wasp,
+                      "overflow_dag": _overflow_dag,
+                      "rr_overflow": _rr_overflow}
+
+
+def scenario(name, mod, **cfg_kw):
+    """(reference SimConfig, arrivals, specs built with ``mod``, tau,
+    pools) of a named scenario, with ``cfg_kw`` overriding its config."""
+    make = {**ORACLE_SCENARIOS, **JAX_ONLY_SCENARIOS}[name]
+    kw, arr, specs, tau, pools = make(mod)
+    kw.update(cfg_kw)
+    return SimConfig(**kw), arr, specs, tau, pools
+
+
+def jax_initial(jcfg, arr, specs, tau=None, pools=None):
+    """The reference's initial state as farm.simulate builds it."""
+    jt = jjobs.build_jobs(jcfg, np.asarray(arr), specs)
+    state, _ = jengine.init_state(jcfg, jt)
+    farm = state.farm
+    if tau is not None:
+        farm = dataclasses.replace(farm, srv_tau=jnp.broadcast_to(
+            jnp.asarray(tau, jcfg.time_dtype), (jcfg.n_servers,)))
+    if pools is not None:
+        farm = dataclasses.replace(farm,
+                                   srv_pool=jnp.asarray(pools, jnp.int32))
+    return dataclasses.replace(state, farm=farm)
+
+
+def jax_run(jcfg, arr, specs, tau=None, pools=None):
+    return jengine.run(jax_initial(jcfg, arr, specs, tau, pools), jcfg, None)
+
+
+def port_initial(pcfg, arr, specs, tau=None, pools=None, device="cpu"):
+    """The port's initial state as its farm.simulate builds it."""
+    from repro_torch.core import engine as tengine
+    from repro_torch.core import jobs as tjobs
+    jt = tjobs.build_jobs(pcfg, np.asarray(arr), specs, device=device)
+    state, _ = tengine.init_state(pcfg, jt)
+    farm = state.farm
+    if tau is not None:
+        farm = dataclasses.replace(farm, srv_tau=torch.as_tensor(
+            np.broadcast_to(np.asarray(tau, np.float64),
+                            (pcfg.n_servers,)).copy()).to(
+            device=device, dtype=pcfg.time_dtype))
+    if pools is not None:
+        farm = dataclasses.replace(farm, srv_pool=torch.as_tensor(
+            np.asarray(pools)).to(device=device, dtype=torch.int32))
+    return dataclasses.replace(state, farm=farm)
+
+
+def port_run(pcfg, arr, specs, tau=None, pools=None, device="cpu"):
+    from repro_torch.core import engine as tengine
+    return tengine.run(port_initial(pcfg, arr, specs, tau, pools, device),
+                       pcfg)
+
+
+def port_simulate(pcfg, arr, specs, **kw):
+    """The port's farm.simulate on the CPU, and the final engine state it
+    summarized (caught on its way out of ``engine.run``)."""
+    from repro_torch.core import engine as tengine
+    from repro_torch.core import farm as tfarm
+    caught = []
+    run = tengine.run
+
+    def spy(*a, **k):
+        caught.append(run(*a, **k))
+        return caught[-1]
+
+    tengine.run = spy
+    try:
+        res = tfarm.simulate(pcfg, arr, specs, device="cpu", **kw)
+    finally:
+        tengine.run = run
+    return res, caught[0]
+
+
+def oracle_run(jcfg, arr, specs, tau=None, pools=None):
+    from oracle import OracleSim
+    orc = OracleSim(jcfg, arr, specs, tau=tau)
+    if pools is not None:
+        for s, p in zip(orc.servers, pools):
+            s.pool = int(p)
+    return orc.run()
+
+
+RTOL = 1e-5
+
+
+def compare_results(tres, jres) -> None:
+    """The port's SimResult against the reference's: counts, wake counts,
+    the digest and the histogram percentiles exact; floats rtol 1e-5."""
+    assert tres.run_info.config_digest == jres.run_info.config_digest
+    for f in ("events", "n_jobs", "n_finished", "dropped"):
+        assert getattr(tres, f) == getattr(jres, f), f
+    assert tres.run_info.steps == jres.run_info.steps
+    np.testing.assert_array_equal(tres.wake_count, jres.wake_count)
+    for f in ("latencies", "energy_per_server", "residency"):
+        np.testing.assert_allclose(getattr(tres, f), getattr(jres, f),
+                                   rtol=RTOL, atol=0, err_msg=f)
+    for f in ("sim_time", "server_energy", "busy_core_seconds",
+              "mean_latency", "p99_latency"):
+        np.testing.assert_allclose(getattr(tres, f), getattr(jres, f),
+                                   rtol=RTOL, err_msg=f)
+    ts, js = tres.telemetry, jres.telemetry
+    for f in ("job_p50", "job_p95", "job_p99", "task_p50", "task_p99",
+              "jobs_binned", "tasks_binned", "sla_miss", "sla_total",
+              "tail_violations", "n_windows_used"):
+        assert getattr(ts, f) == getattr(js, f), f
+    for f in ("occupancy", "active_jobs", "awake_servers", "queue_depth",
+              "server_power", "state_residency"):
+        np.testing.assert_allclose(getattr(ts, f), getattr(js, f),
+                                   rtol=RTOL, atol=1e-6, err_msg=f)
+
+
+def three_way(name: str, oracle: bool) -> None:
+    """A named scenario through the reference's farm.simulate, the port's
+    on the CPU and (``oracle``) the heapq oracle; then every leaf of both
+    engines' final states."""
+    from repro_torch.core import jobs as tjobs
+    jcfg, arr, jspecs, tau, pools = scenario(name, jjobs)
+    tspecs = scenario(name, tjobs)[2]
+    pcfg = port_cfg(jcfg)
+    jres = jfarm.simulate(jcfg, arr, jspecs, tau=tau, pools=pools)
+    tres, final = port_simulate(pcfg, arr, tspecs, tau=tau, pools=pools)
+    assert tres.run_info.backend == "cpu"
+    assert tres.n_finished == len(arr)
+    compare_results(tres, jres)
+    # the reference's engine.run with the same config and shapes is a
+    # compile-cache hit
+    assert_state_matches(final, jax_tree(jax_run(jcfg, arr, jspecs, tau,
+                                                 pools)), name)
+    if oracle:
+        orc = oracle_run(jcfg, arr, jspecs, tau, pools)
+        lat_o = orc.latencies()
+        assert len(lat_o) == len(arr)
+        np.testing.assert_allclose(np.sort(tres.latencies), np.sort(lat_o),
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(tres.server_energy, orc.total_energy(),
+                                   rtol=2e-3)
+        if jcfg.tasks_per_job == 1:
+            np.testing.assert_array_equal(
+                tres.wake_count, [s.wake_count for s in orc.servers])
+
+
+def to_np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def max_ulps(got, exp) -> float:
+    """Largest |got - exp| in units of the last place of exp's dtype."""
+    got, exp = np.asarray(got), np.asarray(exp)
+    if exp.size == 0:
+        return 0.0
+    up = np.spacing(np.abs(exp).astype(exp.dtype))
+    return float(np.max(np.abs(got.astype(np.float64) - exp) / up))
+
+
+def check_leaf(got, exp, ctx: str, max_ulp: float = 1.0) -> None:
+    """Discrete values exactly; floats within ``max_ulp`` ulps (XLA may
+    contract a multiply-add into an FMA, which rounds once instead of
+    twice: one ulp)."""
+    g, e = to_np(got), np.asarray(exp)
+    assert g.shape == e.shape, f"{ctx}: shape {g.shape} vs {e.shape}"
+    if e.dtype.kind == "f":
+        assert g.dtype == e.dtype, f"{ctx}: dtype {g.dtype} vs {e.dtype}"
+        u = max_ulps(g, e)
+        assert u <= max_ulp, f"{ctx}: {u} ulps apart"
+    else:
+        np.testing.assert_array_equal(g, e, err_msg=ctx)
+
+
+def check_obj(port_obj, jax_obj, ctx: str, max_ulp: float = 1.0) -> None:
+    """Every field of a port state dataclass against the reference's."""
+    for f in dataclasses.fields(port_obj):
+        check_leaf(getattr(port_obj, f.name), getattr(jax_obj, f.name),
+                   f"{ctx}.{f.name}", max_ulp)
