@@ -7,24 +7,34 @@ Run from the root of a checkout:
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel of the main path from src/repro_torch/kernels/
-     csrc (one nvcc per source, started together);
+  2. build every CUDA kernel of the port from src/repro_torch/kernels/csrc
+     (one nvcc per source, all started together);
   3. hold each kernel against its plain PyTorch version on the card, at the
-     main path's shapes and at ragged ones;
-  4. parity of the port on the card against the port on the CPU for two
-     scenarios, with the kernels' launch counters checked against the
-     engine's step count;
-  5. the main run: farm.simulate on a 65,536-server x 4-core farm (the
-     largest farm benchmarks/bench_engine.py records) under 600 Poisson
-     jobs at 50% utilisation; every job must finish.  Each kernel is timed
-     at this size beside its bound and its plain version.
+     main paths' shapes and at ragged ones;
+  4. parity of the port on the card against the port on the CPU: two
+     discrete-event scenarios, with the engine kernels' launch counters
+     checked against the engine's step count; and hymba-1.5b serving at
+     full width cut to 2 layers in float32 (prefill and decode logits,
+     greedy tokens, one launch of each LM kernel per layer);
+  5. the discrete-event main run: farm.simulate on a 65,536-server x
+     4-core farm (the largest farm benchmarks/bench_engine.py records)
+     under 600 Poisson jobs at 50% utilisation; every job must finish;
+  6. the serving main run: ServeEngine.generate on hymba-1.5b (32 layers,
+     bf16, seeded random weights) for 4 prompts of 1,536 tokens and 32 new
+     tokens, greedy; exactly one launch of each LM kernel per layer.
+  Each kernel is then timed at its main path's shapes beside its bound,
+  its plain version and, where one exists, the library call computing the
+  same function; profiler breakdowns of both main paths follow.
 
-The second-to-last line is a JSON object describing each kernel; the last
+The second-to-last line is a JSON object describing each kernel (its
+stream time "ms" and profiler time "device_ms" among the keys); the last
 line is {"ok": true, "device": {...}}.  Without a card, or outside a
 checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import math
 import pathlib
@@ -40,10 +50,16 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(1, str(ROOT / "tests"))      # torch_kernel_inputs
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 non-tensor ops/s
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor ops/s
+# and dense bf16 tensor-core flop/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+PEAK_BF16_FLOP_S = 989e12
 N_MAIN, C_MAIN, JOBS_MAIN = 65_536, 4, 600
+# the serving main run and the card-vs-CPU serving parity run
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "hymba_1_5b", 4, 1536, 32
+LM_MAX_SEQ = 2048
+PAR_LAYERS, PAR_BATCH, PAR_PROMPT, PAR_NEW = 2, 2, 1100, 4
 
 
 def log(msg: str) -> None:
@@ -108,8 +124,8 @@ def kernel_device_us(fn, names, reps: int = 100):
     return us / reps if us > 0 else None
 
 
-def bound_ms(n_bytes: float, n_ops: float):
-    tb, to = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_OPS_S * 1e3
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = PEAK_F32_OPS_S):
+    tb, to = n_bytes / PEAK_BYTES_S * 1e3, n_ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -272,11 +288,30 @@ def parity(name, cfg, arr, specs, tau, dev):
         f"{t_gpu:.2f} s")
 
 
+def report_profile(tag, ks, wall, ours, steps=1, unit="macro-step"):
+    """Print a profiler window: device busy share of the wall clock,
+    launches, the top kernels and the share of the hand-written kernels
+    whose names contain one of ``ours``."""
+    busy_us = sum(t for _, t in ks.values())
+    if busy_us <= 0:
+        log(f"[profile] {tag}: the profiler recorded no device time: "
+            f"device busy share not measured")
+        return
+    n_launch = sum(c for c, _ in ks.values())
+    mine = sum(t for k, (_, t) in ks.items() if any(n in k for n in ours))
+    log(f"[profile] {tag}: wall {wall * 1e3:.1f} ms under the profiler, "
+        f"device busy {busy_us / 1e3:.2f} ms "
+        f"({100 * busy_us / 1e3 / (wall * 1e3):.1f}% of wall), {n_launch} "
+        f"kernel launches ({n_launch / steps:.0f} per {unit}); the "
+        f"hand-written kernels take {100 * mine / busy_us:.1f}% of the "
+        f"device time")
+    for k, (c, t) in sorted(ks.items(), key=lambda kv: -kv[1][1])[:8]:
+        log(f"[profile]   {t / 1e3:8.3f} ms {c:6d} calls  {k[:90]}")
+
+
 def profile_window(cfg, arr, specs, dev, warm: int = 20, steps: int = 10):
     """Where a macro-step's time goes: ``steps`` macro-steps of the main
-    run (after ``warm``) under torch.profiler -- device busy share of the
-    wall clock, kernel launches per step, the kernels that take the most
-    device time, and the share of the two hand-written kernels."""
+    run (after ``warm``) under torch.profiler."""
     from repro_torch.core import engine, jobs
     jt = jobs.build_jobs(cfg, np.asarray(arr), specs, device=dev)
     box = list(engine.init_state(cfg, jt))
@@ -288,22 +323,298 @@ def profile_window(cfg, arr, specs, dev, warm: int = 20, steps: int = 10):
             box[0] = engine.sim_step(box[0], cfg, box[1])
 
     ks, wall = device_kernels(window)
-    busy_us = sum(t for _, t in ks.values())
-    if busy_us <= 0:
-        log("[profile] the profiler recorded no device time: device busy "
-            "share not measured")
-        return
-    n_launch = sum(c for c, _ in ks.values())
-    ours = sum(t for k, (_, t) in ks.items()
-               if "dcsim" in k or "telemetry_bin" in k)
-    log(f"[profile] main run, {steps} macro-steps after {warm}: wall "
-        f"{wall * 1e3:.1f} ms under the profiler, device busy "
-        f"{busy_us / 1e3:.2f} ms ({100 * busy_us / 1e3 / (wall * 1e3):.1f}%"
-        f" of wall), {n_launch} kernel launches ({n_launch / steps:.0f} per "
-        f"macro-step); the two hand-written kernels take "
-        f"{100 * ours / busy_us:.1f}% of the device time")
-    for k, (c, t) in sorted(ks.items(), key=lambda kv: -kv[1][1])[:8]:
-        log(f"[profile]   {t / 1e3:8.3f} ms {c:6d} calls  {k[:90]}")
+    report_profile(f"main run, {steps} macro-steps after {warm}", ks, wall,
+                   ("dcsim", "telemetry_bin"), steps)
+
+
+# --------------------------------------------------------------------------
+# LM substrate: kernels, card-vs-CPU serving parity, serving main run
+# --------------------------------------------------------------------------
+
+# B, H, KV, Sq, Skv, hd, causal, window, softcap, dtype
+FLASH_MAIN = (LM_BATCH, 25, 5, LM_PROMPT, LM_PROMPT, 64, True, 1024, 0.0,
+              "bfloat16")                       # hymba-1.5b's prefill
+FLASH_RAGGED = [
+    (LM_BATCH, 25, 5, 1000, 1000, 64, True, 1024, 0.0, "bfloat16"),
+    (2, 16, 8, 1000, 1000, 64, True, 0, 50.0, "bfloat16"),  # softcap
+    (2, 8, 2, 700, 1300, 64, False, 0, 0.0, "bfloat16"),    # Sq != Skv
+    (2, 8, 4, 777, 777, 128, True, 256, 0.0, "float32"),    # hd 128, f32
+]
+SSM_MAIN = (LM_BATCH, LM_PROMPT, 3200, 16)      # hymba-1.5b's prefill
+SSM_RAGGED = [(3, 37, 200, 16)]
+
+
+def flash_args(case, dev, seed=31):
+    """The tests' builder; q/k/v stored as the model stores them, (B, S,
+    H, hd), and seen as (B, H, S, hd), as the serving path hands them to
+    the kernel."""
+    from torch_kernel_inputs import flash_inputs
+    B, H, KV, Sq, Skv, hd, causal, window, cap, dt = case
+    qkv = tuple(torch.from_numpy(a).to(dev, getattr(torch, dt))
+                .transpose(1, 2).contiguous().transpose(1, 2)
+                for a in flash_inputs(B, H, KV, Sq, Skv, hd, seed))
+    return qkv, dict(causal=causal, window=window, softcap=cap)
+
+
+def attn_pairs(Sq, Skv, causal, window) -> int:
+    """Unmasked (query, key) pairs of one head."""
+    q = np.arange(Sq)
+    hi = np.minimum(q, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(Sq, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def check_flash(case, dev):
+    """Tolerances of tests/test_kernels.py: 2e-2 in bf16, 2e-5 in f32 (the
+    kernel sums q.k and p.v in its own order)."""
+    from repro_torch.kernels import flash_attention, ref
+    args, kw = flash_args(case, dev)
+    got = flash_attention.flash_attention(*args, **kw)
+    exp = ref.mha_reference(*args, **kw)
+    torch.cuda.synchronize()
+    tol = 2e-2 if case[-1] == "bfloat16" else 2e-5
+    g, e = got.float(), exp.float()
+    err = float((g - e).abs().max())
+    if got.shape != exp.shape or got.dtype != exp.dtype:
+        fail(f"flash_attention {case}: {got.dtype}{tuple(got.shape)}, plain "
+             f"{exp.dtype}{tuple(exp.shape)}")
+    if not torch.isfinite(g).all() or \
+            ((g - e).abs() > tol + tol * e.abs()).any():
+        fail(f"flash_attention {case}: beyond tolerance {tol} of the plain "
+             f"version (max abs err {err})")
+    log(f"[kernels] flash_attention B,H,KV,Sq,Skv,hd={case[:6]} causal="
+        f"{case[6]} window={case[7]} softcap={case[8]} {case[9]}: within "
+        f"{tol} of the plain version (max abs err {err})")
+    return args, kw, err
+
+
+def check_ssm(B, S, Dss, N, dev, seed=33):
+    """y and h within rtol/atol 1e-5 (the plain version sums over the state
+    in another order)."""
+    from repro_torch.kernels import ref, ssm_scan
+    from torch_kernel_inputs import ssm_inputs, torch_args
+    args = torch_args(ssm_inputs(B, S, Dss, N, seed), dev)
+    got = ssm_scan.ssm_scan(*args)
+    exp = ref.ssm_scan_reference(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, e in zip(("y", "h_final"), got, exp):
+        if g.shape != e.shape or g.dtype != e.dtype:
+            fail(f"ssm_scan {(B, S, Dss, N)}: {name} is {g.dtype}"
+                 f"{tuple(g.shape)}, plain {e.dtype}{tuple(e.shape)}")
+        if not torch.allclose(g, e, rtol=1e-5, atol=1e-5):
+            fail(f"ssm_scan {(B, S, Dss, N)}: {name} beyond 1e-5 of the "
+                 f"plain version (max abs err {float((g - e).abs().max())})")
+        err = max(err, float((g - e).abs().max()))
+    log(f"[kernels] ssm_scan B,S,Dss,N={(B, S, Dss, N)}: y and h_final "
+        f"within 1e-5 of the plain version (max abs err {err})")
+    return args, err
+
+
+def lm_parity(dev):
+    """hymba-1.5b at full width cut to PAR_LAYERS layers, float32, on the
+    card against the CPU: prompts of PAR_PROMPT tokens (past the 1,024
+    window, so the prefill's ring roll runs), the step functions fed the
+    same tokens, then ServeEngine.generate on both."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import step
+    full = configs.get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=PAR_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    log(f"[lm-parity] {cfg.name} at full width cut to {PAR_LAYERS} of "
+        f"{full.n_layers} layers (the one cut), float32; B={PAR_BATCH}, "
+        f"prompts of {PAR_PROMPT} tokens, {PAR_NEW} new tokens")
+    p_cpu = transformer.make_params(cfg, torch.Generator().manual_seed(0),
+                                    device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to(dev)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        1, cfg.vocab, (PAR_BATCH, PAR_PROMPT)))
+    prefill, decode = step.make_prefill(cfg), step.make_serve_step(cfg)
+    worst = 0.0
+
+    def agree(what, g, c):
+        nonlocal worst
+        g = g.cpu()
+        if not torch.isfinite(g).all() or \
+                not torch.allclose(g, c, rtol=1e-3, atol=1e-3):
+            fail(f"lm-parity: {what} logits differ between card and CPU "
+                 f"(max abs err {float((g - c).abs().max())})")
+        worst = max(worst, float((g - c).abs().max()))
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        c_cpu = transformer.init_cache(cfg, PAR_BATCH, LM_MAX_SEQ,
+                                       device="cpu")
+        c_gpu = transformer.init_cache(cfg, PAR_BATCH, LM_MAX_SEQ,
+                                       device=dev)
+        l_cpu, c_cpu = prefill(p_cpu, toks, c_cpu)
+        l_gpu, c_gpu = prefill(p_gpu, toks.to(dev), c_gpu)
+        agree("prefill", l_gpu, l_cpu)
+        for i in range(PAR_NEW):
+            tok = l_cpu.argmax(-1)[:, None]
+            l_cpu, c_cpu = decode(p_cpu, c_cpu, tok, PAR_PROMPT + i)
+            l_gpu, c_gpu = decode(p_gpu, c_gpu, tok.to(dev), PAR_PROMPT + i)
+            agree(f"decode step {i}", l_gpu, l_cpu)
+    prompts = toks.tolist()
+    r_cpu = ServeEngine(cfg, p_cpu, max_batch=PAR_BATCH,
+                        max_seq=LM_MAX_SEQ, device="cpu").generate(
+        prompts, max_new=PAR_NEW)
+    ops.reset_launch_counts()
+    r_gpu = ServeEngine(cfg, p_gpu, max_batch=PAR_BATCH,
+                        max_seq=LM_MAX_SEQ, device=dev).generate(
+        prompts, max_new=PAR_NEW)
+    counts = ops.launch_counts()
+    if [r.tokens for r in r_gpu] != [r.tokens for r in r_cpu]:
+        fail("lm-parity: generate gave other greedy tokens on the card: "
+             f"{[r.tokens[PAR_PROMPT:] for r in r_gpu]} against "
+             f"{[r.tokens[PAR_PROMPT:] for r in r_cpu]}")
+    if counts["flash_attention"] != PAR_LAYERS or \
+            counts["ssm_scan"] != PAR_LAYERS:
+        fail(f"lm-parity: launch counts {counts}, expected one of each LM "
+             f"kernel per layer ({PAR_LAYERS})")
+    log(f"[lm-parity] card == CPU: prefill and {PAR_NEW} decode steps' "
+        f"logits within 1e-3 (max abs err {worst:.3g}); generate gave the "
+        f"same greedy tokens {[r.tokens[PAR_PROMPT:] for r in r_gpu]}; "
+        f"launches {counts}; {time.perf_counter() - t0:.1f} s")
+
+
+def lm_main(dev):
+    """The serving main run through the user's entry points: hymba-1.5b's
+    full config with the port's seeded random weights on the card,
+    ServeEngine(max_batch=4, max_seq=2048).generate of 4 prompts of 1,536
+    tokens, 32 new tokens, greedy."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import step
+    cfg = configs.get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = transformer.make_params(
+        cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"[lm-main] {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters "
+        f"({cfg.param_dtype}), random init on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    engine = ServeEngine(cfg, params, max_batch=LM_BATCH, max_seq=LM_MAX_SEQ)
+    prompts = np.random.default_rng(7).integers(
+        1, cfg.vocab, (LM_BATCH, LM_PROMPT)).tolist()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = engine.generate(prompts, max_new=LM_NEW)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if counts["flash_attention"] != cfg.n_layers or \
+            counts["ssm_scan"] != cfg.n_layers:
+        fail(f"lm-main: launch counts {counts}, expected {cfg.n_layers} "
+             f"of each LM kernel (one per layer of the one prefill)")
+    for r, p in zip(res, prompts):
+        new = r.tokens[len(p):]
+        if r.tokens[:len(p)] != p or len(new) != LM_NEW or \
+                not all(0 <= t < cfg.vocab for t in new):
+            fail(f"lm-main: bad generation {new}")
+    tm = engine.timings
+    with torch.inference_mode():           # logits finite (not counted)
+        toks = torch.tensor(prompts, device=dev)
+        cache = transformer.init_cache(cfg, LM_BATCH, LM_MAX_SEQ)
+        lg, cache = step.make_prefill(cfg)(params, toks, cache)
+        lg2, _ = step.make_serve_step(cfg)(params, cache,
+                                           lg.argmax(-1)[:, None], LM_PROMPT)
+        if not (torch.isfinite(lg).all() and torch.isfinite(lg2).all()):
+            fail("lm-main: non-finite logits")
+    log(f"[lm-main] generate: {LM_BATCH} x {LM_PROMPT} prompt tokens, "
+        f"{LM_NEW} new each: wall {wall:.3f} s; first token (prefill) "
+        f"{tm['first_token_s'] * 1e3:.1f} ms; decode "
+        f"{tm['decode_s'] / tm['decode_steps'] * 1e3:.2f} ms per step over "
+        f"{tm['decode_steps']} steps; {LM_BATCH * LM_NEW / wall:.1f} "
+        f"generated tokens/s; prefill "
+        f"{LM_BATCH * LM_PROMPT / tm['first_token_s']:.0f} tokens/s; "
+        f"peak memory {peak / 2**30:.2f} GiB; launches {counts}; "
+        f"first new tokens {[r.tokens[LM_PROMPT:LM_PROMPT + 4] for r in res]}")
+    return cfg, params, toks, counts
+
+
+def profile_serving(cfg, params, toks, dev):
+    """Where the serving time goes: one prefill and one decode step of the
+    main run under torch.profiler."""
+    from repro_torch.models import transformer
+    from repro_torch.train import step
+    prefill, decode = step.make_prefill(cfg), step.make_serve_step(cfg)
+    box = {}
+
+    def run_prefill():
+        with torch.inference_mode():
+            cache = transformer.init_cache(cfg, LM_BATCH, LM_MAX_SEQ)
+            box["lg"], box["cache"] = prefill(params, toks, cache)
+
+    ks, wall = device_kernels(run_prefill)
+    report_profile("serving prefill (4 x 1,536 tokens)", ks, wall,
+                   ("flash_attention", "ssm_scan"), 1, "prefill")
+    tok = box["lg"].argmax(-1)[:, None]
+
+    def run_decode():
+        with torch.inference_mode():
+            decode(params, box["cache"], tok, LM_PROMPT)
+
+    ks, wall = device_kernels(run_decode)
+    report_profile("serving decode step", ks, wall, ("flash_attention",
+                   "ssm_scan"), 1, "step")
+
+
+def lm_kernel_entries(flash_main, ssm_main, counts, fa_err, ss_err, dev):
+    """Time both LM kernels at the serving prefill's shapes beside their
+    bounds, plain versions and (attention) the library call."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref, ssm_scan
+    (q, k, v), kw = flash_main
+    B, H, KV, S, _, hd, causal, W, _, _ = FLASH_MAIN
+    fa_ms = time_ms(lambda: flash_attention.flash_attention(q, k, v, **kw),
+                    reps=50, warmup=5)
+    fa_plain = time_ms(lambda: ref.mha_reference(q, k, v, **kw), reps=10,
+                       warmup=2)
+    pos = torch.arange(S, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+    fa_lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True), reps=50, warmup=5)
+    out = flash_attention.flash_attention(q, k, v, **kw)
+    flops = 4 * hd * attn_pairs(S, S, causal, W) * B * H
+    fa_bound, fa_by = bound_ms(nbytes(q, k, v, out), flops,
+                               PEAK_BF16_FLOP_S)
+    ss_ms = time_ms(lambda: ssm_scan.ssm_scan(*ssm_main), reps=50, warmup=5)
+    ss_plain = time_ms(lambda: ref.ssm_scan_reference(*ssm_main), reps=3,
+                       warmup=1)
+    y, h = ssm_scan.ssm_scan(*ssm_main)
+    Bs, Ss, Dss, N = SSM_MAIN
+    # per state element and step: dt*A, exp, da*h, u*B, add, h*C, add
+    ss_bound, ss_by = bound_ms(nbytes(*ssm_main, y, h), 7 * Bs * Ss * Dss * N)
+    entries = [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:83",
+         "launches": counts["flash_attention"], "max_abs_err": fa_err,
+         "ms": fa_ms, "plain_ms": fa_plain, "bound_ms": fa_bound,
+         "bound_by": fa_by, "library_ms": fa_lib},
+        {"name": "ssm_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+         "replaces": "src/repro/kernels/ssm_scan.py:52",
+         "launches": counts["ssm_scan"], "max_abs_err": ss_err,
+         "ms": ss_ms, "plain_ms": ss_plain, "bound_ms": ss_bound,
+         "bound_by": ss_by, "library_ms": None},
+    ]
+    dev_us = {
+        "flash_attention": kernel_device_us(
+            lambda: flash_attention.flash_attention(q, k, v, **kw),
+            ["flash_attention_kernel"], reps=20),
+        "ssm_scan": kernel_device_us(lambda: ssm_scan.ssm_scan(*ssm_main),
+                                     ["ssm_scan_kernel"], reps=20)}
+    return entries, dev_us
 
 
 # --------------------------------------------------------------------------
@@ -315,6 +626,9 @@ def main() -> None:
     from repro_torch.core import farm
     from repro_torch.kernels import build, ops
 
+    # float32 products in full float32 on the card, as on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -332,7 +646,7 @@ def main() -> None:
         regs = [ln.strip() for ln in report.splitlines()
                 if "registers" in ln or "spill" in ln]
         log(f"[build] {name}: {path.name} ({secs:.1f} s) "
-            + " | ".join(regs))
+            + " | ".join(regs[:6]) + (" | ..." if len(regs) > 6 else ""))
 
     # phase 3: kernels vs plain versions
     dc_main, dc_err = check_dcsim(N_MAIN, C_MAIN, 1, dev)
@@ -342,12 +656,19 @@ def main() -> None:
     tb_main, tb_err = check_telemetry(JOBS_MAIN, JOBS_MAIN, 1, 19, 4, dev)
     _, e4 = check_telemetry(100_003, 300_009, 256, 19, 5, dev)
     tb_err = max(tb_err, e4)
+    fa_q, fa_kw, fa_err = check_flash(FLASH_MAIN, dev)
+    for case in FLASH_RAGGED:
+        fa_err = max(fa_err, check_flash(case, dev)[2])
+    ss_main, ss_err = check_ssm(*SSM_MAIN, dev)
+    for case in SSM_RAGGED:
+        ss_err = max(ss_err, check_ssm(*case, dev)[1])
 
     # phase 4: card vs CPU
     parity("one_farm n512 j600", *one_farm_cfg(512, 600), dev)
     parity("dag_chain SINGLE_TIMER", *dag_chain_cfg(), dev)
+    lm_parity(dev)
 
-    # phase 5: the main run through the user's entry point
+    # phase 5: the discrete-event main run through the user's entry point
     cfg, arr, specs, _ = one_farm_cfg(N_MAIN, JOBS_MAIN)
     ops.reset_launch_counts()
     res = farm.simulate(cfg, arr, specs)
@@ -370,7 +691,10 @@ def main() -> None:
         f"{res.mean_latency * 1e3:.3f} ms, p99 {res.p99_latency * 1e3:.3f} "
         f"ms, energy {res.server_energy:.1f} J; launches {counts}")
 
-    # kernel times at the main path's shapes
+    # phase 6: the serving main run through the user's entry point
+    lm_cfg, lm_params, lm_toks, lm_counts = lm_main(dev)
+
+    # kernel times at the main paths' shapes
     from repro_torch.kernels import dcsim_step, ref, telemetry_bin
     dc_kw = {"throttle_power_scale": 0.6}
     dc_ms = time_ms(lambda: dcsim_step.dcsim_advance(*dc_main, **dc_kw))
@@ -413,14 +737,22 @@ def main() -> None:
         "telemetry_accum": kernel_device_us(
             lambda: telemetry_bin.telemetry_accum(*tb_main),
             ["telemetry_bin"])}
+    lm_entries, lm_dev_us = lm_kernel_entries(
+        (fa_q, fa_kw), ss_main, lm_counts, fa_err, ss_err, dev)
+    kernels += lm_entries
+    dev_us |= lm_dev_us
     for k in kernels:
         d = dev_us[k["name"]]
+        k["device_ms"] = None if d is None else d / 1e3
+        lib = "" if k["library_ms"] is None else \
+            f"; library call {k['library_ms'] * 1e3:.1f} us"
         log(f"[time] {k['name']}: {k['ms'] * 1e3:.1f} us per call on the "
             f"stream, {'not measured' if d is None else f'{d:.2f} us'} of "
             f"device time (profiler); bound {k['bound_ms'] * 1e3:.3f} us by "
-            f"{k['bound_by']}; plain version {k['plain_ms'] * 1e3:.1f} us; "
-            f"{k['launches']} launches in the main run")
+            f"{k['bound_by']}; plain version {k['plain_ms'] * 1e3:.1f} us"
+            f"{lib}; {k['launches']} launches in its main run")
     profile_window(cfg, arr, specs, dev)
+    profile_serving(lm_cfg, lm_params, lm_toks, dev)
 
     log(smi)
     log(json.dumps({"kernels": kernels}))

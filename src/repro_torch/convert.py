@@ -1,5 +1,5 @@
-"""Carry configurations and states across from the JAX package's plain
-data, so both engines can start from the same point.
+"""Carry configurations, states and model parameters across from the JAX
+package's plain data, so both packages can start from the same point.
 
 ``config_from_dict`` rebuilds a port ``SimConfig`` from the reference's
 ``farm._config_dict(cfg)`` dump; ``state_from_numpy`` builds a port
@@ -7,11 +7,14 @@ data, so both engines can start from the same point.
 keyed by field path (``"farm.core_busy_until"``; a leading ``"."`` as
 ``jax.tree_util.keystr`` writes it is accepted).  Leaves of the subtrees
 this slice does not model (flows, net, thermal, trace) are ignored.
+``params_from_jax`` turns the reference's LM parameter tree (numpy
+leaves, stacked over periods) into the port's per-layer ``Params``.
 Nothing here imports JAX.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -84,3 +87,41 @@ def state_from_numpy(tree: dict, cfg: T.SimConfig, device=None) -> T.SimState:
         raise ValueError(f"state clock is {state.t.dtype}, config says "
                          f"{cfg.time_dtype}")
     return state
+
+
+def _param_tensor(x, device) -> torch.Tensor:
+    """A numpy leaf as a tensor, bit for bit.  bfloat16 leaves arrive as
+    ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` refuses: they
+    go through an int16 view."""
+    a = np.array(x, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(cfg, tree: dict, device=None):
+    """The port's ``Params`` for ``cfg`` from the reference's parameter
+    tree (``repro.models.transformer.make_params(...)[0]`` with numpy
+    leaves): ``tree["layers"][j]`` holds pattern position j stacked over
+    periods, so layer i is ``tree["layers"][i % period][i // period]``."""
+    from .models.transformer import Params, check_supported
+    check_supported(cfg)
+    dev = T.resolve_device(device)
+    conv = functools.partial(_param_tensor, device=dev)
+    port = {k: _map_tree(v, conv) for k, v in tree.items() if k != "layers"}
+    stacks = tree["layers"]
+    if len(stacks) != cfg.period:
+        raise ValueError(f"{len(stacks)} stacked pattern positions, config "
+                         f"has period {cfg.period}")
+    port["layers"] = [
+        _map_tree(stacks[i % cfg.period],
+                  lambda a, j=i // cfg.period: conv(a[j]))
+        for i in range(cfg.n_layers)]
+    return Params(port)

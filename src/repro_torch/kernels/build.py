@@ -19,7 +19,7 @@ import subprocess
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("dcsim_step", "telemetry_bin")
+SOURCES = ("dcsim_step", "telemetry_bin", "flash_attention", "ssm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -106,6 +106,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "telemetry_bin":
         fn = lib.telemetry_bin_launch
         fn.argtypes = [P, P, I, P, P, I, F, F, I, P, P, P, I, I, P, P, P]
+    elif name == "flash_attention":
+        fn = lib.flash_attention_launch
+        fn.argtypes = [P] * 4 + [I] * 7 + [P, I, I, F, F, P]
+    elif name == "ssm_scan":
+        fn = lib.ssm_scan_launch
+        fn.argtypes = [P] * 7 + [I] * 4 + [P]
     else:
         raise ValueError(f"unknown kernel source {name!r}")
     fn.restype = I

@@ -6,7 +6,8 @@ version in ``ref``.  ``launch_counts`` reads each kernel's launch counter.
 """
 from __future__ import annotations
 
-from . import dcsim_step, ref, telemetry_bin
+from . import dcsim_step, flash_attention as _fa, ref, ssm_scan as _ssm, \
+    telemetry_bin
 
 
 def _route(x, name):
@@ -39,11 +40,29 @@ def telemetry_accum(job_vals, job_wts, task_vals, task_wts,
               win, widx, wvals, lo, hi)
 
 
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """Streaming-softmax attention, q (B, H, Sq, hd), k/v (B, KV, Skv, hd)
+    (see ``ref.mha_reference``)."""
+    fn = _fa.flash_attention if _route(q, "flash_attention") \
+        else ref.mha_reference
+    return fn(q, k, v, causal=causal, window=window, softcap=softcap)
+
+
+def ssm_scan(dt, Bm, Cm, x, A):
+    """Selective-SSM scan returning (y, h_final) (see
+    ``ref.ssm_scan_reference``)."""
+    fn = _ssm.ssm_scan if _route(x, "ssm_scan") else ref.ssm_scan_reference
+    return fn(dt, Bm, Cm, x, A)
+
+
+_KERNELS = {"dcsim_advance": dcsim_step, "telemetry_accum": telemetry_bin,
+            "flash_attention": _fa, "ssm_scan": _ssm}
+
+
 def launch_counts() -> dict:
-    return {"dcsim_advance": dcsim_step.LAUNCHES,
-            "telemetry_accum": telemetry_bin.LAUNCHES}
+    return {name: mod.LAUNCHES for name, mod in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    dcsim_step.LAUNCHES = 0
-    telemetry_bin.LAUNCHES = 0
+    for mod in _KERNELS.values():
+        mod.LAUNCHES = 0

@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Each function computes what its CUDA kernel computes, with the same
-roundings in the same order, so the kernel can be held against it on the
-card and the CPU engine runs through it (``ops`` dispatches CPU tensors
-here).  They are ports of ``repro.kernels.ref``'s oracles.
+roundings in the same order where the kernel can repeat them (the
+attention's and the scan's sums run in another order), so the kernel can
+be held against it on the card and the CPU paths run through it (``ops``
+dispatches CPU tensors here).  They are ports of ``repro.kernels.ref``'s
+oracles.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import math
 import torch
 
 INF = 1.0e30
+NEG_INF = -1.0e30
 
 
 def _const(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -106,3 +109,52 @@ def dcsim_advance_reference(core_busy, srv_state, energy, busy_seconds,
     next_cand = torch.minimum(new_busy.min(),
                               torch.minimum(srv_wake_at.min(), timer.min()))
     return new_busy, done, energy, busy_seconds, next_cand
+
+
+def mha_reference(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """Dense softmax attention.  q (B, H, Sq, hd); k/v (B, KV, Skv, hd)
+    with H % KV == 0 (kv head = q head // (H / KV)); any strides.  Scores,
+    softmax and the value product in float32; returns (B, H, Sq, hd) in
+    q's dtype.  A masked score is NEG_INF, so a row with no unmasked key
+    averages every value uniformly."""
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    G = H // KV
+    f32 = torch.float32
+    qg = q.reshape(B, KV, G, Sq, hd).to(f32)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(f32)) / math.sqrt(hd)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window:
+        mask &= k_pos > q_pos - window
+    s = torch.where(mask, s, _const(NEG_INF, s))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(f32))
+    return o.reshape(B, H, Sq, hd).to(q.dtype)
+
+
+def ssm_scan_reference(dt, Bm, Cm, x, A):
+    """Selective-SSM recurrence in float32, one step at a time:
+
+      h = exp(dt_t * A) * h + (dt_t * x_t) * B_t ;  y_t = sum_n h * C_t
+
+    dt/x (B, S, Dss); Bm/Cm (B, S, N); A (Dss, N).  Returns (y (B, S, Dss)
+    in x's dtype, h_final (B, Dss, N) float32)."""
+    Bsz, S, Dss = x.shape
+    N = Bm.shape[-1]
+    f32 = torch.float32
+    dt, Bm, Cm, xf, A = (t.to(f32) for t in (dt, Bm, Cm, x, A))
+    h = torch.zeros((Bsz, Dss, N), dtype=f32, device=x.device)
+    ys = []
+    for t in range(S):
+        dt_t = dt[:, t]
+        da = torch.exp(dt_t[..., None] * A[None])
+        h = da * h + (dt_t * xf[:, t])[..., None] * Bm[:, t][:, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((Bsz, 0, Dss))
+    return y.to(x.dtype), h

@@ -1,0 +1,201 @@
+"""Layer primitives of the LM substrate in PyTorch (port of
+``repro.models.layers``: norms, activations, rotary positions, the dense
+MLP and self-attention).
+
+Every function takes parameters as a mapping (``p["wq"]``, ``"q_norm" in
+p``) and tensors in the reference's layouts: activations (B, S, D),
+queries and keys (B, S, heads, head_dim).  Prefill and train attention go
+through ``kernels.ops.flash_attention`` (the CUDA kernel on the card, its
+plain version on the CPU); decode attention over the ring cache, which
+needs key positions and a query offset the kernel does not take, is plain
+tensor code here (``attend``), as it is jnp outside any Pallas kernel in
+the reference.  Mesh sharding constraints of the reference have no
+counterpart on one card.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+
+NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------------
+# norms / activations / positional encodings
+# --------------------------------------------------------------------------
+
+def rms_norm(x, weight, eps=1e-6):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + weight.float())).to(dt)
+
+
+def act_fn(name):
+    return {"silu": F.silu,
+            "gelu": functools.partial(F.gelu, approximate="tanh")}[name]
+
+
+def softcap(x, cap):
+    return torch.tanh(x / cap) * cap if cap else x
+
+
+@functools.lru_cache(maxsize=32)
+def _inv_freq(head_dim: int, theta: float, device: torch.device):
+    """1 / theta^(i / half), float32, computed once on the CPU and moved to
+    ``device`` once, so the card and the CPU rotate by the same angles."""
+    half = head_dim // 2
+    inv = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32) / half))
+    return inv.to(device)
+
+
+def rope_freqs(positions, head_dim, theta):
+    """positions (...,) int -> (..., head_dim/2) angles."""
+    inv = _inv_freq(head_dim, float(theta), positions.device)
+    return positions[..., None].float() * inv
+
+
+def apply_rope(x, positions, theta):
+    """x (..., S, H, hd), positions (..., S)."""
+    ang = rope_freqs(positions, x.shape[-1], theta)      # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# dense MLP (gated SiLU, gated GELU or plain GELU)
+# --------------------------------------------------------------------------
+
+def mlp(p, x, act="silu"):
+    if act == "silu":                                    # gated SiLU
+        h = F.silu(x @ p["wg"]) * (x @ p["wu"])
+    elif act == "geglu":                                 # gated GELU (gemma)
+        h = act_fn("gelu")(x @ p["wg"]) * (x @ p["wu"])
+    else:                                                # plain GELU
+        h = act_fn(act)(x @ p["wu"])
+    return h @ p["wd"]
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+
+def _qk_norm(q, k, p, eps):
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], eps)
+        k = rms_norm(k, p["k_norm"], eps)
+    return q, k
+
+
+def qkv_proj(p, x, cfg):
+    B, S, D = x.shape
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.attn_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q, k = _qk_norm(q, k, p, cfg.norm_eps)
+    return q, k, v
+
+
+def attend(q, k, v, *, causal, q_offset=0, window=0, attn_softcap=0.0,
+           kv_positions=None):
+    """GQA attention in plain tensor code (the decode path).
+
+    q (B, Sq, H, hd); k/v (B, Skv, KV, hd) with H % KV == 0.  Scores in
+    float32 (the reference's ``preferred_element_type``: bf16 products are
+    exact in float32, so casting first is the same contraction); the
+    probabilities are cast to v's dtype before the value product, as in
+    the reference.  ``q_offset`` is the absolute position of q[:, 0];
+    ``kv_positions`` (B, Skv) gives each key's absolute position (ring
+    caches, -1 = empty slot).  The reference's query chunking bounds its
+    memory at long Sq and does not change the result; decode has Sq = 1."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if kv_positions is None:
+        kv_positions = torch.arange(Skv, device=q.device)[None].expand(B, Skv)
+    kv_pos = kv_positions[:, None, None, None, :]            # (B,1,1,1,Skv)
+    qg = q.reshape(B, Sq, KV, G, hd).float()
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    if attn_softcap:
+        s = softcap(s, attn_softcap)
+    qpos = (q_offset
+            + torch.arange(Sq, device=q.device))[None, None, None, :, None]
+    m = kv_pos >= 0
+    if causal:
+        m = m & (kv_pos <= qpos)
+    if window:
+        m = m & (kv_pos > qpos - window)
+    p = torch.softmax(torch.where(m, s, NEG_INF), dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def attention_block(p, x, cfg, *, kind, mode, cache=None, pos=0):
+    """Self-attention mixer.  kind in {attn, swa, hymba}; mode in {train,
+    prefill, decode}.  Returns (out, new_cache).
+
+    Caches hold *rotated* keys plus the absolute position of each slot
+    (``pos_ids``; -1 = empty).  Sliding-window caches are rings of size W
+    written at ``pos % W``; full caches are written at ``pos``."""
+    B, S, D = x.shape
+    window = cfg.sliding_window if kind in ("swa", "hymba") else 0
+    q, k, v = qkv_proj(p, x, cfg)
+
+    if mode == "decode":
+        positions = torch.full((B, S), pos, device=x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        cache_k, cache_v, slot_pos = cache["k"], cache["v"], cache["pos_ids"]
+        W = cache_k.shape[1]
+        slot = pos % W if window else pos
+        sel = (torch.arange(W, device=x.device) == slot)[None, :, None, None]
+        cache_k = torch.where(sel, k.to(cache_k.dtype), cache_k)
+        cache_v = torch.where(sel, v.to(cache_v.dtype), cache_v)
+        slot_pos = torch.where(sel[..., 0, 0], pos, slot_pos)
+        out = attend(q, cache_k, cache_v, causal=True, q_offset=pos,
+                     window=window, attn_softcap=cfg.attn_softcap,
+                     kv_positions=slot_pos)
+        new_cache = {"k": cache_k, "v": cache_v, "pos_ids": slot_pos}
+    else:
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        # the kernel's (B, H, S, hd) interface over the model's (B, S, H,
+        # hd) tensors: strided views, no copies
+        out = ops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, window=window, softcap=cfg.attn_softcap
+        ).transpose(1, 2)
+        new_cache = None
+        if mode == "prefill" and cache is not None:
+            W = cache["k"].shape[1]
+            if W <= S:                                  # keep the last W,
+                ks, vs, ps = k[:, -W:], v[:, -W:], positions[:, -W:]
+                if S % W:                               # ring-aligned so that
+                    shift = S % W                       # slot == pos % W
+                    ks = torch.roll(ks, shift, dims=1)
+                    vs = torch.roll(vs, shift, dims=1)
+                    ps = torch.roll(ps, shift, dims=1)
+            else:                                       # right-pad to W
+                ks = F.pad(k, (0, 0, 0, 0, 0, W - S))
+                vs = F.pad(v, (0, 0, 0, 0, 0, W - S))
+                ps = F.pad(positions, (0, W - S), value=-1)
+            new_cache = {"k": ks.to(cache["k"].dtype),
+                         "v": vs.to(cache["v"].dtype),
+                         "pos_ids": ps.to(torch.int32)}
+
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"], new_cache

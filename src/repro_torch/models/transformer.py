@@ -1,0 +1,283 @@
+"""Model assembly in PyTorch (port of ``repro.models.transformer``):
+parameters, decode caches and the forward pass, for decoder-only models
+whose blocks are ``attn``, ``swa`` or ``hymba``.
+
+The reference stacks each pattern position's parameters over periods and
+scans over them; here every layer has its own parameters (``Params``, an
+``nn.Module`` that reads like the reference's nested dict) and a plain
+Python loop runs the layers.  Caches are one dict per layer.  Mesh
+sharding, ``remat``, ``scan_layers``, ``fsdp_embed``, ``microbatches``
+and ``use_flash`` have no counterpart on one card, and ``attn_chunk`` and
+``attn_bf16_scores`` tune the reference's jnp attention, which the flash
+kernel replaces: they are carried in the config and not read.
+Everything else the reference's forward supports raises
+``NotImplementedError`` naming the ROADMAP item that will bring it.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..core.types import resolve_device
+from . import layers, ssm
+from .config import ModelConfig
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+KINDS = ("attn", "swa", "hymba")
+
+
+def cdtype(cfg):
+    return DTYPES[cfg.compute_dtype]
+
+
+def pdtype(cfg):
+    return DTYPES[cfg.param_dtype]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for what this slice of the port does not
+    run, naming the ROADMAP Queue 1 item that brings it."""
+    refused = []
+    if cfg.is_moe:
+        refused.append("MoE blocks (item 14)")
+    for kind in sorted(set(cfg.block_pattern) - set(KINDS)):
+        refused.append(f"block kind {kind!r} (item 15)")
+    if cfg.is_enc_dec or cfg.cross_attn:
+        refused.append("encoder-decoder / cross_attn (item 16)")
+    if cfg.pos != "rope":
+        refused.append(f"pos={cfg.pos!r} (item 16)")
+    if cfg.frontend != "none":
+        refused.append(f"frontend={cfg.frontend!r} (item 16)")
+    if cfg.skip_attention:
+        refused.append("skip_attention, a roofline probe (item 19)")
+    if refused:
+        raise NotImplementedError(
+            f"{cfg.name}: not ported yet: {'; '.join(refused)} -- see "
+            f"ROADMAP.md Queue 1")
+
+
+# ==========================================================================
+# parameters
+# ==========================================================================
+
+class Params(nn.Module):
+    """A nested parameter dictionary as an ``nn.Module``: tensors are
+    parameters (no gradients: the port serves), dicts are submodules,
+    lists are ``nn.ModuleList``s.  Read like the reference's pytree:
+    ``p["mixer"]["attn"]["wq"]``, ``"q_norm" in p``."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(key, Params(val))
+            elif isinstance(val, (list, tuple)):
+                self.add_module(key, nn.ModuleList(Params(t) for t in val))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(val, requires_grad=False))
+
+    def __getitem__(self, key):
+        return getattr(self, key)
+
+    def __contains__(self, key):
+        return key in self._parameters or key in self._modules
+
+
+class _Init:
+    """The port's own initializer: the reference's distributions (normal,
+    scaled by 1/sqrt(fan_in)) drawn from one ``torch.Generator``."""
+
+    def __init__(self, cfg, generator, device):
+        self.cfg, self.gen, self.dev = cfg, generator, device
+
+    def normal(self, shape, scale):
+        return torch.randn(shape, generator=self.gen, dtype=torch.float32,
+                           device=self.dev) * scale
+
+    def dense(self, fan_in, shape, dtype=None):
+        return self.normal(shape, 1.0 / math.sqrt(fan_in)).to(
+            dtype or pdtype(self.cfg))
+
+    def zeros(self, shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=self.dev)
+
+    def full(self, shape, val):
+        return torch.full(shape, val, dtype=torch.float32, device=self.dev)
+
+
+def _attn_params(cfg, init):
+    D, Qd, KVd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    p = {"wq": init.dense(D, (D, Qd)), "wk": init.dense(D, (D, KVd)),
+         "wv": init.dense(D, (D, KVd)), "wo": init.dense(Qd, (Qd, D))}
+    if cfg.attn_bias:
+        dt = pdtype(cfg)
+        p |= {"bq": init.zeros((Qd,), dt), "bk": init.zeros((KVd,), dt),
+              "bv": init.zeros((KVd,), dt)}
+    if cfg.qk_norm:
+        p |= {"q_norm": init.zeros((cfg.head_dim,)),
+              "k_norm": init.zeros((cfg.head_dim,))}
+    return p
+
+
+def _mlp_params(cfg, init):
+    D, F = cfg.d_model, cfg.d_ff
+    p = {"wu": init.dense(D, (D, F)), "wd": init.dense(F, (F, D))}
+    if cfg.act in ("silu", "geglu"):
+        p["wg"] = init.dense(D, (D, F))
+    return p
+
+
+def _ssm_params(cfg, init):
+    D, Dss, N, K = cfg.d_model, cfg.d_ssm, cfg.ssm_state, cfg.ssm_conv
+    a = torch.arange(1, N + 1, dtype=torch.float32,
+                     device=init.dev)[None].repeat(Dss, 1)
+    return {"in_proj": init.dense(D, (D, 2 * Dss)),
+            "conv_w": init.dense(K, (K, Dss)),
+            "conv_b": init.zeros((Dss,), pdtype(cfg)),
+            "dt_w": init.full((Dss,), 1.0),
+            "dt_b": init.full((Dss,), -4.6),         # softplus ~ 0.01
+            "w_B": init.dense(Dss, (Dss, N)),
+            "w_C": init.dense(Dss, (Dss, N)),
+            "A_log": torch.log(a),
+            "d_skip": init.full((Dss,), 1.0),
+            "out_proj": init.dense(Dss, (Dss, cfg.d_model))}
+
+
+def _block_params(cfg, kind, init):
+    D = cfg.d_model
+    p = {"ln1": init.zeros((D,))}
+    if kind == "hymba":
+        p["mixer"] = {"attn": _attn_params(cfg, init),
+                      "ssm": _ssm_params(cfg, init)}
+    else:
+        p["mixer"] = _attn_params(cfg, init)
+    if cfg.d_ff > 0:
+        p["ln2"] = init.zeros((D,))
+        p["ffn"] = _mlp_params(cfg, init)
+    return p
+
+
+def layer_kind(cfg, i: int) -> str:
+    return cfg.block_pattern[i % cfg.period]
+
+
+def make_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> Params:
+    """Random parameters from ``generator`` on ``device`` (the card unless
+    the caller asks for the CPU; the generator must live there too)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    if torch.device(generator.device).type != dev.type:
+        raise ValueError(f"the generator is on {generator.device}, the "
+                         f"parameters go to {dev}")
+    init = _Init(cfg, generator, dev)
+    tree = {"embed": init.normal((cfg.vocab, cfg.d_model), 0.02).to(
+        pdtype(cfg))}
+    tree["layers"] = [_block_params(cfg, layer_kind(cfg, i), init)
+                      for i in range(cfg.n_layers)]
+    tree["final_norm"] = init.zeros((cfg.d_model,))
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = init.dense(cfg.d_model, (cfg.d_model, cfg.vocab))
+    return Params(tree)
+
+
+# ==========================================================================
+# caches
+# ==========================================================================
+
+def cache_len_for(cfg, kind, S):
+    if kind in ("swa", "hymba") and cfg.sliding_window:
+        return min(cfg.sliding_window, S)
+    return S
+
+
+def init_cache(cfg: ModelConfig, B: int, S: int, dtype=None, device=None):
+    """Decoder state for the serve step: one dict per layer (ring caches of
+    rotated keys for swa/hymba, full caches for attn, plus the SSM state
+    for hymba)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dt = dtype or cdtype(cfg)
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    caches = []
+    for i in range(cfg.n_layers):
+        kind = layer_kind(cfg, i)
+        W = cache_len_for(cfg, kind, S)
+        c = {"k": torch.zeros((B, W, kv, hd), dtype=dt, device=dev),
+             "v": torch.zeros((B, W, kv, hd), dtype=dt, device=dev),
+             "pos_ids": torch.full((B, W), -1, dtype=torch.int32,
+                                   device=dev)}
+        if kind == "hymba":
+            c["ssm"] = ssm.ssm_init_state(cfg, B, dt, dev)
+        caches.append(c)
+    return caches
+
+
+# ==========================================================================
+# forward pass
+# ==========================================================================
+
+def _apply_block(cfg, kind, p, x, *, mode, cache, pos):
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    new_cache = {}
+    if kind in ("attn", "swa"):
+        mix, kv_cache = layers.attention_block(
+            p["mixer"], h, cfg, kind=kind, mode=mode, cache=cache, pos=pos)
+        if kv_cache:
+            new_cache.update(kv_cache)
+    else:                                                # hymba
+        a_cache = {k: cache[k] for k in ("k", "v", "pos_ids")} \
+            if cache else None
+        mix_a, kv_cache = layers.attention_block(
+            p["mixer"]["attn"], h, cfg, kind="hymba", mode=mode,
+            cache=a_cache, pos=pos)
+        mix_s, s_state = ssm.mamba_mixer(
+            p["mixer"]["ssm"], h, cfg, mode=mode,
+            state=cache.get("ssm") if cache else None)
+        mix = 0.5 * (mix_a + mix_s)
+        if kv_cache:
+            new_cache.update(kv_cache)
+        if s_state:
+            new_cache["ssm"] = s_state
+    x = x + mix
+    if "ffn" in p:
+        h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + layers.mlp(p["ffn"], h2, cfg.act)
+    return x, new_cache
+
+
+def head(cfg, params, x):
+    """Final logits of hidden states x (B, S, D)."""
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return layers.softcap(x @ w.to(x.dtype), cfg.final_softcap)
+
+
+def forward(cfg: ModelConfig, params, tokens, *, mode="train", cache=None,
+            pos=0, skip_head=False):
+    """tokens (B, S) integer.  Returns (logits, new_cache, aux) as the
+    reference does (aux, the MoE loss, is 0 here); with skip_head=True
+    returns the final hidden states instead of logits."""
+    check_supported(cfg)
+    dt = cdtype(cfg)
+    x = params["embed"][tokens.long()].to(dt)
+    if cfg.family == "audio" or cfg.name.startswith("gemma"):
+        # a 0-d tensor of x's dtype: the scale rounds to it first, as the
+        # reference's weakly typed Python float does
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=dt,
+                           device=x.device)
+    new_caches = [] if cache is not None else None
+    for i, p in enumerate(params["layers"]):
+        c = cache[i] if cache is not None else None
+        x, nc = _apply_block(cfg, layer_kind(cfg, i), p, x, mode=mode,
+                             cache=c, pos=pos)
+        if cache is not None:
+            new_caches.append(nc if nc else c)
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if skip_head:
+        return x, new_caches, aux
+    return head(cfg, params, x), new_caches, aux

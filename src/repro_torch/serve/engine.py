@@ -1,0 +1,110 @@
+"""Batched serving engine (port of ``repro.serve.engine``): prefill, then
+step-synchronous decode with greedy or temperature sampling.
+
+As in the reference, prompts are right-padded with token 0 to the longest
+prompt, every sequence decodes from that common position, and the cache
+holds ``max_seq`` positions (a ring of ``sliding_window`` slots for
+swa/hymba layers).  The sampled tokens stay on the device as the next
+step's input; the host reads them once per token.  ``timings`` holds the
+last ``generate``'s host-clock seconds to the first token (cache, prefill,
+first sample) and of the decode steps; each ends in that host read, so
+the device work is inside it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..core.types import resolve_device
+from ..models import transformer
+from ..models.config import ModelConfig
+from ..train import step as step_lib
+
+
+@dataclasses.dataclass
+class GenResult:
+    tokens: List[int]
+    prompt_len: int
+    steps: int
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
+                 max_seq: int = 256, device=None):
+        """``params`` from ``transformer.make_params`` or
+        ``convert.params_from_jax``, on ``device`` (the card unless the
+        caller asks for the CPU)."""
+        transformer.check_supported(cfg)
+        self.device = resolve_device(device)
+        where = {p.device.type for p in params.parameters()}
+        if where != {self.device.type}:
+            raise ValueError(f"parameters are on {sorted(where)}, the "
+                             f"engine runs on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self._prefill = step_lib.make_prefill(cfg)
+        self._decode = step_lib.make_serve_step(cfg)
+        self.timings: dict = {}
+
+    @torch.inference_mode()
+    def generate(self, prompts: List[List[int]], max_new: int = 32,
+                 temperature: float = 0.0, eos: Optional[int] = None,
+                 seed: int = 0) -> List[GenResult]:
+        """Generate for up to max_batch prompts (batched, left-aligned).
+        Greedy (``temperature <= 0``) takes the argmax, ties to the lowest
+        index; otherwise tokens are drawn from a ``torch.Generator`` seeded
+        with ``seed`` (not the reference's ``jax.random`` stream)."""
+        if len(prompts) > self.max_batch:
+            raise ValueError(f"{len(prompts)} prompts exceed max_batch="
+                             f"{self.max_batch}")
+        B = len(prompts)
+        plen = max(len(p) for p in prompts)
+        toks = np.zeros((B, plen), np.int64)
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = p                 # right-pad with 0
+        dev = self.device
+        t0 = time.perf_counter()
+        cache = transformer.init_cache(self.cfg, B, self.max_seq, device=dev)
+        logits, cache = self._prefill(self.params,
+                                      torch.from_numpy(toks).to(dev), cache)
+
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        out = [list(p) for p in prompts]
+        alive = np.ones(B, bool)
+        last = self._sample(logits, temperature, gen)
+        for i, t in enumerate(last.tolist()):
+            out[i].append(t)
+        t1 = time.perf_counter()
+        pos = plen
+        steps = 0
+        while alive.any() and pos < self.max_seq and steps < max_new - 1:
+            logits, cache = self._decode(self.params, cache, last[:, None],
+                                         pos)
+            last = self._sample(logits, temperature, gen)
+            for i, t in enumerate(last.tolist()):   # the one host read
+                if alive[i]:
+                    out[i].append(t)
+                    if eos is not None and t == eos:
+                        alive[i] = False
+            pos += 1
+            steps += 1
+        self.timings = {"first_token_s": t1 - t0,
+                        "decode_s": time.perf_counter() - t1,
+                        "decode_steps": steps}
+        return [GenResult(tokens=o, prompt_len=len(p), steps=steps + 1)
+                for o, p in zip(out, prompts)]
+
+    @staticmethod
+    def _sample(logits, temperature, gen):
+        """(B,) int64 on the logits' device."""
+        if temperature <= 0:
+            return torch.argmax(logits, dim=-1)
+        u = torch.rand(logits.shape, generator=gen, device=logits.device)
+        gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
+        return torch.argmax(logits.float() / temperature + gumbel, dim=-1)

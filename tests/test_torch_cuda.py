@@ -6,11 +6,14 @@ with a card and PyTorch alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the kernels repeat the plain versions' roundings operation by
-operation, and the histogram weights are 0/1 (exact integer sums in any
-order), so every output is bitwise equal.  Engine runs: discrete state
-exact, float reductions (energy, residency, windows) rtol 1e-5, since
-PyTorch sums in another order on the card."""
+Tolerances: the engine's kernels repeat the plain versions' roundings
+operation by operation, and the histogram weights are 0/1 (exact integer
+sums in any order), so every output is bitwise equal.  Engine runs:
+discrete state exact, float reductions (energy, residency, windows) rtol
+1e-5, since PyTorch sums in another order on the card.  Attention: 2e-5
+in float32 and 2e-2 in bfloat16 (tests/test_kernels.py's tolerances; the
+kernel sums q.k and p.v in its own order).  SSM scan: y and h within
+rtol/atol 1e-5 (the sum over the state runs in another order)."""
 import numpy as np
 import pytest
 import torch
@@ -18,9 +21,11 @@ import torch
 from repro_torch.core import engine, farm, jobs, workload
 from repro_torch.core.types import (SchedPolicy, SimConfig, SleepPolicy,
                                     SrvState, tree_leaves)
-from repro_torch.kernels import dcsim_step, ops, ref, telemetry_bin
+from repro_torch.kernels import (dcsim_step, flash_attention, ops, ref,
+                                 ssm_scan, telemetry_bin)
 
-from torch_kernel_inputs import dcsim_inputs, tb_inputs, torch_args
+from torch_kernel_inputs import (dcsim_inputs, flash_inputs, ssm_inputs,
+                                 tb_inputs, torch_args)
 
 pytestmark = pytest.mark.cuda
 
@@ -91,7 +96,73 @@ def test_ops_routes_cuda_tensors_to_the_kernels(cuda):
     a = torch_args(dcsim_inputs(128, 4, 3), cuda)
     ops.dcsim_advance(*a)
     ops.telemetry_accum(*torch_args(tb_inputs(32, 32, 64, 1, 19, 4), cuda))
-    assert ops.launch_counts() == {"dcsim_advance": 1, "telemetry_accum": 1}
+    assert ops.launch_counts() == {"dcsim_advance": 1, "telemetry_accum": 1,
+                                   "flash_attention": 0, "ssm_scan": 0}
+
+
+FLASH_CASES = [   # B, H, KV, Sq, Skv, hd, causal, window, softcap, dtype
+    (4, 25, 5, 1536, 1536, 64, True, 1024, 0.0, torch.bfloat16),  # hymba
+    (2, 25, 5, 1000, 1000, 64, True, 1024, 0.0, torch.bfloat16),
+    (1, 4, 4, 300, 300, 128, True, 0, 50.0, torch.bfloat16),
+    (1, 4, 2, 200, 330, 32, False, 0, 0.0, torch.float32),
+    (2, 4, 2, 260, 260, 128, True, 64, 0.0, torch.float32),
+    (1, 2, 1, 300, 90, 16, True, 40, 0.0, torch.float32),   # empty rows
+    (1, 2, 2, 129, 129, 256, True, 0, 30.0, torch.bfloat16),
+]
+
+
+def _flash_args(case, dev, model_layout):
+    B, H, KV, Sq, Skv, hd, causal, window, cap, dtype = case
+    q, k, v = (torch.from_numpy(a).to(dev, dtype) for a in
+               flash_inputs(B, H, KV, Sq, Skv, hd, 21))
+    if model_layout:          # (B, S, H, hd) storage seen as (B, H, S, hd)
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in (q, k, v))
+    return (q, k, v), dict(causal=causal, window=window, softcap=cap)
+
+
+@pytest.mark.parametrize("model_layout", [False, True])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_matches_plain(cuda, case, model_layout):
+    args, kw = _flash_args(case, cuda, model_layout)
+    before = flash_attention.LAUNCHES
+    got = flash_attention.flash_attention(*args, **kw)
+    exp = ref.mha_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == before + 1
+    assert got.shape == exp.shape and got.dtype == exp.dtype
+    assert got.stride() == args[0].stride()
+    tol = 2e-2 if case[-1] == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), exp.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,Dss,N", [(4, 1536, 3200, 16), (3, 37, 200, 16),
+                                       (2, 70, 100, 8), (1, 5, 3, 40)])
+def test_ssm_scan_matches_plain(cuda, B, S, Dss, N):
+    a = torch_args(ssm_inputs(B, S, Dss, N, 23), cuda)
+    before = ssm_scan.LAUNCHES
+    y, h = ssm_scan.ssm_scan(*a)
+    ye, he = ref.ssm_scan_reference(*a)
+    torch.cuda.synchronize()
+    assert ssm_scan.LAUNCHES == before + 1
+    torch.testing.assert_close(y, ye, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h, he, atol=1e-5, rtol=1e-5)
+
+
+def test_lm_wrappers_check_their_inputs(cuda):
+    (q, k, v), _ = _flash_args(FLASH_CASES[3], cuda, False)
+    with pytest.raises(ValueError, match="float32"):
+        flash_attention.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention.flash_attention(q[..., :24], k[..., :24],
+                                        v[..., :24])
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention(q.transpose(2, 3), k, v)
+    a = list(torch_args(ssm_inputs(1, 4, 8, 4, 1), cuda))
+    with pytest.raises(ValueError, match="float32"):
+        ssm_scan.ssm_scan(a[0].double(), *a[1:])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ssm_scan.ssm_scan(*a[:4], a[4].cpu())
 
 
 def _scenario(n_jobs=120):

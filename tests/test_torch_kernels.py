@@ -150,7 +150,8 @@ def test_ops_dispatch_cpu_to_plain_and_counts_nothing():
     for g, e in zip(ops.telemetry_accum(*t),
                     ref.telemetry_accum_reference(*t)):
         assert torch.equal(g, e)
-    assert ops.launch_counts() == {"dcsim_advance": 0, "telemetry_accum": 0}
+    assert ops.launch_counts() == {"dcsim_advance": 0, "telemetry_accum": 0,
+                                   "flash_attention": 0, "ssm_scan": 0}
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.dcsim_advance(a[0].to("meta"), *a[1:])
 

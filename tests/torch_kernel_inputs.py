@@ -66,3 +66,27 @@ def torch_args(np_args, device="cpu"):
     return tuple(torch.from_numpy(np.array(a)).to(device)
                  if isinstance(a, (np.ndarray, np.generic)) else a
                  for a in np_args)
+
+
+def flash_inputs(B, H, KV, Sq, Skv, hd, seed):
+    """Standard-normal q (B, H, Sq, hd) and k/v (B, KV, Skv, hd), float32;
+    cast them to bfloat16 on each side for the bf16 cases."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(s, dtype=np.float32) for s in
+                 ((B, H, Sq, hd), (B, KV, Skv, hd), (B, KV, Skv, hd)))
+
+
+def ssm_inputs(B, S, Dss, N, seed):
+    """(dt, Bm, Cm, x, A) as the Mamba mixer makes them: dt = softplus of a
+    pre-activation around the init's -4.6 bias (0.001..0.2), A = -(1..N)
+    per channel times a random factor, standard-normal B, C and x; all
+    float32."""
+    rng = np.random.default_rng(seed)
+    pre = rng.normal(-4.6, 1.5, (B, S, Dss))
+    dt = np.log1p(np.exp(pre)).astype(np.float32)
+    Bm = rng.standard_normal((B, S, N), dtype=np.float32)
+    Cm = rng.standard_normal((B, S, N), dtype=np.float32)
+    x = rng.standard_normal((B, S, Dss), dtype=np.float32)
+    A = -(np.arange(1, N + 1, dtype=np.float32)[None, :]
+          * rng.uniform(0.5, 1.5, (Dss, 1)).astype(np.float32))
+    return dt, Bm, Cm, x, A
