@@ -8,23 +8,30 @@ Run from the root of a checkout:
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the port from src/repro_torch/kernels/csrc
-     (one nvcc per source, all started together);
+     (one nvcc per source, all started together); count the LM kernels'
+     tensor-core (HMMA) and asynchronous-copy (LDGSTS) instructions;
   3. hold each kernel against its plain PyTorch version on the card, at the
-     main paths' shapes and at ragged ones;
+     main paths' shapes, at ragged ones and at the edges of the attention's
+     tensor-core instance and of the scan's lane splits
+     (tests/torch_kernel_inputs.py);
   4. parity of the port on the card against the port on the CPU: two
      discrete-event scenarios, with the engine kernels' launch counters
      checked against the engine's step count; and hymba-1.5b serving at
      full width cut to 2 layers in float32 (prefill and decode logits,
-     greedy tokens, one launch of each LM kernel per layer);
+     greedy tokens, one launch of each LM kernel per layer, attention on
+     its float32 CUDA-core instance);
   5. the discrete-event main run: farm.simulate on a 65,536-server x
      4-core farm (the largest farm benchmarks/bench_engine.py records)
      under 600 Poisson jobs at 50% utilisation; every job must finish;
   6. the serving main run: ServeEngine.generate on hymba-1.5b (32 layers,
      bf16, seeded random weights) for 4 prompts of 1,536 tokens and 32 new
-     tokens, greedy; exactly one launch of each LM kernel per layer.
-  Each kernel is then timed at its main path's shapes beside its bound,
-  its plain version and, where one exists, the library call computing the
-  same function; profiler breakdowns of both main paths follow.
+     tokens, greedy; exactly one launch of each LM kernel per layer, the
+     attention on its bf16 tensor-core instance.
+  Each kernel is then timed at its main path's shapes beside its bound
+  (the largest of its bytes, its flops and its exponentials at their peak
+  rates), its plain version and, where one exists, the library call
+  computing the same function; profiler breakdowns of both main paths
+  follow.
 
 The second-to-last line is a JSON object describing each kernel (its
 stream time "ms" and profiler time "device_ms" among the keys); the last
@@ -38,6 +45,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -51,10 +59,12 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(1, str(ROOT / "tests"))      # torch_kernel_inputs
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor ops/s
-# and dense bf16 tensor-core flop/s
+# and dense bf16 tensor-core flop/s; exponentials per SM per clock on the
+# special-function units (one MUFU.EX2 per expf, 16 per SM per clock)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
 PEAK_BF16_FLOP_S = 989e12
+EXP_PER_SM_CLOCK = 16
 N_MAIN, C_MAIN, JOBS_MAIN = 65_536, 4, 600
 # the serving main run and the card-vs-CPU serving parity run
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "hymba_1_5b", 4, 1536, 32
@@ -124,9 +134,27 @@ def kernel_device_us(fn, names, reps: int = 100):
     return us / reps if us > 0 else None
 
 
-def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = PEAK_F32_OPS_S):
-    tb, to = n_bytes / PEAK_BYTES_S * 1e3, n_ops / ops_per_s * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+def exp_per_s() -> float:
+    """Exponentials per second on the special-function units: 16 per SM per
+    clock at the SM clock nvidia-smi reports as the card's maximum."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return EXP_PER_SM_CLOCK * sms * mhz * 1e6
+
+
+def bound_ms(n_bytes: float, ops: dict):
+    """The least time the card could take: the largest of the bytes at the
+    memory rate and of each kind of operation, ``ops`` = {kind: (count,
+    per second)}, at its peak rate.  Returns (ms, "bytes" or "operations",
+    the kind that bounds it)."""
+    best = (n_bytes / PEAK_BYTES_S * 1e3, "bytes", "bytes")
+    for kind, (n, rate) in ops.items():
+        if n / rate * 1e3 > best[0]:
+            best = (n / rate * 1e3, "operations", kind)
+    return best
 
 
 def nbytes(*ts) -> int:
@@ -137,6 +165,47 @@ def ulp_err(got: torch.Tensor, exp: torch.Tensor) -> float:
     """Largest |got - exp| in units of exp's last place."""
     up = torch.nextafter(exp, torch.full_like(exp, math.inf)) - exp
     return float(((got - exp).abs() / up).max())
+
+
+def ptxas_entries(report: str) -> dict:
+    """{kernel or kernel<template args>: "R registers, S bytes spilled"}
+    from an ``nvcc -Xptxas -v`` report (empty when the library was
+    cached)."""
+    out, name, spill = {}, None, "0"
+    for ln in report.splitlines():
+        m = re.search(r"entry function '_Z(\d+)(\w+)'", ln)
+        if m:
+            name, rest = m[2][:int(m[1])], m[2][int(m[1]):]
+            targs = re.match(r"I((?:L[a-z]\d+E)+)E", rest)
+            if targs:
+                name += f"<{','.join(re.findall(r'L[a-z](\d+)E', targs[1]))}>"
+            spill = "0"
+        elif name and "spill stores" in ln:
+            spill = re.search(r"(\d+) bytes spill stores", ln)[1]
+        elif name and "Used" in ln:
+            regs = re.search(r"Used (\d+) registers", ln)[1]
+            out[name] = f"{regs} registers, {spill} bytes spilled"
+    return out
+
+
+def sass_census(built) -> None:
+    """What the LM kernels were compiled to (cuobjdump -sass): tensor-core
+    instructions (HMMA) and asynchronous global-to-shared copies (LDGSTS,
+    from cp.async).  The attention library must hold both."""
+    from repro_torch.kernels import build
+    tool = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
+    if not tool.is_file():
+        fail(f"{tool} not found: the attention's SASS cannot be inspected")
+    for name in ("flash_attention", "ssm_scan"):
+        sass = subprocess.run([str(tool), "-sass", str(built[name][0])],
+                              capture_output=True, text=True,
+                              check=True).stdout.splitlines()
+        n = {op: sum(op in ln for ln in sass) for op in ("HMMA", "LDGSTS")}
+        log(f"[build] {name}: SASS holds {n['HMMA']} HMMA and "
+            f"{n['LDGSTS']} LDGSTS instructions")
+        if name == "flash_attention" and not (n["HMMA"] and n["LDGSTS"]):
+            fail("flash_attention was not compiled to tensor-core "
+                 "instructions fed by asynchronous copies")
 
 
 # --------------------------------------------------------------------------
@@ -340,6 +409,10 @@ FLASH_RAGGED = [
     (2, 8, 2, 700, 1300, 64, False, 0, 0.0, "bfloat16"),    # Sq != Skv
     (2, 8, 4, 777, 777, 128, True, 256, 0.0, "float32"),    # hd 128, f32
 ]
+# a bf16 output row's largest relative error against the plain version:
+# P and the output rounded to bf16 give a few 1e-3; a faulty key tile
+# reads far above (flash_row_controls)
+FA_ROW_TOL = 0.03
 SSM_MAIN = (LM_BATCH, LM_PROMPT, 3200, 16)      # hymba-1.5b's prefill
 SSM_RAGGED = [(3, 37, 200, 16)]
 
@@ -364,15 +437,24 @@ def attn_pairs(Sq, Skv, causal, window) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+def row_err(got, exp) -> float:
+    """The largest row's relative error ||got - exp|| / ||exp|| (norms
+    over the head dim)."""
+    g, e = got.float(), exp.float()
+    return float(((g - e).norm(dim=-1) / e.norm(dim=-1)).max())
+
+
 def check_flash(case, dev):
     """Tolerances of tests/test_kernels.py: 2e-2 in bf16, 2e-5 in f32 (the
-    kernel sums q.k and p.v in its own order)."""
+    kernel sums q.k and p.v in its own order).  A bf16 output is also held
+    row by row to FA_ROW_TOL of the plain version."""
     from repro_torch.kernels import flash_attention, ref
     args, kw = flash_args(case, dev)
     got = flash_attention.flash_attention(*args, **kw)
     exp = ref.mha_reference(*args, **kw)
     torch.cuda.synchronize()
-    tol = 2e-2 if case[-1] == "bfloat16" else 2e-5
+    bf16 = case[-1] == "bfloat16"
+    tol = 2e-2 if bf16 else 2e-5
     g, e = got.float(), exp.float()
     err = float((g - e).abs().max())
     if got.shape != exp.shape or got.dtype != exp.dtype:
@@ -382,10 +464,46 @@ def check_flash(case, dev):
             ((g - e).abs() > tol + tol * e.abs()).any():
         fail(f"flash_attention {case}: beyond tolerance {tol} of the plain "
              f"version (max abs err {err})")
+    rows = ""
+    if bf16:
+        rel = row_err(got, exp)
+        if rel > FA_ROW_TOL:
+            fail(f"flash_attention {case}: a row's relative error {rel} "
+                 f"exceeds {FA_ROW_TOL}")
+        rows = f"; largest row error {rel:.5f} (limit {FA_ROW_TOL})"
     log(f"[kernels] flash_attention B,H,KV,Sq,Skv,hd={case[:6]} causal="
-        f"{case[6]} window={case[7]} softcap={case[8]} {case[9]}: within "
-        f"{tol} of the plain version (max abs err {err})")
+        f"{case[6]} window={case[7]} softcap={case[8]} {case[9]} "
+        f"({flash_attention.LAST_INSTANCE}): within {tol} of the plain "
+        f"version (max abs err {err}){rows}")
     return args, kw, err
+
+
+def flash_row_controls(dev) -> None:
+    """What the row check reads for a faulty key tile at the serving
+    prefill's shape: the plain version with one 64-key tile in the middle
+    of the sequence (in rows of ~800 keys) replaced by the tile before it
+    (a stale ring stage) or with its values zero (a copy that did not
+    land), against the plain version.  Each must read above FA_ROW_TOL."""
+    from repro_torch.kernels import ref
+    (q, k, v), kw = flash_args(FLASH_MAIN, dev)
+    exp = ref.mha_reference(q, k, v, **kw)
+    t = FLASH_MAIN[3] // 128
+    tile, prev = slice(64 * t, 64 * t + 64), slice(64 * t - 64, 64 * t)
+    stale_k, stale_v, zero_v = k.clone(), v.clone(), v.clone()
+    stale_k[:, :, tile] = k[:, :, prev]
+    stale_v[:, :, tile] = v[:, :, prev]
+    zero_v[:, :, tile] = 0
+    reads = {"stale stage": row_err(ref.mha_reference(q, stale_k, stale_v,
+                                                      **kw), exp),
+             "zero-filled values": row_err(ref.mha_reference(q, k, zero_v,
+                                                             **kw), exp)}
+    if min(reads.values()) <= FA_ROW_TOL:
+        fail(f"flash_attention row check: a faulty tile reads {reads}, not "
+             f"above the limit {FA_ROW_TOL}")
+    log(f"[kernels] flash_attention row check controls (keys "
+        f"{64 * t}..{64 * t + 63} faulty, plain version): "
+        + ", ".join(f"{n} {r:.4f}" for n, r in reads.items())
+        + f", all above the limit {FA_ROW_TOL}")
 
 
 def check_ssm(B, S, Dss, N, dev, seed=33):
@@ -406,8 +524,9 @@ def check_ssm(B, S, Dss, N, dev, seed=33):
             fail(f"ssm_scan {(B, S, Dss, N)}: {name} beyond 1e-5 of the "
                  f"plain version (max abs err {float((g - e).abs().max())})")
         err = max(err, float((g - e).abs().max()))
-    log(f"[kernels] ssm_scan B,S,Dss,N={(B, S, Dss, N)}: y and h_final "
-        f"within 1e-5 of the plain version (max abs err {err})")
+    log(f"[kernels] ssm_scan B,S,Dss,N={(B, S, Dss, N)} "
+        f"({ssm_scan.LAST_INSTANCE}): y and h_final within 1e-5 of the "
+        f"plain version (max abs err {err})")
     return args, err
 
 
@@ -417,7 +536,7 @@ def lm_parity(dev):
     window, so the prefill's ring roll runs), the step functions fed the
     same tokens, then ServeEngine.generate on both."""
     from repro_torch import configs
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention, ops
     from repro_torch.models import transformer
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.train import step
@@ -467,6 +586,11 @@ def lm_parity(dev):
                         max_seq=LM_MAX_SEQ, device=dev).generate(
         prompts, max_new=PAR_NEW)
     counts = ops.launch_counts()
+    inst = dict(flash_attention.INSTANCE_LAUNCHES)
+    if inst != {flash_attention.TENSOR_CORE: 0,
+                flash_attention.CUDA_CORE: PAR_LAYERS}:
+        fail(f"lm-parity: float32 attention ran on instances {inst}, "
+             f"expected the CUDA-core one once per layer")
     if [r.tokens for r in r_gpu] != [r.tokens for r in r_cpu]:
         fail("lm-parity: generate gave other greedy tokens on the card: "
              f"{[r.tokens[PAR_PROMPT:] for r in r_gpu]} against "
@@ -478,7 +602,8 @@ def lm_parity(dev):
     log(f"[lm-parity] card == CPU: prefill and {PAR_NEW} decode steps' "
         f"logits within 1e-3 (max abs err {worst:.3g}); generate gave the "
         f"same greedy tokens {[r.tokens[PAR_PROMPT:] for r in r_gpu]}; "
-        f"launches {counts}; {time.perf_counter() - t0:.1f} s")
+        f"launches {counts}, attention instances {inst}; "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def lm_main(dev):
@@ -487,7 +612,7 @@ def lm_main(dev):
     ServeEngine(max_batch=4, max_seq=2048).generate of 4 prompts of 1,536
     tokens, 32 new tokens, greedy."""
     from repro_torch import configs
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention, ops, ssm_scan
     from repro_torch.models import transformer
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.train import step
@@ -510,11 +635,16 @@ def lm_main(dev):
     res = engine.generate(prompts, max_new=LM_NEW)
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    inst = dict(flash_attention.INSTANCE_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     if counts["flash_attention"] != cfg.n_layers or \
             counts["ssm_scan"] != cfg.n_layers:
         fail(f"lm-main: launch counts {counts}, expected {cfg.n_layers} "
              f"of each LM kernel (one per layer of the one prefill)")
+    if inst != {flash_attention.TENSOR_CORE: cfg.n_layers,
+                flash_attention.CUDA_CORE: 0}:
+        fail(f"lm-main: bf16 attention ran on instances {inst}, expected "
+             f"the tensor-core one once per layer")
     for r, p in zip(res, prompts):
         new = r.tokens[len(p):]
         if r.tokens[:len(p)] != p or len(new) != LM_NEW or \
@@ -536,7 +666,8 @@ def lm_main(dev):
         f"{tm['decode_steps']} steps; {LM_BATCH * LM_NEW / wall:.1f} "
         f"generated tokens/s; prefill "
         f"{LM_BATCH * LM_PROMPT / tm['first_token_s']:.0f} tokens/s; "
-        f"peak memory {peak / 2**30:.2f} GiB; launches {counts}; "
+        f"peak memory {peak / 2**30:.2f} GiB; launches {counts}, "
+        f"attention instances {inst}, scan {ssm_scan.LAST_INSTANCE}; "
         f"first new tokens {[r.tokens[LM_PROMPT:LM_PROMPT + 4] for r in res]}")
     return cfg, params, toks, counts
 
@@ -584,34 +715,46 @@ def lm_kernel_entries(flash_main, ssm_main, counts, fa_err, ss_err, dev):
     fa_lib = time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, enable_gqa=True), reps=50, warmup=5)
     out = flash_attention.flash_attention(q, k, v, **kw)
-    flops = 4 * hd * attn_pairs(S, S, causal, W) * B * H
-    fa_bound, fa_by = bound_ms(nbytes(q, k, v, out), flops,
-                               PEAK_BF16_FLOP_S)
+    fa_inst = flash_attention.LAST_INSTANCE
+    pairs = attn_pairs(S, S, causal, W) * B * H
+    sfu = exp_per_s()
+    # per unmasked (q, k) pair: 2 hd flops of q.k, 2 hd of p.v, one exp
+    fa_bound, fa_by, fa_op = bound_ms(
+        nbytes(q, k, v, out), {"bf16 tensor-core flops":
+                               (4 * hd * pairs, PEAK_BF16_FLOP_S),
+                               "exponentials": (pairs, sfu)})
     ss_ms = time_ms(lambda: ssm_scan.ssm_scan(*ssm_main), reps=50, warmup=5)
     ss_plain = time_ms(lambda: ref.ssm_scan_reference(*ssm_main), reps=3,
                        warmup=1)
     y, h = ssm_scan.ssm_scan(*ssm_main)
+    ss_inst = ssm_scan.LAST_INSTANCE
     Bs, Ss, Dss, N = SSM_MAIN
     # per state element and step: dt*A, exp, da*h, u*B, add, h*C, add
-    ss_bound, ss_by = bound_ms(nbytes(*ssm_main, y, h), 7 * Bs * Ss * Dss * N)
+    elems = Bs * Ss * Dss * N
+    ss_bound, ss_by, ss_op = bound_ms(
+        nbytes(*ssm_main, y, h), {"f32 operations": (7 * elems,
+                                                     PEAK_F32_OPS_S),
+                                  "exponentials": (elems, sfu)})
     entries = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:83",
          "launches": counts["flash_attention"], "max_abs_err": fa_err,
          "ms": fa_ms, "plain_ms": fa_plain, "bound_ms": fa_bound,
-         "bound_by": fa_by, "library_ms": fa_lib},
+         "bound_by": fa_by, "bound_op": fa_op, "library_ms": fa_lib,
+         "instance": fa_inst},
         {"name": "ssm_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
          "replaces": "src/repro/kernels/ssm_scan.py:52",
          "launches": counts["ssm_scan"], "max_abs_err": ss_err,
          "ms": ss_ms, "plain_ms": ss_plain, "bound_ms": ss_bound,
-         "bound_by": ss_by, "library_ms": None},
+         "bound_by": ss_by, "bound_op": ss_op, "library_ms": None,
+         "instance": ss_inst},
     ]
     dev_us = {
         "flash_attention": kernel_device_us(
             lambda: flash_attention.flash_attention(q, k, v, **kw),
-            ["flash_attention_kernel"], reps=20),
+            ["flash_attention_bf16_kernel"], reps=20),
         "ssm_scan": kernel_device_us(lambda: ssm_scan.ssm_scan(*ssm_main),
                                      ["ssm_scan_kernel"], reps=20)}
     return entries, dev_us
@@ -625,6 +768,7 @@ def main() -> None:
              "an NVIDIA GPU")
     from repro_torch.core import farm
     from repro_torch.kernels import build, ops
+    from torch_kernel_inputs import FLASH_TC_EDGES, SSM_EDGES
 
     # float32 products in full float32 on the card, as on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -643,10 +787,9 @@ def main() -> None:
     log(f"[build] {len(built)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s wall")
     for name, (path, secs, report) in built.items():
-        regs = [ln.strip() for ln in report.splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"[build] {name}: {path.name} ({secs:.1f} s) "
-            + " | ".join(regs[:6]) + (" | ..." if len(regs) > 6 else ""))
+        log(f"[build] {name}: {path.name} ({secs:.1f} s) " + " | ".join(
+            f"{k}: {v}" for k, v in ptxas_entries(report).items()))
+    sass_census(built)
 
     # phase 3: kernels vs plain versions
     dc_main, dc_err = check_dcsim(N_MAIN, C_MAIN, 1, dev)
@@ -659,8 +802,11 @@ def main() -> None:
     fa_q, fa_kw, fa_err = check_flash(FLASH_MAIN, dev)
     for case in FLASH_RAGGED:
         fa_err = max(fa_err, check_flash(case, dev)[2])
+    for case in FLASH_TC_EDGES:         # the tensor-core instance's edges
+        fa_err = max(fa_err, check_flash(case + ("bfloat16",), dev)[2])
+    flash_row_controls(dev)
     ss_main, ss_err = check_ssm(*SSM_MAIN, dev)
-    for case in SSM_RAGGED:
+    for case in SSM_RAGGED + SSM_EDGES:
         ss_err = max(ss_err, check_ssm(*case, dev)[1])
 
     # phase 4: card vs CPU
@@ -705,7 +851,9 @@ def main() -> None:
                       *outs)
     # per server: C compares, C adds, C selects, ~12 flops of power and
     # accrual, 3 mins
-    dc_bound, dc_by = bound_ms(dc_bytes, N_MAIN * (3 * C_MAIN + 15))
+    dc_bound, dc_by, dc_op = bound_ms(
+        dc_bytes, {"f32 operations": (N_MAIN * (3 * C_MAIN + 15),
+                                      PEAK_F32_OPS_S)})
     tb_ms = time_ms(lambda: telemetry_bin.telemetry_accum(*tb_main))
     tb_plain = time_ms(lambda: ref.telemetry_accum_reference(*tb_main))
     touts = telemetry_bin.telemetry_accum(*tb_main)
@@ -716,20 +864,22 @@ def main() -> None:
         + 4 * nnz
     # per weighted value: max, divide, log (~20 flops), multiply, clamp,
     # add; plus the window row
-    tb_bound, tb_by = bound_ms(tb_bytes, nnz * 25 + tb_main[8].numel())
+    tb_bound, tb_by, tb_op = bound_ms(
+        tb_bytes, {"f32 operations": (nnz * 25 + tb_main[8].numel(),
+                                      PEAK_F32_OPS_S)})
     kernels = [
         {"name": "dcsim_advance", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/dcsim_step.cu",
          "replaces": "src/repro/kernels/dcsim_step.py:68",
          "launches": counts["dcsim_advance"], "max_abs_err": dc_err,
          "ms": dc_ms, "plain_ms": dc_plain, "bound_ms": dc_bound,
-         "bound_by": dc_by, "library_ms": None},
+         "bound_by": dc_by, "bound_op": dc_op, "library_ms": None},
         {"name": "telemetry_accum", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/telemetry_bin.cu",
          "replaces": "src/repro/kernels/telemetry_bin.py:51",
          "launches": counts["telemetry_accum"], "max_abs_err": tb_err,
          "ms": tb_ms, "plain_ms": tb_plain, "bound_ms": tb_bound,
-         "bound_by": tb_by, "library_ms": None},
+         "bound_by": tb_by, "bound_op": tb_op, "library_ms": None},
     ]
     dev_us = {
         "dcsim_advance": kernel_device_us(
@@ -746,10 +896,11 @@ def main() -> None:
         k["device_ms"] = None if d is None else d / 1e3
         lib = "" if k["library_ms"] is None else \
             f"; library call {k['library_ms'] * 1e3:.1f} us"
-        log(f"[time] {k['name']}: {k['ms'] * 1e3:.1f} us per call on the "
-            f"stream, {'not measured' if d is None else f'{d:.2f} us'} of "
+        inst = f" ({k['instance']})" if "instance" in k else ""
+        log(f"[time] {k['name']}{inst}: {k['ms'] * 1e3:.1f} us per call on "
+            f"the stream, {'not measured' if d is None else f'{d:.2f} us'} of "
             f"device time (profiler); bound {k['bound_ms'] * 1e3:.3f} us by "
-            f"{k['bound_by']}; plain version {k['plain_ms'] * 1e3:.1f} us"
+            f"{k['bound_op']}; plain version {k['plain_ms'] * 1e3:.1f} us"
             f"{lib}; {k['launches']} launches in its main run")
     profile_window(cfg, arr, specs, dev)
     profile_serving(lm_cfg, lm_params, lm_toks, dev)

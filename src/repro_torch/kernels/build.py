@@ -10,6 +10,7 @@ per source, all at once.  A build or load failure raises.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -56,8 +57,9 @@ def library_path(name: str) -> pathlib.Path:
 
 def build_all(names=SOURCES) -> dict:
     """Compile every missing library, one ``nvcc`` per source, in parallel.
-    Returns {name: (path, seconds, ptxas report)}; sources already built
-    report 0 seconds and an empty report."""
+    Returns {name: (path, seconds, ptxas report)}, the seconds from that
+    ``nvcc``'s start to its exit; sources already built report 0 seconds
+    and an empty report."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs, result = {}, {}
@@ -73,10 +75,13 @@ def build_all(names=SOURCES) -> dict:
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       lib, tmp, time.perf_counter())
+    # one waiting thread per nvcc, so each is timed to its own exit
+    with concurrent.futures.ThreadPoolExecutor(max(len(jobs), 1)) as pool:
+        waits = {name: pool.submit(_wait, proc, t0)
+                 for name, (proc, _, _, t0) in jobs.items()}
     failures = []
-    for name, (proc, lib, tmp, t0) in jobs.items():
-        report, _ = proc.communicate()
-        secs = time.perf_counter() - t0
+    for name, (proc, lib, tmp, _) in jobs.items():
+        report, secs = waits[name].result()
         if proc.returncode != 0:
             failures.append(f"{name}: nvcc exited {proc.returncode}\n{report}")
             continue
@@ -85,6 +90,11 @@ def build_all(names=SOURCES) -> dict:
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return result
+
+
+def _wait(proc, t0):
+    report, _ = proc.communicate()
+    return report, time.perf_counter() - t0
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -111,7 +121,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn.argtypes = [P] * 4 + [I] * 7 + [P, I, I, F, F, P]
     elif name == "ssm_scan":
         fn = lib.ssm_scan_launch
-        fn.argtypes = [P] * 7 + [I] * 4 + [P]
+        fn.argtypes = [P] * 7 + [I] * 5 + [P]
     else:
         raise ValueError(f"unknown kernel source {name!r}")
     fn.restype = I

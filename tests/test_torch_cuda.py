@@ -24,8 +24,9 @@ from repro_torch.core.types import (SchedPolicy, SimConfig, SleepPolicy,
 from repro_torch.kernels import (dcsim_step, flash_attention, ops, ref,
                                  ssm_scan, telemetry_bin)
 
-from torch_kernel_inputs import (dcsim_inputs, flash_inputs, ssm_inputs,
-                                 tb_inputs, torch_args)
+from torch_kernel_inputs import (FLASH_TC_EDGES, SSM_EDGES, dcsim_inputs,
+                                 flash_inputs, ssm_inputs, tb_inputs,
+                                 torch_args)
 
 pytestmark = pytest.mark.cuda
 
@@ -108,7 +109,7 @@ FLASH_CASES = [   # B, H, KV, Sq, Skv, hd, causal, window, softcap, dtype
     (2, 4, 2, 260, 260, 128, True, 64, 0.0, torch.float32),
     (1, 2, 1, 300, 90, 16, True, 40, 0.0, torch.float32),   # empty rows
     (1, 2, 2, 129, 129, 256, True, 0, 30.0, torch.bfloat16),
-]
+] + [case + (torch.bfloat16,) for case in FLASH_TC_EDGES]
 
 
 def _flash_args(case, dev, model_layout):
@@ -137,7 +138,8 @@ def test_flash_attention_matches_plain(cuda, case, model_layout):
 
 
 @pytest.mark.parametrize("B,S,Dss,N", [(4, 1536, 3200, 16), (3, 37, 200, 16),
-                                       (2, 70, 100, 8), (1, 5, 3, 40)])
+                                       (2, 70, 100, 8), (1, 5, 3, 40)]
+                         + SSM_EDGES)
 def test_ssm_scan_matches_plain(cuda, B, S, Dss, N):
     a = torch_args(ssm_inputs(B, S, Dss, N, 23), cuda)
     before = ssm_scan.LAUNCHES
@@ -163,6 +165,57 @@ def test_lm_wrappers_check_their_inputs(cuda):
         ssm_scan.ssm_scan(a[0].double(), *a[1:])
     with pytest.raises(ValueError, match="CUDA tensor"):
         ssm_scan.ssm_scan(*a[:4], a[4].cpu())
+
+
+def test_flash_attention_reports_its_instance(cuda):
+    """bf16 runs on the tensor cores, f32 on the CUDA cores; the wrapper
+    counts each and names the latest."""
+    before = dict(flash_attention.INSTANCE_LAUNCHES)
+    for case, inst in ((FLASH_CASES[1], flash_attention.TENSOR_CORE),
+                       (FLASH_CASES[3], flash_attention.CUDA_CORE)):
+        args, kw = _flash_args(case, cuda, True)
+        flash_attention.flash_attention(*args, **kw)
+        assert flash_attention.LAST_INSTANCE == inst
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in
+            flash_attention.INSTANCE_LAUNCHES.items()} == {
+        flash_attention.TENSOR_CORE: 1, flash_attention.CUDA_CORE: 1}
+
+
+def test_flash_bf16_refuses_what_its_instance_cannot_take(cuda):
+    """A bf16 call the tensor-core instance cannot take raises; it never
+    runs on the f32 instance."""
+    (q, k, v), _ = _flash_args(FLASH_TC_EDGES[0] + (torch.bfloat16,), cuda,
+                               False)
+    launches = flash_attention.LAUNCHES
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention.flash_attention(q[..., :24], k[..., :24],
+                                        v[..., :24])
+    raw = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:]
+    shifted = raw.view(q.shape).copy_(q)          # storage offset 1
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention.flash_attention(shifted, k, v)
+    wide = torch.empty(q.shape[:3] + (q.shape[3] + 1,), dtype=q.dtype,
+                       device=cuda)[..., :q.shape[3]].copy_(q)  # odd stride
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention.flash_attention(wide, k, v)
+    assert flash_attention.LAUNCHES == launches
+    # the f32 instance loads element by element and takes that stride
+    wide32 = torch.empty(wide.shape[:3] + (wide.shape[3] + 1,),
+                         device=cuda)[..., :wide.shape[3]].copy_(wide)
+    args = (wide32, k.float(), v.float())
+    got = flash_attention.flash_attention(*args)
+    assert flash_attention.LAST_INSTANCE == flash_attention.CUDA_CORE
+    torch.testing.assert_close(got, ref.mha_reference(*args), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("N,instance", [(1, "lanes1x1"), (2, "lanes1x2"),
+                                        (16, "lanes8x2"), (17, "lanes16x2"),
+                                        (64, "lanes32x2")])
+def test_ssm_scan_reports_its_lane_split(cuda, N, instance):
+    ssm_scan.ssm_scan(*torch_args(ssm_inputs(1, 3, 5, N, 2), cuda))
+    assert ssm_scan.LAST_INSTANCE == instance
 
 
 def _scenario(n_jobs=120):

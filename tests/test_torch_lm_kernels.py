@@ -3,8 +3,10 @@ flash attention and the selective-SSM scan (what the CPU path runs and
 what the CUDA kernels are held against on the card) against the JAX
 package's jnp oracles and its Pallas kernels in interpret mode, at the
 shapes of tests/test_kernels.py and at ragged ones; dispatch and launch
-counting.  The CUDA kernels themselves are held against the plain
-versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
+counting; what the CUDA wrappers decide before a launch (the attention's
+instance and its checks, the scan's lane split).  The CUDA kernels
+themselves are held against the plain versions on the card by
+tests/test_torch_cuda.py and chip_smoke.py.
 
 Tolerances: attention 2e-5 in float32 and 2e-2 in bfloat16 (those of
 tests/test_kernels.py: both sides sum in float32 in their own order);
@@ -138,3 +140,90 @@ def test_lm_cuda_wrappers_refuse_cpu_tensors():
         flash_attention.flash_attention(q, k, v)
     with pytest.raises(ValueError, match="CUDA tensor"):
         ssm_scan.ssm_scan(*torch_args(ssm_inputs(1, 4, 8, 4, 8)))
+
+
+# What Python decides before a launch: flash attention's instance and
+# checks, the scan's lane split.  Shapes and CPU tensors only -- no card,
+# no build.
+
+def _qkv(B, H, KV, Sq, Skv, hd, dtype, model_layout=False):
+    q = torch.zeros((B, H, Sq, hd), dtype=dtype)
+    k = torch.zeros((B, KV, Skv, hd), dtype=dtype)
+    if model_layout:          # (B, S, H, hd) storage seen as (B, H, S, hd)
+        q = torch.zeros((B, Sq, H, hd), dtype=dtype).transpose(1, 2)
+        k = torch.zeros((B, Skv, KV, hd), dtype=dtype).transpose(1, 2)
+    return q, k, k.clone()
+
+
+@pytest.mark.parametrize("model_layout", [False, True])
+@pytest.mark.parametrize("hd", flash_attention.HEAD_DIMS)
+@pytest.mark.parametrize("dtype,instance", [
+    (torch.bfloat16, flash_attention.TENSOR_CORE),
+    (torch.float32, flash_attention.CUDA_CORE)])
+def test_flash_plan_picks_the_instance_by_dtype(dtype, instance, hd,
+                                                model_layout):
+    q, k, v = _qkv(2, 10, 2, 77, 130, hd, dtype, model_layout)
+    assert flash_attention.plan(q, k, v, window=16) == instance
+
+
+def _shifted(q):
+    """q's values in a view whose storage offset is one element."""
+    return torch.zeros(q.numel() + 1, dtype=q.dtype)[1:].view(q.shape)
+
+
+def _odd_stride(q):
+    """q's values in a view whose sequence stride is hd + 1 elements."""
+    B, H, S, hd = q.shape
+    return torch.zeros((B, H, S, hd + 1), dtype=q.dtype)[..., :hd]
+
+
+@pytest.mark.parametrize("mutate,match", [
+    (lambda q, k, v: (q[..., :24], k[..., :24], v[..., :24]), "head_dim"),
+    (lambda q, k, v: (q.half(), k.half(), v.half()), "one of"),
+    (lambda q, k, v: (q, k.float(), v), "float32"),
+    (lambda q, k, v: (q.transpose(2, 3), k, v), "contiguous"),
+    (lambda q, k, v: (q[0], k, v), "4 dims"),
+    (lambda q, k, v: (q, k[:, :, :-1], v), "shape"),
+    (lambda q, k, v: (q[:, :3], k, v), "multiple"),
+    (lambda q, k, v: (_shifted(q), k, v), "16 bytes"),
+    (lambda q, k, v: (q, k, _odd_stride(v)), "16 bytes"),
+])
+def test_flash_plan_refuses_what_no_instance_takes(mutate, match):
+    q, k, v = mutate(*_qkv(1, 4, 2, 40, 40, 64, torch.bfloat16))
+    with pytest.raises(ValueError, match=match):
+        flash_attention.plan(q, k, v)
+
+
+def test_flash_plan_alignment_binds_bf16_only():
+    """The f32 instance loads element by element: odd strides and offsets
+    are its to take."""
+    q, k, v = _qkv(1, 4, 2, 40, 40, 64, torch.float32)
+    assert flash_attention.plan(_shifted(q), k, _odd_stride(v)) == \
+        flash_attention.CUDA_CORE
+    with pytest.raises(ValueError, match="window"):
+        flash_attention.plan(q, k, v, window=-1)
+
+
+@pytest.mark.parametrize("N,lanes", [
+    (1, (1, 1)), (2, (1, 2)), (3, (2, 2)), (5, (4, 2)), (8, (4, 2)),
+    (16, (8, 2)), (17, (16, 2)), (32, (16, 2)), (33, (32, 2)),
+    (64, (32, 2))])
+def test_ssm_plan_splits_the_state_over_lanes(N, lanes):
+    a = torch_args(ssm_inputs(2, 3, 5, N, 9))
+    assert ssm_scan.lanes_for(N) == lanes == ssm_scan.plan(*a)
+
+
+@pytest.mark.parametrize("mutate,match", [
+    (lambda a: (a[0].double(),) + a[1:], "float32"),
+    (lambda a: a[:1] + (a[1][:, :-1],) + a[2:], "shape"),
+    (lambda a: a[:3] + (a[3].transpose(1, 2).contiguous().transpose(1, 2),)
+     + a[4:], "contiguous"),
+])
+def test_ssm_plan_refuses_bad_inputs(mutate, match):
+    with pytest.raises(ValueError, match=match):
+        ssm_scan.plan(*mutate(torch_args(ssm_inputs(1, 4, 8, 4, 1))))
+
+
+def test_ssm_plan_refuses_a_state_past_the_registers():
+    with pytest.raises(ValueError, match="N <= 64"):
+        ssm_scan.plan(*torch_args(ssm_inputs(1, 4, 8, 65, 1)))

@@ -1,5 +1,6 @@
-"""Seeded numpy inputs for the port's kernels: one builder for the CPU
-tests, the card tests (tests/test_torch_cuda.py) and chip_smoke.py.
+"""Seeded numpy inputs for the port's kernels, and the edge cases of the
+LM kernels: one builder for the CPU tests, the card tests
+(tests/test_torch_cuda.py) and chip_smoke.py.
 Imports neither JAX nor pytest, so it loads on a machine with a card and
 PyTorch alone."""
 from __future__ import annotations
@@ -90,3 +91,29 @@ def ssm_inputs(B, S, Dss, N, seed):
     A = -(np.arange(1, N + 1, dtype=np.float32)[None, :]
           * rng.uniform(0.5, 1.5, (Dss, 1)).astype(np.float32))
     return dt, Bm, Cm, x, A
+
+
+# Edges of the tensor-core (bf16) flash-attention instance, held against
+# the plain version by tests/test_torch_cuda.py and chip_smoke.py:
+# B, H, KV, Sq, Skv, hd, causal, window, softcap
+FLASH_TC_EDGES = [
+    (1, 4, 2, 100, 170, 64, True, 0, 0.0),      # Sq, Skv ragged, Sq < Skv
+    (2, 4, 4, 77, 45, 64, False, 0, 0.0),       # non-causal, Sq > Skv, G=1
+    (1, 10, 2, 200, 200, 128, True, 0, 0.0),    # hd 128, G=5
+    (1, 5, 1, 150, 150, 256, True, 100, 0.0),   # hd 256 (32-key tiles)
+    (1, 2, 2, 130, 130, 64, True, 20, 0.0),     # window < one tile
+    (2, 4, 2, 300, 300, 64, True, 100, 0.0),    # window edge inside a tile
+    (1, 2, 1, 300, 90, 64, True, 40, 0.0),      # rows with no unmasked key
+    (1, 4, 2, 190, 190, 64, True, 0, 30.0),     # softcap
+    (1, 2, 1, 65, 200, 16, False, 33, 0.0),     # hd 16, non-causal window
+    (1, 4, 4, 129, 129, 32, True, 0, 0.0),      # hd 32
+]
+
+# Edges of the lane-split SSM scan: B, S, Dss, N (N of every lane split
+# and a ragged last lane; S = 1 and S off the 16-step chunk; Dss off the
+# channel tile)
+SSM_EDGES = [
+    (2, 40, 50, 1), (2, 9, 11, 2), (1, 17, 13, 3), (2, 21, 30, 7),
+    (1, 33, 100, 16), (2, 1, 20, 16), (1, 20, 37, 17), (1, 50, 70, 33),
+    (2, 19, 9, 64),
+]
