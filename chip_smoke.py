@@ -13,7 +13,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   3. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes, at ragged ones and at the edges of the attention's
      tensor-core instance and of the scan's lane splits
-     (tests/torch_kernel_inputs.py);
+     (tests/torch_kernel_inputs.py); the engine kernels also at both of the
+     binning's paths and their boundary, ten calls in a row (their
+     in-kernel reduction's scratch must return to empty) and one call
+     captured in a CUDA graph and replayed on new inputs;
   4. parity of the port on the card against the port on the CPU: two
      discrete-event scenarios, with the engine kernels' launch counters
      checked against the engine's step count; and hymba-1.5b serving at
@@ -30,8 +33,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   Each kernel is then timed at its main path's shapes beside its bound
   (the largest of its bytes, its flops and its exponentials at their peak
   rates), its plain version and, where one exists, the library call
-  computing the same function; profiler breakdowns of both main paths
-  follow.
+  computing the same function; an engine kernel's device time counts
+  every device operation of its call (kernels, copies, fills), and each
+  must be one.  Profiler breakdowns of both main paths follow.
+
+    python3 chip_smoke.py --engine-calls ROOT
+
+times only the two engine kernels' calls, as the full run does, for the
+checkout at ROOT (its src/, built there): run it on an older checkout in
+the same call to compare the two on one card.
 
 The second-to-last line is a JSON object describing each kernel (its
 stream time "ms" and profiler time "device_ms" among the keys); the last
@@ -134,6 +144,23 @@ def kernel_device_us(fn, names, reps: int = 100):
     return us / reps if us > 0 else None
 
 
+def call_device(fn, reps: int = 100):
+    """(device us, device operations, {operation: (count, device us)}) of
+    one call of ``fn``: every operation the profiler records over ``reps``
+    calls (kernels, copies, fills), divided by ``reps``; (None, None, {})
+    when it records no device time."""
+    def many():
+        for _ in range(reps):
+            fn()
+    ks, _ = device_kernels(many)
+    us = sum(t for _, t in ks.values())
+    if us <= 0:
+        return None, None, {}
+    return (us / reps, sum(c for c, _ in ks.values()) / reps,
+            {k.split("(")[0][:60]: (c / reps, t / reps)
+             for k, (c, t) in ks.items()})
+
+
 def exp_per_s() -> float:
     """Exponentials per second on the special-function units: 16 per SM per
     clock at the SM clock nvidia-smi reports as the card's maximum."""
@@ -189,20 +216,27 @@ def ptxas_entries(report: str) -> dict:
 
 
 def sass_census(built) -> None:
-    """What the LM kernels were compiled to (cuobjdump -sass): tensor-core
-    instructions (HMMA) and asynchronous global-to-shared copies (LDGSTS,
-    from cp.async).  The attention library must hold both."""
+    """What the kernels were compiled to (cuobjdump -sass): for the LM
+    kernels tensor-core instructions (HMMA) and asynchronous
+    global-to-shared copies (LDGSTS, from cp.async), which the attention
+    library must hold; for the binning its shared-memory atomics (the
+    counts' ATOMS.POPC.INC, the float parts' compare-and-swap loop
+    ATOMS.CAST.SPIN)."""
     from repro_torch.kernels import build
     tool = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
     if not tool.is_file():
         fail(f"{tool} not found: the attention's SASS cannot be inspected")
-    for name in ("flash_attention", "ssm_scan"):
+    for name, ops in (("flash_attention", ("HMMA", "LDGSTS")),
+                      ("ssm_scan", ("HMMA", "LDGSTS")),
+                      ("telemetry_bin", ("ATOMS.POPC.INC",
+                                         "ATOMS.CAST.SPIN"))):
         sass = subprocess.run([str(tool), "-sass", str(built[name][0])],
                               capture_output=True, text=True,
                               check=True).stdout.splitlines()
-        n = {op: sum(op in ln for ln in sass) for op in ("HMMA", "LDGSTS")}
-        log(f"[build] {name}: SASS holds {n['HMMA']} HMMA and "
-            f"{n['LDGSTS']} LDGSTS instructions")
+        n = {op: sum(op in ln for ln in sass) for op in ops}
+        log(f"[build] {name}: SASS holds "
+            + " and ".join(f"{c} {op}" for op, c in n.items())
+            + " instructions")
         if name == "flash_attention" and not (n["HMMA"] and n["LDGSTS"]):
             fail("flash_attention was not compiled to tensor-core "
                  "instructions fed by asynchronous copies")
@@ -242,19 +276,20 @@ def check_dcsim(n, c, seed, dev, scale=0.6):
     return args, err
 
 
-def check_telemetry(J, M, W, K, seed, dev):
+def check_telemetry(J, M, W, K, seed, dev, unit=True):
     """Log-uniform latencies off the bin edges with both clamps hit, 0/1
-    weights, integer-valued histograms (the tests' builder)."""
+    weights (or, not ``unit``, weights from {0, 0.5, 1, 2}),
+    integer-valued histograms (the tests' builder)."""
     from repro_torch.kernels import ref, telemetry_bin
     from torch_kernel_inputs import tb_inputs, torch_args
-    args = torch_args(tb_inputs(J, M, 64, W, K, seed), dev)
+    args = torch_args(tb_inputs(J, M, 64, W, K, seed, unit), dev)
     got = telemetry_bin.telemetry_accum(*args)
     exp = ref.telemetry_accum_reference(*args)
     torch.cuda.synchronize()
     err = 0.0
     for name, g, e in zip(("job_hist", "task_hist", "win"), got, exp):
         d = float((g - e).abs().max())
-        # 0/1 weights: every partial sum is an exact integer, so the
+        # 0/1 (or dyadic) weights: every partial sum is exact, so the
         # atomics' order cannot show -- bitwise equality is required
         if not torch.equal(g, e):
             fail(f"telemetry_accum J={J} M={M}: {name} differs from the "
@@ -262,9 +297,144 @@ def check_telemetry(J, M, W, K, seed, dev):
         err = max(err, d)
     if float(got[0].sum() - args[4].sum()) != float(args[1].sum()):
         fail("telemetry_accum: job histogram mass not conserved")
-    log(f"[kernels] telemetry_accum J={J} M={M} win=({W},{K}): bitwise "
+    path = telemetry_bin.plan(J, M, 64, W, K).path
+    log(f"[kernels] telemetry_accum J={J} M={M} win=({W},{K}) ({path} "
+        f"path, {'0/1' if unit else '0, 0.5, 1, 2'} weights): bitwise "
         f"equal to the plain version (max abs err {err})")
     return args, err
+
+
+def dcsim_call(args):
+    from repro_torch.kernels import dcsim_step
+    return dcsim_step.dcsim_advance(*args, throttle_power_scale=0.6)
+
+
+def telemetry_call(args):
+    from repro_torch.kernels import telemetry_bin
+    return telemetry_bin.telemetry_accum(*args)
+
+
+def engine_inputs(name, seed, dev):
+    """The engine kernels' inputs at a main path's shape (the tests'
+    builders): the advance at N_MAIN x C_MAIN, the binning at the engine's
+    J = J*T = JOBS_MAIN (one block) or at 100,003 / 300,009 (across
+    blocks)."""
+    from torch_kernel_inputs import dcsim_inputs, tb_inputs, torch_args
+    if name == "dcsim_advance":
+        return torch_args(dcsim_inputs(N_MAIN, C_MAIN, seed), dev)
+    J, M, W = {"telemetry_accum": (JOBS_MAIN, JOBS_MAIN, 1),
+               "telemetry_accum large": (100_003, 300_009, 256)}[name]
+    return torch_args(tb_inputs(J, M, 64, W, 19, seed), dev)
+
+
+def engine_repeat_and_graph(name, dev) -> None:
+    """Ten calls in a row on the same inputs, every output kept (so no call
+    can find an earlier result in reused memory), all bitwise equal to the
+    plain version and the reduction's scratch back to empty; then one call
+    captured with torch.cuda.graph, replayed on new inputs copied into the
+    captured ones, bitwise equal to the eager call on those inputs."""
+    from repro_torch.kernels import dcsim_step, ref, telemetry_bin
+    dc = name == "dcsim_advance"
+    call = dcsim_call if dc else telemetry_call
+    args = engine_inputs(name, 21, dev)
+    outs = [call(args) for _ in range(10)]
+    exp = ref.dcsim_advance_reference(*args, throttle_power_scale=0.6) \
+        if dc else ref.telemetry_accum_reference(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, e) for out in outs for g, e in zip(out, exp)):
+        fail(f"{name}: ten calls in a row do not all equal the plain version")
+    # (ticket, minimum image) must read (0, empty); the binning's ticket 0
+    words = dcsim_step.scratch(dev).tolist() if dc else \
+        [int(telemetry_bin.scratch(dev, 64)[1])]
+    if words != ([0, -1] if dc else [0]):
+        fail(f"{name}: the reduction's scratch reads {words} after a call, "
+             f"not empty")
+    fresh = engine_inputs(name, 22, dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call(args)
+    for s, f in zip(args, fresh):
+        if torch.is_tensor(s):
+            s.copy_(f)
+    graph.replay()
+    eager = call(fresh)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, e) for g, e in zip(captured, eager)):
+        fail(f"{name}: the CUDA graph's replay differs from the eager call")
+    log(f"[kernels] {name}: ten calls in a row bitwise equal to the plain "
+        f"version, scratch back to empty; a CUDA-graph capture replayed on "
+        f"new inputs equals the eager call bit for bit")
+
+
+# the engine kernels' timed calls and the seeds of their phase-3 checks
+ENGINE_TIMED = {"dcsim_advance": 1, "telemetry_accum": 4,
+                "telemetry_accum large": 5}
+
+
+def engine_call_times(dev) -> dict:
+    """Each engine kernel's call at its main path's shape (and the binning
+    at its cross-block check shape): stream ms (CUDA events), device us and
+    device operations per call (profiler, every operation of the call),
+    the plain version's ms and the bound.  Uses the wrappers' signatures
+    and the plain versions only, so an older checkout's package runs it
+    as well (--engine-calls)."""
+    from repro_torch.kernels import ref
+    out = {}
+    for name, seed in ENGINE_TIMED.items():
+        a = engine_inputs(name, seed, dev)
+        if name == "dcsim_advance":
+            call = dcsim_call
+            plain = lambda: ref.dcsim_advance_reference(   # noqa: E731
+                *a, throttle_power_scale=0.6)
+            res = call(a)
+            n_bytes = nbytes(*[x for x in a if torch.is_tensor(x)], *res)
+            # per server: C compares, C adds, C selects, ~12 flops of
+            # power and accrual, 3 mins
+            ops = {"f32 operations": (N_MAIN * (3 * C_MAIN + 15),
+                                      PEAK_F32_OPS_S)}
+        else:
+            call = telemetry_call
+            plain = lambda: ref.telemetry_accum_reference(*a)  # noqa: E731
+            res = call(a)
+            nnz = int((a[1] != 0).sum() + (a[3] != 0).sum())
+            # every weight read, a value only where its weight is not 0
+            n_bytes = nbytes(a[1], a[3], *a[4:9], *res) + 4 * nnz
+            # per weighted value: max, divide, log (~20 flops), multiply,
+            # clamp, add; plus the window row
+            ops = {"f32 operations": (nnz * 25 + a[8].numel(),
+                                      PEAK_F32_OPS_S)}
+        bound, by, op = bound_ms(n_bytes, ops)
+        us, n_ops, names = call_device(lambda: call(a))
+        out[name] = {"ms": time_ms(lambda: call(a)),
+                     "plain_ms": time_ms(plain), "device_us": us,
+                     "ops": n_ops, "op_names": names, "bound_ms": bound,
+                     "bound_by": by, "bound_op": op}
+    return out
+
+
+def log_engine_time(name, tm, tail="", tag="[time]") -> None:
+    d = tm["device_us"]
+    dev = "not measured" if d is None else (
+        f"{d:.2f} us of device time in {tm['ops']:g} device operations per "
+        f"call (" + ", ".join(f"{k} x{c:g} {t:.2f} us"
+                              for k, (c, t) in tm["op_names"].items())
+        + f"; profiler), host share {tm['ms'] * 1e3 - d:.1f} us")
+    log(f"{tag} {name}: {tm['ms'] * 1e3:.1f} us per call on the stream, "
+        f"{dev}; bound {tm['bound_ms'] * 1e3:.4f} us by {tm['bound_op']}; "
+        f"plain version {tm['plain_ms'] * 1e3:.1f} us{tail}")
+
+
+def engine_calls_of(root: str) -> None:
+    """--engine-calls: time the engine kernels' calls of the checkout at
+    ``root`` (its package and its kernel sources, built under it)."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this needs an NVIDIA GPU")
+    sys.path.insert(0, str(pathlib.Path(root).resolve() / "src"))
+    from repro_torch.kernels import build
+    build.build_all(("dcsim_step", "telemetry_bin"))
+    log(f"[calls] package {pathlib.Path(build.__file__).parents[2]}")
+    for name, tm in engine_call_times(torch.device("cuda", 0)).items():
+        log_engine_time(name, tm, tag="[calls]")
 
 
 # --------------------------------------------------------------------------
@@ -792,13 +962,27 @@ def main() -> None:
     sass_census(built)
 
     # phase 3: kernels vs plain versions
-    dc_main, dc_err = check_dcsim(N_MAIN, C_MAIN, 1, dev)
-    _, e2 = check_dcsim(1000, 4, 2, dev)
-    _, e3 = check_dcsim(1000, 3, 3, dev)          # scalar (non-float4) path
-    dc_err = max(dc_err, e2, e3)
-    tb_main, tb_err = check_telemetry(JOBS_MAIN, JOBS_MAIN, 1, 19, 4, dev)
-    _, e4 = check_telemetry(100_003, 300_009, 256, 19, 5, dev)
-    tb_err = max(tb_err, e4)
+    _, dc_err = check_dcsim(N_MAIN, C_MAIN, 1, dev)
+    # ragged farms about the 256-thread blocks; C = 3 takes the scalar
+    # (non-float4) path
+    for seed, (n, c) in enumerate([(1000, 4), (1000, 3), (1, 4), (255, 4),
+                                   (257, 4), (N_MAIN + 1, 4)], start=2):
+        dc_err = max(dc_err, check_dcsim(n, c, seed, dev)[1])
+    _, tb_err = check_telemetry(JOBS_MAIN, JOBS_MAIN, 1, 19, 4, dev)
+    # the cross-block path, and both sides of the paths' boundary
+    from repro_torch.kernels.telemetry_bin import SMALL_MAX
+    for seed, (J, M, W) in enumerate([(100_003, 300_009, 256),
+                                      (SMALL_MAX, SMALL_MAX, 2),
+                                      (SMALL_MAX + 1, SMALL_MAX + 1, 3)],
+                                     start=5):
+        tb_err = max(tb_err, check_telemetry(J, M, W, 19, seed, dev)[1])
+    for J, M, W in ((JOBS_MAIN, JOBS_MAIN, 1), (100_003, 300_009, 256)):
+        # weights other than 1 take the float atomics
+        tb_err = max(tb_err, check_telemetry(J, M, W, 19, 8, dev,
+                                             unit=False)[1])
+    for name in ("dcsim_advance", "telemetry_accum",
+                 "telemetry_accum large"):
+        engine_repeat_and_graph(name, dev)
     fa_q, fa_kw, fa_err = check_flash(FLASH_MAIN, dev)
     for case in FLASH_RAGGED:
         fa_err = max(fa_err, check_flash(case, dev)[2])
@@ -841,52 +1025,30 @@ def main() -> None:
     lm_cfg, lm_params, lm_toks, lm_counts = lm_main(dev)
 
     # kernel times at the main paths' shapes
-    from repro_torch.kernels import dcsim_step, ref, telemetry_bin
-    dc_kw = {"throttle_power_scale": 0.6}
-    dc_ms = time_ms(lambda: dcsim_step.dcsim_advance(*dc_main, **dc_kw))
-    dc_plain = time_ms(lambda: ref.dcsim_advance_reference(*dc_main,
-                                                           **dc_kw))
-    outs = dcsim_step.dcsim_advance(*dc_main, **dc_kw)
-    dc_bytes = nbytes(*[a for a in dc_main if torch.is_tensor(a)],
-                      *outs)
-    # per server: C compares, C adds, C selects, ~12 flops of power and
-    # accrual, 3 mins
-    dc_bound, dc_by, dc_op = bound_ms(
-        dc_bytes, {"f32 operations": (N_MAIN * (3 * C_MAIN + 15),
-                                      PEAK_F32_OPS_S)})
-    tb_ms = time_ms(lambda: telemetry_bin.telemetry_accum(*tb_main))
-    tb_plain = time_ms(lambda: ref.telemetry_accum_reference(*tb_main))
-    touts = telemetry_bin.telemetry_accum(*tb_main)
-    nnz = int((tb_main[1] != 0).sum() + (tb_main[3] != 0).sum())
-    # the kernel reads every weight but a value only where its weight is
-    # non-zero
-    tb_bytes = nbytes(tb_main[1], tb_main[3], *tb_main[4:9], *touts) \
-        + 4 * nnz
-    # per weighted value: max, divide, log (~20 flops), multiply, clamp,
-    # add; plus the window row
-    tb_bound, tb_by, tb_op = bound_ms(
-        tb_bytes, {"f32 operations": (nnz * 25 + tb_main[8].numel(),
-                                      PEAK_F32_OPS_S)})
+    times = engine_call_times(dev)
+    for name, tm in times.items():
+        # rounded: the profiler may drop a record in a hundred calls
+        if tm["ops"] is not None and (round(tm["ops"]) != 1
+                                      or len(tm["op_names"]) != 1):
+            fail(f"{name}: {tm['ops']} device operations per call "
+                 f"({tm['op_names']}), not one")
     kernels = [
-        {"name": "dcsim_advance", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/dcsim_step.cu",
-         "replaces": "src/repro/kernels/dcsim_step.py:68",
-         "launches": counts["dcsim_advance"], "max_abs_err": dc_err,
-         "ms": dc_ms, "plain_ms": dc_plain, "bound_ms": dc_bound,
-         "bound_by": dc_by, "bound_op": dc_op, "library_ms": None},
-        {"name": "telemetry_accum", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/telemetry_bin.cu",
-         "replaces": "src/repro/kernels/telemetry_bin.py:51",
-         "launches": counts["telemetry_accum"], "max_abs_err": tb_err,
-         "ms": tb_ms, "plain_ms": tb_plain, "bound_ms": tb_bound,
-         "bound_by": tb_by, "bound_op": tb_op, "library_ms": None},
-    ]
-    dev_us = {
-        "dcsim_advance": kernel_device_us(
-            lambda: dcsim_step.dcsim_advance(*dc_main, **dc_kw), ["dcsim"]),
-        "telemetry_accum": kernel_device_us(
-            lambda: telemetry_bin.telemetry_accum(*tb_main),
-            ["telemetry_bin"])}
+        {"name": name, "route": "cuda",
+         "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+         "replaces": replaces, "launches": counts[name],
+         "max_abs_err": err, "ms": times[name]["ms"],
+         "plain_ms": times[name]["plain_ms"],
+         "bound_ms": times[name]["bound_ms"],
+         "bound_by": times[name]["bound_by"],
+         "bound_op": times[name]["bound_op"], "library_ms": None,
+         "device_ops": times[name]["ops"]}
+        for name, src, replaces, err in (
+            ("dcsim_advance", "dcsim_step",
+             "src/repro/kernels/dcsim_step.py:68", dc_err),
+            ("telemetry_accum", "telemetry_bin",
+             "src/repro/kernels/telemetry_bin.py:51", tb_err))]
+    dev_us = {name: times[name]["device_us"]
+              for name in ("dcsim_advance", "telemetry_accum")}
     lm_entries, lm_dev_us = lm_kernel_entries(
         (fa_q, fa_kw), ss_main, lm_counts, fa_err, ss_err, dev)
     kernels += lm_entries
@@ -894,6 +1056,10 @@ def main() -> None:
     for k in kernels:
         d = dev_us[k["name"]]
         k["device_ms"] = None if d is None else d / 1e3
+        if "device_ops" in k:
+            log_engine_time(k["name"], times[k["name"]],
+                            f"; {k['launches']} launches in its main run")
+            continue
         lib = "" if k["library_ms"] is None else \
             f"; library call {k['library_ms'] * 1e3:.1f} us"
         inst = f" ({k['instance']})" if "instance" in k else ""
@@ -902,6 +1068,8 @@ def main() -> None:
             f"device time (profiler); bound {k['bound_ms'] * 1e3:.3f} us by "
             f"{k['bound_op']}; plain version {k['plain_ms'] * 1e3:.1f} us"
             f"{lib}; {k['launches']} launches in its main run")
+    log_engine_time("telemetry_accum large", times["telemetry_accum large"],
+                    " (the cross-block path; not on the main path)")
     profile_window(cfg, arr, specs, dev)
     profile_serving(lm_cfg, lm_params, lm_toks, dev)
 
@@ -913,4 +1081,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--engine-calls"] and len(sys.argv) == 3:
+        engine_calls_of(sys.argv[2])
+    elif len(sys.argv) > 1:
+        fail(f"usage: {sys.argv[0]} [--engine-calls ROOT]")
+    else:
+        main()

@@ -112,10 +112,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "dcsim_step":
         fn = lib.dcsim_advance_launch
-        fn.argtypes = [P] * 11 + [F, F, F, I, I] + [P] * 6 + [P]
+        fn.argtypes = [P] * 11 + [F, F, F, I, I, I, I] + [P] * 7 + [P]
     elif name == "telemetry_bin":
         fn = lib.telemetry_bin_launch
-        fn.argtypes = [P, P, I, P, P, I, F, F, I, P, P, P, I, I, P, P, P]
+        fn.argtypes = [P, P, I, P, P, I, F, F, I, P, P, P, I, I, P, P] \
+            + [P] * 5 + [I, P]
     elif name == "flash_attention":
         fn = lib.flash_attention_launch
         fn.argtypes = [P] * 4 + [I] * 7 + [P, I, I, F, F, P]

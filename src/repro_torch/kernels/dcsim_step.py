@@ -5,9 +5,18 @@ with its full signature (``throttled`` and ``throttle_power_scale``
 included).  The plain version is ``ref.dcsim_advance_reference``; the
 source note in the ``.cu`` file says what bounds the kernel on an H100 and
 what its design does about it.  ``LAUNCHES`` counts the kernel's launches
-(the farm-wide minimum pass is part of the same launch).
+(the farm-wide minimum is part of the same launch).
+
+Each device has one pair of scratch words (the ticket counter and the
+running minimum of the in-kernel reduction), made at the first call there
+and reused by every later one: launches on one device must not overlap,
+so call it on one stream at a time (the port issues every call on the
+current stream).  The first call on a device must come before any CUDA
+graph capture, which then replays the launch on the same words.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -15,6 +24,62 @@ import torch
 from . import build
 
 LAUNCHES = 0
+THREADS = 256                   # DCSIM_THREADS in dcsim_step.cu
+BLOCKS_PER_SM = 4               # the grid's cap, past which threads loop
+
+# device index -> (2,) int32: the ticket (0) and the minimum's order image
+# (all bits set: empty), each put back by the launch that used it
+_SCRATCH: dict = {}
+SCRATCH_WORDS = 2
+_SMS: dict = {}                 # device index -> number of SMs
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    grid: int             # blocks
+    block: int            # threads a block
+    vec4: bool            # one float4 of core slots a server (C == 4)
+    scratch: int          # 32-bit scratch words: ticket and minimum
+
+
+def plan(N: int, C: int, *, sms: int = 132, aligned: bool = True) -> Plan:
+    """The launch geometry for an (N, C) farm on a card with ``sms`` SMs,
+    or ValueError.  Pure, so it runs without a card.  One server a thread
+    up to ``BLOCKS_PER_SM`` blocks an SM, a grid-stride loop past that;
+    the float4 path when C == 4 and the core-slot rows are 16-byte
+    ``aligned``.  The reduction's scratch is two words whatever N, so a
+    device's pair serves every call."""
+    if N < 1 or C < 1:
+        raise ValueError(f"dcsim_advance takes N, C >= 1, got N={N} C={C}")
+    if N * C > 2**31 - 1:
+        raise ValueError(f"dcsim_advance indexes servers with 32-bit ints: "
+                         f"N={N} is too large")
+    cap = BLOCKS_PER_SM * sms
+    grid = min(-(-N // THREADS), cap)
+    return Plan(grid=grid, block=THREADS, vec4=C == 4 and aligned,
+                scratch=SCRATCH_WORDS)
+
+
+def sm_count(dev: torch.device) -> int:
+    """The card's number of SMs, read once per device."""
+    n = _SMS.get(dev.index)
+    if n is None:
+        n = _SMS[dev.index] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
+
+
+def scratch(dev: torch.device) -> torch.Tensor:
+    """The device's scratch words (ticket, minimum image): made at its
+    first call and put back to (0, empty) by every launch since."""
+    s = _SCRATCH.get(dev.index)
+    if s is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("dcsim_advance: call it once on this device "
+                               "before capturing a CUDA graph")
+        s = _SCRATCH[dev.index] = torch.tensor([0, -1], dtype=torch.int32,
+                                               device=dev)
+    return s
 
 
 def _check(x, name, shape, dtype):
@@ -31,6 +96,15 @@ def _check(x, name, shape, dtype):
 
 def _ptr(x):
     return None if x is None else x.data_ptr()
+
+
+def _launch(dev, fn):
+    """Run ``fn(stream)`` with ``dev`` current, switching to it only when it
+    is not current already."""
+    if torch.cuda.current_device() == dev.index:
+        return fn(torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        return fn(torch.cuda.current_stream(dev).cuda_stream)
 
 
 def dcsim_advance(core_busy, srv_state, energy, busy_seconds, t, t_next,
@@ -69,25 +143,22 @@ def dcsim_advance(core_busy, srv_state, energy, busy_seconds, t, t_next,
             raise ValueError(f"all inputs must be on {dev}, got {x.device}")
 
     lib = build.load("dcsim_step")
-    threads = 256                       # DCSIM_THREADS in dcsim_step.cu
-    n_blocks = (N + threads - 1) // threads
+    words = scratch(dev)
     new_busy = torch.empty((N, C), dtype=f32, device=dev)
     done = torch.empty((N, C), dtype=torch.bool, device=dev)
     new_energy = torch.empty((N,), dtype=f32, device=dev)
     new_bsec = torch.empty((N,), dtype=f32, device=dev)
-    block_cand = torch.empty((n_blocks,), dtype=f32, device=dev)
     cand = torch.empty((), dtype=f32, device=dev)
+    p = plan(N, C, sms=sm_count(dev), aligned=core_busy.data_ptr() % 16 == 0)
     p_act = float(np.float32(p_core_active))
     p_thr = float(np.float32(p_core_active * throttle_power_scale))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dcsim_advance_launch(
-            _ptr(core_busy), _ptr(srv_state), _ptr(energy),
-            _ptr(busy_seconds), _ptr(srv_wake_at), _ptr(srv_idle_since),
-            _ptr(srv_tau), _ptr(throttled), _ptr(state_power), _ptr(t),
-            _ptr(t_next), p_act, p_thr, float(np.float32(p_core_idle)),
-            N, C, _ptr(new_busy), _ptr(done), _ptr(new_energy),
-            _ptr(new_bsec), _ptr(block_cand), _ptr(cand), stream)
+    err = _launch(dev, lambda stream: lib.dcsim_advance_launch(
+        _ptr(core_busy), _ptr(srv_state), _ptr(energy), _ptr(busy_seconds),
+        _ptr(srv_wake_at), _ptr(srv_idle_since), _ptr(srv_tau),
+        _ptr(throttled), _ptr(state_power), _ptr(t), _ptr(t_next), p_act,
+        p_thr, float(np.float32(p_core_idle)), N, C, p.grid, int(p.vec4),
+        _ptr(new_busy), _ptr(done), _ptr(new_energy), _ptr(new_bsec),
+        words.data_ptr(), words.data_ptr() + 4, _ptr(cand), stream))
     if err != 0:
         raise RuntimeError(f"dcsim_advance kernel launch failed: cudaError "
                            f"{err}")

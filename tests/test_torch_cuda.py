@@ -44,7 +44,8 @@ def cuda():
 
 @pytest.mark.parametrize("n,c,throttled", [
     (65536, 4, True), (1000, 4, True), (1000, 3, False), (1, 1, True),
-    (257, 8, False)])
+    (257, 8, False), (1, 4, True), (255, 4, False), (257, 4, True),
+    (65537, 4, True), (65537, 3, False)])
 def test_dcsim_advance_matches_plain(cuda, n, c, throttled):
     a = torch_args(dcsim_inputs(n, c, 7, throttled), cuda)
     before = dcsim_step.LAUNCHES
@@ -65,7 +66,10 @@ def test_dcsim_advance_default_inputs(cuda):
 
 
 @pytest.mark.parametrize("J,M,W", [(600, 600, 1), (100_003, 300_009, 256),
-                                   (7, 21, 4)])
+                                   (7, 21, 4),
+                                   # the two paths' boundary (SMALL_MAX)
+                                   (1024, 1024, 2), (1025, 1025, 3),
+                                   (1, 1025, 1), (0, 5000, 2)])
 def test_telemetry_accum_matches_plain(cuda, J, M, W):
     a = torch_args(tb_inputs(J, M, 64, W, 19, 11), cuda)
     before = telemetry_bin.LAUNCHES
@@ -77,6 +81,124 @@ def test_telemetry_accum_matches_plain(cuda, J, M, W):
         assert torch.equal(g, e)
     assert torch.equal(a[4], torch_args(tb_inputs(J, M, 64, W, 19, 11),
                                         cuda)[4])       # inputs untouched
+
+
+@pytest.mark.parametrize("J,M,W", [(600, 600, 1), (100_003, 300_009, 256)])
+def test_telemetry_accum_takes_weights_other_than_one(cuda, J, M, W):
+    """Weights of 0.5 and 2 take the float atomics, weights of 1 the
+    integer counts, on both paths; dyadic sums are exact in any order."""
+    a = torch_args(tb_inputs(J, M, 64, W, 19, 13, unit=False), cuda)
+    assert set(torch.unique(a[3]).tolist()) == {0.0, 0.5, 1.0, 2.0}
+    for g, e in zip(telemetry_bin.telemetry_accum(*a),
+                    ref.telemetry_accum_reference(*a)):
+        assert torch.equal(g, e)
+
+
+def _dcsim_call(a):
+    return dcsim_step.dcsim_advance(*a, throttle_power_scale=0.6)
+
+
+def _engine_call(kind, dev, seed=11):
+    """(call, inputs) of one engine kernel at a main path's shape: the
+    advance at 65,536 x 4, the binning at the engine's J = J*T = 600 (the
+    one-block path) and at the check case 100,003 / 300,009 (the
+    cross-block path)."""
+    if kind == "dcsim_advance":
+        return _dcsim_call, torch_args(dcsim_inputs(65536, 4, seed), dev)
+    J, M, W = {"telemetry_small": (600, 600, 1),
+               "telemetry_large": (100_003, 300_009, 256)}[kind]
+    return (lambda a: telemetry_bin.telemetry_accum(*a),
+            torch_args(tb_inputs(J, M, 64, W, 19, seed), dev))
+
+
+ENGINE_CALLS = ["dcsim_advance", "telemetry_small", "telemetry_large"]
+
+
+def _device_ops(fn, reps):
+    """{name: count} of the device operations (kernels, copies, fills) that
+    torch.profiler records over ``reps`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("kind", ENGINE_CALLS)
+def test_engine_kernels_issue_one_device_op_per_call(cuda, kind):
+    """No copy, fill or second pass around the kernel: each call is one
+    device operation, the kernel itself."""
+    call, a = _engine_call(kind, cuda)
+    call(a)                                   # scratch made, library loaded
+    ops_seen = _device_ops(lambda: call(a), reps=5)
+    assert sum(ops_seen.values()) == 5, ops_seen
+    assert len(ops_seen) == 1, ops_seen
+
+
+@pytest.mark.parametrize("kind", ENGINE_CALLS)
+def test_engine_kernels_leave_inputs_and_own_their_outputs(cuda, kind):
+    call, a = _engine_call(kind, cuda)
+    before = [x.clone() if torch.is_tensor(x) else x for x in a]
+    got = call(a)
+    torch.cuda.synchronize()
+    for x, b in zip(a, before):
+        if torch.is_tensor(x):
+            assert torch.equal(x, b)
+    spans = [(x.untyped_storage().data_ptr(),
+              x.untyped_storage().data_ptr() + x.untyped_storage().nbytes())
+             for x in a if torch.is_tensor(x)]
+    for g in got:
+        lo = g.untyped_storage().data_ptr()
+        hi = lo + g.untyped_storage().nbytes()
+        assert all(hi <= s or lo >= e for s, e in spans)
+
+
+@pytest.mark.parametrize("kind", ENGINE_CALLS)
+def test_engine_kernels_ten_calls_in_a_row_agree(cuda, kind):
+    """The in-kernel reduction's scratch returns to its empty state after
+    every launch: ten calls on the same inputs (each output kept, so no
+    call can find the last one's result in reused memory) are bitwise
+    equal to each other and to the plain version, and the scratch reads
+    empty after them (ticket 0; the advance's minimum word all bits
+    set)."""
+    call, a = _engine_call(kind, cuda)
+    outs = [call(a) for _ in range(10)]
+    exp = (ref.dcsim_advance_reference(*a, throttle_power_scale=0.6)
+           if kind == "dcsim_advance" else ref.telemetry_accum_reference(*a))
+    torch.cuda.synchronize()
+    for out in outs:
+        for g, e in zip(out, exp):
+            assert torch.equal(g, e)
+    if kind == "dcsim_advance":               # ticket 0, minimum empty
+        assert dcsim_step.scratch(cuda).tolist() == [0, -1]
+    if kind == "telemetry_large":
+        assert int(telemetry_bin.scratch(cuda, 64)[1]) == 0
+
+
+@pytest.mark.parametrize("kind", ENGINE_CALLS)
+def test_engine_kernels_replay_in_a_cuda_graph(cuda, kind):
+    """One call captured with torch.cuda.graph and replayed on new inputs
+    copied into the captured ones equals the eager call on those inputs,
+    bit for bit."""
+    call, static = _engine_call(kind, cuda, seed=11)
+    _, fresh = _engine_call(kind, cuda, seed=12)
+    call(static)                             # scratch made before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call(static)
+    for s, f in zip(static, fresh):
+        if torch.is_tensor(s):
+            s.copy_(f)
+    graph.replay()
+    eager = call(fresh)
+    torch.cuda.synchronize()
+    for g, e in zip(captured, eager):
+        assert torch.equal(g, e)
 
 
 def test_wrappers_check_their_inputs(cuda):

@@ -165,3 +165,103 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     t = torch_args(tb_inputs(8, 8, 64, 1, 19, 3))
     with pytest.raises(ValueError, match="CUDA tensor"):
         telemetry_bin.telemetry_accum(*t)
+
+
+@pytest.mark.parametrize("N", [1, 255, 256, 257, 1000, 65_535, 65_536,
+                               65_537, 135_168, 135_169, 1_000_003])
+@pytest.mark.parametrize("sms", [132, 2])
+def test_dcsim_plan_covers_every_server(N, sms):
+    """One server a thread up to the cap of BLOCKS_PER_SM blocks an SM,
+    then a grid-stride loop: grid x block x per_thread covers N and no
+    block is left without a server.  The reduction's scratch is the same
+    two words (ticket, minimum) for every N and grid."""
+    p = dcsim_step.plan(N, 4, sms=sms)
+    cap = dcsim_step.BLOCKS_PER_SM * sms
+    assert p.block == dcsim_step.THREADS == 256
+    assert p.grid == min(-(-N // p.block), cap)
+    assert (p.grid - 1) * p.block < N                  # no empty block
+    # one server a thread unless the grid is at its cap; the grid-stride
+    # loop then takes ceil(N / threads) servers a thread
+    assert p.grid * p.block >= N or p.grid == cap
+    per_thread = -(-N // (p.grid * p.block))
+    assert p.grid * p.block * per_thread >= N
+    assert p.scratch == dcsim_step.SCRATCH_WORDS == 2
+    assert p.vec4
+
+
+def test_dcsim_plan_at_the_main_shape_is_one_wave():
+    """65,536 x 4 on 132 SMs: 256 blocks of 256 threads, one server each,
+    all resident at once."""
+    p = dcsim_step.plan(65_536, 4)
+    assert (p.grid, p.block, p.vec4) == (256, 256, True)
+    assert p.grid * p.block == 65_536
+
+
+@pytest.mark.parametrize("C,aligned,vec4", [(4, True, True),
+                                            (4, False, False),
+                                            (3, True, False),
+                                            (8, True, False)])
+def test_dcsim_plan_takes_float4_rows_only_when_it_can(C, aligned, vec4):
+    assert dcsim_step.plan(100, C, aligned=aligned).vec4 is vec4
+
+
+@pytest.mark.parametrize("N,C,match", [(0, 4, "N, C >= 1"),
+                                       (5, 0, "N, C >= 1"),
+                                       (2**29, 4, "32-bit")])
+def test_dcsim_plan_refuses_what_it_cannot_take(N, C, match):
+    with pytest.raises(ValueError, match=match):
+        dcsim_step.plan(N, C)
+
+
+@pytest.mark.parametrize("J,M", [(0, 0), (600, 600), (600, 1800),
+                                 (1024, 1024), (1024, 1), (1025, 1024),
+                                 (1, 1025), (100_003, 300_009),
+                                 (10_000_000, 10)])
+@pytest.mark.parametrize("B", [64, 128])
+def test_telemetry_plan_paths_and_grid(J, M, B):
+    """Streams of at most SMALL_MAX values (one a thread) take the
+    one-block path with no scratch; longer ones take the cross-block path
+    with at most one block an SM, a grid that covers the longer stream,
+    and 2B partial bins a block."""
+    p = telemetry_bin.plan(J, M, B, 1, 19)
+    n = max(J, M)
+    assert telemetry_bin.SMALL_MAX == telemetry_bin.THREADS == 1024
+    assert p.block == telemetry_bin.THREADS
+    assert p.smem == 4 * B * 4              # float parts and counts
+    chunk = p.block
+    if n <= telemetry_bin.SMALL_MAX:
+        assert (p.path, p.grid, p.scratch) == ("small", 1, 0)
+    else:
+        assert p.path == "large"
+        assert 2 <= p.grid <= 132
+        assert p.grid == min(-(-n // chunk), 132)
+        assert (p.grid - 1) * chunk < n                # no empty block
+        assert p.scratch == p.grid * 2 * B
+
+
+def test_telemetry_plan_switches_at_the_boundary():
+    small = telemetry_bin.SMALL_MAX
+    assert telemetry_bin.plan(small, small, 64, 1, 19).path == "small"
+    assert telemetry_bin.plan(small + 1, 0, 64, 1, 19).path == "large"
+    assert telemetry_bin.plan(0, small + 1, 64, 1, 19).path == "large"
+    assert telemetry_bin.plan(small + 1, 1, 64, 1, 19).grid == 2
+
+
+@pytest.mark.parametrize("args,match", [
+    ((10, 10, 0, 1, 19), "B >= 1"),
+    ((-1, 10, 64, 1, 19), ">= 0"),
+    ((10, 10, 64, -1, 19), ">= 0"),
+    ((10, 10, 2**16, 1, 19), "shared memory"),
+    ((10, 10, 2816, 1, 19), "shared memory"),
+    ((10, 10, 64, 2**16, 2**16), "32-bit"),
+])
+def test_telemetry_plan_refuses_what_no_path_takes(args, match):
+    with pytest.raises(ValueError, match=match):
+        telemetry_bin.plan(*args)
+
+
+def test_telemetry_plan_takes_the_most_bins_the_shared_memory_holds():
+    most = telemetry_bin.SMEM_LIMIT // 16
+    assert telemetry_bin.plan(10, 10, most, 1, 19).smem == 16 * most
+    with pytest.raises(ValueError, match="shared memory"):
+        telemetry_bin.plan(10, 10, most + 1, 1, 19)

@@ -49,13 +49,18 @@ def edge_free_vals(rng, n, lo=1e-5, hi=1e3, B=64):
     return v.astype(np.float32)
 
 
-def tb_inputs(J, M, B, W, K, seed):
-    """telemetry_accum inputs: 0/1 weights, integer-valued histograms."""
+def tb_inputs(J, M, B, W, K, seed, unit=True):
+    """telemetry_accum inputs: 0/1 weights (``unit``; otherwise weights
+    from {0, 0.5, 1, 2}, whose sums are exact in any order too),
+    integer-valued histograms."""
     rng = np.random.default_rng(seed)
-    return (edge_free_vals(rng, J, B=B),
-            (rng.random(J) < 0.4).astype(np.float32),
-            edge_free_vals(rng, M, B=B),
-            (rng.random(M) < 0.6).astype(np.float32),
+
+    def wts(n, p):
+        w = (rng.random(n) < p).astype(np.float32)
+        return w if unit else w * rng.choice(
+            np.float32([0.5, 1.0, 2.0]), n)
+    return (edge_free_vals(rng, J, B=B), wts(J, 0.4),
+            edge_free_vals(rng, M, B=B), wts(M, 0.6),
             rng.integers(0, 9, B).astype(np.float32),
             rng.integers(0, 9, B).astype(np.float32),
             rng.uniform(0, 1, (W, K)).astype(np.float32),
