@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (one nvcc per source, all started together); count the LM kernels'
      tensor-core (HMMA) and asynchronous-copy (LDGSTS) instructions;
   3. hold each kernel against its plain PyTorch version on the card, at the
-     main paths' shapes, at ragged ones and at the edges of the attention's
+     main paths' shapes (the network main run's farm among them), at
+     ragged ones and at the edges of the attention's
      tensor-core instance and of the scan's lane splits
      (tests/torch_kernel_inputs.py); the engine kernels also at both of the
      binning's paths and their boundary, ten calls in a row (their
@@ -19,13 +20,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      captured in a CUDA graph and replayed on new inputs;
   4. parity of the port on the card against the port on the CPU: two
      discrete-event scenarios, with the engine kernels' launch counters
-     checked against the engine's step count; and hymba-1.5b serving at
-     full width cut to 2 layers in float32 (prefill and decode logits,
-     greedy tokens, one launch of each LM kernel per layer, attention on
-     its float32 CUDA-core instance);
+     checked against the engine's step count; network mode on case study
+     D's k=4 fat-tree under ROUND_ROBIN and NETWORK_AWARE and on a star
+     whose two flow slots run out; and hymba-1.5b serving at full width
+     cut to 2 layers in float32 (prefill and decode logits, greedy tokens,
+     one launch of each LM kernel per layer, attention on its float32
+     CUDA-core instance);
   5. the discrete-event main run: farm.simulate on a 65,536-server x
      4-core farm (the largest farm benchmarks/bench_engine.py records)
      under 600 Poisson jobs at 50% utilisation; every job must finish;
+     then the network main run: farm.simulate with topo= on a k=16
+     fat-tree (1,024 servers, 320 switches, two line cards each) under
+     case study D's workload scaled to that width (300 two-task chains
+     with 100 MB edges, round-robin placement, so every chain ships one
+     flow); every job must finish, no flow may be dropped, and the
+     switch-power windows must integrate to the switch energy;
   6. the serving main run: ServeEngine.generate on hymba-1.5b (32 layers,
      bf16, seeded random weights) for 4 prompts of 1,536 tokens and 32 new
      tokens, greedy; exactly one launch of each LM kernel per layer, the
@@ -76,6 +85,10 @@ PEAK_F32_OPS_S = 67e12
 PEAK_BF16_FLOP_S = 989e12
 EXP_PER_SM_CLOCK = 16
 N_MAIN, C_MAIN, JOBS_MAIN = 65_536, 4, 600
+# the network main run: case study D (benchmarks/case_d_network.py) on a
+# k=16 fat-tree, its 30 jobs/s over 16 servers scaled to 1,024 servers
+NET_K, NET_JOBS, NET_LAM = 16, 300, 1920.0
+NET_SERVERS = NET_K ** 3 // 4           # a k-ary fat-tree's servers
 # the serving main run and the card-vs-CPU serving parity run
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "hymba_1_5b", 4, 1536, 32
 LM_MAX_SEQ = 2048
@@ -404,7 +417,13 @@ def engine_call_times(dev) -> dict:
             ops = {"f32 operations": (nnz * 25 + a[8].numel(),
                                       PEAK_F32_OPS_S)}
         bound, by, op = bound_ms(n_bytes, ops)
-        us, n_ops, names = call_device(lambda: call(a))
+        # the profiler now and then loses records (it never adds one): a
+        # window that saw fewer operations than calls is taken again, at
+        # most three times, before the one-operation check reads it
+        for _ in range(3):
+            us, n_ops, names = call_device(lambda: call(a))
+            if n_ops is None or n_ops >= 0.99:
+                break
         out[name] = {"ms": time_ms(lambda: call(a)),
                      "plain_ms": time_ms(plain), "device_us": us,
                      "ops": n_ops, "op_names": names, "bound_ms": bound,
@@ -475,24 +494,49 @@ def dag_chain_cfg():
     return cfg, arr, specs, 0.05
 
 
-def run_engine(cfg, arr, specs, tau, dev):
+def case_d_cfg(policy, k, n_jobs, lam):
+    """benchmarks/case_d_network.py at a fat-tree of arity k, n_jobs jobs
+    arriving at ``lam`` a second (made by tests/torch_kernel_inputs.py).
+    Returns (cfg, arr, specs, tau, topology, seconds the scenario took to
+    build on the host, nearly all of it the topology's routes)."""
+    from repro_torch.core import jobs, topology
+    from repro_torch.core.types import SimConfig
+    from torch_kernel_inputs import case_d_scenario
+    t0 = time.perf_counter()
+    kw, arr, specs, tau, topo = case_d_scenario(jobs, topology, policy, k,
+                                                n_jobs, lam)
+    return SimConfig(**kw), arr, specs, tau, topo, time.perf_counter() - t0
+
+
+def star_cfg(max_flows):
+    """tests/test_network_flows.py's star (made by
+    tests/torch_kernel_inputs.py); ``max_flows=2`` runs out of flow slots
+    and drop-resolves edges."""
+    from repro_torch.core import jobs, topology
+    from repro_torch.core.types import SimConfig
+    from torch_kernel_inputs import star_scenario
+    kw, arr, specs, tau, topo = star_scenario(jobs, topology, max_flows)
+    return SimConfig(**kw), arr, specs, tau, topo
+
+
+def run_engine(cfg, arr, specs, tau, dev, topo=None):
     from repro_torch.core import engine, jobs
     jt = jobs.build_jobs(cfg, np.asarray(arr), specs, device=dev)
-    state, tc = engine.init_state(cfg, jt)
+    state, tc = engine.init_state(cfg, jt, topo)
     if tau is not None:
         state.farm.srv_tau = torch.full_like(state.farm.srv_tau, tau)
     return engine.run(state, cfg, tc)
 
 
-def parity(name, cfg, arr, specs, tau, dev):
+def parity(name, cfg, arr, specs, tau, dev, topo=None, tag="[parity]"):
     from repro_torch.core.types import tree_leaves
     from repro_torch.kernels import ops
     t0 = time.perf_counter()
-    cpu = run_engine(cfg, arr, specs, tau, "cpu")
+    cpu = run_engine(cfg, arr, specs, tau, "cpu", topo)
     t_cpu = time.perf_counter() - t0
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    gpu = run_engine(cfg, arr, specs, tau, dev)
+    gpu = run_engine(cfg, arr, specs, tau, dev, topo)
     torch.cuda.synchronize()
     t_gpu = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -520,11 +564,16 @@ def parity(name, cfg, arr, specs, tau, dev):
              f"{steps} x {cfg.events_per_step}")
     if not bool(gpu.done):
         fail(f"parity {name}: the run did not finish")
-    log(f"[parity] {name}: card == CPU (discrete exact, floats max rel err "
+    net = ""
+    if cfg.has_network:
+        net = (f"; flows dropped {int(gpu.flows.flows_dropped)}, switch "
+               f"energy {float(gpu.net.sw_energy.sum()):.4f} J")
+    log(f"{tag} {name}: card == CPU (discrete exact, floats max rel err "
         f"{worst:.3g}); events {events}, steps {steps}, advance launches "
         f"{counts['dcsim_advance']} (steps x K), telemetry launches "
         f"{counts['telemetry_accum']}; CPU {t_cpu:.2f} s, card "
-        f"{t_gpu:.2f} s")
+        f"{t_gpu:.2f} s{net}")
+    return gpu
 
 
 def report_profile(tag, ks, wall, ours, steps=1, unit="macro-step"):
@@ -548,12 +597,15 @@ def report_profile(tag, ks, wall, ours, steps=1, unit="macro-step"):
         log(f"[profile]   {t / 1e3:8.3f} ms {c:6d} calls  {k[:90]}")
 
 
-def profile_window(cfg, arr, specs, dev, warm: int = 20, steps: int = 10):
-    """Where a macro-step's time goes: ``steps`` macro-steps of the main
+def profile_window(cfg, arr, specs, dev, warm: int = 20, steps: int = 10,
+                   topo=None, tau=None, tag="main run"):
+    """Where a macro-step's time goes: ``steps`` macro-steps of a main
     run (after ``warm``) under torch.profiler."""
     from repro_torch.core import engine, jobs
     jt = jobs.build_jobs(cfg, np.asarray(arr), specs, device=dev)
-    box = list(engine.init_state(cfg, jt))
+    box = list(engine.init_state(cfg, jt, topo))
+    if tau is not None:
+        box[0].farm.srv_tau = torch.full_like(box[0].farm.srv_tau, tau)
     for _ in range(warm):
         box[0] = engine.sim_step(box[0], cfg, box[1])
 
@@ -562,8 +614,84 @@ def profile_window(cfg, arr, specs, dev, warm: int = 20, steps: int = 10):
             box[0] = engine.sim_step(box[0], cfg, box[1])
 
     ks, wall = device_kernels(window)
-    report_profile(f"main run, {steps} macro-steps after {warm}", ks, wall,
+    report_profile(f"{tag}, {steps} macro-steps after {warm}", ks, wall,
                    ("dcsim", "telemetry_bin"), steps)
+
+
+def net_main(dev):
+    """The network main run through the user's entry point:
+    farm.simulate(cfg, arr, specs, topo=fat_tree(16), tau=0.2) on the card.
+    The flows are counted where the engine completes them: a wrapper of
+    network.complete_flows adds up its ``fin`` mask on the device.  Only
+    the full step, which is never discarded, completes flows (a cheap
+    pass may compute a spawn and be thrown away), and a run ends with no
+    flow in flight, so the count is the flows spawned and delivered.
+    Returns (launch counts, cfg, arr, specs, topology)."""
+    from repro_torch.core import farm, network
+    from repro_torch.core.types import SchedPolicy
+    from repro_torch.kernels import ops
+    cfg, arr, specs, tau, topo, t_topo = case_d_cfg(
+        SchedPolicy.ROUND_ROBIN, NET_K, NET_JOBS, NET_LAM)
+    log(f"[net-main] fat_tree k={NET_K}: {topo.n_servers} servers, "
+        f"{topo.n_switches} switches, {topo.n_links} links, {topo.n_ports} "
+        f"ports and {topo.n_linecards} line cards a switch, routes "
+        f"{(topo.routes.nbytes + topo.route_sw.nbytes) / 2**20:.1f} MiB; "
+        f"scenario (routes, job specs) built on the host in {t_topo:.2f} "
+        f"s")
+    if topo.n_servers != NET_SERVERS or cfg.n_cores != C_MAIN:
+        fail(f"net-main: {topo.n_servers} x {cfg.n_cores}, but phase 3 "
+             f"checks the advance at {NET_SERVERS} x {C_MAIN}")
+    n_fin, complete = [], network.complete_flows
+
+    def counted_complete(*a, **k):
+        flows, fin = complete(*a, **k)
+        n_fin.append(fin.sum(dtype=torch.int32))
+        return flows, fin
+
+    network.complete_flows = counted_complete
+    ops.reset_launch_counts()
+    try:
+        res = farm.simulate(cfg, arr, specs, topo=topo, tau=tau)
+    finally:
+        network.complete_flows = complete
+    counts = ops.launch_counts()
+    ri = res.run_info
+    if res.n_finished != NET_JOBS:
+        fail(f"net-main finished {res.n_finished} of {NET_JOBS} jobs")
+    if res.flows_dropped != 0:
+        fail(f"net-main dropped {res.flows_dropped} flows")
+    lat = res.latencies
+    # round-robin splits every chain: each ships 100 MB at 1.25 GB/s
+    if not (np.isfinite(lat).all() and (lat >= 100e6 / 1.25e9).all()
+            and np.isfinite(res.server_energy) and res.server_energy > 0
+            and np.isfinite(res.switch_energy) and res.switch_energy > 0):
+        fail("net-main produced non-finite or impossible results")
+    if res.telemetry.jobs_binned != NET_JOBS:
+        fail(f"net-main binned {res.telemetry.jobs_binned} job latencies")
+    if counts["telemetry_accum"] != ri.steps or \
+            counts["dcsim_advance"] != ri.steps * cfg.events_per_step:
+        fail(f"net-main launch counts {counts} for {ri.steps} steps")
+    # round-robin places a chain's two tasks on two servers: one flow each
+    spawned = int(torch.stack(n_fin).sum())
+    if spawned != NET_JOBS:
+        fail(f"net-main delivered {spawned} flows for {NET_JOBS} chains")
+    tel = res.telemetry
+    win_j = float(np.nansum(tel.switch_power * tel.occupancy))
+    rel = abs(win_j - res.switch_energy) / res.switch_energy
+    if rel > 1e-4:
+        fail(f"net-main: switch-power windows integrate to {win_j} J, the "
+             f"switch energy is {res.switch_energy} J (rel {rel:.3g})")
+    log(f"[net-main] case D round-robin, {NET_JOBS} jobs at {NET_LAM:g}/s: "
+        f"wall {ri.wall_s:.3f} s, events {ri.events}, steps {ri.steps}, "
+        f"{ri.events_per_s:.1f} events/s; flows spawned and delivered "
+        f"{spawned} (counted as they complete), dropped "
+        f"{res.flows_dropped}; mean latency {res.mean_latency * 1e3:.3f} "
+        f"ms, p99 {res.p99_latency * 1e3:.3f} ms; server energy "
+        f"{res.server_energy:.1f} J, switch energy "
+        f"{res.switch_energy:.4f} J, windows integrate to {win_j:.4f} J "
+        f"(rel {rel:.3g}); sim time {res.sim_time:.4f} s; launches "
+        f"{counts}")
+    return counts, cfg, arr, specs, tau, topo
 
 
 # --------------------------------------------------------------------------
@@ -964,9 +1092,10 @@ def main() -> None:
     # phase 3: kernels vs plain versions
     _, dc_err = check_dcsim(N_MAIN, C_MAIN, 1, dev)
     # ragged farms about the 256-thread blocks; C = 3 takes the scalar
-    # (non-float4) path
+    # (non-float4) path; the network main run's farm
     for seed, (n, c) in enumerate([(1000, 4), (1000, 3), (1, 4), (255, 4),
-                                   (257, 4), (N_MAIN + 1, 4)], start=2):
+                                   (257, 4), (N_MAIN + 1, 4),
+                                   (NET_SERVERS, C_MAIN)], start=2):
         dc_err = max(dc_err, check_dcsim(n, c, seed, dev)[1])
     _, tb_err = check_telemetry(JOBS_MAIN, JOBS_MAIN, 1, 19, 4, dev)
     # the cross-block path, and both sides of the paths' boundary
@@ -996,6 +1125,17 @@ def main() -> None:
     # phase 4: card vs CPU
     parity("one_farm n512 j600", *one_farm_cfg(512, 600), dev)
     parity("dag_chain SINGLE_TIMER", *dag_chain_cfg(), dev)
+    from repro_torch.core.types import SchedPolicy
+    for pol in ("ROUND_ROBIN", "NETWORK_AWARE"):
+        c, a, sp, tau, topo, _ = case_d_cfg(getattr(SchedPolicy, pol), 4,
+                                            100, 30.0)
+        parity(f"case D fat_tree k=4 {pol} 100 jobs", c, a, sp, tau, dev,
+               topo, tag="[net-parity]")
+    c, a, sp, tau, topo = star_cfg(2)
+    g = parity("star max_flows=2", c, a, sp, tau, dev, topo,
+               tag="[net-parity]")
+    if int(g.flows.flows_dropped) == 0:
+        fail("net-parity: the star with two flow slots dropped no flow")
     lm_parity(dev)
 
     # phase 5: the discrete-event main run through the user's entry point
@@ -1020,6 +1160,8 @@ def main() -> None:
         f"{ri.steps}, {ri.events_per_s:.1f} events/s; mean latency "
         f"{res.mean_latency * 1e3:.3f} ms, p99 {res.p99_latency * 1e3:.3f} "
         f"ms, energy {res.server_energy:.1f} J; launches {counts}")
+    net_counts, net_cfg, net_arr, net_specs, net_tau, net_topo = \
+        net_main(dev)
 
     # phase 6: the serving main run through the user's entry point
     lm_cfg, lm_params, lm_toks, lm_counts = lm_main(dev)
@@ -1041,7 +1183,7 @@ def main() -> None:
          "bound_ms": times[name]["bound_ms"],
          "bound_by": times[name]["bound_by"],
          "bound_op": times[name]["bound_op"], "library_ms": None,
-         "device_ops": times[name]["ops"]}
+         "device_ops": times[name]["ops"], "net_launches": net_counts[name]}
         for name, src, replaces, err in (
             ("dcsim_advance", "dcsim_step",
              "src/repro/kernels/dcsim_step.py:68", dc_err),
@@ -1058,7 +1200,8 @@ def main() -> None:
         k["device_ms"] = None if d is None else d / 1e3
         if "device_ops" in k:
             log_engine_time(k["name"], times[k["name"]],
-                            f"; {k['launches']} launches in its main run")
+                            f"; {k['launches']} launches in its main run, "
+                            f"{k['net_launches']} in the network main run")
             continue
         lib = "" if k["library_ms"] is None else \
             f"; library call {k['library_ms'] * 1e3:.1f} us"
@@ -1071,6 +1214,8 @@ def main() -> None:
     log_engine_time("telemetry_accum large", times["telemetry_accum large"],
                     " (the cross-block path; not on the main path)")
     profile_window(cfg, arr, specs, dev)
+    profile_window(net_cfg, net_arr, net_specs, dev, topo=net_topo,
+                   tau=net_tau, tag="network run")
     profile_serving(lm_cfg, lm_params, lm_toks, dev)
 
     log(smi)

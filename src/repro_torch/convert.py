@@ -5,8 +5,10 @@ package's plain data, so both packages can start from the same point.
 ``farm._config_dict(cfg)`` dump; ``state_from_numpy`` builds a port
 ``SimState`` from the reference ``SimState``'s leaves as numpy arrays,
 keyed by field path (``"farm.core_busy_until"``; a leading ``"."`` as
-``jax.tree_util.keystr`` writes it is accepted).  Leaves of the subtrees
-this slice does not model (flows, net, thermal, trace) are ignored.
+``jax.tree_util.keystr`` writes it is accepted).  The flows and net
+subtrees come across too, so a mid-run network state steps in both
+packages; leaves of the subtrees the port does not model yet (thermal,
+trace) are ignored.
 ``params_from_jax`` turns the reference's LM parameter tree (numpy
 leaves, stacked over periods) into the port's per-layer ``Params``.
 Nothing here imports JAX.
@@ -66,6 +68,7 @@ def _build(cls, prefix, tree, device):
     for f in dataclasses.fields(cls):
         key = f"{prefix}.{f.name}" if prefix else f.name
         sub = {"farm": T.ServerFarm, "jobs": T.JobTable,
+               "flows": T.FlowTable, "net": T.NetState,
                "sched": T.SchedState, "telem": T.Telemetry}.get(key)
         if sub is not None:
             kw[f.name] = _build(sub, key, tree, device)

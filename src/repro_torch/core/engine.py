@@ -1,6 +1,7 @@
 """The event-driven simulation engine in PyTorch, port of
-``repro.core.engine`` for the main path (no network, thermal, trace or
-sharding; those configurations are refused by ``check_scope``).
+``repro.core.engine``: the main path and network mode (flows over a
+topology, switch states); thermal, trace and sharding are refused by
+``check_scope``.
 
 The paper's sequential priority-queue loop becomes dense tensor work:
 
@@ -28,11 +29,11 @@ import dataclasses
 import torch
 
 from ..kernels import ops
-from . import power, scheduler, server, telemetry
+from . import network, power, scheduler, server, telemetry
 from .server import set_drop
 from .types import (INF, JobTable, SchedPolicy, ServerFarm, SimConfig,
-                    SimState, SrvState, TaskStatus, init_farm, init_sched,
-                    replace, tree_where)
+                    SimState, SrvState, TaskStatus, init_farm, init_flows,
+                    init_net, init_sched, replace, tree_where)
 
 I32 = torch.int32
 I64 = torch.int64
@@ -47,7 +48,6 @@ def check_scope(cfg: SimConfig) -> None:
     """Refuse configurations this slice of the port does not run yet,
     naming the ROADMAP item (Queue 1) that will bring them."""
     refused = [
-        (cfg.has_network, "has_network=True", "item 6 (network mode)"),
         (cfg.thermal.enabled, "thermal.enabled=True",
          "item 7 (thermal.py and the control plane)"),
         (cfg.trace.enabled, "trace.enabled=True",
@@ -56,8 +56,6 @@ def check_scope(cfg: SimConfig) -> None:
          "item 10 (shard_sim.py)"),
         (not cfg.use_vectorized_hot_loop, "use_vectorized_hot_loop=False",
          "item 12 (seed scalar paths)"),
-        (cfg.sched_policy == SchedPolicy.NETWORK_AWARE,
-         "SchedPolicy.NETWORK_AWARE", "item 6 (network mode)"),
         (cfg.sched_policy == SchedPolicy.THERMAL_AWARE,
          "SchedPolicy.THERMAL_AWARE", "item 7 (thermal control plane)"),
         (cfg.sched_policy == SchedPolicy.CARBON_AWARE,
@@ -76,17 +74,31 @@ def check_scope(cfg: SimConfig) -> None:
 @dataclasses.dataclass
 class EngineConsts:
     """Per-run device constants: the advance kernel's (6,) f32 state-power
-    table.  Built once (``consts``), so the loop copies nothing from the
-    host."""
+    table and, in network mode, the topology's arrays.  Built once
+    (``consts``), so the loop copies nothing from the host."""
 
     state_power: torch.Tensor
+    net: network.TopoConsts | None = None
 
 
-def consts(cfg: SimConfig, device) -> EngineConsts:
+def consts(cfg: SimConfig, device, topo=None) -> EngineConsts:
+    """The run's constants; network mode takes ``topo`` (a
+    ``core.topology.Topology``) and raises without it."""
     sp = cfg.server_power
     table = torch.tensor([sp.p_base, sp.p_base, sp.p_pkg_c6, sp.p_s3,
                           sp.p_off, sp.p_wake], dtype=F32)
-    return EngineConsts(state_power=table.to(device))
+    tc_net = network.topo_consts(topo, device) \
+        if cfg.has_network and topo is not None else None
+    tc = EngineConsts(state_power=table.to(device), net=tc_net)
+    _check_consts(cfg, tc)
+    return tc
+
+
+def _check_consts(cfg: SimConfig, tc: EngineConsts) -> None:
+    if cfg.has_network and tc.net is None:
+        raise ValueError(
+            "cfg.has_network=True requires a topology: pass topo= to "
+            "init_state or farm.simulate (flows never route without one)")
 
 
 # ==========================================================================
@@ -130,6 +142,15 @@ def _farm_candidates(state: SimState, cfg: SimConfig) -> torch.Tensor:
     return torch.maximum(t_next, state.t).to(cfg.time_dtype)
 
 
+def next_event_time(state: SimState, cfg: SimConfig) -> torch.Tensor:
+    """Every event source: the farm's, and flow completions in network
+    mode."""
+    t_next = _farm_candidates(state, cfg)
+    if cfg.has_network:
+        t_next = torch.minimum(t_next, state.flows.done_at.min())
+    return torch.maximum(t_next, state.t).to(cfg.time_dtype)
+
+
 # ==========================================================================
 # interval advance
 # ==========================================================================
@@ -140,7 +161,8 @@ def _advance_interval(state: SimState, cfg: SimConfig, tc: EngineConsts,
     t := t_next.  The fused advance kernel accrues energy and busy
     core-seconds and frees completed cores (its done mask and candidate
     are not needed here); residency accrues beside it, and the per-server
-    power feeds the telemetry windows."""
+    power feeds the telemetry windows.  In network mode the switches
+    accrue energy and the flows drain at their current rates."""
     farm = state.farm
     if farm.core_busy_until.is_cuda and cfg.time_dtype != torch.float32:
         raise ValueError(
@@ -151,11 +173,13 @@ def _advance_interval(state: SimState, cfg: SimConfig, tc: EngineConsts,
     dt = t_next - state.t
     dtf = dt.to(F32)                    # physics runs in f32 on any clock
     onehot = power.state_onehot(farm)
+    p_sw = power.switch_power(state.net, cfg) if cfg.has_network else None
 
     telem = state.telem
     if cfg.telemetry.enabled:
         p_busy = power.server_power(farm, cfg)
-        wvals = telemetry.window_values(state, cfg, dt, p_busy, onehot)
+        wvals = telemetry.window_values(state, cfg, dt, p_busy, onehot,
+                                        p_sw)
         widx = telemetry.window_index(state.t, dt, cfg.telemetry)
         spill = telemetry.window_spill(state.t, dt, cfg.telemetry)
         telem = replace(telem,
@@ -173,7 +197,14 @@ def _advance_interval(state: SimState, cfg: SimConfig, tc: EngineConsts,
     farm = replace(farm, core_busy_until=nb.to(cfg.time_dtype), energy=en,
                    busy_core_seconds=bs,
                    residency=farm.residency + onehot * dtf)
-    return replace(state, farm=farm, telem=telem, t=t_next)
+    net, flows = state.net, state.flows
+    if cfg.has_network:
+        net = power.accrue_switch_energy(net, dt, p_sw)
+        # drain the fluid model over the interval (rates are piecewise
+        # constant, fixed at the last recompute)
+        flows = network.advance_flows(flows, dt)
+    return replace(state, farm=farm, net=net, flows=flows, telem=telem,
+                   t=t_next)
 
 
 # ==========================================================================
@@ -211,28 +242,50 @@ def _apply_wakeups(farm: ServerFarm, cfg, now):
         srv_idle_since=torch.where(done, now, farm.srv_idle_since))
 
 
-def _resolve_edges(jobs: JobTable, cfg: SimConfig, done_task):
-    """DAG edges of the tasks in ``done_task``: every edge resolves
-    immediately (no network), decrementing the child's dep_count, then
-    BLOCKED -> READY.  The reference gates this on ``done_task.any()``;
-    here the promotion is masked by the same predicate.  It walks every
-    task row (the reference's compaction to N*C rows covers every
-    finishing task, so both define the same update)."""
+def _resolve_edges(jobs: JobTable, flows, net, cfg: SimConfig, tc,
+                   done_task, now):
+    """DAG edges of the tasks in ``done_task``, then BLOCKED -> READY.
+    Without a network every edge resolves immediately, decrementing the
+    child's dep_count.  In network mode same-server and zero-byte edges
+    resolve immediately and the others spawn flows parent server -> child
+    server, in ascending task id and then column order; a spawn refused by
+    a full flow table drop-resolves its edge.  The reference gates this on
+    ``done_task.any()`` (and the spawn on any edge needing a flow); here
+    the promotion is masked by the same predicate, and the rest is the
+    identity when nothing finished.  It walks every task row: the
+    reference compacts the finishing tasks to N*C rows in ascending task
+    id, so both take the needed edges in the same order.  Returns (jobs,
+    flows, net)."""
     ch = jobs.children                                        # (JT, D)
+    chc = ch.clamp(min=0).view(-1).to(I64)
     ch_valid = (ch >= 0) & done_task[:, None] & ~jobs.edge_sent
     edge_sent = jobs.edge_sent | ch_valid
-    dep_count = jobs.dep_count.index_add(
-        0, ch.clamp(min=0).view(-1).to(I64),
-        -ch_valid.view(-1).to(I32))
+    if cfg.has_network:
+        dst_srv = jobs.server[chc].view(ch.shape)
+        needs_flow = ch_valid & (jobs.edge_bytes > 0) \
+            & (dst_srv != jobs.server[:, None])
+        dep_count = jobs.dep_count.index_add(
+            0, chc, -(ch_valid & ~needs_flow).view(-1).to(I32))
+        need = needs_flow.view(-1)
+        src = jobs.server[:, None].expand(ch.shape).reshape(-1)
+        flows, net, ok = network.spawn_flows_many(
+            flows, net, tc.net, cfg, need, src, dst_srv.view(-1),
+            jobs.edge_bytes.view(-1), ch.view(-1), now)
+        # a full flow table drop-resolves the edge, as a queue drop does
+        dep_count = dep_count.index_add(0, chc, -(need & ~ok).to(I32))
+    else:
+        dep_count = jobs.dep_count.index_add(0, chc,
+                                             -ch_valid.view(-1).to(I32))
     status = torch.where(done_task.any(), _promote_ready(jobs, dep_count, cfg),
                          jobs.status)
     return replace(jobs, status=status, dep_count=dep_count,
-                   edge_sent=edge_sent)
+                   edge_sent=edge_sent), flows, net
 
 
-def _apply_completions(state: SimState, cfg: SimConfig) -> SimState:
+def _apply_completions(state: SimState, cfg: SimConfig, tc) -> SimState:
     """Handle all tasks whose task_end <= now: mark them DONE, update job
-    bookkeeping, resolve DAG edges.  Elementwise in task space."""
+    bookkeeping, resolve DAG edges (immediately, or by spawning flows).
+    Elementwise in task space."""
     farm, jobs = state.farm, state.jobs
     now = state.t
     # free the cores (a no-op for slots the advance kernel already freed)
@@ -245,16 +298,34 @@ def _apply_completions(state: SimState, cfg: SimConfig) -> SimState:
     jobs = replace(jobs, status=status, finish=finish)
     tasks_done, job_finish = _rebuild_job_completion(jobs, cfg, now)
     jobs = replace(jobs, tasks_done=tasks_done, job_finish=job_finish)
+    flows, net = state.flows, state.net
     if cfg.tasks_per_job > 1:
-        jobs = _resolve_edges(jobs, cfg, done_task)
-    return replace(state, farm=farm, jobs=jobs)
+        jobs, flows, net = _resolve_edges(jobs, flows, net, cfg, tc,
+                                          done_task, now)
+    return replace(state, farm=farm, jobs=jobs, flows=flows, net=net)
 
 
-def _apply_arrival(state: SimState, cfg: SimConfig) -> SimState:
+def _apply_flow_completions(state: SimState, cfg: SimConfig) -> SimState:
+    """Flows done by now decrement their child's dep_count; BLOCKED ->
+    READY masked by "any flow finished", as the reference gates it."""
+    flows, fin = network.complete_flows(state.flows, state.t)
+    jobs = state.jobs
+    dep_count = jobs.dep_count.index_add(
+        0, torch.where(fin, flows.child, 0).to(I64), -fin.to(I32))
+    status = torch.where(fin.any(), _promote_ready(jobs, dep_count, cfg),
+                         jobs.status)
+    return replace(state, flows=flows,
+                   jobs=replace(jobs, dep_count=dep_count, status=status))
+
+
+def _apply_arrival(state: SimState, cfg: SimConfig, tc) -> SimState:
     """Admit up to cfg.arrivals_per_step jobs whose arrival <= t in one
     pass against one scheduler snapshot: assign servers to all their tasks
     and mark roots READY.  With nothing to admit the pass is the identity
-    (no task is eligible), so the reference's gate needs no mask."""
+    (no task is eligible), so the reference's gate needs no mask.
+    NETWORK_AWARE with a network adds each server's wake cost from the
+    front end (server 0), one evaluation for the whole batch (the net
+    state does not change during admission)."""
     jobs, farm, sched = state.jobs, state.farm, state.sched
     J = jobs.arrival.shape[0]
     T = cfg.tasks_per_job
@@ -286,12 +357,16 @@ def _apply_arrival(state: SimState, cfg: SimConfig) -> SimState:
         # one pick per job against the shared snapshot; job k sees the
         # roots committed by jobs 0..k-1 of the batch as extra load
         load = scheduler.server_load(farm, cfg).to(F32)
-        root_k = root.view(K, T).sum(dim=1, dtype=I32).to(F32)
         ar = torch.arange(cfg.n_servers, device=dev)
+        net_cost = None
+        if cfg.has_network and cfg.sched_policy == SchedPolicy.NETWORK_AWARE:
+            net_cost = network.route_wake_cost(tc.net, state.net, 0, ar)
+        root_k = root.view(K, T).sum(dim=1, dtype=I32).to(F32)
         extra = torch.zeros((cfg.n_servers,), dtype=F32, device=dev)
         picks = []
         for k in range(K):                     # static unroll, K small
-            srv_k, _ = scheduler.pick_server(farm, cfg, sched, extra, load)
+            srv_k, _ = scheduler.pick_server(farm, cfg, sched, extra, load,
+                                             net_cost)
             extra = torch.where(ar == srv_k, extra + root_k[k], extra)
             picks.append(srv_k)
         srvs = torch.repeat_interleave(torch.stack(picks), T)
@@ -368,11 +443,17 @@ def _start_tasks(state: SimState, cfg: SimConfig) -> SimState:
     return replace(state, farm=farm, jobs=jobs)
 
 
-def _apply_events(state: SimState, cfg: SimConfig) -> SimState:
-    """The event-application pipeline at the (already advanced) time."""
+def _apply_events(state: SimState, cfg: SimConfig, tc,
+                  cheap: bool) -> SimState:
+    """The event-application pipeline at the (already advanced) time.
+    ``cheap`` leaves out what the cheap pass's gate guarantees is not
+    needed: flow completions and the rate recompute (the active flow set
+    cannot change in a cheap pass)."""
     state = replace(state, farm=_apply_wakeups(state.farm, cfg, state.t))
-    state = _apply_completions(state, cfg)
-    state = _apply_arrival(state, cfg)
+    state = _apply_completions(state, cfg, tc)
+    if cfg.has_network and not cheap:
+        state = _apply_flow_completions(state, cfg)
+    state = _apply_arrival(state, cfg, tc)
     state = _drain_ready(state, cfg)
     state = _start_tasks(state, cfg)
     # refresh ACTIVE/IDLE, run local power controllers + pool managers
@@ -382,35 +463,72 @@ def _apply_events(state: SimState, cfg: SimConfig) -> SimState:
     farm = scheduler.wasp_adjust(farm, cfg, _pending_jobs(state.jobs),
                                  state.t)
     farm = scheduler.timer_transitions(farm, cfg, state.t)
-    return replace(state, farm=farm, sched=sched)
+    state = replace(state, farm=farm, sched=sched)
+    if cfg.has_network:
+        flows, link_flows = state.flows, state.net.link_flows
+        if not cheap:
+            # rates only change in the full step; with no flow in flight
+            # the reference skips the recompute and zeroes link_flows
+            # (stale counts would pin ports ACTIVE after the last flow)
+            any_active = flows.active.any()
+            new, lf = network.recompute_rates(flows, tc.net, state.t)
+            flows = tree_where(any_active, new, flows)
+            link_flows = torch.where(any_active, lf, 0)
+        # ports and line cards still enter LPI on idle timeouts in a
+        # cheap pass: a function of time, not of flow events
+        net = network.update_switch_states(state.net, link_flows, tc.net,
+                                           cfg, state.t)
+        state = replace(state, flows=flows, net=net)
+    return state
 
 
 # ==========================================================================
 # the step
 # ==========================================================================
 
-def _all_done(jobs: JobTable) -> torch.Tensor:
-    return (~jobs.valid | (jobs.status == TaskStatus.DONE)).all() \
+def _all_done(state: SimState, cfg: SimConfig) -> torch.Tensor:
+    jobs = state.jobs
+    done = (~jobs.valid | (jobs.status == TaskStatus.DONE)).all() \
         & (_next_arrival(jobs) >= INF)
+    if cfg.has_network:
+        done = done & ~state.flows.active.any()
+    return done
 
 
 def _cheap_gate(state: SimState, cfg: SimConfig):
     """(consume?, t_next) for one cheap event: False when nothing is
-    pending or consuming the event would finish the simulation (the full
-    step owns the done check)."""
+    pending, consuming the event would finish the simulation (the full
+    step owns the done check), or -- in network mode -- a flow completes
+    by t_next or a completing task would spawn a flow (the full step
+    owns flow completions and the rate recompute)."""
     t_next = _farm_candidates(state, cfg)
     jobs = state.jobs
     will_be_done = (~jobs.valid | (jobs.status == TaskStatus.DONE)
                     | ((jobs.status == TaskStatus.RUNNING)
                        & (jobs.task_end <= t_next))).all() \
         & (_next_arrival(jobs) >= INF)
+    if cfg.has_network:
+        will_be_done = will_be_done & ~state.flows.active.any()
     ok = (t_next < INF / 2) & ~will_be_done
+    if cfg.has_network:
+        ok = ok & (t_next < state.flows.done_at.min())
+        if cfg.tasks_per_job > 1:
+            # a completing task whose unsent edges all resolve locally is
+            # still cheap; only an edge that would spawn a flow stops it
+            will_done = (jobs.status == TaskStatus.RUNNING) \
+                & (jobs.task_end <= t_next)
+            ch = jobs.children
+            unsent = (ch >= 0) & ~jobs.edge_sent
+            dst = jobs.server[ch.clamp(min=0).view(-1).to(I64)].view(ch.shape)
+            spawns = unsent & (jobs.edge_bytes > 0) \
+                & (dst != jobs.server[:, None])
+            ok = ok & ~(will_done[:, None] & spawns).any()
     return ok, t_next
 
 
 def _consume_cheap(state: SimState, cfg: SimConfig, tc, t_next) -> SimState:
     state = _advance_interval(state, cfg, tc, t_next)
-    state = _apply_events(state, cfg)
+    state = _apply_events(state, cfg, tc, cheap=True)
     return replace(state, events=state.events + 1)
 
 
@@ -429,17 +547,16 @@ def _macro_chew(state: SimState, cfg: SimConfig, tc) -> SimState:
 
 
 def _full_step(state: SimState, cfg: SimConfig, tc) -> SimState:
-    # the farm and arrival sources are every event source of this slice
-    # (the network and thermal slices add flow completions and throttle
-    # crossings here)
-    t_next = _farm_candidates(state, cfg)
+    # every event source: the farm's, arrivals and flow completions (the
+    # thermal slice adds throttle crossings here)
+    t_next = next_event_time(state, cfg)
     # INF means no pending events: freeze time instead of integrating
     # energy over an unbounded interval
     t_next = torch.where(t_next >= INF / 2, state.t, t_next)
     state = _advance_interval(state, cfg, tc, t_next)
-    state = _apply_events(state, cfg)
+    state = _apply_events(state, cfg, tc, cheap=False)
     return replace(state, events=state.events + 1,
-                   done=_all_done(state.jobs))
+                   done=_all_done(state, cfg))
 
 
 def sim_step(state: SimState, cfg: SimConfig,
@@ -449,6 +566,7 @@ def sim_step(state: SimState, cfg: SimConfig,
     began."""
     if tc is None:
         tc = consts(cfg, state.t.device)
+    _check_consts(cfg, tc)
     if cfg.telemetry.enabled:
         old_job_finish = state.jobs.job_finish
         old_task_finish = state.jobs.finish
@@ -462,22 +580,30 @@ def sim_step(state: SimState, cfg: SimConfig,
     return state
 
 
-def init_state(cfg: SimConfig, jobs: JobTable):
+def init_state(cfg: SimConfig, jobs: JobTable, topo=None):
     """Initial state on the job table's device, and the run's device
-    constants.  Returns (state, tc)."""
+    constants.  ``topo`` (a ``core.topology.Topology``) is required in
+    network mode; its sizes shape the net state.  Returns (state, tc)."""
     check_scope(cfg)
     dev = jobs.status.device
+    tc = consts(cfg, dev, topo)
+    n_sw = topo.n_switches if topo is not None else 0
+    n_ports = topo.n_ports if topo is not None else 1
+    n_links = topo.n_links if topo is not None else 1
+    n_lc = topo.n_linecards if topo is not None else 1
     state = SimState(
         t=torch.zeros((), dtype=cfg.time_dtype, device=dev),
         farm=init_farm(cfg, dev),
         jobs=jobs,
+        flows=init_flows(cfg, dev),
+        net=init_net(n_sw, n_ports, n_links, n_lc, cfg, dev),
         sched=init_sched(cfg, dev),
         telem=telemetry.init_telemetry(cfg, dev),
         events=torch.zeros((), dtype=I32, device=dev),
         steps=torch.zeros((), dtype=I32, device=dev),
         done=torch.zeros((), dtype=torch.bool, device=dev),
     )
-    return state, consts(cfg, dev)
+    return state, tc
 
 
 def run(state: SimState, cfg: SimConfig,
@@ -496,5 +622,5 @@ def run(state: SimState, cfg: SimConfig,
         state = sim_step(state, cfg, tc)
 
 
-__all__ = ["check_scope", "consts", "EngineConsts", "sim_step",
-           "init_state", "run"]
+__all__ = ["check_scope", "consts", "EngineConsts", "next_event_time",
+           "sim_step", "init_state", "run"]

@@ -150,7 +150,7 @@ def summarize(state: SimState, cfg: SimConfig) -> SimResult:
         p50_latency=pct(50), p90_latency=pct(90),
         p95_latency=pct(95), p99_latency=pct(99),
         server_energy=float(energy.sum()),
-        switch_energy=0.0,
+        switch_energy=float(_np(state.net.sw_energy).sum()),
         energy_per_server=energy,
         residency=_np(state.farm.residency),
         wake_count=_np(state.farm.wake_count),
@@ -160,13 +160,15 @@ def summarize(state: SimState, cfg: SimConfig) -> SimResult:
         latencies=lat,
         telemetry=(telemetry_mod.summarize(state, cfg)
                    if cfg.telemetry.enabled else None),
+        flows_dropped=int(state.flows.flows_dropped),
     )
 
 
-def simulate(cfg: SimConfig, arrivals, specs, tau=None, pools=None,
-             device=None) -> SimResult:
+def simulate(cfg: SimConfig, arrivals, specs, topo=None, tau=None,
+             pools=None, device=None) -> SimResult:
     """Build the job table, run the engine to completion, summarize.
 
+    topo   -- a ``core.topology.Topology``; required when cfg.has_network
     tau    -- scalar or (N,) delay-timer values (seconds; INF = never sleep)
     pools  -- (N,) 0/1 pool assignment (dual-timer low/high, WASP)
     device -- ``None`` (the default CUDA device) or ``"cpu"``
@@ -174,7 +176,7 @@ def simulate(cfg: SimConfig, arrivals, specs, tau=None, pools=None,
     engine.check_scope(cfg)
     dev = resolve_device(device)
     jt = jobs_mod.build_jobs(cfg, np.asarray(arrivals), specs, device=dev)
-    state, tc = engine.init_state(cfg, jt)
+    state, tc = engine.init_state(cfg, jt, topo)
     if tau is not None:
         tau_arr = torch.as_tensor(np.broadcast_to(
             np.asarray(tau, np.float64), (cfg.n_servers,)).copy())

@@ -1,0 +1,310 @@
+"""Flow/packet communication model and switch state dynamics (paper
+§III-B), port of ``repro.core.network``.
+
+Flow model: a flow's instantaneous rate is the min over its route links of
+``cap(l) / n_active_flows(l)`` (equal-share fluid approximation).  Rates
+are recomputed at every full step, so completions are exact under
+piecewise-constant sharing.
+
+Packet model (``cfg.comm_model == 1``): adds store-and-forward
+serialization, a fixed extra latency of ``hops * hop_latency + (hops-1) *
+mtu/cap`` consumed before bytes drain.
+
+Switch dynamics: ports enter LPI when their link has no flows (802.3az);
+line cards sleep when all their ports are idle; a switch that carries
+traffic is awake.  Waking an LPI port or a sleeping switch adds its wake
+latency to the flow's ``extra`` budget.
+
+Every function is dense tensor work with no host read, so the engine's
+macro-step stays free of synchronisations.  The scalar seed path
+(``spawn_flow``) is not ported: ROADMAP Queue 1 item 12.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..kernels.ref import _const
+from .types import (INF, FlowTable, LinecardState, NetState, PortState,
+                    SimConfig, replace)
+
+__all__ = ["TopoConsts", "topo_consts", "route_wake_cost",
+           "spawn_flows_many", "recompute_rates", "advance_flows",
+           "complete_flows", "update_switch_states"]
+
+I32 = torch.int32
+I64 = torch.int64
+F32 = torch.float32
+F64 = torch.float64
+
+
+@dataclasses.dataclass
+class TopoConsts:
+    """A topology's dense arrays on the device, built once per run by
+    :func:`topo_consts`."""
+
+    routes: torch.Tensor        # (N, N, H) int32 link ids (-1 padded)
+    route_len: torch.Tensor     # (N, N) int32
+    route_sw: torch.Tensor      # (N, N, H) int32 switch ids (-1 padded)
+    link_cap: torch.Tensor      # (L,) f32 bytes/s
+    link_sw: torch.Tensor       # (L, 2) int32 endpoint switch (-1 server)
+    link_port: torch.Tensor     # (L, 2) int32 endpoint port (-1 server)
+    port_of_side: torch.Tensor  # (2L,) int64 flat (switch, port) of each
+                                # link end, side 0 then side 1 (0 for a
+                                # server end, whose value is masked)
+    side_is_sw: torch.Tensor    # (2L,) bool: that end is a switch
+    lc_of_port: torch.Tensor    # (P,) int64 line card of each port
+    n_links: int
+
+
+def topo_consts(topo, device) -> TopoConsts:
+    """The device arrays of a ``core.topology.Topology``."""
+    def dev(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
+                                                            dtype=dtype)
+
+    ls = np.where(topo.links >= topo.n_servers, topo.links - topo.n_servers,
+                  -1)
+    W = max(topo.n_switches, 1)
+    P = max(topo.n_ports, 1)
+    LC = max(topo.n_linecards, 1)
+    sides = np.concatenate([ls[:, 0], ls[:, 1]])
+    ports = np.concatenate([topo.link_port[:, 0], topo.link_port[:, 1]])
+    flat = np.clip(sides, 0, None) * P + np.clip(ports, 0, None)
+    assert flat.max(initial=0) < W * P
+    return TopoConsts(
+        routes=dev(topo.routes, I32),
+        route_len=dev(topo.route_len, I32),
+        route_sw=dev(topo.route_sw, I32),
+        link_cap=dev(topo.link_cap, F32),
+        link_sw=dev(ls, I32),
+        link_port=dev(topo.link_port, I32),
+        port_of_side=dev(flat, I64),
+        side_is_sw=dev(sides >= 0, torch.bool),
+        lc_of_port=dev(np.clip(np.arange(P) // topo.ports_per_linecard, 0,
+                               LC - 1), I64),
+        n_links=topo.n_links)
+
+
+def route_wake_cost(tc: TopoConsts, net: NetState, src, dst):
+    """Case study D's metric: the number of sleeping switches on the route
+    src -> dst (int32; ``src``/``dst`` broadcast, so one source against
+    every destination gives the NETWORK_AWARE score's network term)."""
+    sws = tc.route_sw[src, dst]                           # (..., H)
+    asleep = ~net.sw_awake[sws.clamp(min=0).to(I64)]
+    return ((sws >= 0) & asleep).sum(dim=-1, dtype=I32)
+
+
+def _round_once(x, y, dtype):
+    """``x + y`` of two float64 tensors, rounded once to ``dtype``.
+
+    The float64 sum rounds to 53 bits, and a second rounding to float32
+    would differ from one rounding of the exact sum where the float64
+    value lands on a float32 midpoint.  So the sum is taken to odd: its
+    exact residual (Knuth's two-sum) tells whether it was inexact, and an
+    inexact sum with an even last bit moves one ulp toward the exact
+    value.  A float32 rounding of that is the correctly rounded exact
+    sum (53 >= 24 + 2 bits).  Every step is one IEEE operation, so the
+    CPU and the card give the same bits."""
+    s = x + y
+    if dtype == F64:
+        return s
+    yv = s - x
+    err = (x - (s - yv)) + (y - yv)
+    even = (s.view(I64) & 1) == 0
+    toward = torch.full_like(s, torch.inf).copysign(err)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(dtype)
+
+
+def _fms(a, b, c, dtype):
+    """``a - b * c`` rounded once to ``dtype``: for float32 operands the
+    product is exact in float64, so this is the fused multiply-subtract
+    the reference's compiled step computes (XLA contracts the pair into
+    an FMA).  A float64 ``c`` (the float64 clock) rounds the product."""
+    return _round_once(a.to(F64), -(b.to(F64) * c.to(F64)), dtype)
+
+
+def _fma(a, b, c, dtype):
+    """``a * b + c`` rounded once to ``dtype`` (see :func:`_fms`)."""
+    return _round_once(a.to(F64) * b.to(F64), c.to(F64), dtype)
+
+
+def spawn_flows_many(flows: FlowTable, net: NetState, tc: TopoConsts,
+                     cfg: SimConfig, need, src, dst, nbytes, child, now):
+    """Spawn a flow for every edge with ``need[e]`` in one batched update.
+
+    Slot allocation is a prefix sum over free flow slots: the edge of rank
+    k among the needed ones takes the k-th free slot, and edges past the
+    free count fail, as sequential first-free allocation would.  A sleeping
+    switch's wake latency is paid only by the first needed edge (in rank
+    order) whose route touches it; later edges of the batch see it awake.
+
+    need/src/dst/nbytes/child (E,).  Returns (flows, net, ok (E,) bool).
+    """
+    E = need.shape[0]
+    F = flows.active.shape[0]
+    W = net.sw_awake.shape[0]
+    swp = cfg.switch_power
+    dev = need.device
+    order = torch.cumsum(need, 0, dtype=I32) - 1      # rank among needed
+    srcc = src.clamp(min=0).to(I64)
+    dstc = dst.clamp(min=0).to(I64)
+
+    # the first needed edge (in rank order) whose route touches each switch
+    sws = tc.route_sw[srcc, dstc]                             # (E, H)
+    touch = (sws >= 0) & need[:, None]
+    rank_e = torch.where(need, order, E)
+    first = torch.full((W + 1,), E, dtype=I32, device=dev).scatter_reduce(
+        0, torch.where(touch, sws, W).view(-1).to(I64),
+        rank_e[:, None].expand(sws.shape).reshape(-1), "amin",
+        include_self=True)[:W]
+
+    links = tc.routes[srcc, dstc]                             # (E, H)
+    lmask = links >= 0
+    lc = links.clamp(min=0).to(I64)
+    sw_a, sw_b = tc.link_sw[lc, 0], tc.link_sw[lc, 1]         # (E, H)
+    pt_a = tc.link_port[lc, 0].clamp(min=0).to(I64)
+    port_lpi = (net.port_state[sw_a.clamp(min=0).to(I64), pt_a]
+                == PortState.LPI) & (sw_a >= 0)
+    sleeping0 = ~net.sw_awake
+
+    def asleep_at_turn(sw):
+        # sleeping when this edge spawns = initially sleeping and not yet
+        # woken by an earlier edge of the batch
+        swc = sw.clamp(min=0).to(I64)
+        return (sw >= 0) & sleeping0[swc] & (first[swc] >= order[:, None])
+
+    asleep = asleep_at_turn(sw_a) | asleep_at_turn(sw_b)
+    n_sleep_sw = (lmask & asleep).sum(dim=1, dtype=I32)
+    n_lpi = (lmask & port_lpi).sum(dim=1, dtype=I32)
+    hops = tc.route_len[srcc, dstc].to(F32)
+    # the multiply-adds round once, as in the reference's compiled step
+    extra = _fma(n_lpi, _const(swp.t_lpi_wake, hops),
+                 torch.clamp(n_sleep_sw, max=1).to(F32)
+                 * _const(swp.t_switch_wake, hops), F32)
+    if cfg.comm_model == 1:  # packet store-and-forward serialization
+        cap0 = tc.link_cap[links[:, 0].clamp(min=0).to(I64)]
+        extra = _fma(hops, _const(cfg.hop_latency, hops), extra, F32) \
+            + torch.clamp(hops - 1.0, min=0.0) \
+            * _const(cfg.flow_mtu, hops) / cap0
+
+    # prefix-sum slot allocator over the free flow slots
+    free = ~flows.active
+    free_rank = torch.cumsum(free, 0, dtype=I32) - 1
+    slot_by_rank = torch.full((F + 1,), F, dtype=I32, device=dev).index_put(
+        (torch.where(free, free_rank, F).to(I64),),
+        torch.arange(F, dtype=I32, device=dev))[:F]
+    ok = need & (order < free.sum(dtype=I32))
+    slot = torch.where(ok, slot_by_rank[order.clamp(0, F - 1).to(I64)], F)
+    slot = slot.to(I64)
+
+    def put(arr, vals):
+        # arr.at[slot].set(vals, mode="drop"): slot F is the sentinel row
+        buf = torch.cat([arr, arr[:1]])
+        if not torch.is_tensor(vals):
+            vals = torch.full((E,), vals, dtype=arr.dtype, device=dev)
+        return buf.index_put((slot,), vals.to(arr.dtype))[:F]
+
+    flows = replace(
+        flows,
+        src=put(flows.src, src),
+        dst=put(flows.dst, dst),
+        rem=put(flows.rem, nbytes.to(F32)),
+        rate=put(flows.rate, 0.0),
+        extra=put(flows.extra, extra),
+        done_at=put(flows.done_at, INF),
+        child=put(flows.child, child),
+        active=put(flows.active, True),
+        flows_dropped=flows.flows_dropped + (need & ~ok).sum(dtype=I32),
+    )
+    # wake every switch on every needed route (slot-exhausted spawns too,
+    # as the sequential path wakes before it checks for a slot)
+    sw_awake = torch.cat([net.sw_awake, net.sw_awake[:1]]).index_put(
+        (torch.where(touch, sws, W).view(-1).to(I64),),
+        torch.ones((), dtype=torch.bool, device=dev))[:W]
+    return flows, replace(net, sw_awake=sw_awake), ok
+
+
+def recompute_rates(flows: FlowTable, tc: TopoConsts, now):
+    """Equal-share fluid rates and projected completion times,
+    ``done_at = now + extra + rem/rate``.  Returns (flows, link_flows)."""
+    links = tc.routes[flows.src.clamp(min=0).to(I64),
+                      flows.dst.clamp(min=0).to(I64)]           # (F, H)
+    lmask = (links >= 0) & flows.active[:, None]
+    lidx = links.clamp(min=0).to(I64)
+    link_flows = torch.zeros((tc.n_links,), dtype=I32,
+                             device=links.device).index_add(
+        0, lidx.view(-1), lmask.view(-1).to(I32))
+    share = tc.link_cap[lidx] / torch.clamp(link_flows[lidx], min=1)
+    share = torch.where(lmask, share, torch.inf)
+    rate = torch.where(flows.active, share.amin(dim=1), 0.0)
+    rate = torch.where(torch.isfinite(rate), rate, 0.0).to(F32)
+    q = flows.rem / torch.clamp(rate, min=1e-30)
+    done = torch.where(flows.active & (rate > 0),
+                       now + flows.extra + q.to(flows.extra.dtype), INF)
+    return replace(flows, rate=rate,
+                   done_at=done.to(flows.done_at.dtype)), link_flows
+
+
+def advance_flows(flows: FlowTable, dt):
+    """Drain ``dt`` seconds: the fixed latency budget is consumed first,
+    then bytes at the current rate."""
+    lat_used = torch.minimum(flows.extra, dt)
+    drain_t = dt - lat_used
+    rem = torch.where(
+        flows.active,
+        torch.clamp(_fms(flows.rem, flows.rate, drain_t, F32), min=0.0),
+        flows.rem)
+    extra = torch.where(flows.active, flows.extra - lat_used, flows.extra)
+    return replace(flows, rem=rem, extra=extra)
+
+
+def complete_flows(flows: FlowTable, now, eps: float = 1e-9):
+    """Deactivate flows whose done_at <= now (+ eps in the clock's dtype);
+    returns (flows, done mask)."""
+    fin = flows.active & (flows.done_at <= now + _const(eps, now))
+    flows = replace(
+        flows,
+        active=flows.active & ~fin,
+        done_at=torch.where(fin, INF, flows.done_at),
+        rem=torch.where(fin, 0.0, flows.rem),
+        rate=torch.where(fin, 0.0, flows.rate),
+        extra=torch.where(fin, 0.0, flows.extra),
+    )
+    return flows, fin
+
+
+def update_switch_states(net: NetState, link_flows, tc: TopoConsts,
+                         cfg: SimConfig, now):
+    """Port LPI entry/exit from link activity; line cards sleep when none
+    of their ports is active; a switch carrying traffic is awake."""
+    swp = cfg.switch_power
+    W, P = net.port_state.shape
+    # busy.at[sw, pt].max(...) over both ends of every link, repeated
+    # (switch, port) pairs included: a count of busy link ends, then > 0
+    lbusy = (link_flows > 0).repeat(2) & tc.side_is_sw
+    busy = torch.zeros((W * P,), dtype=I32, device=lbusy.device).index_add(
+        0, tc.port_of_side, lbusy.to(I32)).view(W, P) > 0
+    was_active = net.port_state == PortState.ACTIVE
+    idle_since = torch.where(was_active & ~busy, now, net.port_idle_since)
+    lpi_ready = ~busy & (now - idle_since
+                         >= _const(swp.t_port_lpi_enter, idle_since))
+    port_state = torch.where(
+        busy, PortState.ACTIVE,
+        torch.where(lpi_ready, PortState.LPI, net.port_state)).to(I32)
+
+    # line cards sleep when no port on them is active
+    LC = net.lc_state.shape[1]
+    port_act = (port_state == PortState.ACTIVE).to(I32)
+    lc_busy = torch.zeros((W, LC), dtype=I32, device=busy.device).index_add(
+        1, tc.lc_of_port, port_act)
+    lc_state = torch.where(lc_busy > 0, LinecardState.ACTIVE,
+                           LinecardState.SLEEP).to(I32)
+
+    sw_awake = busy.any(dim=1) | net.sw_awake
+    return replace(net, port_state=port_state, port_idle_since=idle_since,
+                   lc_state=lc_state, sw_awake=sw_awake,
+                   link_flows=link_flows)

@@ -1,18 +1,21 @@
-"""ACPI-hierarchy server power accounting (paper §III-F), port of
-``repro.core.power`` (server part; switches arrive with the network slice).
+"""ACPI-hierarchy power accounting (paper §III-F), port of
+``repro.core.power``: servers, and switches in network mode.
 
 Energy is accrued exactly between events: state is piecewise constant in a
 DES, so ``E += P(state) * dt`` integrates the power curve with no
-discretization error.
+discretization error.  Switch power follows chassis + line card + port
+(LPI-capable) structure calibrated to the paper's Cisco WS-C2960 profile.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels.ref import _const
-from .types import INF, ServerFarm, SimConfig, SrvState, replace
+from .types import (INF, LinecardState, NetState, PortState, ServerFarm,
+                    SimConfig, SrvState, replace)
 
-__all__ = ["server_power", "accrue_server_energy", "state_onehot"]
+__all__ = ["server_power", "accrue_server_energy", "state_onehot",
+           "switch_power", "total_power", "accrue_switch_energy"]
 
 
 def server_power(farm: ServerFarm, cfg: SimConfig, throttled=None):
@@ -58,3 +61,46 @@ def accrue_server_energy(farm: ServerFarm, cfg: SimConfig, dt,
     return replace(farm, energy=farm.energy + p * dtf,
                    residency=farm.residency + onehot * dtf,
                    busy_core_seconds=farm.busy_core_seconds + busy * dtf)
+
+
+def switch_power(net: NetState, cfg: SimConfig) -> torch.Tensor:
+    """Instantaneous per-switch power (W,) f32: chassis (a dozing switch
+    draws 10%), ports by state (any other state draws 0) and line cards."""
+    swp = cfg.switch_power
+    f32 = torch.float32
+    dev = net.sw_awake.device
+    chassis = torch.where(
+        net.sw_awake, torch.full((), swp.p_chassis, dtype=f32, device=dev),
+        torch.full((), 0.1 * swp.p_chassis, dtype=f32, device=dev))
+    ps = net.port_state
+    port_p = torch.where(ps == PortState.OFF, swp.p_port_off,
+                         torch.zeros(ps.shape, dtype=f32, device=dev))
+    port_p = torch.where(ps == PortState.LPI, swp.p_port_lpi, port_p)
+    port_p = torch.where(ps == PortState.ACTIVE, swp.p_port_active, port_p)
+    lc_p = torch.where(
+        net.lc_state == LinecardState.ACTIVE,
+        torch.full((), swp.p_linecard_active, dtype=f32, device=dev),
+        torch.full((), swp.p_linecard_sleep, dtype=f32, device=dev))
+    return chassis + port_p.sum(dim=1) + lc_p.sum(dim=1)
+
+
+def total_power(farm: ServerFarm, net: NetState, cfg: SimConfig,
+                throttled=None):
+    """Instantaneous fleet-wide (server total, switch total) watts, both
+    0-d f32."""
+    p_srv = server_power(farm, cfg, throttled)[0].sum()
+    if cfg.has_network:
+        p_sw = switch_power(net, cfg).sum()
+    else:
+        p_sw = torch.zeros((), dtype=torch.float32, device=p_srv.device)
+    return p_srv, p_sw
+
+
+def accrue_switch_energy(net: NetState, dt, p) -> NetState:
+    """Exact interval accrual of switch energy and port-state residency;
+    ``p`` is ``switch_power(net, cfg)``, which the caller has at hand."""
+    dtf = dt.to(torch.float32)
+    states = torch.arange(PortState.NUM, device=net.port_state.device)
+    onehot = (net.port_state[..., None] == states).to(torch.float32)
+    return replace(net, sw_energy=net.sw_energy + p * dtf,
+                   port_residency=net.port_residency + onehot * dtf)

@@ -2,12 +2,13 @@
 port of ``repro.core.scheduler`` for the policies of this slice:
 
   * round-robin / load-balance task->server assignment
+  * network-aware assignment (case D): load plus the network wake cost
   * threshold provisioning (case A): grow/shrink the enabled set
   * delay timers, single & dual (case B)
   * WASP two-pool management (case C)
 
-NETWORK_AWARE, THERMAL_AWARE and CARBON_AWARE arrive with the network and
-thermal slices; the engine refuses them before it runs.
+THERMAL_AWARE and CARBON_AWARE arrive with the thermal slice; the engine
+refuses them before it runs.
 """
 from __future__ import annotations
 
@@ -29,11 +30,14 @@ def server_load(farm: ServerFarm, cfg: SimConfig):
 
 
 def pick_server(farm: ServerFarm, cfg: SimConfig, sched, extra_load=None,
-                load=None):
+                load=None, net_cost=None):
     """Choose a server for one task.  Returns (server () int32,
     new_rr_ptr).  ``extra_load`` (N,) f32 is load already committed by
     earlier jobs of the same admission batch; ``load`` optionally supplies
-    ``server_load(farm, cfg)`` as f32, which the batch computes once."""
+    ``server_load(farm, cfg)`` as f32, which the batch computes once.
+    ``net_cost`` (N,) int32 is case D's count of sleeping switches on the
+    route to each server; NETWORK_AWARE without it (no network) scores
+    load alone, as the other score policies do."""
     N = cfg.n_servers
     dev = farm.q_len.device
     if load is None:
@@ -54,7 +58,12 @@ def pick_server(farm: ServerFarm, cfg: SimConfig, sched, extra_load=None,
         return srv, (srv + 1) % N
 
     score = load
-    if cfg.sched_policy == SchedPolicy.WASP_POOLS:
+    if cfg.sched_policy == SchedPolicy.NETWORK_AWARE and net_cost is not None:
+        sleeping = (farm.srv_state == SrvState.PKG_C6) \
+            | (farm.srv_state == SrvState.S3) \
+            | (farm.srv_state == SrvState.OFF)
+        score = load + net_cost.to(F32) * 100.0 + sleeping.to(F32) * 10.0
+    elif cfg.sched_policy == SchedPolicy.WASP_POOLS:
         score = load + farm.srv_pool.to(F32) * BIG
     elif cfg.sleep_policy == SleepPolicy.DUAL_TIMER:
         # prioritize the high-tau pool (pool 0) so low-tau servers sleep

@@ -72,9 +72,11 @@ def init_telemetry(cfg: SimConfig, device) -> Telemetry:
 # ==========================================================================
 
 def window_values(state, cfg: SimConfig, dt, p_busy=None,
-                  onehot=None) -> torch.Tensor:
+                  onehot=None, p_sw=None) -> torch.Tensor:
     """(WIN_COLS,) metric·dt vector for the piecewise-constant interval
-    [t, t+dt), from the pre-advance state."""
+    [t, t+dt), from the pre-advance state.  ``p_sw`` is the per-switch
+    power ``power.switch_power(state.net, cfg)``, required in network
+    mode and unused without one."""
     farm = state.farm
     dtf = dt.to(F32)
     s = state.jobs.status
@@ -91,7 +93,8 @@ def window_values(state, cfg: SimConfig, dt, p_busy=None,
         else onehot.sum(dim=0)
     awake = per_state[SrvState.ACTIVE] + per_state[SrvState.IDLE]
     one = torch.ones((), dtype=F32, device=dtf.device)
-    head = torch.stack([one, active, awake, qdepth, p_srv, one * 0.0])
+    p_sw = p_sw.sum() if cfg.has_network else one * 0.0
+    head = torch.stack([one, active, awake, qdepth, p_srv, p_sw])
     base = torch.cat([head, per_state]) * dtf
     return torch.cat([base, torch.zeros((N_THERMAL_COLS,), dtype=F32,
                                         device=dtf.device)])

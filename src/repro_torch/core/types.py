@@ -47,6 +47,20 @@ class TaskStatus:
     NUM = 7
 
 
+class PortState:
+    ACTIVE = 0
+    LPI = 1           # IEEE 802.3az Low Power Idle
+    OFF = 2
+    NUM = 3
+
+
+class LinecardState:
+    ACTIVE = 0
+    SLEEP = 1
+    OFF = 2
+    NUM = 3
+
+
 class SchedPolicy:
     ROUND_ROBIN = 0
     LOAD_BALANCE = 1
@@ -92,6 +106,9 @@ class ServerPowerProfile:
 
 @dataclass(frozen=True)
 class SwitchPowerProfile:
+    """Cisco WS-C2960-24-S calibration from the paper's §V-B: measured base
+    14.7 W plus 0.23 W per active port."""
+
     p_chassis: float = 14.7
     p_port_active: float = 0.23
     p_port_lpi: float = 0.023
@@ -285,6 +302,31 @@ class JobTable:
 
 
 @dataclass
+class FlowTable:
+    src: torch.Tensor               # (F,) int32 source server
+    dst: torch.Tensor               # (F,) int32 destination server
+    rem: torch.Tensor               # (F,) f32 remaining bytes
+    rate: torch.Tensor              # (F,) f32 current share (bytes/s)
+    extra: torch.Tensor             # (F,) fixed latency budget left (s)
+    done_at: torch.Tensor           # (F,) projected completion (INF idle)
+    child: torch.Tensor             # (F,) int32 task whose deps decrement
+    active: torch.Tensor            # (F,) bool
+    flows_dropped: torch.Tensor     # () int32 spawns refused by a full
+                                    # table (the edge drop-resolves)
+
+
+@dataclass
+class NetState:
+    port_state: torch.Tensor        # (W, P) int32 PortState
+    port_idle_since: torch.Tensor   # (W, P)
+    lc_state: torch.Tensor          # (W, LC) int32 LinecardState
+    sw_awake: torch.Tensor          # (W,) bool
+    link_flows: torch.Tensor        # (L,) int32 active flows per link
+    sw_energy: torch.Tensor         # (W,) f32 joules
+    port_residency: torch.Tensor    # (W, P, PortState.NUM) f32 seconds
+
+
+@dataclass
 class SchedState:
     rr_ptr: torch.Tensor            # () int32 round-robin pointer
     n_enabled: torch.Tensor         # () int32 provisioning active-set size
@@ -306,12 +348,15 @@ class Telemetry:
 
 @dataclass
 class SimState:
-    """Engine state of this slice: the reference's SimState without the
-    network, thermal and trace subtrees (refused by the engine)."""
+    """Engine state: the reference's SimState without the thermal and
+    trace subtrees (the engine refuses both).  ``flows`` and ``net`` are
+    1-sized placeholders when the configuration has no network."""
 
     t: torch.Tensor                 # () current simulation time
     farm: ServerFarm
     jobs: JobTable
+    flows: FlowTable
+    net: NetState
     sched: SchedState
     telem: Telemetry
     events: torch.Tensor            # () int32 processed event count
@@ -321,7 +366,11 @@ class SimState:
 
 def tree_where(mask, new, old):
     """Leaf-wise ``torch.where(mask, new, old)`` over two states of the
-    same dataclass layout (``mask`` a 0-d bool tensor)."""
+    same dataclass layout (``mask`` a 0-d bool tensor).  A leaf that is
+    the same tensor on both sides (a subtree the pass did not touch) is
+    returned as it is: no state tensor is ever written in place."""
+    if new is old:
+        return new
     if dataclasses.is_dataclass(new):
         return type(new)(**{f.name: tree_where(mask, getattr(new, f.name),
                                                getattr(old, f.name))
@@ -382,6 +431,47 @@ def init_farm(cfg: SimConfig, device) -> ServerFarm:
         busy_core_seconds=torch.zeros((N,), dtype=f32, device=device),
         wake_count=torch.zeros((N,), dtype=i32, device=device),
         dropped=torch.zeros((), dtype=i32, device=device),
+    )
+
+
+def init_flows(cfg: SimConfig, device) -> FlowTable:
+    """An empty flow table of ``cfg.max_flows`` slots.  ``rem`` and ``rate``
+    are f32 and ``extra``/``done_at`` follow the clock, under every
+    clock."""
+    F, tdt = cfg.max_flows, cfg.time_dtype
+    i32, f32 = torch.int32, torch.float32
+    return FlowTable(
+        src=torch.full((F,), -1, dtype=i32, device=device),
+        dst=torch.full((F,), -1, dtype=i32, device=device),
+        rem=torch.zeros((F,), dtype=f32, device=device),
+        rate=torch.zeros((F,), dtype=f32, device=device),
+        extra=torch.zeros((F,), dtype=tdt, device=device),
+        done_at=torch.full((F,), INF, dtype=tdt, device=device),
+        child=torch.full((F,), -1, dtype=i32, device=device),
+        active=torch.zeros((F,), dtype=torch.bool, device=device),
+        flows_dropped=torch.zeros((), dtype=i32, device=device),
+    )
+
+
+def init_net(n_switches: int, n_ports: int, n_links: int,
+             n_linecards: int, cfg: SimConfig, device) -> NetState:
+    """Switch state: every port in LPI, every line card active, every
+    switch awake (1-sized when there is no topology)."""
+    W, P, L = max(n_switches, 1), max(n_ports, 1), max(n_links, 1)
+    LC = max(n_linecards, 1)
+    tdt = cfg.time_dtype
+    i32, f32 = torch.int32, torch.float32
+    return NetState(
+        port_state=torch.full((W, P), PortState.LPI, dtype=i32,
+                              device=device),
+        port_idle_since=torch.zeros((W, P), dtype=tdt, device=device),
+        lc_state=torch.full((W, LC), LinecardState.ACTIVE, dtype=i32,
+                            device=device),
+        sw_awake=torch.ones((W,), dtype=torch.bool, device=device),
+        link_flows=torch.zeros((L,), dtype=i32, device=device),
+        sw_energy=torch.zeros((W,), dtype=f32, device=device),
+        port_residency=torch.zeros((W, P, PortState.NUM), dtype=f32,
+                                   device=device),
     )
 
 

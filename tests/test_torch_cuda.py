@@ -13,19 +13,24 @@ discrete state exact, float reductions (energy, residency, windows) rtol
 1e-5, since PyTorch sums in another order on the card.  Attention: 2e-5
 in float32 and 2e-2 in bfloat16 (tests/test_kernels.py's tolerances; the
 kernel sums q.k and p.v in its own order).  SSM scan: y and h within
-rtol/atol 1e-5 (the sum over the state runs in another order)."""
+rtol/atol 1e-5 (the sum over the state runs in another order).  Network
+functions: integer and boolean leaves exact, elementwise floats bitwise
+(IEEE division and the fused multiply-adds computed in float64 on both),
+the switch power and what accrues from it rtol 1e-5 (a sum over ports)."""
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import engine, farm, jobs, workload
+from repro_torch.core import (engine, farm, jobs, network, power, topology,
+                              types, workload)
 from repro_torch.core.types import (SchedPolicy, SimConfig, SleepPolicy,
                                     SrvState, tree_leaves)
 from repro_torch.kernels import (dcsim_step, flash_attention, ops, ref,
                                  ssm_scan, telemetry_bin)
 
 from torch_kernel_inputs import (FLASH_TC_EDGES, SSM_EDGES, dcsim_inputs,
-                                 flash_inputs, ssm_inputs, tb_inputs,
+                                 edge_inputs, flash_inputs, net_inputs,
+                                 ssm_inputs, star_scenario, tb_inputs,
                                  torch_args)
 
 pytestmark = pytest.mark.cuda
@@ -134,9 +139,17 @@ def test_engine_kernels_issue_one_device_op_per_call(cuda, kind):
     device operation, the kernel itself."""
     call, a = _engine_call(kind, cuda)
     call(a)                                   # scratch made, library loaded
-    ops_seen = _device_ops(lambda: call(a), reps=5)
+    # the profiler now and then loses a record (it never adds one), so a
+    # window that saw fewer than 5 operations is taken again, at most
+    # three times; a second operation per call shows as 10 or a second
+    # name in every window
+    for _ in range(3):
+        ops_seen = _device_ops(lambda: call(a), reps=5)
+        assert sum(ops_seen.values()) <= 5, ops_seen
+        assert len(ops_seen) == 1, ops_seen
+        if sum(ops_seen.values()) == 5:
+            break
     assert sum(ops_seen.values()) == 5, ops_seen
-    assert len(ops_seen) == 1, ops_seen
 
 
 @pytest.mark.parametrize("kind", ENGINE_CALLS)
@@ -389,3 +402,109 @@ def test_f64_clock_is_refused_on_the_card(cuda):
     cfg = SimConfig(n_servers=2, max_jobs=4, time_dtype=torch.float64)
     with pytest.raises(ValueError, match="float32"):
         farm.simulate(cfg, [0.1], [jobs.dag_single(0.01)], device=cuda)
+
+
+# --------------------------------------------------------------------------
+# network mode
+# --------------------------------------------------------------------------
+
+def _net_pair(topo, F, n_tasks, seed, dev, n_active=None):
+    """The same random flow table and switch state on the CPU and on
+    ``dev``."""
+    flows, net = net_inputs(topo, F, n_tasks, seed, n_active=n_active)
+
+    def make(d):
+        return (types.FlowTable(**{k: torch.from_numpy(np.array(v)).to(d)
+                                   for k, v in flows.items()}),
+                types.NetState(**{k: torch.from_numpy(np.array(v)).to(d)
+                                  for k, v in net.items()}))
+    return make("cpu"), make(dev)
+
+
+def _same(got, exp, ctx, reduced=()):
+    """Every field of a port state dataclass (or a tensor) on the card
+    against the CPU's."""
+    if not torch.is_tensor(exp):
+        for f in exp.__dataclass_fields__:
+            _same(getattr(got, f), getattr(exp, f), f"{ctx}.{f}", reduced)
+        return
+    g = got.cpu()
+    assert g.dtype == exp.dtype and g.shape == exp.shape, ctx
+    if ctx.split(".")[-1] in reduced:
+        assert torch.allclose(g, exp, rtol=1e-5, atol=0.0), ctx
+    else:
+        assert torch.equal(g, exp), ctx
+
+
+@pytest.mark.parametrize("name,args", [("star", (6,)), ("fat_tree", (4,)),
+                                       ("fat_tree", (16,)), ("bcube", (3,))])
+def test_network_functions_on_card_match_cpu(cuda, name, args):
+    topo = getattr(topology, name)(*args, link_cap=1.25e9)
+    tcs = {d: network.topo_consts(topo, d) for d in ("cpu", cuda)}
+    F = 1024 if topo.n_servers > 100 else 24
+    for comm_model, n_active in ((0, F // 4), (1, F - 4)):
+        cfg = SimConfig(n_servers=topo.n_servers, max_jobs=F,
+                        tasks_per_job=2, max_flows=F, has_network=True,
+                        comm_model=comm_model)
+        (cf, cn), (gf, gn) = _net_pair(topo, F, cfg.n_tasks, 3, cuda,
+                                       n_active)
+        e = edge_inputs(topo.n_servers, cfg.n_tasks, 5, E=min(F, 512))
+        now = torch.tensor(1.0)
+        out = {}
+        for d, f, n in (("cpu", cf, cn), (cuda, gf, gn)):
+            ed = [torch.from_numpy(e[k]).to(d) for k in e]
+            sf, sn, ok = network.spawn_flows_many(f, n, tcs[d], cfg, *ed,
+                                                  now.to(d))
+            rf, lf = network.recompute_rates(sf, tcs[d], now.to(d))
+            af = network.advance_flows(rf, torch.tensor(0.004).to(d))
+            kf, fin = network.complete_flows(af, torch.tensor(1.2).to(d))
+            un = network.update_switch_states(sn, lf, tcs[d], cfg,
+                                              torch.tensor(1.002).to(d))
+            p = power.switch_power(un, cfg)
+            en = power.accrue_switch_energy(un, torch.tensor(0.0137).to(d),
+                                            p)
+            cost = network.route_wake_cost(
+                tcs[d], n, 0, torch.arange(topo.n_servers, device=d))
+            out[str(d)] = (sf, sn, ok, rf, lf, af, kf, fin, un, p, en, cost)
+        names = ("spawn flows", "spawn net", "ok", "rates", "link_flows",
+                 "advance", "complete", "fin", "switch states",
+                 "sw_power", "accrue", "net_cost")
+        for nm, g, c in zip(names, out[str(cuda)], out["cpu"]):
+            _same(g, c, nm, reduced=("sw_power", "sw_energy"))
+        assert int(out["cpu"][2].sum()) > 0
+
+
+def _star_scenario(max_flows):
+    kw, arr, specs, _, topo = star_scenario(jobs, topology, max_flows)
+    return SimConfig(**kw), arr, specs, topo
+
+
+@pytest.mark.parametrize("max_flows", [64, 2])
+def test_network_engine_on_card_matches_cpu(cuda, max_flows):
+    cfg, arr, specs, topo = _star_scenario(max_flows)
+    finals = {}
+    for d in ("cpu", cuda):
+        jt = jobs.build_jobs(cfg, arr, specs, device=d)
+        state, tc = engine.init_state(cfg, jt, topo)
+        ops.reset_launch_counts()
+        finals[str(d)] = engine.run(state, cfg, tc)
+    counts = ops.launch_counts()
+    gpu, cpu = finals[str(cuda)], finals["cpu"]
+    for (path, g), (_, c) in zip(tree_leaves(gpu), tree_leaves(cpu)):
+        g = g.cpu()
+        if path in ("farm.energy", "farm.residency", "farm.busy_core_seconds",
+                    "telem.win", "telem.win_overflow", "net.sw_energy"):
+            assert torch.allclose(g, c, rtol=1e-5, atol=1e-6), path
+        else:
+            assert torch.equal(g, c), path
+    assert bool(gpu.done) and (int(gpu.flows.flows_dropped) > 0) == \
+        (max_flows == 2)
+    assert counts["dcsim_advance"] == int(gpu.steps) * cfg.events_per_step
+    assert counts["telemetry_accum"] == int(gpu.steps)
+
+
+def test_network_simulate_on_the_card(cuda):
+    cfg, arr, specs, topo = _star_scenario(64)
+    res = farm.simulate(cfg, arr, specs, topo=topo)
+    assert res.run_info.backend == "cuda" and res.n_finished == 30
+    assert res.flows_dropped == 0 and res.switch_energy > 0

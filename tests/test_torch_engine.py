@@ -3,8 +3,9 @@ state in both engines (the reference's state carried across with
 ``convert.state_from_numpy``), every leaf compared -- the test that
 localizes a fault; a run cut by ``max_events``; macro-stepping
 bit-identical across ``events_per_step``; the f64 clock; telemetry off;
-the configurations the slice refuses; the device rule; and the package's
-independence from JAX.
+the configurations the port refuses, and network mode's scope (a
+topology required; NETWORK_AWARE without a network); the device rule;
+and the package's independence from JAX.
 
 Tolerances as in test_torch_slice: discrete leaves exact, float
 reductions (energy, residency, busy core-seconds, telemetry windows) rtol
@@ -22,6 +23,7 @@ import pytest
 import torch
 
 from repro.core import engine as jengine
+from repro.core import farm as jfarm
 from repro.core import jobs as jjobs
 from repro.core import types as jtypes
 from repro_torch.convert import state_from_numpy
@@ -31,9 +33,10 @@ from repro_torch.core import jobs as tjobs
 from repro_torch.core.types import (SchedPolicy, SimConfig, TelemetryConfig,
                                     ThermalConfig, TraceConfig, tree_leaves)
 
-from torch_port_util import (assert_state_matches, jax_initial, jax_run,
-                             jax_tree, oracle_run, port_cfg, port_run,
-                             port_simulate, random_twin_states, scenario)
+from torch_port_util import (assert_state_matches, compare_results,
+                             jax_initial, jax_run, jax_tree, oracle_run,
+                             port_cfg, port_run, port_simulate,
+                             random_twin_states, scenario)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 _jstep = jax.jit(jengine.sim_step, static_argnames=("cfg",))
@@ -127,20 +130,53 @@ def test_f64_clock_matches_oracle_and_f32_run():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(has_network=True), "item 6"),
     (dict(thermal=ThermalConfig(enabled=True)), "item 7"),
     (dict(trace=TraceConfig(enabled=True)), "item 8"),
     (dict(partition=dataclasses.replace(SimConfig().partition, n_shards=2)),
      "item 10"),
     (dict(use_vectorized_hot_loop=False), "item 12"),
-    (dict(sched_policy=SchedPolicy.NETWORK_AWARE), "item 6"),
     (dict(sched_policy=SchedPolicy.THERMAL_AWARE), "item 7"),
+    (dict(has_network=True, thermal=ThermalConfig(enabled=True)), "item 7"),
     (dict(sched_policy=SchedPolicy.CARBON_AWARE), "item 7"),
 ])
 def test_out_of_scope_configurations_are_refused(kw, item):
     cfg = SimConfig(n_servers=4, max_jobs=8, **kw)
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
         tfarm.simulate(cfg, [0.1], [tjobs.dag_single(0.01)], device="cpu")
+
+
+def test_network_without_topology_is_refused():
+    """Network mode runs since the network slice; without a topology its
+    flows could never route, so it raises, as the reference does."""
+    cfg = SimConfig(n_servers=4, max_jobs=8, tasks_per_job=2,
+                    has_network=True)
+    args = (cfg, [0.1], [tjobs.dag_chain([0.01, 0.02], edge_bytes=1e6)])
+    with pytest.raises(ValueError, match="topo="):
+        tfarm.simulate(*args, device="cpu")
+    jt = tjobs.build_jobs(cfg, np.asarray([0.1]), args[2], device="cpu")
+    with pytest.raises(ValueError, match="topo="):
+        tengine.init_state(cfg, jt)
+    # a state and constants built without the topology cannot run it
+    state, tc = tengine.init_state(
+        dataclasses.replace(cfg, has_network=False), jt)
+    for consts in (None, tc):
+        with pytest.raises(ValueError, match="topology"):
+            tengine.run(state, cfg, consts)
+
+
+def test_network_aware_without_network_matches_jax():
+    """NETWORK_AWARE with no network has no wake cost to add: the score is
+    the load, with the dual timer's pool bias, as in the reference."""
+    jcfg, arr, jspecs, tau, pools = scenario(
+        "dual_timer_pools", jjobs, sched_policy=SchedPolicy.NETWORK_AWARE)
+    tspecs = scenario("dual_timer_pools", tjobs)[2]
+    jres = jfarm.simulate(jcfg, arr, jspecs, tau=tau, pools=pools)
+    tres, final = port_simulate(port_cfg(jcfg), arr, tspecs, tau=tau,
+                                pools=pools)
+    assert tres.n_finished == len(arr)
+    compare_results(tres, jres)
+    assert_state_matches(final, jax_tree(jax_run(jcfg, arr, jspecs, tau,
+                                                 pools)), "network aware")
 
 
 def test_telemetry_off_runs_and_skips_binning():

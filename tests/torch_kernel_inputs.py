@@ -1,6 +1,7 @@
-"""Seeded numpy inputs for the port's kernels, and the edge cases of the
-LM kernels: one builder for the CPU tests, the card tests
-(tests/test_torch_cuda.py) and chip_smoke.py.
+"""Seeded numpy inputs for the port's kernels and network functions, the
+edge cases of the LM kernels, and the network scenarios: made once here
+for the CPU tests, the card tests (tests/test_torch_cuda.py) and
+chip_smoke.py.
 Imports neither JAX nor pytest, so it loads on a machine with a card and
 PyTorch alone."""
 from __future__ import annotations
@@ -122,3 +123,116 @@ SSM_EDGES = [
     (1, 33, 100, 16), (2, 1, 20, 16), (1, 20, 37, 17), (1, 50, 70, 33),
     (2, 19, 9, 64),
 ]
+
+
+# port and line-card states (core/types.py PortState, LinecardState)
+PORT_ACTIVE, PORT_LPI, PORT_OFF = 0, 1, 2
+
+
+def net_inputs(topo, F, n_tasks, seed, t=1.0, n_active=None):
+    """A random flow table of F slots (``n_active``, default F // 2, in
+    flight; rates, latency budgets and projected completions around t)
+    and switch state (ports ACTIVE, LPI and OFF, line cards either way,
+    about 40% of the switches asleep, some links carrying flows) for a
+    ``core.topology.Topology``, as two dicts of numpy leaves named like
+    FlowTable's and NetState's fields."""
+    rng = np.random.default_rng(seed)
+    N = topo.n_servers
+    W, P = max(topo.n_switches, 1), max(topo.n_ports, 1)
+    LC, L = max(topo.n_linecards, 1), topo.n_links
+    k = F // 2 if n_active is None else n_active
+    active = np.zeros(F, bool)
+    active[rng.choice(F, k, replace=False)] = True
+    src = rng.integers(0, N, F)
+    dst = (src + rng.integers(1, N, F)) % N
+    rate = np.where(rng.random(F) < 0.8, rng.uniform(1e6, 1e8, F), 0.0)
+    f32, i32 = np.float32, np.int32
+    flows = dict(
+        src=np.where(active | (rng.random(F) < 0.5), src, -1).astype(i32),
+        dst=np.where(active | (rng.random(F) < 0.5), dst, -1).astype(i32),
+        rem=rng.uniform(0, 1e7, F).astype(f32),
+        rate=(rate * active).astype(f32),
+        extra=np.where(rng.random(F) < 0.5, rng.uniform(0, 2e-2, F),
+                       0.0).astype(f32),
+        done_at=np.where(active, rng.uniform(t - 0.1, t + 0.5, F),
+                         INF).astype(f32),
+        child=np.where(active, rng.integers(0, n_tasks, F), -1).astype(i32),
+        active=active,
+        flows_dropped=np.asarray(rng.integers(0, 3), i32))
+    net = dict(
+        port_state=rng.choice([PORT_ACTIVE, PORT_LPI, PORT_OFF], (W, P),
+                              p=[0.4, 0.5, 0.1]).astype(i32),
+        port_idle_since=rng.uniform(t - 3e-3, t, (W, P)).astype(f32),
+        lc_state=rng.integers(0, 2, (W, LC)).astype(i32),
+        sw_awake=rng.random(W) < 0.6,
+        link_flows=np.where(rng.random(L) < 0.5, rng.integers(1, 4, L),
+                            0).astype(i32),
+        sw_energy=rng.uniform(0, 50, W).astype(f32),
+        port_residency=rng.uniform(0, 1, (W, P, 3)).astype(f32))
+    return flows, net
+
+
+def edge_inputs(N, n_tasks, seed, E=24):
+    """A batch of E DAG edges for ``spawn_flows_many`` among N servers:
+    about 70% needing a flow, most drawn from four source/destination
+    pairs so that edges repeat routes."""
+    rng = np.random.default_rng(seed)
+    pairs = rng.integers(0, N, (4, 2))
+    pairs[:, 1] = (pairs[:, 0] + 1 + pairs[:, 1] % (N - 1)) % N
+    pick = rng.integers(0, 4, E)
+    src, dst = pairs[pick, 0], pairs[pick, 1]
+    lone = rng.random(E) < 0.4
+    src = np.where(lone, rng.integers(0, N, E), src)
+    dst = np.where(lone, (src + rng.integers(1, N, E)) % N, dst)
+    need = rng.random(E) < 0.7
+    keep = need | (rng.random(E) < 0.5)
+    return dict(need=need, src=np.where(keep, src, -1).astype(np.int32),
+                dst=np.where(keep, dst, -1).astype(np.int32),
+                nbytes=rng.uniform(1e5, 1e8, E).astype(np.float32),
+                child=rng.integers(0, n_tasks, E).astype(np.int32))
+
+
+# --------------------------------------------------------------------------
+# network scenarios: (SimConfig kwargs, arrivals, specs, tau, topology),
+# with the jobs and topology modules of either package
+# --------------------------------------------------------------------------
+
+def star_scenario(jobs_mod, topo_mod, max_flows, comm_model=0):
+    """tests/test_network_flows.py's star: ROUND_ROBIN splits every
+    two-task chain across servers, so each of the 30 jobs routes one flow
+    over one switch, and the link caps make the transfers overlap."""
+    from repro_torch.core import workload
+    from repro_torch.core.types import SchedPolicy, SleepPolicy
+    rng = np.random.default_rng(2)
+    arr = workload.poisson_arrivals(25.0, 30, seed=2)
+    specs = [jobs_mod.dag_chain(rng.uniform(0.01, 0.04, size=2),
+                                edge_bytes=float(rng.uniform(4e6, 8e6)))
+             for _ in range(30)]
+    kw = dict(n_servers=6, n_cores=2, max_jobs=64, tasks_per_job=2,
+              max_children=2, max_flows=max_flows, local_q=32,
+              sched_policy=SchedPolicy.ROUND_ROBIN,
+              sleep_policy=SleepPolicy.ALWAYS_ON, has_network=True,
+              comm_model=comm_model, max_events=60_000)
+    return kw, arr, specs, None, topo_mod.star(6, link_cap=1.0e8)
+
+
+def case_d_scenario(jobs_mod, topo_mod, policy, k=4, n_jobs=300,
+                    lam=30.0, max_jobs=512):
+    """benchmarks/case_d_network.py's configuration with bench_engine
+    network_farm's max_flows=1024 headroom: two-task chains with 100 MB
+    edges, U(0.01, 0.05) s service, Poisson arrivals at ``lam``, delay
+    timers of 0.2 s into S3 (SINGLE_TIMER), fluid flows, on a fat-tree of
+    arity k (k=4 is case D's 16 servers)."""
+    from repro_torch.core import workload
+    from repro_torch.core.types import SleepPolicy, SrvState
+    rng = np.random.default_rng(0)
+    specs = [jobs_mod.dag_chain(rng.uniform(0.01, 0.05, size=2),
+                                edge_bytes=100e6) for _ in range(n_jobs)]
+    arr = workload.poisson_arrivals(lam, n_jobs, seed=4)
+    topo = topo_mod.fat_tree(k, link_cap=1.25e9)
+    kw = dict(n_servers=topo.n_servers, n_cores=4, max_jobs=max_jobs,
+              tasks_per_job=2, max_children=2, max_flows=1024, local_q=64,
+              sched_policy=policy, sleep_policy=SleepPolicy.SINGLE_TIMER,
+              sleep_state=SrvState.S3,
+              has_network=True, comm_model=0, max_events=60_000)
+    return kw, arr, specs, 0.2, topo

@@ -16,11 +16,14 @@ import torch
 from repro.core import engine as jengine
 from repro.core import farm as jfarm
 from repro.core import jobs as jjobs
+from repro.core import network as jnet
 from repro.core import workload
 from repro.core.types import (INF, SchedPolicy, SimConfig, SleepPolicy,
                               SrvState, TaskStatus)
 from repro_torch.convert import config_from_dict, state_from_numpy
 from repro_torch.core.types import tree_leaves
+
+from torch_kernel_inputs import case_d_scenario, star_scenario
 
 # The tests' tensors are tiny: PyTorch's intra-op threads would only spin
 # beside the other test workers.
@@ -32,7 +35,8 @@ torch.set_num_threads(1)
 # Every other leaf -- discrete state, clocks, histograms of integer
 # counts -- must match exactly.
 TOL_LEAVES = {"farm.energy", "farm.residency", "farm.busy_core_seconds",
-              "telem.win", "telem.win_overflow"}
+              "telem.win", "telem.win_overflow", "net.sw_energy",
+              "net.port_residency"}
 
 
 def port_cfg(jcfg, **kw):
@@ -291,10 +295,10 @@ def scenario(name, mod, **cfg_kw):
     return SimConfig(**kw), arr, specs, tau, pools
 
 
-def jax_initial(jcfg, arr, specs, tau=None, pools=None):
+def jax_initial(jcfg, arr, specs, tau=None, pools=None, topo=None):
     """The reference's initial state as farm.simulate builds it."""
     jt = jjobs.build_jobs(jcfg, np.asarray(arr), specs)
-    state, _ = jengine.init_state(jcfg, jt)
+    state, _ = jengine.init_state(jcfg, jt, topo)
     farm = state.farm
     if tau is not None:
         farm = dataclasses.replace(farm, srv_tau=jnp.broadcast_to(
@@ -305,16 +309,20 @@ def jax_initial(jcfg, arr, specs, tau=None, pools=None):
     return dataclasses.replace(state, farm=farm)
 
 
-def jax_run(jcfg, arr, specs, tau=None, pools=None):
-    return jengine.run(jax_initial(jcfg, arr, specs, tau, pools), jcfg, None)
+def jax_run(jcfg, arr, specs, tau=None, pools=None, topo=None):
+    tc = jnet.topo_consts(topo) if topo is not None else None
+    return jengine.run(jax_initial(jcfg, arr, specs, tau, pools, topo), jcfg,
+                       tc)
 
 
-def port_initial(pcfg, arr, specs, tau=None, pools=None, device="cpu"):
-    """The port's initial state as its farm.simulate builds it."""
+def port_initial(pcfg, arr, specs, tau=None, pools=None, device="cpu",
+                 topo=None):
+    """The port's initial state as its farm.simulate builds it, and the
+    run's constants."""
     from repro_torch.core import engine as tengine
     from repro_torch.core import jobs as tjobs
     jt = tjobs.build_jobs(pcfg, np.asarray(arr), specs, device=device)
-    state, _ = tengine.init_state(pcfg, jt)
+    state, tc = tengine.init_state(pcfg, jt, topo)
     farm = state.farm
     if tau is not None:
         farm = dataclasses.replace(farm, srv_tau=torch.as_tensor(
@@ -324,13 +332,14 @@ def port_initial(pcfg, arr, specs, tau=None, pools=None, device="cpu"):
     if pools is not None:
         farm = dataclasses.replace(farm, srv_pool=torch.as_tensor(
             np.asarray(pools)).to(device=device, dtype=torch.int32))
-    return dataclasses.replace(state, farm=farm)
+    return dataclasses.replace(state, farm=farm), tc
 
 
-def port_run(pcfg, arr, specs, tau=None, pools=None, device="cpu"):
+def port_run(pcfg, arr, specs, tau=None, pools=None, device="cpu",
+             topo=None):
     from repro_torch.core import engine as tengine
-    return tengine.run(port_initial(pcfg, arr, specs, tau, pools, device),
-                       pcfg)
+    state, tc = port_initial(pcfg, arr, specs, tau, pools, device, topo)
+    return tengine.run(state, pcfg, tc)
 
 
 def port_simulate(pcfg, arr, specs, **kw):
@@ -353,9 +362,9 @@ def port_simulate(pcfg, arr, specs, **kw):
     return res, caught[0]
 
 
-def oracle_run(jcfg, arr, specs, tau=None, pools=None):
+def oracle_run(jcfg, arr, specs, tau=None, pools=None, topo=None):
     from oracle import OracleSim
-    orc = OracleSim(jcfg, arr, specs, tau=tau)
+    orc = OracleSim(jcfg, arr, specs, tau=tau, topo=topo)
     if pools is not None:
         for s, p in zip(orc.servers, pools):
             s.pool = int(p)
@@ -419,6 +428,99 @@ def three_way(name: str, oracle: bool) -> None:
         if jcfg.tasks_per_job == 1:
             np.testing.assert_array_equal(
                 tres.wake_count, [s.wake_count for s in orc.servers])
+
+
+# --------------------------------------------------------------------------
+# network scenarios (tests/torch_kernel_inputs.py builds them).  Each maker
+# takes a jobs module and a topology module (the reference's or the
+# port's) and returns (SimConfig kwargs, arrivals, specs, tau, topology).
+# --------------------------------------------------------------------------
+
+def _star(max_flows, comm_model=0):
+    def make(mod, topo_mod):
+        return star_scenario(mod, topo_mod, max_flows, comm_model)
+    return make
+
+
+def _case_d(policy, n_jobs=48):
+    """Case study D on a k=4 fat-tree, cut to ``n_jobs`` jobs."""
+    def make(mod, topo_mod):
+        return case_d_scenario(mod, topo_mod, policy, n_jobs=n_jobs,
+                               max_jobs=64)
+    return make
+
+
+NETWORK_ORACLE_SCENARIOS = {"star_fluid": _star(64),
+                            "star_exhaustion": _star(2)}
+NETWORK_JAX_SCENARIOS = {
+    "case_d_load_balance": _case_d(SchedPolicy.LOAD_BALANCE),
+    "case_d_network_aware": _case_d(SchedPolicy.NETWORK_AWARE),
+    "case_d_round_robin": _case_d(SchedPolicy.ROUND_ROBIN),
+    "star_packet": _star(64, comm_model=1),
+}
+
+
+def net_scenario(name, side: str, **cfg_kw):
+    """(SimConfig, arrivals, specs, tau, pools, topology) of a named network
+    scenario for ``side`` "jax" (the reference's SimConfig, jobs and
+    topology) or "port" (the port's)."""
+    make = {**NETWORK_ORACLE_SCENARIOS, **NETWORK_JAX_SCENARIOS}[name]
+    if side == "jax":
+        from repro.core import topology as topo_mod
+        kw, arr, specs, tau, topo = make(jjobs, topo_mod)
+        kw.update(cfg_kw)
+        return SimConfig(**kw), arr, specs, tau, None, topo
+    from repro_torch.core import jobs as tjobs
+    from repro_torch.core import topology as topo_mod
+    kw, arr, specs, tau, topo = make(tjobs, topo_mod)
+    kw.update(cfg_kw)
+    return port_cfg(SimConfig(**kw)), arr, specs, tau, None, topo
+
+
+def compare_network_results(tres, jres) -> None:
+    """compare_results, plus the network's outcome: flows dropped exact,
+    switch energy and the switch-power windows rtol 1e-5."""
+    compare_results(tres, jres)
+    assert tres.flows_dropped == jres.flows_dropped
+    np.testing.assert_allclose(tres.switch_energy, jres.switch_energy,
+                               rtol=RTOL)
+    np.testing.assert_allclose(tres.telemetry.switch_power,
+                               jres.telemetry.switch_power, rtol=RTOL,
+                               atol=1e-6)
+
+
+def network_three_way(name: str, oracle: bool, **cfg_kw):
+    """A named network scenario through the reference's farm.simulate, the
+    port's on the CPU and (``oracle``) the heapq oracle; then every leaf of
+    both engines' final states.  Returns the port's SimResult."""
+    jcfg, arr, jspecs, tau, pools, jtopo = net_scenario(name, "jax",
+                                                        **cfg_kw)
+    pcfg, _, tspecs, _, _, ttopo = net_scenario(name, "port", **cfg_kw)
+    jres = jfarm.simulate(jcfg, arr, jspecs, topo=jtopo, tau=tau,
+                          pools=pools)
+    tres, final = port_simulate(pcfg, arr, tspecs, topo=ttopo, tau=tau,
+                                pools=pools)
+    assert tres.run_info.backend == "cpu"
+    assert tres.n_finished == len(arr)
+    compare_network_results(tres, jres)
+    assert_state_matches(final, jax_tree(jax_run(jcfg, arr, jspecs, tau,
+                                                 pools, jtopo)), name)
+    if oracle:
+        check_oracle(tres, oracle_run(jcfg, arr, jspecs, tau, pools, jtopo),
+                     len(arr))
+    return tres
+
+
+def check_oracle(res, orc, n_jobs: int) -> None:
+    """The reference's own tolerances against the oracle: latency
+    rtol/atol 1e-4, server energy rel 2e-3, flows dropped exact."""
+    lat_o = orc.latencies()
+    assert len(lat_o) == n_jobs
+    np.testing.assert_allclose(np.sort(res.latencies), np.sort(lat_o),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(res.server_energy, orc.total_energy(),
+                               rtol=2e-3)
+    assert res.flows_dropped == orc.flows_dropped
 
 
 def to_np(x):
