@@ -17,7 +17,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (tests/torch_kernel_inputs.py); the engine kernels also at both of the
      binning's paths and their boundary, ten calls in a row (their
      in-kernel reduction's scratch must return to empty) and one call
-     captured in a CUDA graph and replayed on new inputs;
+     captured in a CUDA graph and replayed on new inputs; the advance's
+     float64-clock instance, exactly, on the same farms;
   4. parity of the port on the card against the port on the CPU: two
      discrete-event scenarios, with the engine kernels' launch counters
      checked against the engine's step count; network mode on case study
@@ -25,7 +26,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      whose two flow slots run out; and hymba-1.5b serving at full width
      cut to 2 layers in float32 (prefill and decode logits, greedy tokens,
      one launch of each LM kernel per layer, attention on its float32
-     CUDA-core instance);
+     CUDA-core instance); [thermal-parity]: the thermal main configuration
+     at 512 servers (throttling must engage and deferral must park jobs),
+     examples/thermal_case.py's THERMAL_AWARE scenario behind its throttle
+     guard, and one_farm at 512 servers on a float64 clock (the advance's
+     float64 instance launched K times a step);
   5. the discrete-event main run: farm.simulate on a 65,536-server x
      4-core farm (the largest farm benchmarks/bench_engine.py records)
      under 600 Poisson jobs at 50% utilisation; every job must finish;
@@ -34,7 +39,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      case study D's workload scaled to that width (300 two-task chains
      with 100 MB edges, round-robin placement, so every chain ships one
      flow); every job must finish, no flow may be dropped, and the
-     switch-power windows must integrate to the switch energy;
+     switch-power windows must integrate to the switch energy; then the
+     thermal main run ([thermal-main]): farm.simulate on 65,536 servers x
+     4 cores with the thermal subsystem and its whole control plane
+     (benchmarks/bench_engine.py control_plane_farm with throttling armed):
+     all 600 jobs finish, jobs are deferred, servers throttle, the
+     setpoint controller moves the setpoints, and the cooling-power windows
+     integrate to the cooling energy;
   6. the serving main run: ServeEngine.generate on hymba-1.5b (32 layers,
      bf16, seeded random weights) for 4 prompts of 1,536 tokens and 32 new
      tokens, greedy; exactly one launch of each LM kernel per layer, the
@@ -219,6 +230,8 @@ def ptxas_entries(report: str) -> dict:
             targs = re.match(r"I((?:L[a-z]\d+E)+)E", rest)
             if targs:
                 name += f"<{','.join(re.findall(r'L[a-z](\d+)E', targs[1]))}>"
+            elif re.match(r"I[fd]E", rest):          # the clock's type
+                name += "<float>" if rest[1] == "f" else "<double>"
             spill = "0"
         elif name and "spill stores" in ln:
             spill = re.search(r"(\d+) bytes spill stores", ln)[1]
@@ -259,12 +272,14 @@ def sass_census(built) -> None:
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def check_dcsim(n, c, seed, dev, scale=0.6):
+def check_dcsim(n, c, seed, dev, scale=0.6, clock=np.float32):
     """Every server state, ~30% throttled, half the cores busy, some slots
-    finishing exactly at t_next (the tests' builder)."""
+    finishing exactly at t_next (tests/torch_kernel_inputs.py);
+    ``clock=np.float64`` takes the float64 instance around t = 86,400 s,
+    which must match exactly."""
     from repro_torch.kernels import dcsim_step, ref
     from torch_kernel_inputs import dcsim_inputs, torch_args
-    args = torch_args(dcsim_inputs(n, c, seed), dev)
+    args = torch_args(dcsim_inputs(n, c, seed, clock=clock), dev)
     got = dcsim_step.dcsim_advance(*args, throttle_power_scale=scale)
     exp = ref.dcsim_advance_reference(*args, throttle_power_scale=scale)
     torch.cuda.synchronize()
@@ -274,7 +289,7 @@ def check_dcsim(n, c, seed, dev, scale=0.6):
         if g.shape != e.shape or g.dtype != e.dtype:
             fail(f"dcsim_advance n={n} c={c}: {name} is {g.dtype}"
                  f"{tuple(g.shape)}, plain {e.dtype}{tuple(e.shape)}")
-        if name in ("energy", "busy_seconds"):
+        if name in ("energy", "busy_seconds") and clock == np.float32:
             # exact or <= 1 ulp (the kernel rounds each op as PyTorch
             # does; a contracted FMA would be within one ulp)
             u = ulp_err(g, e)
@@ -284,8 +299,9 @@ def check_dcsim(n, c, seed, dev, scale=0.6):
         elif not torch.equal(g, e):
             fail(f"dcsim_advance n={n} c={c}: {name} differs from the "
                  f"plain version")
-    log(f"[kernels] dcsim_advance n={n} c={c}: matches the plain version "
-        f"(max abs err {err})")
+    inst = "" if clock == np.float32 else " (float64 clock, exact)"
+    log(f"[kernels] dcsim_advance n={n} c={c}{inst}: matches the plain "
+        f"version (max abs err {err})")
     return args, err
 
 
@@ -328,13 +344,19 @@ def telemetry_call(args):
 
 
 def engine_inputs(name, seed, dev):
-    """The engine kernels' inputs at a main path's shape (the tests'
-    builders): the advance at N_MAIN x C_MAIN, the binning at the engine's
-    J = J*T = JOBS_MAIN (one block) or at 100,003 / 300,009 (across
-    blocks)."""
+    """The engine kernels' inputs at a main path's shape
+    (tests/torch_kernel_inputs.py): the advance at N_MAIN x C_MAIN (both
+    clocks) and at the network run's NET_SERVERS x C_MAIN, the binning at
+    the engine's J = J*T = JOBS_MAIN (one block) or at 100,003 / 300,009
+    (across blocks)."""
     from torch_kernel_inputs import dcsim_inputs, tb_inputs, torch_args
     if name == "dcsim_advance":
         return torch_args(dcsim_inputs(N_MAIN, C_MAIN, seed), dev)
+    if name == "dcsim_advance f64":
+        return torch_args(dcsim_inputs(N_MAIN, C_MAIN, seed,
+                                       clock=np.float64), dev)
+    if name == "dcsim_advance 1024":
+        return torch_args(dcsim_inputs(NET_SERVERS, C_MAIN, seed), dev)
     J, M, W = {"telemetry_accum": (JOBS_MAIN, JOBS_MAIN, 1),
                "telemetry_accum large": (100_003, 300_009, 256)}[name]
     return torch_args(tb_inputs(J, M, 64, W, 19, seed), dev)
@@ -347,7 +369,7 @@ def engine_repeat_and_graph(name, dev) -> None:
     captured with torch.cuda.graph, replayed on new inputs copied into the
     captured ones, bitwise equal to the eager call on those inputs."""
     from repro_torch.kernels import dcsim_step, ref, telemetry_bin
-    dc = name == "dcsim_advance"
+    dc = name.startswith("dcsim_advance")
     call = dcsim_call if dc else telemetry_call
     args = engine_inputs(name, 21, dev)
     outs = [call(args) for _ in range(10)]
@@ -357,7 +379,7 @@ def engine_repeat_and_graph(name, dev) -> None:
     if not all(torch.equal(g, e) for out in outs for g, e in zip(out, exp)):
         fail(f"{name}: ten calls in a row do not all equal the plain version")
     # (ticket, minimum image) must read (0, empty); the binning's ticket 0
-    words = dcsim_step.scratch(dev).tolist() if dc else \
+    words = dcsim_step.scratch(dev, args[0].dtype).tolist() if dc else \
         [int(telemetry_bin.scratch(dev, 64)[1])]
     if words != ([0, -1] if dc else [0]):
         fail(f"{name}: the reduction's scratch reads {words} after a call, "
@@ -382,9 +404,13 @@ def engine_repeat_and_graph(name, dev) -> None:
 # the engine kernels' timed calls and the seeds of their phase-3 checks
 ENGINE_TIMED = {"dcsim_advance": 1, "telemetry_accum": 4,
                 "telemetry_accum large": 5}
+# the advance's float64 instance at the main farm and the float32 one at
+# the network run's farm, timed in a full run only (an older checkout's
+# --engine-calls has no float64 instance)
+ENGINE_TIMED_MORE = {"dcsim_advance f64": 1, "dcsim_advance 1024": 9}
 
 
-def engine_call_times(dev) -> dict:
+def engine_call_times(dev, timed=ENGINE_TIMED) -> dict:
     """Each engine kernel's call at its main path's shape (and the binning
     at its cross-block check shape): stream ms (CUDA events), device us and
     device operations per call (profiler, every operation of the call),
@@ -393,17 +419,18 @@ def engine_call_times(dev) -> dict:
     as well (--engine-calls)."""
     from repro_torch.kernels import ref
     out = {}
-    for name, seed in ENGINE_TIMED.items():
+    for name, seed in timed.items():
         a = engine_inputs(name, seed, dev)
-        if name == "dcsim_advance":
+        if name.startswith("dcsim_advance"):
             call = dcsim_call
             plain = lambda: ref.dcsim_advance_reference(   # noqa: E731
                 *a, throttle_power_scale=0.6)
             res = call(a)
             n_bytes = nbytes(*[x for x in a if torch.is_tensor(x)], *res)
             # per server: C compares, C adds, C selects, ~12 flops of
-            # power and accrual, 3 mins
-            ops = {"f32 operations": (N_MAIN * (3 * C_MAIN + 15),
+            # power and accrual, 3 mins (float64 compares and mins on the
+            # float64 clock, counted at the f32 rate: a lower bound)
+            ops = {"f32 operations": (a[0].shape[0] * (3 * C_MAIN + 15),
                                       PEAK_F32_OPS_S)}
         else:
             call = telemetry_call
@@ -519,6 +546,34 @@ def star_cfg(max_flows):
     return SimConfig(**kw), arr, specs, tau, topo
 
 
+def thermal_main_cfg(n_servers, n_jobs=JOBS_MAIN):
+    """The thermal slice's main configuration (tests/torch_kernel_inputs.py
+    thermal_main_scenario: bench_engine.control_plane_farm with throttling
+    armed), with telemetry windows of 1 s so that the 256 windows cover
+    the run's ~88 simulated seconds."""
+    from repro_torch.core import jobs, workload
+    from repro_torch.core.types import (SimConfig, TelemetryConfig,
+                                        ThermalConfig)
+    from torch_kernel_inputs import thermal_main_scenario
+    kw, th, arr, specs = thermal_main_scenario(jobs, workload, n_servers,
+                                               n_jobs)
+    return SimConfig(**kw, thermal=ThermalConfig(**th),
+                     telemetry=TelemetryConfig(window_dt=1.0)), arr, specs, \
+        None
+
+
+def thermal_case_cfg():
+    """examples/thermal_case.py's THERMAL_AWARE scenario behind its throttle
+    guard, 500 jobs, trace off (tests/torch_kernel_inputs.py)."""
+    from repro_torch.core import jobs, workload
+    from repro_torch.core.types import (SimConfig, TelemetryConfig,
+                                        ThermalConfig)
+    from torch_kernel_inputs import thermal_case_scenario
+    kw, th, tel, arr, specs, tau = thermal_case_scenario(jobs, workload)
+    return SimConfig(**kw, thermal=ThermalConfig(**th),
+                     telemetry=TelemetryConfig(**tel)), arr, specs, tau
+
+
 def run_engine(cfg, arr, specs, tau, dev, topo=None):
     from repro_torch.core import engine, jobs
     jt = jobs.build_jobs(cfg, np.asarray(arr), specs, device=dev)
@@ -549,12 +604,19 @@ def parity(name, cfg, arr, specs, tau, dev, topo=None, tag="[parity]"):
             # on the card; everything else repeats the CPU's arithmetic
             if not torch.allclose(g, c, rtol=1e-5, atol=0.0):
                 fail(f"parity {name}: {path} beyond rtol 1e-5")
-            rel = ((g - c).abs() / c.abs().clamp(min=1e-30)).max()
-            worst = max(worst, float(rel))
+            if g.numel():
+                rel = ((g - c).abs() / c.abs().clamp(min=1e-30)).max()
+                worst = max(worst, float(rel))
         elif not torch.equal(g, c):
             # discrete state, and histograms of exact integer counts
             fail(f"parity {name}: {path} differs between card and CPU")
     steps, events = int(gpu.steps), int(gpu.events)
+    clock = str(cfg.time_dtype).removeprefix("torch.")
+    from repro_torch.kernels import dcsim_step
+    if dcsim_step.CLOCK_LAUNCHES[clock] != counts["dcsim_advance"]:
+        fail(f"parity {name}: the advance's {clock} instance launched "
+             f"{dcsim_step.CLOCK_LAUNCHES[clock]} of "
+             f"{counts['dcsim_advance']} times")
     if counts["telemetry_accum"] != steps:
         fail(f"parity {name}: telemetry_accum launched "
              f"{counts['telemetry_accum']} times in {steps} steps")
@@ -568,6 +630,14 @@ def parity(name, cfg, arr, specs, tau, dev, topo=None, tag="[parity]"):
     if cfg.has_network:
         net = (f"; flows dropped {int(gpu.flows.flows_dropped)}, switch "
                f"energy {float(gpu.net.sw_energy.sum()):.4f} J")
+    if cfg.thermal.enabled:
+        th = gpu.thermal
+        net += (f"; throttle seconds {float(th.throttle_seconds.sum()):.3f}"
+                f", jobs deferred {int(th.defer_count)}, peak "
+                f"{float(th.t_peak.max()):.4f} C, setpoints "
+                f"{sorted(set(th.t_set.cpu().tolist()))[:6]}")
+    if clock != "float32":
+        net += f"; {clock} clock"
     log(f"{tag} {name}: card == CPU (discrete exact, floats max rel err "
         f"{worst:.3g}); events {events}, steps {steps}, advance launches "
         f"{counts['dcsim_advance']} (steps x K), telemetry launches "
@@ -692,6 +762,61 @@ def net_main(dev):
         f"(rel {rel:.3g}); sim time {res.sim_time:.4f} s; launches "
         f"{counts}")
     return counts, cfg, arr, specs, tau, topo
+
+
+def thermal_main(dev):
+    """The thermal main run through the user's entry point: farm.simulate
+    of thermal_main_cfg(N_MAIN) on the card.  Returns (launch counts, cfg,
+    arr, specs)."""
+    from repro_torch.core import farm
+    from repro_torch.kernels import ops
+    cfg, arr, specs, _ = thermal_main_cfg(N_MAIN)
+    ops.reset_launch_counts()
+    res = farm.simulate(cfg, arr, specs)
+    counts = ops.launch_counts()
+    ri = res.run_info
+    if res.n_finished != JOBS_MAIN:
+        fail(f"thermal-main finished {res.n_finished} of {JOBS_MAIN} jobs")
+    if not res.deferred_jobs > 0:
+        fail("thermal-main deferred no job")
+    if not res.throttle_seconds > 0:
+        fail("thermal-main throttled no server")
+    if np.all(res.setpoints == cfg.thermal.t_setpoint):
+        fail("thermal-main: the setpoint controller left every setpoint at "
+             f"{cfg.thermal.t_setpoint} C")
+    lat = res.latencies
+    if not (np.isfinite(lat).all() and (lat > 0).all()
+            and np.isfinite(res.temps).all() and res.cooling_energy > 0
+            and res.carbon_g > 0 and res.energy_cost > 0):
+        fail("thermal-main produced non-finite or impossible results")
+    tel = res.telemetry
+    if tel.win_overflow > 0:
+        fail(f"thermal-main outlived its telemetry windows by "
+             f"{tel.win_overflow} s")
+    win_j = float(np.nansum(tel.cooling_power * tel.occupancy))
+    rel = abs(win_j - res.cooling_energy) / res.cooling_energy
+    if rel > 1e-4:
+        fail(f"thermal-main: cooling-power windows integrate to {win_j} J, "
+             f"the cooling energy is {res.cooling_energy} J (rel {rel:.3g})")
+    if counts["telemetry_accum"] != ri.steps or \
+            counts["dcsim_advance"] != ri.steps * cfg.events_per_step:
+        fail(f"thermal-main launch counts {counts} for {ri.steps} steps")
+    n_thr = int((res.peak_temps >= cfg.thermal.t_throttle - 1e-3).sum())
+    log(f"[thermal-main] {N_MAIN} servers x {C_MAIN} cores, {JOBS_MAIN} jobs "
+        f"(every second one deferrable), CARBON_AWARE, throttling at "
+        f"{cfg.thermal.t_throttle}/{cfg.thermal.t_release} C: wall "
+        f"{ri.wall_s:.3f} s, events {ri.events}, steps {ri.steps}, "
+        f"{ri.events_per_s:.1f} events/s; sim time {res.sim_time:.4f} s; "
+        f"jobs deferred {res.deferred_jobs} for {res.deferred_seconds:.2f} "
+        f"s in all; throttle {res.throttle_seconds:.1f} server-seconds, "
+        f"{n_thr} servers reached the threshold; peak {res.peak_temp:.4f} "
+        f"C, final mean {res.mean_temp:.4f} C; setpoints "
+        f"{res.setpoints.min():g}..{res.setpoints.max():g} C; cooling "
+        f"{res.cooling_energy:.1f} J, windows integrate to {win_j:.1f} J "
+        f"(rel {rel:.3g}); server energy {res.server_energy:.1f} J, carbon "
+        f"{res.carbon_g:.2f} g, cost ${res.energy_cost:.5f}; mean latency "
+        f"{res.mean_latency:.3f} s; launches {counts}")
+    return counts, cfg, arr, specs
 
 
 # --------------------------------------------------------------------------
@@ -1061,6 +1186,7 @@ def lm_kernel_entries(flash_main, ssm_main, counts, fa_err, ss_err, dev):
 # --------------------------------------------------------------------------
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs "
              "an NVIDIA GPU")
@@ -1093,10 +1219,13 @@ def main() -> None:
     _, dc_err = check_dcsim(N_MAIN, C_MAIN, 1, dev)
     # ragged farms about the 256-thread blocks; C = 3 takes the scalar
     # (non-float4) path; the network main run's farm
-    for seed, (n, c) in enumerate([(1000, 4), (1000, 3), (1, 4), (255, 4),
-                                   (257, 4), (N_MAIN + 1, 4),
-                                   (NET_SERVERS, C_MAIN)], start=2):
+    farms = [(1000, 4), (1000, 3), (1, 4), (255, 4), (257, 4),
+             (N_MAIN + 1, 4), (NET_SERVERS, C_MAIN)]
+    for seed, (n, c) in enumerate(farms, start=2):
         dc_err = max(dc_err, check_dcsim(n, c, seed, dev)[1])
+    # the float64-clock instance on the same farms and the main one
+    for seed, (n, c) in enumerate([(N_MAIN, C_MAIN)] + farms, start=30):
+        check_dcsim(n, c, seed, dev, clock=np.float64)
     _, tb_err = check_telemetry(JOBS_MAIN, JOBS_MAIN, 1, 19, 4, dev)
     # the cross-block path, and both sides of the paths' boundary
     from repro_torch.kernels.telemetry_bin import SMALL_MAX
@@ -1109,7 +1238,7 @@ def main() -> None:
         # weights other than 1 take the float atomics
         tb_err = max(tb_err, check_telemetry(J, M, W, 19, 8, dev,
                                              unit=False)[1])
-    for name in ("dcsim_advance", "telemetry_accum",
+    for name in ("dcsim_advance", "dcsim_advance f64", "telemetry_accum",
                  "telemetry_accum large"):
         engine_repeat_and_graph(name, dev)
     fa_q, fa_kw, fa_err = check_flash(FLASH_MAIN, dev)
@@ -1136,6 +1265,22 @@ def main() -> None:
                tag="[net-parity]")
     if int(g.flows.flows_dropped) == 0:
         fail("net-parity: the star with two flow slots dropped no flow")
+    g = parity(f"thermal main config n512 j{JOBS_MAIN}", *thermal_main_cfg(512),
+               dev, tag="[thermal-parity]")
+    if not (float(g.thermal.throttle_seconds.sum()) > 0
+            and int(g.thermal.defer_count) > 0):
+        fail("thermal-parity: the main configuration at 512 servers did "
+             "not both throttle and defer")
+    g = parity("thermal_case THERMAL_AWARE guard 500 jobs",
+               *thermal_case_cfg(), dev, tag="[thermal-parity]")
+    if not float(g.thermal.throttle_seconds.sum()) > 0:
+        fail("thermal-parity: thermal_case's guard never throttled")
+    c, a, sp, tau = one_farm_cfg(512, 600)
+    from repro_torch.kernels import dcsim_step
+    parity("one_farm n512 j600 float64 clock",
+           dataclasses.replace(c, time_dtype=torch.float64), a, sp, tau, dev,
+           tag="[thermal-parity]")
+    f64_launches = dcsim_step.CLOCK_LAUNCHES["float64"]
     lm_parity(dev)
 
     # phase 5: the discrete-event main run through the user's entry point
@@ -1162,12 +1307,13 @@ def main() -> None:
         f"ms, energy {res.server_energy:.1f} J; launches {counts}")
     net_counts, net_cfg, net_arr, net_specs, net_tau, net_topo = \
         net_main(dev)
+    th_counts, th_cfg, th_arr, th_specs = thermal_main(dev)
 
     # phase 6: the serving main run through the user's entry point
     lm_cfg, lm_params, lm_toks, lm_counts = lm_main(dev)
 
     # kernel times at the main paths' shapes
-    times = engine_call_times(dev)
+    times = engine_call_times(dev, ENGINE_TIMED | ENGINE_TIMED_MORE)
     for name, tm in times.items():
         # rounded: the profiler may drop a record in a hundred calls
         if tm["ops"] is not None and (round(tm["ops"]) != 1
@@ -1183,7 +1329,8 @@ def main() -> None:
          "bound_ms": times[name]["bound_ms"],
          "bound_by": times[name]["bound_by"],
          "bound_op": times[name]["bound_op"], "library_ms": None,
-         "device_ops": times[name]["ops"], "net_launches": net_counts[name]}
+         "device_ops": times[name]["ops"], "net_launches": net_counts[name],
+         "thermal_launches": th_counts[name]}
         for name, src, replaces, err in (
             ("dcsim_advance", "dcsim_step",
              "src/repro/kernels/dcsim_step.py:68", dc_err),
@@ -1191,6 +1338,18 @@ def main() -> None:
              "src/repro/kernels/telemetry_bin.py:51", tb_err))]
     dev_us = {name: times[name]["device_us"]
               for name in ("dcsim_advance", "telemetry_accum")}
+    # the advance's float64 instance (its launches: the float64 parity
+    # run) and its float32 instance at the network run's farm
+    for key, name, launches in (("f64", "dcsim_advance f64", f64_launches),
+                                ("n1024", "dcsim_advance 1024",
+                                 net_counts["dcsim_advance"])):
+        tm = times[name]
+        kernels[0][key] = {
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "device_ms": None if tm["device_us"] is None
+            else tm["device_us"] / 1e3, "device_ops": tm["ops"],
+            "launches": launches}
     lm_entries, lm_dev_us = lm_kernel_entries(
         (fa_q, fa_kw), ss_main, lm_counts, fa_err, ss_err, dev)
     kernels += lm_entries
@@ -1201,7 +1360,9 @@ def main() -> None:
         if "device_ops" in k:
             log_engine_time(k["name"], times[k["name"]],
                             f"; {k['launches']} launches in its main run, "
-                            f"{k['net_launches']} in the network main run")
+                            f"{k['net_launches']} in the network main run, "
+                            f"{k['thermal_launches']} in the thermal main "
+                            f"run")
             continue
         lib = "" if k["library_ms"] is None else \
             f"; library call {k['library_ms'] * 1e3:.1f} us"
@@ -1213,11 +1374,20 @@ def main() -> None:
             f"{lib}; {k['launches']} launches in its main run")
     log_engine_time("telemetry_accum large", times["telemetry_accum large"],
                     " (the cross-block path; not on the main path)")
+    log_engine_time("dcsim_advance f64", times["dcsim_advance f64"],
+                    f" (the float64-clock instance at {N_MAIN} x {C_MAIN}; "
+                    f"{f64_launches} launches in the float64 parity run)")
+    log_engine_time("dcsim_advance 1024", times["dcsim_advance 1024"],
+                    f" (at the network run's {NET_SERVERS} x {C_MAIN}; "
+                    f"{net_counts['dcsim_advance']} launches there)")
     profile_window(cfg, arr, specs, dev)
     profile_window(net_cfg, net_arr, net_specs, dev, topo=net_topo,
                    tau=net_tau, tag="network run")
+    profile_window(th_cfg, th_arr, th_specs, dev, tag="thermal run")
     profile_serving(lm_cfg, lm_params, lm_toks, dev)
 
+    log(f"[total] chip_smoke.py wall {time.perf_counter() - t_start:.1f} s, "
+        f"the kernels' builds included")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

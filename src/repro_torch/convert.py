@@ -5,10 +5,11 @@ package's plain data, so both packages can start from the same point.
 ``farm._config_dict(cfg)`` dump; ``state_from_numpy`` builds a port
 ``SimState`` from the reference ``SimState``'s leaves as numpy arrays,
 keyed by field path (``"farm.core_busy_until"``; a leading ``"."`` as
-``jax.tree_util.keystr`` writes it is accepted).  The flows and net
-subtrees come across too, so a mid-run network state steps in both
-packages; leaves of the subtrees the port does not model yet (thermal,
-trace) are ignored.
+``jax.tree_util.keystr`` writes it is accepted).  The flows, net and
+thermal subtrees come across too, so a mid-run network or thermal state
+steps in both packages; the trace subtree, which the port does not model
+yet, is ignored.  The reference's (R, N) rack membership matrix becomes
+the port's (R, K) member table (``core.types.ThermalState``).
 ``params_from_jax`` turns the reference's LM parameter tree (numpy
 leaves, stacked over periods) into the port's per-layer ``Params``.
 Nothing here imports JAX.
@@ -69,14 +70,30 @@ def _build(cls, prefix, tree, device):
         key = f"{prefix}.{f.name}" if prefix else f.name
         sub = {"farm": T.ServerFarm, "jobs": T.JobTable,
                "flows": T.FlowTable, "net": T.NetState,
-               "sched": T.SchedState, "telem": T.Telemetry}.get(key)
+               "sched": T.SchedState, "telem": T.Telemetry,
+               "thermal": T.ThermalState}.get(key)
         if sub is not None:
             kw[f.name] = _build(sub, key, tree, device)
+        elif key == "thermal.rack_onehot" and key in tree:
+            kw[f.name] = _rack_marker(tree[key], device)
         elif key in tree:
             kw[f.name] = _tensor(tree[key], device)
         else:
             raise KeyError(f"state leaf {key!r} missing from the tree")
     return cls(**kw)
+
+
+def _rack_marker(onehot, device) -> torch.Tensor:
+    """The port's ``rack_onehot`` for the reference's: (0, 0) (contiguous
+    racks) and the (1, 1) placeholder of a disabled subsystem come across
+    as they are; an (R, N) membership matrix becomes the port's (R, K)
+    member table."""
+    onehot = np.asarray(onehot)
+    if onehot.shape in ((0, 0), (1, 1)):
+        return _tensor(onehot, device)
+    from .core.thermal import member_table
+    return torch.from_numpy(member_table(onehot.argmax(axis=0),
+                                         onehot.shape[0])).to(device)
 
 
 def state_from_numpy(tree: dict, cfg: T.SimConfig, device=None) -> T.SimState:

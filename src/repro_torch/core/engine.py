@@ -1,6 +1,8 @@
 """The event-driven simulation engine in PyTorch, port of
-``repro.core.engine``: the main path and network mode (flows over a
-topology, switch states); thermal, trace and sharding are refused by
+``repro.core.engine``: the main path, network mode (flows over a
+topology, switch states) and the thermal subsystem with its control plane
+(throttling, the setpoint controller, THERMAL_AWARE placement and
+CARBON_AWARE deferral); trace and sharding are refused by
 ``check_scope``.
 
 The paper's sequential priority-queue loop becomes dense tensor work:
@@ -26,10 +28,12 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..kernels import ops
 from . import network, power, scheduler, server, telemetry
+from . import thermal as thermal_mod
 from .server import set_drop
 from .types import (INF, JobTable, SchedPolicy, ServerFarm, SimConfig,
                     SimState, SrvState, TaskStatus, init_farm, init_flows,
@@ -48,18 +52,12 @@ def check_scope(cfg: SimConfig) -> None:
     """Refuse configurations this slice of the port does not run yet,
     naming the ROADMAP item (Queue 1) that will bring them."""
     refused = [
-        (cfg.thermal.enabled, "thermal.enabled=True",
-         "item 7 (thermal.py and the control plane)"),
         (cfg.trace.enabled, "trace.enabled=True",
          "item 8 (trace.py and traceio.py)"),
         (cfg.partition.sharded, "partition.n_shards > 1",
          "item 10 (shard_sim.py)"),
         (not cfg.use_vectorized_hot_loop, "use_vectorized_hot_loop=False",
          "item 12 (seed scalar paths)"),
-        (cfg.sched_policy == SchedPolicy.THERMAL_AWARE,
-         "SchedPolicy.THERMAL_AWARE", "item 7 (thermal control plane)"),
-        (cfg.sched_policy == SchedPolicy.CARBON_AWARE,
-         "SchedPolicy.CARBON_AWARE", "item 7 (thermal control plane)"),
     ]
     for bad, what, item in refused:
         if bad:
@@ -69,6 +67,15 @@ def check_scope(cfg: SimConfig) -> None:
     if cfg.n_present > cfg.n_servers:
         raise ValueError(
             f"n_present={cfg.n_present} exceeds n_servers={cfg.n_servers}")
+    for policy, name, why in (
+            (SchedPolicy.THERMAL_AWARE, "THERMAL_AWARE",
+             "placement would silently ignore temperatures"),
+            (SchedPolicy.CARBON_AWARE, "CARBON_AWARE",
+             "the deferral signal and its telemetry live in the thermal "
+             "subsystem")):
+        if cfg.sched_policy == policy and not cfg.thermal.enabled:
+            raise ValueError(f"SchedPolicy.{name} requires "
+                             f"cfg.thermal.enabled=True ({why})")
 
 
 @dataclasses.dataclass
@@ -118,6 +125,14 @@ def _pending_jobs(jobs: JobTable) -> torch.Tensor:
     return ((s == TaskStatus.READY) | (s == TaskStatus.QUEUED)).sum(dtype=I32)
 
 
+def _deferral_on(cfg: SimConfig) -> bool:
+    """CARBON_AWARE with a finite signal threshold: only then does the
+    deferral machinery run (with the default INF threshold CARBON_AWARE is
+    LOAD_BALANCE placement)."""
+    return cfg.sched_policy == SchedPolicy.CARBON_AWARE \
+        and cfg.thermal.deferral
+
+
 def _next_arrival(jobs: JobTable) -> torch.Tensor:
     J = jobs.arrival.shape[0]
     nxt = jobs.arrival[jobs.arr_ptr.clamp(0, J - 1).to(I64)]
@@ -132,6 +147,12 @@ def _farm_candidates(state: SimState, cfg: SimConfig) -> torch.Tensor:
         torch.minimum(_next_arrival(state.jobs), farm.core_busy_until.min()),
         torch.minimum(farm.srv_wake_at.min(),
                       scheduler.next_timer_event(farm, cfg)))
+    if _deferral_on(cfg):
+        # deferred-job releases are ordinary events of the cheap core too
+        t_next = torch.minimum(t_next, state.jobs.admit_at.min())
+    if cfg.thermal.has_ctrl:
+        # setpoint-controller ticks, applied right after the advance
+        t_next = torch.minimum(t_next, state.thermal.ctrl_next)
     # pending READY tasks (or queued work on awake free cores) run "now"
     ready = (state.jobs.status == TaskStatus.READY).any()
     awake = (farm.srv_state == SrvState.ACTIVE) \
@@ -143,11 +164,13 @@ def _farm_candidates(state: SimState, cfg: SimConfig) -> torch.Tensor:
 
 
 def next_event_time(state: SimState, cfg: SimConfig) -> torch.Tensor:
-    """Every event source: the farm's, and flow completions in network
-    mode."""
+    """Every event source: the farm's, flow completions in network mode
+    and throttle-threshold crossings when throttling is armed."""
     t_next = _farm_candidates(state, cfg)
     if cfg.has_network:
         t_next = torch.minimum(t_next, state.flows.done_at.min())
+    if cfg.thermal.throttling:
+        t_next = torch.minimum(t_next, thermal_mod.next_crossing(state, cfg))
     return torch.maximum(t_next, state.t).to(cfg.time_dtype)
 
 
@@ -159,27 +182,36 @@ def _advance_interval(state: SimState, cfg: SimConfig, tc: EngineConsts,
                       t_next) -> SimState:
     """Integrate over the piecewise-constant interval [t, t_next), then set
     t := t_next.  The fused advance kernel accrues energy and busy
-    core-seconds and frees completed cores (its done mask and candidate
-    are not needed here); residency accrues beside it, and the per-server
-    power feeds the telemetry windows.  In network mode the switches
-    accrue energy and the flows drain at their current rates."""
+    core-seconds (active-core power scaled on throttled servers) and frees
+    completed cores (its done mask and candidate are not needed here);
+    residency accrues beside it.  The per-server power, one RC evaluation
+    and one CRAC evaluation are shared by the telemetry windows and the
+    thermal integrator.  In network mode the switches accrue energy and
+    the flows drain at their current rates."""
     farm = state.farm
-    if farm.core_busy_until.is_cuda and cfg.time_dtype != torch.float32:
-        raise ValueError(
-            "the CUDA advance kernel requires time_dtype=float32: it "
-            "computes in f32, and the core_busy_until round-trip would "
-            "silently destroy f64 precision (an f64 clock runs on "
-            "device='cpu')")
     dt = t_next - state.t
     dtf = dt.to(F32)                    # physics runs in f32 on any clock
     onehot = power.state_onehot(farm)
     p_sw = power.switch_power(state.net, cfg) if cfg.has_network else None
+    thermal_on = cfg.thermal.enabled
+    throttled = state.thermal.throttled if thermal_on else None
+    p_busy = power.server_power(farm, cfg, throttled) \
+        if cfg.telemetry.enabled or thermal_on else None
+    thermal_ctx = None
+    if thermal_on:
+        tcfg = cfg.thermal
+        target, alpha, t_end = thermal_mod.rc_step(
+            state.thermal, tcfg, p_busy[0], state.t, dtf)
+        p_sw_t = p_sw.sum() if cfg.has_network \
+            else torch.zeros((), dtype=F32, device=dtf.device)
+        p_cool = thermal_mod.cooling_power(p_busy[0], p_sw_t, state.thermal,
+                                           tcfg)
+        thermal_ctx = (target, alpha, t_end, p_cool)
 
     telem = state.telem
     if cfg.telemetry.enabled:
-        p_busy = power.server_power(farm, cfg)
         wvals = telemetry.window_values(state, cfg, dt, p_busy, onehot,
-                                        p_sw)
+                                        p_sw, thermal_ctx)
         widx = telemetry.window_index(state.t, dt, cfg.telemetry)
         spill = telemetry.window_spill(state.t, dt, cfg.telemetry)
         telem = replace(telem,
@@ -192,9 +224,10 @@ def _advance_interval(state: SimState, cfg: SimConfig, tc: EngineConsts,
         farm.core_busy_until, farm.srv_state, farm.energy,
         farm.busy_core_seconds, state.t, t_next, tc.state_power,
         sp.p_core_active, sp.p_core_idle, farm.srv_wake_at,
-        farm.srv_idle_since, farm.srv_tau, None,
+        farm.srv_idle_since, farm.srv_tau,
+        throttled if cfg.thermal.throttling else None,
         throttle_power_scale=cfg.thermal.throttle_power_scale)
-    farm = replace(farm, core_busy_until=nb.to(cfg.time_dtype), energy=en,
+    farm = replace(farm, core_busy_until=nb, energy=en,
                    busy_core_seconds=bs,
                    residency=farm.residency + onehot * dtf)
     net, flows = state.net, state.flows
@@ -203,8 +236,12 @@ def _advance_interval(state: SimState, cfg: SimConfig, tc: EngineConsts,
         # drain the fluid model over the interval (rates are piecewise
         # constant, fixed at the last recompute)
         flows = network.advance_flows(flows, dt)
-    return replace(state, farm=farm, net=net, flows=flows, telem=telem,
-                   t=t_next)
+    therm = state.thermal
+    if thermal_on:
+        therm = thermal_mod.advance(therm, cfg, p_busy[0], p_sw_t, state.t,
+                                    dt, t_new=t_end, p_cool=p_cool)
+    return replace(state, farm=farm, net=net, flows=flows, thermal=therm,
+                   telem=telem, t=t_next)
 
 
 # ==========================================================================
@@ -225,10 +262,16 @@ def _rebuild_job_completion(jobs: JobTable, cfg: SimConfig, now):
 
 
 def _promote_ready(jobs: JobTable, dep_count, cfg: SimConfig):
-    """BLOCKED -> READY where deps are now satisfied (arrived jobs only)."""
+    """BLOCKED -> READY where deps are now satisfied (arrived jobs only).
+    A carbon-deferred job has consumed its arrival slot but is not
+    admitted: its roots stay BLOCKED until ``_apply_releases`` places
+    it."""
     T = cfg.tasks_per_job
     tid = torch.arange(jobs.status.shape[0], device=dep_count.device)
     arrived = tid // T < jobs.arr_ptr
+    if _deferral_on(cfg):
+        arrived = arrived & ~torch.repeat_interleave(
+            jobs.admit_at < INF / 2, T)
     ready = (jobs.status == TaskStatus.BLOCKED) & (dep_count <= 0) & arrived
     return torch.where(ready, TaskStatus.READY, jobs.status).to(I32)
 
@@ -318,14 +361,23 @@ def _apply_flow_completions(state: SimState, cfg: SimConfig) -> SimState:
                    jobs=replace(jobs, dep_count=dep_count, status=status))
 
 
-def _apply_arrival(state: SimState, cfg: SimConfig, tc) -> SimState:
+def _apply_arrival(state: SimState, cfg: SimConfig, tc,
+                   hold=None) -> SimState:
     """Admit up to cfg.arrivals_per_step jobs whose arrival <= t in one
     pass against one scheduler snapshot: assign servers to all their tasks
     and mark roots READY.  With nothing to admit the pass is the identity
     (no task is eligible), so the reference's gate needs no mask.
     NETWORK_AWARE with a network adds each server's wake cost from the
     front end (server 0), one evaluation for the whole batch (the net
-    state does not change during admission)."""
+    state does not change during admission); THERMAL_AWARE scores by the
+    servers' temperatures.
+
+    CARBON_AWARE deferral: a deferrable job arriving while the signal is
+    above the threshold parks instead, with a release time (the signal's
+    solved down-crossing or its deadline, whichever comes first) that is
+    an event candidate; it consumes its arrival slot.  ``hold`` (0-d
+    bool) holds every arrival while due releases are pending, so the
+    release train admits first, as the oracle orders it."""
     jobs, farm, sched = state.jobs, state.farm, state.sched
     J = jobs.arrival.shape[0]
     T = cfg.tasks_per_job
@@ -338,13 +390,28 @@ def _apply_arrival(state: SimState, cfg: SimConfig, tc) -> SimState:
     elig = (jid < J) & (nxt <= state.t) & (nxt < INF / 2)
     # arrivals are sorted, so eligibility is a prefix; enforce it anyway
     elig = torch.cumprod(elig.to(I32), 0).to(torch.bool)
+    if hold is not None:
+        elig = elig & ~hold
     n_adm = elig.sum(dtype=I32)
+    adm = elig
+    if _deferral_on(cfg):
+        tcfg = cfg.thermal
+        jc = jid.clamp(0, J - 1).to(I64)
+        sig = thermal_mod.defer_signal_now(tcfg, state.t)
+        rel = thermal_mod.next_release_time(tcfg, state.t)
+        cand = torch.minimum(rel.to(cfg.time_dtype), jobs.deadline[jc])
+        dfr = elig & jobs.deferrable[jc] & (sig > tcfg.defer_threshold) \
+            & (cand > state.t) & (cand < INF / 2)
+        jobs = replace(jobs, admit_at=set_drop(
+            jobs.admit_at, torch.where(dfr, jid, J),
+            torch.where(dfr, cand, INF)))
+        adm = elig & ~dfr
 
     tids = j0 * T + torch.arange(K * T, dtype=I32, device=dev)
     in_range = tids < JT
     sc = torch.where(in_range, tids, JT)                  # scatter sentinel
     gather = tids.clamp(0, JT - 1).to(I64)
-    elig_t = torch.repeat_interleave(elig, T)
+    elig_t = torch.repeat_interleave(adm, T)
     is_valid = jobs.valid[gather] & elig_t & in_range
     root = is_valid & (jobs.dep_count[gather] <= 0)
 
@@ -357,19 +424,14 @@ def _apply_arrival(state: SimState, cfg: SimConfig, tc) -> SimState:
         # one pick per job against the shared snapshot; job k sees the
         # roots committed by jobs 0..k-1 of the batch as extra load
         load = scheduler.server_load(farm, cfg).to(F32)
-        ar = torch.arange(cfg.n_servers, device=dev)
         net_cost = None
         if cfg.has_network and cfg.sched_policy == SchedPolicy.NETWORK_AWARE:
-            net_cost = network.route_wake_cost(tc.net, state.net, 0, ar)
-        root_k = root.view(K, T).sum(dim=1, dtype=I32).to(F32)
-        extra = torch.zeros((cfg.n_servers,), dtype=F32, device=dev)
-        picks = []
-        for k in range(K):                     # static unroll, K small
-            srv_k, _ = scheduler.pick_server(farm, cfg, sched, extra, load,
-                                             net_cost)
-            extra = torch.where(ar == srv_k, extra + root_k[k], extra)
-            picks.append(srv_k)
-        srvs = torch.repeat_interleave(torch.stack(picks), T)
+            net_cost = network.route_wake_cost(
+                tc.net, state.net, 0, torch.arange(cfg.n_servers, device=dev))
+        temp = state.thermal.t_srv if cfg.thermal.enabled and \
+            cfg.sched_policy == SchedPolicy.THERMAL_AWARE else None
+        srvs = _batch_picks(farm, cfg, sched, load, root.view(K, T),
+                            net_cost, temp)
     server_arr = set_drop(jobs.server, sc,
                           torch.where(is_valid, srvs, jobs.server[gather]))
     status = set_drop(jobs.status, sc,
@@ -378,6 +440,94 @@ def _apply_arrival(state: SimState, cfg: SimConfig, tc) -> SimState:
     jobs = replace(jobs, server=server_arr, status=status,
                    arr_ptr=(j0 + n_adm).to(I32))
     return replace(state, jobs=jobs, sched=sched)
+
+
+def _batch_picks(farm, cfg: SimConfig, sched, load, root_kt, net_cost=None,
+                 temp=None):
+    """One score-policy pick per job of a (K, T) admission batch against
+    one farm snapshot; job k sees the roots committed by jobs 0..k-1 of
+    the batch as extra load.  Returns the (K*T,) servers, job-major."""
+    K, T = root_kt.shape
+    root_k = root_kt.sum(dim=1, dtype=I32).to(F32)
+    ar = torch.arange(cfg.n_servers, device=load.device)
+    extra = torch.zeros((cfg.n_servers,), dtype=F32, device=load.device)
+    picks = []
+    for k in range(K):                     # static unroll, K small
+        srv_k, _ = scheduler.pick_server(farm, cfg, sched, extra, load,
+                                         net_cost, temp)
+        extra = torch.where(ar == srv_k, extra + root_k[k], extra)
+        picks.append(srv_k)
+    return torch.repeat_interleave(torch.stack(picks), T)
+
+
+def _apply_releases(state: SimState, cfg: SimConfig) -> SimState:
+    """Admit deferred jobs whose release time has come (CARBON_AWARE):
+    up to cfg.arrivals_per_step a step in ascending job id, against one
+    scheduler snapshot, as a same-timestamp arrival batch admits.
+    Leftover due jobs keep the next event at ``now`` and release on the
+    next step.  Runs before fresh arrivals: released jobs carry lower ids,
+    so the READY drain serves them first, the oracle's release-then-
+    arrive order.  Accrues the deferral telemetry: deferred seconds, the
+    release count and a first-order grams-avoided estimate (marginal job
+    energy times the carbon-intensity drop between arrival and release).
+
+    The reference gates this on any job being due; here it always runs.
+    With nothing due no job is selected: every write lands on a drop
+    sentinel and the counters add zeros, so the state is unchanged bit for
+    bit."""
+    jobs = state.jobs
+    now = state.t
+    J = jobs.arrival.shape[0]
+    T = cfg.tasks_per_job
+    JT = jobs.status.shape[0]
+    K = cfg.arrivals_per_step
+    dev = now.device
+    due = (jobs.admit_at < INF / 2) & (jobs.admit_at <= now)
+    # the first K due job ids into (K,) slots, ascending (-1: empty)
+    r = torch.cumsum(due, 0, dtype=I32) - 1
+    jid_b = set_drop(torch.full((K,), -1, dtype=I32, device=dev),
+                     torch.where(due & (r < K), r, K),
+                     torch.arange(J, dtype=I32, device=dev))
+    jvalid = jid_b >= 0
+    jq = jid_b.clamp(0, J - 1).to(I64)
+
+    tids = (jq[:, None] * T + torch.arange(T, device=dev)).view(-1)
+    gather = tids.clamp(0, JT - 1)
+    valid_t = torch.repeat_interleave(jvalid, T)
+    sc = torch.where(valid_t, tids, JT)
+    is_valid = jobs.valid[gather] & valid_t
+    # only still-parked roots flip READY: a repeated release of a row that
+    # was already processed must never re-run a task
+    root = is_valid & (jobs.dep_count[gather] <= 0) \
+        & (jobs.status[gather] == TaskStatus.BLOCKED)
+    load = scheduler.server_load(state.farm, cfg).to(F32)
+    srvs = _batch_picks(state.farm, cfg, state.sched, load, root.view(K, T))
+    jobs = replace(
+        jobs,
+        server=set_drop(jobs.server, sc,
+                        torch.where(is_valid, srvs, jobs.server[gather])),
+        status=set_drop(jobs.status, sc,
+                        torch.where(root, TaskStatus.READY,
+                                    jobs.status[gather]).to(I32)),
+        admit_at=set_drop(jobs.admit_at, torch.where(jvalid, jid_b, J),
+                          INF))
+
+    tcfg = cfg.thermal
+    therm = state.thermal
+    arr_j = jobs.arrival[jq]
+    zero = torch.zeros((), dtype=F32, device=dev)
+    waited = torch.where(jvalid, (now - arr_j).to(F32), zero)
+    ci_drop = thermal_mod.carbon_intensity_now(tcfg, arr_j) \
+        - thermal_mod.carbon_intensity_now(tcfg, now)
+    sp = cfg.server_power
+    e_kwh = jobs.service.view(-1, T)[jq].sum(dim=1) \
+        * float(np.float32((sp.p_core_active - sp.p_core_idle) / 3.6e6))
+    avoided = torch.where(jvalid, ci_drop * e_kwh, zero)
+    therm = replace(
+        therm, defer_seconds=therm.defer_seconds + waited.sum(),
+        defer_count=therm.defer_count + jvalid.sum(dtype=I32),
+        grams_avoided=therm.grams_avoided + avoided.sum())
+    return replace(state, jobs=jobs, thermal=therm)
 
 
 def _resolve_drops(state: SimState, cfg: SimConfig, dropped) -> SimState:
@@ -439,7 +589,11 @@ def _drain_ready(state: SimState, cfg: SimConfig) -> SimState:
 
 
 def _start_tasks(state: SimState, cfg: SimConfig) -> SimState:
-    farm, jobs = server.try_start(state.farm, cfg, state.jobs, state.t)
+    # throttled servers start work at their reduced effective frequency
+    freq = thermal_mod.effective_freq(state.thermal, cfg) \
+        if cfg.thermal.throttling else None
+    farm, jobs = server.try_start(state.farm, cfg, state.jobs, state.t,
+                                  freq)
     return replace(state, farm=farm, jobs=jobs)
 
 
@@ -453,7 +607,15 @@ def _apply_events(state: SimState, cfg: SimConfig, tc,
     state = _apply_completions(state, cfg, tc)
     if cfg.has_network and not cheap:
         state = _apply_flow_completions(state, cfg)
-    state = _apply_arrival(state, cfg, tc)
+    hold = None
+    if _deferral_on(cfg):
+        # due releases admit before fresh arrivals, and a step that
+        # entered with due releases holds the arrivals until the next
+        # same-time step
+        admit_at = state.jobs.admit_at
+        hold = ((admit_at < INF / 2) & (admit_at <= state.t)).any()
+        state = _apply_releases(state, cfg)
+    state = _apply_arrival(state, cfg, tc, hold)
     state = _drain_ready(state, cfg)
     state = _start_tasks(state, cfg)
     # refresh ACTIVE/IDLE, run local power controllers + pool managers
@@ -510,6 +672,9 @@ def _cheap_gate(state: SimState, cfg: SimConfig):
     if cfg.has_network:
         will_be_done = will_be_done & ~state.flows.active.any()
     ok = (t_next < INF / 2) & ~will_be_done
+    if cfg.thermal.throttling:
+        # a throttle crossing needs the full step
+        ok = ok & (t_next < thermal_mod.next_crossing(state, cfg))
     if cfg.has_network:
         ok = ok & (t_next < state.flows.done_at.min())
         if cfg.tasks_per_job > 1:
@@ -526,8 +691,23 @@ def _cheap_gate(state: SimState, cfg: SimConfig):
     return ok, t_next
 
 
+def _apply_thermal_events(state: SimState, cfg: SimConfig) -> SimState:
+    """The throttle latch (and the stretch of in-flight work) and the
+    setpoint-controller tick, right after the interval advance in both
+    the cheap and the full pass."""
+    if cfg.thermal.throttling:
+        farm, jobs, therm = thermal_mod.apply_throttle(
+            state.farm, state.jobs, state.thermal, cfg, state.t)
+        state = replace(state, farm=farm, jobs=jobs, thermal=therm)
+    if cfg.thermal.has_ctrl:
+        state = replace(state, thermal=thermal_mod.apply_setpoint_ctrl(
+            state.thermal, cfg, state.t))
+    return state
+
+
 def _consume_cheap(state: SimState, cfg: SimConfig, tc, t_next) -> SimState:
     state = _advance_interval(state, cfg, tc, t_next)
+    state = _apply_thermal_events(state, cfg)
     state = _apply_events(state, cfg, tc, cheap=True)
     return replace(state, events=state.events + 1)
 
@@ -547,13 +727,14 @@ def _macro_chew(state: SimState, cfg: SimConfig, tc) -> SimState:
 
 
 def _full_step(state: SimState, cfg: SimConfig, tc) -> SimState:
-    # every event source: the farm's, arrivals and flow completions (the
-    # thermal slice adds throttle crossings here)
+    # every event source: the farm's, arrivals, flow completions and
+    # throttle crossings
     t_next = next_event_time(state, cfg)
     # INF means no pending events: freeze time instead of integrating
     # energy over an unbounded interval
     t_next = torch.where(t_next >= INF / 2, state.t, t_next)
     state = _advance_interval(state, cfg, tc, t_next)
+    state = _apply_thermal_events(state, cfg)
     state = _apply_events(state, cfg, tc, cheap=False)
     return replace(state, events=state.events + 1,
                    done=_all_done(state, cfg))
@@ -580,13 +761,20 @@ def sim_step(state: SimState, cfg: SimConfig,
     return state
 
 
-def init_state(cfg: SimConfig, jobs: JobTable, topo=None):
+def init_state(cfg: SimConfig, jobs: JobTable, topo=None, racks=None):
     """Initial state on the job table's device, and the run's device
     constants.  ``topo`` (a ``core.topology.Topology``) is required in
-    network mode; its sizes shape the net state.  Returns (state, tc)."""
+    network mode; its sizes shape the net state.  ``racks`` is an optional
+    (N,) host array of rack ids for the thermal recirculation grouping;
+    with a topology it defaults to the servers' first-hop switches
+    (``topology.rack_of_servers``), else to ``i // thermal.rack_size``.
+    Returns (state, tc)."""
     check_scope(cfg)
     dev = jobs.status.device
     tc = consts(cfg, dev, topo)
+    if racks is None and topo is not None and cfg.thermal.enabled:
+        from . import topology
+        racks = topology.rack_of_servers(topo, cfg.thermal.rack_size)
     n_sw = topo.n_switches if topo is not None else 0
     n_ports = topo.n_ports if topo is not None else 1
     n_links = topo.n_links if topo is not None else 1
@@ -599,6 +787,7 @@ def init_state(cfg: SimConfig, jobs: JobTable, topo=None):
         net=init_net(n_sw, n_ports, n_links, n_lc, cfg, dev),
         sched=init_sched(cfg, dev),
         telem=telemetry.init_telemetry(cfg, dev),
+        thermal=thermal_mod.init_thermal(cfg, dev, racks),
         events=torch.zeros((), dtype=I32, device=dev),
         steps=torch.zeros((), dtype=I32, device=dev),
         done=torch.zeros((), dtype=torch.bool, device=dev),

@@ -141,6 +141,21 @@ def summarize(state: SimState, cfg: SimConfig) -> SimResult:
         (lambda q: float("nan"))
     energy = _np(state.farm.energy)
     bcs = _np(state.farm.busy_core_seconds)
+    thermal_kw = {}
+    if cfg.thermal.enabled:
+        th = state.thermal
+        temps, peaks = _np(th.t_srv), _np(th.t_peak)
+        thermal_kw = dict(
+            cooling_energy=float(th.cool_energy),
+            carbon_g=float(th.carbon_g),
+            energy_cost=float(th.cost),
+            peak_temp=float(peaks.max()),
+            mean_temp=float(temps.mean()),
+            throttle_seconds=float(_np(th.throttle_seconds).sum()),
+            temps=temps, peak_temps=peaks, setpoints=_np(th.t_set),
+            deferred_jobs=int(th.defer_count),
+            deferred_seconds=float(th.defer_seconds),
+            carbon_g_avoided_est=float(th.grams_avoided))
     return SimResult(
         sim_time=t,
         events=int(state.events),
@@ -161,22 +176,26 @@ def summarize(state: SimState, cfg: SimConfig) -> SimResult:
         telemetry=(telemetry_mod.summarize(state, cfg)
                    if cfg.telemetry.enabled else None),
         flows_dropped=int(state.flows.flows_dropped),
+        **thermal_kw,
     )
 
 
 def simulate(cfg: SimConfig, arrivals, specs, topo=None, tau=None,
-             pools=None, device=None) -> SimResult:
+             pools=None, racks=None, device=None) -> SimResult:
     """Build the job table, run the engine to completion, summarize.
 
     topo   -- a ``core.topology.Topology``; required when cfg.has_network
     tau    -- scalar or (N,) delay-timer values (seconds; INF = never sleep)
     pools  -- (N,) 0/1 pool assignment (dual-timer low/high, WASP)
+    racks  -- (N,) rack ids for the thermal recirculation grouping (the
+              topology's first-hop switches by default when ``topo`` is
+              given, else i // thermal.rack_size)
     device -- ``None`` (the default CUDA device) or ``"cpu"``
     """
     engine.check_scope(cfg)
     dev = resolve_device(device)
     jt = jobs_mod.build_jobs(cfg, np.asarray(arrivals), specs, device=dev)
-    state, tc = engine.init_state(cfg, jt, topo)
+    state, tc = engine.init_state(cfg, jt, topo, racks)
     if tau is not None:
         tau_arr = torch.as_tensor(np.broadcast_to(
             np.asarray(tau, np.float64), (cfg.n_servers,)).copy())

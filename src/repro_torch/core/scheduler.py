@@ -1,14 +1,15 @@
 """Global scheduling policies and power-policy controllers (paper §III-E),
-port of ``repro.core.scheduler`` for the policies of this slice:
+port of ``repro.core.scheduler``:
 
   * round-robin / load-balance task->server assignment
   * network-aware assignment (case D): load plus the network wake cost
+  * thermal-aware assignment: load plus the server's temperature excess
   * threshold provisioning (case A): grow/shrink the enabled set
   * delay timers, single & dual (case B)
   * WASP two-pool management (case C)
 
-THERMAL_AWARE and CARBON_AWARE arrive with the thermal slice; the engine
-refuses them before it runs.
+CARBON_AWARE places by load: what it changes is when deferrable jobs
+admit (``engine._apply_releases``), not where they land.
 """
 from __future__ import annotations
 
@@ -30,14 +31,15 @@ def server_load(farm: ServerFarm, cfg: SimConfig):
 
 
 def pick_server(farm: ServerFarm, cfg: SimConfig, sched, extra_load=None,
-                load=None, net_cost=None):
+                load=None, net_cost=None, temp=None):
     """Choose a server for one task.  Returns (server () int32,
     new_rr_ptr).  ``extra_load`` (N,) f32 is load already committed by
     earlier jobs of the same admission batch; ``load`` optionally supplies
     ``server_load(farm, cfg)`` as f32, which the batch computes once.
     ``net_cost`` (N,) int32 is case D's count of sleeping switches on the
     route to each server; NETWORK_AWARE without it (no network) scores
-    load alone, as the other score policies do."""
+    load alone, as the other score policies do.  ``temp`` (N,) f32 is the
+    server temperatures THERMAL_AWARE scores by."""
     N = cfg.n_servers
     dev = farm.q_len.device
     if load is None:
@@ -63,6 +65,9 @@ def pick_server(farm: ServerFarm, cfg: SimConfig, sched, extra_load=None,
             | (farm.srv_state == SrvState.S3) \
             | (farm.srv_state == SrvState.OFF)
         score = load + net_cost.to(F32) * 100.0 + sleeping.to(F32) * 10.0
+    elif cfg.sched_policy == SchedPolicy.THERMAL_AWARE and temp is not None:
+        score = load + (temp - cfg.thermal.t_inlet) \
+            * cfg.thermal.sched_temp_weight
     elif cfg.sched_policy == SchedPolicy.WASP_POOLS:
         score = load + farm.srv_pool.to(F32) * BIG
     elif cfg.sleep_policy == SleepPolicy.DUAL_TIMER:

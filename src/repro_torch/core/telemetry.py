@@ -1,7 +1,7 @@
 """Device-side telemetry: streaming latency histograms, windowed time series
 and QoS/SLA counters inside the event loop, port of
-``repro.core.telemetry`` (thermal columns stay zero: the thermal slice is
-not ported yet).
+``repro.core.telemetry`` (the thermal columns stay zero when the thermal
+subsystem is off).
 
 Latency binning runs once per macro-step through ``kernels.ops.
 telemetry_accum`` (the CUDA kernel on the card, its plain version on the
@@ -18,6 +18,7 @@ import torch
 from ..kernels import ops
 from ..kernels.ref import _const
 from . import power
+from . import thermal as thermal_mod
 from .types import (INF, SimConfig, SrvState, TaskStatus, Telemetry,
                     TelemetryConfig, replace)
 
@@ -72,19 +73,24 @@ def init_telemetry(cfg: SimConfig, device) -> Telemetry:
 # ==========================================================================
 
 def window_values(state, cfg: SimConfig, dt, p_busy=None,
-                  onehot=None, p_sw=None) -> torch.Tensor:
+                  onehot=None, p_sw=None, thermal_ctx=None) -> torch.Tensor:
     """(WIN_COLS,) metric·dt vector for the piecewise-constant interval
     [t, t+dt), from the pre-advance state.  ``p_sw`` is the per-switch
     power ``power.switch_power(state.net, cfg)``, required in network
-    mode and unused without one."""
+    mode and unused without one.  ``thermal_ctx`` optionally supplies the
+    engine's (target, alpha, end temperatures, CRAC power) of the
+    interval.  The carbon and price columns are closed-form interval
+    integrals, so the windows sum to the accrued grams and dollars."""
     farm = state.farm
+    tcfg = cfg.thermal
     dtf = dt.to(F32)
     s = state.jobs.status
     active = ((s == TaskStatus.READY) | (s == TaskStatus.QUEUED)
               | (s == TaskStatus.RUNNING)).sum(dtype=I32).to(F32)
     qdepth = (farm.q_len.sum(dtype=I32) + state.sched.gq_len).to(F32)
     if p_busy is None:
-        p_busy = power.server_power(farm, cfg)
+        throttled = state.thermal.throttled if tcfg.enabled else None
+        p_busy = power.server_power(farm, cfg, throttled)
     if onehot is None:
         onehot = power.state_onehot(farm)
     p_srv = p_busy[0].sum()
@@ -96,16 +102,47 @@ def window_values(state, cfg: SimConfig, dt, p_busy=None,
     p_sw = p_sw.sum() if cfg.has_network else one * 0.0
     head = torch.stack([one, active, awake, qdepth, p_srv, p_sw])
     base = torch.cat([head, per_state]) * dtf
-    return torch.cat([base, torch.zeros((N_THERMAL_COLS,), dtype=F32,
-                                        device=dtf.device)])
+    if not tcfg.enabled:
+        return torch.cat([base, torch.zeros((N_THERMAL_COLS,), dtype=F32,
+                                            device=dtf.device)])
+    t_srv = state.thermal.t_srv
+    ici, ipr = thermal_mod.carbon_price_integrals(tcfg, state.t, dt)
+    if thermal_ctx is None:
+        target, alpha, t_end = thermal_mod.rc_step(
+            state.thermal, tcfg, p_busy[0], state.t, dtf)
+        p_cool = thermal_mod.cooling_power(p_busy[0], p_sw,
+                                           state.thermal, tcfg)
+    else:
+        target, alpha, t_end, p_cool = thermal_ctx
+    kw = (p_srv + p_sw + p_cool) * 1.0e-3
+    if cfg.has_padding:
+        # padded rows idle at the supply temperature: keep them out of
+        # the farm mean and max (the padding is a suffix)
+        n = cfg.present
+        target, t_srv, t_end = target[:n], t_srv[:n], t_end[:n]
+    # temperature moves exponentially within the interval: the mean column
+    # integrates the closed form, the max column takes the endpoint max
+    # (trajectories are monotone toward their targets)
+    mean_int = target.mean() * dtf \
+        + (t_srv - target).mean() * tcfg.tau_th * alpha
+    max_interval = torch.maximum(t_srv, t_end).max()
+    therm_cols = torch.stack([
+        p_cool * dtf, mean_int, max_interval * dtf, ici, ipr,
+        thermal_mod.div_const(kw * ici, 3600.0),
+        thermal_mod.div_const(kw * ipr, 3600.0)])
+    return torch.cat([base, therm_cols])
 
 
 def window_index(t, dt, tcfg: TelemetryConfig) -> torch.Tensor:
     """Window containing the interval midpoint, clamped into range (0-d
     int32).  Clamping before the truncating cast is the reference's
-    cast-then-clip for every finite midpoint and never overflows."""
+    cast-then-clip for every finite midpoint and never overflows.  The
+    midpoint is multiplied by the float32 reciprocal of ``window_dt``:
+    the reference's compiled step rewrites its division by the constant
+    that way, and the two differ where a midpoint sits at a window edge."""
     mid = t.to(F32) + 0.5 * dt.to(F32)
-    w = mid / _const(tcfg.window_dt, mid)
+    inv = float(np.float32(1.0) / np.float32(tcfg.window_dt))
+    w = mid * _const(inv, mid)
     return w.clamp(0, tcfg.n_windows - 1).to(I32)
 
 

@@ -122,10 +122,12 @@ class SwitchPowerProfile:
 
 @dataclass(frozen=True)
 class ThermalConfig:
-    """Thermal / cooling / carbon knobs.  Mirrored so configurations and
-    digests carry over; the port's engine refuses ``enabled=True`` until
-    the thermal slice lands (ROADMAP Queue 1 item 7), which brings the
-    derived properties (``throttling``, ``has_ctrl``, ...) with it."""
+    """Thermal / cooling / carbon knobs (``core/thermal.py``): the per-server
+    RC model, rack recirculation, the CRAC's quadratic COP, per-rack
+    setpoints and their controller, the diurnal ambient, carbon and price
+    series, temperature-coupled throttling and CARBON_AWARE deferral.
+    ``enabled=False`` adds nothing to the step; ``t_throttle=INF`` keeps
+    throttling off while temperatures are tracked."""
 
     enabled: bool = False
     r_th: float = 0.25
@@ -162,6 +164,36 @@ class ThermalConfig:
     price_period: float = 86400.0
     price_phase: float = 0.0
     sched_temp_weight: float = 100.0
+
+    @property
+    def cop(self) -> float:
+        t = self.t_inlet
+        return self.cop_a * t * t + self.cop_b * t + self.cop_c
+
+    @property
+    def throttling(self) -> bool:
+        return self.enabled and self.t_throttle < INF / 2
+
+    @property
+    def has_ctrl(self) -> bool:
+        """Setpoint controller armed (its ticks are events)."""
+        return self.enabled and self.ctrl_period > 0.0
+
+    @property
+    def per_rack(self) -> bool:
+        """Setpoints live in ``ThermalState.t_set`` (per-rack COP) instead
+        of folding to the static ``t_inlet`` constant."""
+        return self.enabled and (self.t_setpoint is not None
+                                 or self.has_ctrl)
+
+    @property
+    def ambient_on(self) -> bool:
+        return self.enabled and self.ambient_swing != 0.0
+
+    @property
+    def deferral(self) -> bool:
+        """CARBON_AWARE deferral armed (a finite signal threshold)."""
+        return self.enabled and self.defer_threshold < INF / 2
 
 
 @dataclass(frozen=True)
@@ -347,10 +379,37 @@ class Telemetry:
 
 
 @dataclass
+class ThermalState:
+    """Thermal, carbon and cost state (``core/thermal.py``); 1-sized
+    placeholders when the subsystem is off.  ``rack_onehot`` is never the
+    reference's (R, N) membership matrix: an empty (0, 0) marker when
+    racks are contiguous equal blocks (the reshape path, as in the
+    reference), else an (R, K) int32 table of each rack's servers,
+    ascending, -1 padded."""
+
+    t_srv: torch.Tensor             # (N,) f32 server temperature (C)
+    throttled: torch.Tensor         # (N,) bool hysteresis latch
+    rack_id: torch.Tensor           # (N,) int32 dense rack id (constant)
+    rack_onehot: torch.Tensor       # (0, 0) marker or (R, K) table (constant)
+    rack_inv: torch.Tensor          # (R,) f32 1 / servers per rack
+    t_set: torch.Tensor             # (R,) f32 CRAC supply setpoint
+    ctrl_next: torch.Tensor         # () next controller tick (INF = off)
+    t_peak: torch.Tensor            # (N,) f32 running max temperature
+    throttle_seconds: torch.Tensor  # (N,) f32 time spent throttled
+    cool_energy: torch.Tensor       # () f32 CRAC joules
+    carbon_g: torch.Tensor          # () f32 grams CO2 (IT + cooling)
+    cost: torch.Tensor              # () f32 electricity cost ($)
+    defer_seconds: torch.Tensor     # () f32 summed deferral time
+    defer_count: torch.Tensor       # () int32 jobs released after deferral
+    grams_avoided: torch.Tensor     # () f32 first-order CO2 estimate
+
+
+@dataclass
 class SimState:
-    """Engine state: the reference's SimState without the thermal and
-    trace subtrees (the engine refuses both).  ``flows`` and ``net`` are
-    1-sized placeholders when the configuration has no network."""
+    """Engine state: the reference's SimState without the trace subtree
+    (the engine refuses it).  ``flows``/``net`` and ``thermal`` are
+    1-sized placeholders when the configuration has no network or no
+    thermal subsystem."""
 
     t: torch.Tensor                 # () current simulation time
     farm: ServerFarm
@@ -359,6 +418,7 @@ class SimState:
     net: NetState
     sched: SchedState
     telem: Telemetry
+    thermal: ThermalState
     events: torch.Tensor            # () int32 processed event count
     steps: torch.Tensor             # () int32 sim_step invocations
     done: torch.Tensor              # () bool all jobs finished

@@ -113,6 +113,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "dcsim_step":
         fn = lib.dcsim_advance_launch
         fn.argtypes = [P] * 11 + [F, F, F, I, I, I, I] + [P] * 7 + [P]
+        fn.restype = I
+        fn = lib.dcsim_advance_launch_f64
+        fn.argtypes = [P] * 11 + [F, F, F, I, I, I] + [P] * 7 + [P]
     elif name == "telemetry_bin":
         fn = lib.telemetry_bin_launch
         fn.argtypes = [P, P, I, P, P, I, F, F, I, P, P, P, I, I, P, P] \

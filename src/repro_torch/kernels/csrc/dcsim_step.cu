@@ -52,75 +52,125 @@
 // t and t_next are read from device memory so the host never waits for
 // the clock.  A null wake_at / idle_since / tau / throttled pointer means
 // INF / 0 / INF / not throttled for every server.
+//
+// Two instances, one per clock type (template parameter T): float32, and
+// float64 for a simulation clock that must not lose precision at large t
+// (at t = 86,400 s a float32 ulp is about 8 ms).  In the float64 instance
+// the core slots, t, t_next, wake_at, idle_since, tau, the freed slots and
+// the candidate are double, and the completion test and the candidate's
+// minimum run in double; dt = float(t_next - t) and the power, energy and
+// busy seconds stay float32, as the plain version computes them.  Its
+// minimum goes through a 64-bit order image, and its scratch is a pair of
+// 64-bit words (ticket, minimum).  It reads the core slots as scalars
+// (no float4 path).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define DCSIM_INF 1.0e30f
 #define DCSIM_THREADS 256
 
-__device__ __forceinline__ float warp_min(float v) {
+// The clock type's constants and its float <-> order-image maps: a < b
+// exactly when image(a) < image(b) as unsigned integers (sign bit set: all
+// bits flipped; clear: the sign bit set), so an integer atomicMin takes
+// the minimum.  Img is also the type of the scratch words.
+template <typename T> struct Clock;
+
+template <> struct Clock<float> {
+    typedef unsigned int Img;
+    static constexpr float INF = 1.0e30f;
+    static constexpr Img EMPTY = 0xffffffffu;
+    __device__ static Img image(float v) {
+        const unsigned int u = __float_as_uint(v);
+        return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+    }
+    __device__ static float from_image(Img u) {
+        return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+    }
+    __device__ static float add(float a, float b) { return __fadd_rn(a, b); }
+    __device__ static float lo(float a, float b) { return fminf(a, b); }
+    __device__ static float diff_f32(float a, float b) {
+        return __fsub_rn(a, b);
+    }
+};
+
+template <> struct Clock<double> {
+    typedef unsigned long long Img;
+    static constexpr double INF = 1.0e30;
+    static constexpr Img EMPTY = 0xffffffffffffffffull;
+    __device__ static Img image(double v) {
+        const Img u = (Img)__double_as_longlong(v);
+        return (u & 0x8000000000000000ull) ? ~u
+                                           : (u | 0x8000000000000000ull);
+    }
+    __device__ static double from_image(Img u) {
+        return __longlong_as_double((long long)(
+            (u & 0x8000000000000000ull) ? (u & 0x7fffffffffffffffull) : ~u));
+    }
+    __device__ static double add(double a, double b) {
+        return __dadd_rn(a, b);
+    }
+    __device__ static double lo(double a, double b) { return fmin(a, b); }
+    // dt rounds once, from the exact double difference to float32
+    __device__ static float diff_f32(double a, double b) {
+        return __double2float_rn(__dsub_rn(a, b));
+    }
+};
+
+template <typename T>
+__device__ __forceinline__ T warp_min(T v) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-        v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+        v = Clock<T>::lo(v, __shfl_xor_sync(0xffffffffu, v, off));
     return v;
 }
 
 // Block-wide minimum; the result is valid in thread 0.
-__device__ __forceinline__ float block_min(float v) {
-    __shared__ float warp_part[DCSIM_THREADS / 32];
+template <typename T>
+__device__ __forceinline__ T block_min(T v) {
+    __shared__ T warp_part[DCSIM_THREADS / 32];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     v = warp_min(v);
     if (lane == 0) warp_part[warp] = v;
     __syncthreads();
     const int n_warps = (blockDim.x + 31) >> 5;
-    v = (threadIdx.x < n_warps) ? warp_part[threadIdx.x] : DCSIM_INF;
+    v = (threadIdx.x < n_warps) ? warp_part[threadIdx.x] : Clock<T>::INF;
     if (warp == 0) v = warp_min(v);
     return v;
 }
 
-// The float's order-preserving image: a < b exactly when image(a) <
-// image(b) as unsigned integers (sign bit set: all bits flipped; clear:
-// the sign bit set), so an integer atomicMin takes the float minimum.
-__device__ __forceinline__ unsigned int order_image(float v) {
-    const unsigned int u = __float_as_uint(v);
-    return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_order_image(unsigned int u) {
-    return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
-}
-
 // One server's advance; returns its next-event candidate.
-__device__ __forceinline__ float advance_server(
-        int i, const float* __restrict__ core_busy,
+template <typename T>
+__device__ __forceinline__ T advance_server(
+        int i, const T* __restrict__ core_busy,
         const int* __restrict__ srv_state, const float* __restrict__ energy,
         const float* __restrict__ busy_seconds,
-        const float* __restrict__ wake_at,
-        const float* __restrict__ idle_since, const float* __restrict__ tau,
+        const T* __restrict__ wake_at,
+        const T* __restrict__ idle_since, const T* __restrict__ tau,
         const int* __restrict__ throttled, const float* __restrict__ table,
-        float dt, float t_next, float p_act, float p_act_thr, float p_idle,
-        int c, int vec4, float* __restrict__ new_busy,
+        float dt, T t_next, float p_act, float p_act_thr, float p_idle,
+        int c, int vec4, T* __restrict__ new_busy,
         uint8_t* __restrict__ done, float* __restrict__ new_energy,
         float* __restrict__ new_busy_seconds) {
+    const T INF = Clock<T>::INF;
     // every load first, so all of them are in flight before any store
     const int st = srv_state[i];
     const bool thr = throttled != nullptr && throttled[i] != 0;
     const float e = energy[i], bsec = busy_seconds[i];
-    const float wake = wake_at != nullptr ? wake_at[i] : DCSIM_INF;
-    const float since = idle_since != nullptr ? idle_since[i] : 0.0f;
-    const float tv = tau != nullptr ? tau[i] : DCSIM_INF;
-    float busy = 0.0f, slot_min = DCSIM_INF;
-    if (vec4) {
+    const T wake = wake_at != nullptr ? wake_at[i] : INF;
+    const T since = idle_since != nullptr ? idle_since[i] : T(0);
+    const T tv = tau != nullptr ? tau[i] : INF;
+    float busy = 0.0f;
+    T slot_min = INF;
+    if (vec4) {                 // float32 only (the wrapper's plan)
         const float4 v = reinterpret_cast<const float4*>(core_busy)[i];
         float b[4] = {v.x, v.y, v.z, v.w};
         unsigned char dd[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-            busy += (b[j] < DCSIM_INF) ? 1.0f : 0.0f;
+            busy += (b[j] < INF) ? 1.0f : 0.0f;
             dd[j] = (b[j] <= t_next) ? 1 : 0;
-            b[j] = dd[j] ? DCSIM_INF : b[j];
-            slot_min = fminf(slot_min, b[j]);
+            b[j] = dd[j] ? (float)INF : b[j];
+            slot_min = Clock<T>::lo(slot_min, (T)b[j]);
         }
         reinterpret_cast<float4*>(new_busy)[i] =
             make_float4(b[0], b[1], b[2], b[3]);
@@ -129,13 +179,13 @@ __device__ __forceinline__ float advance_server(
     } else {
         for (int j = 0; j < c; ++j) {
             const long k = (long)i * c + j;
-            float b = core_busy[k];
-            busy += (b < DCSIM_INF) ? 1.0f : 0.0f;
+            T b = core_busy[k];
+            busy += (b < INF) ? 1.0f : 0.0f;
             const bool fin = b <= t_next;
-            b = fin ? DCSIM_INF : b;
+            b = fin ? INF : b;
             done[k] = fin ? 1 : 0;
             new_busy[k] = b;
-            slot_min = fminf(slot_min, b);
+            slot_min = Clock<T>::lo(slot_min, b);
         }
     }
     float p;
@@ -148,50 +198,80 @@ __device__ __forceinline__ float advance_server(
     }
     new_energy[i] = __fadd_rn(e, __fmul_rn(p, dt));
     new_busy_seconds[i] = __fadd_rn(bsec, __fmul_rn(busy, dt));
-    const float timer = st == 1 ? __fadd_rn(since, tv) : DCSIM_INF;
-    return fminf(slot_min, fminf(wake, timer));
+    const T timer = st == 1 ? Clock<T>::add(since, tv) : INF;
+    return Clock<T>::lo(slot_min, Clock<T>::lo(wake, timer));
 }
 
+template <typename T>
 __global__ void __launch_bounds__(DCSIM_THREADS)
-dcsim_advance_kernel(const float* __restrict__ core_busy,
+dcsim_advance_kernel(const T* __restrict__ core_busy,
                      const int* __restrict__ srv_state,
                      const float* __restrict__ energy,
                      const float* __restrict__ busy_seconds,
-                     const float* __restrict__ wake_at,
-                     const float* __restrict__ idle_since,
-                     const float* __restrict__ tau,
+                     const T* __restrict__ wake_at,
+                     const T* __restrict__ idle_since,
+                     const T* __restrict__ tau,
                      const int* __restrict__ throttled,
                      const float* __restrict__ table,
-                     const float* __restrict__ t_ptr,
-                     const float* __restrict__ t_next_ptr,
+                     const T* __restrict__ t_ptr,
+                     const T* __restrict__ t_next_ptr,
                      float p_act, float p_act_thr, float p_idle,
                      int n, int c, int vec4,
-                     float* __restrict__ new_busy,
+                     T* __restrict__ new_busy,
                      uint8_t* __restrict__ done,
                      float* __restrict__ new_energy,
                      float* __restrict__ new_busy_seconds,
-                     unsigned int* ticket, unsigned int* min_image,
-                     float* __restrict__ cand) {
-    const float t = *t_ptr, t_next = *t_next_ptr;
-    const float dt = __fsub_rn(t_next, t);
-    float m = DCSIM_INF;
+                     typename Clock<T>::Img* ticket,
+                     typename Clock<T>::Img* min_image,
+                     T* __restrict__ cand) {
+    typedef typename Clock<T>::Img Img;
+    const T t = *t_ptr, t_next = *t_next_ptr;
+    const float dt = Clock<T>::diff_f32(t_next, t);
+    T m = Clock<T>::INF;
     for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += gridDim.x * blockDim.x)
-        m = fminf(m, advance_server(
+        m = Clock<T>::lo(m, advance_server<T>(
             i, core_busy, srv_state, energy, busy_seconds, wake_at,
             idle_since, tau, throttled, table, dt, t_next, p_act, p_act_thr,
             p_idle, c, vec4, new_busy, done, new_energy, new_busy_seconds));
     m = block_min(m);
     if (threadIdx.x == 0) {
-        atomicMin(min_image, order_image(m));
+        atomicMin(min_image, Clock<T>::image(m));
         __threadfence();            // the minimum lands before the ticket
         // the last block reads the farm-wide minimum and resets both words
         // for the next launch
-        if (atomicAdd(ticket, 1u) == gridDim.x - 1) {
-            *cand = from_order_image(atomicExch(min_image, 0xffffffffu));
-            *ticket = 0u;
+        if (atomicAdd(ticket, (Img)1) == (Img)(gridDim.x - 1)) {
+            *cand = Clock<T>::from_image(atomicExch(min_image,
+                                                    Clock<T>::EMPTY));
+            *ticket = (Img)0;
         }
     }
+}
+
+template <typename T>
+static int launch(const T* core_busy, const int* srv_state,
+                  const float* energy, const float* busy_seconds,
+                  const T* wake_at, const T* idle_since, const T* tau,
+                  const int* throttled, const float* table, const T* t,
+                  const T* t_next, float p_act, float p_act_thr,
+                  float p_idle, int n, int c, int grid, int vec4,
+                  T* new_busy, uint8_t* done, float* new_energy,
+                  float* new_busy_seconds, typename Clock<T>::Img* ticket,
+                  typename Clock<T>::Img* min_image, T* cand,
+                  void* stream) {
+    if (n <= 0 || c <= 0 || grid <= 0) return (int)cudaErrorInvalidValue;
+    if (vec4 && (sizeof(T) != 4 || c != 4
+                 || ((uintptr_t)core_busy % 16) != 0
+                 || ((uintptr_t)new_busy % 16) != 0
+                 || ((uintptr_t)done % 4) != 0))
+        return (int)cudaErrorMisalignedAddress;
+    dcsim_advance_kernel<T><<<grid, DCSIM_THREADS, 0,
+                              (cudaStream_t)stream>>>(
+        core_busy, srv_state, energy, busy_seconds, wake_at, idle_since, tau,
+        throttled, table, t, t_next, p_act, p_act_thr, p_idle, n, c, vec4,
+        new_busy, done, new_energy, new_busy_seconds, ticket, min_image,
+        cand);
+    return (int)cudaGetLastError();
 }
 
 extern "C" int dcsim_advance_launch(
@@ -203,15 +283,25 @@ extern "C" int dcsim_advance_launch(
         int vec4, float* new_busy, uint8_t* done, float* new_energy,
         float* new_busy_seconds, unsigned int* ticket,
         unsigned int* min_image, float* cand, void* stream) {
-    if (n <= 0 || c <= 0 || grid <= 0) return (int)cudaErrorInvalidValue;
-    if (vec4 && (c != 4 || ((uintptr_t)core_busy % 16) != 0
-                 || ((uintptr_t)new_busy % 16) != 0
-                 || ((uintptr_t)done % 4) != 0))
-        return (int)cudaErrorMisalignedAddress;
-    dcsim_advance_kernel<<<grid, DCSIM_THREADS, 0, (cudaStream_t)stream>>>(
-        core_busy, srv_state, energy, busy_seconds, wake_at, idle_since, tau,
-        throttled, table, t, t_next, p_act, p_act_thr, p_idle, n, c, vec4,
-        new_busy, done, new_energy, new_busy_seconds, ticket, min_image,
-        cand);
-    return (int)cudaGetLastError();
+    return launch<float>(core_busy, srv_state, energy, busy_seconds,
+                         wake_at, idle_since, tau, throttled, table, t,
+                         t_next, p_act, p_act_thr, p_idle, n, c, grid, vec4,
+                         new_busy, done, new_energy, new_busy_seconds,
+                         ticket, min_image, cand, stream);
+}
+
+extern "C" int dcsim_advance_launch_f64(
+        const double* core_busy, const int* srv_state, const float* energy,
+        const float* busy_seconds, const double* wake_at,
+        const double* idle_since, const double* tau, const int* throttled,
+        const float* table, const double* t, const double* t_next,
+        float p_act, float p_act_thr, float p_idle, int n, int c, int grid,
+        double* new_busy, uint8_t* done, float* new_energy,
+        float* new_busy_seconds, unsigned long long* ticket,
+        unsigned long long* min_image, double* cand, void* stream) {
+    return launch<double>(core_busy, srv_state, energy, busy_seconds,
+                          wake_at, idle_since, tau, throttled, table, t,
+                          t_next, p_act, p_act_thr, p_idle, n, c, grid, 0,
+                          new_busy, done, new_energy, new_busy_seconds,
+                          ticket, min_image, cand, stream);
 }

@@ -3,8 +3,8 @@
 A CUDA tensor goes to the hand-written kernel (which raises on what it
 cannot take -- nothing falls back); a CPU tensor goes to the plain PyTorch
 version in ``ref``.  ``launch_counts`` reads each kernel's launch counter;
-``reset_launch_counts`` zeroes them and flash attention's per-instance
-counts.
+``reset_launch_counts`` zeroes them, flash attention's per-instance
+counts and the advance's per-clock counts.
 """
 from __future__ import annotations
 
@@ -68,4 +68,6 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.LAUNCHES = 0
+    dcsim_step.CLOCK_LAUNCHES.update(dict.fromkeys(dcsim_step.CLOCK_LAUNCHES,
+                                                   0))
     _fa.INSTANCE_LAUNCHES.update(dict.fromkeys(_fa.INSTANCE_LAUNCHES, 0))

@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version
 on the same inputs, the dispatch's launch counting, and the engine on the
-card against the engine on the CPU.  Every test here needs an NVIDIA GPU
+card against the engine on the CPU (with an f64 clock, and the thermal
+subsystem with its control plane).  Every test here needs an NVIDIA GPU
 and skips without one; the file imports no JAX, so it runs on a machine
 with a card and PyTorch alone:
 
@@ -17,6 +18,8 @@ rtol/atol 1e-5 (the sum over the state runs in another order).  Network
 functions: integer and boolean leaves exact, elementwise floats bitwise
 (IEEE division and the fused multiply-adds computed in float64 on both),
 the switch power and what accrues from it rtol 1e-5 (a sum over ports)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -24,14 +27,14 @@ import torch
 from repro_torch.core import (engine, farm, jobs, network, power, topology,
                               types, workload)
 from repro_torch.core.types import (SchedPolicy, SimConfig, SleepPolicy,
-                                    SrvState, tree_leaves)
+                                    SrvState, ThermalConfig, tree_leaves)
 from repro_torch.kernels import (dcsim_step, flash_attention, ops, ref,
                                  ssm_scan, telemetry_bin)
 
 from torch_kernel_inputs import (FLASH_TC_EDGES, SSM_EDGES, dcsim_inputs,
                                  edge_inputs, flash_inputs, net_inputs,
                                  ssm_inputs, star_scenario, tb_inputs,
-                                 torch_args)
+                                 thermal_main_scenario, torch_args)
 
 pytestmark = pytest.mark.cuda
 
@@ -216,8 +219,10 @@ def test_engine_kernels_replay_in_a_cuda_graph(cuda, kind):
 
 def test_wrappers_check_their_inputs(cuda):
     a = list(torch_args(dcsim_inputs(64, 4, 1), cuda))
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="float32"):      # a mix of clocks
         dcsim_step.dcsim_advance(a[0].double(), *a[1:])
+    with pytest.raises(ValueError, match="float32 or float64"):
+        dcsim_step.dcsim_advance(a[0].half(), *a[1:])
     with pytest.raises(ValueError, match="contiguous"):
         dcsim_step.dcsim_advance(a[0].t().contiguous().t(), *a[1:])
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -398,10 +403,96 @@ def test_simulate_defaults_to_the_card(cuda):
     assert res.run_info.device_name == torch.cuda.get_device_name(0)
 
 
-def test_f64_clock_is_refused_on_the_card(cuda):
-    cfg = SimConfig(n_servers=2, max_jobs=4, time_dtype=torch.float64)
-    with pytest.raises(ValueError, match="float32"):
-        farm.simulate(cfg, [0.1], [jobs.dag_single(0.01)], device=cuda)
+def _card_equals_cpu(cfg, arr, specs, dev, tau=None, topo=None):
+    """The engine run to its end on the CPU and on the card: discrete
+    leaves exact, floats rtol 1e-5 (sums run in another order on the
+    card); the advance launched K times a step on the card."""
+    finals = {}
+    for d in ("cpu", dev):
+        jt = jobs.build_jobs(cfg, arr, specs, device=d)
+        state, tc = engine.init_state(cfg, jt, topo)
+        if tau is not None:
+            state.farm.srv_tau = torch.full_like(state.farm.srv_tau, tau)
+        ops.reset_launch_counts()
+        finals[str(d)] = engine.run(state, cfg, tc)
+    counts = dict(dcsim_step.CLOCK_LAUNCHES)
+    gpu, cpu = finals[str(dev)], finals["cpu"]
+    for (path, g), (_, c) in zip(tree_leaves(gpu), tree_leaves(cpu)):
+        g = g.cpu()
+        assert g.dtype == c.dtype and g.shape == c.shape, path
+        if g.dtype.is_floating_point and path not in ("telem.job_hist",
+                                                      "telem.task_hist"):
+            assert torch.allclose(g, c, rtol=1e-5, atol=0.0), path
+        else:
+            assert torch.equal(g, c), path
+    assert bool(gpu.done)
+    clock = str(cfg.time_dtype).removeprefix("torch.")
+    assert counts[clock] == int(gpu.steps) * cfg.events_per_step
+    return gpu
+
+
+def test_f64_clock_on_the_card_matches_cpu(cuda):
+    """An f64 clock runs on the card through the advance kernel's float64
+    instance; every clock leaf stays float64."""
+    cfg, arr, specs = _scenario()
+    cfg = dataclasses.replace(cfg, time_dtype=torch.float64)
+    gpu = _card_equals_cpu(cfg, arr, specs, cuda, tau=0.05)
+    assert gpu.t.dtype == gpu.farm.core_busy_until.dtype == torch.float64
+
+
+@pytest.mark.parametrize("n,c", [(65536, 4), (1024, 4), (1000, 3), (1, 4),
+                                 (257, 4), (65537, 4)])
+def test_dcsim_advance_f64_matches_plain(cuda, n, c):
+    """The float64 instance, exactly, around t = 86,400 s with slots a few
+    microseconds either side of t_next."""
+    a = torch_args(dcsim_inputs(n, c, 9, clock=np.float64), cuda)
+    before = dcsim_step.CLOCK_LAUNCHES["float64"]
+    got = dcsim_step.dcsim_advance(*a, throttle_power_scale=0.6)
+    exp = ref.dcsim_advance_reference(*a, throttle_power_scale=0.6)
+    torch.cuda.synchronize()
+    assert dcsim_step.CLOCK_LAUNCHES["float64"] == before + 1
+    for g, e in zip(got, exp):
+        assert g.dtype == e.dtype and torch.equal(g, e)
+    assert dcsim_step.scratch(cuda, torch.float64).tolist() == [0, -1]
+
+
+def test_dcsim_advance_refuses_a_mix_of_clocks(cuda):
+    a = list(torch_args(dcsim_inputs(64, 4, 1, clock=np.float64), cuda))
+    for i in (4, 9):                    # t, then srv_wake_at, as float32
+        b = list(a)
+        b[i] = b[i].float()
+        with pytest.raises(ValueError, match="float64"):
+            dcsim_step.dcsim_advance(*b)
+
+
+@pytest.mark.parametrize("name", ["control_plane", "thermal_main"])
+def test_thermal_engine_on_card_matches_cpu(cuda, name):
+    """The thermal subsystem with its control plane on the card: throttle
+    crossings, the setpoint controller and CARBON_AWARE deferral take the
+    same events as on the CPU (the elementary functions round once from
+    float64 and the rack sums add in order on both)."""
+    if name == "thermal_main":
+        kw, th, arr, specs = thermal_main_scenario(jobs, workload, 64, 200)
+        cfg = SimConfig(**kw, thermal=ThermalConfig(**th))
+        tau = None
+    else:
+        th = ThermalConfig(enabled=True, r_th=0.5, tau_th=2.0, rack_size=3,
+                           t_setpoint=(16.0, 26.0), ambient_swing=3.0,
+                           ambient_period=40.0, ctrl_period=0.5,
+                           ctrl_target=55.0, ctrl_min=14.0, t_throttle=58.0,
+                           t_release=52.0, throttle_power_scale=0.6,
+                           carbon_period=60.0, price_period=60.0)
+        cfg = SimConfig(n_servers=6, n_cores=2, max_jobs=256,
+                        sleep_policy=SleepPolicy.SINGLE_TIMER,
+                        sleep_state=SrvState.S3, thermal=th)
+        rng = np.random.default_rng(7)
+        arr = workload.poisson_arrivals(40.0, 150, seed=3)
+        specs = [jobs.dag_single(rng.exponential(0.04)) for _ in range(150)]
+        tau = 0.05
+    gpu = _card_equals_cpu(cfg, arr, specs, cuda, tau=tau)
+    assert float(gpu.thermal.throttle_seconds.sum()) > 0
+    if name == "thermal_main":
+        assert int(gpu.thermal.defer_count) > 0
 
 
 # --------------------------------------------------------------------------

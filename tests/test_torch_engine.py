@@ -3,8 +3,9 @@ state in both engines (the reference's state carried across with
 ``convert.state_from_numpy``), every leaf compared -- the test that
 localizes a fault; a run cut by ``max_events``; macro-stepping
 bit-identical across ``events_per_step``; the f64 clock; telemetry off;
-the configurations the port refuses, and network mode's scope (a
-topology required; NETWORK_AWARE without a network); the device rule;
+the configurations the port refuses (and the thermal policies' need for
+the thermal subsystem), and network mode's scope (a topology required;
+NETWORK_AWARE without a network); the device rule;
 and the package's independence from JAX.
 
 Tolerances as in test_torch_slice: discrete leaves exact, float
@@ -130,19 +131,42 @@ def test_f64_clock_matches_oracle_and_f32_run():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(thermal=ThermalConfig(enabled=True)), "item 7"),
+    (dict(thermal=ThermalConfig(enabled=True),
+          trace=TraceConfig(enabled=True)), "item 8"),
     (dict(trace=TraceConfig(enabled=True)), "item 8"),
     (dict(partition=dataclasses.replace(SimConfig().partition, n_shards=2)),
      "item 10"),
     (dict(use_vectorized_hot_loop=False), "item 12"),
-    (dict(sched_policy=SchedPolicy.THERMAL_AWARE), "item 7"),
-    (dict(has_network=True, thermal=ThermalConfig(enabled=True)), "item 7"),
-    (dict(sched_policy=SchedPolicy.CARBON_AWARE), "item 7"),
+    (dict(sched_policy=SchedPolicy.THERMAL_AWARE,
+          thermal=ThermalConfig(enabled=True), use_vectorized_hot_loop=False),
+     "item 12"),
+    (dict(has_network=True, thermal=ThermalConfig(enabled=True),
+          partition=dataclasses.replace(SimConfig().partition, n_shards=2)),
+     "item 10"),
+    (dict(sched_policy=SchedPolicy.CARBON_AWARE,
+          thermal=ThermalConfig(enabled=True),
+          trace=TraceConfig(enabled=True)), "item 8"),
 ])
 def test_out_of_scope_configurations_are_refused(kw, item):
+    """Thermal and its policies run since the thermal slice; trace,
+    sharding and the scalar paths are still refused, with thermal on as
+    well."""
     cfg = SimConfig(n_servers=4, max_jobs=8, **kw)
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
         tfarm.simulate(cfg, [0.1], [tjobs.dag_single(0.01)], device="cpu")
+
+
+@pytest.mark.parametrize("policy", [SchedPolicy.THERMAL_AWARE,
+                                    SchedPolicy.CARBON_AWARE])
+def test_thermal_policies_need_the_thermal_subsystem(policy):
+    """As in the reference's init_state: a thermal policy with the
+    subsystem off would silently ignore what it scores or defers by."""
+    cfg = SimConfig(n_servers=4, max_jobs=8, sched_policy=policy)
+    with pytest.raises(ValueError, match="thermal.enabled=True"):
+        tfarm.simulate(cfg, [0.1], [tjobs.dag_single(0.01)], device="cpu")
+    on = dataclasses.replace(cfg, thermal=ThermalConfig(enabled=True))
+    assert tfarm.simulate(on, [0.1], [tjobs.dag_single(0.01)],
+                          device="cpu").n_finished == 1
 
 
 def test_network_without_topology_is_refused():

@@ -14,24 +14,31 @@ import torch
 INF = 1.0e30
 
 
-def dcsim_inputs(n, c, seed, throttled=True):
+def dcsim_inputs(n, c, seed, throttled=True, clock=np.float32):
     """A random farm slab: every server state, half the cores busy, some
     slots finishing exactly at t_next, timers armed on half the servers,
-    ~30% throttled."""
+    ~30% throttled.  ``clock=np.float64`` makes the time-typed inputs
+    float64 around t = 86,400 s, where a float32 clock would have lost
+    them to its 8 ms ulp, with slots a few microseconds either side of
+    t_next."""
     rng = np.random.default_rng(seed)
-    t = np.float32(rng.uniform(0, 10))
-    t_next = np.float32(t + rng.uniform(0, 1))
+    t0 = 86400.0 if clock == np.float64 else 0.0
+    t = clock(t0 + rng.uniform(0, 10))
+    t_next = clock(t + rng.uniform(0, 1))
     busy = np.where(rng.random((n, c)) < 0.5,
-                    rng.uniform(t, t + 2, (n, c)), INF).astype(np.float32)
+                    rng.uniform(t, t + 2, (n, c)), INF).astype(clock)
     busy[rng.random((n, c)) < 0.05] = t_next
+    if clock == np.float64:
+        near = rng.random((n, c)) < 0.05
+        busy[near] = t_next + rng.uniform(-5e-6, 5e-6, near.sum())
     state = rng.integers(0, 6, n).astype(np.int32)
     energy = rng.uniform(0, 100, n).astype(np.float32)
     bsec = rng.uniform(0, 10, n).astype(np.float32)
     wake = np.where(state == 5, rng.uniform(t, t + 3, n), INF
-                    ).astype(np.float32)
-    isince = rng.uniform(0, t, n).astype(np.float32)
+                    ).astype(clock)
+    isince = rng.uniform(t0, t, n).astype(clock)
     tau = np.where(rng.random(n) < 0.5, rng.uniform(0.1, 2.0, n), INF
-                   ).astype(np.float32)
+                   ).astype(clock)
     thr = (rng.random(n) < 0.3).astype(np.int32) if throttled else None
     table = np.asarray([65.0, 65.0, 15.0, 9.0, 0.0, 145.0], np.float32)
     return (busy, state, energy, bsec, t, t_next, table, 13.0, 2.0, wake,
@@ -236,3 +243,56 @@ def case_d_scenario(jobs_mod, topo_mod, policy, k=4, n_jobs=300,
               sleep_state=SrvState.S3,
               has_network=True, comm_model=0, max_events=60_000)
     return kw, arr, specs, 0.2, topo
+
+
+def thermal_main_scenario(jobs, workload, n_servers, n_jobs=600):
+    """The thermal slice's main configuration: benchmarks/bench_engine.py
+    control_plane_farm (per-rack setpoints at 18 C and their controller,
+    diurnal ambient, CARBON_AWARE deferral of every second job with 30 s of
+    slack) with throttling armed at 44.5 / 43.5 C, as thermal_overhead
+    arms it, 5 s mean service and Poisson arrivals at 20 jobs/s, so every
+    branch of the subsystem fires in a run whose event count does not grow
+    with the farm's width.  ``jobs``/``workload`` are the package's
+    modules.  Returns (SimConfig kwargs, ThermalConfig kwargs, arrivals,
+    specs)."""
+    thermal = dict(enabled=True, r_th=0.25, tau_th=30.0, t_setpoint=18.0,
+                   ctrl_period=0.5, ctrl_target=45.0, ambient_swing=3.0,
+                   ambient_period=120.0, carbon_base=350.0,
+                   carbon_swing=0.5, carbon_period=120.0,
+                   defer_threshold=350.0, t_throttle=44.5, t_release=43.5)
+    kw = dict(n_servers=n_servers, n_cores=4, local_q=64,
+              max_jobs=max(n_jobs, 16), tasks_per_job=1,
+              sched_policy=6,                 # SchedPolicy.CARBON_AWARE
+              sleep_policy=0,                 # SleepPolicy.ALWAYS_ON
+              max_events=20_000, events_per_step=8)
+    rng = np.random.default_rng(0)
+    arr = workload.poisson_arrivals(20.0, n_jobs, seed=0)
+    specs = [jobs.dag_single(rng.exponential(5.0), deferrable=(j % 2 == 0),
+                             defer_slack=30.0) for j in range(n_jobs)]
+    return kw, thermal, arr, specs
+
+
+def thermal_case_scenario(jobs, workload, n_jobs=500):
+    """examples/thermal_case.py's thermal-aware scenario, trace off: 12
+    servers x 2 cores in 3 racks of 4 with 30% recirculation, THERMAL_AWARE
+    placement behind a throttle guard (engage 60 C, release 54 C), a PkgC6
+    delay timer of 0.5 s, a diurnal wiki-like workload on a 120 s "day".
+    Returns (SimConfig kwargs, ThermalConfig kwargs, TelemetryConfig
+    kwargs, arrivals, specs, tau)."""
+    thermal = dict(enabled=True, r_th=0.35, tau_th=3.0, t_inlet=22.0,
+                   recirc=0.3, rack_size=4, throttle_freq=0.5,
+                   throttle_power_scale=0.6, carbon_base=350.0,
+                   carbon_swing=0.5, carbon_period=120.0, price_base=0.12,
+                   price_swing=0.6, price_period=120.0, t_throttle=60.0,
+                   t_release=54.0)
+    kw = dict(n_servers=12, n_cores=2, max_jobs=max(n_jobs, 16),
+              tasks_per_job=1,
+              sched_policy=5,                 # SchedPolicy.THERMAL_AWARE
+              sleep_policy=1,                 # SleepPolicy.SINGLE_TIMER
+              sleep_state=2,                  # SrvState.PKG_C6
+              max_events=200_000)
+    rng = np.random.default_rng(0)
+    arr = workload.wiki_like_trace(n_jobs, mean_rate=20.0, period=120.0,
+                                   swing=0.6, seed=1)
+    specs = [jobs.dag_single(rng.exponential(0.35)) for _ in range(n_jobs)]
+    return kw, thermal, dict(n_windows=128, window_dt=1.0), arr, specs, 0.5

@@ -19,7 +19,8 @@ from repro.core import jobs as jjobs
 from repro.core import network as jnet
 from repro.core import workload
 from repro.core.types import (INF, SchedPolicy, SimConfig, SleepPolicy,
-                              SrvState, TaskStatus)
+                              SrvState, TaskStatus, TelemetryConfig,
+                              ThermalConfig)
 from repro_torch.convert import config_from_dict, state_from_numpy
 from repro_torch.core.types import tree_leaves
 
@@ -36,7 +37,22 @@ torch.set_num_threads(1)
 # counts -- must match exactly.
 TOL_LEAVES = {"farm.energy", "farm.residency", "farm.busy_core_seconds",
               "telem.win", "telem.win_overflow", "net.sw_energy",
-              "net.port_residency"}
+              "net.port_residency",
+              # thermal floats: exp, log, sin and cos round differently in
+              # XLA:CPU and in the port (an ulp), and the accruals sum in
+              # another order
+              "thermal.t_srv", "thermal.t_peak", "thermal.throttle_seconds",
+              "thermal.cool_energy", "thermal.carbon_g", "thermal.cost",
+              "thermal.defer_seconds", "thermal.grams_avoided"}
+# the clock's leaves.  With throttling armed, the crossing times are solved
+# from those temperatures, so these too may sit an ulp or a few apart (the
+# discrete state stays equal): thermal tests with throttling hold them at
+# rtol 1e-5, every other test exactly
+CLOCK_LEAVES = {"t", "farm.core_busy_until", "farm.srv_wake_at",
+                "farm.srv_idle_since", "jobs.task_end", "jobs.start_at",
+                "jobs.finish", "jobs.job_finish", "jobs.admit_at",
+                "flows.extra", "flows.done_at", "net.port_idle_since",
+                "thermal.ctrl_next"}
 
 
 def port_cfg(jcfg, **kw):
@@ -61,14 +77,21 @@ def jax_state_from_tree(template, tree: dict):
 
 
 def assert_state_matches(port_state, ref_tree: dict, context: str,
-                         skip=()) -> None:
+                         skip=(), tol=()) -> None:
+    """Every leaf of a port state against the reference's numpy tree:
+    TOL_LEAVES and the leaves in ``tol`` at rtol 1e-5, the rest exactly.
+    The reference's (R, N) rack matrix is compared as the port's member
+    table (``convert``)."""
+    from repro_torch.convert import _rack_marker
     for path, v in tree_leaves(port_state):
         if path in skip:
             continue
         got = v.detach().cpu().numpy()
         exp = ref_tree[path]
+        if path == "thermal.rack_onehot":
+            exp = _rack_marker(exp, "cpu").numpy()
         assert got.shape == exp.shape, f"{context}: {path} shape"
-        if path in TOL_LEAVES:
+        if path in TOL_LEAVES or path in tol:
             np.testing.assert_allclose(got, exp, rtol=1e-5, atol=1e-6,
                                        err_msg=f"{context}: {path}")
         else:
@@ -374,9 +397,10 @@ def oracle_run(jcfg, arr, specs, tau=None, pools=None, topo=None):
 RTOL = 1e-5
 
 
-def compare_results(tres, jres) -> None:
+def compare_results(tres, jres, windows: bool = True) -> None:
     """The port's SimResult against the reference's: counts, wake counts,
-    the digest and the histogram percentiles exact; floats rtol 1e-5."""
+    the digest and the histogram percentiles exact; floats rtol 1e-5
+    (the window series only with ``windows``)."""
     assert tres.run_info.config_digest == jres.run_info.config_digest
     for f in ("events", "n_jobs", "n_finished", "dropped"):
         assert getattr(tres, f) == getattr(jres, f), f
@@ -394,6 +418,8 @@ def compare_results(tres, jres) -> None:
               "jobs_binned", "tasks_binned", "sla_miss", "sla_total",
               "tail_violations", "n_windows_used"):
         assert getattr(ts, f) == getattr(js, f), f
+    if not windows:
+        return
     for f in ("occupancy", "active_jobs", "awake_servers", "queue_depth",
               "server_power", "state_residency"):
         np.testing.assert_allclose(getattr(ts, f), getattr(js, f),
@@ -557,3 +583,379 @@ def check_obj(port_obj, jax_obj, ctx: str, max_ulp: float = 1.0) -> None:
     for f in dataclasses.fields(port_obj):
         check_leaf(getattr(port_obj, f.name), getattr(jax_obj, f.name),
                    f"{ctx}.{f.name}", max_ulp)
+
+
+# --------------------------------------------------------------------------
+# thermal scenarios: tests/test_thermal.py's, trace off (the port's flight
+# recorder is Queue 1 item 8).  Each maker takes a jobs module (the
+# reference's or the port's) and returns (reference SimConfig, arrivals,
+# specs, tau, topology module name or None).
+# --------------------------------------------------------------------------
+
+HOT = dict(enabled=True, r_th=0.5, tau_th=2.0, t_inlet=22.0, recirc=0.2,
+           rack_size=3)
+
+
+def _thermal_workload(mod, n_jobs=150, lam=60.0, seed=3, svc_seed=7,
+                      mean=0.02):
+    rng = np.random.default_rng(svc_seed)
+    arr = workload.poisson_arrivals(lam, n_jobs, seed=seed)
+    return arr, [mod.dag_single(rng.exponential(mean))
+                 for _ in range(n_jobs)]
+
+
+def _oracle_sweep(policy, tau, throttle):
+    def make(mod):
+        tcfg = ThermalConfig(**HOT, t_throttle=50.0 if throttle else INF,
+                             t_release=45.0 if throttle else INF,
+                             throttle_freq=0.5, throttle_power_scale=0.6,
+                             carbon_period=600.0, price_period=600.0)
+        cfg = SimConfig(n_servers=6, n_cores=2, max_jobs=256,
+                        tasks_per_job=1,
+                        sched_policy=SchedPolicy.LOAD_BALANCE,
+                        sleep_policy=policy, sleep_state=SrvState.S3,
+                        max_events=60_000, thermal=tcfg)
+        return (cfg, *_thermal_workload(mod), tau, None)
+    return make
+
+
+def _steady_state(mod):
+    tcfg = ThermalConfig(enabled=True, r_th=0.5, tau_th=0.05, recirc=0.0)
+    cfg = SimConfig(n_servers=2, n_cores=1, max_jobs=16, tasks_per_job=1,
+                    sleep_policy=SleepPolicy.ALWAYS_ON, max_events=10_000,
+                    thermal=tcfg)
+    return cfg, np.asarray([0.0]), [mod.dag_single(5.0)], None, None
+
+
+def _exact_crossing(mod):
+    tcfg = ThermalConfig(enabled=True, r_th=0.5, tau_th=1.0, recirc=0.0,
+                         t_throttle=50.0, t_release=40.0, crossing_guard=INF,
+                         throttle_freq=0.5, throttle_power_scale=1.0)
+    cfg = SimConfig(n_servers=1, n_cores=1, max_jobs=16, tasks_per_job=1,
+                    sleep_policy=SleepPolicy.ALWAYS_ON, max_events=5_000,
+                    thermal=tcfg)
+    return cfg, np.asarray([0.0]), [mod.dag_single(4.0)], None, None
+
+
+def _tiny_crossing(mod):
+    tcfg = ThermalConfig(enabled=True, r_th=0.5, tau_th=1.0, recirc=0.0,
+                         t_throttle=55.503, t_release=55.0,
+                         throttle_freq=0.5)
+    cfg = SimConfig(n_servers=1, n_cores=1, max_jobs=16, tasks_per_job=1,
+                    sleep_policy=SleepPolicy.ALWAYS_ON, max_events=2_000,
+                    thermal=tcfg)
+    return cfg, np.asarray([86400.0]), [mod.dag_single(2.0)], None, None
+
+
+def _thermal_aware(mod, policy=SchedPolicy.THERMAL_AWARE):
+    tcfg = ThermalConfig(**{**HOT, "recirc": 0.6, "rack_size": 4})
+    cfg = SimConfig(n_servers=6, n_cores=1, max_jobs=256, tasks_per_job=1,
+                    sched_policy=policy,
+                    sleep_policy=SleepPolicy.ALWAYS_ON, max_events=60_000,
+                    thermal=tcfg)
+    return (cfg, *_thermal_workload(mod, n_jobs=120, lam=25.0, mean=0.08),
+            None, None)
+
+
+def _windows(mod):
+    tcfg = ThermalConfig(**HOT, carbon_period=120.0, carbon_swing=0.5,
+                         price_period=120.0, price_swing=0.5)
+    cfg = SimConfig(n_servers=4, n_cores=2, max_jobs=256, tasks_per_job=1,
+                    sleep_policy=SleepPolicy.ALWAYS_ON, max_events=40_000,
+                    thermal=tcfg,
+                    telemetry=TelemetryConfig(n_windows=64, window_dt=0.2))
+    return (cfg, *_thermal_workload(mod, n_jobs=150, lam=50.0), None,
+            None)
+
+
+def _per_rack(mod):
+    tcfg = ThermalConfig(enabled=True, r_th=0.5, tau_th=0.05, recirc=0.0,
+                         rack_size=1, t_setpoint=(16.0, 26.0))
+    cfg = SimConfig(n_servers=2, n_cores=1, max_jobs=16, tasks_per_job=1,
+                    sleep_policy=SleepPolicy.ALWAYS_ON, max_events=10_000,
+                    thermal=tcfg)
+    return (cfg, np.asarray([0.0, 0.0]),
+            [mod.dag_single(5.0), mod.dag_single(5.0)], None, None)
+
+
+def _control_plane(mod):
+    tcfg = ThermalConfig(**HOT, t_setpoint=(16.0, 26.0),
+                         ambient_swing=3.0, ambient_period=40.0,
+                         ctrl_period=0.5, ctrl_target=55.0, ctrl_band=2.0,
+                         ctrl_step=1.0, ctrl_min=14.0, ctrl_max=27.0,
+                         t_throttle=58.0, t_release=52.0,
+                         throttle_freq=0.5, throttle_power_scale=0.6,
+                         carbon_period=60.0, price_period=60.0)
+    cfg = SimConfig(n_servers=6, n_cores=2, max_jobs=256, tasks_per_job=1,
+                    sched_policy=SchedPolicy.LOAD_BALANCE,
+                    sleep_policy=SleepPolicy.SINGLE_TIMER,
+                    sleep_state=SrvState.S3, max_events=80_000,
+                    thermal=tcfg)
+    return (cfg, *_thermal_workload(mod, n_jobs=150, lam=40.0, mean=0.04),
+            0.05, None)
+
+
+def _setpoint_ctrl(mod):
+    tcfg = ThermalConfig(enabled=True, r_th=0.5, tau_th=0.2, recirc=0.0,
+                         rack_size=1, t_setpoint=22.0,
+                         ctrl_period=0.5, ctrl_target=58.0, ctrl_band=2.0,
+                         ctrl_step=1.0, ctrl_min=12.0, ctrl_max=26.0)
+    cfg = SimConfig(n_servers=2, n_cores=1, max_jobs=16, tasks_per_job=1,
+                    sleep_policy=SleepPolicy.ALWAYS_ON, max_events=10_000,
+                    thermal=tcfg)
+    return cfg, np.asarray([0.0]), [mod.dag_single(6.0)], None, None
+
+
+def _deferral(mod):
+    tcfg = ThermalConfig(**HOT, carbon_base=300.0, carbon_swing=0.6,
+                         carbon_period=120.0, defer_threshold=320.0)
+    cfg = SimConfig(n_servers=6, n_cores=2, max_jobs=256, tasks_per_job=1,
+                    sched_policy=SchedPolicy.CARBON_AWARE,
+                    sleep_policy=SleepPolicy.SINGLE_TIMER,
+                    sleep_state=SrvState.PKG_C6, max_events=60_000,
+                    thermal=tcfg)
+    rng = np.random.default_rng(7)
+    n = 150
+    arr = workload.wiki_like_trace(n, 4.0, period=120.0, swing=0.5, seed=3)
+    specs = [mod.dag_single(rng.exponential(0.05), deferrable=(j % 2 == 0),
+                            defer_slack=60.0) for j in range(n)]
+    return cfg, arr, specs, 0.5, None
+
+
+_DEADLINE_THERMAL = dict(carbon_base=300.0, carbon_swing=0.2,
+                         carbon_period=600.0, defer_threshold=100.0)
+
+
+def _deadline(mod):
+    tcfg = ThermalConfig(**HOT, **_DEADLINE_THERMAL)
+    cfg = SimConfig(n_servers=2, n_cores=1, max_jobs=16, tasks_per_job=1,
+                    sched_policy=SchedPolicy.CARBON_AWARE,
+                    sleep_policy=SleepPolicy.ALWAYS_ON, max_events=5_000,
+                    thermal=tcfg)
+    specs = [mod.dag_single(0.25, deferrable=True, defer_slack=3.0),
+             mod.dag_single(0.25, deferrable=True)]
+    return cfg, np.asarray([0.0, 0.0]), specs, None, None
+
+
+def _release_train(mod):
+    tcfg = ThermalConfig(**HOT, **_DEADLINE_THERMAL)
+    cfg = SimConfig(n_servers=2, n_cores=1, max_jobs=32, tasks_per_job=1,
+                    sched_policy=SchedPolicy.CARBON_AWARE,
+                    sleep_policy=SleepPolicy.ALWAYS_ON, max_events=10_000,
+                    thermal=tcfg)
+    n_def = cfg.arrivals_per_step + 3
+    arr = np.concatenate([np.zeros(n_def), [3.0]])
+    specs = [mod.dag_single(0.5, deferrable=True, defer_slack=3.0)
+             for _ in range(n_def)] + [mod.dag_single(0.5)]
+    return cfg, arr, specs, None, None
+
+
+def _parked_dag(mod):
+    tcfg = ThermalConfig(**HOT, **_DEADLINE_THERMAL)
+    cfg = SimConfig(n_servers=3, n_cores=1, max_jobs=16, tasks_per_job=2,
+                    max_children=2, sched_policy=SchedPolicy.CARBON_AWARE,
+                    sleep_policy=SleepPolicy.ALWAYS_ON, max_events=10_000,
+                    thermal=tcfg)
+    parked = mod.dag_chain([0.4, 0.4])
+    parked.deferrable, parked.defer_slack = True, 5.0
+    return (cfg, np.asarray([0.0, 0.1]), [mod.dag_chain([0.4, 0.4]), parked],
+            None, None)
+
+
+def _k_sweep(mod):
+    tcfg = ThermalConfig(**HOT, t_setpoint=(16.0, 24.0),
+                         ambient_swing=3.0, ambient_period=40.0,
+                         ctrl_period=0.5, ctrl_target=55.0,
+                         t_throttle=58.0, t_release=52.0,
+                         throttle_freq=0.5, throttle_power_scale=0.6,
+                         carbon_base=300.0, carbon_swing=0.6,
+                         carbon_period=60.0, defer_threshold=330.0)
+    cfg = SimConfig(n_servers=6, n_cores=2, max_jobs=256, tasks_per_job=1,
+                    sched_policy=SchedPolicy.CARBON_AWARE,
+                    sleep_policy=SleepPolicy.SINGLE_TIMER,
+                    sleep_state=SrvState.PKG_C6, max_events=80_000,
+                    thermal=tcfg)
+    rng = np.random.default_rng(7)
+    n = 120
+    arr = workload.wiki_like_trace(n, 4.0, period=60.0, swing=0.5, seed=3)
+    specs = [mod.dag_single(rng.exponential(0.05), deferrable=(j % 2 == 0),
+                            defer_slack=30.0) for j in range(n)]
+    return cfg, arr, specs, 0.5, None
+
+
+def _fat_tree(mod):
+    """Network mode on case D's k=4 fat-tree with the thermal subsystem and
+    throttling: racks come from the topology (first-hop switches)."""
+    tcfg = ThermalConfig(**{**HOT, "t_throttle": 60.0, "t_release": 55.0})
+    cfg = SimConfig(n_servers=16, n_cores=2, max_jobs=64, tasks_per_job=2,
+                    max_flows=64, has_network=True,
+                    sched_policy=SchedPolicy.ROUND_ROBIN,
+                    sleep_policy=SleepPolicy.ALWAYS_ON, max_events=50_000,
+                    thermal=tcfg)
+    rng = np.random.default_rng(3)
+    arr = workload.poisson_arrivals(30.0, 48, seed=4)
+    specs = [mod.dag_chain(rng.exponential(0.05, size=2), edge_bytes=50e6)
+             for _ in range(48)]
+    return cfg, arr, specs, None, "fat_tree"
+
+
+def assert_windows_within_clock_tol(got, exp, t_end: float, ctx: str):
+    """The window columns when the clock's leaves are held at rtol 1e-5: a
+    window's column integrates its rate over the intervals that land in
+    it, so a clock shifted within that tolerance (1e-5 * t_end seconds at
+    most) moves it by that much time at the column's largest rate.  Each
+    column is held at rtol 1e-5 plus that absolute amount."""
+    occ = exp[:, 0:1]
+    rate = np.abs(exp) / np.where(occ > 0, occ, np.inf)
+    atol = RTOL * t_end * rate.max(axis=0)
+    bad = np.abs(got.astype(np.float64) - exp) > RTOL * np.abs(exp) + atol
+    assert not bad.any(), (f"{ctx}: telem.win beyond the clock's tolerance "
+                           f"at {np.argwhere(bad)[:5].tolist()}")
+
+
+# name -> (maker, whether tests/oracle.py models it)
+THERMAL_SCENARIOS = {
+    "oracle_always_on": (_oracle_sweep(SleepPolicy.ALWAYS_ON, None, False),
+                         True),
+    "oracle_timer": (_oracle_sweep(SleepPolicy.SINGLE_TIMER, 0.05, False),
+                     True),
+    "oracle_always_on_throttle": (
+        _oracle_sweep(SleepPolicy.ALWAYS_ON, None, True), True),
+    "oracle_timer_throttle": (
+        _oracle_sweep(SleepPolicy.SINGLE_TIMER, 0.05, True), True),
+    "steady_state": (_steady_state, False),
+    "exact_crossing": (_exact_crossing, False),
+    "tiny_crossing_large_t": (_tiny_crossing, False),
+    "thermal_aware": (_thermal_aware, True),
+    "window_conservation": (_windows, False),
+    "per_rack_setpoints": (_per_rack, True),
+    "control_plane": (_control_plane, True),
+    "setpoint_controller": (_setpoint_ctrl, False),
+    "deferral": (_deferral, True),
+    "deadline": (_deadline, True),
+    "release_train": (_release_train, True),
+    "parked_dag": (_parked_dag, True),
+    "k_sweep": (_k_sweep, False),
+    "fat_tree_k4": (_fat_tree, False),
+}
+
+
+def thermal_scenario(name, side: str, **cfg_kw):
+    """(SimConfig, arrivals, specs, tau, topology) of a named thermal
+    scenario for ``side`` "jax" or "port"."""
+    make = THERMAL_SCENARIOS[name][0]
+    if side == "jax":
+        from repro.core import topology as topo_mod
+        cfg, arr, specs, tau, topo = make(jjobs)
+        cfg = dataclasses.replace(cfg, **cfg_kw) if cfg_kw else cfg
+    else:
+        from repro_torch.core import jobs as tjobs
+        from repro_torch.core import topology as topo_mod
+        cfg, arr, specs, tau, topo = make(tjobs)
+        cfg = port_cfg(cfg, **cfg_kw)
+    if topo is not None:
+        topo = getattr(topo_mod, topo)(4, 1.25e9)
+    return cfg, arr, specs, tau, topo
+
+
+def compare_thermal_results(tres, jres, windows: bool = True) -> None:
+    """compare_results, plus the thermal outcome: deferred jobs and the
+    final setpoints exact; temperatures, cooling, carbon, cost, throttle
+    and deferral seconds, the grams-avoided estimate and (``windows``)
+    the seven thermal window series rtol 1e-5."""
+    compare_results(tres, jres, windows)
+    assert tres.deferred_jobs == jres.deferred_jobs
+    np.testing.assert_array_equal(tres.setpoints, jres.setpoints)
+    for f in ("cooling_energy", "carbon_g", "energy_cost", "peak_temp",
+              "mean_temp", "throttle_seconds", "deferred_seconds",
+              "carbon_g_avoided_est", "temps", "peak_temps"):
+        np.testing.assert_allclose(getattr(tres, f), getattr(jres, f),
+                                   rtol=RTOL, atol=1e-6, err_msg=f)
+    if not windows:
+        return
+    for f in ("cooling_power", "mean_temp", "max_temp", "carbon_intensity",
+              "price", "carbon_per_window", "cost_per_window"):
+        np.testing.assert_allclose(getattr(tres.telemetry, f),
+                                   getattr(jres.telemetry, f), rtol=RTOL,
+                                   atol=1e-6, err_msg=f)
+
+
+def thermal_three_way(name: str, **cfg_kw):
+    """A named thermal scenario through the reference's farm.simulate, the
+    port's on the CPU and, where it models the case, the heapq oracle
+    (with test_thermal.py's tolerances); then every leaf of both engines'
+    final states.  Returns (port SimResult, reference SimResult)."""
+    from oracle import OracleSim
+    jcfg, arr, jspecs, tau, jtopo = thermal_scenario(name, "jax", **cfg_kw)
+    pcfg, _, tspecs, _, ttopo = thermal_scenario(name, "port", **cfg_kw)
+    jres = jfarm.simulate(jcfg, arr, jspecs, topo=jtopo, tau=tau)
+    tres, final = port_simulate(pcfg, arr, tspecs, topo=ttopo, tau=tau)
+    assert tres.run_info.backend == "cpu"
+    assert tres.n_finished == len(arr)
+    exact_clock = not jcfg.thermal.throttling
+    compare_thermal_results(tres, jres, windows=exact_clock)
+    if jtopo is not None:
+        assert tres.flows_dropped == jres.flows_dropped
+        np.testing.assert_allclose(tres.switch_energy, jres.switch_energy,
+                                   rtol=RTOL)
+    tree = jax_tree(jax_run(jcfg, arr, jspecs, tau, None, jtopo))
+    if exact_clock:
+        assert_state_matches(final, tree, name)
+    else:
+        assert_state_matches(final, tree, name, skip=("telem.win",),
+                             tol=CLOCK_LEAVES)
+        assert_windows_within_clock_tol(final.telem.win.numpy(),
+                                        tree["telem.win"], float(final.t),
+                                        name)
+    if THERMAL_SCENARIOS[name][1]:
+        orc = OracleSim(jcfg, arr, jspecs, tau=tau).run()
+        assert len(orc.job_finish) == len(arr)
+        np.testing.assert_allclose(np.sort(tres.latencies),
+                                   np.sort(orc.latencies()), rtol=1e-3,
+                                   atol=1e-3)
+        np.testing.assert_allclose(tres.temps, orc.temp, rtol=2e-3,
+                                   atol=5e-2)
+        for got, exp in ((tres.cooling_energy, orc.cool_energy),
+                         (tres.carbon_g, orc.carbon_g),
+                         (tres.energy_cost, orc.cost)):
+            np.testing.assert_allclose(got, exp, rtol=2e-3)
+        np.testing.assert_allclose(tres.throttle_seconds,
+                                   orc.throttle_seconds.sum(), rtol=5e-3,
+                                   atol=1e-3)
+        assert tres.deferred_jobs == orc.defer_count
+        np.testing.assert_array_equal(tres.setpoints, orc.t_set)
+    return tres, jres
+
+
+def jax_x64_finals(names, tmp_dir) -> dict:
+    """{scenario: {leaf path: array}}: the named thermal scenarios through
+    the reference's engine on an f64 clock.  ``jax_enable_x64`` is a
+    process-wide flag, so the reference runs in a subprocess and hands
+    its final states back as .npz files in ``tmp_dir``."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    here = pathlib.Path(__file__).resolve().parent
+    code = (
+        "import sys, numpy as np, jax\n"
+        "jax.config.update('jax_enable_x64', True)\n"
+        "import jax.numpy as jnp\n"
+        "from torch_port_util import thermal_scenario, jax_run, jax_tree\n"
+        "for name in sys.argv[2:]:\n"
+        "    cfg, arr, specs, tau, topo = thermal_scenario(\n"
+        "        name, 'jax', time_dtype=jnp.float64)\n"
+        "    tree = jax_tree(jax_run(cfg, arr, specs, tau, None, topo))\n"
+        "    np.savez(f'{sys.argv[1]}/{name}.npz', **tree)\n")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([str(here.parent / "src"),
+                                           str(here)]))
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_dir), *names],
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    finals = {}
+    for name in names:
+        with np.load(f"{tmp_dir}/{name}.npz") as z:
+            finals[name] = {k: z[k] for k in z.files}
+    return finals
