@@ -27,10 +27,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      cut to 2 layers in float32 (prefill and decode logits, greedy tokens,
      one launch of each LM kernel per layer, attention on its float32
      CUDA-core instance); [thermal-parity]: the thermal main configuration
-     at 512 servers (throttling must engage and deferral must park jobs),
-     examples/thermal_case.py's THERMAL_AWARE scenario behind its throttle
-     guard, and one_farm at 512 servers on a float64 clock (the advance's
-     float64 instance launched K times a step);
+     at 512 servers and 300 jobs (throttling must engage and deferral must
+     park jobs), examples/thermal_case.py's THERMAL_AWARE scenario behind
+     its throttle guard, and one_farm at 512 servers on a float64 clock
+     (the advance's float64 instance launched K times a step); the flight
+     recorder is on in the case D ROUND_ROBIN run (flow records) and in
+     the 512-server thermal run (crossing bursts, releases, controller
+     ticks), and
+     [trace-parity] runs tests/test_trace.py's rich scenario (sleep
+     timers, throttling) at the default capacity and at 64 slots, where
+     the ring wraps; every ring is compared record for record, and those
+     of [trace-parity] must be bit-equal;
   5. the discrete-event main run: farm.simulate on a 65,536-server x
      4-core farm (the largest farm benchmarks/bench_engine.py records)
      under 600 Poisson jobs at 50% utilisation; every job must finish;
@@ -45,7 +52,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (benchmarks/bench_engine.py control_plane_farm with throttling armed):
      all 600 jobs finish, jobs are deferred, servers throttle, the
      setpoint controller moves the setpoints, and the cooling-power windows
-     integrate to the cooling energy;
+     integrate to the cooling energy; then the same run with the flight
+     recorder on ([trace-main], a 2^21-slot ring): the ring must hold the
+     whole stream, count every arrival, admission, release, start and
+     finish, record crossings and controller ticks, leave every result of
+     the untraced run as it was, and export to a Chrome trace that passes
+     benchmarks/trace_smoke.py's schema check; its overhead is also
+     measured in turns with the untraced run, 10 macro-steps a window;
   6. the serving main run: ServeEngine.generate on hymba-1.5b (32 layers,
      bf16, seeded random weights) for 4 prompts of 1,536 tokens and 32 new
      tokens, greedy; exactly one launch of each LM kernel per layer, the
@@ -96,6 +109,12 @@ PEAK_F32_OPS_S = 67e12
 PEAK_BF16_FLOP_S = 989e12
 EXP_PER_SM_CLOCK = 16
 N_MAIN, C_MAIN, JOBS_MAIN = 65_536, 4, 600
+# the traced thermal main run's ring: 40 MB of float32 records
+TRACE_CAP = 1 << 21
+# [thermal-parity]'s run of the thermal main configuration at 512 servers,
+# cut from the main run's 600 jobs so the whole script stays within 800 s
+# (it still throttles, defers and ticks the controller)
+TH_PAR_JOBS = 300
 # the network main run: case study D (benchmarks/case_d_network.py) on a
 # k=16 fat-tree, its 30 jobs/s over 16 servers scaled to 1,024 servers
 NET_K, NET_JOBS, NET_LAM = 16, 300, 1920.0
@@ -574,6 +593,33 @@ def thermal_case_cfg():
                      telemetry=TelemetryConfig(**tel)), arr, specs, tau
 
 
+def rich_trace_cfg(capacity):
+    """tests/test_trace.py's rich scenario: 6 servers x 2 cores, delay
+    timers (tau = 0.05 s) into S3, throttling at 50/45 C, K=8, the
+    flight recorder on with ``capacity`` slots."""
+    from repro_torch.core.types import (SimConfig, SleepPolicy, SrvState,
+                                        ThermalConfig, TraceConfig)
+    th = ThermalConfig(enabled=True, r_th=0.5, tau_th=2.0, t_inlet=22.0,
+                       recirc=0.2, rack_size=3, t_throttle=50.0,
+                       t_release=45.0, throttle_freq=0.5,
+                       throttle_power_scale=0.6, carbon_period=600.0,
+                       price_period=600.0)
+    return SimConfig(n_servers=6, n_cores=2, max_jobs=256, tasks_per_job=1,
+                     sleep_policy=SleepPolicy.SINGLE_TIMER,
+                     sleep_state=SrvState.S3, max_events=60_000, thermal=th,
+                     trace=TraceConfig(enabled=True, capacity=capacity))
+
+
+def rich_trace_inputs():
+    """The rich scenario's 150 Poisson jobs (60/s, 20 ms mean service) and
+    its timer: (arr, specs, tau)."""
+    from repro_torch.core import jobs, workload
+    rng = np.random.default_rng(7)
+    arr = workload.poisson_arrivals(60.0, 150, seed=3)
+    return arr, [jobs.dag_single(s) for s in rng.exponential(0.02, 150)], \
+        0.05
+
+
 def run_engine(cfg, arr, specs, tau, dev, topo=None):
     from repro_torch.core import engine, jobs
     jt = jobs.build_jobs(cfg, np.asarray(arr), specs, device=dev)
@@ -583,8 +629,26 @@ def run_engine(cfg, arr, specs, tau, dev, topo=None):
     return engine.run(state, cfg, tc)
 
 
-def parity(name, cfg, arr, specs, tau, dev, topo=None, tag="[parity]"):
-    from repro_torch.core.types import tree_leaves
+def ring_diff(name, g, c, exact: bool) -> str:
+    """Two rings (card, CPU) record for record: kind, server and tid
+    exactly; time and aux exactly (``exact``) or within rtol 1e-5, as
+    every float leaf.  Returns a note for the parity line."""
+    if not torch.equal(g[:, [0, 2, 3]], c[:, [0, 2, 3]]):
+        fail(f"parity {name}: the rings' kind/server/tid differ")
+    if torch.equal(g, c):
+        return "bit-equal"
+    if exact:
+        fail(f"parity {name}: the rings' time/aux columns differ")
+    if not torch.allclose(g, c, rtol=1e-5, atol=0.0):
+        fail(f"parity {name}: the rings' time/aux beyond rtol 1e-5")
+    rel = ((g - c).abs() / c.abs().clamp(min=1e-30)).max()
+    return f"time/aux within rel {float(rel):.3g}"
+
+
+def parity(name, cfg, arr, specs, tau, dev, topo=None, tag="[parity]",
+           ring_exact=False):
+    from repro_torch.core import traceio
+    from repro_torch.core.types import TraceKind, tree_leaves
     from repro_torch.kernels import ops
     t0 = time.perf_counter()
     cpu = run_engine(cfg, arr, specs, tau, "cpu", topo)
@@ -595,11 +659,13 @@ def parity(name, cfg, arr, specs, tau, dev, topo=None, tag="[parity]"):
     torch.cuda.synchronize()
     t_gpu = time.perf_counter() - t0
     counts = ops.launch_counts()
-    worst = 0.0
+    worst, ring = 0.0, ""
     for (path, g), (_, c) in zip(tree_leaves(gpu), tree_leaves(cpu)):
         g = g.cpu()
-        if g.dtype.is_floating_point and path not in ("telem.job_hist",
-                                                      "telem.task_hist"):
+        if path == "trace.buf":
+            ring = ring_diff(name, g, c, ring_exact)
+        elif g.dtype.is_floating_point and path not in ("telem.job_hist",
+                                                        "telem.task_hist"):
             # float reductions (window power sums) run in another order
             # on the card; everything else repeats the CPU's arithmetic
             if not torch.allclose(g, c, rtol=1e-5, atol=0.0):
@@ -638,6 +704,13 @@ def parity(name, cfg, arr, specs, tau, dev, topo=None, tag="[parity]"):
                 f"{sorted(set(th.t_set.cpu().tolist()))[:6]}")
     if clock != "float32":
         net += f"; {clock} clock"
+    if cfg.trace.enabled:
+        ev, n_drop = traceio.decode(gpu.trace, cfg)
+        kinds = np.bincount(ev["kind"], minlength=TraceKind.NUM)
+        net += (f"; ring {int(gpu.trace.ptr)} records ({ring}), {n_drop} "
+                f"dropped, by kind " + ", ".join(
+                    f"{TraceKind.NAMES[k]} {n}" for k, n in enumerate(kinds)
+                    if n))
     log(f"{tag} {name}: card == CPU (discrete exact, floats max rel err "
         f"{worst:.3g}); events {events}, steps {steps}, advance launches "
         f"{counts['dcsim_advance']} (steps x K), telemetry launches "
@@ -670,18 +743,22 @@ def report_profile(tag, ks, wall, ours, steps=1, unit="macro-step"):
 def profile_window(cfg, arr, specs, dev, warm: int = 20, steps: int = 10,
                    topo=None, tau=None, tag="main run"):
     """Where a macro-step's time goes: ``steps`` macro-steps of a main
-    run (after ``warm``) under torch.profiler."""
-    from repro_torch.core import engine, jobs
+    run (after ``warm``) under torch.profiler, each the step
+    ``engine.run`` takes (a traced step writes the ring in place, with no
+    copy of it)."""
+    from repro_torch.core import engine, jobs, trace
     jt = jobs.build_jobs(cfg, np.asarray(arr), specs, device=dev)
     box = list(engine.init_state(cfg, jt, topo))
     if tau is not None:
         box[0].farm.srv_tau = torch.full_like(box[0].farm.srv_tau, tau)
+    if cfg.trace.enabled:
+        box[0].trace = trace.own(box[0].trace, cfg)
     for _ in range(warm):
-        box[0] = engine.sim_step(box[0], cfg, box[1])
+        box[0] = engine._step(box[0], cfg, box[1])
 
     def window():
         for _ in range(steps):
-            box[0] = engine.sim_step(box[0], cfg, box[1])
+            box[0] = engine._step(box[0], cfg, box[1])
 
     ks, wall = device_kernels(window)
     report_profile(f"{tag}, {steps} macro-steps after {warm}", ks, wall,
@@ -767,7 +844,7 @@ def net_main(dev):
 def thermal_main(dev):
     """The thermal main run through the user's entry point: farm.simulate
     of thermal_main_cfg(N_MAIN) on the card.  Returns (launch counts, cfg,
-    arr, specs)."""
+    arr, specs, result)."""
     from repro_torch.core import farm
     from repro_torch.kernels import ops
     cfg, arr, specs, _ = thermal_main_cfg(N_MAIN)
@@ -816,7 +893,188 @@ def thermal_main(dev):
         f"(rel {rel:.3g}); server energy {res.server_energy:.1f} J, carbon "
         f"{res.carbon_g:.2f} g, cost ${res.energy_cost:.5f}; mean latency "
         f"{res.mean_latency:.3f} s; launches {counts}")
-    return counts, cfg, arr, specs
+    return counts, cfg, arr, specs, res
+
+
+# benchmarks/trace_smoke.py's schema check (that file imports the JAX
+# package): the fields each phase of an entry must carry
+TRACE_PHASES = {"X": ("name", "ts", "dur", "pid", "tid"),
+                "i": ("name", "ts", "pid", "tid"),
+                "C": ("name", "ts", "args"),
+                "M": ("name", "args")}
+
+
+def chrome_schema_errors(doc, ev) -> list:
+    """benchmarks/trace_smoke.py validate(), plus its check that the task
+    spans cover every FINISH record of the ring."""
+    from repro_torch.core.types import TraceKind
+    if not isinstance(doc, dict) or not doc.get("traceEvents"):
+        return ["the document is not an object with a non-empty traceEvents"]
+    errors, n_by_phase = [], {}
+    for i, e in enumerate(doc["traceEvents"]):
+        ph = e.get("ph")
+        if ph is None:
+            errors.append(f"entry {i}: missing 'ph'")
+            continue
+        n_by_phase[ph] = n_by_phase.get(ph, 0) + 1
+        errors += [f"entry {i} (ph={ph}): missing '{f}'"
+                   for f in TRACE_PHASES.get(ph, ()) if f not in e]
+        if ph == "X" and e.get("dur", 0) < 0:
+            errors.append(f"entry {i}: negative duration {e['dur']}")
+    errors += [f"no '{ph}' entries" for ph in ("M", "X")
+               if not n_by_phase.get(ph)]
+    n_fin = int((ev["kind"] == TraceKind.FINISH).sum())
+    if n_by_phase.get("X", 0) < n_fin:
+        errors.append(f"{n_by_phase.get('X', 0)} task spans < {n_fin} "
+                      f"FINISH records")
+    return errors
+
+
+def windows_in_turns(cfgs, arr, specs, dev, warm=20, steps=10, rounds=4):
+    """Host wall (ending in a synchronize) of ``steps`` macro-steps of
+    each configuration in ``cfgs`` ({name: cfg}), in turns (a b b a a b b
+    a ...), each from its own state after ``warm`` steps, so the k-th
+    window of every configuration covers the same macro-steps: two
+    versions compared inside one call on one card.  Each step is the one
+    ``engine.run`` takes.  Returns {name: [seconds a window]}."""
+    from repro_torch.core import engine, jobs, trace
+    boxes = {}
+    for name, cfg in cfgs.items():
+        jt = jobs.build_jobs(cfg, np.asarray(arr), specs, device=dev)
+        st, tc = engine.init_state(cfg, jt)
+        if cfg.trace.enabled:
+            st.trace = trace.own(st.trace, cfg)
+        for _ in range(warm):
+            st = engine._step(st, cfg, tc)
+        boxes[name] = [st, tc, cfg]
+    names = list(cfgs)
+    secs = {n: [] for n in names}
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            st, tc, cfg = boxes[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                st = engine._step(st, cfg, tc)
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t0)
+            boxes[name][0] = st
+    return secs
+
+
+def trace_main(dev, th):
+    """[trace-main]: the thermal main run through farm.simulate with the
+    flight recorder on.  ``th`` is [thermal-main]'s (launch counts, cfg,
+    arr, specs, result); the traced run must leave every result of it as
+    it was.  Returns (launch counts, cfg)."""
+    import tempfile
+    from repro_torch.core import engine, farm, traceio
+    from repro_torch.core.types import TraceConfig, TraceKind
+    from repro_torch.kernels import ops
+    _, th_cfg, arr, specs, off = th
+    cap = TRACE_CAP
+    finals, run = [], engine.run
+
+    def caught_run(*a, **k):
+        finals.append(run(*a, **k))
+        return finals[-1]
+
+    while True:
+        cfg = dataclasses.replace(th_cfg, trace=TraceConfig(enabled=True,
+                                                            capacity=cap))
+        engine.run = caught_run
+        ops.reset_launch_counts()
+        try:
+            res = farm.simulate(cfg, arr, specs)
+        finally:
+            engine.run = run
+        counts = ops.launch_counts()
+        ptr = int(finals[-1].trace.ptr)
+        if res.trace_dropped == 0:
+            break
+        cap = 1 << (ptr - 1).bit_length()
+        log(f"[trace-main] {ptr} records overflowed a {cfg.trace.capacity}-"
+            f"slot ring; rerunning with {cap} slots")
+    final, ri = finals[-1], res.run_info
+    ev = res.trace_events
+    kinds = np.bincount(ev["kind"], minlength=TraceKind.NUM)
+    K = TraceKind
+    want = {K.ARRIVAL: JOBS_MAIN, K.ADMIT: JOBS_MAIN,
+            K.RELEASE: res.deferred_jobs, K.START: JOBS_MAIN,
+            K.FINISH: JOBS_MAIN, K.JOB_FINISH: JOBS_MAIN}
+    if res.n_finished != JOBS_MAIN:
+        fail(f"trace-main finished {res.n_finished} of {JOBS_MAIN} jobs")
+    if ptr != len(ev):
+        fail(f"trace-main: ptr {ptr} but {len(ev)} decoded records")
+    for k, n in want.items():
+        if kinds[k] != n:
+            fail(f"trace-main: {kinds[k]} {K.NAMES[k]} records, expected {n}")
+    if not (kinds[K.THROTTLE_CROSSING] > 0 and kinds[K.CTRL_TICK] > 0):
+        fail("trace-main recorded no throttle crossing or no controller tick")
+    if counts["telemetry_accum"] != ri.steps or \
+            counts["dcsim_advance"] != ri.steps * cfg.events_per_step:
+        fail(f"trace-main launch counts {counts} for {ri.steps} steps")
+    same = {f: (getattr(res, f), getattr(off, f)) for f in (
+        "events", "server_energy", "cooling_energy", "carbon_g",
+        "energy_cost", "throttle_seconds", "deferred_jobs", "sim_time")}
+    same["steps"] = (ri.steps, off.run_info.steps)
+    same["setpoints"] = (res.setpoints.tolist(), off.setpoints.tolist())
+    bad = [f for f, (a, b) in same.items() if a != b]
+    if bad:
+        # is the untraced run itself repeatable on the card?
+        again = farm.simulate(th_cfg, arr, specs)
+        rep = all(getattr(again, f) == getattr(off, f) for f in (
+            "events", "server_energy", "cooling_energy", "throttle_seconds"))
+        fail(f"trace-main: {bad} differ from [thermal-main]'s "
+             f"({ {f: same[f] for f in bad} }); a second untraced run "
+             f"{'repeats' if rep else 'does not repeat'} [thermal-main]")
+    t0 = time.perf_counter()
+    ev2, n_drop = traceio.decode(final.trace, cfg)
+    t_dec = time.perf_counter() - t0
+    if not np.array_equal(ev2, ev):
+        fail("trace-main: decode is not repeatable")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        t0 = time.perf_counter()
+        traceio.save_chrome_trace(str(path), ev, cfg, state=final,
+                                  n_dropped=n_drop)
+        t_exp = time.perf_counter() - t0
+        mb = path.stat().st_size / 2**20
+        t0 = time.perf_counter()
+        doc = json.loads(path.read_text())
+        t_load = time.perf_counter() - t0
+    errors = chrome_schema_errors(doc, ev)
+    if errors:
+        fail(f"trace-main: the Chrome export breaks the schema: {errors[:5]}")
+    n_x = sum(1 for e in doc["traceEvents"] if e["ph"] == "X")
+    ow = off.run_info
+    buf = final.trace.buf
+    log(f"[trace-main] the thermal main run with a {cfg.trace.capacity}-slot "
+        f"ring ({buf.numel() * buf.element_size() / 2**20:.1f} MiB): "
+        f"wall {ri.wall_s:.3f} s, events {ri.events}, steps {ri.steps}, "
+        f"{ri.events_per_s:.1f} events/s; overhead against "
+        f"[thermal-main] ({ow.wall_s:.3f} s, {ow.events_per_s:.1f} events/s): "
+        f"wall {100 * (ri.wall_s / ow.wall_s - 1):+.1f}%, events/s "
+        f"{100 * (ri.events_per_s / ow.events_per_s - 1):+.1f}%; every "
+        f"result equal to [thermal-main]'s ({', '.join(same)})")
+    log(f"[trace-main] ring: {ptr} records, {n_drop} dropped, by kind " +
+        ", ".join(f"{K.NAMES[k]} {n}" for k, n in enumerate(kinds) if n))
+    log(f"[trace-main] host: decode {t_dec:.3f} s; Chrome export "
+        f"{t_exp:.3f} s ({len(doc['traceEvents'])} entries, {n_x} task "
+        f"spans, {mb:.1f} MiB), reloaded in {t_load:.3f} s, schema valid; "
+        f"launches {counts}")
+    # the two whole runs above ran one after the other, and this host's
+    # wall clock wanders between runs: the overhead in turns, on the same
+    # macro-steps
+    secs = windows_in_turns({"off": th_cfg, "on": cfg}, arr, specs, dev)
+    ratio = [b / a for a, b in zip(secs["off"], secs["on"])]
+    log(f"[trace-main] in turns, 10 macro-steps a window from step 20: "
+        f"untraced {[round(x, 4) for x in secs['off']]} s, traced "
+        f"{[round(x, 4) for x in secs['on']]} s; traced/untraced per "
+        f"window {[round(x, 4) for x in ratio]}, median "
+        f"{statistics.median(ratio):.4f} "
+        f"({100 * (statistics.median(ratio) - 1):+.1f}%)")
+    return counts, cfg
 
 
 # --------------------------------------------------------------------------
@@ -1254,23 +1512,37 @@ def main() -> None:
     # phase 4: card vs CPU
     parity("one_farm n512 j600", *one_farm_cfg(512, 600), dev)
     parity("dag_chain SINGLE_TIMER", *dag_chain_cfg(), dev)
-    from repro_torch.core.types import SchedPolicy
+    from repro_torch.core.types import SchedPolicy, TraceConfig, TraceKind
+    traced = TraceConfig(enabled=True)
     for pol in ("ROUND_ROBIN", "NETWORK_AWARE"):
         c, a, sp, tau, topo, _ = case_d_cfg(getattr(SchedPolicy, pol), 4,
                                             100, 30.0)
-        parity(f"case D fat_tree k=4 {pol} 100 jobs", c, a, sp, tau, dev,
-               topo, tag="[net-parity]")
+        if pol == "ROUND_ROBIN":
+            c = dataclasses.replace(c, trace=traced)
+        g = parity(f"case D fat_tree k=4 {pol} 100 jobs", c, a, sp, tau,
+                   dev, topo, tag="[net-parity]")
+        if c.trace.enabled and not {TraceKind.FLOW_SPAWN,
+                                    TraceKind.FLOW_FINISH} <= set(
+                g.trace.buf[:int(g.trace.ptr), 0].int().tolist()):
+            fail("net-parity: the traced case D run recorded no flows")
     c, a, sp, tau, topo = star_cfg(2)
     g = parity("star max_flows=2", c, a, sp, tau, dev, topo,
                tag="[net-parity]")
     if int(g.flows.flows_dropped) == 0:
         fail("net-parity: the star with two flow slots dropped no flow")
-    g = parity(f"thermal main config n512 j{JOBS_MAIN}", *thermal_main_cfg(512),
-               dev, tag="[thermal-parity]")
+    c, a, sp, tau = thermal_main_cfg(512, TH_PAR_JOBS)
+    g = parity(f"thermal main config n512 j{TH_PAR_JOBS}",
+               dataclasses.replace(c, trace=traced), a, sp, tau, dev,
+               tag="[thermal-parity]")
     if not (float(g.thermal.throttle_seconds.sum()) > 0
             and int(g.thermal.defer_count) > 0):
         fail("thermal-parity: the main configuration at 512 servers did "
              "not both throttle and defer")
+    if not {TraceKind.THROTTLE_CROSSING, TraceKind.RELEASE,
+            TraceKind.CTRL_TICK} <= set(
+            g.trace.buf[:int(g.trace.ptr), 0].int().tolist()):
+        fail("thermal-parity: the traced run recorded no crossing, release "
+             "or controller tick")
     g = parity("thermal_case THERMAL_AWARE guard 500 jobs",
                *thermal_case_cfg(), dev, tag="[thermal-parity]")
     if not float(g.thermal.throttle_seconds.sum()) > 0:
@@ -1281,6 +1553,13 @@ def main() -> None:
            dataclasses.replace(c, time_dtype=torch.float64), a, sp, tau, dev,
            tag="[thermal-parity]")
     f64_launches = dcsim_step.CLOCK_LAUNCHES["float64"]
+    for cap in (65536, 64):
+        g = parity(f"rich scenario capacity {cap}", rich_trace_cfg(cap),
+                   *rich_trace_inputs(), dev, tag="[trace-parity]",
+                   ring_exact=True)
+        if (int(g.trace.dropped) > 0) != (cap == 64):
+            fail(f"trace-parity: {int(g.trace.dropped)} records dropped at "
+                 f"capacity {cap}")
     lm_parity(dev)
 
     # phase 5: the discrete-event main run through the user's entry point
@@ -1307,7 +1586,9 @@ def main() -> None:
         f"ms, energy {res.server_energy:.1f} J; launches {counts}")
     net_counts, net_cfg, net_arr, net_specs, net_tau, net_topo = \
         net_main(dev)
-    th_counts, th_cfg, th_arr, th_specs = thermal_main(dev)
+    th = thermal_main(dev)
+    th_counts, th_cfg, th_arr, th_specs, _ = th
+    tr_counts, tr_cfg = trace_main(dev, th)
 
     # phase 6: the serving main run through the user's entry point
     lm_cfg, lm_params, lm_toks, lm_counts = lm_main(dev)
@@ -1384,6 +1665,7 @@ def main() -> None:
     profile_window(net_cfg, net_arr, net_specs, dev, topo=net_topo,
                    tau=net_tau, tag="network run")
     profile_window(th_cfg, th_arr, th_specs, dev, tag="thermal run")
+    profile_window(tr_cfg, th_arr, th_specs, dev, tag="traced thermal run")
     profile_serving(lm_cfg, lm_params, lm_toks, dev)
 
     log(f"[total] chip_smoke.py wall {time.perf_counter() - t_start:.1f} s, "

@@ -5,11 +5,12 @@ package's plain data, so both packages can start from the same point.
 ``farm._config_dict(cfg)`` dump; ``state_from_numpy`` builds a port
 ``SimState`` from the reference ``SimState``'s leaves as numpy arrays,
 keyed by field path (``"farm.core_busy_until"``; a leading ``"."`` as
-``jax.tree_util.keystr`` writes it is accepted).  The flows, net and
-thermal subtrees come across too, so a mid-run network or thermal state
-steps in both packages; the trace subtree, which the port does not model
-yet, is ignored.  The reference's (R, N) rack membership matrix becomes
-the port's (R, K) member table (``core.types.ThermalState``).
+``jax.tree_util.keystr`` writes it is accepted).  The flows, net, thermal
+and trace subtrees come across too, so a mid-run network, thermal or
+traced state steps in both packages (the engine copies a converted ring
+into one with its sentinel row before it writes it, ``core/trace.py``).
+The reference's (R, N) rack membership matrix becomes the port's (R, K)
+member table (``core.types.ThermalState``).
 ``params_from_jax`` turns the reference's LM parameter tree (numpy
 leaves, stacked over periods) into the port's per-layer ``Params``.
 Nothing here imports JAX.
@@ -71,7 +72,7 @@ def _build(cls, prefix, tree, device):
         sub = {"farm": T.ServerFarm, "jobs": T.JobTable,
                "flows": T.FlowTable, "net": T.NetState,
                "sched": T.SchedState, "telem": T.Telemetry,
-               "thermal": T.ThermalState}.get(key)
+               "thermal": T.ThermalState, "trace": T.TraceState}.get(key)
         if sub is not None:
             kw[f.name] = _build(sub, key, tree, device)
         elif key == "thermal.rack_onehot" and key in tree:

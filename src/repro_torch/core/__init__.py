@@ -1,3 +1,3 @@
 """The discrete-event engine in PyTorch (port of ``repro.core``)."""
 from . import (engine, farm, jobs, network, power, scheduler, server,
-               telemetry, topology, types, workload)
+               telemetry, topology, trace, traceio, types, workload)

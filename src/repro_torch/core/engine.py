@@ -2,8 +2,8 @@
 ``repro.core.engine``: the main path, network mode (flows over a
 topology, switch states) and the thermal subsystem with its control plane
 (throttling, the setpoint controller, THERMAL_AWARE placement and
-CARBON_AWARE deferral); trace and sharding are refused by
-``check_scope``.
+CARBON_AWARE deferral) and the flight recorder (``core/trace.py``);
+sharding and the scalar paths are refused by ``check_scope``.
 
 The paper's sequential priority-queue loop becomes dense tensor work:
 
@@ -23,6 +23,11 @@ each gated by ``_cheap_gate``; a pass whose gate (or an earlier one) is
 false is computed and discarded leaf by leaf with ``torch.where`` -- the
 reference's early loop exit, without a host check -- and then one full
 step.  So the advance kernel launches exactly K times per step.
+
+Flight recorder: each pass collects its records in a list (``recs``) as
+it applies events, in the reference's order, and flushes them once at its
+end; a cheap pass flushes under its ``alive`` flag, so a discarded pass
+records nothing.
 """
 from __future__ import annotations
 
@@ -34,10 +39,13 @@ import torch
 from ..kernels import ops
 from . import network, power, scheduler, server, telemetry
 from . import thermal as thermal_mod
+from . import trace as trace_mod
 from .server import set_drop
+from .trace import stage, stage1
 from .types import (INF, JobTable, SchedPolicy, ServerFarm, SimConfig,
-                    SimState, SrvState, TaskStatus, init_farm, init_flows,
-                    init_net, init_sched, replace, tree_where)
+                    SimState, SleepPolicy, SrvState, TaskStatus, TraceKind,
+                    init_farm, init_flows, init_net, init_sched, replace,
+                    tree_where)
 
 I32 = torch.int32
 I64 = torch.int64
@@ -52,8 +60,6 @@ def check_scope(cfg: SimConfig) -> None:
     """Refuse configurations this slice of the port does not run yet,
     naming the ROADMAP item (Queue 1) that will bring them."""
     refused = [
-        (cfg.trace.enabled, "trace.enabled=True",
-         "item 8 (trace.py and traceio.py)"),
         (cfg.partition.sharded, "partition.n_shards > 1",
          "item 10 (shard_sim.py)"),
         (not cfg.use_vectorized_hot_loop, "use_vectorized_hot_loop=False",
@@ -286,7 +292,7 @@ def _apply_wakeups(farm: ServerFarm, cfg, now):
 
 
 def _resolve_edges(jobs: JobTable, flows, net, cfg: SimConfig, tc,
-                   done_task, now):
+                   done_task, now, recs=None):
     """DAG edges of the tasks in ``done_task``, then BLOCKED -> READY.
     Without a network every edge resolves immediately, decrementing the
     child's dep_count.  In network mode same-server and zero-byte edges
@@ -297,8 +303,8 @@ def _resolve_edges(jobs: JobTable, flows, net, cfg: SimConfig, tc,
     the promotion is masked by the same predicate, and the rest is the
     identity when nothing finished.  It walks every task row: the
     reference compacts the finishing tasks to N*C rows in ascending task
-    id, so both take the needed edges in the same order.  Returns (jobs,
-    flows, net)."""
+    id, so both take the needed edges in the same order (and stage their
+    FLOW_SPAWN records in it).  Returns (jobs, flows, net)."""
     ch = jobs.children                                        # (JT, D)
     chc = ch.clamp(min=0).view(-1).to(I64)
     ch_valid = (ch >= 0) & done_task[:, None] & ~jobs.edge_sent
@@ -316,6 +322,9 @@ def _resolve_edges(jobs: JobTable, flows, net, cfg: SimConfig, tc,
             jobs.edge_bytes.view(-1), ch.view(-1), now)
         # a full flow table drop-resolves the edge, as a queue drop does
         dep_count = dep_count.index_add(0, chc, -(need & ~ok).to(I32))
+        if cfg.trace.enabled:
+            stage(recs, need & ok, TraceKind.FLOW_SPAWN, src, ch.view(-1),
+                  jobs.edge_bytes.view(-1))
     else:
         dep_count = jobs.dep_count.index_add(0, chc,
                                              -ch_valid.view(-1).to(I32))
@@ -325,7 +334,8 @@ def _resolve_edges(jobs: JobTable, flows, net, cfg: SimConfig, tc,
                    edge_sent=edge_sent), flows, net
 
 
-def _apply_completions(state: SimState, cfg: SimConfig, tc) -> SimState:
+def _apply_completions(state: SimState, cfg: SimConfig, tc,
+                       recs=None) -> SimState:
     """Handle all tasks whose task_end <= now: mark them DONE, update job
     bookkeeping, resolve DAG edges (immediately, or by spawning flows).
     Elementwise in task space."""
@@ -340,15 +350,25 @@ def _apply_completions(state: SimState, cfg: SimConfig, tc) -> SimState:
     finish = torch.where(done_task, now, jobs.finish)
     jobs = replace(jobs, status=status, finish=finish)
     tasks_done, job_finish = _rebuild_job_completion(jobs, cfg, now)
+    if cfg.trace.enabled:
+        JT, J = done_task.shape[0], job_finish.shape[0]
+        dev = done_task.device
+        stage(recs, done_task, TraceKind.FINISH, jobs.server,
+              torch.arange(JT, dtype=I32, device=dev), now - jobs.start_at)
+        new_jf = (jobs.job_finish >= INF / 2) & (job_finish < INF / 2)
+        stage(recs, new_jf, TraceKind.JOB_FINISH, -1,
+              torch.arange(J, dtype=I32, device=dev),
+              job_finish - jobs.arrival)
     jobs = replace(jobs, tasks_done=tasks_done, job_finish=job_finish)
     flows, net = state.flows, state.net
     if cfg.tasks_per_job > 1:
         jobs, flows, net = _resolve_edges(jobs, flows, net, cfg, tc,
-                                          done_task, now)
+                                          done_task, now, recs)
     return replace(state, farm=farm, jobs=jobs, flows=flows, net=net)
 
 
-def _apply_flow_completions(state: SimState, cfg: SimConfig) -> SimState:
+def _apply_flow_completions(state: SimState, cfg: SimConfig,
+                            recs=None) -> SimState:
     """Flows done by now decrement their child's dep_count; BLOCKED ->
     READY masked by "any flow finished", as the reference gates it."""
     flows, fin = network.complete_flows(state.flows, state.t)
@@ -357,12 +377,15 @@ def _apply_flow_completions(state: SimState, cfg: SimConfig) -> SimState:
         0, torch.where(fin, flows.child, 0).to(I64), -fin.to(I32))
     status = torch.where(fin.any(), _promote_ready(jobs, dep_count, cfg),
                          jobs.status)
+    if cfg.trace.enabled:
+        # complete_flows keeps dst/child on the deactivated rows
+        stage(recs, fin, TraceKind.FLOW_FINISH, flows.dst, flows.child)
     return replace(state, flows=flows,
                    jobs=replace(jobs, dep_count=dep_count, status=status))
 
 
 def _apply_arrival(state: SimState, cfg: SimConfig, tc,
-                   hold=None) -> SimState:
+                   hold=None, recs=None) -> SimState:
     """Admit up to cfg.arrivals_per_step jobs whose arrival <= t in one
     pass against one scheduler snapshot: assign servers to all their tasks
     and mark roots READY.  With nothing to admit the pass is the identity
@@ -439,6 +462,16 @@ def _apply_arrival(state: SimState, cfg: SimConfig, tc,
                                   jobs.status[gather]).to(I32))
     jobs = replace(jobs, server=server_arr, status=status,
                    arr_ptr=(j0 + n_adm).to(I32))
+    if cfg.trace.enabled:
+        # ARRIVAL for every consumed arrival slot (deferred jobs too),
+        # ADMIT for the placed ones: the server of the job's first task and
+        # its queue depth, which changes only at the READY drain
+        stage(recs, elig, TraceKind.ARRIVAL, -1, jid)
+        first = (j0 * T + torch.arange(K, dtype=I32, device=dev) * T
+                 ).clamp(0, JT - 1).to(I64)
+        job_srv = jobs.server[first]
+        stage(recs, adm, TraceKind.ADMIT, job_srv, jid,
+              farm.q_len[job_srv.clamp(min=0).to(I64)])
     return replace(state, jobs=jobs, sched=sched)
 
 
@@ -460,7 +493,8 @@ def _batch_picks(farm, cfg: SimConfig, sched, load, root_kt, net_cost=None,
     return torch.repeat_interleave(torch.stack(picks), T)
 
 
-def _apply_releases(state: SimState, cfg: SimConfig) -> SimState:
+def _apply_releases(state: SimState, cfg: SimConfig,
+                    recs=None) -> SimState:
     """Admit deferred jobs whose release time has come (CARBON_AWARE):
     up to cfg.arrivals_per_step a step in ascending job id, against one
     scheduler snapshot, as a same-timestamp arrival batch admits.
@@ -527,10 +561,16 @@ def _apply_releases(state: SimState, cfg: SimConfig) -> SimState:
         therm, defer_seconds=therm.defer_seconds + waited.sum(),
         defer_count=therm.defer_count + jvalid.sum(dtype=I32),
         grams_avoided=therm.grams_avoided + avoided.sum())
+    if cfg.trace.enabled:
+        picks = srvs.view(K, T)[:, 0]
+        stage(recs, jvalid, TraceKind.RELEASE, -1, jid_b, waited)
+        stage(recs, jvalid, TraceKind.ADMIT, picks, jid_b,
+              state.farm.q_len[picks.clamp(min=0).to(I64)])
     return replace(state, jobs=jobs, thermal=therm)
 
 
-def _resolve_drops(state: SimState, cfg: SimConfig, dropped) -> SimState:
+def _resolve_drops(state: SimState, cfg: SimConfig, dropped,
+                   recs=None) -> SimState:
     """Bookkeeping for tasks dropped by a full queue (already marked DONE
     by the drain): finish stamps, job completion and immediate DAG-edge
     resolution, masked by ``dropped.any()`` as the reference gates it."""
@@ -548,10 +588,20 @@ def _resolve_drops(state: SimState, cfg: SimConfig, dropped) -> SimState:
     new = replace(jobs, status=status, finish=finish, tasks_done=tasks_done,
                   job_finish=job_finish, dep_count=dep_count,
                   edge_sent=edge_sent)
-    return replace(state, jobs=tree_where(any_drop, new, jobs))
+    new = tree_where(any_drop, new, jobs)
+    if cfg.trace.enabled:
+        JT, J = dropped.shape[0], new.job_finish.shape[0]
+        dev = dropped.device
+        stage(recs, dropped, TraceKind.DROP, new.server,
+              torch.arange(JT, dtype=I32, device=dev))
+        new_jf = (jobs.job_finish >= INF / 2) & (new.job_finish < INF / 2)
+        stage(recs, new_jf, TraceKind.JOB_FINISH, -1,
+              torch.arange(J, dtype=I32, device=dev),
+              new.job_finish - new.arrival)
+    return replace(state, jobs=new)
 
 
-def _drain_ready(state: SimState, cfg: SimConfig) -> SimState:
+def _drain_ready(state: SimState, cfg: SimConfig, recs=None) -> SimState:
     """Enqueue up to cfg.ready_per_step READY tasks (first K in task-id
     order) at their servers: FIFO stamps written into their own task rows,
     sleeping destinations woken.  With no READY task every update below is
@@ -585,28 +635,47 @@ def _drain_ready(state: SimState, cfg: SimConfig) -> SimState:
                     jobs=replace(jobs, status=status, enqueue_seq=enq))
     dropped = set_drop(torch.zeros((JT,), dtype=torch.bool, device=dev),
                        torch.where(valid & ~ok, tids, JT), True)
-    return _resolve_drops(state, cfg, dropped)
+    return _resolve_drops(state, cfg, dropped, recs)
 
 
-def _start_tasks(state: SimState, cfg: SimConfig) -> SimState:
+def _start_tasks(state: SimState, cfg: SimConfig, recs=None) -> SimState:
     # throttled servers start work at their reduced effective frequency
     freq = thermal_mod.effective_freq(state.thermal, cfg) \
         if cfg.thermal.throttling else None
     farm, jobs = server.try_start(state.farm, cfg, state.jobs, state.t,
                                   freq)
+    if cfg.trace.enabled:
+        started = (jobs.status == TaskStatus.RUNNING) \
+            & (state.jobs.status == TaskStatus.QUEUED)
+        JT = started.shape[0]
+        stage(recs, started, TraceKind.START, jobs.server,
+              torch.arange(JT, dtype=I32, device=started.device),
+              jobs.task_end - state.t)
     return replace(state, farm=farm, jobs=jobs)
 
 
-def _apply_events(state: SimState, cfg: SimConfig, tc,
-                  cheap: bool) -> SimState:
+def _apply_events(state: SimState, cfg: SimConfig, tc, cheap: bool,
+                  recs=None) -> SimState:
     """The event-application pipeline at the (already advanced) time.
     ``cheap`` leaves out what the cheap pass's gate guarantees is not
     needed: flow completions and the rate recompute (the active flow set
-    cannot change in a cheap pass)."""
+    cannot change in a cheap pass).  ``recs`` collects the pass's
+    flight-recorder records.  Under ALWAYS_ON no server changes power
+    state, so the WAKEUP and SLEEP sites are left out, as in the
+    reference."""
+    trace_sleep = cfg.trace.enabled \
+        and cfg.sleep_policy != SleepPolicy.ALWAYS_ON
+    dev = state.t.device
+    if trace_sleep:
+        farm = state.farm
+        woke = (farm.srv_state == SrvState.WAKING) \
+            & (farm.srv_wake_at <= state.t)
+        stage(recs, woke, TraceKind.WAKEUP,
+              torch.arange(cfg.n_servers, dtype=I32, device=dev))
     state = replace(state, farm=_apply_wakeups(state.farm, cfg, state.t))
-    state = _apply_completions(state, cfg, tc)
+    state = _apply_completions(state, cfg, tc, recs)
     if cfg.has_network and not cheap:
-        state = _apply_flow_completions(state, cfg)
+        state = _apply_flow_completions(state, cfg, recs)
     hold = None
     if _deferral_on(cfg):
         # due releases admit before fresh arrivals, and a step that
@@ -614,11 +683,12 @@ def _apply_events(state: SimState, cfg: SimConfig, tc,
         # same-time step
         admit_at = state.jobs.admit_at
         hold = ((admit_at < INF / 2) & (admit_at <= state.t)).any()
-        state = _apply_releases(state, cfg)
-    state = _apply_arrival(state, cfg, tc, hold)
-    state = _drain_ready(state, cfg)
-    state = _start_tasks(state, cfg)
+        state = _apply_releases(state, cfg, recs)
+    state = _apply_arrival(state, cfg, tc, hold, recs)
+    state = _drain_ready(state, cfg, recs)
+    state = _start_tasks(state, cfg, recs)
     # refresh ACTIVE/IDLE, run local power controllers + pool managers
+    st_before = state.farm.srv_state
     farm = server.refresh_idle_state(state.farm, cfg, state.t)
     farm, sched = scheduler.provisioning_adjust(farm, cfg, state.sched,
                                                 _active_jobs(state.jobs))
@@ -626,6 +696,16 @@ def _apply_events(state: SimState, cfg: SimConfig, tc,
                                  state.t)
     farm = scheduler.timer_transitions(farm, cfg, state.t)
     state = replace(state, farm=farm, sched=sched)
+    if trace_sleep:
+        # awake -> asleep edges of the local power controllers
+        was_awake = (st_before == SrvState.ACTIVE) \
+            | (st_before == SrvState.IDLE)
+        asleep = (farm.srv_state == SrvState.PKG_C6) \
+            | (farm.srv_state == SrvState.S3) \
+            | (farm.srv_state == SrvState.OFF)
+        stage(recs, was_awake & asleep, TraceKind.SLEEP,
+              torch.arange(cfg.n_servers, dtype=I32, device=dev), -1,
+              farm.srv_state)
     if cfg.has_network:
         flows, link_flows = state.flows, state.net.link_flows
         if not cheap:
@@ -691,24 +771,41 @@ def _cheap_gate(state: SimState, cfg: SimConfig):
     return ok, t_next
 
 
-def _apply_thermal_events(state: SimState, cfg: SimConfig) -> SimState:
+def _apply_thermal_events(state: SimState, cfg: SimConfig,
+                          recs=None) -> SimState:
     """The throttle latch (and the stretch of in-flight work) and the
     setpoint-controller tick, right after the interval advance in both
-    the cheap and the full pass."""
+    the cheap and the full pass, with their flight-recorder records."""
     if cfg.thermal.throttling:
+        old_thr = state.thermal.throttled
         farm, jobs, therm = thermal_mod.apply_throttle(
             state.farm, state.jobs, state.thermal, cfg, state.t)
         state = replace(state, farm=farm, jobs=jobs, thermal=therm)
+        if cfg.trace.enabled:
+            stage(recs, therm.throttled != old_thr,
+                  TraceKind.THROTTLE_CROSSING,
+                  torch.arange(cfg.n_servers, dtype=I32,
+                               device=state.t.device), -1, therm.t_srv)
     if cfg.thermal.has_ctrl:
+        if cfg.trace.enabled:
+            # the tick fires when time reaches ctrl_next (an event
+            # candidate); staged before the controller advances it
+            stage1(recs, state.t >= state.thermal.ctrl_next,
+                   TraceKind.CTRL_TICK)
         state = replace(state, thermal=thermal_mod.apply_setpoint_ctrl(
             state.thermal, cfg, state.t))
     return state
 
 
-def _consume_cheap(state: SimState, cfg: SimConfig, tc, t_next) -> SimState:
+def _consume_cheap(state: SimState, cfg: SimConfig, tc, t_next,
+                   alive) -> SimState:
     state = _advance_interval(state, cfg, tc, t_next)
-    state = _apply_thermal_events(state, cfg)
-    state = _apply_events(state, cfg, tc, cheap=True)
+    recs = [] if cfg.trace.enabled else None
+    state = _apply_thermal_events(state, cfg, recs)
+    state = _apply_events(state, cfg, tc, cheap=True, recs=recs)
+    if cfg.trace.enabled:
+        state = replace(state, trace=trace_mod.flush(
+            state.trace, cfg, state.t, recs, alive))
     return replace(state, events=state.events + 1)
 
 
@@ -721,7 +818,7 @@ def _macro_chew(state: SimState, cfg: SimConfig, tc) -> SimState:
     for _ in range(cfg.events_per_step - 1):
         ok, t_next = _cheap_gate(state, cfg)
         alive = alive & ok
-        new = _consume_cheap(state, cfg, tc, t_next)
+        new = _consume_cheap(state, cfg, tc, t_next, alive)
         state = tree_where(alive, new, state)
     return state
 
@@ -734,8 +831,12 @@ def _full_step(state: SimState, cfg: SimConfig, tc) -> SimState:
     # energy over an unbounded interval
     t_next = torch.where(t_next >= INF / 2, state.t, t_next)
     state = _advance_interval(state, cfg, tc, t_next)
-    state = _apply_thermal_events(state, cfg)
-    state = _apply_events(state, cfg, tc, cheap=False)
+    recs = [] if cfg.trace.enabled else None
+    state = _apply_thermal_events(state, cfg, recs)
+    state = _apply_events(state, cfg, tc, cheap=False, recs=recs)
+    if cfg.trace.enabled:
+        state = replace(state, trace=trace_mod.flush(
+            state.trace, cfg, state.t, recs))
     return replace(state, events=state.events + 1,
                    done=_all_done(state, cfg))
 
@@ -744,10 +845,18 @@ def sim_step(state: SimState, cfg: SimConfig,
              tc: EngineConsts | None = None) -> SimState:
     """One macro-step: K-1 masked cheap passes, then one full step; latency
     and QoS binning once over everything that finished since the step
-    began."""
+    began.  The flight recorder's ring is copied first (the step writes
+    it in place), so ``state`` is left as it was."""
     if tc is None:
         tc = consts(cfg, state.t.device)
     _check_consts(cfg, tc)
+    if cfg.trace.enabled:
+        state = replace(state, trace=trace_mod.own(state.trace, cfg))
+    return _step(state, cfg, tc)
+
+
+def _step(state: SimState, cfg: SimConfig, tc: EngineConsts) -> SimState:
+    """``sim_step`` on a state whose ring the step may write in place."""
     if cfg.telemetry.enabled:
         old_job_finish = state.jobs.job_finish
         old_task_finish = state.jobs.finish
@@ -788,6 +897,7 @@ def init_state(cfg: SimConfig, jobs: JobTable, topo=None, racks=None):
         sched=init_sched(cfg, dev),
         telem=telemetry.init_telemetry(cfg, dev),
         thermal=thermal_mod.init_thermal(cfg, dev, racks),
+        trace=trace_mod.init_trace(cfg, dev),
         events=torch.zeros((), dtype=I32, device=dev),
         steps=torch.zeros((), dtype=I32, device=dev),
         done=torch.zeros((), dtype=torch.bool, device=dev),
@@ -799,16 +909,21 @@ def run(state: SimState, cfg: SimConfig,
         tc: EngineConsts | None = None) -> SimState:
     """Run to completion (or cfg.max_events).  The loop reads ``done`` and
     the event count once per macro-step; with macro-stepping a run may
-    retire up to events_per_step - 1 events past max_events."""
+    retire up to events_per_step - 1 events past max_events.  The flight
+    recorder's ring is copied once, then written in place, so ``state``
+    is left as it was."""
     check_scope(cfg)
     if tc is None:
         tc = consts(cfg, state.t.device)
+    _check_consts(cfg, tc)
+    if cfg.trace.enabled:
+        state = replace(state, trace=trace_mod.own(state.trace, cfg))
     while True:
         done, events = torch.stack(
             [state.done.to(I32), state.events]).tolist()
         if done or events >= cfg.max_events:
             return state
-        state = sim_step(state, cfg, tc)
+        state = _step(state, cfg, tc)
 
 
 __all__ = ["check_scope", "consts", "EngineConsts", "next_event_time",

@@ -11,7 +11,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import engine, jobs as jobs_mod, telemetry as telemetry_mod
+from . import engine, jobs as jobs_mod, telemetry as telemetry_mod, traceio
 from .types import INF, SimConfig, SimState, resolve_device
 
 
@@ -28,6 +28,9 @@ class RunInfo:
     devices: int = 1
     config_digest: str = ""         # sha1 over the device-count-free config
     device_name: str = ""           # e.g. torch.cuda.get_device_name()
+    # simulate(profile=True): the first run's extra wall over a warm rerun
+    # (kernel builds and loads, allocator warm-up); NaN otherwise
+    jit_compile_s: float = float("nan")
 
 
 def _config_dict(obj):
@@ -156,6 +159,10 @@ def summarize(state: SimState, cfg: SimConfig) -> SimResult:
             deferred_jobs=int(th.defer_count),
             deferred_seconds=float(th.defer_seconds),
             carbon_g_avoided_est=float(th.grams_avoided))
+    trace_kw = {}
+    if cfg.trace.enabled:
+        ev, n_drop = traceio.decode(state.trace, cfg)
+        trace_kw = dict(trace_events=ev, trace_dropped=n_drop)
     return SimResult(
         sim_time=t,
         events=int(state.events),
@@ -177,11 +184,13 @@ def summarize(state: SimState, cfg: SimConfig) -> SimResult:
                    if cfg.telemetry.enabled else None),
         flows_dropped=int(state.flows.flows_dropped),
         **thermal_kw,
+        **trace_kw,
     )
 
 
 def simulate(cfg: SimConfig, arrivals, specs, topo=None, tau=None,
-             pools=None, racks=None, device=None) -> SimResult:
+             pools=None, racks=None, device=None,
+             profile: bool = False) -> SimResult:
     """Build the job table, run the engine to completion, summarize.
 
     topo   -- a ``core.topology.Topology``; required when cfg.has_network
@@ -191,6 +200,9 @@ def simulate(cfg: SimConfig, arrivals, specs, topo=None, tau=None,
               topology's first-hop switches by default when ``topo`` is
               given, else i // thermal.rack_size)
     device -- ``None`` (the default CUDA device) or ``"cpu"``
+    profile -- rerun the (now warm) engine once more from the same initial
+              state and report the first run's extra wall clock as
+              ``run_info.jit_compile_s``; ``wall_s`` is then the warm run's
     """
     engine.check_scope(cfg)
     dev = resolve_device(device)
@@ -207,19 +219,30 @@ def simulate(cfg: SimConfig, arrivals, specs, topo=None, tau=None,
             state.farm, srv_pool=torch.as_tensor(
                 np.asarray(pools)).to(device=dev, dtype=torch.int32)))
 
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    final = engine.run(state, cfg, tc)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t0
+    def timed_run():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        final = engine.run(state, cfg, tc)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return final, time.perf_counter() - t0
+
+    final, wall = timed_run()
+    compile_s = float("nan")
+    if profile:
+        # engine.run leaves its input state as it was, so the rerun starts
+        # from the same point
+        final, warm = timed_run()
+        compile_s = max(wall - warm, 0.0)
+        wall = warm
     res = summarize(final, cfg)
     n_ev = int(final.events)
     res.run_info = RunInfo(
         wall_s=wall, steps=int(final.steps), events=n_ev,
         events_per_s=n_ev / max(wall, 1e-12), backend=dev.type,
         config=_config_dict(cfg), config_digest=config_digest(cfg),
+        jit_compile_s=compile_s,
         device_name=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
                      else "cpu"))
     return res

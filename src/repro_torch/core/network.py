@@ -26,7 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..kernels.ref import _const
+from ..kernels.ref import _const, _fma, _fms
 from .types import (INF, FlowTable, LinecardState, NetState, PortState,
                     SimConfig, replace)
 
@@ -95,41 +95,6 @@ def route_wake_cost(tc: TopoConsts, net: NetState, src, dst):
     sws = tc.route_sw[src, dst]                           # (..., H)
     asleep = ~net.sw_awake[sws.clamp(min=0).to(I64)]
     return ((sws >= 0) & asleep).sum(dim=-1, dtype=I32)
-
-
-def _round_once(x, y, dtype):
-    """``x + y`` of two float64 tensors, rounded once to ``dtype``.
-
-    The float64 sum rounds to 53 bits, and a second rounding to float32
-    would differ from one rounding of the exact sum where the float64
-    value lands on a float32 midpoint.  So the sum is taken to odd: its
-    exact residual (Knuth's two-sum) tells whether it was inexact, and an
-    inexact sum with an even last bit moves one ulp toward the exact
-    value.  A float32 rounding of that is the correctly rounded exact
-    sum (53 >= 24 + 2 bits).  Every step is one IEEE operation, so the
-    CPU and the card give the same bits."""
-    s = x + y
-    if dtype == F64:
-        return s
-    yv = s - x
-    err = (x - (s - yv)) + (y - yv)
-    even = (s.view(I64) & 1) == 0
-    toward = torch.full_like(s, torch.inf).copysign(err)
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-    return s.to(dtype)
-
-
-def _fms(a, b, c, dtype):
-    """``a - b * c`` rounded once to ``dtype``: for float32 operands the
-    product is exact in float64, so this is the fused multiply-subtract
-    the reference's compiled step computes (XLA contracts the pair into
-    an FMA).  A float64 ``c`` (the float64 clock) rounds the product."""
-    return _round_once(a.to(F64), -(b.to(F64) * c.to(F64)), dtype)
-
-
-def _fma(a, b, c, dtype):
-    """``a * b + c`` rounded once to ``dtype`` (see :func:`_fms`)."""
-    return _round_once(a.to(F64) * b.to(F64), c.to(F64), dtype)
 
 
 def spawn_flows_many(flows: FlowTable, net: NetState, tc: TopoConsts,

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.ref import _const
+from ..kernels.ref import _const, _fma, div_const, inv_f32
 from .types import (INF, JobTable, ServerFarm, SimConfig, SrvState,
                     TaskStatus, replace)
 
@@ -110,6 +110,19 @@ def queued_rank(jobs: JobTable, cfg: SimConfig, queued, q_seq):
         (order,), rank_o)
 
 
+def _end_at(now, service, core_freq: float, dtype):
+    """``now + service / core_freq`` as the reference's compiled step
+    rounds it: XLA turns the division by the constant into a
+    multiplication by its float32 reciprocal (``div_const``), and on a
+    float32 clock contracts that product and the addition into one FMA.
+    At ``core_freq`` 1 the product is exact, so the plain sum is the same
+    value."""
+    if core_freq == 1.0 or now.dtype == torch.float64:
+        return (now + div_const(service, core_freq).to(now.dtype)).to(dtype)
+    return _fma(service, _const(inv_f32(core_freq), service), now,
+                torch.float32).to(dtype)
+
+
 def try_start(farm: ServerFarm, cfg: SimConfig, jobs: JobTable, now,
               freq=None):
     """Start as many queued tasks as there are free cores, FIFO per server,
@@ -135,10 +148,9 @@ def try_start(farm: ServerFarm, cfg: SimConfig, jobs: JobTable, now,
     # task side: elementwise
     start_t = queued & (rank < n_start[srv])                    # (JT,)
     if freq is None:
-        svc = jobs.service / _const(cfg.core_freq, jobs.service)
+        end_t = _end_at(now, jobs.service, cfg.core_freq, tdt)
     else:
-        svc = jobs.service / freq[srv]
-    end_t = (now + svc.to(now.dtype)).to(tdt)
+        end_t = (now + (jobs.service / freq[srv]).to(now.dtype)).to(tdt)
     status = torch.where(start_t, TaskStatus.RUNNING, jobs.status).to(I32)
     task_end = torch.where(start_t, end_t, jobs.task_end)
     start_at = torch.where(start_t, now.to(jobs.start_at.dtype),
@@ -156,11 +168,11 @@ def try_start(farm: ServerFarm, cfg: SimConfig, jobs: JobTable, now,
     start_c = free & (fr < n_start[:, None])                    # (N, C)
     tid_c = torch.gather(tid_at, 1, fr.clamp(0, C - 1).to(I64))
     svc_c = jobs.service[tid_c.clamp(0, JT - 1).to(I64)]
+    cdt = farm.core_busy_until.dtype
     if freq is None:
-        svc_c = svc_c / _const(cfg.core_freq, svc_c)
+        busy_until = _end_at(now, svc_c, cfg.core_freq, cdt)
     else:
-        svc_c = svc_c / freq[:, None]
-    busy_until = (now + svc_c.to(now.dtype)).to(farm.core_busy_until.dtype)
+        busy_until = (now + (svc_c / freq[:, None]).to(now.dtype)).to(cdt)
     farm = replace(
         farm,
         core_busy_until=torch.where(start_c, busy_until,

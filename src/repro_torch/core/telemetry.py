@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from ..kernels.ref import _const
+from ..kernels.ref import div_const
 from . import power
 from . import thermal as thermal_mod
 from .types import (INF, SimConfig, SrvState, TaskStatus, Telemetry,
@@ -128,8 +128,8 @@ def window_values(state, cfg: SimConfig, dt, p_busy=None,
     max_interval = torch.maximum(t_srv, t_end).max()
     therm_cols = torch.stack([
         p_cool * dtf, mean_int, max_interval * dtf, ici, ipr,
-        thermal_mod.div_const(kw * ici, 3600.0),
-        thermal_mod.div_const(kw * ipr, 3600.0)])
+        div_const(kw * ici, 3600.0),
+        div_const(kw * ipr, 3600.0)])
     return torch.cat([base, therm_cols])
 
 
@@ -141,8 +141,7 @@ def window_index(t, dt, tcfg: TelemetryConfig) -> torch.Tensor:
     the reference's compiled step rewrites its division by the constant
     that way, and the two differ where a midpoint sits at a window edge."""
     mid = t.to(F32) + 0.5 * dt.to(F32)
-    inv = float(np.float32(1.0) / np.float32(tcfg.window_dt))
-    w = mid * _const(inv, mid)
+    w = div_const(mid, tcfg.window_dt)
     return w.clamp(0, tcfg.n_windows - 1).to(I32)
 
 

@@ -42,7 +42,7 @@ import math
 import numpy as np
 import torch
 
-from ..kernels.ref import _const
+from ..kernels.ref import _const, div_const
 from . import power
 from .types import (INF, SimConfig, TaskStatus, ThermalConfig, ThermalState,
                     replace)
@@ -52,7 +52,7 @@ __all__ = ["init_thermal", "member_table", "ambient_host", "ambient",
            "carbon_price_integrals", "effective_freq", "rc_step", "advance",
            "apply_throttle", "next_crossing", "apply_setpoint_ctrl",
            "defer_signal_now", "carbon_intensity_now", "next_release_time",
-           "div_const", "TEMP_TOL"]
+           "TEMP_TOL"]
 
 F32 = torch.float32
 F64 = torch.float64
@@ -150,16 +150,6 @@ def member_table(rack_id, R: int) -> np.ndarray:
 # ==========================================================================
 # continuous models
 # ==========================================================================
-
-def div_const(x, c: float) -> torch.Tensor:
-    """``x / c`` for a Python constant ``c`` as the reference's compiled
-    step computes it: XLA rewrites a division by a constant into a
-    multiplication by the constant's reciprocal, folded in ``x``'s dtype,
-    and the two differ by an ulp on some inputs."""
-    if x.dtype == F64:
-        return x * _const(1.0 / c, x)
-    return x * _const(float(np.float32(1.0) / np.float32(c)), x)
-
 
 def _f64_once(fn, x) -> torch.Tensor:
     """``fn`` of a float32 tensor, evaluated in float64 and rounded once to

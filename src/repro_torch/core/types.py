@@ -78,6 +78,36 @@ class SleepPolicy:
     WASP = 3
 
 
+class TraceKind:
+    """Event kinds of the flight recorder (``core/trace.py``).  The values
+    are the reference's: they appear in exported traces and in the heapq
+    oracle's mirror (tests/oracle.py)."""
+
+    ARRIVAL = 0            # job's arrival processed (tid = job id)
+    ADMIT = 1              # job placed (tid = job id, server = its first
+                           # task's server, aux = queue depth there)
+    RELEASE = 2            # carbon-deferred job released (aux = seconds held)
+    START = 3              # task started on a core (aux = stretched duration)
+    FINISH = 4             # task finished compute
+    JOB_FINISH = 5         # last task of a job done (tid = job id,
+                           # aux = job latency)
+    WAKEUP = 6             # server wake transition completed
+    SLEEP = 7              # server entered a sleep state (aux = SrvState)
+    DROP = 8               # task dropped on a full queue
+    FLOW_SPAWN = 9         # network flow spawned (server = src,
+                           # tid = child task, aux = bytes)
+    FLOW_FINISH = 10       # network flow delivered (server = dst,
+                           # tid = child task)
+    THROTTLE_CROSSING = 11  # thermal throttle engaged/released
+                            # (aux = temperature C)
+    CTRL_TICK = 12         # CRAC setpoint controller tick
+    NUM = 13
+
+    NAMES = ("arrival", "admit", "release", "start", "finish", "job_finish",
+             "wakeup", "sleep", "drop", "flow_spawn", "flow_finish",
+             "throttle_crossing", "ctrl_tick")
+
+
 def replace(obj, **kw):
     return dataclasses.replace(obj, **kw)
 
@@ -405,11 +435,27 @@ class ThermalState:
 
 
 @dataclass
+class TraceState:
+    """The flight recorder's ring (``core/trace.py``): one (cap, 5) float
+    buffer of records [kind, time, server (-1 = farm-level), tid (-1 =
+    n/a), aux] in ``promote(time_dtype, float32)``, a (1, 5) placeholder
+    when the recorder is off.  ``ptr`` counts every record ever written
+    (slot = ptr % cap); ``dropped`` counts those overwritten by
+    wrap-around.  The engine writes the ring in place: ``buf`` is the
+    first ``cap`` rows of a (cap + 1, 5) tensor whose last row takes the
+    writes of unset lanes (``trace.flush``)."""
+
+    buf: torch.Tensor               # (cap, 5)
+    ptr: torch.Tensor               # () int32 monotonic write pointer
+    dropped: torch.Tensor           # () int32 records lost to wrap-around
+
+
+@dataclass
 class SimState:
-    """Engine state: the reference's SimState without the trace subtree
-    (the engine refuses it).  ``flows``/``net`` and ``thermal`` are
-    1-sized placeholders when the configuration has no network or no
-    thermal subsystem."""
+    """Engine state, the reference's SimState leaf for leaf.
+    ``flows``/``net``, ``thermal`` and ``trace`` are 1-sized placeholders
+    when the configuration has no network, no thermal subsystem or no
+    flight recorder."""
 
     t: torch.Tensor                 # () current simulation time
     farm: ServerFarm
@@ -419,6 +465,7 @@ class SimState:
     sched: SchedState
     telem: Telemetry
     thermal: ThermalState
+    trace: TraceState
     events: torch.Tensor            # () int32 processed event count
     steps: torch.Tensor             # () int32 sim_step invocations
     done: torch.Tensor              # () bool all jobs finished

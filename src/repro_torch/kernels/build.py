@@ -118,7 +118,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn.argtypes = [P] * 11 + [F, F, F, I, I, I] + [P] * 7 + [P]
     elif name == "telemetry_bin":
         fn = lib.telemetry_bin_launch
-        fn.argtypes = [P, P, I, P, P, I, F, F, I, P, P, P, I, I, P, P] \
+        fn.argtypes = [P, P, I, P, P, I, F, F, F, I, P, P, P, I, I, P, P] \
             + [P] * 5 + [I, P]
     elif name == "flash_attention":
         fn = lib.flash_attention_launch

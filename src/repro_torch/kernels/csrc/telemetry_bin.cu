@@ -11,10 +11,12 @@
 //   task_out = task_hist + sum of task_wts[i] into bin(task_vals[i])
 //   win_out  = win, with row widx += wvals     (no row added if widx is
 //                                               out of range)
-// with bin(v) = clip(int(logf(max(v, lo) / lo) * scale), 0, n_bins - 1):
-// the same three roundings, in the same order, as the plain version
-// (kernels/ref.py log_bin): IEEE division, logf (not __logf; the build
-// uses no --use_fast_math), a rounded multiply.
+// with bin(v) = clip(int(logf(max(v, lo) * inv_lo) * scale), 0, n_bins - 1)
+// and inv_lo the float32 reciprocal of lo, made on the host: the same
+// three roundings, in the same order, as the plain version (kernels/ref.py
+// log_bin) and as the reference's compiled step, which turns its division
+// by the constant lo into that multiplication: a rounded multiply, logf
+// (not __logf; the build uses no --use_fast_math), a rounded multiply.
 //
 // What bounds it: latency.  The engine calls it once per macro-step with
 // the full job stream (J,) and task stream (J*T,) and 0/1 weights:
@@ -55,9 +57,10 @@
 
 #define TB_THREADS 1024
 
-__device__ __forceinline__ int log_bin(float v, float lo, float scale,
-                                       int n_bins) {
-    const float raw = __fmul_rn(logf(__fdiv_rn(fmaxf(v, lo), lo)), scale);
+__device__ __forceinline__ int log_bin(float v, float lo, float inv_lo,
+                                       float scale, int n_bins) {
+    const float raw = __fmul_rn(logf(__fmul_rn(fmaxf(v, lo), inv_lo)),
+                                scale);
     // clamping before the truncating cast is the same map as the
     // reference's cast-then-clip and cannot overflow the integer
     return (int)fminf(fmaxf(raw, 0.0f), (float)(n_bins - 1));
@@ -76,7 +79,7 @@ telemetry_bin_kernel(const float* __restrict__ job_vals,
                      const float* __restrict__ job_wts, int n_job,
                      const float* __restrict__ task_vals,
                      const float* __restrict__ task_wts, int n_task,
-                     float lo, float scale, int n_bins,
+                     float lo, float inv_lo, float scale, int n_bins,
                      const float* __restrict__ job_hist,
                      const float* __restrict__ task_hist,
                      const float* __restrict__ win, int n_win, int n_cols,
@@ -121,9 +124,11 @@ telemetry_bin_kernel(const float* __restrict__ job_vals,
     // bin the values in hand (weights of 0 skipped before the log), then
     // load the next ones, grid-stride
     for (;;) {
-        if (jw != 0.0f) bin_add(sh, cnt, log_bin(jv, lo, scale, n_bins), jw);
+        if (jw != 0.0f)
+            bin_add(sh, cnt, log_bin(jv, lo, inv_lo, scale, n_bins), jw);
         if (tw != 0.0f)
-            bin_add(sh, cnt, n_bins + log_bin(tv, lo, scale, n_bins), tw);
+            bin_add(sh, cnt, n_bins + log_bin(tv, lo, inv_lo, scale, n_bins),
+                    tw);
         i += gridDim.x * blockDim.x;
         if (i >= n) break;
         jw = i < n_job ? job_wts[i] : 0.0f;
@@ -185,7 +190,7 @@ telemetry_bin_kernel(const float* __restrict__ job_vals,
 extern "C" int telemetry_bin_launch(
         const float* job_vals, const float* job_wts, int n_job,
         const float* task_vals, const float* task_wts, int n_task,
-        float lo, float scale, int n_bins,
+        float lo, float inv_lo, float scale, int n_bins,
         const float* job_hist, const float* task_hist,
         const float* win, int n_win, int n_cols,
         const int* widx, const float* wvals,
@@ -198,8 +203,8 @@ extern "C" int telemetry_bin_launch(
     // two B-bin histograms of float parts and two of counts
     const size_t smem = 4 * (size_t)n_bins * sizeof(float);
     telemetry_bin_kernel<<<grid, TB_THREADS, smem, (cudaStream_t)stream>>>(
-        job_vals, job_wts, n_job, task_vals, task_wts, n_task, lo, scale,
-        n_bins, job_hist, task_hist, win, n_win, n_cols, widx, wvals,
+        job_vals, job_wts, n_job, task_vals, task_wts, n_task, lo, inv_lo,
+        scale, n_bins, job_hist, task_hist, win, n_win, n_cols, widx, wvals,
         job_out, task_out, win_out, partial, ticket);
     return (int)cudaGetLastError();
 }

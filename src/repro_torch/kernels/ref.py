@@ -11,10 +11,12 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 INF = 1.0e30
 NEG_INF = -1.0e30
+F64 = torch.float64
 
 
 def _const(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -26,18 +28,71 @@ def _const(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), x, dtype=like.dtype, device=like.device)
 
 
+def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` for a Python constant ``c`` as the reference's compiled
+    step computes it: XLA rewrites a division by a constant into a
+    multiplication by the constant's reciprocal, folded in ``x``'s dtype,
+    and the two differ by an ulp on some inputs."""
+    if x.dtype == F64:
+        return x * _const(1.0 / c, x)
+    return x * _const(inv_f32(c), x)
+
+
+def inv_f32(c: float) -> float:
+    """The float32 reciprocal ``fl(1 / fl(c))`` that XLA folds for a
+    division of a float32 value by the constant ``c``."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def _round_once(x, y, dtype):
+    """``x + y`` of two float64 tensors, rounded once to ``dtype``.
+
+    The float64 sum rounds to 53 bits, and a second rounding to float32
+    would differ from one rounding of the exact sum where the float64
+    value lands on a float32 midpoint.  So the sum is taken to odd: its
+    exact residual (Knuth's two-sum) tells whether it was inexact, and an
+    inexact sum with an even last bit moves one ulp toward the exact
+    value.  A float32 rounding of that is the correctly rounded exact
+    sum (53 >= 24 + 2 bits).  Every step is one IEEE operation, so the
+    CPU and the card give the same bits."""
+    s = x + y
+    if dtype == F64:
+        return s
+    yv = s - x
+    err = (x - (s - yv)) + (y - yv)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.full_like(s, torch.inf).copysign(err)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(dtype)
+
+
+def _fms(a, b, c, dtype):
+    """``a - b * c`` rounded once to ``dtype``: for float32 operands the
+    product is exact in float64, so this is the fused multiply-subtract
+    the reference's compiled step computes (XLA contracts the pair into
+    an FMA).  A float64 ``c`` (the float64 clock) rounds the product."""
+    return _round_once(a.to(F64), -(b.to(F64) * c.to(F64)), dtype)
+
+
+def _fma(a, b, c, dtype):
+    """``a * b + c`` rounded once to ``dtype`` (see :func:`_fms`)."""
+    return _round_once(a.to(F64) * b.to(F64), c.to(F64), dtype)
+
+
 def log_bin(vals: torch.Tensor, lo: float, hi: float,
             n_bins: int) -> torch.Tensor:
     """Log-spaced histogram bin index (int64) of each value: values below
     ``lo`` clamp into bin 0, values >= ``hi`` into bin n_bins-1.
 
-    Three roundings in the reference's order: ``max(v, lo) / lo``, then
+    Three roundings in the order of the reference's compiled step:
+    ``max(v, lo) * fl(1 / lo)`` (XLA turns the division by the constant
+    ``lo`` into a multiplication by its reciprocal, ``div_const``), then
     ``log``, then ``* scale`` with ``scale`` the Python float rounded to
     the values' dtype; then a truncating cast and a clip (clamping before
     the cast is the same map and never overflows the integer)."""
     scale = n_bins / math.log(hi / lo)
-    lo_t = _const(lo, vals)
-    raw = torch.log(torch.maximum(vals, lo_t) / lo_t) * _const(scale, vals)
+    raw = torch.log(div_const(torch.maximum(vals, _const(lo, vals)), lo)) \
+        * _const(scale, vals)
     return raw.clamp(0, n_bins - 1).to(torch.int64)
 
 

@@ -23,6 +23,7 @@ import torch
 
 from . import build
 from .dcsim_step import _check, _launch, sm_count
+from .ref import inv_f32
 
 LAUNCHES = 0
 THREADS = 1024                  # TB_THREADS in telemetry_bin.cu
@@ -126,7 +127,8 @@ def telemetry_accum(job_vals, job_wts, task_vals, task_wts,
     scale = float(np.float32(B / math.log(hi / lo)))
     err = _launch(dev, lambda stream: lib.telemetry_bin_launch(
         job_vals.data_ptr(), job_wts.data_ptr(), J, task_vals.data_ptr(),
-        task_wts.data_ptr(), M, lo32, scale, B, job_hist.data_ptr(),
+        task_wts.data_ptr(), M, lo32, inv_f32(lo), scale, B,
+        job_hist.data_ptr(),
         task_hist.data_ptr(), win.data_ptr(), W, K, widx.data_ptr(),
         wvals.data_ptr(), jh.data_ptr(), th.data_ptr(), w.data_ptr(),
         None if partial is None else partial.data_ptr(),

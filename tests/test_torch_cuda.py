@@ -17,7 +17,10 @@ kernel sums q.k and p.v in its own order).  SSM scan: y and h within
 rtol/atol 1e-5 (the sum over the state runs in another order).  Network
 functions: integer and boolean leaves exact, elementwise floats bitwise
 (IEEE division and the fused multiply-adds computed in float64 on both),
-the switch power and what accrues from it rtol 1e-5 (a sum over ports)."""
+the switch power and what accrues from it rtol 1e-5 (a sum over ports).
+The flight recorder's ring: exact, card against CPU (its flush is
+elementwise work, a cumsum of integers and one scatter to distinct
+slots)."""
 import dataclasses
 
 import numpy as np
@@ -25,9 +28,10 @@ import pytest
 import torch
 
 from repro_torch.core import (engine, farm, jobs, network, power, topology,
-                              types, workload)
+                              trace, traceio, types, workload)
 from repro_torch.core.types import (SchedPolicy, SimConfig, SleepPolicy,
-                                    SrvState, ThermalConfig, tree_leaves)
+                                    SrvState, ThermalConfig, TraceConfig,
+                                    TraceKind, tree_leaves)
 from repro_torch.kernels import (dcsim_step, flash_attention, ops, ref,
                                  ssm_scan, telemetry_bin)
 
@@ -89,6 +93,36 @@ def test_telemetry_accum_matches_plain(cuda, J, M, W):
         assert torch.equal(g, e)
     assert torch.equal(a[4], torch_args(tb_inputs(J, M, 64, W, 19, 11),
                                         cuda)[4])       # inputs untouched
+
+
+@pytest.mark.parametrize("per_edge", [16, 2000])
+def test_telemetry_accum_near_bin_edges_matches_plain(cuda, per_edge):
+    """Values within +-3e-7 relative of every inner bin edge, where
+    ``max(v, lo) * fl(1/lo)`` (the kernel's inv_lo, as the reference's
+    compiled step computes the division) and a true division bin
+    differently: the kernel equals its plain version on both paths."""
+    lo, hi, B = 1e-5, 1e3, 64
+    rng = np.random.default_rng(per_edge)
+    edges = lo * (hi / lo) ** (np.arange(1, B) / B)
+    v = (edges[:, None] * (1 + rng.uniform(-3e-7, 3e-7, (B - 1, per_edge)))
+         ).astype(np.float32).ravel()
+    n = v.shape[0]
+    z = np.zeros(B, np.float32)
+    a = torch_args((v, np.ones(n, np.float32), v[::-1].copy(),
+                    np.ones(n, np.float32), z, z, np.zeros((2, 3), np.float32),
+                    np.int32(0), np.ones(3, np.float32), lo, hi), cuda)
+    got = telemetry_bin.telemetry_accum(*a)
+    exp = ref.telemetry_accum_reference(*a)
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+    assert float(got[0].sum()) == n
+    # the reciprocal and the division put some of these values in
+    # different bins, so this input tells the two apart
+    vt = a[0]
+    lo_t = torch.tensor(lo, dtype=torch.float32, device=cuda)
+    div = torch.log(torch.maximum(vt, lo_t) / lo_t)
+    mul = torch.log(torch.maximum(vt, lo_t) * ref.inv_f32(lo))
+    assert (div != mul).any()
 
 
 @pytest.mark.parametrize("J,M,W", [(600, 600, 1), (100_003, 300_009, 256)])
@@ -420,8 +454,8 @@ def _card_equals_cpu(cfg, arr, specs, dev, tau=None, topo=None):
     for (path, g), (_, c) in zip(tree_leaves(gpu), tree_leaves(cpu)):
         g = g.cpu()
         assert g.dtype == c.dtype and g.shape == c.shape, path
-        if g.dtype.is_floating_point and path not in ("telem.job_hist",
-                                                      "telem.task_hist"):
+        if g.dtype.is_floating_point and path not in (
+                "telem.job_hist", "telem.task_hist", "trace.buf"):
             assert torch.allclose(g, c, rtol=1e-5, atol=0.0), path
         else:
             assert torch.equal(g, c), path
@@ -599,3 +633,74 @@ def test_network_simulate_on_the_card(cuda):
     res = farm.simulate(cfg, arr, specs, topo=topo)
     assert res.run_info.backend == "cuda" and res.n_finished == 30
     assert res.flows_dropped == 0 and res.switch_energy > 0
+
+
+# --------------------------------------------------------------------------
+# the flight recorder
+# --------------------------------------------------------------------------
+
+def _staged(rng, sizes, dens, dev):
+    """Random staged records on ``dev``: tensors, 0-d tensors, Python
+    numbers and None as payloads."""
+    recs = []
+    for s, m in enumerate(sizes):
+        mask = torch.from_numpy(rng.random(m) < dens).to(dev)
+        pay = [torch.from_numpy(rng.integers(-1, 5000, m).astype(np.int32)
+                                ).to(dev),
+               None if s % 2 else float(rng.uniform(-3, 3)),
+               torch.from_numpy(rng.uniform(-1e3, 1e3, m).astype(np.float32)
+                                ).to(dev) if s % 3 else
+               torch.tensor(float(rng.uniform(0, 9)), device=dev)]
+        trace.stage(recs, mask, int(rng.integers(0, TraceKind.NUM)), *pay)
+    return recs
+
+
+@pytest.mark.parametrize("sizes,dens,cap,ptr0", [
+    ([3, 5], 0.5, 16, 0), ([8, 16, 24], 0.4, 64, 60),
+    ([200, 40], 0.9, 64, 0), ([65536, 600, 8], 0.3, 1 << 16, 70_000)])
+def test_flush_on_the_card_matches_cpu(cuda, sizes, dens, cap, ptr0):
+    """Three passes of random staged records, with one closed pass: ring,
+    pointer and drop count bit-equal on the card and the CPU, and the
+    ring written in place."""
+    cfg = SimConfig(trace=TraceConfig(enabled=True, capacity=cap))
+    outs = {}
+    for d in ("cpu", cuda):
+        rng = np.random.default_rng(5)
+        tr = trace.init_trace(cfg, d)
+        tr = dataclasses.replace(tr, ptr=torch.tensor(ptr0, device=d,
+                                                      dtype=torch.int32))
+        ring = tr.buf
+        for i, alive in enumerate((None, False, True)):
+            recs = _staged(rng, sizes, dens, d)
+            flag = None if alive is None else torch.tensor(alive, device=d)
+            tr = trace.flush(tr, cfg, torch.tensor(0.25 * i, device=d), recs,
+                             flag)
+            assert tr.buf is ring
+        outs[str(d)] = tr
+    g, c = outs[str(cuda)], outs["cpu"]
+    assert torch.equal(g.buf.cpu(), c.buf)
+    assert int(g.ptr) == int(c.ptr) > ptr0
+    assert int(g.dropped) == int(c.dropped)
+
+
+def test_traced_engine_on_card_matches_cpu(cuda):
+    """tests/test_trace.py's rich scenario (sleep timers, throttling) with
+    the recorder on, at the default capacity and at 64 slots, where the
+    ring wraps: every leaf as on the CPU, the ring exactly."""
+    th = ThermalConfig(enabled=True, r_th=0.5, tau_th=2.0, recirc=0.2,
+                       rack_size=3, t_throttle=50.0, t_release=45.0,
+                       throttle_freq=0.5, throttle_power_scale=0.6,
+                       carbon_period=600.0, price_period=600.0)
+    rng = np.random.default_rng(7)
+    arr = workload.poisson_arrivals(60.0, 150, seed=3)
+    specs = [jobs.dag_single(s) for s in rng.exponential(0.02, 150)]
+    for cap in (65536, 64):
+        cfg = SimConfig(n_servers=6, n_cores=2, max_jobs=256,
+                        sleep_policy=SleepPolicy.SINGLE_TIMER,
+                        sleep_state=SrvState.S3, thermal=th,
+                        trace=TraceConfig(enabled=True, capacity=cap))
+        gpu = _card_equals_cpu(cfg, arr, specs, cuda, tau=0.05)
+        ev, dropped = traceio.decode(gpu.trace, cfg)
+        assert (dropped > 0) == (cap == 64)
+        if cap > 64:        # the 64 newest records hold no crossing
+            assert TraceKind.THROTTLE_CROSSING in set(ev["kind"].tolist())

@@ -32,7 +32,8 @@ from repro_torch.core import engine as tengine
 from repro_torch.core import farm as tfarm
 from repro_torch.core import jobs as tjobs
 from repro_torch.core.types import (SchedPolicy, SimConfig, TelemetryConfig,
-                                    ThermalConfig, TraceConfig, tree_leaves)
+                                    ThermalConfig, TraceConfig, TraceKind,
+                                    tree_leaves)
 
 from torch_port_util import (assert_state_matches, compare_results,
                              jax_initial, jax_run, jax_tree, oracle_run,
@@ -148,10 +149,20 @@ def test_f64_clock_matches_oracle_and_f32_run():
           trace=TraceConfig(enabled=True)), "item 8"),
 ])
 def test_out_of_scope_configurations_are_refused(kw, item):
-    """Thermal and its policies run since the thermal slice; trace,
-    sharding and the scalar paths are still refused, with thermal on as
-    well."""
+    """Sharding and the scalar paths are still refused, with thermal on as
+    well.  The flight recorder (Queue 1 item 8) runs since its slice: its
+    cases, refused before, now finish and decode their ring."""
     cfg = SimConfig(n_servers=4, max_jobs=8, **kw)
+    if item == "item 8":
+        res = tfarm.simulate(cfg, [0.1], [tjobs.dag_single(0.01)],
+                             device="cpu")
+        assert res.n_finished == 1 and res.trace_dropped == 0
+        kinds = res.trace_events["kind"].tolist()
+        assert kinds == [TraceKind.ARRIVAL, TraceKind.ADMIT,
+                         TraceKind.START, TraceKind.FINISH,
+                         TraceKind.JOB_FINISH]
+        assert res.trace_events["time"][-1] == pytest.approx(0.11)
+        return
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
         tfarm.simulate(cfg, [0.1], [tjobs.dag_single(0.01)], device="cpu")
 
@@ -260,6 +271,7 @@ def test_package_and_chip_smoke_import_no_jax():
         "sys.argv = ['chip_smoke.py']\n"
         "import chip_smoke\n"
         "import repro_torch, repro_torch.convert\n"
+        "import repro_torch.core.trace, repro_torch.core.traceio\n"
         "from repro_torch.core import *\n"
         "from repro_torch.kernels import *\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

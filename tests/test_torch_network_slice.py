@@ -106,7 +106,10 @@ def test_f64_clock_network_matches_oracle_and_f32_run():
              "jobs.task_end", "jobs.start_at", "jobs.finish",
              "jobs.job_finish", "jobs.deadline", "jobs.admit_at",
              "flows.extra", "flows.done_at", "net.port_idle_since",
-             "thermal.ctrl_next"}
+             "thermal.ctrl_next",
+             # the flight recorder's ring takes the clock's dtype, as in
+             # the reference (its (1, 5) placeholder here)
+             "trace.buf"}
     d32 = {p: v.dtype for p, v in tree_leaves(f32)}
     for path, v in tree_leaves(f64):
         want = torch.float64 if path in clock else d32[path]

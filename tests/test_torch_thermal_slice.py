@@ -1,12 +1,13 @@
 """The thermal slice end to end: every scenario of tests/test_thermal.py
-(trace off: the port's flight recorder comes with ROADMAP Queue 1 item 8;
-the replica sweep waits for item 9) through the port's farm.simulate on
-the CPU against the JAX package's, and against the heapq ``OracleSim``
-where it models the case; network mode on case D's k=4 fat-tree with
-topology racks; macro-stepping bit-identical across ``events_per_step``;
-temperature tracking bit-identical to the subsystem off; and the f64
-clock, against the reference with jax_enable_x64 (run in a subprocess:
-the flag is process-wide), the oracle and the f32 run.
+(trace off here; tests/test_torch_trace_slice.py runs the traced ones,
+and the replica sweep waits for ROADMAP Queue 1 item 9) through the
+port's farm.simulate on the CPU against the JAX package's, and against
+the heapq ``OracleSim`` where it models the case; network mode on case
+D's k=4 fat-tree with topology racks; macro-stepping bit-identical
+across ``events_per_step``; temperature tracking bit-identical to the
+subsystem off; and the f64 clock, against the reference with
+jax_enable_x64 (run in a subprocess: the flag is process-wide), the
+oracle and the f32 run.
 
 Tolerances.  Against JAX: discrete state exact (task status, server,
 queue lengths, wake counts, the throttle latch, deferral counts, the

@@ -52,13 +52,22 @@ CLOCK_LEAVES = {"t", "farm.core_busy_until", "farm.srv_wake_at",
                 "farm.srv_idle_since", "jobs.task_end", "jobs.start_at",
                 "jobs.finish", "jobs.job_finish", "jobs.admit_at",
                 "flows.extra", "flows.done_at", "net.port_idle_since",
-                "thermal.ctrl_next"}
+                "thermal.ctrl_next",
+                # the flight recorder's time and aux columns (its kind,
+                # server and tid columns are compared exactly regardless)
+                "trace.buf"}
 
 
 def port_cfg(jcfg, **kw):
-    """The port's SimConfig for a reference SimConfig (via its dump)."""
+    """The port's SimConfig for a reference SimConfig (via its dump), with
+    ``kw`` overriding fields: a torch dtype after the conversion, any
+    other value (the reference's nested configs) before it."""
+    late = {k: v for k, v in kw.items() if isinstance(v, torch.dtype)}
+    early = {k: v for k, v in kw.items() if k not in late}
+    if early:
+        jcfg = dataclasses.replace(jcfg, **early)
     cfg = config_from_dict(jfarm._config_dict(jcfg))
-    return dataclasses.replace(cfg, **kw) if kw else cfg
+    return dataclasses.replace(cfg, **late) if late else cfg
 
 
 def jax_tree(state) -> dict:
@@ -81,7 +90,8 @@ def assert_state_matches(port_state, ref_tree: dict, context: str,
     """Every leaf of a port state against the reference's numpy tree:
     TOL_LEAVES and the leaves in ``tol`` at rtol 1e-5, the rest exactly.
     The reference's (R, N) rack matrix is compared as the port's member
-    table (``convert``)."""
+    table (``convert``); the flight recorder's ring with
+    ``assert_ring_matches``."""
     from repro_torch.convert import _rack_marker
     for path, v in tree_leaves(port_state):
         if path in skip:
@@ -91,12 +101,35 @@ def assert_state_matches(port_state, ref_tree: dict, context: str,
         if path == "thermal.rack_onehot":
             exp = _rack_marker(exp, "cpu").numpy()
         assert got.shape == exp.shape, f"{context}: {path} shape"
+        if path == "trace.buf":
+            assert_ring_matches(got, exp, context, clock_tol=path in tol)
+            continue
         if path in TOL_LEAVES or path in tol:
             np.testing.assert_allclose(got, exp, rtol=1e-5, atol=1e-6,
                                        err_msg=f"{context}: {path}")
         else:
             np.testing.assert_array_equal(got, exp,
                                           err_msg=f"{context}: {path}")
+
+
+def assert_ring_matches(got, exp, context: str,
+                        clock_tol: bool = False) -> None:
+    """Two flight-recorder rings (cap, 5), record for record: the kind,
+    server and tid columns exactly; the time and aux columns exactly, or
+    (``clock_tol``, throttling armed) at rtol 1e-5, since the clock and the
+    temperatures may then sit an ulp or a few from the reference's."""
+    got, exp = np.asarray(got), np.asarray(exp)
+    assert got.shape == exp.shape and got.dtype == exp.dtype, \
+        f"{context}: ring {got.shape} {got.dtype} vs {exp.shape} {exp.dtype}"
+    np.testing.assert_array_equal(got[:, [0, 2, 3]], exp[:, [0, 2, 3]],
+                                  err_msg=f"{context}: ring kind/server/tid")
+    if clock_tol:
+        np.testing.assert_allclose(got[:, [1, 4]], exp[:, [1, 4]],
+                                   rtol=RTOL, atol=1e-6,
+                                   err_msg=f"{context}: ring time/aux")
+    else:
+        np.testing.assert_array_equal(got[:, [1, 4]], exp[:, [1, 4]],
+                                      err_msg=f"{context}: ring time/aux")
 
 
 def random_twin_states(jcfg, seed: int, n_jobs: int = 40, t: float = 1.0):
@@ -586,10 +619,10 @@ def check_obj(port_obj, jax_obj, ctx: str, max_ulp: float = 1.0) -> None:
 
 
 # --------------------------------------------------------------------------
-# thermal scenarios: tests/test_thermal.py's, trace off (the port's flight
-# recorder is Queue 1 item 8).  Each maker takes a jobs module (the
-# reference's or the port's) and returns (reference SimConfig, arrivals,
-# specs, tau, topology module name or None).
+# thermal scenarios: tests/test_thermal.py's, trace off (a caller turns
+# it on with trace=TraceConfig(enabled=True)).  Each maker takes a jobs
+# module (the reference's or the port's) and returns (reference
+# SimConfig, arrivals, specs, tau, topology module name or None).
 # --------------------------------------------------------------------------
 
 HOT = dict(enabled=True, r_th=0.5, tau_th=2.0, t_inlet=22.0, recirc=0.2,
