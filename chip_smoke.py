@@ -18,7 +18,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      binning's paths and their boundary, ten calls in a row (their
      in-kernel reduction's scratch must return to empty) and one call
      captured in a CUDA graph and replayed on new inputs; the advance's
-     float64-clock instance, exactly, on the same farms;
+     float64-clock instance, exactly, on the same farms; [mc-kernels]:
+     both kernels' batched launches (a leading replica axis, one launch
+     for the batch) bitwise equal to their plain versions, the advance at
+     R = 1, 3 x 300, 1,024 x 16 and 4 x 65,536 on both clocks (an
+     all-INF replica among them), the binning at 1,024 x 128 and 8 x 600;
   4. parity of the port on the card against the port on the CPU: two
      discrete-event scenarios, with the engine kernels' launch counters
      checked against the engine's step count; network mode on case study
@@ -37,7 +41,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      [trace-parity] runs tests/test_trace.py's rich scenario (sleep
      timers, throttling) at the default capacity and at 64 slots, where
      the ring wraps; every ring is compared record for record, and those
-     of [trace-parity] must be bit-equal;
+     of [trace-parity] must be bit-equal; [mc-parity]: the reference's
+     replica batches (tests/torch_kernel_inputs.py mc_scenario) through
+     montecarlo.run_replicas, card against CPU, and each replica of the
+     card's batch against a solo run of its inputs on the card;
   5. the discrete-event main run: farm.simulate on a 65,536-server x
      4-core farm (the largest farm benchmarks/bench_engine.py records)
      under 600 Poisson jobs at 50% utilisation; every job must finish;
@@ -59,6 +66,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the untraced run as it was, and export to a Chrome trace that passes
      benchmarks/trace_smoke.py's schema check; its overhead is also
      measured in turns with the untraced run, 10 macro-steps a window;
+     then the replica main run ([mc-main]): montecarlo.run_replicas on
+     benchmarks/bench_engine.py replica_throughput's two largest points
+     (1,024 replicas x 16 servers x 100 jobs, 64 x 64 x 200): every job of
+     every replica finishes, K advance launches and one binning launch a
+     macro-step, and a batched macro-step within 3% of the launches of a
+     single run of one replica;
   6. the serving main run: ServeEngine.generate on hymba-1.5b (32 layers,
      bf16, seeded random weights) for 4 prompts of 1,536 tokens and 32 new
      tokens, greedy; exactly one launch of each LM kernel per layer, the
@@ -119,6 +132,19 @@ TH_PAR_JOBS = 300
 # k=16 fat-tree, its 30 jobs/s over 16 servers scaled to 1,024 servers
 NET_K, NET_JOBS, NET_LAM = 16, 300, 1920.0
 NET_SERVERS = NET_K ** 3 // 4           # a k-ary fat-tree's servers
+# [mc-main]: benchmarks/bench_engine.py replica_throughput's two largest
+# points, (replicas, servers, jobs a replica, max_jobs)
+MC_POINTS = ((1024, 16, 100, 128), (64, 64, 200, 256))
+# [mc-parity]: the reference's replica scenarios (tests/torch_kernel_inputs
+# mc_scenario): test_montecarlo's R = 3 batch, tau sweep and k = 4
+# fat-tree ROUND_ROBIN batch, test_thermal's replica sweep, test_telemetry's
+# zero-finish batch, and test_trace's rich scenario at R = 2, 64 slots
+MC_PARITY = ("replicas_r3", "tau_sweep_r", "fat_tree_rr", "thermal_sweep",
+             "telemetry_empty", "traced_rich_cap64")
+# [mc-kernels]: the batched instances' shapes, (R, N) for the advance and
+# (R, J = J*T) for the binning
+MC_ADVANCE = ((1, 1000), (3, 300), (1024, 16), (4, 65_536))
+MC_BINNING = ((1024, 128), (8, 600))
 # the serving main run and the card-vs-CPU serving parity run
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "hymba_1_5b", 4, 1536, 32
 LM_MAX_SEQ = 2048
@@ -368,7 +394,15 @@ def engine_inputs(name, seed, dev):
     clocks) and at the network run's NET_SERVERS x C_MAIN, the binning at
     the engine's J = J*T = JOBS_MAIN (one block) or at 100,003 / 300,009
     (across blocks)."""
-    from torch_kernel_inputs import dcsim_inputs, tb_inputs, torch_args
+    from torch_kernel_inputs import (dcsim_inputs, dcsim_inputs_batched,
+                                     tb_inputs, tb_inputs_batched,
+                                     torch_args)
+    R, n, nj, mj = MC_POINTS[0]
+    if name == "dcsim_advance replicas":
+        return torch_args(dcsim_inputs_batched(R, n, C_MAIN, seed), dev)
+    if name == "telemetry_accum replicas":
+        return torch_args(tb_inputs_batched(R, mj, mj, 64, 1, 19, seed),
+                          dev)
     if name == "dcsim_advance":
         return torch_args(dcsim_inputs(N_MAIN, C_MAIN, seed), dev)
     if name == "dcsim_advance f64":
@@ -424,9 +458,12 @@ def engine_repeat_and_graph(name, dev) -> None:
 ENGINE_TIMED = {"dcsim_advance": 1, "telemetry_accum": 4,
                 "telemetry_accum large": 5}
 # the advance's float64 instance at the main farm and the float32 one at
-# the network run's farm, timed in a full run only (an older checkout's
-# --engine-calls has no float64 instance)
-ENGINE_TIMED_MORE = {"dcsim_advance f64": 1, "dcsim_advance 1024": 9}
+# the network run's farm, and both kernels' batched launches at [mc-main]'s
+# 1,024-replica point, timed in a full run only (an older checkout's
+# --engine-calls has neither a float64 instance nor a replica axis)
+ENGINE_TIMED_MORE = {"dcsim_advance f64": 1, "dcsim_advance 1024": 9,
+                     "dcsim_advance replicas": 12,
+                     "telemetry_accum replicas": 13}
 
 
 def engine_call_times(dev, timed=ENGINE_TIMED) -> dict:
@@ -448,8 +485,10 @@ def engine_call_times(dev, timed=ENGINE_TIMED) -> dict:
             n_bytes = nbytes(*[x for x in a if torch.is_tensor(x)], *res)
             # per server: C compares, C adds, C selects, ~12 flops of
             # power and accrual, 3 mins (float64 compares and mins on the
-            # float64 clock, counted at the f32 rate: a lower bound)
-            ops = {"f32 operations": (a[0].shape[0] * (3 * C_MAIN + 15),
+            # float64 clock, counted at the f32 rate: a lower bound); a
+            # replica batch counts the servers of every replica
+            n_srv = a[0].numel() // a[0].shape[-1]
+            ops = {"f32 operations": (n_srv * (3 * C_MAIN + 15),
                                       PEAK_F32_OPS_S)}
         else:
             call = telemetry_call
@@ -1078,6 +1117,305 @@ def trace_main(dev, th):
 
 
 # --------------------------------------------------------------------------
+# replica sweeps (core/montecarlo.py): batched kernels, card vs CPU, the
+# replica main run
+# --------------------------------------------------------------------------
+
+ADVANCE_OUT = ("new_busy", "done", "energy", "busy_seconds", "candidate")
+
+
+def mc_kernels(dev) -> dict:
+    """[mc-kernels]: each kernel's batched launch against its plain version
+    on the card, bitwise, at MC_ADVANCE on both clocks (replica 1 of every
+    batch an all-INF farm, whose candidate is INF) and at MC_BINNING;
+    one launch a call whatever R, the advance's per-replica scratch back
+    to empty after it.  Returns {kernel: largest abs error} (0.0)."""
+    from repro_torch.kernels import dcsim_step, ref, telemetry_bin
+    from torch_kernel_inputs import (dcsim_inputs_batched, tb_inputs_batched,
+                                     torch_args)
+    sms = dcsim_step.sm_count(dev)
+    for R, n in MC_ADVANCE:
+        for clock in (np.float32, np.float64):
+            a = torch_args(dcsim_inputs_batched(
+                R, n, C_MAIN, 40 + R, clock=clock,
+                inf_replica=1 if R > 1 else None), dev)
+            before = dcsim_step.LAUNCHES
+            got = dcsim_step.dcsim_advance(*a, throttle_power_scale=0.6)
+            launches = dcsim_step.LAUNCHES - before
+            exp = ref.dcsim_advance_reference(*a, throttle_power_scale=0.6)
+            torch.cuda.synchronize()
+            for name, g, e in zip(ADVANCE_OUT, got, exp):
+                if g.shape != e.shape or g.dtype != e.dtype \
+                        or not torch.equal(g, e):
+                    fail(f"mc-kernels: dcsim_advance R={R} N={n} "
+                         f"{clock.__name__}: {name} differs from the plain "
+                         f"version")
+            words = dcsim_step.scratch(dev, a[0].dtype, R).tolist()
+            if launches != 1 or words != [0] * R + [-1] * R:
+                fail(f"mc-kernels: dcsim_advance R={R} N={n}: {launches} "
+                     f"launches, scratch {words[:4]}...")
+            p = dcsim_step.plan(n, C_MAIN, sms=sms, replicas=R,
+                                f64=clock == np.float64)
+            inf = "" if R == 1 else (
+                f"; replica 1's candidate {float(got[4][1]):.3g} (all INF)")
+            log(f"[mc-kernels] dcsim_advance R={R} x N={n} x C={C_MAIN} "
+                f"({clock.__name__} clock): one launch of {p.grid} x {R} "
+                f"blocks of {p.block} threads, bitwise equal to the plain "
+                f"version{inf}")
+    for R, J in MC_BINNING:
+        a = torch_args(tb_inputs_batched(R, J, J, 64, 1, 19, 50 + R), dev)
+        before = telemetry_bin.LAUNCHES
+        got = telemetry_bin.telemetry_accum(*a)
+        launches = telemetry_bin.LAUNCHES - before
+        exp = ref.telemetry_accum_reference(*a)
+        torch.cuda.synchronize()
+        for name, g, e in zip(("job_hist", "task_hist", "win"), got, exp):
+            if g.shape != e.shape or not torch.equal(g, e):
+                fail(f"mc-kernels: telemetry_accum R={R} J={J}: {name} "
+                     f"differs from the plain version")
+        if launches != 1:
+            fail(f"mc-kernels: telemetry_accum R={R}: {launches} launches")
+        p = telemetry_bin.plan(J, J, 64, 1, 19, sms=sms, replicas=R)
+        log(f"[mc-kernels] telemetry_accum R={R} x J={J} (J*T={J}): one "
+            f"launch of {p.grid} x {R} blocks of {p.block} threads "
+            f"({p.path} path), bitwise equal to the plain version")
+    return {"dcsim_advance": 0.0, "telemetry_accum": 0.0}
+
+
+def ulps(got: torch.Tensor, exp: torch.Tensor) -> float:
+    """Largest |got - exp| in units of exp's last place (0 where equal)."""
+    if got.numel() == 0:
+        return 0.0
+    e = exp.abs()
+    up = (torch.nextafter(e, torch.full_like(e, math.inf)) - e).double()
+    return float(((got.double() - exp.double()).abs() / up).max())
+
+
+def mc_parity(name, dev) -> None:
+    """[mc-parity]: a replica scenario on the card against the CPU (the
+    engine's limits: discrete state and histograms exact, floats rtol
+    1e-5; every replica's ring bit-equal), and each replica of the card's
+    batch against a solo run of its inputs on the card (discrete exact,
+    floats rtol 1e-5, the largest ulp difference printed)."""
+    from repro_torch.core import engine, jobs, montecarlo, topology, types
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.kernels import ops
+    from torch_kernel_inputs import mc_config, mc_scenario
+    kw, nested, arrs, specs, taus, net = mc_scenario(name, jobs)
+    cfg = mc_config(types, kw, nested)
+    topo = topology.fat_tree(4, link_cap=1.25e9) if net else None
+    runs = {}
+    for d in ("cpu", dev):
+        sb, tc = montecarlo.batched_state(cfg, arrs, specs, taus=taus,
+                                          topo=topo, device=d)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = montecarlo.run_replicas(cfg, sb, tc)
+        if d != "cpu":
+            torch.cuda.synchronize()
+        runs[str(d)] = (sb, tc, out, ops.launch_counts(),
+                        time.perf_counter() - t0)
+    sb, tc, gpu, counts, t_gpu = runs[str(dev)]
+    cpu, t_cpu = runs["cpu"][2], runs["cpu"][4]
+    R = arrs.shape[0]
+    worst, ring = 0.0, ""
+    for (path, g), (_, c) in zip(tree_leaves(gpu), tree_leaves(cpu)):
+        g = g.cpu()
+        if path == "trace.buf" and cfg.trace.enabled:
+            ring = ", ".join(ring_diff(f"{name} replica {r}", g[r], c[r],
+                                       True) for r in range(R))
+        elif g.dtype.is_floating_point and path not in ("telem.job_hist",
+                                                        "telem.task_hist"):
+            if not torch.allclose(g, c, rtol=1e-5, atol=0.0):
+                fail(f"mc-parity {name}: {path} beyond rtol 1e-5")
+            if g.numel():
+                rel = ((g - c).abs() / c.abs().clamp(min=1e-30)).max()
+                worst = max(worst, float(rel))
+        elif not torch.equal(g, c):
+            fail(f"mc-parity {name}: {path} differs between card and CPU")
+    steps = int(gpu.steps.max())
+    if counts["dcsim_advance"] != steps * cfg.events_per_step or (
+            cfg.telemetry.enabled and counts["telemetry_accum"] != steps):
+        fail(f"mc-parity {name}: launches {counts} for {steps} macro-steps")
+    solo_ulp = 0.0
+    for r in range(R):
+        solo = engine.run(montecarlo.replica_state(sb, r), cfg, tc)
+        rep = montecarlo.replica_state(gpu, r)
+        for (path, g), (_, s) in zip(tree_leaves(rep), tree_leaves(solo)):
+            if g.dtype.is_floating_point:
+                if not torch.allclose(g, s, rtol=1e-5, atol=0.0):
+                    fail(f"mc-parity {name}: replica {r} {path} beyond rtol "
+                         f"1e-5 of its solo run")
+                solo_ulp = max(solo_ulp, ulps(g, s))
+            elif not torch.equal(g, s):
+                fail(f"mc-parity {name}: replica {r} {path} differs from "
+                     f"its solo run")
+    st = montecarlo.replica_stats(gpu, cfg)
+    more = f"; rings {ring}" if ring else ""
+    if cfg.thermal.enabled:
+        more += (f"; throttle seconds {np.round(st['throttle_seconds'], 3)}"
+                 f", peak {np.round(st['peak_temp'], 3)} C")
+    if cfg.has_network:
+        more += f"; flows dropped {st['flows_dropped']}"
+    log(f"[mc-parity] {name}, R={R}: card == CPU (discrete exact, floats "
+        f"max rel err {worst:.3g}); every replica == its solo run on the "
+        f"card (discrete exact, floats within {solo_ulp:g} ulp); events "
+        f"{gpu.events.tolist()}, steps {gpu.steps.tolist()}, finished "
+        f"{st['finished'].tolist()}, mean latency "
+        f"{np.round(st['mean_latency'], 6).tolist()}; launches {counts} "
+        f"({steps} macro-steps x K={cfg.events_per_step}); CPU {t_cpu:.2f} "
+        f"s, card {t_gpu:.2f} s{more}")
+
+
+def mc_point(R, n_servers, n_jobs, max_jobs):
+    """benchmarks/bench_engine.py replica_throughput: R farms of n_servers
+    x 4 cores, n_jobs Poisson jobs each at 50% utilisation (arrival seeds
+    0..R-1), 10 ms mean exponential service (specs from default_rng(1)),
+    ALWAYS_ON, LOAD_BALANCE, telemetry on, K=8, max_events=10,000."""
+    from repro_torch.core import jobs, workload
+    from repro_torch.core.types import SimConfig, SleepPolicy
+    cfg = SimConfig(n_servers=n_servers, n_cores=4, local_q=64,
+                    max_jobs=max_jobs, tasks_per_job=1,
+                    sleep_policy=SleepPolicy.ALWAYS_ON, max_events=10_000)
+    rng = np.random.default_rng(1)
+    lam = workload.utilization_to_rate(0.5, 0.01, n_servers, 4)
+    arrs = np.stack([workload.poisson_arrivals(lam, n_jobs, seed=s)
+                     for s in range(R)])
+    specs = [jobs.dag_single(rng.exponential(0.01)) for _ in range(n_jobs)]
+    return cfg, arrs, specs
+
+
+def run_loop_steps(state, cfg, tc, n):
+    """``n`` iterations of engine.run's loop body: the active mask, its one
+    host read, the masked macro-step (unmasked for a single run)."""
+    from repro_torch.core import engine
+    for _ in range(n):
+        active = ~state.done & (state.events < cfg.max_events)
+        bool(active.any())
+        state = engine._step(state, cfg, tc,
+                             active if active.dim() else None)
+    return state
+
+
+class OpCount:
+    """PyTorch operations dispatched (views, which launch nothing, left
+    out): the host's count of what a stretch of code sends to the card."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class Mode(TorchDispatchMode):
+            n = 0
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if not func.is_view:
+                    Mode.n += 1
+                return func(*args, **(kwargs or {}))
+        self.mode = Mode
+
+    def __call__(self, fn):
+        self.mode.n = 0
+        with self.mode():
+            fn()
+        return self.mode.n
+
+
+def mc_launches(cfg, arrs, specs, dev, warm=3, steps=5):
+    """Launches per macro-step of the batch and of a single run of
+    replica 0, ``steps`` loop iterations after ``warm``: kernels and
+    copies the profiler records (0 when it records no device activity,
+    which ``mc_main`` refuses) and the operations dispatched.  Returns
+    {"batch"/"single": (profile, wall, launches a step, operations a
+    step)}."""
+    from repro_torch.core import engine, jobs, montecarlo
+    sb, tc = montecarlo.batched_state(cfg, arrs, specs)
+    jt = jobs.build_jobs(cfg, arrs[0], specs)
+    st, tc1 = engine.init_state(cfg, jt)
+    out, count = {}, OpCount()
+    for key, s, c in (("batch", sb, tc), ("single", st, tc1)):
+        box = [run_loop_steps(s, cfg, c, warm)]
+
+        def window():
+            box[0] = run_loop_steps(box[0], cfg, c, steps)
+        ks, wall = device_kernels(window)
+        n_ops = count(window)
+        out[key] = (ks, wall, sum(n for n, _ in ks.values()) / steps,
+                    n_ops / steps)
+    return out
+
+
+def mc_main(dev) -> list:
+    """[mc-main]: montecarlo.run_replicas on MC_POINTS through the user's
+    entry points (batched_state, run_replicas, replica_stats) on the card.
+    Every job of every replica must finish, the advance launch K times a
+    macro-step and the binning once, and a macro-step of the batch take
+    within 3% of the launches of a single run of one replica.  Returns
+    one dict a point."""
+    from repro_torch.core import montecarlo
+    from repro_torch.kernels import ops
+    rows = []
+    for R, n, nj, mj in MC_POINTS:
+        cfg, arrs, specs = mc_point(R, n, nj, mj)
+        t0 = time.perf_counter()
+        sb, tc = montecarlo.batched_state(cfg, arrs, specs)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = montecarlo.run_replicas(cfg, sb, tc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        st = montecarlo.replica_stats(out, cfg)
+        events, steps = int(out.events.sum()), int(out.steps.max())
+        K = cfg.events_per_step
+        if int(st["finished"].sum()) != R * nj:
+            fail(f"mc-main R={R}: {int(st['finished'].sum())} of {R * nj} "
+                 f"jobs finished")
+        if counts["dcsim_advance"] != K * steps or \
+                counts["telemetry_accum"] != steps:
+            fail(f"mc-main R={R}: launches {counts} for {steps} macro-steps")
+        if not (np.isfinite(st["mean_latency"]).all()
+                and (st["energy"] > 0).all()
+                and np.isfinite(st["p99_latency"]).all()):
+            fail(f"mc-main R={R}: non-finite or impossible statistics")
+        prof = mc_launches(cfg, arrs, specs, dev)
+        per_b, per_s = prof["batch"][2], prof["single"][2]
+        op_b, op_s = prof["batch"][3], prof["single"][3]
+        if per_b == 0 or per_s == 0:
+            fail(f"mc-main R={R}: the profiler recorded no device activity "
+                 f"(batch {per_b:.0f}, replica 0 alone {per_s:.0f} a "
+                 f"macro-step)")
+        if per_b > 1.03 * per_s:
+            fail(f"mc-main R={R}: {per_b:.0f} launches (profiler) a "
+                 f"macro-step against {per_s:.0f} for one replica alone")
+        if op_b > 1.03 * op_s:
+            fail(f"mc-main R={R}: {op_b:.0f} PyTorch operations dispatched "
+                 f"a macro-step against {op_s:.0f} for one replica alone")
+        log(f"[mc-main] {R} replicas x {n} servers x 4 cores, {nj} jobs "
+            f"each: batched_state {t_build:.3f} s; run_replicas wall "
+            f"{wall:.3f} s, events {events}, macro-steps {steps}, "
+            f"{events / wall:.1f} aggregate events/s; jobs finished "
+            f"{int(st['finished'].sum())} of {R * nj}; mean latency over "
+            f"replicas {float(st['mean_latency'].mean()) * 1e3:.4f} ms, p99 "
+            f"(histograms) {float(np.median(st['p99_latency'])) * 1e3:.4f} "
+            f"ms median; energy {float(st['energy'].sum()):.1f} J; "
+            f"launches {counts} (advance {counts['dcsim_advance'] / steps:g} "
+            f"and binning {counts['telemetry_accum'] / steps:g} a "
+            f"macro-step); launches a macro-step (profiler) {per_b:.0f} "
+            f"batched against {per_s:.0f} for replica 0 alone "
+            f"({100 * (per_b / per_s - 1):+.2f}%), PyTorch operations "
+            f"dispatched {op_b:.0f} against {op_s:.0f} "
+            f"({100 * (op_b / op_s - 1):+.2f}%)")
+        ks, pwall, _, _ = prof["batch"]
+        report_profile(f"replica run R={R} x N={n}, 5 macro-steps after 3",
+                       ks, pwall, ("dcsim", "telemetry_bin"), 5)
+        rows.append(dict(R=R, n=n, counts=counts, steps=steps,
+                         events=events, wall=wall))
+    return rows
+
+
+# --------------------------------------------------------------------------
 # LM substrate: kernels, card-vs-CPU serving parity, serving main run
 # --------------------------------------------------------------------------
 
@@ -1508,6 +1846,7 @@ def main() -> None:
     ss_main, ss_err = check_ssm(*SSM_MAIN, dev)
     for case in SSM_RAGGED + SSM_EDGES:
         ss_err = max(ss_err, check_ssm(*case, dev)[1])
+    mc_err = mc_kernels(dev)
 
     # phase 4: card vs CPU
     parity("one_farm n512 j600", *one_farm_cfg(512, 600), dev)
@@ -1560,6 +1899,8 @@ def main() -> None:
         if (int(g.trace.dropped) > 0) != (cap == 64):
             fail(f"trace-parity: {int(g.trace.dropped)} records dropped at "
                  f"capacity {cap}")
+    for name in MC_PARITY:
+        mc_parity(name, dev)
     lm_parity(dev)
 
     # phase 5: the discrete-event main run through the user's entry point
@@ -1589,6 +1930,7 @@ def main() -> None:
     th = thermal_main(dev)
     th_counts, th_cfg, th_arr, th_specs, _ = th
     tr_counts, tr_cfg = trace_main(dev, th)
+    mc_rows = mc_main(dev)
 
     # phase 6: the serving main run through the user's entry point
     lm_cfg, lm_params, lm_toks, lm_counts = lm_main(dev)
@@ -1631,6 +1973,27 @@ def main() -> None:
             "device_ms": None if tm["device_us"] is None
             else tm["device_us"] / 1e3, "device_ops": tm["ops"],
             "launches": launches}
+    # the batched launches, rows of their own: timed at [mc-main]'s
+    # 1,024-replica point, their launches there (and at the 64-replica one)
+    for name, src, replaces in (
+            ("dcsim_advance", "dcsim_step",
+             "src/repro/kernels/dcsim_step.py:68"),
+            ("telemetry_accum", "telemetry_bin",
+             "src/repro/kernels/telemetry_bin.py:51")):
+        tm = times[f"{name} replicas"]
+        kernels.append({
+            "name": f"{name} (replicas)", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+            "replaces": replaces, "launches": mc_rows[0]["counts"][name],
+            "max_abs_err": mc_err[name], "ms": tm["ms"],
+            "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+            "bound_by": tm["bound_by"], "bound_op": tm["bound_op"],
+            "library_ms": None, "device_ops": tm["ops"],
+            "device_ms": None if tm["device_us"] is None
+            else tm["device_us"] / 1e3,
+            "replicas": MC_POINTS[0][0],
+            "launches_r64": mc_rows[1]["counts"][name]})
+        dev_us[f"{name} (replicas)"] = tm["device_us"]
     lm_entries, lm_dev_us = lm_kernel_entries(
         (fa_q, fa_kw), ss_main, lm_counts, fa_err, ss_err, dev)
     kernels += lm_entries
@@ -1638,6 +2001,15 @@ def main() -> None:
     for k in kernels:
         d = dev_us[k["name"]]
         k["device_ms"] = None if d is None else d / 1e3
+        if "replicas" in k:
+            R, n, nj, mj = MC_POINTS[0]
+            size = f"N={n}" if "advance" in k["name"] else f"J={mj}"
+            log_engine_time(k["name"], times[k["name"].split(" (")[0]
+                                             + " replicas"],
+                            f"; the batched launch at R={R} x {size}; "
+                            f"{k['launches']} launches in [mc-main] R={R}, "
+                            f"{k['launches_r64']} at R=64")
+            continue
         if "device_ops" in k:
             log_engine_time(k["name"], times[k["name"]],
                             f"; {k['launches']} launches in its main run, "

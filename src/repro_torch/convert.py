@@ -10,7 +10,9 @@ and trace subtrees come across too, so a mid-run network, thermal or
 traced state steps in both packages (the engine copies a converted ring
 into one with its sentinel row before it writes it, ``core/trace.py``).
 The reference's (R, N) rack membership matrix becomes the port's (R, K)
-member table (``core.types.ThermalState``).
+member table (``core.types.ThermalState``).  A replica batch (the
+reference's ``montecarlo.batched_state``, a leading R on every leaf)
+comes across as a port batch, leaf for leaf.
 ``params_from_jax`` turns the reference's LM parameter tree (numpy
 leaves, stacked over periods) into the port's per-layer ``Params``.
 Nothing here imports JAX.
@@ -88,10 +90,13 @@ def _rack_marker(onehot, device) -> torch.Tensor:
     """The port's ``rack_onehot`` for the reference's: (0, 0) (contiguous
     racks) and the (1, 1) placeholder of a disabled subsystem come across
     as they are; an (R, N) membership matrix becomes the port's (R, K)
-    member table."""
+    member table.  A replica batch's (n, ...) stack converts matrix by
+    matrix."""
     onehot = np.asarray(onehot)
-    if onehot.shape in ((0, 0), (1, 1)):
+    if onehot.shape[-2:] in ((0, 0), (1, 1)):
         return _tensor(onehot, device)
+    if onehot.ndim == 3:
+        return torch.stack([_rack_marker(m, device) for m in onehot])
     from .core.thermal import member_table
     return torch.from_numpy(member_table(onehot.argmax(axis=0),
                                          onehot.shape[0])).to(device)
@@ -101,7 +106,8 @@ def state_from_numpy(tree: dict, cfg: T.SimConfig, device=None) -> T.SimState:
     """A port SimState from ``{field path: numpy array}`` on ``device`` (the
     default CUDA device, or the CPU when asked).  Time-typed leaves keep
     the dtype they come with, which is ``cfg.time_dtype`` for a reference
-    state of the same configuration."""
+    state of the same configuration.  A batched tree (every leaf with a
+    leading R, ``t`` of shape (R,)) gives a replica batch."""
     tree = {k.lstrip("."): v for k, v in tree.items()}
     state = _build(T.SimState, "", tree, T.resolve_device(device))
     if state.t.dtype != cfg.time_dtype:

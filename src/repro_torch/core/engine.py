@@ -28,6 +28,15 @@ Flight recorder: each pass collects its records in a list (``recs``) as
 it applies events, in the reference's order, and flushes them once at its
 end; a cheap pass flushes under its ``alive`` flag, so a discarded pass
 records nothing.
+
+The replica axis (``core/montecarlo.py``): every function here takes a
+state whose leaves share a leading batch shape, ``()`` for one run and
+``(R,)`` for R independent farms, as ``jax.vmap`` gives the reference.
+Reductions, ranks and gathers run along the trailing axes, scatters take
+a sentinel column a replica (``types.set_drop``), and the two kernels
+launch once a call for the whole batch.  ``run`` stops each replica on
+its own ``~done & (events < max_events)``: a replica that stopped keeps
+its state leaf by leaf, its ring included, while the others step.
 """
 from __future__ import annotations
 
@@ -40,12 +49,11 @@ from ..kernels import ops
 from . import network, power, scheduler, server, telemetry
 from . import thermal as thermal_mod
 from . import trace as trace_mod
-from .server import set_drop
 from .trace import stage, stage1
 from .types import (INF, JobTable, SchedPolicy, ServerFarm, SimConfig,
                     SimState, SleepPolicy, SrvState, TaskStatus, TraceKind,
-                    init_farm, init_flows, init_net, init_sched, replace,
-                    tree_where)
+                    init_farm, init_flows, init_net, init_sched, lift,
+                    replace, set_drop, take, tree_where)
 
 I32 = torch.int32
 I64 = torch.int64
@@ -122,13 +130,14 @@ def _active_jobs(jobs: JobTable) -> torch.Tensor:
     """Tasks in flight (READY/QUEUED/RUNNING) -- the provisioning load."""
     s = jobs.status
     return ((s == TaskStatus.READY) | (s == TaskStatus.QUEUED)
-            | (s == TaskStatus.RUNNING)).sum(dtype=I32)
+            | (s == TaskStatus.RUNNING)).sum(dim=-1, dtype=I32)
 
 
 def _pending_jobs(jobs: JobTable) -> torch.Tensor:
     """Tasks waiting for a core (READY/QUEUED) -- the WASP pool metric."""
     s = jobs.status
-    return ((s == TaskStatus.READY) | (s == TaskStatus.QUEUED)).sum(dtype=I32)
+    return ((s == TaskStatus.READY) | (s == TaskStatus.QUEUED)).sum(
+        dim=-1, dtype=I32)
 
 
 def _deferral_on(cfg: SimConfig) -> bool:
@@ -140,8 +149,10 @@ def _deferral_on(cfg: SimConfig) -> bool:
 
 
 def _next_arrival(jobs: JobTable) -> torch.Tensor:
-    J = jobs.arrival.shape[0]
-    nxt = jobs.arrival[jobs.arr_ptr.clamp(0, J - 1).to(I64)]
+    """The next arrival's time (INF past the table), a gather along the
+    job axis: no host read."""
+    J = jobs.arrival.shape[-1]
+    nxt = take(jobs.arrival, jobs.arr_ptr.clamp(0, J - 1))
     return torch.where(jobs.arr_ptr < J, nxt, INF)
 
 
@@ -150,21 +161,22 @@ def _farm_candidates(state: SimState, cfg: SimConfig) -> torch.Tensor:
     READY/startable pin to ``now`` -- everything the cheap core handles."""
     farm = state.farm
     t_next = torch.minimum(
-        torch.minimum(_next_arrival(state.jobs), farm.core_busy_until.min()),
-        torch.minimum(farm.srv_wake_at.min(),
+        torch.minimum(_next_arrival(state.jobs),
+                      farm.core_busy_until.amin(dim=(-2, -1))),
+        torch.minimum(farm.srv_wake_at.amin(dim=-1),
                       scheduler.next_timer_event(farm, cfg)))
     if _deferral_on(cfg):
         # deferred-job releases are ordinary events of the cheap core too
-        t_next = torch.minimum(t_next, state.jobs.admit_at.min())
+        t_next = torch.minimum(t_next, state.jobs.admit_at.amin(dim=-1))
     if cfg.thermal.has_ctrl:
         # setpoint-controller ticks, applied right after the advance
         t_next = torch.minimum(t_next, state.thermal.ctrl_next)
     # pending READY tasks (or queued work on awake free cores) run "now"
-    ready = (state.jobs.status == TaskStatus.READY).any()
+    ready = (state.jobs.status == TaskStatus.READY).any(dim=-1)
     awake = (farm.srv_state == SrvState.ACTIVE) \
         | (farm.srv_state == SrvState.IDLE)
     startable = (awake & (farm.q_len > 0)
-                 & (farm.core_busy_until >= INF).any(dim=1)).any()
+                 & (farm.core_busy_until >= INF).any(dim=-1)).any(dim=-1)
     t_next = torch.where(ready | startable, state.t, t_next)
     return torch.maximum(t_next, state.t).to(cfg.time_dtype)
 
@@ -174,7 +186,7 @@ def next_event_time(state: SimState, cfg: SimConfig) -> torch.Tensor:
     and throttle-threshold crossings when throttling is armed."""
     t_next = _farm_candidates(state, cfg)
     if cfg.has_network:
-        t_next = torch.minimum(t_next, state.flows.done_at.min())
+        t_next = torch.minimum(t_next, state.flows.done_at.amin(dim=-1))
     if cfg.thermal.throttling:
         t_next = torch.minimum(t_next, thermal_mod.next_crossing(state, cfg))
     return torch.maximum(t_next, state.t).to(cfg.time_dtype)
@@ -208,8 +220,8 @@ def _advance_interval(state: SimState, cfg: SimConfig, tc: EngineConsts,
         tcfg = cfg.thermal
         target, alpha, t_end = thermal_mod.rc_step(
             state.thermal, tcfg, p_busy[0], state.t, dtf)
-        p_sw_t = p_sw.sum() if cfg.has_network \
-            else torch.zeros((), dtype=F32, device=dtf.device)
+        p_sw_t = p_sw.sum(dim=-1) if cfg.has_network \
+            else torch.zeros_like(dtf)
         p_cool = thermal_mod.cooling_power(p_busy[0], p_sw_t, state.thermal,
                                            tcfg)
         thermal_ctx = (target, alpha, t_end, p_cool)
@@ -220,9 +232,12 @@ def _advance_interval(state: SimState, cfg: SimConfig, tc: EngineConsts,
                                         p_sw, thermal_ctx)
         widx = telemetry.window_index(state.t, dt, cfg.telemetry)
         spill = telemetry.window_spill(state.t, dt, cfg.telemetry)
+        # one row a replica: row widx gets wvals
+        K = wvals.shape[-1]
         telem = replace(telem,
-                        win=telem.win.index_add(0, widx.view(1).to(I64),
-                                                wvals.view(1, -1)),
+                        win=telem.win.scatter_add(
+                            -2, widx.to(I64)[..., None, None].expand(
+                                widx.shape + (1, K)), wvals[..., None, :]),
                         win_overflow=telem.win_overflow + spill)
 
     sp = cfg.server_power
@@ -235,7 +250,7 @@ def _advance_interval(state: SimState, cfg: SimConfig, tc: EngineConsts,
         throttle_power_scale=cfg.thermal.throttle_power_scale)
     farm = replace(farm, core_busy_until=nb, energy=en,
                    busy_core_seconds=bs,
-                   residency=farm.residency + onehot * dtf)
+                   residency=farm.residency + onehot * lift(dtf, 2))
     net, flows = state.net, state.flows
     if cfg.has_network:
         net = power.accrue_switch_energy(net, dt, p_sw)
@@ -259,11 +274,11 @@ def _rebuild_job_completion(jobs: JobTable, cfg: SimConfig, now):
     jobs get job_finish stamped at ``now``."""
     T = cfg.tasks_per_job
     tasks_done = ((jobs.status == TaskStatus.DONE)
-                  & jobs.valid).view(-1, T).sum(dim=1, dtype=I32)
-    n_valid_tasks = jobs.valid.view(-1, T).sum(dim=1, dtype=I32)
+                  & jobs.valid).unflatten(-1, (-1, T)).sum(dim=-1, dtype=I32)
+    n_valid_tasks = jobs.valid.unflatten(-1, (-1, T)).sum(dim=-1, dtype=I32)
     job_complete = (tasks_done >= n_valid_tasks) & (tasks_done > 0)
     job_finish = torch.where(job_complete & (jobs.job_finish >= INF),
-                             now, jobs.job_finish)
+                             lift(now), jobs.job_finish)
     return tasks_done, job_finish
 
 
@@ -273,16 +288,17 @@ def _promote_ready(jobs: JobTable, dep_count, cfg: SimConfig):
     admitted: its roots stay BLOCKED until ``_apply_releases`` places
     it."""
     T = cfg.tasks_per_job
-    tid = torch.arange(jobs.status.shape[0], device=dep_count.device)
-    arrived = tid // T < jobs.arr_ptr
+    tid = torch.arange(jobs.status.shape[-1], device=dep_count.device)
+    arrived = tid // T < lift(jobs.arr_ptr)
     if _deferral_on(cfg):
         arrived = arrived & ~torch.repeat_interleave(
-            jobs.admit_at < INF / 2, T)
+            jobs.admit_at < INF / 2, T, dim=-1)
     ready = (jobs.status == TaskStatus.BLOCKED) & (dep_count <= 0) & arrived
     return torch.where(ready, TaskStatus.READY, jobs.status).to(I32)
 
 
 def _apply_wakeups(farm: ServerFarm, cfg, now):
+    now = lift(now)
     done = (farm.srv_state == SrvState.WAKING) & (farm.srv_wake_at <= now)
     return replace(
         farm,
@@ -305,31 +321,32 @@ def _resolve_edges(jobs: JobTable, flows, net, cfg: SimConfig, tc,
     reference compacts the finishing tasks to N*C rows in ascending task
     id, so both take the needed edges in the same order (and stage their
     FLOW_SPAWN records in it).  Returns (jobs, flows, net)."""
-    ch = jobs.children                                        # (JT, D)
-    chc = ch.clamp(min=0).view(-1).to(I64)
-    ch_valid = (ch >= 0) & done_task[:, None] & ~jobs.edge_sent
+    ch = jobs.children                                     # (*B, JT, D)
+    flat = ch.shape[:-2] + (-1,)                           # (*B, JT*D)
+    chc = ch.clamp(min=0).reshape(flat).to(I64)
+    ch_valid = (ch >= 0) & done_task[..., None] & ~jobs.edge_sent
     edge_sent = jobs.edge_sent | ch_valid
     if cfg.has_network:
-        dst_srv = jobs.server[chc].view(ch.shape)
+        dst_srv = take(jobs.server, chc).view(ch.shape)
         needs_flow = ch_valid & (jobs.edge_bytes > 0) \
-            & (dst_srv != jobs.server[:, None])
-        dep_count = jobs.dep_count.index_add(
-            0, chc, -(ch_valid & ~needs_flow).view(-1).to(I32))
-        need = needs_flow.view(-1)
-        src = jobs.server[:, None].expand(ch.shape).reshape(-1)
+            & (dst_srv != jobs.server[..., None])
+        dep_count = jobs.dep_count.scatter_add(
+            -1, chc, -(ch_valid & ~needs_flow).reshape(flat).to(I32))
+        need = needs_flow.reshape(flat)
+        src = jobs.server[..., None].expand(ch.shape).reshape(flat)
         flows, net, ok = network.spawn_flows_many(
-            flows, net, tc.net, cfg, need, src, dst_srv.view(-1),
-            jobs.edge_bytes.view(-1), ch.view(-1), now)
+            flows, net, tc.net, cfg, need, src, dst_srv.reshape(flat),
+            jobs.edge_bytes.reshape(flat), ch.reshape(flat), now)
         # a full flow table drop-resolves the edge, as a queue drop does
-        dep_count = dep_count.index_add(0, chc, -(need & ~ok).to(I32))
+        dep_count = dep_count.scatter_add(-1, chc, -(need & ~ok).to(I32))
         if cfg.trace.enabled:
-            stage(recs, need & ok, TraceKind.FLOW_SPAWN, src, ch.view(-1),
-                  jobs.edge_bytes.view(-1))
+            stage(recs, need & ok, TraceKind.FLOW_SPAWN, src,
+                  ch.reshape(flat), jobs.edge_bytes.reshape(flat))
     else:
-        dep_count = jobs.dep_count.index_add(0, chc,
-                                             -ch_valid.view(-1).to(I32))
-    status = torch.where(done_task.any(), _promote_ready(jobs, dep_count, cfg),
-                         jobs.status)
+        dep_count = jobs.dep_count.scatter_add(
+            -1, chc, -ch_valid.reshape(flat).to(I32))
+    status = torch.where(lift(done_task.any(dim=-1)),
+                         _promote_ready(jobs, dep_count, cfg), jobs.status)
     return replace(jobs, status=status, dep_count=dep_count,
                    edge_sent=edge_sent), flows, net
 
@@ -342,19 +359,21 @@ def _apply_completions(state: SimState, cfg: SimConfig, tc,
     farm, jobs = state.farm, state.jobs
     now = state.t
     # free the cores (a no-op for slots the advance kernel already freed)
-    done_core = farm.core_busy_until <= now
+    done_core = farm.core_busy_until <= lift(now, 2)
     farm = replace(farm, core_busy_until=torch.where(
         done_core, INF, farm.core_busy_until))
-    done_task = (jobs.status == TaskStatus.RUNNING) & (jobs.task_end <= now)
+    done_task = (jobs.status == TaskStatus.RUNNING) \
+        & (jobs.task_end <= lift(now))
     status = torch.where(done_task, TaskStatus.DONE, jobs.status).to(I32)
-    finish = torch.where(done_task, now, jobs.finish)
+    finish = torch.where(done_task, lift(now), jobs.finish)
     jobs = replace(jobs, status=status, finish=finish)
     tasks_done, job_finish = _rebuild_job_completion(jobs, cfg, now)
     if cfg.trace.enabled:
-        JT, J = done_task.shape[0], job_finish.shape[0]
+        JT, J = done_task.shape[-1], job_finish.shape[-1]
         dev = done_task.device
         stage(recs, done_task, TraceKind.FINISH, jobs.server,
-              torch.arange(JT, dtype=I32, device=dev), now - jobs.start_at)
+              torch.arange(JT, dtype=I32, device=dev),
+              lift(now) - jobs.start_at)
         new_jf = (jobs.job_finish >= INF / 2) & (job_finish < INF / 2)
         stage(recs, new_jf, TraceKind.JOB_FINISH, -1,
               torch.arange(J, dtype=I32, device=dev),
@@ -373,10 +392,10 @@ def _apply_flow_completions(state: SimState, cfg: SimConfig,
     READY masked by "any flow finished", as the reference gates it."""
     flows, fin = network.complete_flows(state.flows, state.t)
     jobs = state.jobs
-    dep_count = jobs.dep_count.index_add(
-        0, torch.where(fin, flows.child, 0).to(I64), -fin.to(I32))
-    status = torch.where(fin.any(), _promote_ready(jobs, dep_count, cfg),
-                         jobs.status)
+    dep_count = jobs.dep_count.scatter_add(
+        -1, torch.where(fin, flows.child, 0).to(I64), -fin.to(I32))
+    status = torch.where(lift(fin.any(dim=-1)),
+                         _promote_ready(jobs, dep_count, cfg), jobs.status)
     if cfg.trace.enabled:
         # complete_flows keeps dst/child on the deactivated rows
         stage(recs, fin, TraceKind.FLOW_FINISH, flows.dst, flows.child)
@@ -398,33 +417,38 @@ def _apply_arrival(state: SimState, cfg: SimConfig, tc,
     CARBON_AWARE deferral: a deferrable job arriving while the signal is
     above the threshold parks instead, with a release time (the signal's
     solved down-crossing or its deadline, whichever comes first) that is
-    an event candidate; it consumes its arrival slot.  ``hold`` (0-d
-    bool) holds every arrival while due releases are pending, so the
-    release train admits first, as the oracle orders it."""
+    an event candidate; it consumes its arrival slot.  ``hold``
+    (batch-shaped bool) holds every arrival while due releases are
+    pending, so the release train admits first, as the oracle orders
+    it."""
     jobs, farm, sched = state.jobs, state.farm, state.sched
-    J = jobs.arrival.shape[0]
+    J = jobs.arrival.shape[-1]
     T = cfg.tasks_per_job
     K = cfg.arrivals_per_step
     dev = jobs.status.device
-    JT = jobs.status.shape[0]
-    j0 = jobs.arr_ptr
-    jid = j0 + torch.arange(K, dtype=I32, device=dev)
-    nxt = jobs.arrival[jid.clamp(0, J - 1).to(I64)]
-    elig = (jid < J) & (nxt <= state.t) & (nxt < INF / 2)
+    JT = jobs.status.shape[-1]
+    B = jobs.status.shape[:-1]
+    j0 = lift(jobs.arr_ptr)
+    now = lift(state.t)
+    jid = j0 + torch.arange(K, dtype=I32, device=dev)          # (*B, K)
+    nxt = take(jobs.arrival, jid.clamp(0, J - 1))
+    elig = (jid < J) & (nxt <= now) & (nxt < INF / 2)
     # arrivals are sorted, so eligibility is a prefix; enforce it anyway
-    elig = torch.cumprod(elig.to(I32), 0).to(torch.bool)
+    elig = torch.cumprod(elig.to(I32), -1).to(torch.bool)
     if hold is not None:
-        elig = elig & ~hold
-    n_adm = elig.sum(dtype=I32)
+        elig = elig & ~lift(hold)
+    n_adm = elig.sum(dim=-1, dtype=I32)
     adm = elig
     if _deferral_on(cfg):
         tcfg = cfg.thermal
         jc = jid.clamp(0, J - 1).to(I64)
         sig = thermal_mod.defer_signal_now(tcfg, state.t)
         rel = thermal_mod.next_release_time(tcfg, state.t)
-        cand = torch.minimum(rel.to(cfg.time_dtype), jobs.deadline[jc])
-        dfr = elig & jobs.deferrable[jc] & (sig > tcfg.defer_threshold) \
-            & (cand > state.t) & (cand < INF / 2)
+        cand = torch.minimum(lift(rel.to(cfg.time_dtype)),
+                             take(jobs.deadline, jc))
+        dfr = elig & take(jobs.deferrable, jc) \
+            & lift(sig > tcfg.defer_threshold) & (cand > now) \
+            & (cand < INF / 2)
         jobs = replace(jobs, admit_at=set_drop(
             jobs.admit_at, torch.where(dfr, jid, J),
             torch.where(dfr, cand, INF)))
@@ -434,9 +458,9 @@ def _apply_arrival(state: SimState, cfg: SimConfig, tc,
     in_range = tids < JT
     sc = torch.where(in_range, tids, JT)                  # scatter sentinel
     gather = tids.clamp(0, JT - 1).to(I64)
-    elig_t = torch.repeat_interleave(adm, T)
-    is_valid = jobs.valid[gather] & elig_t & in_range
-    root = is_valid & (jobs.dep_count[gather] <= 0)
+    elig_t = torch.repeat_interleave(adm, T, dim=-1)
+    is_valid = take(jobs.valid, gather) & elig_t & in_range
+    root = is_valid & (take(jobs.dep_count, gather) <= 0)
 
     if cfg.sched_policy == SchedPolicy.ROUND_ROBIN:
         # all K*T assignments in one shot (round-robin rank matching)
@@ -453,25 +477,26 @@ def _apply_arrival(state: SimState, cfg: SimConfig, tc,
                 tc.net, state.net, 0, torch.arange(cfg.n_servers, device=dev))
         temp = state.thermal.t_srv if cfg.thermal.enabled and \
             cfg.sched_policy == SchedPolicy.THERMAL_AWARE else None
-        srvs = _batch_picks(farm, cfg, sched, load, root.view(K, T),
+        srvs = _batch_picks(farm, cfg, sched, load, root.view(B + (K, T)),
                             net_cost, temp)
     server_arr = set_drop(jobs.server, sc,
-                          torch.where(is_valid, srvs, jobs.server[gather]))
+                          torch.where(is_valid, srvs,
+                                      take(jobs.server, gather)))
     status = set_drop(jobs.status, sc,
                       torch.where(root, TaskStatus.READY,
-                                  jobs.status[gather]).to(I32))
+                                  take(jobs.status, gather)).to(I32))
     jobs = replace(jobs, server=server_arr, status=status,
-                   arr_ptr=(j0 + n_adm).to(I32))
+                   arr_ptr=(jobs.arr_ptr + n_adm).to(I32))
     if cfg.trace.enabled:
         # ARRIVAL for every consumed arrival slot (deferred jobs too),
         # ADMIT for the placed ones: the server of the job's first task and
         # its queue depth, which changes only at the READY drain
         stage(recs, elig, TraceKind.ARRIVAL, -1, jid)
         first = (j0 * T + torch.arange(K, dtype=I32, device=dev) * T
-                 ).clamp(0, JT - 1).to(I64)
-        job_srv = jobs.server[first]
+                 ).clamp(0, JT - 1)
+        job_srv = take(jobs.server, first)
         stage(recs, adm, TraceKind.ADMIT, job_srv, jid,
-              farm.q_len[job_srv.clamp(min=0).to(I64)])
+              take(farm.q_len, job_srv.clamp(min=0)))
     return replace(state, jobs=jobs, sched=sched)
 
 
@@ -479,18 +504,20 @@ def _batch_picks(farm, cfg: SimConfig, sched, load, root_kt, net_cost=None,
                  temp=None):
     """One score-policy pick per job of a (K, T) admission batch against
     one farm snapshot; job k sees the roots committed by jobs 0..k-1 of
-    the batch as extra load.  Returns the (K*T,) servers, job-major."""
-    K, T = root_kt.shape
-    root_k = root_kt.sum(dim=1, dtype=I32).to(F32)
+    the batch as extra load.  ``root_kt`` (*B, K, T).  Returns the (*B,
+    K*T) servers, job-major."""
+    K, T = root_kt.shape[-2:]
+    root_k = root_kt.sum(dim=-1, dtype=I32).to(F32)
     ar = torch.arange(cfg.n_servers, device=load.device)
-    extra = torch.zeros((cfg.n_servers,), dtype=F32, device=load.device)
+    extra = torch.zeros(load.shape, dtype=F32, device=load.device)
     picks = []
     for k in range(K):                     # static unroll, K small
         srv_k, _ = scheduler.pick_server(farm, cfg, sched, extra, load,
                                          net_cost, temp)
-        extra = torch.where(ar == srv_k, extra + root_k[k], extra)
+        extra = torch.where(ar == lift(srv_k), extra + root_k[..., k, None],
+                            extra)
         picks.append(srv_k)
-    return torch.repeat_interleave(torch.stack(picks), T)
+    return torch.repeat_interleave(torch.stack(picks, dim=-1), T, dim=-1)
 
 
 def _apply_releases(state: SimState, cfg: SimConfig,
@@ -511,61 +538,66 @@ def _apply_releases(state: SimState, cfg: SimConfig,
     bit."""
     jobs = state.jobs
     now = state.t
-    J = jobs.arrival.shape[0]
+    J = jobs.arrival.shape[-1]
     T = cfg.tasks_per_job
-    JT = jobs.status.shape[0]
+    JT = jobs.status.shape[-1]
+    B = jobs.status.shape[:-1]
     K = cfg.arrivals_per_step
     dev = now.device
-    due = (jobs.admit_at < INF / 2) & (jobs.admit_at <= now)
-    # the first K due job ids into (K,) slots, ascending (-1: empty)
-    r = torch.cumsum(due, 0, dtype=I32) - 1
-    jid_b = set_drop(torch.full((K,), -1, dtype=I32, device=dev),
+    due = (jobs.admit_at < INF / 2) & (jobs.admit_at <= lift(now))
+    # the first K due job ids into (*B, K) slots, ascending (-1: empty)
+    r = torch.cumsum(due, -1, dtype=I32) - 1
+    jid_b = set_drop(torch.full(B + (K,), -1, dtype=I32, device=dev),
                      torch.where(due & (r < K), r, K),
                      torch.arange(J, dtype=I32, device=dev))
     jvalid = jid_b >= 0
     jq = jid_b.clamp(0, J - 1).to(I64)
 
-    tids = (jq[:, None] * T + torch.arange(T, device=dev)).view(-1)
+    tids = (jq[..., None] * T + torch.arange(T, device=dev)).flatten(-2)
     gather = tids.clamp(0, JT - 1)
-    valid_t = torch.repeat_interleave(jvalid, T)
+    valid_t = torch.repeat_interleave(jvalid, T, dim=-1)
     sc = torch.where(valid_t, tids, JT)
-    is_valid = jobs.valid[gather] & valid_t
+    is_valid = take(jobs.valid, gather) & valid_t
     # only still-parked roots flip READY: a repeated release of a row that
     # was already processed must never re-run a task
-    root = is_valid & (jobs.dep_count[gather] <= 0) \
-        & (jobs.status[gather] == TaskStatus.BLOCKED)
+    root = is_valid & (take(jobs.dep_count, gather) <= 0) \
+        & (take(jobs.status, gather) == TaskStatus.BLOCKED)
     load = scheduler.server_load(state.farm, cfg).to(F32)
-    srvs = _batch_picks(state.farm, cfg, state.sched, load, root.view(K, T))
+    srvs = _batch_picks(state.farm, cfg, state.sched, load,
+                        root.view(B + (K, T)))
     jobs = replace(
         jobs,
         server=set_drop(jobs.server, sc,
-                        torch.where(is_valid, srvs, jobs.server[gather])),
+                        torch.where(is_valid, srvs,
+                                    take(jobs.server, gather))),
         status=set_drop(jobs.status, sc,
                         torch.where(root, TaskStatus.READY,
-                                    jobs.status[gather]).to(I32)),
+                                    take(jobs.status, gather)).to(I32)),
         admit_at=set_drop(jobs.admit_at, torch.where(jvalid, jid_b, J),
                           INF))
 
     tcfg = cfg.thermal
     therm = state.thermal
-    arr_j = jobs.arrival[jq]
+    arr_j = take(jobs.arrival, jq)
     zero = torch.zeros((), dtype=F32, device=dev)
-    waited = torch.where(jvalid, (now - arr_j).to(F32), zero)
+    waited = torch.where(jvalid, (lift(now) - arr_j).to(F32), zero)
     ci_drop = thermal_mod.carbon_intensity_now(tcfg, arr_j) \
-        - thermal_mod.carbon_intensity_now(tcfg, now)
+        - lift(thermal_mod.carbon_intensity_now(tcfg, now))
     sp = cfg.server_power
-    e_kwh = jobs.service.view(-1, T)[jq].sum(dim=1) \
+    svc = jobs.service.unflatten(-1, (J, T))                   # (*B, J, T)
+    e_kwh = torch.gather(svc, -2, jq[..., None].expand(B + (K, T))
+                         ).sum(dim=-1) \
         * float(np.float32((sp.p_core_active - sp.p_core_idle) / 3.6e6))
     avoided = torch.where(jvalid, ci_drop * e_kwh, zero)
     therm = replace(
-        therm, defer_seconds=therm.defer_seconds + waited.sum(),
-        defer_count=therm.defer_count + jvalid.sum(dtype=I32),
-        grams_avoided=therm.grams_avoided + avoided.sum())
+        therm, defer_seconds=therm.defer_seconds + waited.sum(dim=-1),
+        defer_count=therm.defer_count + jvalid.sum(dim=-1, dtype=I32),
+        grams_avoided=therm.grams_avoided + avoided.sum(dim=-1))
     if cfg.trace.enabled:
-        picks = srvs.view(K, T)[:, 0]
+        picks = srvs.view(B + (K, T))[..., 0]
         stage(recs, jvalid, TraceKind.RELEASE, -1, jid_b, waited)
         stage(recs, jvalid, TraceKind.ADMIT, picks, jid_b,
-              state.farm.q_len[picks.clamp(min=0).to(I64)])
+              take(state.farm.q_len, picks.clamp(min=0)))
     return replace(state, jobs=jobs, thermal=therm)
 
 
@@ -576,21 +608,23 @@ def _resolve_drops(state: SimState, cfg: SimConfig, dropped,
     resolution, masked by ``dropped.any()`` as the reference gates it."""
     now = state.t
     jobs = state.jobs
-    any_drop = dropped.any()
-    finish = torch.where(dropped, now, jobs.finish)
+    any_drop = dropped.any(dim=-1)
+    finish = torch.where(dropped, lift(now), jobs.finish)
     tasks_done, job_finish = _rebuild_job_completion(jobs, cfg, now)
     ch = jobs.children
-    ch_valid = (ch >= 0) & dropped[:, None] & ~jobs.edge_sent
+    flat = ch.shape[:-2] + (-1,)
+    ch_valid = (ch >= 0) & dropped[..., None] & ~jobs.edge_sent
     edge_sent = jobs.edge_sent | ch_valid
-    dep_count = jobs.dep_count.index_add(
-        0, ch.clamp(min=0).view(-1).to(I64), -ch_valid.view(-1).to(I32))
+    dep_count = jobs.dep_count.scatter_add(
+        -1, ch.clamp(min=0).reshape(flat).to(I64),
+        -ch_valid.reshape(flat).to(I32))
     status = _promote_ready(jobs, dep_count, cfg)
     new = replace(jobs, status=status, finish=finish, tasks_done=tasks_done,
                   job_finish=job_finish, dep_count=dep_count,
                   edge_sent=edge_sent)
     new = tree_where(any_drop, new, jobs)
     if cfg.trace.enabled:
-        JT, J = dropped.shape[0], new.job_finish.shape[0]
+        JT, J = dropped.shape[-1], new.job_finish.shape[-1]
         dev = dropped.device
         stage(recs, dropped, TraceKind.DROP, new.server,
               torch.arange(JT, dtype=I32, device=dev))
@@ -608,21 +642,22 @@ def _drain_ready(state: SimState, cfg: SimConfig, recs=None) -> SimState:
     the identity, so the reference's gate needs no mask."""
     jobs, farm = state.jobs, state.farm
     K = cfg.ready_per_step
-    JT = jobs.status.shape[0]
+    JT = jobs.status.shape[-1]
+    B = jobs.status.shape[:-1]
     N = cfg.n_servers
     dev = jobs.status.device
     is_ready = jobs.status == TaskStatus.READY
-    r = torch.cumsum(is_ready, 0, dtype=I32) - 1        # rank among READY
+    r = torch.cumsum(is_ready, -1, dtype=I32) - 1       # rank among READY
     sel = is_ready & (r < K)
-    # gather the selected tids into (K,) slots, ascending tid order
-    tids = set_drop(torch.full((K,), -1, dtype=I32, device=dev),
+    # gather the selected tids into (*B, K) slots, ascending tid order
+    tids = set_drop(torch.full(B + (K,), -1, dtype=I32, device=dev),
                     torch.where(sel, r, K),
                     torch.arange(JT, dtype=I32, device=dev))
     valid = tids >= 0
-    srv = torch.where(valid, jobs.server[tids.clamp(min=0).to(I64)], -1)
+    srv = torch.where(valid, take(jobs.server, tids.clamp(min=0)), -1)
 
     farm, ok, seq = server.queue_push_many(farm, cfg, srv, tids, valid)
-    dest = set_drop(torch.zeros((N,), dtype=torch.bool, device=dev),
+    dest = set_drop(torch.zeros(B + (N,), dtype=torch.bool, device=dev),
                     torch.where(valid, srv, N), True)
     farm = server.begin_wake_mask(farm, cfg, dest, state.t)
 
@@ -633,7 +668,7 @@ def _drain_ready(state: SimState, cfg: SimConfig, recs=None) -> SimState:
     enq = set_drop(jobs.enqueue_seq, torch.where(valid & ok, tids, JT), seq)
     state = replace(state, farm=farm,
                     jobs=replace(jobs, status=status, enqueue_seq=enq))
-    dropped = set_drop(torch.zeros((JT,), dtype=torch.bool, device=dev),
+    dropped = set_drop(torch.zeros(B + (JT,), dtype=torch.bool, device=dev),
                        torch.where(valid & ~ok, tids, JT), True)
     return _resolve_drops(state, cfg, dropped, recs)
 
@@ -647,10 +682,10 @@ def _start_tasks(state: SimState, cfg: SimConfig, recs=None) -> SimState:
     if cfg.trace.enabled:
         started = (jobs.status == TaskStatus.RUNNING) \
             & (state.jobs.status == TaskStatus.QUEUED)
-        JT = started.shape[0]
+        JT = started.shape[-1]
         stage(recs, started, TraceKind.START, jobs.server,
               torch.arange(JT, dtype=I32, device=started.device),
-              jobs.task_end - state.t)
+              jobs.task_end - lift(state.t))
     return replace(state, farm=farm, jobs=jobs)
 
 
@@ -669,7 +704,7 @@ def _apply_events(state: SimState, cfg: SimConfig, tc, cheap: bool,
     if trace_sleep:
         farm = state.farm
         woke = (farm.srv_state == SrvState.WAKING) \
-            & (farm.srv_wake_at <= state.t)
+            & (farm.srv_wake_at <= lift(state.t))
         stage(recs, woke, TraceKind.WAKEUP,
               torch.arange(cfg.n_servers, dtype=I32, device=dev))
     state = replace(state, farm=_apply_wakeups(state.farm, cfg, state.t))
@@ -682,7 +717,8 @@ def _apply_events(state: SimState, cfg: SimConfig, tc, cheap: bool,
         # entered with due releases holds the arrivals until the next
         # same-time step
         admit_at = state.jobs.admit_at
-        hold = ((admit_at < INF / 2) & (admit_at <= state.t)).any()
+        hold = ((admit_at < INF / 2)
+                & (admit_at <= lift(state.t))).any(dim=-1)
         state = _apply_releases(state, cfg, recs)
     state = _apply_arrival(state, cfg, tc, hold, recs)
     state = _drain_ready(state, cfg, recs)
@@ -712,10 +748,10 @@ def _apply_events(state: SimState, cfg: SimConfig, tc, cheap: bool,
             # rates only change in the full step; with no flow in flight
             # the reference skips the recompute and zeroes link_flows
             # (stale counts would pin ports ACTIVE after the last flow)
-            any_active = flows.active.any()
+            any_active = flows.active.any(dim=-1)
             new, lf = network.recompute_rates(flows, tc.net, state.t)
             flows = tree_where(any_active, new, flows)
-            link_flows = torch.where(any_active, lf, 0)
+            link_flows = torch.where(lift(any_active), lf, 0)
         # ports and line cards still enter LPI on idle timeouts in a
         # cheap pass: a function of time, not of flow events
         net = network.update_switch_states(state.net, link_flows, tc.net,
@@ -730,10 +766,10 @@ def _apply_events(state: SimState, cfg: SimConfig, tc, cheap: bool,
 
 def _all_done(state: SimState, cfg: SimConfig) -> torch.Tensor:
     jobs = state.jobs
-    done = (~jobs.valid | (jobs.status == TaskStatus.DONE)).all() \
+    done = (~jobs.valid | (jobs.status == TaskStatus.DONE)).all(dim=-1) \
         & (_next_arrival(jobs) >= INF)
     if cfg.has_network:
-        done = done & ~state.flows.active.any()
+        done = done & ~state.flows.active.any(dim=-1)
     return done
 
 
@@ -747,27 +783,27 @@ def _cheap_gate(state: SimState, cfg: SimConfig):
     jobs = state.jobs
     will_be_done = (~jobs.valid | (jobs.status == TaskStatus.DONE)
                     | ((jobs.status == TaskStatus.RUNNING)
-                       & (jobs.task_end <= t_next))).all() \
+                       & (jobs.task_end <= lift(t_next)))).all(dim=-1) \
         & (_next_arrival(jobs) >= INF)
     if cfg.has_network:
-        will_be_done = will_be_done & ~state.flows.active.any()
+        will_be_done = will_be_done & ~state.flows.active.any(dim=-1)
     ok = (t_next < INF / 2) & ~will_be_done
     if cfg.thermal.throttling:
         # a throttle crossing needs the full step
         ok = ok & (t_next < thermal_mod.next_crossing(state, cfg))
     if cfg.has_network:
-        ok = ok & (t_next < state.flows.done_at.min())
+        ok = ok & (t_next < state.flows.done_at.amin(dim=-1))
         if cfg.tasks_per_job > 1:
             # a completing task whose unsent edges all resolve locally is
             # still cheap; only an edge that would spawn a flow stops it
             will_done = (jobs.status == TaskStatus.RUNNING) \
-                & (jobs.task_end <= t_next)
+                & (jobs.task_end <= lift(t_next))
             ch = jobs.children
             unsent = (ch >= 0) & ~jobs.edge_sent
-            dst = jobs.server[ch.clamp(min=0).view(-1).to(I64)].view(ch.shape)
+            dst = take(jobs.server, ch.clamp(min=0))
             spawns = unsent & (jobs.edge_bytes > 0) \
-                & (dst != jobs.server[:, None])
-            ok = ok & ~(will_done[:, None] & spawns).any()
+                & (dst != jobs.server[..., None])
+            ok = ok & ~(will_done[..., None] & spawns).flatten(-2).any(dim=-1)
     return ok, t_next
 
 
@@ -809,12 +845,15 @@ def _consume_cheap(state: SimState, cfg: SimConfig, tc, t_next,
     return replace(state, events=state.events + 1)
 
 
-def _macro_chew(state: SimState, cfg: SimConfig, tc) -> SimState:
-    """K-1 cheap passes.  ``alive`` carries the conjunction of the gates,
-    and each pass's state is kept only while it holds -- the reference's
-    early exit from its inner while_loop, leaf by leaf.  A discarded pass
-    still runs (and still launches the advance kernel)."""
-    alive = torch.ones((), dtype=torch.bool, device=state.t.device)
+def _macro_chew(state: SimState, cfg: SimConfig, tc,
+                active=None) -> SimState:
+    """K-1 cheap passes.  ``alive`` carries the conjunction of the gates
+    (from ``active``, the replicas still running, when given), and each
+    pass's state is kept only while it holds -- the reference's early exit
+    from its inner while_loop, per replica and leaf by leaf.  A discarded
+    pass still runs (and still launches the advance kernel)."""
+    alive = torch.ones(state.t.shape, dtype=torch.bool,
+                       device=state.t.device) if active is None else active
     for _ in range(cfg.events_per_step - 1):
         ok, t_next = _cheap_gate(state, cfg)
         alive = alive & ok
@@ -823,7 +862,8 @@ def _macro_chew(state: SimState, cfg: SimConfig, tc) -> SimState:
     return state
 
 
-def _full_step(state: SimState, cfg: SimConfig, tc) -> SimState:
+def _full_step(state: SimState, cfg: SimConfig, tc,
+               active=None) -> SimState:
     # every event source: the farm's, arrivals, flow completions and
     # throttle crossings
     t_next = next_event_time(state, cfg)
@@ -835,8 +875,9 @@ def _full_step(state: SimState, cfg: SimConfig, tc) -> SimState:
     state = _apply_thermal_events(state, cfg, recs)
     state = _apply_events(state, cfg, tc, cheap=False, recs=recs)
     if cfg.trace.enabled:
+        # a replica that stopped records nothing
         state = replace(state, trace=trace_mod.flush(
-            state.trace, cfg, state.t, recs))
+            state.trace, cfg, state.t, recs, active))
     return replace(state, events=state.events + 1,
                    done=_all_done(state, cfg))
 
@@ -845,8 +886,9 @@ def sim_step(state: SimState, cfg: SimConfig,
              tc: EngineConsts | None = None) -> SimState:
     """One macro-step: K-1 masked cheap passes, then one full step; latency
     and QoS binning once over everything that finished since the step
-    began.  The flight recorder's ring is copied first (the step writes
-    it in place), so ``state`` is left as it was."""
+    began.  A replica batch steps every replica (as ``jax.vmap`` of the
+    reference's step does).  The flight recorder's ring is copied first
+    (the step writes it in place), so ``state`` is left as it was."""
     if tc is None:
         tc = consts(cfg, state.t.device)
     _check_consts(cfg, tc)
@@ -855,18 +897,25 @@ def sim_step(state: SimState, cfg: SimConfig,
     return _step(state, cfg, tc)
 
 
-def _step(state: SimState, cfg: SimConfig, tc: EngineConsts) -> SimState:
-    """``sim_step`` on a state whose ring the step may write in place."""
+def _step(state: SimState, cfg: SimConfig, tc: EngineConsts,
+          active=None) -> SimState:
+    """``sim_step`` on a state whose ring the step may write in place.
+    ``active`` (a replica batch's (R,) bool) keeps the step's result only
+    for the replicas still running: the others keep every leaf, their
+    ``steps``, ``events`` and ring included."""
+    old = state
     if cfg.telemetry.enabled:
         old_job_finish = state.jobs.job_finish
         old_task_finish = state.jobs.finish
     if cfg.events_per_step > 1:
-        state = _macro_chew(state, cfg, tc)
-    state = _full_step(state, cfg, tc)
+        state = _macro_chew(state, cfg, tc, active)
+    state = _full_step(state, cfg, tc, active)
     state = replace(state, steps=state.steps + 1)
     if cfg.telemetry.enabled:
         state = replace(state, telem=telemetry.accumulate_finishes(
             state.telem, cfg, state.jobs, old_job_finish, old_task_finish))
+    if active is not None:
+        state = tree_where(active, state, old)
     return state
 
 
@@ -907,11 +956,13 @@ def init_state(cfg: SimConfig, jobs: JobTable, topo=None, racks=None):
 
 def run(state: SimState, cfg: SimConfig,
         tc: EngineConsts | None = None) -> SimState:
-    """Run to completion (or cfg.max_events).  The loop reads ``done`` and
-    the event count once per macro-step; with macro-stepping a run may
-    retire up to events_per_step - 1 events past max_events.  The flight
-    recorder's ring is copied once, then written in place, so ``state``
-    is left as it was."""
+    """Run to completion (or cfg.max_events).  Each replica of a batch
+    runs while ``~done & (events < max_events)`` holds for it, and keeps
+    its state once it stops; the loop reads one flag a macro-step, whether
+    any replica still runs.  With macro-stepping a run may retire up to
+    events_per_step - 1 events past max_events.  The flight recorder's
+    ring is copied once, then written in place, so ``state`` is left as
+    it was."""
     check_scope(cfg)
     if tc is None:
         tc = consts(cfg, state.t.device)
@@ -919,11 +970,11 @@ def run(state: SimState, cfg: SimConfig,
     if cfg.trace.enabled:
         state = replace(state, trace=trace_mod.own(state.trace, cfg))
     while True:
-        done, events = torch.stack(
-            [state.done.to(I32), state.events]).tolist()
-        if done or events >= cfg.max_events:
+        active = ~state.done & (state.events < cfg.max_events)
+        if not bool(active.any()):
             return state
-        state = _step(state, cfg, tc)
+        # one run steps only while it is active: no mask to apply
+        state = _step(state, cfg, tc, active if active.dim() else None)
 
 
 __all__ = ["check_scope", "consts", "EngineConsts", "next_event_time",

@@ -16,7 +16,9 @@ traffic is awake.  Waking an LPI port or a sleeping switch adds its wake
 latency to the flow's ``extra`` budget.
 
 Every function is dense tensor work with no host read, so the engine's
-macro-step stays free of synchronisations.  The scalar seed path
+macro-step stays free of synchronisations.  The flow table and the switch
+state may carry a leading replica batch shape; the topology's arrays
+(``TopoConsts``) are shared by every replica.  The scalar seed path
 (``spawn_flow``) is not ported: ROADMAP Queue 1 item 12.
 """
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 
 from ..kernels.ref import _const, _fma, _fms
 from .types import (INF, FlowTable, LinecardState, NetState, PortState,
-                    SimConfig, replace)
+                    SimConfig, lift, replace, set_drop, take)
 
 __all__ = ["TopoConsts", "topo_consts", "route_wake_cost",
            "spawn_flows_many", "recompute_rates", "advance_flows",
@@ -91,9 +93,11 @@ def topo_consts(topo, device) -> TopoConsts:
 def route_wake_cost(tc: TopoConsts, net: NetState, src, dst):
     """Case study D's metric: the number of sleeping switches on the route
     src -> dst (int32; ``src``/``dst`` broadcast, so one source against
-    every destination gives the NETWORK_AWARE score's network term)."""
+    every destination gives the NETWORK_AWARE score's network term; with
+    a replica batch, (*B, ...) by the switch state's batch shape)."""
     sws = tc.route_sw[src, dst]                           # (..., H)
-    asleep = ~net.sw_awake[sws.clamp(min=0).to(I64)]
+    sws = sws.expand(net.sw_awake.shape[:-1] + sws.shape)
+    asleep = ~take(net.sw_awake, sws.clamp(min=0))
     return ((sws >= 0) & asleep).sum(dim=-1, dtype=I32)
 
 
@@ -107,32 +111,36 @@ def spawn_flows_many(flows: FlowTable, net: NetState, tc: TopoConsts,
     switch's wake latency is paid only by the first needed edge (in rank
     order) whose route touches it; later edges of the batch see it awake.
 
-    need/src/dst/nbytes/child (E,).  Returns (flows, net, ok (E,) bool).
+    need/src/dst/nbytes/child (*B, E).  Returns (flows, net, ok (*B, E)
+    bool).
     """
-    E = need.shape[0]
-    F = flows.active.shape[0]
-    W = net.sw_awake.shape[0]
+    E = need.shape[-1]
+    B = need.shape[:-1]
+    F = flows.active.shape[-1]
+    W = net.sw_awake.shape[-1]
+    P = net.port_state.shape[-1]
     swp = cfg.switch_power
     dev = need.device
-    order = torch.cumsum(need, 0, dtype=I32) - 1      # rank among needed
+    order = torch.cumsum(need, -1, dtype=I32) - 1     # rank among needed
     srcc = src.clamp(min=0).to(I64)
     dstc = dst.clamp(min=0).to(I64)
 
     # the first needed edge (in rank order) whose route touches each switch
-    sws = tc.route_sw[srcc, dstc]                             # (E, H)
-    touch = (sws >= 0) & need[:, None]
+    sws = tc.route_sw[srcc, dstc]                             # (*B, E, H)
+    touch = (sws >= 0) & need[..., None]
     rank_e = torch.where(need, order, E)
-    first = torch.full((W + 1,), E, dtype=I32, device=dev).scatter_reduce(
-        0, torch.where(touch, sws, W).view(-1).to(I64),
-        rank_e[:, None].expand(sws.shape).reshape(-1), "amin",
-        include_self=True)[:W]
+    first = torch.full(B + (W + 1,), E, dtype=I32, device=dev).scatter_reduce(
+        -1, torch.where(touch, sws, W).reshape(B + (-1,)).to(I64),
+        rank_e[..., None].expand(sws.shape).reshape(B + (-1,)), "amin",
+        include_self=True)[..., :W]
 
-    links = tc.routes[srcc, dstc]                             # (E, H)
+    links = tc.routes[srcc, dstc]                             # (*B, E, H)
     lmask = links >= 0
     lc = links.clamp(min=0).to(I64)
-    sw_a, sw_b = tc.link_sw[lc, 0], tc.link_sw[lc, 1]         # (E, H)
+    sw_a, sw_b = tc.link_sw[lc, 0], tc.link_sw[lc, 1]         # (*B, E, H)
     pt_a = tc.link_port[lc, 0].clamp(min=0).to(I64)
-    port_lpi = (net.port_state[sw_a.clamp(min=0).to(I64), pt_a]
+    port_lpi = (take(net.port_state.flatten(-2),
+                     sw_a.clamp(min=0).to(I64) * P + pt_a)
                 == PortState.LPI) & (sw_a >= 0)
     sleeping0 = ~net.sw_awake
 
@@ -140,38 +148,36 @@ def spawn_flows_many(flows: FlowTable, net: NetState, tc: TopoConsts,
         # sleeping when this edge spawns = initially sleeping and not yet
         # woken by an earlier edge of the batch
         swc = sw.clamp(min=0).to(I64)
-        return (sw >= 0) & sleeping0[swc] & (first[swc] >= order[:, None])
+        return (sw >= 0) & take(sleeping0, swc) \
+            & (take(first, swc) >= order[..., None])
 
     asleep = asleep_at_turn(sw_a) | asleep_at_turn(sw_b)
-    n_sleep_sw = (lmask & asleep).sum(dim=1, dtype=I32)
-    n_lpi = (lmask & port_lpi).sum(dim=1, dtype=I32)
+    n_sleep_sw = (lmask & asleep).sum(dim=-1, dtype=I32)
+    n_lpi = (lmask & port_lpi).sum(dim=-1, dtype=I32)
     hops = tc.route_len[srcc, dstc].to(F32)
     # the multiply-adds round once, as in the reference's compiled step
     extra = _fma(n_lpi, _const(swp.t_lpi_wake, hops),
                  torch.clamp(n_sleep_sw, max=1).to(F32)
                  * _const(swp.t_switch_wake, hops), F32)
     if cfg.comm_model == 1:  # packet store-and-forward serialization
-        cap0 = tc.link_cap[links[:, 0].clamp(min=0).to(I64)]
+        cap0 = tc.link_cap[links[..., 0].clamp(min=0).to(I64)]
         extra = _fma(hops, _const(cfg.hop_latency, hops), extra, F32) \
             + torch.clamp(hops - 1.0, min=0.0) \
             * _const(cfg.flow_mtu, hops) / cap0
 
     # prefix-sum slot allocator over the free flow slots
     free = ~flows.active
-    free_rank = torch.cumsum(free, 0, dtype=I32) - 1
-    slot_by_rank = torch.full((F + 1,), F, dtype=I32, device=dev).index_put(
-        (torch.where(free, free_rank, F).to(I64),),
-        torch.arange(F, dtype=I32, device=dev))[:F]
-    ok = need & (order < free.sum(dtype=I32))
-    slot = torch.where(ok, slot_by_rank[order.clamp(0, F - 1).to(I64)], F)
-    slot = slot.to(I64)
+    free_rank = torch.cumsum(free, -1, dtype=I32) - 1
+    slot_by_rank = set_drop(
+        torch.full(B + (F,), F, dtype=I32, device=dev),
+        torch.where(free, free_rank, F), torch.arange(F, dtype=I32,
+                                                      device=dev))
+    ok = need & (order < free.sum(dim=-1, dtype=I32)[..., None])
+    slot = torch.where(ok, take(slot_by_rank, order.clamp(0, F - 1)), F)
 
     def put(arr, vals):
-        # arr.at[slot].set(vals, mode="drop"): slot F is the sentinel row
-        buf = torch.cat([arr, arr[:1]])
-        if not torch.is_tensor(vals):
-            vals = torch.full((E,), vals, dtype=arr.dtype, device=dev)
-        return buf.index_put((slot,), vals.to(arr.dtype))[:F]
+        # arr.at[slot].set(vals, mode="drop"): slot F is the sentinel
+        return set_drop(arr, slot, vals)
 
     flows = replace(
         flows,
@@ -183,13 +189,13 @@ def spawn_flows_many(flows: FlowTable, net: NetState, tc: TopoConsts,
         done_at=put(flows.done_at, INF),
         child=put(flows.child, child),
         active=put(flows.active, True),
-        flows_dropped=flows.flows_dropped + (need & ~ok).sum(dtype=I32),
+        flows_dropped=flows.flows_dropped + (need & ~ok).sum(dim=-1,
+                                                              dtype=I32),
     )
     # wake every switch on every needed route (slot-exhausted spawns too,
     # as the sequential path wakes before it checks for a slot)
-    sw_awake = torch.cat([net.sw_awake, net.sw_awake[:1]]).index_put(
-        (torch.where(touch, sws, W).view(-1).to(I64),),
-        torch.ones((), dtype=torch.bool, device=dev))[:W]
+    sw_awake = set_drop(net.sw_awake,
+                        torch.where(touch, sws, W).reshape(B + (-1,)), True)
     return flows, replace(net, sw_awake=sw_awake), ok
 
 
@@ -197,19 +203,21 @@ def recompute_rates(flows: FlowTable, tc: TopoConsts, now):
     """Equal-share fluid rates and projected completion times,
     ``done_at = now + extra + rem/rate``.  Returns (flows, link_flows)."""
     links = tc.routes[flows.src.clamp(min=0).to(I64),
-                      flows.dst.clamp(min=0).to(I64)]           # (F, H)
-    lmask = (links >= 0) & flows.active[:, None]
+                      flows.dst.clamp(min=0).to(I64)]           # (*B, F, H)
+    B = links.shape[:-2]
+    lmask = (links >= 0) & flows.active[..., None]
     lidx = links.clamp(min=0).to(I64)
-    link_flows = torch.zeros((tc.n_links,), dtype=I32,
-                             device=links.device).index_add(
-        0, lidx.view(-1), lmask.view(-1).to(I32))
-    share = tc.link_cap[lidx] / torch.clamp(link_flows[lidx], min=1)
+    link_flows = torch.zeros(B + (tc.n_links,), dtype=I32,
+                             device=links.device).scatter_add(
+        -1, lidx.reshape(B + (-1,)), lmask.reshape(B + (-1,)).to(I32))
+    share = tc.link_cap[lidx] / torch.clamp(take(link_flows, lidx), min=1)
     share = torch.where(lmask, share, torch.inf)
-    rate = torch.where(flows.active, share.amin(dim=1), 0.0)
+    rate = torch.where(flows.active, share.amin(dim=-1), 0.0)
     rate = torch.where(torch.isfinite(rate), rate, 0.0).to(F32)
     q = flows.rem / torch.clamp(rate, min=1e-30)
     done = torch.where(flows.active & (rate > 0),
-                       now + flows.extra + q.to(flows.extra.dtype), INF)
+                       lift(now) + flows.extra + q.to(flows.extra.dtype),
+                       INF)
     return replace(flows, rate=rate,
                    done_at=done.to(flows.done_at.dtype)), link_flows
 
@@ -217,6 +225,7 @@ def recompute_rates(flows: FlowTable, tc: TopoConsts, now):
 def advance_flows(flows: FlowTable, dt):
     """Drain ``dt`` seconds: the fixed latency budget is consumed first,
     then bytes at the current rate."""
+    dt = lift(dt)
     lat_used = torch.minimum(flows.extra, dt)
     drain_t = dt - lat_used
     rem = torch.where(
@@ -230,7 +239,7 @@ def advance_flows(flows: FlowTable, dt):
 def complete_flows(flows: FlowTable, now, eps: float = 1e-9):
     """Deactivate flows whose done_at <= now (+ eps in the clock's dtype);
     returns (flows, done mask)."""
-    fin = flows.active & (flows.done_at <= now + _const(eps, now))
+    fin = flows.active & (flows.done_at <= lift(now + _const(eps, now)))
     flows = replace(
         flows,
         active=flows.active & ~fin,
@@ -247,13 +256,17 @@ def update_switch_states(net: NetState, link_flows, tc: TopoConsts,
     """Port LPI entry/exit from link activity; line cards sleep when none
     of their ports is active; a switch carrying traffic is awake."""
     swp = cfg.switch_power
-    W, P = net.port_state.shape
+    W, P = net.port_state.shape[-2:]
+    B = net.port_state.shape[:-2]
     # busy.at[sw, pt].max(...) over both ends of every link, repeated
     # (switch, port) pairs included: a count of busy link ends, then > 0
-    lbusy = (link_flows > 0).repeat(2) & tc.side_is_sw
-    busy = torch.zeros((W * P,), dtype=I32, device=lbusy.device).index_add(
-        0, tc.port_of_side, lbusy.to(I32)).view(W, P) > 0
+    lb = link_flows > 0
+    lbusy = torch.cat([lb, lb], dim=-1) & tc.side_is_sw
+    busy = torch.zeros(B + (W * P,), dtype=I32, device=lbusy.device)\
+        .index_add(-1, tc.port_of_side, lbusy.to(I32))\
+        .unflatten(-1, (W, P)) > 0
     was_active = net.port_state == PortState.ACTIVE
+    now = lift(now, 2)
     idle_since = torch.where(was_active & ~busy, now, net.port_idle_since)
     lpi_ready = ~busy & (now - idle_since
                          >= _const(swp.t_port_lpi_enter, idle_since))
@@ -262,14 +275,15 @@ def update_switch_states(net: NetState, link_flows, tc: TopoConsts,
         torch.where(lpi_ready, PortState.LPI, net.port_state)).to(I32)
 
     # line cards sleep when no port on them is active
-    LC = net.lc_state.shape[1]
+    LC = net.lc_state.shape[-1]
     port_act = (port_state == PortState.ACTIVE).to(I32)
-    lc_busy = torch.zeros((W, LC), dtype=I32, device=busy.device).index_add(
-        1, tc.lc_of_port, port_act)
+    lc_busy = torch.zeros(B + (W, LC), dtype=I32,
+                          device=busy.device).index_add(
+        -1, tc.lc_of_port, port_act)
     lc_state = torch.where(lc_busy > 0, LinecardState.ACTIVE,
                            LinecardState.SLEEP).to(I32)
 
-    sw_awake = busy.any(dim=1) | net.sw_awake
+    sw_awake = busy.any(dim=-1) | net.sw_awake
     return replace(net, port_state=port_state, port_idle_since=idle_since,
                    lc_state=lc_state, sw_awake=sw_awake,
                    link_flows=link_flows)

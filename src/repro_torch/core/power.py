@@ -5,6 +5,8 @@ Energy is accrued exactly between events: state is piecewise constant in a
 DES, so ``E += P(state) * dt`` integrates the power curve with no
 discretization error.  Switch power follows chassis + line card + port
 (LPI-capable) structure calibrated to the paper's Cisco WS-C2960 profile.
+States may carry a leading replica batch shape; sums run along the
+trailing axes.
 """
 from __future__ import annotations
 
@@ -12,19 +14,19 @@ import torch
 
 from ..kernels.ref import _const
 from .types import (INF, LinecardState, NetState, PortState, ServerFarm,
-                    SimConfig, SrvState, replace)
+                    SimConfig, SrvState, lift, replace)
 
 __all__ = ["server_power", "accrue_server_energy", "state_onehot",
            "switch_power", "total_power", "accrue_switch_energy"]
 
 
 def server_power(farm: ServerFarm, cfg: SimConfig, throttled=None):
-    """Instantaneous per-server power draw (N,) f32 and busy-core count
-    (N,) f32.  ``throttled`` (N,) bool scales active-core power by
+    """Instantaneous per-server power draw (*B, N) f32 and busy-core count
+    (*B, N) f32.  ``throttled`` (*B, N) bool scales active-core power by
     ``cfg.thermal.throttle_power_scale``."""
     sp = cfg.server_power
     f32 = torch.float32
-    busy = (farm.core_busy_until < INF).sum(dim=1, dtype=torch.int32).to(f32)
+    busy = (farm.core_busy_until < INF).sum(dim=-1, dtype=torch.int32).to(f32)
     p_act = _const(sp.p_core_active, busy)
     if throttled is not None:
         p_act = torch.where(
@@ -44,9 +46,9 @@ def server_power(farm: ServerFarm, cfg: SimConfig, throttled=None):
 
 
 def state_onehot(farm: ServerFarm) -> torch.Tensor:
-    """(N, SrvState.NUM) f32 one-hot of each server's state."""
+    """(*B, N, SrvState.NUM) f32 one-hot of each server's state."""
     states = torch.arange(SrvState.NUM, device=farm.srv_state.device)
-    return (farm.srv_state[:, None] == states[None, :]).to(torch.float32)
+    return (farm.srv_state[..., None] == states).to(torch.float32)
 
 
 def accrue_server_energy(farm: ServerFarm, cfg: SimConfig, dt,
@@ -55,16 +57,16 @@ def accrue_server_energy(farm: ServerFarm, cfg: SimConfig, dt,
     ``p_busy`` optionally supplies a precomputed (power, busy) pair and
     ``onehot`` a precomputed state one-hot."""
     p, busy = server_power(farm, cfg) if p_busy is None else p_busy
-    dtf = dt.to(torch.float32)
+    dtf = lift(dt.to(torch.float32))
     if onehot is None:
         onehot = state_onehot(farm)
     return replace(farm, energy=farm.energy + p * dtf,
-                   residency=farm.residency + onehot * dtf,
+                   residency=farm.residency + onehot * lift(dtf),
                    busy_core_seconds=farm.busy_core_seconds + busy * dtf)
 
 
 def switch_power(net: NetState, cfg: SimConfig) -> torch.Tensor:
-    """Instantaneous per-switch power (W,) f32: chassis (a dozing switch
+    """Instantaneous per-switch power (*B, W) f32: chassis (a dozing switch
     draws 10%), ports by state (any other state draws 0) and line cards."""
     swp = cfg.switch_power
     f32 = torch.float32
@@ -81,26 +83,26 @@ def switch_power(net: NetState, cfg: SimConfig) -> torch.Tensor:
         net.lc_state == LinecardState.ACTIVE,
         torch.full((), swp.p_linecard_active, dtype=f32, device=dev),
         torch.full((), swp.p_linecard_sleep, dtype=f32, device=dev))
-    return chassis + port_p.sum(dim=1) + lc_p.sum(dim=1)
+    return chassis + port_p.sum(dim=-1) + lc_p.sum(dim=-1)
 
 
 def total_power(farm: ServerFarm, net: NetState, cfg: SimConfig,
                 throttled=None):
     """Instantaneous fleet-wide (server total, switch total) watts, both
-    0-d f32."""
-    p_srv = server_power(farm, cfg, throttled)[0].sum()
+    batch-shaped f32."""
+    p_srv = server_power(farm, cfg, throttled)[0].sum(dim=-1)
     if cfg.has_network:
-        p_sw = switch_power(net, cfg).sum()
+        p_sw = switch_power(net, cfg).sum(dim=-1)
     else:
-        p_sw = torch.zeros((), dtype=torch.float32, device=p_srv.device)
+        p_sw = torch.zeros_like(p_srv)
     return p_srv, p_sw
 
 
 def accrue_switch_energy(net: NetState, dt, p) -> NetState:
     """Exact interval accrual of switch energy and port-state residency;
     ``p`` is ``switch_power(net, cfg)``, which the caller has at hand."""
-    dtf = dt.to(torch.float32)
+    dtf = lift(dt.to(torch.float32))
     states = torch.arange(PortState.NUM, device=net.port_state.device)
     onehot = (net.port_state[..., None] == states).to(torch.float32)
     return replace(net, sw_energy=net.sw_energy + p * dtf,
-                   port_residency=net.port_residency + onehot * dtf)
+                   port_residency=net.port_residency + onehot * lift(dtf, 2))

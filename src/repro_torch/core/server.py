@@ -9,8 +9,12 @@ the whole farm, with no data-dependent shapes, so nothing here waits for
 the device.
 
 Scatters with a drop sentinel (``.at[i].set(..., mode="drop")`` in the
-reference) write into a buffer one row longer than the target and slice the
-sentinel row off.
+reference) write into a buffer one column longer than the target and slice
+the sentinel column off (``types.set_drop``).
+
+Every function takes states with a leading batch shape (``()`` for one
+run, ``(R,)`` for a replica batch): reductions, ranks and gathers run
+along the trailing server, core and task axes.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import torch
 
 from ..kernels.ref import _const, _fma, div_const, inv_f32
 from .types import (INF, JobTable, ServerFarm, SimConfig, SrvState,
-                    TaskStatus, replace)
+                    TaskStatus, lift, replace, set_drop, take)
 
 __all__ = ["queue_push_many", "queued_rank", "try_start", "wake_latency",
            "begin_wake_mask", "refresh_idle_state"]
@@ -27,37 +31,26 @@ I32 = torch.int32
 I64 = torch.int64
 
 
-def set_drop(base: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
-    """``base.at[idx].set(vals, mode="drop")`` along dim 0 for ``idx`` in
-    [0, len(base)] (``len(base)`` is the drop sentinel).  Indices other
-    than the sentinel must be distinct."""
-    n = base.shape[0]
-    buf = torch.cat([base, base[:1]])
-    if not torch.is_tensor(vals):
-        vals = torch.full(idx.shape, vals, dtype=base.dtype,
-                          device=base.device)
-    buf = buf.index_put((idx.to(I64),), vals.to(base.dtype))
-    return buf[:n]
-
-
 def queue_push_many(farm: ServerFarm, cfg: SimConfig, servers, tids, valid):
     """Push up to K tasks onto their servers' queues in one pass.
 
-    servers/tids (K,) int32, valid (K,) bool.  Tasks bound for the same
-    server take FIFO stamps in position order; once a queue fills, later
-    same-server tasks drop.  Returns (farm, ok (K,) bool, seq (K,) int32)."""
-    K = tids.shape[0]
+    servers/tids (*B, K) int32, valid (*B, K) bool.  Tasks bound for the
+    same server take FIFO stamps in position order; once a queue fills,
+    later same-server tasks drop.  Returns (farm, ok (*B, K) bool, seq
+    (*B, K) int32)."""
+    K = tids.shape[-1]
     Q = cfg.local_q
-    s = servers.clamp(min=0)
+    s = servers.clamp(min=0).to(I64)
     pos = torch.arange(K, device=tids.device)
-    same = valid[None, :] & valid[:, None] & (s[None, :] == s[:, None])
-    rank = (same & (pos[None, :] < pos[:, None])).sum(dim=1, dtype=I32)
-    ok = valid & (farm.q_len[s.to(I64)] + rank < Q)
-    seq = farm.q_seq + torch.cumsum(ok.to(I32), 0, dtype=I32) - 1
+    same = valid[..., None, :] & valid[..., :, None] \
+        & (s[..., None, :] == s[..., :, None])
+    rank = (same & (pos[None, :] < pos[:, None])).sum(dim=-1, dtype=I32)
+    ok = valid & (take(farm.q_len, s) + rank < Q)
+    seq = lift(farm.q_seq) + torch.cumsum(ok.to(I32), -1, dtype=I32) - 1
     # a refused push adds 0; duplicate servers accumulate
-    q_len = farm.q_len.index_add(0, s.to(I64), ok.to(I32))
-    q_seq = farm.q_seq + ok.sum(dtype=I32)
-    dropped = farm.dropped + (valid & ~ok).sum(dtype=I32)
+    q_len = farm.q_len.scatter_add(-1, s, ok.to(I32))
+    q_seq = farm.q_seq + ok.sum(dim=-1, dtype=I32)
+    dropped = farm.dropped + (valid & ~ok).sum(dim=-1, dtype=I32)
     return (replace(farm, q_len=q_len, q_seq=q_seq, dropped=dropped),
             ok, seq.to(I32))
 
@@ -73,7 +66,7 @@ def wake_latency(cfg: SimConfig, state):
 
 
 def begin_wake_mask(farm: ServerFarm, cfg: SimConfig, mask, now):
-    """Start waking every sleeping server in ``mask`` (N,); idempotent."""
+    """Start waking every sleeping server in ``mask`` (*B, N); idempotent."""
     st = farm.srv_state
     sleeping = mask & ((st == SrvState.PKG_C6) | (st == SrvState.S3)
                        | (st == SrvState.OFF))
@@ -81,33 +74,36 @@ def begin_wake_mask(farm: ServerFarm, cfg: SimConfig, mask, now):
     return replace(
         farm,
         srv_state=torch.where(sleeping, SrvState.WAKING, st).to(I32),
-        srv_wake_at=torch.where(sleeping, now + lat, farm.srv_wake_at),
+        srv_wake_at=torch.where(sleeping, lift(now) + lat, farm.srv_wake_at),
         wake_count=farm.wake_count + sleeping.to(I32))
 
 
 def queued_rank(jobs: JobTable, cfg: SimConfig, queued, q_seq):
-    """(JT,) FIFO rank of each queued task among the queued tasks of its
-    server (0 = head), by enqueue_seq; garbage where ~queued.
+    """(*B, JT) FIFO rank of each queued task among the queued tasks of
+    its server (0 = head), by enqueue_seq; garbage where ~queued.
 
     Two stable argsorts give the lexicographic (server, seq) order; stamps
     sort by their wrap-safe int32 distance to the current counter
     ``q_seq`` (the reference's wrap-around argument)."""
-    JT = queued.shape[0]
+    JT = queued.shape[-1]
+    B = queued.shape[:-1]
     N = cfg.n_servers
     dev = queued.device
     srv = jobs.server.clamp(min=0)
     imax = torch.iinfo(I32).max
-    rel_seq = jobs.enqueue_seq - q_seq            # wrap-safe, < 0 for live
-    by_seq = torch.argsort(torch.where(queued, rel_seq, imax), stable=True)
-    order = by_seq[torch.argsort(
-        torch.where(queued[by_seq], srv[by_seq], imax), stable=True)]
-    srv_o = torch.where(queued[order], srv[order], N)      # sentinel last
-    ar = torch.arange(JT, dtype=I32, device=dev)
-    first = torch.full((N + 1,), JT, dtype=I32, device=dev).scatter_reduce(
-        0, srv_o.to(I64), ar, reduce="amin")[:N]
-    rank_o = ar - first[srv_o.clamp(0, N - 1).to(I64)]
-    return torch.zeros((JT,), dtype=I32, device=dev).index_put(
-        (order,), rank_o)
+    rel_seq = jobs.enqueue_seq - lift(q_seq)     # wrap-safe, < 0 for live
+    by_seq = torch.argsort(torch.where(queued, rel_seq, imax), dim=-1,
+                           stable=True)
+    q_s, srv_s = take(queued, by_seq), take(srv, by_seq)
+    order = take(by_seq, torch.argsort(torch.where(q_s, srv_s, imax),
+                                       dim=-1, stable=True))
+    srv_o = torch.where(take(queued, order), take(srv, order), N)
+    ar = torch.arange(JT, dtype=I32, device=dev).expand(B + (JT,))
+    first = torch.full(B + (N + 1,), JT, dtype=I32, device=dev)\
+        .scatter_reduce(-1, srv_o.to(I64), ar, reduce="amin")[..., :N]
+    rank_o = ar - take(first, srv_o.clamp(0, N - 1))
+    return torch.zeros(B + (JT,), dtype=I32, device=dev).scatter(
+        -1, order, rank_o)
 
 
 def _end_at(now, service, core_freq: float, dtype):
@@ -132,13 +128,14 @@ def try_start(farm: ServerFarm, cfg: SimConfig, jobs: JobTable, now,
     both define the same rank, and the port always takes the argsort.
     Returns (farm, jobs)."""
     N, C = cfg.n_servers, cfg.n_cores
-    JT = jobs.status.shape[0]
+    JT = jobs.status.shape[-1]
+    B = jobs.status.shape[:-1]
     dev = jobs.status.device
     tdt = jobs.task_end.dtype
     awake = (farm.srv_state == SrvState.ACTIVE) \
         | (farm.srv_state == SrvState.IDLE)
-    free = farm.core_busy_until >= INF                          # (N, C)
-    n_free = free.sum(dim=1, dtype=I32)
+    free = farm.core_busy_until >= INF                       # (*B, N, C)
+    n_free = free.sum(dim=-1, dtype=I32)
     n_start = torch.where(awake, torch.minimum(n_free, farm.q_len),
                           0).to(I32)
 
@@ -146,14 +143,16 @@ def try_start(farm: ServerFarm, cfg: SimConfig, jobs: JobTable, now,
     rank = queued_rank(jobs, cfg, queued, farm.q_seq)
     srv = jobs.server.clamp(min=0).to(I64)
     # task side: elementwise
-    start_t = queued & (rank < n_start[srv])                    # (JT,)
+    start_t = queued & (rank < take(n_start, srv))            # (*B, JT)
+    now_t = lift(now)
     if freq is None:
-        end_t = _end_at(now, jobs.service, cfg.core_freq, tdt)
+        end_t = _end_at(now_t, jobs.service, cfg.core_freq, tdt)
     else:
-        end_t = (now + (jobs.service / freq[srv]).to(now.dtype)).to(tdt)
+        end_t = (now_t + (jobs.service / take(freq, srv)).to(now.dtype)
+                 ).to(tdt)
     status = torch.where(start_t, TaskStatus.RUNNING, jobs.status).to(I32)
     task_end = torch.where(start_t, end_t, jobs.task_end)
-    start_at = torch.where(start_t, now.to(jobs.start_at.dtype),
+    start_at = torch.where(start_t, now_t.to(jobs.start_at.dtype),
                            jobs.start_at)
     jobs = replace(jobs, status=status, task_end=task_end, start_at=start_at)
 
@@ -161,18 +160,21 @@ def try_start(farm: ServerFarm, cfg: SimConfig, jobs: JobTable, now,
     # core; a (server, rank) -> task table (sentinel row N) fills the cores
     row = torch.where(start_t, srv, N)
     col = torch.where(start_t, rank, 0).clamp(0, C - 1).to(I64)
-    tid_at = torch.full(((N + 1) * C,), JT, dtype=I32, device=dev).index_put(
-        (row * C + col,), torch.arange(JT, dtype=I32, device=dev))
-    tid_at = tid_at[:N * C].view(N, C)
-    fr = torch.cumsum(free, dim=1, dtype=I32) - 1               # free rank
-    start_c = free & (fr < n_start[:, None])                    # (N, C)
-    tid_c = torch.gather(tid_at, 1, fr.clamp(0, C - 1).to(I64))
-    svc_c = jobs.service[tid_c.clamp(0, JT - 1).to(I64)]
+    tid_at = torch.full(B + ((N + 1) * C,), JT, dtype=I32,
+                        device=dev).scatter(
+        -1, row * C + col,
+        torch.arange(JT, dtype=I32, device=dev).expand(B + (JT,)))
+    tid_at = tid_at[..., :N * C].unflatten(-1, (N, C))
+    fr = torch.cumsum(free, dim=-1, dtype=I32) - 1              # free rank
+    start_c = free & (fr < n_start[..., None])                  # (*B, N, C)
+    tid_c = torch.gather(tid_at, -1, fr.clamp(0, C - 1).to(I64))
+    svc_c = take(jobs.service, tid_c.clamp(0, JT - 1))
     cdt = farm.core_busy_until.dtype
     if freq is None:
-        busy_until = _end_at(now, svc_c, cfg.core_freq, cdt)
+        busy_until = _end_at(lift(now, 2), svc_c, cfg.core_freq, cdt)
     else:
-        busy_until = (now + (svc_c / freq[:, None]).to(now.dtype)).to(cdt)
+        busy_until = (lift(now, 2) + (svc_c / freq[..., None]).to(now.dtype)
+                      ).to(cdt)
     farm = replace(
         farm,
         core_busy_until=torch.where(start_c, busy_until,
@@ -184,12 +186,12 @@ def try_start(farm: ServerFarm, cfg: SimConfig, jobs: JobTable, now,
 def refresh_idle_state(farm: ServerFarm, cfg: SimConfig, now):
     """Recompute ACTIVE/IDLE for awake servers; stamp idle_since on the
     ACTIVE->IDLE edge (the delay-timer anchor)."""
-    busy = (farm.core_busy_until < INF).any(dim=1)
+    busy = (farm.core_busy_until < INF).any(dim=-1)
     awake = (farm.srv_state == SrvState.ACTIVE) \
         | (farm.srv_state == SrvState.IDLE)
     new_state = torch.where(
         awake, torch.where(busy, SrvState.ACTIVE, SrvState.IDLE),
         farm.srv_state).to(I32)
     went_idle = awake & (farm.srv_state == SrvState.ACTIVE) & ~busy
-    idle_since = torch.where(went_idle, now, farm.srv_idle_since)
+    idle_since = torch.where(went_idle, lift(now), farm.srv_idle_since)
     return replace(farm, srv_state=new_state, srv_idle_since=idle_since)

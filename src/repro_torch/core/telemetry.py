@@ -6,7 +6,9 @@ subsystem is off).
 Latency binning runs once per macro-step through ``kernels.ops.
 telemetry_accum`` (the CUDA kernel on the card, its plain version on the
 CPU) over the full job and task streams with 0/1 weights; the window
-series accrue per interval inside the engine's advance.
+series accrue per interval inside the engine's advance.  A replica batch
+(a leading R on every leaf) bins every replica's streams into its own
+histograms in the same single launch.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from ..kernels.ref import div_const
 from . import power
 from . import thermal as thermal_mod
 from .types import (INF, SimConfig, SrvState, TaskStatus, Telemetry,
-                    TelemetryConfig, replace)
+                    TelemetryConfig, lift, replace)
 
 __all__ = ["init_telemetry", "window_values", "window_index", "window_spill",
            "accumulate_finishes", "summarize", "hist_percentile",
@@ -74,7 +76,7 @@ def init_telemetry(cfg: SimConfig, device) -> Telemetry:
 
 def window_values(state, cfg: SimConfig, dt, p_busy=None,
                   onehot=None, p_sw=None, thermal_ctx=None) -> torch.Tensor:
-    """(WIN_COLS,) metric·dt vector for the piecewise-constant interval
+    """(*B, WIN_COLS) metric·dt vector for the piecewise-constant interval
     [t, t+dt), from the pre-advance state.  ``p_sw`` is the per-switch
     power ``power.switch_power(state.net, cfg)``, required in network
     mode and unused without one.  ``thermal_ctx`` optionally supplies the
@@ -86,25 +88,27 @@ def window_values(state, cfg: SimConfig, dt, p_busy=None,
     dtf = dt.to(F32)
     s = state.jobs.status
     active = ((s == TaskStatus.READY) | (s == TaskStatus.QUEUED)
-              | (s == TaskStatus.RUNNING)).sum(dtype=I32).to(F32)
-    qdepth = (farm.q_len.sum(dtype=I32) + state.sched.gq_len).to(F32)
+              | (s == TaskStatus.RUNNING)).sum(dim=-1, dtype=I32).to(F32)
+    qdepth = (farm.q_len.sum(dim=-1, dtype=I32)
+              + state.sched.gq_len).to(F32)
     if p_busy is None:
         throttled = state.thermal.throttled if tcfg.enabled else None
         p_busy = power.server_power(farm, cfg, throttled)
     if onehot is None:
         onehot = power.state_onehot(farm)
-    p_srv = p_busy[0].sum()
+    p_srv = p_busy[0].sum(dim=-1)
     # padded filler rows are a suffix: keep them out of the state counts
-    per_state = onehot[:cfg.present].sum(dim=0) if cfg.has_padding \
-        else onehot.sum(dim=0)
-    awake = per_state[SrvState.ACTIVE] + per_state[SrvState.IDLE]
-    one = torch.ones((), dtype=F32, device=dtf.device)
-    p_sw = p_sw.sum() if cfg.has_network else one * 0.0
-    head = torch.stack([one, active, awake, qdepth, p_srv, p_sw])
-    base = torch.cat([head, per_state]) * dtf
+    per_state = onehot[..., :cfg.present, :].sum(dim=-2) if cfg.has_padding \
+        else onehot.sum(dim=-2)
+    awake = per_state[..., SrvState.ACTIVE] + per_state[..., SrvState.IDLE]
+    one = torch.ones(dtf.shape, dtype=F32, device=dtf.device)
+    p_sw = p_sw.sum(dim=-1) if cfg.has_network else one * 0.0
+    head = torch.stack([one, active, awake, qdepth, p_srv, p_sw], dim=-1)
+    base = torch.cat([head, per_state], dim=-1) * lift(dtf)
     if not tcfg.enabled:
-        return torch.cat([base, torch.zeros((N_THERMAL_COLS,), dtype=F32,
-                                            device=dtf.device)])
+        return torch.cat([base, torch.zeros(dtf.shape + (N_THERMAL_COLS,),
+                                            dtype=F32, device=dtf.device)],
+                         dim=-1)
     t_srv = state.thermal.t_srv
     ici, ipr = thermal_mod.carbon_price_integrals(tcfg, state.t, dt)
     if thermal_ctx is None:
@@ -119,24 +123,26 @@ def window_values(state, cfg: SimConfig, dt, p_busy=None,
         # padded rows idle at the supply temperature: keep them out of
         # the farm mean and max (the padding is a suffix)
         n = cfg.present
-        target, t_srv, t_end = target[:n], t_srv[:n], t_end[:n]
+        target, t_srv, t_end = (target[..., :n], t_srv[..., :n],
+                                t_end[..., :n])
     # temperature moves exponentially within the interval: the mean column
     # integrates the closed form, the max column takes the endpoint max
     # (trajectories are monotone toward their targets)
-    mean_int = target.mean() * dtf \
-        + (t_srv - target).mean() * tcfg.tau_th * alpha
-    max_interval = torch.maximum(t_srv, t_end).max()
+    mean_int = target.mean(dim=-1) * dtf \
+        + (t_srv - target).mean(dim=-1) * tcfg.tau_th * alpha
+    max_interval = torch.maximum(t_srv, t_end).amax(dim=-1)
     therm_cols = torch.stack([
         p_cool * dtf, mean_int, max_interval * dtf, ici, ipr,
         div_const(kw * ici, 3600.0),
-        div_const(kw * ipr, 3600.0)])
-    return torch.cat([base, therm_cols])
+        div_const(kw * ipr, 3600.0)], dim=-1)
+    return torch.cat([base, therm_cols], dim=-1)
 
 
 def window_index(t, dt, tcfg: TelemetryConfig) -> torch.Tensor:
-    """Window containing the interval midpoint, clamped into range (0-d
-    int32).  Clamping before the truncating cast is the reference's
-    cast-then-clip for every finite midpoint and never overflows.  The
+    """Window containing the interval midpoint, clamped into range
+    (batch-shaped int32).  Clamping before the truncating cast is the
+    reference's cast-then-clip for every finite midpoint and never
+    overflows.  The
     midpoint is multiplied by the float32 reciprocal of ``window_dt``:
     the reference's compiled step rewrites its division by the constant
     that way, and the two differ where a midpoint sits at a window edge."""
@@ -166,23 +172,24 @@ def accumulate_finishes(telem: Telemetry, cfg: SimConfig, jobs,
     new_job = (old_job_finish >= INF / 2) & (jobs.job_finish < INF / 2)
     new_task = (old_task_finish >= INF / 2) & (jobs.finish < INF / 2)
     job_lat = torch.clamp(jobs.job_finish - jobs.arrival, min=0.0)
-    arr_t = torch.repeat_interleave(jobs.arrival, T)
+    arr_t = torch.repeat_interleave(jobs.arrival, T, dim=-1)
     task_lat = torch.clamp(jobs.finish - arr_t, min=0.0)
 
     has_sla = jobs.sla < INF / 2
-    miss = (new_job & has_sla & (job_lat > jobs.sla)).sum(dtype=I32)
-    tot = (new_job & has_sla).sum(dtype=I32)
-    tail = (new_job & (job_lat > tcfg.tail_thresh)).sum(dtype=I32)
+    miss = (new_job & has_sla & (job_lat > jobs.sla)).sum(dim=-1, dtype=I32)
+    tot = (new_job & has_sla).sum(dim=-1, dtype=I32)
+    tail = (new_job & (job_lat > tcfg.tail_thresh)).sum(dim=-1, dtype=I32)
 
     # the kernel's contract: a dummy one-row window with a zero add
-    K = telem.win.shape[1]
-    zwin = torch.zeros((K,), dtype=F32, device=job_lat.device)
-    widx = torch.zeros((), dtype=I32, device=job_lat.device)
+    B = telem.sla_miss.shape
+    K = telem.win.shape[-1]
+    zwin = torch.zeros(B + (K,), dtype=F32, device=job_lat.device)
+    widx = torch.zeros(B, dtype=I32, device=job_lat.device)
     jh, th, _ = ops.telemetry_accum(
         job_lat.to(F32).contiguous(), new_job.to(F32),
         task_lat.to(F32).contiguous(), new_task.to(F32),
-        telem.job_hist, telem.task_hist, telem.win[:1].contiguous(), widx,
-        zwin, tcfg.lat_lo, tcfg.lat_hi)
+        telem.job_hist, telem.task_hist, telem.win[..., :1, :].contiguous(),
+        widx, zwin, tcfg.lat_lo, tcfg.lat_hi)
     return replace(telem, job_hist=jh, task_hist=th,
                    sla_miss=telem.sla_miss + miss,
                    sla_total=telem.sla_total + tot,
@@ -268,8 +275,18 @@ class TelemetrySummary:
         return self.sla_miss / max(self.sla_total, 1)
 
 
+def _host(x, kind):
+    """A batch-shaped host value: ``kind`` (float or int) of a 0-d array,
+    else the array in that type (one value a replica)."""
+    a = np.asarray(x)
+    return kind(a) if a.ndim == 0 else a.astype(np.float64 if kind is float
+                                                else np.int64)
+
+
 def summarize(state, cfg: SimConfig) -> TelemetrySummary:
-    """Summarize a finished SimState's telemetry on the host."""
+    """Summarize a finished SimState's telemetry on the host.  For a
+    replica batch every field gains the leading R: scalars become (R,)
+    arrays and series (R, W, ...)."""
     tcfg = cfg.telemetry
     if not tcfg.enabled:
         raise ValueError("telemetry was disabled for this run "
@@ -280,45 +297,48 @@ def summarize(state, cfg: SimConfig) -> TelemetrySummary:
     win = telem.win.cpu().numpy().astype(np.float64)
     lo, hi = tcfg.lat_lo, tcfg.lat_hi
 
-    occ = win[:, WIN_OCC]
+    occ = win[..., WIN_OCC]
     norm = np.where(occ > 0, occ, np.nan)
-    used = int((occ > 0).sum())
-    overflow = float(telem.win_overflow)
-    if overflow > 0.0:
-        # the last window absorbed the clamped tail: NaN its averages
-        norm[-1] = np.nan
-    energy = float(state.farm.energy.cpu().numpy().sum())
-    mean_lat = float(hist_mean(jh, lo, hi))
+    used = _host((occ > 0).sum(axis=-1), int)
+    overflow = _host(telem.win_overflow.cpu().numpy(), float)
+    # the last window absorbed the clamped tail: NaN its averages
+    norm[..., -1] = np.where(np.asarray(overflow) > 0.0, np.nan,
+                             norm[..., -1])
+    energy = _host(state.farm.energy.cpu().numpy().sum(axis=-1), float)
+    mean_lat = _host(hist_mean(jh, lo, hi), float)
+
+    def col(k):
+        return win[..., k] / norm
+
+    def pct(h, q):
+        return _host(hist_percentile(h, lo, hi, q), float)
+
     return TelemetrySummary(
-        job_p50=float(hist_percentile(jh, lo, hi, 50)),
-        job_p95=float(hist_percentile(jh, lo, hi, 95)),
-        job_p99=float(hist_percentile(jh, lo, hi, 99)),
-        task_p50=float(hist_percentile(th, lo, hi, 50)),
-        task_p95=float(hist_percentile(th, lo, hi, 95)),
-        task_p99=float(hist_percentile(th, lo, hi, 99)),
+        job_p50=pct(jh, 50), job_p95=pct(jh, 95), job_p99=pct(jh, 99),
+        task_p50=pct(th, 50), task_p95=pct(th, 95), task_p99=pct(th, 99),
         mean_latency=mean_lat,
-        jobs_binned=int(jh.sum()),
-        tasks_binned=int(th.sum()),
-        sla_miss=int(telem.sla_miss),
-        sla_total=int(telem.sla_total),
-        tail_violations=int(telem.tail_viol),
-        energy_delay_product=energy * mean_lat if mean_lat == mean_lat
-        else float("nan"),
+        jobs_binned=_host(jh.sum(axis=-1), int),
+        tasks_binned=_host(th.sum(axis=-1), int),
+        sla_miss=_host(telem.sla_miss.cpu(), int),
+        sla_total=_host(telem.sla_total.cpu(), int),
+        tail_violations=_host(telem.tail_viol.cpu(), int),
+        # NaN where the mean is (no job binned)
+        energy_delay_product=_host(np.asarray(energy) * mean_lat, float),
         times=(np.arange(tcfg.n_windows) + 0.5) * tcfg.window_dt,
         occupancy=occ,
-        active_jobs=win[:, WIN_ACTIVE_JOBS] / norm,
-        awake_servers=win[:, WIN_AWAKE] / norm,
-        queue_depth=win[:, WIN_QDEPTH] / norm,
-        server_power=win[:, WIN_SRV_POWER] / norm,
-        switch_power=win[:, WIN_SW_POWER] / norm,
-        state_residency=win[:, WIN_STATE0:WIN_STATE0 + SrvState.NUM],
+        active_jobs=col(WIN_ACTIVE_JOBS),
+        awake_servers=col(WIN_AWAKE),
+        queue_depth=col(WIN_QDEPTH),
+        server_power=col(WIN_SRV_POWER),
+        switch_power=col(WIN_SW_POWER),
+        state_residency=win[..., WIN_STATE0:WIN_STATE0 + SrvState.NUM],
         n_windows_used=used,
-        cooling_power=win[:, WIN_COOL_POWER] / norm,
-        mean_temp=win[:, WIN_MEAN_TEMP] / norm,
-        max_temp=win[:, WIN_MAX_TEMP] / norm,
-        carbon_intensity=win[:, WIN_CI] / norm,
-        price=win[:, WIN_PRICE] / norm,
-        carbon_per_window=win[:, WIN_CARBON_G],
-        cost_per_window=win[:, WIN_COST],
+        cooling_power=col(WIN_COOL_POWER),
+        mean_temp=col(WIN_MEAN_TEMP),
+        max_temp=col(WIN_MAX_TEMP),
+        carbon_intensity=col(WIN_CI),
+        price=col(WIN_PRICE),
+        carbon_per_window=win[..., WIN_CARBON_G],
+        cost_per_window=win[..., WIN_COST],
         win_overflow=overflow,
     )

@@ -34,6 +34,9 @@ float64 value lies within about 2^-29 of a float32 rounding boundary, and
 every per-rack sum adds the rack's servers one at a time in ascending
 order (PyTorch's CUDA reductions add in another order than its CPU
 ones).
+
+A thermal state may carry a leading replica batch shape, on every leaf,
+the rack tables included; sums and maxima run along the trailing axes.
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ import torch
 from ..kernels.ref import _const, div_const
 from . import power
 from .types import (INF, SimConfig, TaskStatus, ThermalConfig, ThermalState,
-                    replace)
+                    lift, replace, take)
 
 __all__ = ["init_thermal", "member_table", "ambient_host", "ambient",
            "inlet_temps", "cop_at", "cooling_power", "rate_integral",
@@ -194,18 +197,18 @@ def ambient(tcfg: ThermalConfig, t) -> torch.Tensor:
 
 
 def _contiguous(therm: ThermalState) -> bool:
-    return therm.rack_onehot.shape[0] == 0
+    return therm.rack_onehot.shape[-1] == 0
 
 
 def _rack_columns(therm: ThermalState, vals, fill: float):
-    """(R, K) view of a per-server vector by rack: a reshape for
+    """(*B, R, K) view of a per-server vector by rack: a reshape for
     contiguous equal racks, else a gather through the member table with
     ``fill`` in the padding (never an (R, N) matrix)."""
-    R = therm.rack_inv.shape[0]
+    R = therm.rack_inv.shape[-1]
     if _contiguous(therm):
-        return vals.view(R, -1)
+        return vals.unflatten(-1, (R, -1))
     table = therm.rack_onehot
-    got = vals[table.clamp(min=0).to(I64)]
+    got = take(vals, table.clamp(min=0))
     return torch.where(table >= 0, got, torch.full((), fill,
                                                    dtype=vals.dtype,
                                                    device=vals.device))
@@ -217,21 +220,21 @@ SEQ_RACK_MAX = 64
 
 
 def _rack_sums(therm: ThermalState, vals) -> torch.Tensor:
-    """(R,) per-rack sums of a per-server vector, each rack's servers
+    """(*B, R) per-rack sums of a per-server vector, each rack's servers
     added one at a time in ascending order (the reference's order; the
     padding adds exact zeros)."""
     cols = _rack_columns(therm, vals, 0.0)
-    if cols.shape[1] > SEQ_RACK_MAX:
-        return cols.sum(dim=1)
-    acc = cols[:, 0]
-    for j in range(1, cols.shape[1]):
-        acc = acc + cols[:, j]
+    if cols.shape[-1] > SEQ_RACK_MAX:
+        return cols.sum(dim=-1)
+    acc = cols[..., 0]
+    for j in range(1, cols.shape[-1]):
+        acc = acc + cols[..., j]
     return acc
 
 
 def _per_server(therm: ThermalState, rack_vals) -> torch.Tensor:
-    """(N,) each server's entry of an (R,) per-rack vector."""
-    return rack_vals.index_select(0, therm.rack_id)
+    """(*B, N) each server's entry of a (*B, R) per-rack vector."""
+    return take(rack_vals, therm.rack_id)
 
 
 def inlet_temps(therm: ThermalState, tcfg: ThermalConfig,
@@ -246,7 +249,7 @@ def inlet_temps(therm: ThermalState, tcfg: ThermalConfig,
         return _per_server(therm, mean) * tcfg.recirc + tcfg.t_inlet
     base_r = therm.t_set
     if tcfg.ambient_on:
-        base_r = base_r + ambient(tcfg, t)
+        base_r = base_r + lift(ambient(tcfg, t))
     base = _per_server(therm, base_r)
     excess = therm.t_srv - base
     mean = _rack_sums(therm, excess) * therm.rack_inv
@@ -265,11 +268,11 @@ def cooling_power(p_srv, p_sw, therm: ThermalState,
     COP; per-rack setpoints cool each rack's load at its own COP and the
     switches at the mean setpoint's."""
     if not tcfg.per_rack:
-        tot = p_srv.sum() + p_sw
+        tot = p_srv.sum(dim=-1) + p_sw
         return div_const(tot, tcfg.cop)
     rack_p = _rack_sums(therm, p_srv)
-    return (rack_p / cop_at(tcfg, therm.t_set)).sum() \
-        + p_sw / cop_at(tcfg, therm.t_set.mean())
+    return (rack_p / cop_at(tcfg, therm.t_set)).sum(dim=-1) \
+        + p_sw / cop_at(tcfg, therm.t_set.mean(dim=-1))
 
 
 def rate_integral(base: float, swing: float, period: float, phase: float,
@@ -307,7 +310,7 @@ def rc_step(therm: ThermalState, tcfg: ThermalConfig, p_srv, t, dtf):
     of ``dtf`` seconds from ``t`` at per-server power ``p_srv``."""
     target = p_srv * tcfg.r_th + inlet_temps(therm, tcfg, t)
     alpha = 1.0 - _exp(div_const(-dtf, tcfg.tau_th))
-    return target, alpha, therm.t_srv + (target - therm.t_srv) * alpha
+    return target, alpha, therm.t_srv + (target - therm.t_srv) * lift(alpha)
 
 
 # ==========================================================================
@@ -328,8 +331,8 @@ def advance(therm: ThermalState, cfg: SimConfig, p_srv, p_sw, t, dt,
     # temperature is monotone toward its target within the interval, so
     # the endpoint max is the running peak
     t_peak = torch.maximum(therm.t_peak, t_new)
-    throttle_s = therm.throttle_seconds + therm.throttled.to(F32) * dtf
-    p_it = p_srv.sum() + p_sw
+    throttle_s = therm.throttle_seconds + therm.throttled.to(F32) * lift(dtf)
+    p_it = p_srv.sum(dim=-1) + p_sw
     if p_cool is None:
         p_cool = cooling_power(p_srv, p_sw, therm, tcfg)
     ici, ipr = carbon_price_integrals(tcfg, t, dt)
@@ -366,22 +369,24 @@ def apply_throttle(farm, jobs, therm: ThermalState, cfg: SimConfig, now):
     ratio = torch.where(therm.throttled, tf, one) \
         / torch.where(new_throttled, tf, one)                    # (N,)
     bu = farm.core_busy_until
-    in_flight = (bu < INF) & (bu > now) & changed[:, None]
-    bu = torch.where(in_flight, now + (bu - now) * ratio[:, None], bu)
+    now2 = lift(now, 2)
+    in_flight = (bu < INF) & (bu > now2) & changed[..., None]
+    bu = torch.where(in_flight, now2 + (bu - now2) * ratio[..., None], bu)
 
     srv = jobs.server.clamp(min=0).to(I64)
     te = jobs.task_end
-    run = (jobs.status == TaskStatus.RUNNING) & (te < INF) & (te > now) \
-        & changed[srv] & (jobs.server >= 0)
-    te = torch.where(run, now + (te - now) * ratio[srv], te)
+    now1 = lift(now)
+    run = (jobs.status == TaskStatus.RUNNING) & (te < INF) & (te > now1) \
+        & take(changed, srv) & (jobs.server >= 0)
+    te = torch.where(run, now1 + (te - now1) * take(ratio, srv), te)
     return (replace(farm, core_busy_until=bu), replace(jobs, task_end=te),
             replace(therm, throttled=new_throttled))
 
 
 def next_crossing(state, cfg: SimConfig) -> torch.Tensor:
-    """Earliest throttle engage/release threshold crossing (0-d in the
-    clock's dtype; INF if none): the RC exponential solved for the time it
-    reaches the pending threshold, for the servers within
+    """Earliest throttle engage/release threshold crossing (batch-shaped,
+    in the clock's dtype; INF if none): the RC exponential solved for the
+    time it reaches the pending threshold, for the servers within
     ``crossing_guard`` C of it.  The reference solves only when some
     server is in that band; here the solve always runs and is INF where
     no server is near, which is the same value.  The result is at least
@@ -409,7 +414,7 @@ def next_crossing(state, cfg: SimConfig) -> torch.Tensor:
     up = near_up & (t < thr - TEMP_TOL) & (target > thr)
     dn = near_dn & (t > rel + TEMP_TOL) & (target < rel)
     dt_min = torch.minimum(solve(up, target - t, target - thr),
-                           solve(dn, t - target, rel - target)).min()
+                           solve(dn, t - target, rel - target)).amin(dim=-1)
     t_cross = (state.t + dt_min * (1.0 + _CROSS_EPS) + 1.0e-9).to(tdt)
     tick = torch.nextafter(state.t.to(tdt),
                            torch.full((), INF, dtype=tdt, device=t.device))
@@ -430,7 +435,7 @@ def apply_setpoint_ctrl(therm: ThermalState, cfg: SimConfig,
     [ctrl_min, ctrl_max]."""
     tcfg = cfg.thermal
     tdt = cfg.time_dtype
-    rack_max = _rack_columns(therm, therm.t_srv, -INF).amax(dim=1)
+    rack_max = _rack_columns(therm, therm.t_srv, -INF).amax(dim=-1)
     down = rack_max > tcfg.ctrl_target
     up = ~down & (rack_max < tcfg.ctrl_target - tcfg.ctrl_band)
     step = torch.full((), tcfg.ctrl_step, dtype=F32, device=rack_max.device)
@@ -443,7 +448,7 @@ def apply_setpoint_ctrl(therm: ThermalState, cfg: SimConfig,
         torch.nextafter(now.to(tdt), torch.full((), INF, dtype=tdt,
                                                 device=now.device)))
     tick = now >= therm.ctrl_next
-    return replace(therm, t_set=torch.where(tick, t_set, therm.t_set),
+    return replace(therm, t_set=torch.where(lift(tick), t_set, therm.t_set),
                    ctrl_next=torch.where(tick, nxt, therm.ctrl_next))
 
 

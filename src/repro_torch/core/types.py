@@ -318,7 +318,8 @@ class SimConfig:
 
 
 # --------------------------------------------------------------------------
-# dynamic state: dataclasses of tensors
+# dynamic state: dataclasses of tensors.  Shapes are one run's; a replica
+# batch (``core/montecarlo.py``) adds a leading R to every leaf.
 # --------------------------------------------------------------------------
 
 @dataclass
@@ -473,16 +474,19 @@ class SimState:
 
 def tree_where(mask, new, old):
     """Leaf-wise ``torch.where(mask, new, old)`` over two states of the
-    same dataclass layout (``mask`` a 0-d bool tensor).  A leaf that is
-    the same tensor on both sides (a subtree the pass did not touch) is
-    returned as it is: no state tensor is ever written in place."""
+    same dataclass layout.  ``mask`` has the states' batch shape (``()``
+    for one run, ``(R,)`` for R replicas) and broadcasts over each leaf's
+    trailing axes.  A leaf that is the same tensor on both sides (a
+    subtree the pass did not touch, or the flight recorder's ring, which
+    is written in place) is returned as it is: no state tensor is ever
+    copied or written in place here."""
     if new is old:
         return new
     if dataclasses.is_dataclass(new):
         return type(new)(**{f.name: tree_where(mask, getattr(new, f.name),
                                                getattr(old, f.name))
                             for f in dataclasses.fields(new)})
-    return torch.where(mask, new, old)
+    return torch.where(lift(mask, new.dim() - mask.dim()), new, old)
 
 
 def tree_leaves(obj, prefix: str = ""):
@@ -496,6 +500,42 @@ def tree_leaves(obj, prefix: str = ""):
         else:
             out.append((path, v))
     return out
+
+
+# --------------------------------------------------------------------------
+# the replica axis: every state leaf has a leading batch shape, () for one
+# run and (R,) for R replicas (``core/montecarlo.py``); module functions
+# work along the trailing (server, core, job) axes with these helpers
+# --------------------------------------------------------------------------
+
+def lift(x: torch.Tensor, n: int = 1) -> torch.Tensor:
+    """``x`` with ``n`` trailing singleton axes (a view): a per-replica
+    value broadcast against per-server or per-task tensors."""
+    return x.reshape(x.shape + (1,) * n) if n > 0 else x
+
+
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx]`` replica by replica: x (*B, n), idx (*B, *I) integer
+    indices in [0, n) -> (*B, *I), one gather along the last axis."""
+    nb = x.dim() - 1
+    flat = idx.reshape(idx.shape[:nb] + (-1,))
+    return torch.gather(x, -1, flat.to(torch.int64)).view(idx.shape)
+
+
+def set_drop(base: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
+    """``base.at[..., idx].set(vals, mode="drop")`` replica by replica:
+    base (*B, n), idx (*B, K) in [0, n], where ``n`` is the drop sentinel
+    (a column one past the end, sliced off), vals a number or a tensor
+    broadcastable to idx.  Indices other than the sentinel must be
+    distinct within a replica."""
+    n = base.shape[-1]
+    buf = torch.cat([base, base[..., :1]], dim=-1)
+    if not torch.is_tensor(vals):
+        vals = torch.full(idx.shape, vals, dtype=base.dtype,
+                          device=base.device)
+    buf = buf.scatter(-1, idx.to(torch.int64),
+                      vals.to(base.dtype).expand(idx.shape))
+    return buf[..., :n]
 
 
 # --------------------------------------------------------------------------

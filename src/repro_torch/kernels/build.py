@@ -24,6 +24,10 @@ SOURCES = ("dcsim_step", "telemetry_bin", "flash_attention", "ssm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the most replicas one launch of an engine kernel takes: both put the
+# replica on the grid's y axis, whose extent CUDA caps at 65,535
+MAX_REPLICAS = 65535
+
 # loaded libraries of this process, by source name
 _LOADED: dict = {}
 
@@ -112,14 +116,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "dcsim_step":
         fn = lib.dcsim_advance_launch
-        fn.argtypes = [P] * 11 + [F, F, F, I, I, I, I] + [P] * 7 + [P]
+        fn.argtypes = [P] * 11 + [F, F, F, I, I, I, I, I] + [P] * 7 + [P]
         fn.restype = I
         fn = lib.dcsim_advance_launch_f64
-        fn.argtypes = [P] * 11 + [F, F, F, I, I, I] + [P] * 7 + [P]
+        fn.argtypes = [P] * 11 + [F, F, F, I, I, I, I] + [P] * 7 + [P]
     elif name == "telemetry_bin":
         fn = lib.telemetry_bin_launch
         fn.argtypes = [P, P, I, P, P, I, F, F, F, I, P, P, P, I, I, P, P] \
-            + [P] * 5 + [I, P]
+            + [P] * 5 + [I, I, I, P]
     elif name == "flash_attention":
         fn = lib.flash_attention_launch
         fn.argtypes = [P] * 4 + [I] * 7 + [P, I, I, F, F, P]

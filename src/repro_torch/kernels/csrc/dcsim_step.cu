@@ -15,6 +15,12 @@
 //   candidate = min(surviving busy_until, wake_at, idle_since + tau if IDLE)
 // and the farm-wide minimum of the candidates.
 //
+// Replicas: the call may advance R independent farms at once (a Monte
+// Carlo batch, core/montecarlo.py).  Every per-server array is then
+// (R, N, ...) and t, t_next and cand are (R,); blockIdx.y is the replica,
+// and each replica's minimum is its own.  R = 1 is the single farm, with
+// the geometry below unchanged.
+//
 // What bounds it: at N = 65,536 servers x C = 4 the call reads about
 // 2.9 MB and writes about 1.8 MB, 4.7 MB in all, 1.41 us at 3.35 TB/s,
 // and does a few dozen flops per server.  A kernel launch's ramp (blocks
@@ -38,8 +44,14 @@
 //     slots when C == 4, the rest scalars) issued before its first
 //     store: the whole 4.7 MB is in flight in one round trip.  The ragged
 //     tail is masked.
-//   - The two scratch words (ticket, minimum) belong to the wrapper, one
-//     pair per device, so a call allocates nothing for the reduction.
+//   - A replica whose servers fit one block (gridDim.x == 1: N <= 256, or
+//     a batch large enough that the wrapper's plan gives each replica one
+//     block) writes its candidate straight from the block minimum, with
+//     no atomics.  Otherwise each replica has its own ticket and minimum
+//     word, and its last block writes its candidate, as above.
+//   - The scratch words (R tickets, then R minima) belong to the wrapper,
+//     one set per device and batch size, so a call allocates nothing for
+//     the reduction.
 //     Two launches that overlap on two streams of one device would share
 //     them and mix their minima: the port issues every call on the
 //     current stream, in order, and the wrapper documents the rule.  A
@@ -225,7 +237,22 @@ dcsim_advance_kernel(const T* __restrict__ core_busy,
                      typename Clock<T>::Img* min_image,
                      T* __restrict__ cand) {
     typedef typename Clock<T>::Img Img;
-    const T t = *t_ptr, t_next = *t_next_ptr;
+    // this block's replica: its farm's rows and its own scratch words
+    const int r = blockIdx.y;
+    const long srv0 = (long)r * n, slot0 = srv0 * c;
+    core_busy += slot0;
+    new_busy += slot0;
+    done += slot0;
+    srv_state += srv0;
+    energy += srv0;
+    busy_seconds += srv0;
+    new_energy += srv0;
+    new_busy_seconds += srv0;
+    if (wake_at != nullptr) wake_at += srv0;
+    if (idle_since != nullptr) idle_since += srv0;
+    if (tau != nullptr) tau += srv0;
+    if (throttled != nullptr) throttled += srv0;
+    const T t = t_ptr[r], t_next = t_next_ptr[r];
     const float dt = Clock<T>::diff_f32(t_next, t);
     T m = Clock<T>::INF;
     for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -236,14 +263,18 @@ dcsim_advance_kernel(const T* __restrict__ core_busy,
             p_idle, c, vec4, new_busy, done, new_energy, new_busy_seconds));
     m = block_min(m);
     if (threadIdx.x == 0) {
-        atomicMin(min_image, Clock<T>::image(m));
+        if (gridDim.x == 1) {       // the whole replica in this block
+            cand[r] = m;
+            return;
+        }
+        atomicMin(min_image + r, Clock<T>::image(m));
         __threadfence();            // the minimum lands before the ticket
         // the last block reads the farm-wide minimum and resets both words
         // for the next launch
-        if (atomicAdd(ticket, (Img)1) == (Img)(gridDim.x - 1)) {
-            *cand = Clock<T>::from_image(atomicExch(min_image,
-                                                    Clock<T>::EMPTY));
-            *ticket = (Img)0;
+        if (atomicAdd(ticket + r, (Img)1) == (Img)(gridDim.x - 1)) {
+            cand[r] = Clock<T>::from_image(atomicExch(min_image + r,
+                                                      Clock<T>::EMPTY));
+            ticket[r] = (Img)0;
         }
     }
 }
@@ -254,18 +285,19 @@ static int launch(const T* core_busy, const int* srv_state,
                   const T* wake_at, const T* idle_since, const T* tau,
                   const int* throttled, const float* table, const T* t,
                   const T* t_next, float p_act, float p_act_thr,
-                  float p_idle, int n, int c, int grid, int vec4,
+                  float p_idle, int n, int c, int grid, int reps, int vec4,
                   T* new_busy, uint8_t* done, float* new_energy,
                   float* new_busy_seconds, typename Clock<T>::Img* ticket,
                   typename Clock<T>::Img* min_image, T* cand,
                   void* stream) {
-    if (n <= 0 || c <= 0 || grid <= 0) return (int)cudaErrorInvalidValue;
+    if (n <= 0 || c <= 0 || grid <= 0 || reps <= 0 || reps > 65535)
+        return (int)cudaErrorInvalidValue;
     if (vec4 && (sizeof(T) != 4 || c != 4
                  || ((uintptr_t)core_busy % 16) != 0
                  || ((uintptr_t)new_busy % 16) != 0
                  || ((uintptr_t)done % 4) != 0))
         return (int)cudaErrorMisalignedAddress;
-    dcsim_advance_kernel<T><<<grid, DCSIM_THREADS, 0,
+    dcsim_advance_kernel<T><<<dim3(grid, reps), DCSIM_THREADS, 0,
                               (cudaStream_t)stream>>>(
         core_busy, srv_state, energy, busy_seconds, wake_at, idle_since, tau,
         throttled, table, t, t_next, p_act, p_act_thr, p_idle, n, c, vec4,
@@ -280,12 +312,13 @@ extern "C" int dcsim_advance_launch(
         const float* idle_since, const float* tau, const int* throttled,
         const float* table, const float* t, const float* t_next,
         float p_act, float p_act_thr, float p_idle, int n, int c, int grid,
-        int vec4, float* new_busy, uint8_t* done, float* new_energy,
-        float* new_busy_seconds, unsigned int* ticket,
+        int reps, int vec4, float* new_busy, uint8_t* done,
+        float* new_energy, float* new_busy_seconds, unsigned int* ticket,
         unsigned int* min_image, float* cand, void* stream) {
     return launch<float>(core_busy, srv_state, energy, busy_seconds,
                          wake_at, idle_since, tau, throttled, table, t,
-                         t_next, p_act, p_act_thr, p_idle, n, c, grid, vec4,
+                         t_next, p_act, p_act_thr, p_idle, n, c, grid, reps,
+                         vec4,
                          new_busy, done, new_energy, new_busy_seconds,
                          ticket, min_image, cand, stream);
 }
@@ -296,12 +329,13 @@ extern "C" int dcsim_advance_launch_f64(
         const double* idle_since, const double* tau, const int* throttled,
         const float* table, const double* t, const double* t_next,
         float p_act, float p_act_thr, float p_idle, int n, int c, int grid,
-        double* new_busy, uint8_t* done, float* new_energy,
+        int reps, double* new_busy, uint8_t* done, float* new_energy,
         float* new_busy_seconds, unsigned long long* ticket,
         unsigned long long* min_image, double* cand, void* stream) {
     return launch<double>(core_busy, srv_state, energy, busy_seconds,
                           wake_at, idle_since, tau, throttled, table, t,
-                          t_next, p_act, p_act_thr, p_idle, n, c, grid, 0,
+                          t_next, p_act, p_act_thr, p_idle, n, c, grid, reps,
+                          0,
                           new_busy, done, new_energy, new_busy_seconds,
                           ticket, min_image, cand, stream);
 }

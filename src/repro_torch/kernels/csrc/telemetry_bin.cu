@@ -46,6 +46,14 @@
 //     a fixed order (block g into part g % P, the P parts then in order),
 //     adds the input histograms and sets the ticket back to 0.  Every
 //     block copies its share of the window.
+// Replicas: a call may bin R independent streams at once (a Monte Carlo
+// batch, core/montecarlo.py): every array then has a leading (R,) axis and
+// widx is (R,).  blockIdx.y is the replica; each replica's blocks bin into
+// its own histograms, window, partials and ticket, on the path its own
+// grid (gridDim.x) gives it.  R = 1 is the single stream.  A batch's
+// one-block path takes blocks only as wide as its streams need (at least
+// 128 threads, telemetry_bin.py plan), so R small histograms do not each
+// hold a 1,024-thread block.
 // With 0/1 weights every count and partial sum is an integer below 2^24,
 // so no order of the atomics can show and both paths equal the plain
 // version bit for bit.  The scratch and the ticket are one set per
@@ -97,6 +105,24 @@ telemetry_bin_kernel(const float* __restrict__ job_vals,
     int* cnt = reinterpret_cast<int*>(sh + nb2);
     const int n = n_job > n_task ? n_job : n_task;
     const bool one_block = gridDim.x == 1;
+    // this block's replica: its streams, histograms, window and scratch
+    const int rep = blockIdx.y;
+    job_vals += (long)rep * n_job;
+    job_wts += (long)rep * n_job;
+    task_vals += (long)rep * n_task;
+    task_wts += (long)rep * n_task;
+    job_hist += (long)rep * n_bins;
+    task_hist += (long)rep * n_bins;
+    job_out += (long)rep * n_bins;
+    task_out += (long)rep * n_bins;
+    win += (long)rep * n_win * n_cols;
+    win_out += (long)rep * n_win * n_cols;
+    widx += rep;
+    wvals += (long)rep * n_cols;
+    if (!one_block) {
+        partial += (long)rep * gridDim.x * nb2;
+        ticket += rep;
+    }
 
     // the first round trip: this thread's first value and weight of each
     // stream (past a stream's end the weight reads 0), on the one-block
@@ -195,14 +221,17 @@ extern "C" int telemetry_bin_launch(
         const float* win, int n_win, int n_cols,
         const int* widx, const float* wvals,
         float* job_out, float* task_out, float* win_out,
-        float* partial, unsigned int* ticket, int grid, void* stream) {
+        float* partial, unsigned int* ticket, int grid, int reps, int block,
+        void* stream) {
     if (n_bins <= 0 || n_job < 0 || n_task < 0 || n_win < 0 || n_cols < 0
-            || grid <= 0 || (grid > 1 && (partial == nullptr
-                                          || ticket == nullptr)))
+            || grid <= 0 || reps <= 0 || reps > 65535 || block <= 0
+            || block > TB_THREADS || block % 32 != 0
+            || (grid > 1 && (partial == nullptr || ticket == nullptr)))
         return (int)cudaErrorInvalidValue;
     // two B-bin histograms of float parts and two of counts
     const size_t smem = 4 * (size_t)n_bins * sizeof(float);
-    telemetry_bin_kernel<<<grid, TB_THREADS, smem, (cudaStream_t)stream>>>(
+    telemetry_bin_kernel<<<dim3(grid, reps), block, smem,
+                           (cudaStream_t)stream>>>(
         job_vals, job_wts, n_job, task_vals, task_wts, n_task, lo, inv_lo,
         scale, n_bins, job_hist, task_hist, win, n_win, n_cols, widx, wvals,
         job_out, task_out, win_out, partial, ticket);

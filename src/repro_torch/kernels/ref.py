@@ -107,12 +107,16 @@ def telemetry_accum_reference(job_vals, job_wts, task_vals, task_wts,
                                                            widx is out of
                                                            range)
 
-    Returns new (job_hist, task_hist, win); the inputs are not modified."""
-    B = job_hist.shape[0]
-    jh = job_hist.index_add(0, log_bin(job_vals, lo, hi, B), job_wts)
-    th = task_hist.index_add(0, log_bin(task_vals, lo, hi, B), task_wts)
-    rows = torch.arange(win.shape[0], device=win.device)
-    w = torch.where((rows == widx)[:, None], win + wvals[None, :], win)
+    Every argument may carry a leading replica batch shape (job_vals (*R,
+    J), job_hist (*R, B), win (*R, W, K), widx (*R,), wvals (*R, K)); each
+    replica bins into its own histograms and window.  Returns new
+    (job_hist, task_hist, win); the inputs are not modified."""
+    B = job_hist.shape[-1]
+    jh = job_hist.scatter_add(-1, log_bin(job_vals, lo, hi, B), job_wts)
+    th = task_hist.scatter_add(-1, log_bin(task_vals, lo, hi, B), task_wts)
+    rows = torch.arange(win.shape[-2], device=win.device)
+    w = torch.where((rows == widx[..., None])[..., None],
+                    win + wvals[..., None, :], win)
     return jh, th, w
 
 
@@ -133,19 +137,22 @@ def dcsim_advance_reference(core_busy, srv_state, energy, busy_seconds,
                            idle delay-timer expiries)
 
     Time-typed inputs keep their dtype (an f64 clock stays f64 on the
-    CPU); power and energy are f32.  Returns (new_core_busy, done_mask,
-    energy, busy_seconds, next_cand)."""
-    N, C = core_busy.shape
+    CPU); power and energy are f32.  Every per-server input may carry a
+    leading replica batch shape (core_busy (*R, N, C), t and t_next (*R,)),
+    with one candidate a replica; ``state_power`` is shared.  Returns
+    (new_core_busy, done_mask, energy, busy_seconds, next_cand)."""
+    C = core_busy.shape[-1]
     dev, tdt = core_busy.device, core_busy.dtype
+    shape = core_busy.shape[:-1]
     if srv_wake_at is None:
-        srv_wake_at = torch.full((N,), INF, dtype=tdt, device=dev)
+        srv_wake_at = torch.full(shape, INF, dtype=tdt, device=dev)
     if srv_idle_since is None:
-        srv_idle_since = torch.zeros((N,), dtype=tdt, device=dev)
+        srv_idle_since = torch.zeros(shape, dtype=tdt, device=dev)
     if srv_tau is None:
-        srv_tau = torch.full((N,), INF, dtype=tdt, device=dev)
+        srv_tau = torch.full(shape, INF, dtype=tdt, device=dev)
     f32 = torch.float32
-    dt = (t_next - t).to(f32)
-    busy = (core_busy < INF).sum(dim=1, dtype=torch.int32).to(f32)
+    dt = (t_next - t).to(f32)[..., None]
+    busy = (core_busy < INF).sum(dim=-1, dtype=torch.int32).to(f32)
     awake = srv_state <= 1                       # ACTIVE=0 / IDLE=1
     p_act = _const(p_core_active, busy)
     if throttled is not None:
@@ -157,12 +164,13 @@ def dcsim_advance_reference(core_busy, srv_state, energy, busy_seconds,
                     state_power[srv_state.clamp(0, 5).to(torch.int64)])
     energy = energy + p * dt
     busy_seconds = busy_seconds + busy * dt
-    done = core_busy <= t_next
+    done = core_busy <= t_next[..., None, None]
     new_busy = torch.where(done, _const(INF, core_busy), core_busy)
     timer = torch.where(srv_state == 1, srv_idle_since + srv_tau,
                         _const(INF, srv_idle_since))
-    next_cand = torch.minimum(new_busy.min(),
-                              torch.minimum(srv_wake_at.min(), timer.min()))
+    next_cand = torch.minimum(new_busy.amin(dim=(-2, -1)),
+                              torch.minimum(srv_wake_at.amin(dim=-1),
+                                            timer.amin(dim=-1)))
     return new_busy, done, energy, busy_seconds, next_cand
 
 

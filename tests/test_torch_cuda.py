@@ -704,3 +704,95 @@ def test_traced_engine_on_card_matches_cpu(cuda):
         assert (dropped > 0) == (cap == 64)
         if cap > 64:        # the 64 newest records hold no crossing
             assert TraceKind.THROTTLE_CROSSING in set(ev["kind"].tolist())
+
+
+# --------------------------------------------------------------------------
+# the replica axis: batched kernels and run_replicas
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("clock", [np.float32, np.float64])
+@pytest.mark.parametrize("R,n", [(1, 1000), (3, 300), (1024, 16),
+                                 (4, 65536)])
+def test_batched_dcsim_advance_matches_plain(cuda, R, n, clock):
+    """One launch for R farms, each with its own minimum (replica 1 of a
+    batch is all INF): bitwise equal to the batched plain version."""
+    from torch_kernel_inputs import dcsim_inputs_batched
+    a = torch_args(dcsim_inputs_batched(R, n, 4, 7, clock=clock,
+                                        inf_replica=1 if R > 1 else None),
+                   cuda)
+    before = dcsim_step.LAUNCHES
+    got = dcsim_step.dcsim_advance(*a, throttle_power_scale=0.6)
+    assert dcsim_step.LAUNCHES == before + 1
+    exp = ref.dcsim_advance_reference(*a, throttle_power_scale=0.6)
+    for g, e in zip(got, exp):
+        assert g.shape == e.shape and torch.equal(g, e)
+    assert list(dcsim_step.scratch(cuda, a[0].dtype, R).tolist()) == \
+        [0] * R + [-1] * R
+
+
+@pytest.mark.parametrize("R,J", [(1024, 128), (8, 600), (3, 100_003)])
+def test_batched_telemetry_accum_matches_plain(cuda, R, J):
+    """One launch for R replicas' streams, each into its own histograms
+    and window row, on the one-block and the cross-block path."""
+    from torch_kernel_inputs import tb_inputs_batched
+    a = torch_args(tb_inputs_batched(R, J, J, 64, 1 if J < 1000 else 16,
+                                     19, 5), cuda)
+    before = telemetry_bin.LAUNCHES
+    got = telemetry_bin.telemetry_accum(*a)
+    assert telemetry_bin.LAUNCHES == before + 1
+    exp = ref.telemetry_accum_reference(*a)
+    for g, e in zip(got, exp):
+        assert g.shape == e.shape and torch.equal(g, e)
+
+
+def _replicas(name, dev):
+    from repro_torch.core import montecarlo
+    from torch_kernel_inputs import mc_config, mc_scenario
+    kw, nested, arrs, specs, taus, net = mc_scenario(name, jobs)
+    cfg = mc_config(types, kw, nested)
+    topo = topology.fat_tree(4, link_cap=1.25e9) if net else None
+    sb, tc = montecarlo.batched_state(cfg, arrs, specs, taus=taus,
+                                      topo=topo, device=dev)
+    ops.reset_launch_counts()
+    return cfg, montecarlo.run_replicas(cfg, sb, tc), ops.launch_counts()
+
+
+@pytest.mark.parametrize("name", ["replicas_r3", "fat_tree_rr",
+                                  "thermal_sweep", "traced_rich_cap64"])
+def test_run_replicas_on_card_matches_cpu(cuda, name):
+    cfg, gpu, counts = _replicas(name, cuda)
+    _, cpu, _ = _replicas(name, "cpu")
+    for (path, g), (_, c) in zip(tree_leaves(gpu), tree_leaves(cpu)):
+        g = g.cpu()
+        assert g.dtype == c.dtype and g.shape == c.shape, path
+        if g.dtype.is_floating_point and path not in (
+                "telem.job_hist", "telem.task_hist", "trace.buf"):
+            assert torch.allclose(g, c, rtol=1e-5, atol=0.0), path
+        else:
+            assert torch.equal(g, c), path
+    steps = int(gpu.steps.max())
+    assert counts["dcsim_advance"] == steps * cfg.events_per_step
+    assert counts["telemetry_accum"] == steps
+
+
+def test_replica_batch_launches_once_a_pass_at_r64(cuda):
+    """R = 64 farms: one advance launch a pass (K a macro-step) and one
+    binning launch a macro-step, as a single farm."""
+    from repro_torch.core import montecarlo
+    n, R = 64, 64
+    cfg = SimConfig(n_servers=n, n_cores=4, local_q=64, max_jobs=256,
+                    tasks_per_job=1, sleep_policy=SleepPolicy.ALWAYS_ON,
+                    max_events=10_000)
+    rng = np.random.default_rng(1)
+    lam = workload.utilization_to_rate(0.5, 0.01, n, 4)
+    arrs = np.stack([workload.poisson_arrivals(lam, 200, seed=s)
+                     for s in range(R)])
+    specs = [jobs.dag_single(rng.exponential(0.01)) for _ in range(200)]
+    sb, tc = montecarlo.batched_state(cfg, arrs, specs, device=cuda)
+    ops.reset_launch_counts()
+    out = montecarlo.run_replicas(cfg, sb, tc)
+    counts = ops.launch_counts()
+    steps = int(out.steps.max())
+    assert (montecarlo.replica_stats(out, cfg)["finished"] == 200).all()
+    assert counts["dcsim_advance"] == steps * cfg.events_per_step
+    assert counts["telemetry_accum"] == steps

@@ -265,3 +265,103 @@ def test_telemetry_plan_takes_the_most_bins_the_shared_memory_holds():
     assert telemetry_bin.plan(10, 10, most, 1, 19).smem == 16 * most
     with pytest.raises(ValueError, match="shared memory"):
         telemetry_bin.plan(10, 10, most + 1, 1, 19)
+
+
+# --------------------------------------------------------------------------
+# the replica axis: the plain versions with a leading R, against jax.vmap of
+# the jnp oracles and of the Pallas kernels (interpret)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,c,seed", [(1, 1, 0), (17, 4, 2), (257, 3, 4)])
+def test_dcsim_plain_batched_matches_vmap(n, c, seed):
+    """R = 3 farms, ragged N, replica 1 all INF (an empty farm: its
+    candidate is INF): the batched plain advance equals jax.vmap of the
+    jnp oracle and of the Pallas kernel, and replica by replica the
+    unbatched plain advance."""
+    import jax
+    from torch_kernel_inputs import dcsim_inputs_batched
+    a = dcsim_inputs_batched(3, n, c, seed, inf_replica=1)
+    got = ref.dcsim_advance_reference(*torch_args(a),
+                                      throttle_power_scale=0.6)
+    ja = _jax_args(a)
+    per = (0, 1, 2, 3, 4, 5, 9, 10, 11, 12)
+
+    def vm(fn, **kw):
+        def one(*xs):
+            full = list(ja)
+            for i, x in zip(per, xs):
+                full[i] = x
+            return fn(*full, throttle_power_scale=0.6, **kw)
+        return jax.vmap(one)(*(ja[i] for i in per))
+
+    _assert_advance(got, vm(jref.dcsim_advance_reference), "vs vmap(ref)")
+    _assert_advance(got, vm(pallas_advance, interpret=True),
+                    "vs vmap(Pallas interpret)")
+    assert float(got[4][1]) == float(np.float32(ref.INF))
+    ta = torch_args(a)
+    for r in range(3):
+        one = ref.dcsim_advance_reference(
+            *(x[r] if i in per else x for i, x in enumerate(ta)),
+            throttle_power_scale=0.6)
+        for g, e in zip(got, one):
+            assert torch.equal(g[r], e)
+
+
+@pytest.mark.parametrize("J,M,W", [(64, 64, 16), (200, 700, 1),
+                                   (600, 1800, 256)])
+def test_telemetry_plain_batched_matches_vmap(J, M, W):
+    """R = 3 replicas' streams: each bins into its own histograms and
+    window row, equal to jax.vmap of the jnp oracle and of the Pallas
+    kernel, and replica by replica to the unbatched plain version."""
+    import jax
+    from torch_kernel_inputs import tb_inputs_batched
+    a = tb_inputs_batched(3, J, M, 64, W, 19, seed=J + M)
+    got = ref.telemetry_accum_reference(*torch_args(a))
+    ja = _jax_args(a)
+    lo, hi = a[9], a[10]
+    exp_ref = jax.vmap(lambda *x: jref.telemetry_accum_reference(
+        *x, lo, hi))(*ja[:9])
+    exp_pl = jax.vmap(lambda *x: pallas_accum(*x, lo, hi, block=256,
+                                              interpret=True))(*ja[:9])
+    for name, g, e1, e2 in zip(("job_hist", "task_hist", "win"), got,
+                               exp_ref, exp_pl):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(e1),
+                                      err_msg=f"{name} vs vmap(oracle)")
+        np.testing.assert_array_equal(g.numpy(), np.asarray(e2),
+                                      err_msg=f"{name} vs vmap(Pallas)")
+    ta = torch_args(a)
+    for r in range(3):
+        one = ref.telemetry_accum_reference(*(x[r] for x in ta[:9]), lo, hi)
+        for g, e in zip(got, one):
+            assert torch.equal(g[r], e)
+
+
+@pytest.mark.parametrize("R", [1, 3, 1024, 65_535])
+def test_batched_plans_launch_once_whatever_R(R):
+    """One launch a call whatever R: the replica is the grid's y extent;
+    each replica keeps at least one block, the total stays near the
+    single farm's cap, and the scratch is a pair of words (advance) or a
+    ticket (binning) a replica."""
+    p = dcsim_step.plan(16, 4, replicas=R)
+    assert (p.replicas, p.grid, p.scratch) == (R, 1, 2 * R)
+    big = dcsim_step.plan(65_536, 4, replicas=R)
+    cap = dcsim_step.BLOCKS_PER_SM * 132
+    assert big.grid == min(256, max(cap // R, 1))
+    t = telemetry_bin.plan(128, 128, 64, 1, 19, replicas=R)
+    assert (t.path, t.grid, t.scratch, t.replicas) == ("small", 1, 0, R)
+    # a batch's one-block launch is as wide as its streams, one stream
+    # set's keeps THREADS
+    assert t.block == (telemetry_bin.THREADS if R == 1 else 128)
+    assert telemetry_bin.plan(600, 300, 64, 1, 19, replicas=R).block == \
+        (telemetry_bin.THREADS if R == 1 else 608)
+    t = telemetry_bin.plan(100_003, 300_009, 64, 256, 19, replicas=R)
+    assert t.grid == min(-(-300_009 // 1024), max(132 // R, 1))
+    assert t.path == ("large" if t.grid > 1 else "small")
+    assert t.scratch == (R * t.grid * 128 if t.grid > 1 else 0)
+
+
+def test_batched_plans_refuse_too_many_replicas():
+    with pytest.raises(ValueError, match="replicas"):
+        dcsim_step.plan(16, 4, replicas=65_536)
+    with pytest.raises(ValueError, match="replicas"):
+        telemetry_bin.plan(16, 16, 64, 1, 19, replicas=0)

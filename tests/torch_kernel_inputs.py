@@ -45,6 +45,24 @@ def dcsim_inputs(n, c, seed, throttled=True, clock=np.float32):
             isince, tau, thr)
 
 
+def dcsim_inputs_batched(R, n, c, seed, throttled=True, clock=np.float32,
+                         inf_replica=None):
+    """R farms of ``dcsim_inputs`` (replica r from seed 1000 * seed + r),
+    stacked along a leading axis for the batched advance; the power table
+    and coefficients are shared.  ``inf_replica`` r has every slot, wake
+    and timer at INF, so its candidate is INF."""
+    reps = [dcsim_inputs(n, c, 1000 * seed + r, throttled, clock)
+            for r in range(R)]
+    out = list(reps[0])
+    for i in (0, 1, 2, 3, 4, 5, 9, 10, 11, 12):
+        if reps[0][i] is not None:
+            out[i] = np.stack([rep[i] for rep in reps])
+    if inf_replica is not None:
+        for i in (0, 9, 11):
+            out[i][inf_replica] = INF
+    return tuple(out)
+
+
 def edge_free_vals(rng, n, lo=1e-5, hi=1e3, B=64):
     """Log-uniform latencies over [lo/10, 10 hi] (both clamps hit), moved
     off the bin edges: a 1-ulp difference between two ``log``
@@ -74,6 +92,15 @@ def tb_inputs(J, M, B, W, K, seed, unit=True):
             rng.uniform(0, 1, (W, K)).astype(np.float32),
             np.int32(rng.integers(0, W)),
             rng.uniform(0, 1, K).astype(np.float32), 1e-5, 1e3)
+
+
+def tb_inputs_batched(R, J, M, B, W, K, seed, unit=True):
+    """R sets of ``tb_inputs`` (replica r from seed 1000 * seed + r),
+    stacked along a leading axis for the batched binning."""
+    reps = [tb_inputs(J, M, B, W, K, 1000 * seed + r, unit)
+            for r in range(R)]
+    return tuple(np.stack([rep[i] for rep in reps]) for i in range(9)) \
+        + reps[0][9:]
 
 
 def torch_args(np_args, device="cpu"):
@@ -296,3 +323,90 @@ def thermal_case_scenario(jobs, workload, n_jobs=500):
                                    swing=0.6, seed=1)
     specs = [jobs.dag_single(rng.exponential(0.35)) for _ in range(n_jobs)]
     return kw, thermal, dict(n_windows=128, window_dt=1.0), arr, specs, 0.5
+
+
+# --------------------------------------------------------------------------
+# replica scenarios: the reference's own replica batches
+# (tests/test_montecarlo.py, tests/test_telemetry.py, tests/test_thermal.py,
+# and tests/test_trace.py's rich scenario at R = 2)
+# --------------------------------------------------------------------------
+
+# tests/test_telemetry.py's TEL and tests/test_thermal.py's HOT
+MC_TEL = dict(n_bins=128, lat_lo=1e-4, lat_hi=10.0, n_windows=128,
+              window_dt=0.05, tail_thresh=0.04)
+MC_HOT = dict(enabled=True, r_th=0.5, tau_th=2.0, t_inlet=22.0, recirc=0.2,
+              rack_size=3, t_throttle=50.0, t_release=45.0)
+MC_SCENARIOS = ("replicas_r3", "tau_sweep_r", "tau_sweep_rn", "fat_tree_rr",
+                "telemetry_hist", "telemetry_empty", "thermal_sweep",
+                "traced_rich_cap64")
+
+
+def mc_scenario(name, jobs_mod):
+    """(SimConfig kwargs, {"telemetry"/"thermal"/"trace": kwargs of the
+    nested config}, arrivals (R, J), specs built with ``jobs_mod``, taus
+    (None, (R,) or (R, N)), network: a k=4 fat-tree at 1.25 GB/s) of a
+    named replica scenario, for either package."""
+    from repro_torch.core import workload
+
+    def singles(n, seed, mean):
+        rng = np.random.default_rng(seed)
+        return [jobs_mod.dag_single(rng.exponential(mean)) for _ in range(n)]
+
+    def arrs(lam, n, seeds):
+        return np.stack([workload.poisson_arrivals(lam, n, seed=s)
+                         for s in seeds])
+
+    base = dict(n_servers=4, n_cores=2, local_q=64, max_jobs=128,
+                tasks_per_job=1, sleep_policy=0, max_events=10_000)
+    if name in ("replicas_r3", "telemetry_hist"):
+        nested = {"telemetry": MC_TEL} if name == "telemetry_hist" else {}
+        return (base, nested, arrs(150.0, 80, range(3)),
+                singles(80, 0, 0.01), None, False)
+    if name in ("tau_sweep_r", "tau_sweep_rn"):
+        taus = np.asarray([0.01, 0.1, 1.0])
+        if name == "tau_sweep_rn":
+            taus = taus[:, None] * (1.0 + 0.25 * np.arange(4))
+        return (dict(base, sleep_policy=1), {},     # SINGLE_TIMER
+                np.stack([workload.poisson_arrivals(30.0, 60, seed=7)] * 3),
+                singles(60, 1, 0.02), taus, False)
+    if name == "fat_tree_rr":
+        rng = np.random.default_rng(2)
+        specs = [jobs_mod.dag_chain(rng.uniform(0.01, 0.04, size=2),
+                                    edge_bytes=50e6) for _ in range(40)]
+        kw = dict(n_servers=16, n_cores=2, local_q=16, max_jobs=64,
+                  tasks_per_job=2, max_children=2, max_flows=128,
+                  sched_policy=0, sleep_policy=0,     # ROUND_ROBIN
+                  has_network=True, max_events=20_000)
+        return kw, {}, arrs(25.0, 40, range(2)), specs, None, True
+    if name == "telemetry_empty":
+        kw = dict(n_servers=2, n_cores=1, local_q=8, max_jobs=16,
+                  tasks_per_job=1, sleep_policy=0, max_events=1,
+                  events_per_step=1)
+        return (kw, {"telemetry": MC_TEL}, arrs(50.0, 8, range(2)),
+                singles(8, 0, 0.01), None, False)
+    if name == "thermal_sweep":
+        kw = dict(n_servers=4, n_cores=2, max_jobs=64, tasks_per_job=1,
+                  sleep_policy=0, max_events=20_000)
+        return (kw, {"thermal": MC_HOT}, arrs(40.0, 60, range(3)),
+                singles(60, 0, 0.02), None, False)
+    if name == "traced_rich_cap64":
+        th = dict(MC_HOT, throttle_freq=0.5, throttle_power_scale=0.6,
+                  carbon_period=600.0, price_period=600.0)
+        kw = dict(n_servers=6, n_cores=2, max_jobs=256, tasks_per_job=1,
+                  sched_policy=1, sleep_policy=1,   # LOAD_BALANCE, timer
+                  sleep_state=3, max_events=60_000)  # into S3
+        rng = np.random.default_rng(7)
+        specs = [jobs_mod.dag_single(s) for s in rng.exponential(0.02, 150)]
+        return (kw, {"thermal": th, "trace": dict(enabled=True,
+                                                   capacity=64)},
+                arrs(60.0, 150, (3, 4)), specs, np.full(2, 0.05), False)
+    raise ValueError(f"unknown replica scenario {name!r}")
+
+
+def mc_config(types_mod, kw, nested):
+    """The SimConfig of ``mc_scenario``'s parts, in either package."""
+    made = {"telemetry": types_mod.TelemetryConfig,
+            "thermal": types_mod.ThermalConfig,
+            "trace": types_mod.TraceConfig}
+    return types_mod.SimConfig(**kw, **{k: made[k](**v)
+                                        for k, v in nested.items()})

@@ -114,21 +114,22 @@ def assert_state_matches(port_state, ref_tree: dict, context: str,
 
 def assert_ring_matches(got, exp, context: str,
                         clock_tol: bool = False) -> None:
-    """Two flight-recorder rings (cap, 5), record for record: the kind,
-    server and tid columns exactly; the time and aux columns exactly, or
-    (``clock_tol``, throttling armed) at rtol 1e-5, since the clock and the
-    temperatures may then sit an ulp or a few from the reference's."""
+    """Two flight-recorder rings (cap, 5), or two batches of them (R, cap,
+    5), record for record: the kind, server and tid columns exactly; the
+    time and aux columns exactly, or (``clock_tol``, throttling armed) at
+    rtol 1e-5, since the clock and the temperatures may then sit an ulp or
+    a few from the reference's."""
     got, exp = np.asarray(got), np.asarray(exp)
     assert got.shape == exp.shape and got.dtype == exp.dtype, \
         f"{context}: ring {got.shape} {got.dtype} vs {exp.shape} {exp.dtype}"
-    np.testing.assert_array_equal(got[:, [0, 2, 3]], exp[:, [0, 2, 3]],
+    np.testing.assert_array_equal(got[..., [0, 2, 3]], exp[..., [0, 2, 3]],
                                   err_msg=f"{context}: ring kind/server/tid")
     if clock_tol:
-        np.testing.assert_allclose(got[:, [1, 4]], exp[:, [1, 4]],
+        np.testing.assert_allclose(got[..., [1, 4]], exp[..., [1, 4]],
                                    rtol=RTOL, atol=1e-6,
                                    err_msg=f"{context}: ring time/aux")
     else:
-        np.testing.assert_array_equal(got[:, [1, 4]], exp[:, [1, 4]],
+        np.testing.assert_array_equal(got[..., [1, 4]], exp[..., [1, 4]],
                                       err_msg=f"{context}: ring time/aux")
 
 
