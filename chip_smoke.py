@@ -82,6 +82,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   computing the same function; an engine kernel's device time counts
   every device operation of its call (kernels, copies, fills), and each
   must be one.  Profiler breakdowns of both main paths follow.
+  7. rack sharding, last, so that its process group and profiler windows
+     come after every earlier timing: [shard-parity] runs
+     tests/test_sharding.py's four pinned configurations
+     (tests/torch_kernel_inputs.py shard_scenario) unsharded on the card
+     against the CPU, then through shard_sim.run_sharded on a mesh of 1
+     over NCCL in this process and on two spawned ranks (NCCL with a card
+     a rank where there are two cards, else gloo with both ranks on card
+     0: NCCL refuses two ranks on one card), each bit-equal to the
+     unsharded card run with one gather per sharded leaf a macro-step and
+     no other collective; [shard-main] runs the engine main
+     configuration through run_sharded (bit-equal to engine.run) and
+     farm.simulate(mesh=) on both meshes: results equal to [main]'s,
+     every rank's launches, wall, events/s, the bytes gathered a
+     macro-step and the gathers' share of its device time; [shard-mc]
+     runs [mc-parity]'s replicas_r3 batch at R = 4 on a (2, 1)
+     ("replicas", "racks") mesh of the two ranks, equal to run_replicas
+     without a mesh.
 
     python3 chip_smoke.py --engine-calls ROOT
 
@@ -145,6 +162,9 @@ MC_PARITY = ("replicas_r3", "tau_sweep_r", "fat_tree_rr", "thermal_sweep",
 # (R, J = J*T) for the binning
 MC_ADVANCE = ((1, 1000), (3, 300), (1024, 16), (4, 65_536))
 MC_BINNING = ((1024, 128), (8, 600))
+# [shard-mc]: [mc-parity]'s replicas_r3 batch at this many arrival seeds,
+# split over two ranks
+SHARD_MC_R = 4
 # the serving main run and the card-vs-CPU serving parity run
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "hymba_1_5b", 4, 1536, 32
 LM_MAX_SEQ = 2048
@@ -201,33 +221,49 @@ def device_kernels(fn):
     return out, wall
 
 
-def kernel_device_us(fn, names, reps: int = 100):
-    """Device time of one call of ``fn`` (the kernels whose names contain
-    one of ``names``), from the profiler over ``reps`` calls; None when the
-    profiler sees no device time."""
+def profiled_us(fn, reps: int = 100, names=None):
+    """(device us per operation, records seen per call) of ``fn`` over
+    ``reps`` calls under torch.profiler: the device time of the operations
+    (those whose names contain one of ``names``, else all) over the number
+    the profiler recorded.  The profiler loses records now and then, most
+    often the first ones of a window, so the count of operations a call
+    comes from ``graph_ops``, not from here.  (None, 0.0) when it records
+    no device time."""
     def many():
         for _ in range(reps):
             fn()
     ks, _ = device_kernels(many)
-    us = sum(t for k, (_, t) in ks.items() if any(n in k for n in names))
-    return us / reps if us > 0 else None
+    hits = [(c, t) for k, (c, t) in ks.items()
+            if names is None or any(n in k for n in names)]
+    count, us = sum(c for c, _ in hits), sum(t for _, t in hits)
+    if us <= 0 or count == 0:
+        return None, 0.0
+    return us / count, count / reps
+
+
+def kernel_device_us(fn, names, reps: int = 100):
+    """Device time of one call of ``fn`` (the kernels whose names contain
+    one of ``names``): the profiler's mean time of one such kernel, times
+    the number one call launches (``graph_ops``); None when the profiler
+    sees no device time."""
+    from torch_kernel_inputs import graph_ops
+    per_op, _ = profiled_us(fn, reps, names)
+    n = sum(c for k, c in graph_ops(fn).items()
+            if any(m in k for m in names))
+    return None if per_op is None else per_op * n
 
 
 def call_device(fn, reps: int = 100):
-    """(device us, device operations, {operation: (count, device us)}) of
-    one call of ``fn``: every operation the profiler records over ``reps``
-    calls (kernels, copies, fills), divided by ``reps``; (None, None, {})
-    when it records no device time."""
-    def many():
-        for _ in range(reps):
-            fn()
-    ks, _ = device_kernels(many)
-    us = sum(t for _, t in ks.values())
-    if us <= 0:
-        return None, None, {}
-    return (us / reps, sum(c for c, _ in ks.values()) / reps,
-            {k.split("(")[0][:60]: (c / reps, t / reps)
-             for k, (c, t) in ks.items()})
+    """(device us, device operations, {operation: count}, profiler records
+    seen per call) of one call of ``fn``: the operations, exact, from
+    ``graph_ops``; the device time from the profiler's mean time of an
+    operation times their number (None when it records no device
+    time)."""
+    from torch_kernel_inputs import graph_ops
+    ops = graph_ops(fn)
+    n_ops = sum(ops.values())
+    per_op, seen = profiled_us(fn, reps)
+    return (None if per_op is None else per_op * n_ops), n_ops, ops, seen
 
 
 def exp_per_s() -> float:
@@ -468,11 +504,11 @@ ENGINE_TIMED_MORE = {"dcsim_advance f64": 1, "dcsim_advance 1024": 9,
 
 def engine_call_times(dev, timed=ENGINE_TIMED) -> dict:
     """Each engine kernel's call at its main path's shape (and the binning
-    at its cross-block check shape): stream ms (CUDA events), device us and
-    device operations per call (profiler, every operation of the call),
-    the plain version's ms and the bound.  Uses the wrappers' signatures
-    and the plain versions only, so an older checkout's package runs it
-    as well (--engine-calls)."""
+    at its cross-block check shape): stream ms (CUDA events), device
+    operations per call (exact, from a CUDA graph of one call), device us
+    (profiler), the plain version's ms and the bound.  Uses the wrappers'
+    signatures and the plain versions only, so an older checkout's package
+    runs it as well (--engine-calls)."""
     from repro_torch.kernels import ref
     out = {}
     for name, seed in timed.items():
@@ -502,28 +538,24 @@ def engine_call_times(dev, timed=ENGINE_TIMED) -> dict:
             ops = {"f32 operations": (nnz * 25 + a[8].numel(),
                                       PEAK_F32_OPS_S)}
         bound, by, op = bound_ms(n_bytes, ops)
-        # the profiler now and then loses records (it never adds one): a
-        # window that saw fewer operations than calls is taken again, at
-        # most three times, before the one-operation check reads it
-        for _ in range(3):
-            us, n_ops, names = call_device(lambda: call(a))
-            if n_ops is None or n_ops >= 0.99:
-                break
+        us, n_ops, names, seen = call_device(lambda: call(a))
         out[name] = {"ms": time_ms(lambda: call(a)),
                      "plain_ms": time_ms(plain), "device_us": us,
-                     "ops": n_ops, "op_names": names, "bound_ms": bound,
+                     "ops": n_ops, "op_names": names, "seen": seen,
+                     "bound_ms": bound,
                      "bound_by": by, "bound_op": op}
     return out
 
 
 def log_engine_time(name, tm, tail="", tag="[time]") -> None:
     d = tm["device_us"]
-    dev = "not measured" if d is None else (
-        f"{d:.2f} us of device time in {tm['ops']:g} device operations per "
-        f"call (" + ", ".join(f"{k} x{c:g} {t:.2f} us"
-                              for k, (c, t) in tm["op_names"].items())
-        + f"; profiler), host share {tm['ms'] * 1e3 - d:.1f} us")
+    graph = ", ".join(f"{k} x{c}" for k, c in tm["op_names"].items())
+    dev = "device time not measured" if d is None else (
+        f"{d:.2f} us of device time (profiler, which recorded "
+        f"{tm['seen']:g} operations a call), host share "
+        f"{tm['ms'] * 1e3 - d:.1f} us")
     log(f"{tag} {name}: {tm['ms'] * 1e3:.1f} us per call on the stream, "
+        f"{tm['ops']} device operations per call ({graph}; CUDA graph), "
         f"{dev}; bound {tm['bound_ms'] * 1e3:.4f} us by {tm['bound_op']}; "
         f"plain version {tm['plain_ms'] * 1e3:.1f} us{tail}")
 
@@ -1416,6 +1448,310 @@ def mc_main(dev) -> list:
 
 
 # --------------------------------------------------------------------------
+# rack sharding: [shard-parity], [shard-main], [shard-mc]
+# --------------------------------------------------------------------------
+
+def state_cpu(obj):
+    """A state (or batch) with every leaf copied to the host."""
+    from repro_torch.core.types import tree_map
+    return tree_map(lambda x: x.cpu(), obj)
+
+
+def differing_leaves(got, exp) -> list:
+    """The leaves of two states (or batches) that are not bit-equal."""
+    from repro_torch.core.types import tree_leaves
+    return [p for (p, a), (_, b) in zip(tree_leaves(got), tree_leaves(exp))
+            if a.dtype != b.dtype or not torch.equal(a.cpu(), b.cpu())]
+
+
+def shard_mc_inputs():
+    """[shard-mc]'s batch: [mc-parity]'s replicas_r3 (4 servers x 2 cores,
+    80 Poisson jobs at 150/s, 10 ms mean service) at R = 4 arrival seeds.
+    Returns (cfg, arrs, specs)."""
+    from repro_torch.core import jobs, types, workload
+    from torch_kernel_inputs import mc_config, mc_scenario
+    kw, nested, _, specs, _, _ = mc_scenario("replicas_r3", jobs)
+    arrs = np.stack([workload.poisson_arrivals(150.0, 80, seed=s)
+                     for s in range(SHARD_MC_R)])
+    return mc_config(types, kw, nested), arrs, specs
+
+
+def shard_profile(cfg, state, tc, mesh, profiled, warm=20, steps=10):
+    """Device time of ``steps`` sharded macro-steps (gather, step, slice,
+    as run_sharded's loop body) after ``warm``, and of ``steps`` gather
+    phases alone on the same blocks.  Every rank calls it (the gathers are
+    collectives); only a rank with ``profiled`` traces, and returns
+    {"step_us", "gather_us" (device us a macro-step, None when the
+    profiler recorded none), "step_ms", "gather_ms" (host wall a
+    macro-step under the profiler)}."""
+    from repro_torch.core import engine, shard_sim
+    axis = cfg.partition.axis
+    group, k, idx = shard_sim._axis_of(mesh, axis)
+    flags = shard_sim._sharded_flags(state, cfg, mesh, axis)
+    box = [state]
+
+    def blocks():
+        return shard_sim._slice_leaves(box[0], flags, idx, k)
+
+    def macro_steps(n):
+        for _ in range(n):
+            full = shard_sim._gather_leaves(blocks(), flags, group, k)
+            box[0] = engine._step(full, cfg, tc)
+
+    def gathers():
+        local = blocks()
+        for _ in range(steps):
+            shard_sim._gather_leaves(local, flags, group, k)
+
+    macro_steps(warm)
+    out = {}
+    for key, fn in (("step", lambda: macro_steps(steps)),
+                    ("gather", gathers)):
+        if profiled:
+            ks, wall = device_kernels(fn)
+            us = sum(t for _, t in ks.values())
+            out[f"{key}_us"] = us / steps if us > 0 else None
+            out[f"{key}_ms"] = wall * 1e3 / steps
+        else:
+            fn()
+            torch.cuda.synchronize()
+    return out
+
+
+def shard_main_runs(dev, mesh, profiled):
+    """[shard-main] on one rank: the engine main configuration through
+    run_sharded (its final state, the collectives it called) and through
+    farm.simulate(mesh=), the user's entry point, with the kernels'
+    launch counts set to 0 just before it and read just after; then the
+    profile of shard_profile.  Returns a dict."""
+    from repro_torch.core import engine, farm, jobs, shard_sim
+    from repro_torch.kernels import ops
+    from torch_spmd import count_collectives
+    cfg, arr, specs, _ = one_farm_cfg(N_MAIN, JOBS_MAIN)
+    jt = jobs.build_jobs(cfg, np.asarray(arr), specs, device=dev)
+    state, tc = engine.init_state(cfg, jt)
+    n = shard_sim.n_sharded_leaves(state, cfg, mesh)
+    with count_collectives() as calls:
+        final = shard_sim.run_sharded(state, cfg, tc, mesh)
+    ops.reset_launch_counts()
+    res = farm.simulate(cfg, arr, specs, device=dev, mesh=mesh)
+    counts = ops.launch_counts()
+    prof = shard_profile(cfg, state, tc, mesh, profiled)
+    return dict(final=state_cpu(final), calls=dict(calls), n_sharded=n,
+                result=res, counts=counts, prof=prof)
+
+
+def shard_rank(rank, world, route):
+    """One rank of the two-rank card runs (tests/torch_spmd.py launches
+    it): [shard-parity]'s four configurations through run_sharded,
+    [shard-main] and [shard-mc]'s batch on a (2, 1) ("replicas", "racks")
+    mesh.  ``route`` "gloo": both ranks on card 0, the collectives staged
+    through the host; "nccl": card ``rank``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core import montecarlo, shard_sim
+    from repro_torch.kernels import ops
+    from torch_kernel_inputs import SHARD_SCENARIOS
+    from torch_spmd import count_collectives, shard_initial
+    dev = torch.device("cuda", rank if route == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    mesh = shard_sim.make_mesh(world, device=dev)
+    out = {"parity": {}}
+    for name in SHARD_SCENARIOS:
+        cfg, state, tc = shard_initial(name, dev)
+        ops.reset_launch_counts()
+        with count_collectives() as calls:
+            final = shard_sim.run_sharded(state, cfg, tc, mesh)
+        out["parity"][name] = (state_cpu(final), dict(calls),
+                               ops.launch_counts())
+    out["main"] = shard_main_runs(dev, mesh, profiled=rank == 0)
+    cfg, arrs, specs = shard_mc_inputs()
+    mesh2 = init_device_mesh("cuda", (world, 1),
+                             mesh_dim_names=("replicas", cfg.partition.axis))
+    sb, tc = montecarlo.batched_state(cfg, arrs, specs, device=dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = montecarlo.run_replicas(cfg, sb, tc, mesh=mesh2)
+    torch.cuda.synchronize()
+    out["mc"] = (state_cpu(got), ops.launch_counts(),
+                 time.perf_counter() - t0)
+    return out
+
+
+def check_gathers(tag, calls, n, steps):
+    """A sharded run called one gather per sharded leaf a macro-step, one
+    set more for the final state, and no other collective."""
+    from torch_spmd import GATHERS
+    gathers = sum(calls.get(g, 0) for g in GATHERS)
+    if gathers != n * (steps + 1) or sum(calls.values()) != gathers:
+        fail(f"{tag}: collectives {calls} for {n} sharded leaves and "
+             f"{steps} macro-steps; expected {n * (steps + 1)} gathers and "
+             f"nothing else")
+
+
+def shard_phases(dev, main_res) -> dict:
+    """[shard-parity], [shard-main] and [shard-mc]: rack-sharded runs on
+    the card.  A mesh of 1 over NCCL in this process; then two ranks,
+    spawned, over NCCL with one card a rank where there are two cards,
+    else over gloo with both ranks' tensors on card 0 (NCCL refuses two
+    ranks on one card).  Every sharded run must equal the unsharded run on
+    the card bit for bit; the unsharded runs of [shard-parity] equal the
+    CPU's as parity() holds them.  ``main_res`` is [main]'s SimResult.
+    Returns {"K=1": launches, "K=2": [launches of each rank]} of the
+    [shard-main] runs."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.core import (engine, jobs, montecarlo, shard_sim,
+                                  topology, types)
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.kernels import ops
+    from torch_kernel_inputs import SHARD_SCENARIOS, shard_scenario
+    import torch_spmd
+    from torch_spmd import count_collectives, shard_initial
+
+    # the reference runs: the unsharded engine on the card (against the
+    # CPU for the four configurations)
+    unsharded = {}
+    for name in SHARD_SCENARIOS:
+        cfg, arr, specs, topo, tau = shard_scenario(name, jobs, topology,
+                                                    types)
+        unsharded[name] = parity(name, cfg, arr, specs, tau, dev, topo,
+                                 tag="[shard-parity]")
+    cfg_main, arr_main, specs_main, _ = one_farm_cfg(N_MAIN, JOBS_MAIN)
+    jt = jobs.build_jobs(cfg_main, np.asarray(arr_main), specs_main,
+                         device=dev)
+    st_main, tc_main = engine.init_state(cfg_main, jt)
+    ref_main = engine.run(st_main, cfg_main, tc_main)
+    cfg_mc, arrs_mc, specs_mc = shard_mc_inputs()
+    sb, tc_mc = montecarlo.batched_state(cfg_mc, arrs_mc, specs_mc,
+                                         device=dev)
+    ref_mc = montecarlo.run_replicas(cfg_mc, sb, tc_mc)
+    launches, gathered, n_sharded = {}, {}, {}
+
+    def report_main(k, rk, got):
+        tag = f"[shard-main] K={k}" + (f" rank {rk}" if k > 1 else "")
+        bad = differing_leaves(got["final"], ref_main)
+        if bad:
+            fail(f"{tag}: run_sharded differs from engine.run on the card "
+                 f"in {bad}")
+        steps = int(got["final"].steps)
+        check_gathers(tag, got["calls"], got["n_sharded"], steps)
+        res, counts, ri = got["result"], got["counts"], got["result"].run_info
+        for f in ("events", "n_finished", "server_energy", "mean_latency",
+                  "p99_latency", "sim_time"):
+            if getattr(res, f) != getattr(main_res, f):
+                fail(f"{tag}: farm.simulate(mesh=) {f} {getattr(res, f)} "
+                     f"against {getattr(main_res, f)} unsharded")
+        if not np.array_equal(res.latencies, main_res.latencies):
+            fail(f"{tag}: farm.simulate(mesh=) latencies differ")
+        if (ri.devices, ri.mesh_shape, ri.mesh_axes, ri.sharding) != \
+                (k, (k,), ("racks",), "P('racks',)") or \
+                ri.config_digest != main_res.run_info.config_digest:
+            fail(f"{tag}: run_info {ri.devices} {ri.mesh_shape} "
+                 f"{ri.mesh_axes} {ri.sharding} {ri.config_digest}")
+        if counts["dcsim_advance"] != ri.steps * cfg_main.events_per_step \
+                or counts["telemetry_accum"] != ri.steps:
+            fail(f"{tag}: launches {counts} for {ri.steps} macro-steps")
+        p = got["prof"]
+        share = "not measured (the profiler recorded no device time)"
+        if p.get("step_us") and p.get("gather_us") is not None:
+            share = (f"{p['gather_us']:.1f} of {p['step_us']:.1f} us of "
+                     f"device time a macro-step "
+                     f"({100 * p['gather_us'] / p['step_us']:.2f}%), host "
+                     f"wall {p['gather_ms']:.3f} of {p['step_ms']:.3f} ms "
+                     f"under the profiler")
+        elif k > 1 and rk > 0:
+            share = "profiled on rank 0"
+        log(f"{tag}: one_farm {N_MAIN} servers x {C_MAIN} cores, "
+            f"{JOBS_MAIN} jobs: run_sharded == engine.run on the card (every "
+            f"leaf bit-equal); farm.simulate(mesh=) wall {ri.wall_s:.3f} s, "
+            f"{ri.events_per_s:.1f} events/s (unsharded [main] "
+            f"{main_res.run_info.wall_s:.3f} s, "
+            f"{main_res.run_info.events_per_s:.1f} "
+            f"events/s), events {ri.events}, steps {ri.steps}, results == "
+            f"[main]'s; {got['n_sharded']} sharded leaves, "
+            f"{gathered['bytes'] / 2**20:.3f} MiB gathered a macro-step, "
+            f"{sum(got['calls'].values())} gathers in run_sharded; the "
+            f"gathers {share}; launches {counts}")
+        return counts
+
+    # a mesh of 1 over NCCL, in this process
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = shard_sim.make_mesh(1, device=dev)
+            flags = shard_sim._sharded_flags(st_main, cfg_main, mesh,
+                                             "racks")
+            gathered["bytes"] = sum(
+                v.numel() * v.element_size()
+                for (_, v), (_, s) in zip(tree_leaves(st_main),
+                                          tree_leaves(flags)) if s)
+            for name in SHARD_SCENARIOS:
+                cfg, state, tc = shard_initial(name, dev)
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                with count_collectives() as calls:
+                    got = shard_sim.run_sharded(state, cfg, tc, mesh)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                bad = differing_leaves(got, unsharded[name])
+                if bad:
+                    fail(f"shard-parity {name} K=1: differs from the "
+                         f"unsharded run on the card in {bad}")
+                n = n_sharded[name] = shard_sim.n_sharded_leaves(state, cfg,
+                                                                 mesh)
+                check_gathers(f"shard-parity {name} K=1", calls, n,
+                              int(got.steps))
+                log(f"[shard-parity] {name} K=1 (NCCL): run_sharded == "
+                    f"engine.run on the card, every leaf bit-equal, ring "
+                    f"{int(got.trace.ptr)} records; {n} sharded leaves, "
+                    f"{dict(calls)} in {int(got.steps)} macro-steps; "
+                    f"launches {ops.launch_counts()}; {wall:.2f} s")
+            got = shard_main_runs(dev, mesh, profiled=True)
+            launches["K=1"] = report_main(1, 0, got)
+        finally:
+            dist.destroy_process_group()
+
+    # two ranks
+    route = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    log(f"[shard] two ranks over {route}: " + (
+        "one card a rank" if route == "nccl" else
+        f"{torch.cuda.device_count()} card, so both ranks hold their "
+        f"tensors on card 0 and gloo stages each gather through host "
+        f"memory (NCCL refuses two ranks on one card)"))
+    t0 = time.perf_counter()
+    ranks = torch_spmd.launch(shard_rank, 2, (route,), backend=route)
+    t_spawn = time.perf_counter() - t0
+    launches["K=2"] = []
+    for rk, out in enumerate(ranks):
+        for name in SHARD_SCENARIOS:
+            got, calls, counts = out["parity"][name]
+            bad = differing_leaves(got, unsharded[name])
+            if bad:
+                fail(f"shard-parity {name} K=2 rank {rk}: differs from the "
+                     f"unsharded run on the card in {bad}")
+            check_gathers(f"shard-parity {name} K=2 rank {rk}", calls,
+                          n_sharded[name], int(got.steps))
+            log(f"[shard-parity] {name} K=2 ({route}) rank {rk}: == "
+                f"engine.run on the card, every leaf bit-equal; {calls} in "
+                f"{int(got.steps)} macro-steps; launches {counts}")
+        launches["K=2"].append(report_main(2, rk, out["main"]))
+        got, counts, wall = out["mc"]
+        bad = differing_leaves(got, ref_mc)
+        if bad:
+            fail(f"shard-mc rank {rk}: differs from run_replicas without a "
+                 f"mesh in {bad}")
+        log(f"[shard-mc] R={SHARD_MC_R} on a (2, 1) (replicas, racks) mesh "
+            f"({route}), rank {rk}: == run_replicas without a mesh on the "
+            f"card, every leaf bit-equal; its {SHARD_MC_R // 2} replicas' "
+            f"events {got.events.tolist()[rk * 2:rk * 2 + 2]}; launches "
+            f"{counts}; {wall:.2f} s")
+    log(f"[shard] the two-rank spawn took {t_spawn:.1f} s wall, the ranks' "
+        f"start-up included")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # LM substrate: kernels, card-vs-CPU serving parity, serving main run
 # --------------------------------------------------------------------------
 
@@ -1938,9 +2274,7 @@ def main() -> None:
     # kernel times at the main paths' shapes
     times = engine_call_times(dev, ENGINE_TIMED | ENGINE_TIMED_MORE)
     for name, tm in times.items():
-        # rounded: the profiler may drop a record in a hundred calls
-        if tm["ops"] is not None and (round(tm["ops"]) != 1
-                                      or len(tm["op_names"]) != 1):
+        if tm["ops"] != 1 or set(tm["op_names"]) & {"memcpy", "memset"}:
             fail(f"{name}: {tm['ops']} device operations per call "
                  f"({tm['op_names']}), not one")
     kernels = [
@@ -2039,6 +2373,16 @@ def main() -> None:
     profile_window(th_cfg, th_arr, th_specs, dev, tag="thermal run")
     profile_window(tr_cfg, th_arr, th_specs, dev, tag="traced thermal run")
     profile_serving(lm_cfg, lm_params, lm_toks, dev)
+
+    # rack sharding last: its process group and profiler windows come
+    # after every kernel timing and profile of the earlier paths
+    shard_counts = shard_phases(dev, res)
+    for k in kernels[:2]:
+        k["shard_launches"] = {
+            "K=1": shard_counts["K=1"][k["name"]],
+            "K=2": [c[k["name"]] for c in shard_counts["K=2"]]}
+        log(f"[shard] {k['name']}: {k['shard_launches']['K=1']} launches in "
+            f"[shard-main] K=1, {k['shard_launches']['K=2']} a rank at K=2")
 
     log(f"[total] chip_smoke.py wall {time.perf_counter() - t_start:.1f} s, "
         f"the kernels' builds included")

@@ -1,3 +1,4 @@
 """The discrete-event engine in PyTorch (port of ``repro.core``)."""
 from . import (engine, farm, jobs, montecarlo, network, power, scheduler,
-               server, telemetry, topology, trace, traceio, types, workload)
+               server, shard_sim, telemetry, topology, trace, traceio, types,
+               workload)

@@ -2,8 +2,9 @@
 ``repro.core.engine``: the main path, network mode (flows over a
 topology, switch states) and the thermal subsystem with its control plane
 (throttling, the setpoint controller, THERMAL_AWARE placement and
-CARBON_AWARE deferral) and the flight recorder (``core/trace.py``);
-sharding and the scalar paths are refused by ``check_scope``.
+CARBON_AWARE deferral) and the flight recorder (``core/trace.py``); the
+scalar paths are refused by ``check_scope``.  Rack-sharded runs
+(``core/shard_sim.py``) call ``_step`` on gathered full states.
 
 The paper's sequential priority-queue loop becomes dense tensor work:
 
@@ -67,17 +68,10 @@ F32 = torch.float32
 def check_scope(cfg: SimConfig) -> None:
     """Refuse configurations this slice of the port does not run yet,
     naming the ROADMAP item (Queue 1) that will bring them."""
-    refused = [
-        (cfg.partition.sharded, "partition.n_shards > 1",
-         "item 10 (shard_sim.py)"),
-        (not cfg.use_vectorized_hot_loop, "use_vectorized_hot_loop=False",
-         "item 12 (seed scalar paths)"),
-    ]
-    for bad, what, item in refused:
-        if bad:
-            raise NotImplementedError(
-                f"repro_torch does not run {what} yet: it comes with "
-                f"ROADMAP.md Queue 1 {item}")
+    if not cfg.use_vectorized_hot_loop:
+        raise NotImplementedError(
+            "repro_torch does not run use_vectorized_hot_loop=False yet: it "
+            "comes with ROADMAP.md Queue 1 item 12 (seed scalar paths)")
     if cfg.n_present > cfg.n_servers:
         raise ValueError(
             f"n_present={cfg.n_present} exceeds n_servers={cfg.n_servers}")
@@ -928,6 +922,17 @@ def init_state(cfg: SimConfig, jobs: JobTable, topo=None, racks=None):
     (``topology.rack_of_servers``), else to ``i // thermal.rack_size``.
     Returns (state, tc)."""
     check_scope(cfg)
+    if cfg.partition.sharded and cfg.thermal.enabled and racks is None \
+            and topo is None \
+            and cfg.n_servers % max(cfg.thermal.rack_size, 1):
+        # unsharded runs handle an uneven last rack through the general
+        # grouping; the rack-major block partition cannot, so the sharded
+        # path refuses it up front instead of falling back
+        raise ValueError(
+            f"n_servers={cfg.n_servers} does not fill whole racks of "
+            f"rack_size={cfg.thermal.rack_size}, so the rack-major "
+            f"partition cannot cut on rack boundaries; pad the farm with "
+            f"farm.pad_to_racks(cfg) (inert filler rows)")
     dev = jobs.status.device
     tc = consts(cfg, dev, topo)
     if racks is None and topo is not None and cfg.thermal.enabled:

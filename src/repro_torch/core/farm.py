@@ -5,13 +5,16 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 import time
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from . import engine, jobs as jobs_mod, telemetry as telemetry_mod, traceio
+from . import engine, jobs as jobs_mod, shard_sim
+from . import telemetry as telemetry_mod, traceio
 from .types import INF, SimConfig, SimState, resolve_device
 
 
@@ -25,7 +28,13 @@ class RunInfo:
     events_per_s: float             # events / wall_s
     backend: str                    # device type the run executed on
     config: dict                    # recursive SimConfig dump
-    devices: int = 1
+    # execution-mesh provenance: how the state was laid out, not part of
+    # the scenario -- config_digest excludes it, so the same scenario run
+    # on 1 or K ranks compares equal
+    devices: int = 1                # ranks of the mesh the run executed on
+    mesh_shape: tuple = ()          # e.g. (8,)
+    mesh_axes: tuple = ()           # e.g. ("racks",)
+    sharding: str = ""              # the server axis' spec, "P('racks',)"
     config_digest: str = ""         # sha1 over the device-count-free config
     device_name: str = ""           # e.g. torch.cuda.get_device_name()
     # simulate(profile=True): the first run's extra wall over a warm rerun
@@ -190,7 +199,7 @@ def summarize(state: SimState, cfg: SimConfig) -> SimResult:
 
 def simulate(cfg: SimConfig, arrivals, specs, topo=None, tau=None,
              pools=None, racks=None, device=None,
-             profile: bool = False) -> SimResult:
+             profile: bool = False, mesh=None) -> SimResult:
     """Build the job table, run the engine to completion, summarize.
 
     topo   -- a ``core.topology.Topology``; required when cfg.has_network
@@ -203,6 +212,11 @@ def simulate(cfg: SimConfig, arrivals, specs, topo=None, tau=None,
     profile -- rerun the (now warm) engine once more from the same initial
               state and report the first run's extra wall clock as
               ``run_info.jit_compile_s``; ``wall_s`` is then the warm run's
+    mesh   -- run rack-sharded on this ``DeviceMesh`` (core/shard_sim.py),
+              every rank of it calling ``simulate`` alike;
+              ``cfg.partition.n_shards > 1`` with mesh=None builds one
+              over the default process group.  Results are bit-identical
+              either way, and ``wall_s`` is the slowest rank's.
     """
     engine.check_scope(cfg)
     dev = resolve_device(device)
@@ -219,13 +233,31 @@ def simulate(cfg: SimConfig, arrivals, specs, topo=None, tau=None,
             state.farm, srv_pool=torch.as_tensor(
                 np.asarray(pools)).to(device=dev, dtype=torch.int32)))
 
+    sharded = mesh is not None or cfg.partition.sharded
+    if sharded:
+        if mesh is None:
+            mesh = shard_sim.make_mesh(cfg.partition.n_shards,
+                                       cfg.partition.axis, dev)
+        group = mesh.get_group(cfg.partition.axis)
+
+        def runner():
+            return shard_sim.run_sharded(state, cfg, tc, mesh)
+    else:
+        def runner():
+            return engine.run(state, cfg, tc)
+
+    def settle():
+        # the device, then every rank: the window is the slowest rank's
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        if sharded:
+            dist.barrier(group=group)
+
     def timed_run():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        settle()
         t0 = time.perf_counter()
-        final = engine.run(state, cfg, tc)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        final = runner()
+        settle()
         return final, time.perf_counter() - t0
 
     final, wall = timed_run()
@@ -238,10 +270,17 @@ def simulate(cfg: SimConfig, arrivals, specs, topo=None, tau=None,
         wall = warm
     res = summarize(final, cfg)
     n_ev = int(final.events)
+    mesh_shape, mesh_axes, sharding = (), (), ""
+    if sharded:
+        mesh_shape = tuple(int(s) for s in mesh.shape)
+        mesh_axes = tuple(mesh.mesh_dim_names)
+        sharding = f"P('{cfg.partition.axis}',)"
     res.run_info = RunInfo(
         wall_s=wall, steps=int(final.steps), events=n_ev,
         events_per_s=n_ev / max(wall, 1e-12), backend=dev.type,
-        config=_config_dict(cfg), config_digest=config_digest(cfg),
+        config=_config_dict(cfg), devices=math.prod(mesh_shape),
+        mesh_shape=mesh_shape, mesh_axes=mesh_axes, sharding=sharding,
+        config_digest=config_digest(cfg),
         jit_compile_s=compile_s,
         device_name=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
                      else "cpu"))

@@ -9,8 +9,9 @@ leading replica axis; here the engine's own functions take that axis
 constants (``engine.EngineConsts``, the topology's arrays) are shared, and
 each macro-step advances all R farms in the launches of one.  Each replica
 stops on its own ``~done & (events < max_events)`` and keeps its state
-from then on, as under vmap.  Sharding the batch over a mesh is refused
-until ROADMAP Queue 1 item 10.
+from then on, as under vmap.  ``run_replicas(mesh=)`` splits the batch
+over the ranks of a ``torch.distributed`` mesh, as the reference's
+``shard_map`` over its replica axes does.
 
 The fault-model helpers (``poisson_failure_times``, ``young_daly_interval``)
 are plain numpy, copied from the reference.
@@ -18,35 +19,16 @@ are plain numpy, copied from the reference.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
-from . import engine, jobs as jobs_mod, telemetry
-from .types import INF, SimConfig, SimState, resolve_device
+from . import engine, jobs as jobs_mod, shard_sim, telemetry
+from .types import INF, SimConfig, SimState, resolve_device, tree_map
 
 __all__ = ["batched_state", "run_replicas", "replica_stats", "replica_state",
            "poisson_failure_times", "young_daly_interval"]
-
-
-def _stack(objs):
-    """One dataclass of tensors from R of the same layout, each leaf
-    stacked along a new leading axis."""
-    first = objs[0]
-    if dataclasses.is_dataclass(first):
-        return type(first)(**{f.name: _stack([getattr(o, f.name)
-                                              for o in objs])
-                              for f in dataclasses.fields(first)})
-    return torch.stack(objs)
-
-
-def _broadcast(obj, n: int):
-    """``obj`` with every leaf repeated along a new leading axis of ``n``
-    (a contiguous copy each)."""
-    if dataclasses.is_dataclass(obj):
-        return type(obj)(**{f.name: _broadcast(getattr(obj, f.name), n)
-                            for f in dataclasses.fields(obj)})
-    return obj.expand((n,) + obj.shape).clone()
 
 
 def batched_state(cfg: SimConfig, arrivals_b, specs, taus=None, topo=None,
@@ -69,9 +51,13 @@ def batched_state(cfg: SimConfig, arrivals_b, specs, taus=None, topo=None,
     tables = [jobs_mod.build_jobs(cfg, arrivals_b[i], specs, device=dev)
               for i in range(R)]
     state0, tc = engine.init_state(cfg, tables[0], topo)
-    others = {f.name: _broadcast(getattr(state0, f.name), R)
+    # the R job tables stacked; every other leaf repeated along R, a
+    # contiguous copy each
+    others = {f.name: tree_map(lambda x: x.expand((R,) + x.shape).clone(),
+                               getattr(state0, f.name))
               for f in dataclasses.fields(state0) if f.name != "jobs"}
-    state_b = SimState(jobs=_stack(tables), **others)
+    state_b = SimState(jobs=tree_map(lambda *xs: torch.stack(xs), *tables),
+                       **others)
     if taus is not None:
         t = torch.as_tensor(np.asarray(taus, np.float64)).to(
             device=dev, dtype=cfg.time_dtype)
@@ -84,31 +70,49 @@ def batched_state(cfg: SimConfig, arrivals_b, specs, taus=None, topo=None,
 def run_replicas(cfg: SimConfig, state_b: SimState, tc=None, mesh=None):
     """Run every replica of ``state_b`` to completion (or
     ``cfg.max_events``) in one batched loop; returns the final batch.
-    ``mesh`` (sharding the batch over devices) is not ported yet.  On the
-    card a batch holds at most ``kernels.build.MAX_REPLICAS`` (65,535)
-    replicas, the engine kernels' grid extent, and a larger one raises
-    ``ValueError`` at its first macro-step: split such a sweep."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "repro_torch does not shard replica batches over a mesh yet: it "
-            "comes with ROADMAP.md Queue 1 item 10 (shard_sim.py)")
+
+    ``mesh`` (a ``DeviceMesh``; every rank of it calls this with the same
+    batch) splits the R replicas over every mesh axis except the rack
+    axis ``cfg.partition.axis``, in row-major order of those axes: each
+    rank runs its R/k replicas, and along the rack axis each replica's
+    farm stays whole, the ranks running the same block.  The ranks then
+    gather the results along the replica axis, so every rank returns the
+    whole batch.  R must divide by k.
+
+    On the card a batch holds at most ``kernels.build.MAX_REPLICAS``
+    (65,535) replicas a rank, the engine kernels' grid extent, and a
+    larger one raises ``ValueError`` at its first macro-step: split such
+    a sweep, or spread it over a mesh."""
     if state_b.t.dim() != 1:
         raise ValueError(f"run_replicas takes a replica batch (state leaves "
                          f"with a leading R), got t of shape "
                          f"{tuple(state_b.t.shape)}")
-    return engine.run(state_b, cfg, tc)
+    if mesh is None:
+        return engine.run(state_b, cfg, tc)
+    names = [a for a in mesh.mesh_dim_names if a != cfg.partition.axis]
+    sizes = [int(mesh.size(mesh.mesh_dim_names.index(a))) for a in names]
+    k, R = math.prod(sizes), int(state_b.t.shape[0])
+    if R % k:
+        raise ValueError(f"{R} replicas do not split over the {k} ranks of "
+                         f"the mesh axes {tuple(names)}")
+    idx = 0
+    for a, n in zip(names, sizes):
+        idx = idx * n + mesh.get_local_rank(a)
+    blk = R // k
+    out = engine.run(tree_map(lambda x: x[idx * blk:(idx + 1) * blk],
+                              state_b), cfg, tc)
+    # innermost axis first: each gather joins blocks adjacent in idx
+    for a, n in zip(reversed(names), reversed(sizes)):
+        group = mesh.get_group(a)
+        out = tree_map(lambda x: shard_sim.all_gather(x, group, n), out)
+    return out
 
 
 def replica_state(state_b: SimState, r: int) -> SimState:
     """Replica ``r`` of a batch as a single-run state (views of its rows),
     for ``farm.summarize``, ``traceio.decode`` of its ring or a solo
     continuation with ``engine.run`` (which copies the ring first)."""
-    def pick(obj):
-        if dataclasses.is_dataclass(obj):
-            return type(obj)(**{f.name: pick(getattr(obj, f.name))
-                                for f in dataclasses.fields(obj)})
-        return obj[r]
-    return pick(state_b)
+    return tree_map(lambda x: x[r], state_b)
 
 
 def _np(x) -> np.ndarray:

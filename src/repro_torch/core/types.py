@@ -489,6 +489,19 @@ def tree_where(mask, new, old):
     return torch.where(lift(mask, new.dim() - mask.dim()), new, old)
 
 
+def tree_map(fn, obj, *rest):
+    """A dataclass tree of ``obj``'s layout whose leaves are ``fn`` of
+    ``obj``'s leaves and the matching leaves of ``rest`` (trees of the
+    same layout), visited in field order, as ``tree_leaves`` lists
+    them."""
+    if dataclasses.is_dataclass(obj):
+        return type(obj)(**{
+            f.name: tree_map(fn, getattr(obj, f.name),
+                             *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(obj)})
+    return fn(obj, *rest)
+
+
 def tree_leaves(obj, prefix: str = ""):
     """[(dotted path, tensor)] of every leaf, in field order."""
     out = []

@@ -22,6 +22,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.core import engine as jengine
 from repro.core import farm as jfarm
@@ -31,12 +32,16 @@ from repro_torch.convert import state_from_numpy
 from repro_torch.core import engine as tengine
 from repro_torch.core import farm as tfarm
 from repro_torch.core import jobs as tjobs
-from repro_torch.core.types import (SchedPolicy, SimConfig, TelemetryConfig,
-                                    ThermalConfig, TraceConfig, TraceKind,
-                                    tree_leaves)
+from repro_torch.core import shard_sim
+from repro_torch.core import topology as ttopo
+from repro_torch.core.types import (PartitionConfig, SchedPolicy, SimConfig,
+                                    TelemetryConfig, ThermalConfig,
+                                    TraceConfig, TraceKind, tree_leaves)
 
-from torch_port_util import (assert_state_matches, compare_results,
-                             jax_initial, jax_run, jax_tree, oracle_run,
+import torch_spmd
+from torch_port_util import (assert_results_equal, assert_state_matches,
+                             compare_results, jax_initial, jax_run, jax_tree,
+                             oracle_run,
                              port_cfg, port_run, port_simulate,
                              random_twin_states, scenario)
 
@@ -131,7 +136,7 @@ def test_f64_clock_matches_oracle_and_f32_run():
     assert err64 <= err32
 
 
-@pytest.mark.parametrize("kw,item", [
+_SCOPE_CASES = [
     (dict(thermal=ThermalConfig(enabled=True),
           trace=TraceConfig(enabled=True)), "item 8"),
     (dict(trace=TraceConfig(enabled=True)), "item 8"),
@@ -147,12 +152,59 @@ def test_f64_clock_matches_oracle_and_f32_run():
     (dict(sched_policy=SchedPolicy.CARBON_AWARE,
           thermal=ThermalConfig(enabled=True),
           trace=TraceConfig(enabled=True)), "item 8"),
-])
-def test_out_of_scope_configurations_are_refused(kw, item):
-    """Sharding and the scalar paths are still refused, with thermal on as
-    well.  The flight recorder (Queue 1 item 8) runs since its slice: its
-    cases, refused before, now finish and decode their ring."""
+]
+
+
+# rack sharding's cases run on a star with two racks of two servers
+_ITEM10_NET = dict(topo=ttopo.star(4), racks=[0, 0, 1, 1])
+
+
+@pytest.fixture(scope="module")
+def item10_on_two_ranks():
+    """The "item 10" cases' farm.simulate on two CPU ranks (one spawn for
+    both): [(by n_shards, by mesh)] per case, for every rank."""
+    cases = [(SimConfig(n_servers=4, max_jobs=8, **kw), [0.1],
+              [tjobs.dag_single(0.01)],
+              _ITEM10_NET if kw.get("has_network") else {})
+             for kw, item in _SCOPE_CASES if item == "item 10"]
+    return cases, torch_spmd.launch(torch_spmd.plan, 2,
+                                    ([("simulate_runs", (cases,))],))
+
+
+@pytest.mark.parametrize("kw,item", _SCOPE_CASES)
+def test_out_of_scope_configurations_are_refused(kw, item, request,
+                                                 tmp_path):
+    """The scalar paths are still refused, with thermal on as well.  The
+    flight recorder (Queue 1 item 8) and rack sharding (item 10) run since
+    their slices: their cases, refused before, now finish; the traced ones
+    decode their ring, the sharded ones (network and thermal among them)
+    equal the unsharded run on a mesh of 1 and on two ranks."""
     cfg = SimConfig(n_servers=4, max_jobs=8, **kw)
+    if item == "item 10":
+        net = _ITEM10_NET if cfg.has_network else {}
+        args = ([0.1], [tjobs.dag_single(0.01)])
+        exp = tfarm.simulate(dataclasses.replace(
+            cfg, partition=PartitionConfig()), *args, device="cpu", **net)
+        assert exp.n_finished == 1
+        dist.init_process_group("gloo",
+                                init_method=f"file://{tmp_path}/store",
+                                rank=0, world_size=1)
+        try:
+            got = tfarm.simulate(cfg, *args, device="cpu",
+                                 mesh=shard_sim.make_mesh(1, device="cpu"),
+                                 **net)
+        finally:
+            dist.destroy_process_group()
+        assert got.run_info.mesh_shape == (1,)
+        assert_results_equal(got, exp, f"{kw}: K=1")
+        cases, ranks = request.getfixturevalue("item10_on_two_ranks")
+        at = [c[0] for c in cases].index(cfg)
+        for r, (results, mods) in enumerate(ranks):
+            assert not mods, mods
+            for got in results[0][at]:
+                assert got.run_info.mesh_shape == (2,)
+                assert_results_equal(got, exp, f"{kw}: K=2 rank {r}")
+        return
     if item == "item 8":
         res = tfarm.simulate(cfg, [0.1], [tjobs.dag_single(0.01)],
                              device="cpu")
@@ -272,6 +324,7 @@ def test_package_and_chip_smoke_import_no_jax():
         "import chip_smoke\n"
         "import repro_torch, repro_torch.convert\n"
         "import repro_torch.core.trace, repro_torch.core.traceio\n"
+        "import repro_torch.core.shard_sim, repro_torch.sharding.partition\n"
         "from repro_torch.core import *\n"
         "from repro_torch.kernels import *\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -5,8 +5,9 @@ engine on the CPU).
 Each scenario is one of the reference's own replica batches: the five
 non-slow cases of tests/test_montecarlo.py (the R = 3 batch, the tau
 sweep -- here with taus of shape (R,) and (R, N) -- and the k = 4
-fat-tree ROUND_ROBIN batch; the topology and mesh refusals and the
-fault-model helpers below), the two replica cases of tests/test_telemetry.py,
+fat-tree ROUND_ROBIN batch; the topology refusal, a mesh of 1 and the
+fault-model helpers below; the 2-D mesh case is in
+tests/test_torch_sharding.py), the two replica cases of tests/test_telemetry.py,
 tests/test_thermal.py::test_replica_sweep_carries_thermal_stats, and
 tests/test_trace.py's rich scenario at R = 2 with two arrival seeds and a
 64-slot ring, so both rings wrap.  The port starts from the reference's
@@ -20,9 +21,12 @@ holds them (torch_port_util); rings record for record
 floats rtol 1e-5).  Each port replica is also held against a solo port
 run of the same inputs: discrete state exact, floats rtol 1e-5."""
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 
 from repro.core import jobs as jjobs
 from repro.core import montecarlo as jmc
@@ -38,8 +42,8 @@ from repro_torch.core import types as ttypes
 from repro_torch.core.types import tree_leaves
 
 from torch_kernel_inputs import MC_SCENARIOS, mc_config, mc_scenario
-from torch_port_util import (CLOCK_LEAVES, RTOL, assert_state_matches,
-                             jax_tree, port_cfg)
+from torch_port_util import (CLOCK_LEAVES, RTOL, assert_bitwise,
+                             assert_state_matches, jax_tree, port_cfg)
 
 
 @pytest.fixture(scope="module")
@@ -135,12 +139,29 @@ def test_batched_state_requires_topo_in_network_mode():
         tmc.batched_state(cfg, np.zeros((1, 2)), specs, device="cpu")
 
 
-def test_run_replicas_refuses_a_mesh_and_a_single_state():
+def test_run_replicas_refuses_a_mesh_and_a_single_state(tmp_path):
+    """A single state is refused.  A mesh, refused before rack sharding
+    (Queue 1 item 10) was ported, now runs: on a mesh of 1 (a one-rank
+    gloo group) the batch equals run_replicas without a mesh, whether the
+    mesh axis is the rack axis (every replica on the rank) or a replica
+    axis (one block of all R); a batch that does not split over the
+    mesh is refused."""
     kw, nested, arrs, specs, _, _ = mc_scenario("replicas_r3", tjobs)
     cfg = mc_config(ttypes, kw, nested)
     sb, tc = tmc.batched_state(cfg, arrs, specs, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmc.run_replicas(cfg, sb, tc, mesh=object())
+    exp = tmc.run_replicas(cfg, sb, tc)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        for axis in ("racks", "replicas"):
+            mesh = init_device_mesh("cpu", (1,), mesh_dim_names=(axis,))
+            assert_bitwise(tmc.run_replicas(cfg, sb, tc, mesh=mesh), exp,
+                           f"mesh of 1 along {axis}")
+        fake = SimpleNamespace(mesh_dim_names=("replicas",), size=lambda d: 2)
+        with pytest.raises(ValueError, match="do not split"):
+            tmc.run_replicas(cfg, sb, tc, mesh=fake)
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="replica batch"):
         tmc.run_replicas(cfg, tmc.replica_state(sb, 0), tc)
 

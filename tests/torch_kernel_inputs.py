@@ -1,7 +1,9 @@
 """Seeded numpy inputs for the port's kernels and network functions, the
 edge cases of the LM kernels, and the network scenarios: made once here
 for the CPU tests, the card tests (tests/test_torch_cuda.py) and
-chip_smoke.py.
+chip_smoke.py; and ``graph_ops``, which counts the device operations of
+one call on the card from a CUDA graph of it (the profiler loses
+records, most often a window's first ones).
 Imports neither JAX nor pytest, so it loads on a machine with a card and
 PyTorch alone."""
 from __future__ import annotations
@@ -410,3 +412,121 @@ def mc_config(types_mod, kw, nested):
             "trace": types_mod.TraceConfig}
     return types_mod.SimConfig(**kw, **{k: made[k](**v)
                                         for k, v in nested.items()})
+
+
+# --------------------------------------------------------------------------
+# the sharded engine's four pinned configurations (tests/test_sharding.py's
+# 8-device test: sleep states, star flows, throttling, carbon deferral)
+# --------------------------------------------------------------------------
+
+SHARD_SCENARIOS = ("lb_sleep", "rr_star", "thermal_throttle", "carbon_aware")
+SHARD_TH = dict(enabled=True, r_th=0.5, tau_th=2.0, t_inlet=22.0, recirc=0.2,
+                rack_size=2)
+
+
+def shard_scenario(name, jobs_mod, topo_mod, types_mod):
+    """(SimConfig, arrivals, specs built with ``jobs_mod``, topology or
+    None, tau or None (a scalar written to every ``farm.srv_tau`` after
+    ``init_state``)) of a pinned sharding scenario, for either package."""
+    from repro_torch.core import workload
+    T = types_mod
+    traced = T.TraceConfig(enabled=True)
+    if name == "lb_sleep":
+        cfg = T.SimConfig(n_servers=16, n_cores=2, max_jobs=256,
+                          sched_policy=T.SchedPolicy.LOAD_BALANCE,
+                          sleep_policy=T.SleepPolicy.SINGLE_TIMER,
+                          max_events=60_000, trace=traced)
+        rng = np.random.default_rng(7)
+        arr = workload.poisson_arrivals(60.0, 150, seed=3)
+        specs = [jobs_mod.dag_single(rng.exponential(0.02))
+                 for _ in range(150)]
+        return cfg, arr, specs, None, 0.05
+    if name == "rr_star":
+        cfg = T.SimConfig(n_servers=16, n_cores=2, max_jobs=64,
+                          tasks_per_job=2, max_children=2, max_flows=64,
+                          local_q=32, sched_policy=T.SchedPolicy.ROUND_ROBIN,
+                          sleep_policy=T.SleepPolicy.ALWAYS_ON,
+                          has_network=True, comm_model=0, max_events=60_000,
+                          trace=traced)
+        rng = np.random.default_rng(2)
+        arr = workload.poisson_arrivals(25.0, 30, seed=2)
+        specs = [jobs_mod.dag_chain(rng.uniform(0.01, 0.04, size=2),
+                                    edge_bytes=float(rng.uniform(4e6, 8e6)))
+                 for _ in range(30)]
+        return cfg, arr, specs, topo_mod.star(16, link_cap=1.0e8), None
+    if name == "thermal_throttle":
+        th = T.ThermalConfig(**SHARD_TH, t_throttle=50.0, t_release=45.0,
+                             throttle_freq=0.5, throttle_power_scale=0.6,
+                             carbon_period=600.0, price_period=600.0)
+        cfg = T.SimConfig(n_servers=16, n_cores=2, max_jobs=256,
+                          sched_policy=T.SchedPolicy.THERMAL_AWARE,
+                          max_events=60_000, thermal=th, trace=traced)
+        rng = np.random.default_rng(11)
+        arr = workload.poisson_arrivals(80.0, 150, seed=5)
+        specs = [jobs_mod.dag_single(rng.exponential(0.02))
+                 for _ in range(150)]
+        return cfg, arr, specs, None, None
+    if name == "carbon_aware":
+        th = T.ThermalConfig(**SHARD_TH, defer_threshold=350.0,
+                             carbon_period=600.0, carbon_swing=0.5)
+        cfg = T.SimConfig(n_servers=16, n_cores=2, max_jobs=256,
+                          sched_policy=T.SchedPolicy.CARBON_AWARE,
+                          max_events=60_000, thermal=th, trace=traced)
+        rng = np.random.default_rng(13)
+        arr = workload.poisson_arrivals(40.0, 120, seed=9)
+        specs = [jobs_mod.dag_single(rng.exponential(0.02),
+                                     defer_slack=300.0) for _ in range(120)]
+        return cfg, arr, specs, None, None
+    raise ValueError(f"unknown sharding scenario {name!r}")
+
+
+def graph_ops(fn) -> dict:
+    """The device operations of one call of ``fn``, exactly: the call
+    captured in a CUDA graph (after three eager calls) and the graph's
+    nodes read through the driver API.  Returns {operation: count}:
+    kernels by their (mangled) name, copies and fills as "memcpy" and
+    "memset"; nodes that do no device work (empty, event) are left out."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} returned CUDA driver error {rc}")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    h = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(h, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    check(cu.cuGraphGetNodes(h, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    out = {}
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int()
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value == 0:
+            # CUDA_KERNEL_NODE_PARAMS_v2: func at byte 0, kern at byte 56
+            params = (ctypes.c_uint64 * 16)()
+            check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                                   params),
+                  "cuGraphKernelNodeGetParams_v2")
+            name = ctypes.c_char_p()
+            if params[0]:
+                rc = cu.cuFuncGetName(ctypes.byref(name),
+                                      ctypes.c_void_p(params[0]))
+            else:
+                rc = cu.cuKernelGetName(ctypes.byref(name),
+                                        ctypes.c_void_p(params[7]))
+            key = name.value.decode()[:60] if rc == 0 and name.value \
+                else "kernel"
+        elif kind.value in (1, 2):
+            key = ("memcpy", "memset")[kind.value - 1]
+        else:
+            continue
+        out[key] = out.get(key, 0) + 1
+    del g
+    return out

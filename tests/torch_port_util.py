@@ -460,6 +460,34 @@ def compare_results(tres, jres, windows: bool = True) -> None:
                                    rtol=RTOL, atol=1e-6, err_msg=f)
 
 
+def assert_bitwise(got, exp, context):
+    """Two port states (or replica batches) leaf for leaf, bit for
+    bit."""
+    lg, le = tree_leaves(got), tree_leaves(exp)
+    assert [p for p, _ in lg] == [p for p, _ in le], context
+    bad = [p for (p, a), (_, b) in zip(lg, le)
+           if a.dtype != b.dtype or not torch.equal(a, b)]
+    assert not bad, f"{context}: leaves differ: {bad}"
+
+
+def assert_results_equal(got, exp, context):
+    """Two SimResults of the port field for field, exactly (of run
+    provenance, the events, steps and digest)."""
+    for f in dataclasses.fields(exp):
+        if f.name == "run_info":
+            continue
+        a, b = getattr(got, f.name), getattr(exp, f.name)
+        if dataclasses.is_dataclass(b):
+            assert_results_equal(a, b, f"{context}: {f.name}")
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=f"{context}: "
+                                                        f"{f.name}")
+    ga, gb = getattr(got, "run_info", None), getattr(exp, "run_info", None)
+    if gb is not None:
+        assert (ga.events, ga.steps, ga.config_digest) == \
+            (gb.events, gb.steps, gb.config_digest), context
+
+
 def three_way(name: str, oracle: bool) -> None:
     """A named scenario through the reference's farm.simulate, the port's
     on the CPU and (``oracle``) the heapq oracle; then every leaf of both
