@@ -71,7 +71,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (1,024 replicas x 16 servers x 100 jobs, 64 x 64 x 200): every job of
      every replica finishes, K advance launches and one binning launch a
      macro-step, and a batched macro-step within 3% of the launches of a
-     single run of one replica;
+     single run of one replica; then the graph audit
+     (src/repro_torch/analysis/): [simlint] records one macro-step of
+     every single-device case of its matrix on the card, and every rule of
+     ``python -m repro_torch.analysis.simlint`` must hold (no host sync in
+     the step, the cheap core's scatter budget, no op of a disabled
+     subsystem, the clock-dtype policy; the histogram's drift against the
+     committed baseline advisory under another torch), each kernel one
+     ``repro_torch::`` op node a launch, and the card's per-region op
+     histogram equal to the CPU's once the CPU's plain versions are folded
+     into their nodes; then its rebuild sentinel, in a spawned process
+     (farm.simulate twice plain and twice with mesh=): each kernel library
+     loaded once;
   6. the serving main run: ServeEngine.generate on hymba-1.5b (32 layers,
      bf16, seeded random weights) for 4 prompts of 1,536 tokens and 32 new
      tokens, greedy; exactly one launch of each LM kernel per layer, the
@@ -81,7 +92,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   rates), its plain version and, where one exists, the library call
   computing the same function; an engine kernel's device time counts
   every device operation of its call (kernels, copies, fills), and each
-  must be one.  Profiler breakdowns of both main paths follow.
+  must be one.  Profiler breakdowns of both main paths follow, and
+  [simlint-main]: one macro-step of the engine main configuration
+  recorded on the card, its ops, scatters and host syncs, the cost
+  model's bytes and operations and their bound on the H100 against the
+  profiled macro-step's device time, and the state footprint predicted
+  on fake tensors against the allocator's rise across init_state.
   7. rack sharding, last, so that its process group and profiler windows
      come after every earlier timing: [shard-parity] runs
      tests/test_sharding.py's four pinned configurations
@@ -91,7 +107,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      a rank where there are two cards, else gloo with both ranks on card
      0: NCCL refuses two ranks on one card), each bit-equal to the
      unsharded card run with one gather per sharded leaf a macro-step and
-     no other collective; [shard-main] runs the engine main
+     no other collective, and on every rank shard_sim.sharded_step_graph
+     must record one all_gather per sharded leaf, no other collective and
+     no host sync; [shard-main] runs the engine main
      configuration through run_sharded (bit-equal to engine.run) and
      farm.simulate(mesh=) on both meshes: results equal to [main]'s,
      every rank's launches, wall, events/s, the bytes gathered a
@@ -102,9 +120,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
     python3 chip_smoke.py --engine-calls ROOT
 
-times only the two engine kernels' calls, as the full run does, for the
-checkout at ROOT (its src/, built there): run it on an older checkout in
-the same call to compare the two on one card.
+times the two engine kernels' calls for the checkout at ROOT (its src/,
+built there), as the full run does and through kernels.ops (the engine's
+entry), and 10 macro-steps of [main]'s and [net-main]'s configurations:
+launches, device busy and wall under the profiler, and wall without it,
+in turns with the kernels' wrappers called directly and the engine's
+regions stubbed out where the checkout has those; run it on an older
+checkout and on . in turns in one call to compare the two on one card.
 
 The second-to-last line is a JSON object describing each kernel (its
 stream time "ms" and profiler time "device_ms" among the keys); the last
@@ -131,13 +153,14 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(1, str(ROOT / "tests"))      # torch_kernel_inputs
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor ops/s
-# and dense bf16 tensor-core flop/s; exponentials per SM per clock on the
-# special-function units (one MUFU.EX2 per expf, 16 per SM per clock)
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_OPS_S = 67e12
-PEAK_BF16_FLOP_S = 989e12
-EXP_PER_SM_CLOCK = 16
+# H100 SXM peaks (NVIDIA data sheet), one copy shared with the cost model:
+# HBM3 bytes/s, f32 non-tensor ops/s and dense bf16 tensor-core flop/s;
+# exponentials per SM per clock on the special-function units (one
+# MUFU.EX2 per expf, 16 per SM per clock)
+from repro_torch.analysis.costmodel import (  # noqa: E402
+    H100_BF16_FLOP_S as PEAK_BF16_FLOP_S,
+    H100_EXP_PER_SM_CLOCK as EXP_PER_SM_CLOCK,
+    H100_F32_OPS_S as PEAK_F32_OPS_S, H100_HBM_BYTES_S as PEAK_BYTES_S)
 N_MAIN, C_MAIN, JOBS_MAIN = 65_536, 4, 600
 # the traced thermal main run's ring: 40 MB of float32 records
 TRACE_CAP = 1 << 21
@@ -169,6 +192,9 @@ SHARD_MC_R = 4
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "hymba_1_5b", 4, 1536, 32
 LM_MAX_SEQ = 2048
 PAR_LAYERS, PAR_BATCH, PAR_PROMPT, PAR_NEW = 2, 2, 1100, 4
+
+
+T_START = time.perf_counter()           # the script's start, for [elapsed]
 
 
 def log(msg: str) -> None:
@@ -205,7 +231,11 @@ def time_ms(fn, reps: int = 200, warmup: int = 20) -> float:
 def device_kernels(fn):
     """Run ``fn`` under torch.profiler and return ({kernel name: (calls,
     device us)}, host wall seconds); the dict is empty when the profiler
-    recorded no device activity."""
+    recorded no device activity.  The device records are read as the
+    profiler collected them: ``key_averages()`` would first build a Python
+    event (and a tree) of every host and device record, which took tens of
+    seconds a 10-macro-step window of an engine run."""
+    from torch.autograd.profiler_util import _rewrite_name
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -215,9 +245,11 @@ def device_kernels(fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     out = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            out[e.key] = (e.count, e.self_device_time_total)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            key = _rewrite_name(e.name(), with_wildcard=True)
+            calls, us = out.get(key, (0, 0.0))
+            out[key] = (calls + 1, us + e.duration_ns() / 1e3)
     return out, wall
 
 
@@ -560,17 +592,114 @@ def log_engine_time(name, tm, tail="", tag="[time]") -> None:
         f"plain version {tm['plain_ms'] * 1e3:.1f} us{tail}")
 
 
-def engine_calls_of(root: str) -> None:
-    """--engine-calls: time the engine kernels' calls of the checkout at
-    ``root`` (its package and its kernel sources, built under it)."""
+def use_checkout(root: str) -> None:
+    """Import the package from the checkout at ``root`` from now on (the
+    H100 constants above stay this checkout's)."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs an NVIDIA GPU")
     sys.path.insert(0, str(pathlib.Path(root).resolve() / "src"))
-    from repro_torch.kernels import build
+    for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+        del sys.modules[name]
+
+
+def engine_calls_of(root: str) -> None:
+    """--engine-calls: the engine kernels' calls of the checkout at
+    ``root`` (its package and its kernel sources, built under it): each
+    call as the full run times it (the kernel's wrapper) and through
+    ``kernels.ops``, the engine's entry (a ``torch.library`` op since the
+    graph audit); then 10 macro-steps (after 20) of [main]'s and
+    [net-main]'s configurations under the profiler (launches, device busy
+    and wall a macro-step) and timed in turns without it
+    (``dispatch_turns``)."""
+    use_checkout(root)
+    from repro_torch.core.types import SchedPolicy
+    from repro_torch.kernels import build, ops
     build.build_all(("dcsim_step", "telemetry_bin"))
+    dev = torch.device("cuda", 0)
     log(f"[calls] package {pathlib.Path(build.__file__).parents[2]}")
-    for name, tm in engine_call_times(torch.device("cuda", 0)).items():
+    for name, tm in engine_call_times(dev).items():
         log_engine_time(name, tm, tag="[calls]")
+    for name, seed in (("dcsim_advance", 1), ("telemetry_accum", 4)):
+        a = engine_inputs(name, seed, dev)
+        kw = {"throttle_power_scale": 0.6} if name == "dcsim_advance" \
+            else {}
+        fn = getattr(ops, name)
+        log(f"[calls] {name} through kernels.ops: "
+            f"{time_ms(lambda: fn(*a, **kw)) * 1e3:.1f} us per call on the "
+            f"stream")
+    cfg, arr, specs, _ = one_farm_cfg(N_MAIN, JOBS_MAIN)
+    runs = [("[main]", cfg, arr, specs, None, None)]
+    cfg, arr, specs, tau, topo, _ = case_d_cfg(SchedPolicy.ROUND_ROBIN,
+                                                NET_K, NET_JOBS, NET_LAM)
+    runs.append(("[net-main]", cfg, arr, specs, topo, tau))
+    for tag, cfg, arr, specs, topo, tau in runs:
+        prof = profile_window(cfg, arr, specs, dev, topo=topo, tau=tau,
+                              tag=tag)
+        turns = dispatch_turns(cfg, arr, specs, dev, topo=topo, tau=tau)
+        log(f"[calls] {tag}: wall {prof['wall_ms']:.3f} ms a macro-step "
+            f"under the profiler; without it, in turns, "
+            + "; ".join(f"{v} " + ", ".join(f"{ms:.3f}" for ms in t)
+                        + f" ms (median {statistics.median(t):.3f})"
+                        for v, t in turns.items()))
+
+
+def dispatch_turns(cfg, arr, specs, dev, topo=None, tau=None, warm=20,
+                   steps=10, rounds=3) -> dict:
+    """{variant: [wall ms a macro-step, a round]}: ``steps`` macro-steps
+    from one state (after ``warm``; each run on a copy of it), timed on
+    the host (ending in a synchronize) in turns, each round starting one
+    variant later than the last: "shipped" as the package
+    runs them and, where its kernels are ``torch.library`` ops, "direct"
+    with ``kernels.ops``' entry points bound to the kernels' wrappers (no
+    dispatcher) and "bare" with the engine's regions stubbed out as well
+    (the path before the graph audit)."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import dcsim_step, ops, telemetry_bin
+    state, tc = warmed_state(cfg, arr, specs, dev, warm, topo, tau)
+    shipped = {n: getattr(ops, n) for n in ("dcsim_advance",
+                                            "telemetry_accum")}
+    wrappers = {"dcsim_advance": dcsim_step.dcsim_advance,
+                "telemetry_accum": telemetry_bin.telemetry_accum}
+    region = getattr(engine, "region", None)
+
+    class bare:                              # a region that does nothing
+        def __init__(self, name):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    variants = {"shipped": (shipped, region)}
+    if hasattr(ops, "NAMESPACE"):
+        variants.update(direct=(wrappers, region), bare=(wrappers, bare))
+    out = {v: [] for v in variants}
+    try:
+        names = list(variants)
+        for r in range(rounds):
+            for v in names[r % len(names):] + names[:r % len(names)]:
+                fns, reg = variants[v]
+                for n, f in fns.items():
+                    setattr(ops, n, f)
+                if reg is not None:
+                    engine.region = reg
+                st = copy.deepcopy(state)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    st = engine._step(st, cfg, tc)
+                torch.cuda.synchronize()
+                out[v].append((time.perf_counter() - t0) * 1e3 / steps)
+    finally:
+        for n, f in shipped.items():
+            setattr(ops, n, f)
+        if region is not None:
+            engine.region = region
+    return out
+
+
 
 
 # --------------------------------------------------------------------------
@@ -793,12 +922,15 @@ def parity(name, cfg, arr, specs, tau, dev, topo=None, tag="[parity]",
 def report_profile(tag, ks, wall, ours, steps=1, unit="macro-step"):
     """Print a profiler window: device busy share of the wall clock,
     launches, the top kernels and the share of the hand-written kernels
-    whose names contain one of ``ours``."""
+    whose names contain one of ``ours``.  Returns {"busy_us", "launches"}
+    a ``unit`` (None when the profiler recorded no device time) and
+    "wall_ms" a ``unit`` under the profiler."""
     busy_us = sum(t for _, t in ks.values())
+    out = {"busy_us": None, "launches": None, "wall_ms": wall * 1e3 / steps}
     if busy_us <= 0:
         log(f"[profile] {tag}: the profiler recorded no device time: "
             f"device busy share not measured")
-        return
+        return out
     n_launch = sum(c for c, _ in ks.values())
     mine = sum(t for k, (_, t) in ks.items() if any(n in k for n in ours))
     log(f"[profile] {tag}: wall {wall * 1e3:.1f} ms under the profiler, "
@@ -809,6 +941,23 @@ def report_profile(tag, ks, wall, ours, steps=1, unit="macro-step"):
         f"device time")
     for k, (c, t) in sorted(ks.items(), key=lambda kv: -kv[1][1])[:8]:
         log(f"[profile]   {t / 1e3:8.3f} ms {c:6d} calls  {k[:90]}")
+    out.update(busy_us=busy_us / steps, launches=n_launch / steps)
+    return out
+
+
+def warmed_state(cfg, arr, specs, dev, warm, topo=None, tau=None):
+    """(state, engine constants) of a main run after ``warm`` macro-steps,
+    each the step ``engine.run`` takes."""
+    from repro_torch.core import engine, jobs, trace
+    jt = jobs.build_jobs(cfg, np.asarray(arr), specs, device=dev)
+    state, tc = engine.init_state(cfg, jt, topo)
+    if tau is not None:
+        state.farm.srv_tau = torch.full_like(state.farm.srv_tau, tau)
+    if cfg.trace.enabled:
+        state.trace = trace.own(state.trace, cfg)
+    for _ in range(warm):
+        state = engine._step(state, cfg, tc)
+    return state, tc
 
 
 def profile_window(cfg, arr, specs, dev, warm: int = 20, steps: int = 10,
@@ -816,24 +965,17 @@ def profile_window(cfg, arr, specs, dev, warm: int = 20, steps: int = 10,
     """Where a macro-step's time goes: ``steps`` macro-steps of a main
     run (after ``warm``) under torch.profiler, each the step
     ``engine.run`` takes (a traced step writes the ring in place, with no
-    copy of it)."""
-    from repro_torch.core import engine, jobs, trace
-    jt = jobs.build_jobs(cfg, np.asarray(arr), specs, device=dev)
-    box = list(engine.init_state(cfg, jt, topo))
-    if tau is not None:
-        box[0].farm.srv_tau = torch.full_like(box[0].farm.srv_tau, tau)
-    if cfg.trace.enabled:
-        box[0].trace = trace.own(box[0].trace, cfg)
-    for _ in range(warm):
-        box[0] = engine._step(box[0], cfg, box[1])
+    copy of it).  Returns report_profile's dict."""
+    from repro_torch.core import engine
+    box = list(warmed_state(cfg, arr, specs, dev, warm, topo, tau))
 
     def window():
         for _ in range(steps):
             box[0] = engine._step(box[0], cfg, box[1])
 
     ks, wall = device_kernels(window)
-    report_profile(f"{tag}, {steps} macro-steps after {warm}", ks, wall,
-                   ("dcsim", "telemetry_bin"), steps)
+    return report_profile(f"{tag}, {steps} macro-steps after {warm}", ks,
+                          wall, ("dcsim", "telemetry_bin"), steps)
 
 
 def net_main(dev):
@@ -1448,6 +1590,182 @@ def mc_main(dev) -> list:
 
 
 # --------------------------------------------------------------------------
+# the graph audit (src/repro_torch/analysis/): [simlint], [simlint-main]
+# --------------------------------------------------------------------------
+
+def histogram_diff(a: dict, b: dict) -> list:
+    """[(region, op, count in a, count in b)] where two per-region op
+    histograms differ."""
+    out = []
+    for region in sorted(set(a) | set(b)):
+        ra, rb = a.get(region, {}), b.get(region, {})
+        for op in sorted(set(ra) | set(rb)):
+            if ra.get(op, 0) != rb.get(op, 0):
+                out.append((region, op, ra.get(op, 0), rb.get(op, 0)))
+    return out
+
+
+def simlint_phase() -> None:
+    """[simlint]: every single-device case of the audit matrix
+    (src/repro_torch/analysis/matrix.py) recorded on the card, one
+    macro-step each: every rule of ``python -m repro_torch.analysis.simlint``
+    holds (the histogram's drift against the committed baseline advisory
+    under another torch than the baseline's), no host sync in the step,
+    each kernel one op node a launch, and the card's per-region histogram
+    equal to the CPU's once the CPU's plain versions are folded into their
+    nodes.  Then the rebuild sentinel, in a spawned
+    process: farm.simulate twice on the plain path and twice with mesh= (K
+    = 1 over NCCL), each kernel library loaded once."""
+    from repro_torch.analysis import matrix, rules, simlint
+    baseline = rules.load_baseline(simlint.DEFAULT_BASELINE)
+    advisory = baseline["torch"] != torch.__version__
+    t0 = time.perf_counter()
+    for name in matrix.SINGLE_DEVICE:
+        violations, report, inv = simlint.audit_case(
+            matrix.build_case(name), baseline["cases"][name], advisory,
+            on_card=True)
+        hard = [v for v in violations
+                if not (advisory and v.rule == "no-new-ops")]
+        if hard:
+            fail(f"simlint {name}:\n" + "\n".join(v.render() for v in hard))
+        (_, cpu_inv, _, _, _), = simlint.record_case(
+            matrix.build_case(name, "cpu"))
+        diff = histogram_diff(inv.histogram(), cpu_inv.histogram())
+        if diff:
+            fail(f"simlint {name}: the card's histogram differs from the "
+                 f"CPU's, folded, at (region, op, card, CPU) {diff[:12]}")
+        s = report["summary"]
+        drift = len(violations) - len(hard)
+        log(f"[simlint] {name}: {s['ops']} ops, {s['scatter']} scatters "
+            f"({s['scatter_cheap_core']} in cheap_core), kernels "
+            f"{s['kernels']} (== launches), {s['host_syncs']} host syncs, "
+            f"{s['host_to_device']} host-to-card copies; every rule holds"
+            + (f" ({drift} advisory histogram drifts: torch "
+               f"{torch.__version__} here, {baseline['torch']} in the "
+               f"baseline)" if drift else "")
+            + "; card == CPU folded")
+    violations, rep = simlint.rebuild_check(None)
+    if violations:
+        fail("simlint rebuild sentinel:\n"
+             + "\n".join(v.render() for v in violations))
+    builds = ", ".join(f"{e['tag']} {e['key']} x{e['builds']}"
+                       for e in rep["builds"])
+    log(f"[simlint] rebuild sentinel (a spawned process; farm.simulate "
+        f"twice plain, twice with mesh= over NCCL): {builds}; each built "
+        f"once; the phase took {time.perf_counter() - t0:.1f} s")
+
+
+def simlint_main(dev, main_prof) -> None:
+    """[simlint-main]: one macro-step of [main]'s configuration (65,536 x
+    4, 600 jobs) recorded on the card: its ops, scatters and host syncs,
+    each kernel one node a launch, the cost model's bytes and operations
+    and its bound on the H100, against the device time of a macro-step in
+    [main]'s profiler window (``main_prof``); and the state footprint the
+    cost model predicts on fake tensors against the rise of
+    torch.cuda.memory_allocated() across building the job table and
+    init_state."""
+    from repro_torch.analysis import costmodel, graph_audit, matrix, simlint
+    from repro_torch.core import engine, jobs
+    from repro_torch.kernels import ops
+    cfg, arr, specs, _ = one_farm_cfg(N_MAIN, JOBS_MAIN)
+    torch.cuda.synchronize(dev)
+    m0 = torch.cuda.memory_allocated(dev)
+    jt = jobs.build_jobs(cfg, np.asarray(arr), specs, device=dev)
+    state, tc = engine.init_state(cfg, jt)
+    torch.cuda.synchronize(dev)
+    rise = torch.cuda.memory_allocated(dev) - m0
+    fp = matrix.footprint_of(cfg)
+    # what the allocator holds for them: each storage rounded up to 512 B
+    storages = {x.untyped_storage().data_ptr():
+                x.untyped_storage().nbytes()
+                for _, x in graph_audit.leaves(state) + [("", tc.state_power)]}
+    rounded = sum(-(-n // 512) * 512 for n in storages.values())
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    inv = graph_audit.record(lambda st: engine._step(st, cfg, tc), state)
+    torch.cuda.synchronize(dev)
+    t_rec = time.perf_counter() - t0
+    launched = {ops.OPS[k]: n - before[k]
+                for k, n in ops.launch_counts().items() if n > before[k]}
+    bad = simlint.kernels_single_nodes("simlint-main", inv, launched)
+    syncs = inv.sites_of(graph_audit.HOST_SYNC_OPS)
+    if bad or syncs:
+        fail("simlint-main:\n" + "\n".join(
+            [v.render() for v in bad] + [f"host sync {x.op} at {x.src}"
+                                        for x in syncs]))
+    s = inv.summary()
+    cost = costmodel.cost_of(inv)
+    regions = ", ".join(f"{r or '<outer>'} {v['bytes'] / 2**20:.2f} MiB"
+                        for r, v in sorted(cost.by_region.items(),
+                                           key=lambda kv: -kv[1]["bytes"])
+                        [:4])
+    busy = main_prof.get("busy_us")
+    ratio = "not measured (the profiler recorded no device time)" \
+        if busy is None else (f"{busy / 1e3:.3f} ms, the bound "
+                              f"{100 * cost.bound_s * 1e6 / busy:.2f}% of it")
+    log(f"[simlint-main] one macro-step of [main]'s configuration on the "
+        f"card: {s['ops']} ops, {s['scatter']} scatters "
+        f"({s['scatter_cheap_core']} in cheap_core), {s['gather']} gathers, "
+        f"{s['host_syncs']} host syncs, {s['host_to_device']} host-to-card "
+        f"copies, kernels {s['kernels']} (== launches); recorded in "
+        f"{t_rec:.2f} s")
+    log(f"[simlint-main] cost model: {cost.total_bytes} bytes "
+        f"({cost.total_bytes / 2**20:.2f} MiB; by region {regions}), "
+        f"{cost.total_ops} operations; bound {cost.bound_s * 1e3:.4f} ms by "
+        f"{cost.bound_by} at {costmodel.H100_HBM_BYTES_S:.3g} B/s and "
+        f"{costmodel.H100_F32_OPS_S:.3g} f32 ops/s; device time of a "
+        f"macro-step in [main]'s profiler window {ratio}")
+    log(f"[simlint-main] state footprint (fake tensors) "
+        f"{fp['total_bytes']} bytes, by field {fp['by_field']}; "
+        f"torch.cuda.memory_allocated() rose {rise} bytes across "
+        f"build_jobs and init_state: {rise - fp['total_bytes']:+d} bytes "
+        f"against the footprint, {rise - rounded:+d} against its "
+        f"{len(storages)} storages (the state power table among them) "
+        f"rounded up to 512 bytes each ({rounded} bytes); HBM "
+        f"{costmodel.hbm_capacity():.4g} bytes, the state "
+        f"{100 * fp['total_bytes'] / costmodel.hbm_capacity():.4f}% of it")
+
+
+def shard_graph(cfg, state, tc, mesh, n) -> tuple:
+    """shard_sim.sharded_step_graph on this rank (every rank of the mesh
+    calls it) and the reference's collective rules on it: one all_gather
+    per sharded leaf (``n``), no other collective, no host sync, each
+    kernel one node a launch.  Returns ({"gathers", "collectives",
+    "syncs", "ops", "kernels"}, [rendered violations])."""
+    from repro_torch.analysis import graph_audit as ga, rules, simlint
+    from repro_torch.core import shard_sim
+    from repro_torch.kernels import ops
+    before = ops.launch_counts()
+    inv = shard_sim.sharded_step_graph(state, cfg, tc, mesh)
+    torch.cuda.synchronize()
+    launched = {ops.OPS[k]: c - before[k]
+                for k, c in ops.launch_counts().items() if c > before[k]}
+    checks = [
+        rules.ExactCount(name="one-all-gather-per-sharded-leaf",
+                         ops=ga.ALL_GATHER_OPS, expect=n),
+        rules.ForbidOp(name="no-other-collectives",
+                       ops=ga.COLLECTIVE_OPS - ga.ALL_GATHER_OPS),
+        rules.ForbidOp(name="no-host-sync-in-step", ops=ga.HOST_SYNC_OPS)]
+    bad = [v for rule in checks for v in rule.check("sharded", inv, None)]
+    bad += simlint.kernels_single_nodes("sharded", inv, launched)
+    s = inv.summary()
+    return ({"gathers": inv.count(ga.ALL_GATHER_OPS),
+             "collectives": s["collectives"], "syncs": s["host_syncs"],
+             "ops": s["ops"], "kernels": s["kernels"]},
+            [v.render() for v in bad])
+
+
+def log_shard_graph(tag, got) -> None:
+    summary, bad = got
+    if bad:
+        fail(f"{tag} sharded_step_graph:\n" + "\n".join(bad))
+    log(f"{tag} sharded_step_graph: {summary['ops']} ops, "
+        f"{summary['collectives']} ({summary['gathers']} all_gathers, one "
+        f"a sharded leaf, no other collective), {summary['syncs']} host "
+        f"syncs, kernels {summary['kernels']} (== launches)")
+
+
+# --------------------------------------------------------------------------
 # rack sharding: [shard-parity], [shard-main], [shard-mc]
 # --------------------------------------------------------------------------
 
@@ -1542,7 +1860,7 @@ def shard_main_runs(dev, mesh, profiled):
 
 
 def shard_rank(rank, world, route):
-    """One rank of the two-rank card runs (tests/torch_spmd.py launches
+    """One rank of the two-rank card runs (shard_sim.spawn launches
     it): [shard-parity]'s four configurations through run_sharded,
     [shard-main] and [shard-mc]'s batch on a (2, 1) ("replicas", "racks")
     mesh.  ``route`` "gloo": both ranks on card 0, the collectives staged
@@ -1563,6 +1881,10 @@ def shard_rank(rank, world, route):
             final = shard_sim.run_sharded(state, cfg, tc, mesh)
         out["parity"][name] = (state_cpu(final), dict(calls),
                                ops.launch_counts())
+        cfg, state, tc = shard_initial(name, dev)
+        out.setdefault("graph", {})[name] = shard_graph(
+            cfg, state, tc, mesh,
+            shard_sim.n_sharded_leaves(state, cfg, mesh))
     out["main"] = shard_main_runs(dev, mesh, profiled=rank == 0)
     cfg, arrs, specs = shard_mc_inputs()
     mesh2 = init_device_mesh("cuda", (world, 1),
@@ -1605,7 +1927,6 @@ def shard_phases(dev, main_res) -> dict:
     from repro_torch.core.types import tree_leaves
     from repro_torch.kernels import ops
     from torch_kernel_inputs import SHARD_SCENARIOS, shard_scenario
-    import torch_spmd
     from torch_spmd import count_collectives, shard_initial
 
     # the reference runs: the unsharded engine on the card (against the
@@ -1707,6 +2028,9 @@ def shard_phases(dev, main_res) -> dict:
                     f"{int(got.trace.ptr)} records; {n} sharded leaves, "
                     f"{dict(calls)} in {int(got.steps)} macro-steps; "
                     f"launches {ops.launch_counts()}; {wall:.2f} s")
+                cfg, state, tc = shard_initial(name, dev)
+                log_shard_graph(f"[shard-parity] {name} K=1 (NCCL):",
+                                shard_graph(cfg, state, tc, mesh, n))
             got = shard_main_runs(dev, mesh, profiled=True)
             launches["K=1"] = report_main(1, 0, got)
         finally:
@@ -1720,7 +2044,8 @@ def shard_phases(dev, main_res) -> dict:
         f"tensors on card 0 and gloo stages each gather through host "
         f"memory (NCCL refuses two ranks on one card)"))
     t0 = time.perf_counter()
-    ranks = torch_spmd.launch(shard_rank, 2, (route,), backend=route)
+    log(f"[elapsed] the two-rank spawn starts {t0 - T_START:.1f} s in")
+    ranks = shard_sim.spawn(shard_rank, 2, (route,), backend=route)
     t_spawn = time.perf_counter() - t0
     launches["K=2"] = []
     for rk, out in enumerate(ranks):
@@ -1735,6 +2060,12 @@ def shard_phases(dev, main_res) -> dict:
             log(f"[shard-parity] {name} K=2 ({route}) rank {rk}: == "
                 f"engine.run on the card, every leaf bit-equal; {calls} in "
                 f"{int(got.steps)} macro-steps; launches {counts}")
+            summary, bad = out["graph"][name]
+            if summary["gathers"] != n_sharded[name]:
+                bad = bad + [f"{summary['gathers']} all_gathers, "
+                             f"{n_sharded[name]} sharded leaves"]
+            log_shard_graph(f"[shard-parity] {name} K=2 ({route}) rank "
+                            f"{rk}:", (summary, bad))
         launches["K=2"].append(report_main(2, rk, out["main"]))
         got, counts, wall = out["mc"]
         bad = differing_leaves(got, ref_mc)
@@ -2118,7 +2449,7 @@ def lm_kernel_entries(flash_main, ssm_main, counts, fa_err, ss_err, dev):
 # --------------------------------------------------------------------------
 
 def main() -> None:
-    t_start = time.perf_counter()
+    t_start = T_START
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs "
              "an NVIDIA GPU")
@@ -2147,6 +2478,7 @@ def main() -> None:
             f"{k}: {v}" for k, v in ptxas_entries(report).items()))
     sass_census(built)
 
+    log(f"[elapsed] phase 3 starts at {time.perf_counter() - t_start:.1f} s")
     # phase 3: kernels vs plain versions
     _, dc_err = check_dcsim(N_MAIN, C_MAIN, 1, dev)
     # ragged farms about the 256-thread blocks; C = 3 takes the scalar
@@ -2184,6 +2516,7 @@ def main() -> None:
         ss_err = max(ss_err, check_ssm(*case, dev)[1])
     mc_err = mc_kernels(dev)
 
+    log(f"[elapsed] phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     # phase 4: card vs CPU
     parity("one_farm n512 j600", *one_farm_cfg(512, 600), dev)
     parity("dag_chain SINGLE_TIMER", *dag_chain_cfg(), dev)
@@ -2239,6 +2572,7 @@ def main() -> None:
         mc_parity(name, dev)
     lm_parity(dev)
 
+    log(f"[elapsed] phase 5 starts at {time.perf_counter() - t_start:.1f} s")
     # phase 5: the discrete-event main run through the user's entry point
     cfg, arr, specs, _ = one_farm_cfg(N_MAIN, JOBS_MAIN)
     ops.reset_launch_counts()
@@ -2267,11 +2601,17 @@ def main() -> None:
     th_counts, th_cfg, th_arr, th_specs, _ = th
     tr_counts, tr_cfg = trace_main(dev, th)
     mc_rows = mc_main(dev)
+    # the graph audit of every engine path's step, on the card
+    log(f"[elapsed] [simlint] starts at {time.perf_counter() - t_start:.1f} s")
+    simlint_phase()
 
+    log(f"[elapsed] phase 6 starts at {time.perf_counter() - t_start:.1f} s")
     # phase 6: the serving main run through the user's entry point
     lm_cfg, lm_params, lm_toks, lm_counts = lm_main(dev)
 
     # kernel times at the main paths' shapes
+    log(f"[elapsed] kernel times start at "
+        f"{time.perf_counter() - t_start:.1f} s")
     times = engine_call_times(dev, ENGINE_TIMED | ENGINE_TIMED_MORE)
     for name, tm in times.items():
         if tm["ops"] != 1 or set(tm["op_names"]) & {"memcpy", "memset"}:
@@ -2367,7 +2707,9 @@ def main() -> None:
     log_engine_time("dcsim_advance 1024", times["dcsim_advance 1024"],
                     f" (at the network run's {NET_SERVERS} x {C_MAIN}; "
                     f"{net_counts['dcsim_advance']} launches there)")
-    profile_window(cfg, arr, specs, dev)
+    log(f"[elapsed] profiles start at {time.perf_counter() - t_start:.1f} s")
+    main_prof = profile_window(cfg, arr, specs, dev)
+    simlint_main(dev, main_prof)
     profile_window(net_cfg, net_arr, net_specs, dev, topo=net_topo,
                    tau=net_tau, tag="network run")
     profile_window(th_cfg, th_arr, th_specs, dev, tag="thermal run")
@@ -2376,6 +2718,7 @@ def main() -> None:
 
     # rack sharding last: its process group and profiler windows come
     # after every kernel timing and profile of the earlier paths
+    log(f"[elapsed] phase 7 starts at {time.perf_counter() - t_start:.1f} s")
     shard_counts = shard_phases(dev, res)
     for k in kernels[:2]:
         k["shard_launches"] = {

@@ -38,6 +38,15 @@ a sentinel column a replica (``types.set_drop``), and the two kernels
 launch once a call for the whole batch.  ``run`` stops each replica on
 its own ``~done & (events < max_events)``: a replica that stopped keeps
 its state leaf by leaf, its ring included, while the others step.
+
+Regions (``core/regions.py``), the reference's named scopes: a cheap
+pass runs in ``cheap_core``, the full step in ``full_step``, the
+interval's ``dt`` downcast in ``f32_domain``, the thermal subsystem's
+calls in ``thermal`` and the flight recorder's work in ``trace``.  The
+graph audit (``python -m repro_torch.analysis.simlint``) records the
+ops of ``_step`` under them and holds the step to its contracts: no
+host sync, a pinned cheap-core scatter budget, no op of a disabled
+subsystem, no clock rebuilt from a downcast.
 """
 from __future__ import annotations
 
@@ -50,6 +59,8 @@ from ..kernels import ops
 from . import network, power, scheduler, server, telemetry
 from . import thermal as thermal_mod
 from . import trace as trace_mod
+from .regions import (CHEAP_CORE, F32_DOMAIN, FULL_STEP, THERMAL, TRACE,
+                      region)
 from .trace import stage, stage1
 from .types import (INF, JobTable, SchedPolicy, ServerFarm, SimConfig,
                     SimState, SleepPolicy, SrvState, TaskStatus, TraceKind,
@@ -159,12 +170,14 @@ def _farm_candidates(state: SimState, cfg: SimConfig) -> torch.Tensor:
                       farm.core_busy_until.amin(dim=(-2, -1))),
         torch.minimum(farm.srv_wake_at.amin(dim=-1),
                       scheduler.next_timer_event(farm, cfg)))
-    if _deferral_on(cfg):
-        # deferred-job releases are ordinary events of the cheap core too
-        t_next = torch.minimum(t_next, state.jobs.admit_at.amin(dim=-1))
-    if cfg.thermal.has_ctrl:
-        # setpoint-controller ticks, applied right after the advance
-        t_next = torch.minimum(t_next, state.thermal.ctrl_next)
+    with region(THERMAL):
+        if _deferral_on(cfg):
+            # deferred-job releases are ordinary events of the cheap core
+            # too
+            t_next = torch.minimum(t_next, state.jobs.admit_at.amin(dim=-1))
+        if cfg.thermal.has_ctrl:
+            # setpoint-controller ticks, applied right after the advance
+            t_next = torch.minimum(t_next, state.thermal.ctrl_next)
     # pending READY tasks (or queued work on awake free cores) run "now"
     ready = (state.jobs.status == TaskStatus.READY).any(dim=-1)
     awake = (farm.srv_state == SrvState.ACTIVE) \
@@ -182,7 +195,9 @@ def next_event_time(state: SimState, cfg: SimConfig) -> torch.Tensor:
     if cfg.has_network:
         t_next = torch.minimum(t_next, state.flows.done_at.amin(dim=-1))
     if cfg.thermal.throttling:
-        t_next = torch.minimum(t_next, thermal_mod.next_crossing(state, cfg))
+        with region(THERMAL):
+            t_next = torch.minimum(t_next,
+                                   thermal_mod.next_crossing(state, cfg))
     return torch.maximum(t_next, state.t).to(cfg.time_dtype)
 
 
@@ -202,7 +217,8 @@ def _advance_interval(state: SimState, cfg: SimConfig, tc: EngineConsts,
     the flows drain at their current rates."""
     farm = state.farm
     dt = t_next - state.t
-    dtf = dt.to(F32)                    # physics runs in f32 on any clock
+    with region(F32_DOMAIN):
+        dtf = dt.to(F32)                # physics runs in f32 on any clock
     onehot = power.state_onehot(farm)
     p_sw = power.switch_power(state.net, cfg) if cfg.has_network else None
     thermal_on = cfg.thermal.enabled
@@ -212,12 +228,13 @@ def _advance_interval(state: SimState, cfg: SimConfig, tc: EngineConsts,
     thermal_ctx = None
     if thermal_on:
         tcfg = cfg.thermal
-        target, alpha, t_end = thermal_mod.rc_step(
-            state.thermal, tcfg, p_busy[0], state.t, dtf)
-        p_sw_t = p_sw.sum(dim=-1) if cfg.has_network \
-            else torch.zeros_like(dtf)
-        p_cool = thermal_mod.cooling_power(p_busy[0], p_sw_t, state.thermal,
-                                           tcfg)
+        with region(THERMAL):
+            target, alpha, t_end = thermal_mod.rc_step(
+                state.thermal, tcfg, p_busy[0], state.t, dtf)
+            p_sw_t = p_sw.sum(dim=-1) if cfg.has_network \
+                else torch.zeros_like(dtf)
+            p_cool = thermal_mod.cooling_power(p_busy[0], p_sw_t,
+                                               state.thermal, tcfg)
         thermal_ctx = (target, alpha, t_end, p_cool)
 
     telem = state.telem
@@ -253,8 +270,10 @@ def _advance_interval(state: SimState, cfg: SimConfig, tc: EngineConsts,
         flows = network.advance_flows(flows, dt)
     therm = state.thermal
     if thermal_on:
-        therm = thermal_mod.advance(therm, cfg, p_busy[0], p_sw_t, state.t,
-                                    dt, t_new=t_end, p_cool=p_cool)
+        with region(THERMAL):
+            therm = thermal_mod.advance(therm, cfg, p_busy[0], p_sw_t,
+                                        state.t, dt, t_new=t_end,
+                                        p_cool=p_cool)
     return replace(state, farm=farm, net=net, flows=flows, thermal=therm,
                    telem=telem, t=t_next)
 
@@ -334,8 +353,9 @@ def _resolve_edges(jobs: JobTable, flows, net, cfg: SimConfig, tc,
         # a full flow table drop-resolves the edge, as a queue drop does
         dep_count = dep_count.scatter_add(-1, chc, -(need & ~ok).to(I32))
         if cfg.trace.enabled:
-            stage(recs, need & ok, TraceKind.FLOW_SPAWN, src,
-                  ch.reshape(flat), jobs.edge_bytes.reshape(flat))
+            with region(TRACE):
+                stage(recs, need & ok, TraceKind.FLOW_SPAWN, src,
+                      ch.reshape(flat), jobs.edge_bytes.reshape(flat))
     else:
         dep_count = jobs.dep_count.scatter_add(
             -1, chc, -ch_valid.reshape(flat).to(I32))
@@ -363,15 +383,16 @@ def _apply_completions(state: SimState, cfg: SimConfig, tc,
     jobs = replace(jobs, status=status, finish=finish)
     tasks_done, job_finish = _rebuild_job_completion(jobs, cfg, now)
     if cfg.trace.enabled:
-        JT, J = done_task.shape[-1], job_finish.shape[-1]
-        dev = done_task.device
-        stage(recs, done_task, TraceKind.FINISH, jobs.server,
-              torch.arange(JT, dtype=I32, device=dev),
-              lift(now) - jobs.start_at)
-        new_jf = (jobs.job_finish >= INF / 2) & (job_finish < INF / 2)
-        stage(recs, new_jf, TraceKind.JOB_FINISH, -1,
-              torch.arange(J, dtype=I32, device=dev),
-              job_finish - jobs.arrival)
+        with region(TRACE):
+            JT, J = done_task.shape[-1], job_finish.shape[-1]
+            dev = done_task.device
+            stage(recs, done_task, TraceKind.FINISH, jobs.server,
+                  torch.arange(JT, dtype=I32, device=dev),
+                  lift(now) - jobs.start_at)
+            new_jf = (jobs.job_finish >= INF / 2) & (job_finish < INF / 2)
+            stage(recs, new_jf, TraceKind.JOB_FINISH, -1,
+                  torch.arange(J, dtype=I32, device=dev),
+                  job_finish - jobs.arrival)
     jobs = replace(jobs, tasks_done=tasks_done, job_finish=job_finish)
     flows, net = state.flows, state.net
     if cfg.tasks_per_job > 1:
@@ -391,8 +412,9 @@ def _apply_flow_completions(state: SimState, cfg: SimConfig,
     status = torch.where(lift(fin.any(dim=-1)),
                          _promote_ready(jobs, dep_count, cfg), jobs.status)
     if cfg.trace.enabled:
-        # complete_flows keeps dst/child on the deactivated rows
-        stage(recs, fin, TraceKind.FLOW_FINISH, flows.dst, flows.child)
+        with region(TRACE):
+            # complete_flows keeps dst/child on the deactivated rows
+            stage(recs, fin, TraceKind.FLOW_FINISH, flows.dst, flows.child)
     return replace(state, flows=flows,
                    jobs=replace(jobs, dep_count=dep_count, status=status))
 
@@ -435,18 +457,19 @@ def _apply_arrival(state: SimState, cfg: SimConfig, tc,
     adm = elig
     if _deferral_on(cfg):
         tcfg = cfg.thermal
-        jc = jid.clamp(0, J - 1).to(I64)
-        sig = thermal_mod.defer_signal_now(tcfg, state.t)
-        rel = thermal_mod.next_release_time(tcfg, state.t)
-        cand = torch.minimum(lift(rel.to(cfg.time_dtype)),
-                             take(jobs.deadline, jc))
-        dfr = elig & take(jobs.deferrable, jc) \
-            & lift(sig > tcfg.defer_threshold) & (cand > now) \
-            & (cand < INF / 2)
-        jobs = replace(jobs, admit_at=set_drop(
-            jobs.admit_at, torch.where(dfr, jid, J),
-            torch.where(dfr, cand, INF)))
-        adm = elig & ~dfr
+        with region(THERMAL):
+            jc = jid.clamp(0, J - 1).to(I64)
+            sig = thermal_mod.defer_signal_now(tcfg, state.t)
+            rel = thermal_mod.next_release_time(tcfg, state.t)
+            cand = torch.minimum(lift(rel.to(cfg.time_dtype)),
+                                 take(jobs.deadline, jc))
+            dfr = elig & take(jobs.deferrable, jc) \
+                & lift(sig > tcfg.defer_threshold) & (cand > now) \
+                & (cand < INF / 2)
+            jobs = replace(jobs, admit_at=set_drop(
+                jobs.admit_at, torch.where(dfr, jid, J),
+                torch.where(dfr, cand, INF)))
+            adm = elig & ~dfr
 
     tids = j0 * T + torch.arange(K * T, dtype=I32, device=dev)
     in_range = tids < JT
@@ -482,15 +505,16 @@ def _apply_arrival(state: SimState, cfg: SimConfig, tc,
     jobs = replace(jobs, server=server_arr, status=status,
                    arr_ptr=(jobs.arr_ptr + n_adm).to(I32))
     if cfg.trace.enabled:
-        # ARRIVAL for every consumed arrival slot (deferred jobs too),
-        # ADMIT for the placed ones: the server of the job's first task and
-        # its queue depth, which changes only at the READY drain
-        stage(recs, elig, TraceKind.ARRIVAL, -1, jid)
-        first = (j0 * T + torch.arange(K, dtype=I32, device=dev) * T
-                 ).clamp(0, JT - 1)
-        job_srv = take(jobs.server, first)
-        stage(recs, adm, TraceKind.ADMIT, job_srv, jid,
-              take(farm.q_len, job_srv.clamp(min=0)))
+        with region(TRACE):
+            # ARRIVAL for every consumed arrival slot (deferred jobs too),
+            # ADMIT for the placed ones: the server of the job's first task and
+            # its queue depth, which changes only at the READY drain
+            stage(recs, elig, TraceKind.ARRIVAL, -1, jid)
+            first = (j0 * T + torch.arange(K, dtype=I32, device=dev) * T
+                     ).clamp(0, JT - 1)
+            job_srv = take(jobs.server, first)
+            stage(recs, adm, TraceKind.ADMIT, job_srv, jid,
+                  take(farm.q_len, job_srv.clamp(min=0)))
     return replace(state, jobs=jobs, sched=sched)
 
 
@@ -588,10 +612,11 @@ def _apply_releases(state: SimState, cfg: SimConfig,
         defer_count=therm.defer_count + jvalid.sum(dim=-1, dtype=I32),
         grams_avoided=therm.grams_avoided + avoided.sum(dim=-1))
     if cfg.trace.enabled:
-        picks = srvs.view(B + (K, T))[..., 0]
-        stage(recs, jvalid, TraceKind.RELEASE, -1, jid_b, waited)
-        stage(recs, jvalid, TraceKind.ADMIT, picks, jid_b,
-              take(state.farm.q_len, picks.clamp(min=0)))
+        with region(TRACE):
+            picks = srvs.view(B + (K, T))[..., 0]
+            stage(recs, jvalid, TraceKind.RELEASE, -1, jid_b, waited)
+            stage(recs, jvalid, TraceKind.ADMIT, picks, jid_b,
+                  take(state.farm.q_len, picks.clamp(min=0)))
     return replace(state, jobs=jobs, thermal=therm)
 
 
@@ -618,14 +643,15 @@ def _resolve_drops(state: SimState, cfg: SimConfig, dropped,
                   edge_sent=edge_sent)
     new = tree_where(any_drop, new, jobs)
     if cfg.trace.enabled:
-        JT, J = dropped.shape[-1], new.job_finish.shape[-1]
-        dev = dropped.device
-        stage(recs, dropped, TraceKind.DROP, new.server,
-              torch.arange(JT, dtype=I32, device=dev))
-        new_jf = (jobs.job_finish >= INF / 2) & (new.job_finish < INF / 2)
-        stage(recs, new_jf, TraceKind.JOB_FINISH, -1,
-              torch.arange(J, dtype=I32, device=dev),
-              new.job_finish - new.arrival)
+        with region(TRACE):
+            JT, J = dropped.shape[-1], new.job_finish.shape[-1]
+            dev = dropped.device
+            stage(recs, dropped, TraceKind.DROP, new.server,
+                  torch.arange(JT, dtype=I32, device=dev))
+            new_jf = (jobs.job_finish >= INF / 2) & (new.job_finish < INF / 2)
+            stage(recs, new_jf, TraceKind.JOB_FINISH, -1,
+                  torch.arange(J, dtype=I32, device=dev),
+                  new.job_finish - new.arrival)
     return replace(state, jobs=new)
 
 
@@ -669,17 +695,20 @@ def _drain_ready(state: SimState, cfg: SimConfig, recs=None) -> SimState:
 
 def _start_tasks(state: SimState, cfg: SimConfig, recs=None) -> SimState:
     # throttled servers start work at their reduced effective frequency
-    freq = thermal_mod.effective_freq(state.thermal, cfg) \
-        if cfg.thermal.throttling else None
+    freq = None
+    if cfg.thermal.throttling:
+        with region(THERMAL):
+            freq = thermal_mod.effective_freq(state.thermal, cfg)
     farm, jobs = server.try_start(state.farm, cfg, state.jobs, state.t,
                                   freq)
     if cfg.trace.enabled:
-        started = (jobs.status == TaskStatus.RUNNING) \
-            & (state.jobs.status == TaskStatus.QUEUED)
-        JT = started.shape[-1]
-        stage(recs, started, TraceKind.START, jobs.server,
-              torch.arange(JT, dtype=I32, device=started.device),
-              jobs.task_end - lift(state.t))
+        with region(TRACE):
+            started = (jobs.status == TaskStatus.RUNNING) \
+                & (state.jobs.status == TaskStatus.QUEUED)
+            JT = started.shape[-1]
+            stage(recs, started, TraceKind.START, jobs.server,
+                  torch.arange(JT, dtype=I32, device=started.device),
+                  jobs.task_end - lift(state.t))
     return replace(state, farm=farm, jobs=jobs)
 
 
@@ -696,24 +725,26 @@ def _apply_events(state: SimState, cfg: SimConfig, tc, cheap: bool,
         and cfg.sleep_policy != SleepPolicy.ALWAYS_ON
     dev = state.t.device
     if trace_sleep:
-        farm = state.farm
-        woke = (farm.srv_state == SrvState.WAKING) \
-            & (farm.srv_wake_at <= lift(state.t))
-        stage(recs, woke, TraceKind.WAKEUP,
-              torch.arange(cfg.n_servers, dtype=I32, device=dev))
+        with region(TRACE):
+            farm = state.farm
+            woke = (farm.srv_state == SrvState.WAKING) \
+                & (farm.srv_wake_at <= lift(state.t))
+            stage(recs, woke, TraceKind.WAKEUP,
+                  torch.arange(cfg.n_servers, dtype=I32, device=dev))
     state = replace(state, farm=_apply_wakeups(state.farm, cfg, state.t))
     state = _apply_completions(state, cfg, tc, recs)
     if cfg.has_network and not cheap:
         state = _apply_flow_completions(state, cfg, recs)
     hold = None
     if _deferral_on(cfg):
-        # due releases admit before fresh arrivals, and a step that
-        # entered with due releases holds the arrivals until the next
-        # same-time step
-        admit_at = state.jobs.admit_at
-        hold = ((admit_at < INF / 2)
-                & (admit_at <= lift(state.t))).any(dim=-1)
-        state = _apply_releases(state, cfg, recs)
+        with region(THERMAL):
+            # due releases admit before fresh arrivals, and a step that
+            # entered with due releases holds the arrivals until the next
+            # same-time step
+            admit_at = state.jobs.admit_at
+            hold = ((admit_at < INF / 2)
+                    & (admit_at <= lift(state.t))).any(dim=-1)
+            state = _apply_releases(state, cfg, recs)
     state = _apply_arrival(state, cfg, tc, hold, recs)
     state = _drain_ready(state, cfg, recs)
     state = _start_tasks(state, cfg, recs)
@@ -727,15 +758,16 @@ def _apply_events(state: SimState, cfg: SimConfig, tc, cheap: bool,
     farm = scheduler.timer_transitions(farm, cfg, state.t)
     state = replace(state, farm=farm, sched=sched)
     if trace_sleep:
-        # awake -> asleep edges of the local power controllers
-        was_awake = (st_before == SrvState.ACTIVE) \
-            | (st_before == SrvState.IDLE)
-        asleep = (farm.srv_state == SrvState.PKG_C6) \
-            | (farm.srv_state == SrvState.S3) \
-            | (farm.srv_state == SrvState.OFF)
-        stage(recs, was_awake & asleep, TraceKind.SLEEP,
-              torch.arange(cfg.n_servers, dtype=I32, device=dev), -1,
-              farm.srv_state)
+        with region(TRACE):
+            # awake -> asleep edges of the local power controllers
+            was_awake = (st_before == SrvState.ACTIVE) \
+                | (st_before == SrvState.IDLE)
+            asleep = (farm.srv_state == SrvState.PKG_C6) \
+                | (farm.srv_state == SrvState.S3) \
+                | (farm.srv_state == SrvState.OFF)
+            stage(recs, was_awake & asleep, TraceKind.SLEEP,
+                  torch.arange(cfg.n_servers, dtype=I32, device=dev), -1,
+                  farm.srv_state)
     if cfg.has_network:
         flows, link_flows = state.flows, state.net.link_flows
         if not cheap:
@@ -784,7 +816,8 @@ def _cheap_gate(state: SimState, cfg: SimConfig):
     ok = (t_next < INF / 2) & ~will_be_done
     if cfg.thermal.throttling:
         # a throttle crossing needs the full step
-        ok = ok & (t_next < thermal_mod.next_crossing(state, cfg))
+        with region(THERMAL):
+            ok = ok & (t_next < thermal_mod.next_crossing(state, cfg))
     if cfg.has_network:
         ok = ok & (t_next < state.flows.done_at.amin(dim=-1))
         if cfg.tasks_per_job > 1:
@@ -808,35 +841,41 @@ def _apply_thermal_events(state: SimState, cfg: SimConfig,
     the cheap and the full pass, with their flight-recorder records."""
     if cfg.thermal.throttling:
         old_thr = state.thermal.throttled
-        farm, jobs, therm = thermal_mod.apply_throttle(
-            state.farm, state.jobs, state.thermal, cfg, state.t)
+        with region(THERMAL):
+            farm, jobs, therm = thermal_mod.apply_throttle(
+                state.farm, state.jobs, state.thermal, cfg, state.t)
         state = replace(state, farm=farm, jobs=jobs, thermal=therm)
         if cfg.trace.enabled:
-            stage(recs, therm.throttled != old_thr,
-                  TraceKind.THROTTLE_CROSSING,
-                  torch.arange(cfg.n_servers, dtype=I32,
-                               device=state.t.device), -1, therm.t_srv)
+            with region(TRACE):
+                stage(recs, therm.throttled != old_thr,
+                      TraceKind.THROTTLE_CROSSING,
+                      torch.arange(cfg.n_servers, dtype=I32,
+                                   device=state.t.device), -1, therm.t_srv)
     if cfg.thermal.has_ctrl:
         if cfg.trace.enabled:
-            # the tick fires when time reaches ctrl_next (an event
-            # candidate); staged before the controller advances it
-            stage1(recs, state.t >= state.thermal.ctrl_next,
-                   TraceKind.CTRL_TICK)
-        state = replace(state, thermal=thermal_mod.apply_setpoint_ctrl(
-            state.thermal, cfg, state.t))
+            with region(TRACE):
+                # the tick fires when time reaches ctrl_next (an event
+                # candidate); staged before the controller advances it
+                stage1(recs, state.t >= state.thermal.ctrl_next,
+                       TraceKind.CTRL_TICK)
+        with region(THERMAL):
+            state = replace(state, thermal=thermal_mod.apply_setpoint_ctrl(
+                state.thermal, cfg, state.t))
     return state
 
 
 def _consume_cheap(state: SimState, cfg: SimConfig, tc, t_next,
                    alive) -> SimState:
-    state = _advance_interval(state, cfg, tc, t_next)
-    recs = [] if cfg.trace.enabled else None
-    state = _apply_thermal_events(state, cfg, recs)
-    state = _apply_events(state, cfg, tc, cheap=True, recs=recs)
-    if cfg.trace.enabled:
-        state = replace(state, trace=trace_mod.flush(
-            state.trace, cfg, state.t, recs, alive))
-    return replace(state, events=state.events + 1)
+    with region(CHEAP_CORE):
+        state = _advance_interval(state, cfg, tc, t_next)
+        recs = [] if cfg.trace.enabled else None
+        state = _apply_thermal_events(state, cfg, recs)
+        state = _apply_events(state, cfg, tc, cheap=True, recs=recs)
+        if cfg.trace.enabled:
+            with region(TRACE):
+                state = replace(state, trace=trace_mod.flush(
+                    state.trace, cfg, state.t, recs, alive))
+        return replace(state, events=state.events + 1)
 
 
 def _macro_chew(state: SimState, cfg: SimConfig, tc,
@@ -858,22 +897,24 @@ def _macro_chew(state: SimState, cfg: SimConfig, tc,
 
 def _full_step(state: SimState, cfg: SimConfig, tc,
                active=None) -> SimState:
-    # every event source: the farm's, arrivals, flow completions and
-    # throttle crossings
-    t_next = next_event_time(state, cfg)
-    # INF means no pending events: freeze time instead of integrating
-    # energy over an unbounded interval
-    t_next = torch.where(t_next >= INF / 2, state.t, t_next)
-    state = _advance_interval(state, cfg, tc, t_next)
-    recs = [] if cfg.trace.enabled else None
-    state = _apply_thermal_events(state, cfg, recs)
-    state = _apply_events(state, cfg, tc, cheap=False, recs=recs)
-    if cfg.trace.enabled:
-        # a replica that stopped records nothing
-        state = replace(state, trace=trace_mod.flush(
-            state.trace, cfg, state.t, recs, active))
-    return replace(state, events=state.events + 1,
-                   done=_all_done(state, cfg))
+    with region(FULL_STEP):
+        # every event source: the farm's, arrivals, flow completions and
+        # throttle crossings
+        t_next = next_event_time(state, cfg)
+        # INF means no pending events: freeze time instead of integrating
+        # energy over an unbounded interval
+        t_next = torch.where(t_next >= INF / 2, state.t, t_next)
+        state = _advance_interval(state, cfg, tc, t_next)
+        recs = [] if cfg.trace.enabled else None
+        state = _apply_thermal_events(state, cfg, recs)
+        state = _apply_events(state, cfg, tc, cheap=False, recs=recs)
+        if cfg.trace.enabled:
+            with region(TRACE):
+                # a replica that stopped records nothing
+                state = replace(state, trace=trace_mod.flush(
+                    state.trace, cfg, state.t, recs, active))
+        return replace(state, events=state.events + 1,
+                       done=_all_done(state, cfg))
 
 
 def sim_step(state: SimState, cfg: SimConfig,

@@ -30,15 +30,23 @@ same macro-step.  A last gather assembles the final state, so every rank
 returns the whole of it.
 
 Launch K ranks with ``torchrun --nproc-per-node K`` or
-``torch.multiprocessing.spawn``, initialise the default process group
-(gloo on the CPU, NCCL with one card a rank), then call
-``farm.simulate`` with ``partition.n_shards=K`` or a mesh from
-:func:`make_mesh`.
+``torch.multiprocessing.spawn`` (:func:`spawn` does it from one script),
+initialise the default process group (gloo on the CPU, NCCL with one card
+a rank), then call ``farm.simulate`` with ``partition.n_shards=K`` or a
+mesh from :func:`make_mesh`.
+
+:func:`sharded_step_graph` records one macro-step on the calling rank
+(``analysis/graph_audit.py``): its gathers, the step and the slice back,
+the reference's collective contract checked on the ops it dispatches.
 """
 from __future__ import annotations
 
+import os
+import tempfile
+
 import torch
 import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from ..sharding import partition as mesh_lib
 from . import engine
@@ -46,8 +54,9 @@ from . import trace as trace_mod
 from .types import (SimConfig, replace, resolve_device, tree_leaves,
                     tree_map)
 
-__all__ = ["all_gather", "make_mesh", "n_sharded_leaves", "run_sharded",
-           "sharded_step_jaxpr", "validate_sharding"]
+__all__ = ["all_gather", "make_mesh", "macro_step", "n_sharded_leaves",
+           "run_sharded", "sharded_step_graph", "spawn",
+           "validate_sharding"]
 
 
 def make_mesh(n_shards: int, axis: str = mesh_lib.SIM_AXIS, device=None):
@@ -142,14 +151,11 @@ def _sharded_flags(state, cfg: SimConfig, mesh, axis: str):
     return tree_map(lambda _: next(specs)[:1] == (axis,), state)
 
 
-def run_sharded(state, cfg: SimConfig, tc=None, mesh=None):
-    """Run to completion like ``engine.run``, with the rack-major state
-    axes sharded over ``mesh``'s ``cfg.partition.axis`` (a mesh built by
-    :func:`make_mesh` from ``cfg.partition`` when None).  Every rank
-    passes the same full initial state and gets the full final state;
-    bit-identical to the single-device engine by construction.  The
-    flight recorder's ring is copied once, as ``engine.run`` does, so
-    ``state`` is left as it was."""
+def _setup(state, cfg: SimConfig, tc, mesh):
+    """The set-up of a sharded run, outside its macro-steps: (this rank's
+    blocks of ``state``, tc, the sharded-leaf flags, the rack axis' group,
+    its size k and this rank's index).  The ring is copied once, as
+    ``engine.run`` does, so ``state`` is left as it was."""
     axis = cfg.partition.axis
     if mesh is None:
         mesh = make_mesh(cfg.partition.n_shards, axis, state.t.device)
@@ -162,7 +168,18 @@ def run_sharded(state, cfg: SimConfig, tc=None, mesh=None):
     sharded = _sharded_flags(state, cfg, mesh, axis)
     if cfg.trace.enabled:
         state = replace(state, trace=trace_mod.own(state.trace, cfg))
-    local = _slice_leaves(state, sharded, idx, k)
+    return _slice_leaves(state, sharded, idx, k), tc, sharded, group, k, idx
+
+
+def run_sharded(state, cfg: SimConfig, tc=None, mesh=None):
+    """Run to completion like ``engine.run``, with the rack-major state
+    axes sharded over ``mesh``'s ``cfg.partition.axis`` (a mesh built by
+    :func:`make_mesh` from ``cfg.partition`` when None).  Every rank
+    passes the same full initial state and gets the full final state;
+    bit-identical to the single-device engine by construction.  The
+    flight recorder's ring is copied once, as ``engine.run`` does, so
+    ``state`` is left as it was."""
+    local, tc, sharded, group, k, idx = _setup(state, cfg, tc, mesh)
     while True:
         full = _gather_leaves(local, sharded, group, k)
         # replicated scalars: every rank reads the same flag
@@ -175,12 +192,60 @@ def run_sharded(state, cfg: SimConfig, tc=None, mesh=None):
 # shard-efficiency introspection
 # ==========================================================================
 
-def sharded_step_jaxpr(state, cfg: SimConfig, tc=None, mesh=None):
-    """The reference's jaxpr of one shard-mapped macro-step has no
-    counterpart until the port's graph audit."""
-    raise NotImplementedError(
-        "repro_torch has no captured graph of the sharded macro-step yet: "
-        "it comes with ROADMAP.md Queue 1 item 11 (the graph audit)")
+def macro_step(state, cfg: SimConfig, tc=None, mesh=None):
+    """(step, local): one sharded macro-step on this rank as a function of
+    its blocks -- the gathers, ``engine._step`` on the full arrays and the
+    slice back, without ``run_sharded``'s flag read -- and this rank's
+    blocks of ``state``.  The set-up (mesh, flags, ring copy, the first
+    slice) runs here, outside the step."""
+    local, tc, sharded, group, k, idx = _setup(state, cfg, tc, mesh)
+
+    def step(blocks):
+        full = _gather_leaves(blocks, sharded, group, k)
+        return _slice_leaves(engine._step(full, cfg, tc), sharded, idx, k)
+    return step, local
+
+
+def sharded_step_graph(state, cfg: SimConfig, tc=None, mesh=None):
+    """The ``analysis.graph_audit.Inventory`` of one sharded macro-step on
+    the calling rank (every rank of the mesh calls it): one
+    ``all_gather`` per sharded leaf, the step, the slice back, with the
+    replicated-flag read and the set-up left outside the recording.  The
+    counterpart of the reference's ``sharded_step_jaxpr``; ``result`` is
+    the rank's blocks after the step."""
+    from ..analysis import graph_audit
+    step, local = macro_step(state, cfg, tc, mesh)
+    return graph_audit.record(step, local)
+
+
+def _spawned(rank, world, backend, tmp, fn, args):
+    torch.set_num_threads(1)
+    kw = {}
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+        kw["device_id"] = torch.device("cuda", rank)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world, **kw)
+    try:
+        result = fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+    torch.save(result, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def spawn(fn, world: int, args=(), backend: str = "gloo") -> list:
+    """``fn(rank, world, *args)`` on ``world`` spawned processes, each a
+    rank of a default process group over a ``file://`` store in a fresh
+    temporary directory (``fn`` importable by module path; the spawn start
+    method, so CUDA may already be initialised in the caller; on ``nccl``
+    rank r uses card r).  Returns the ranks' results in rank order; a
+    failure in any rank raises in the caller."""
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_spawned, args=(world, backend, tmp, fn, tuple(args)),
+                 nprocs=world, join=True)
+        # written by the ranks above, in this run
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]
 
 
 def n_sharded_leaves(state, cfg: SimConfig, mesh=None) -> int:

@@ -10,6 +10,7 @@ per source, all at once.  A build or load failure raises.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import ctypes
 import hashlib
@@ -30,6 +31,12 @@ MAX_REPLICAS = 65535
 
 # loaded libraries of this process, by source name
 _LOADED: dict = {}
+
+# (cache, key) -> how often that per-key cache missed in this process: a
+# library loaded ("build.load", by its path), a kernel's scratch words made
+# ("dcsim_step.scratch", "telemetry_bin.scratch"); each key should miss
+# once (analysis/recompile.py reads it)
+MISSES: collections.Counter = collections.Counter()
 
 
 def build_dir() -> pathlib.Path:
@@ -102,9 +109,11 @@ def _wait(proc, t0):
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for source ``name``, built first if needed."""
+    """The loaded library for source ``name``, built first if needed: once
+    a process (counted in ``MISSES``)."""
     lib = _LOADED.get(name)
     if lib is None:
+        MISSES["build.load", str(library_path(name))] += 1
         path, _, _ = build_all((name,))[name]
         lib = ctypes.CDLL(str(path))
         _declare(name, lib)

@@ -103,6 +103,7 @@ def scratch(dev: torch.device, clock=torch.float32,
             raise RuntimeError("dcsim_advance: call it once on this device "
                                "with this batch size before capturing a "
                                "CUDA graph")
+        build.MISSES["dcsim_step.scratch", key] += 1
         s = _SCRATCH[key] = torch.tensor([0] * replicas + [-1] * replicas,
                                          dtype=_WORD[clock], device=dev)
     return s

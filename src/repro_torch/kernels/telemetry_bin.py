@@ -102,6 +102,7 @@ def scratch(dev: torch.device, B: int, replicas: int = 1):
             raise RuntimeError("telemetry_accum: make a large-stream call "
                                "once on this device with this batch size "
                                "before capturing a CUDA graph")
+        build.MISSES["telemetry_bin.scratch", key] += 1
         blocks = replicas * max(sm_count(dev) // replicas, 1)
         s = _SCRATCH[key] = (
             torch.empty((blocks * 2 * B,), dtype=torch.float32, device=dev),

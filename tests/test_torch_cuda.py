@@ -813,9 +813,10 @@ def test_sharded_two_ranks_on_the_card_match_engine_run(cuda):
     every rank's final state equals engine.run on the card bit for
     bit."""
     import torch_spmd
+    from repro_torch.core import shard_sim
     from torch_kernel_inputs import SHARD_SCENARIOS
     route = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
-    ranks = torch_spmd.launch(torch_spmd.plan, 2, (
+    ranks = shard_sim.spawn(torch_spmd.plan, 2, (
         [("sharded_runs", (SHARD_SCENARIOS, "cuda"))],), backend=route)
     for name in SHARD_SCENARIOS:
         cfg, state, tc = torch_spmd.shard_initial(name, cuda)
@@ -825,3 +826,85 @@ def test_sharded_two_ranks_on_the_card_match_engine_run(cuda):
             final, calls, n = results[0][name]
             _sharded_bitwise(final, ref, f"{name} K=2 ({route}) rank {r}")
             assert sum(calls.values()) == n * (int(ref.steps) + 1)
+
+
+# --------------------------------------------------------------------------
+# the graph audit on the card (src/repro_torch/analysis/)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", [
+    "policy_load_balance", "policy_network_aware", "thermal_throttling",
+    "trace_on", "montecarlo_vmap", "f64_thermal_throttling"])
+def test_graph_audit_on_card_matches_cpu(cuda, name):
+    """A matrix case's macro-step recorded on the card: every rule of
+    simlint holds (the histogram's drift advisory under another torch than
+    the baseline's), no host sync, each kernel one op node a launch, and
+    the per-region histogram equal to the CPU recording's once its plain
+    versions are folded into their nodes."""
+    from repro_torch.analysis import matrix, rules, simlint
+    baseline = rules.load_baseline(simlint.DEFAULT_BASELINE)
+    advisory = baseline["torch"] != torch.__version__
+    violations, report, inv = simlint.audit_case(
+        matrix.build_case(name), baseline["cases"][name], advisory,
+        on_card=True)
+    hard = [v for v in violations
+            if not (advisory and v.rule == "no-new-ops")]
+    assert hard == [], "\n".join(v.render() for v in hard)
+    assert report["summary"]["host_syncs"] == 0
+    assert not any(s.folded_away for s in inv.sites)
+    (_, cpu, _, _, _), = simlint.record_case(matrix.build_case(name, "cpu"))
+    assert inv.histogram() == cpu.histogram()
+
+
+@pytest.mark.parametrize("name", ["lb_sleep", "thermal_throttle"])
+def test_sharded_step_graph_over_nccl(cuda, name, tmp_path):
+    """shard_sim.sharded_step_graph on a one-rank NCCL mesh: one
+    all_gather per sharded leaf, no other collective, no host sync, each
+    kernel one op node a launch."""
+    import torch.distributed as dist
+    from repro_torch.analysis.graph_audit import (ALL_GATHER_OPS,
+                                                  COLLECTIVE_OPS,
+                                                  HOST_SYNC_OPS, KERNEL_OPS)
+    from repro_torch.core import shard_sim
+    from torch_spmd import shard_initial
+    cfg, state, tc = shard_initial(name, cuda)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1, device_id=cuda)
+    try:
+        mesh = shard_sim.make_mesh(1, device=cuda)
+        n = shard_sim.n_sharded_leaves(state, cfg, mesh)
+        before = sum(ops.launch_counts().values())
+        inv = shard_sim.sharded_step_graph(state, cfg, tc, mesh)
+        torch.cuda.synchronize()
+        launched = sum(ops.launch_counts().values()) - before
+    finally:
+        dist.destroy_process_group()
+    assert n == (19 if cfg.thermal.enabled else 12)
+    assert inv.count(ALL_GATHER_OPS) == inv.count(COLLECTIVE_OPS) == n
+    assert inv.count(HOST_SYNC_OPS) == 0
+    assert inv.count(KERNEL_OPS) == launched == 9
+
+
+def test_library_ops_launch_once_a_node_on_the_card(cuda):
+    """Each registered op on CUDA tensors launches its kernel once (a
+    recording sees one node and nothing of the wrapper's inside) and
+    equals the plain version; the same call on meta tensors gives the
+    wrapper's shapes and dtypes without a launch."""
+    from repro_torch.analysis import graph_audit
+    a = torch_args(dcsim_inputs(1000, 4, 3), cuda)
+    t = torch_args(tb_inputs(600, 600, 64, 1, 19, 4), cuda)
+    for name, args, plain in (
+            ("dcsim_advance", a, ref.dcsim_advance_reference),
+            ("telemetry_accum", t, ref.telemetry_accum_reference)):
+        before = ops.launch_counts()[name]
+        inv = graph_audit.record(getattr(ops, name), *args)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()[name] == before + 1
+        assert [s.op for s in inv.sites] == [ops.OPS[name]]
+        for g, e in zip(inv.result, plain(*args)):
+            assert torch.equal(g, e)
+        meta = getattr(ops, name)(*[x.to("meta") if torch.is_tensor(x)
+                                    else x for x in args])
+        assert [(m.shape, m.dtype) for m in meta] == \
+            [(r.shape, r.dtype) for r in inv.result]
+        assert ops.launch_counts()[name] == before + 1

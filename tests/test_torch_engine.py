@@ -167,7 +167,7 @@ def item10_on_two_ranks():
               [tjobs.dag_single(0.01)],
               _ITEM10_NET if kw.get("has_network") else {})
              for kw, item in _SCOPE_CASES if item == "item 10"]
-    return cases, torch_spmd.launch(torch_spmd.plan, 2,
+    return cases, shard_sim.spawn(torch_spmd.plan, 2,
                                     ([("simulate_runs", (cases,))],))
 
 
@@ -325,6 +325,7 @@ def test_package_and_chip_smoke_import_no_jax():
         "import repro_torch, repro_torch.convert\n"
         "import repro_torch.core.trace, repro_torch.core.traceio\n"
         "import repro_torch.core.shard_sim, repro_torch.sharding.partition\n"
+        "import repro_torch.analysis.simlint, repro_torch.analysis.matrix\n"
         "from repro_torch.core import *\n"
         "from repro_torch.kernels import *\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

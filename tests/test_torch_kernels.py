@@ -152,8 +152,21 @@ def test_ops_dispatch_cpu_to_plain_and_counts_nothing():
         assert torch.equal(g, e)
     assert ops.launch_counts() == {"dcsim_advance": 0, "telemetry_accum": 0,
                                    "flash_attention": 0, "ssm_scan": 0}
-    with pytest.raises(ValueError, match="no kernel for device"):
+    # a device with no kernel never runs one: only the CPU (the plain
+    # version), CUDA (the kernel) and Meta (the op's fake implementation,
+    # shapes only) have one, and the fake refuses inputs on more than one
+    # device
+    for op in ("dcsim_advance", "telemetry_accum"):
+        assert [torch._C._dispatch_has_kernel_for_dispatch_key(
+            f"repro_torch::{op}", key) for key in
+            ("CPU", "CUDA", "Meta", "XPU", "MPS")] == [True] * 3 + [False] * 2
+    with pytest.raises(ValueError, match="more than one device"):
         ops.dcsim_advance(a[0].to("meta"), *a[1:])
+    meta = ops.dcsim_advance(*[x.to("meta") if torch.is_tensor(x) else x
+                               for x in a])
+    assert [(m.shape, m.dtype) for m in meta] == \
+        [(e.shape, e.dtype) for e in exp]
+    assert sum(ops.launch_counts().values()) == 0
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

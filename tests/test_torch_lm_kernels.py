@@ -128,8 +128,21 @@ def test_ops_dispatch_lm_kernels_on_cpu_counts_nothing():
         assert torch.equal(g, e)
     assert ops.launch_counts()["flash_attention"] == 0
     assert ops.launch_counts()["ssm_scan"] == 0
-    with pytest.raises(ValueError, match="no kernel for device"):
+    # a device with no kernel never runs one: only the CPU (the plain
+    # version), CUDA (the kernel) and Meta (the op's fake implementation,
+    # shapes only) have one, and the fake refuses inputs on more than one
+    # device
+    for op in ("flash_attention", "ssm_scan"):
+        assert [torch._C._dispatch_has_kernel_for_dispatch_key(
+            f"repro_torch::{op}", key) for key in
+            ("CPU", "CUDA", "Meta", "XPU", "MPS")] == [True] * 3 + [False] * 2
+    with pytest.raises(ValueError, match="more than one device"):
         ops.ssm_scan(*a[:3], a[3].to("meta"), a[4])
+    y, h = ops.ssm_scan(*[x.to("meta") for x in a])
+    exp = ref.ssm_scan_reference(*a)
+    assert (y.shape, y.dtype, h.shape, h.dtype) == \
+        (exp[0].shape, exp[0].dtype, exp[1].shape, exp[1].dtype)
+    assert ops.launch_counts()["ssm_scan"] == 0
 
 
 def test_lm_cuda_wrappers_refuse_cpu_tensors():

@@ -16,10 +16,11 @@ equals its single-device one by construction.  The port is held to it
 at its usual tolerances (``torch_port_util``): discrete state exactly,
 TOL_LEAVES at rtol 1e-5, and with throttling armed CLOCK_LEAVES too.
 
-In place of the reference's jaxpr audit, each rank counts the
-``torch.distributed`` calls it makes: one ``all_gather`` per sharded leaf
-a macro-step, one more set for the final state, and no other
-collective.  The fast tests mirror tests/test_sharding.py's: padding and
+Each rank counts the ``torch.distributed`` calls it makes: one
+``all_gather`` per sharded leaf a macro-step, one more set for the final
+state, and no other collective.  The recording of one sharded macro-step
+(``shard_sim.sharded_step_graph``, the port's counterpart of the
+reference's jaxpr audit) is a second witness of the same contract.  The fast tests mirror tests/test_sharding.py's: padding and
 inert filler rows, provenance and digest, the mesh-of-1 identity with
 the ring on, the spec rules and the layout refusals."""
 import dataclasses
@@ -48,6 +49,8 @@ from repro_torch.core import shard_sim, traceio, workload
 from repro_torch.core.types import (PartitionConfig, SchedPolicy, SimConfig,
                                     SrvState, ThermalConfig, TraceConfig,
                                     tree_leaves)
+from repro_torch.analysis.graph_audit import (ALL_GATHER_OPS,
+                                              COLLECTIVE_OPS, HOST_SYNC_OPS)
 from repro_torch.sharding import partition
 
 import torch_spmd
@@ -247,8 +250,14 @@ def test_validate_sharding_rejects_bad_layouts(mesh1):
                                [tjobs.dag_single(0.01)], device="cpu")
     with pytest.raises(ValueError, match="replica batch"):
         shard_sim.run_sharded(sb, cfg3, tc, mesh1)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        shard_sim.sharded_step_jaxpr(state, cfg3, tc, mesh1)
+    # the recorded sharded macro-step keeps the reference's collective
+    # contract: one all_gather per sharded leaf, no other collective and
+    # no host sync inside the step
+    inv = shard_sim.sharded_step_graph(state, cfg3, tc, mesh1)
+    n = shard_sim.n_sharded_leaves(state, cfg3, mesh1)
+    assert n == 19 and inv.count(ALL_GATHER_OPS) == n
+    assert inv.count(COLLECTIVE_OPS) == n
+    assert inv.count(HOST_SYNC_OPS) == 0
 
 
 def test_n_present_validation():
@@ -302,7 +311,7 @@ def spmd():
 
     def get(k):
         if k not in cache:
-            cache[k] = torch_spmd.launch(torch_spmd.plan, k, (_PLANS[k],))
+            cache[k] = shard_sim.spawn(torch_spmd.plan, k, (_PLANS[k],))
         return cache[k]
     return get
 

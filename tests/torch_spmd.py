@@ -1,29 +1,20 @@
-"""SPMD runs of the port for its tests and chip_smoke.py: K processes,
-one ``torch.distributed`` rank each, and a counter of the collectives a
-rank issues.  Imports neither JAX nor pytest, so it loads on a machine
-with a card and PyTorch alone.
-
-    results = launch(fn, world, args, backend="gloo")
-
-spawns ``world`` processes (the spawn start method, so CUDA may already be
-initialised in the caller); each initialises the default process group
-over a ``file://`` store in a fresh temporary directory, calls ``fn(rank,
-world, *args)`` (``fn`` importable by module path), saves what it returns
-and destroys the group.  A failure in any rank raises
-``torch.multiprocessing.ProcessRaisedException`` in the caller, uncaught.
-On ``nccl`` rank r uses card r.
+"""SPMD helpers of the port's tests and chip_smoke.py: a counter of the
+collectives a rank calls, and the functions the tests' ranks run
+(spawned with ``repro_torch.core.shard_sim.spawn``: K processes, one
+``torch.distributed`` rank each, over a ``file://`` store; ``fn`` must be
+importable by module path, and a failure in any rank raises
+``torch.multiprocessing.ProcessRaisedException`` in the caller,
+uncaught).  Imports neither JAX nor pytest, so it loads on a machine with
+a card and PyTorch alone.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
-import os
 import sys
-import tempfile
 
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 # every collective and point-to-point call of torch.distributed that a
 # program could issue
@@ -59,34 +50,6 @@ def count_collectives():
     finally:
         for name, fn in saved.items():
             setattr(dist, name, fn)
-
-
-def _rank_main(rank, world, backend, store, out_dir, fn, args):
-    torch.set_num_threads(1)
-    kw = {}
-    if backend == "nccl":
-        torch.cuda.set_device(rank)
-        kw["device_id"] = torch.device("cuda", rank)
-    dist.init_process_group(backend, init_method=f"file://{store}",
-                            rank=rank, world_size=world, **kw)
-    try:
-        result = fn(rank, world, *args)
-    finally:
-        dist.destroy_process_group()
-    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
-
-
-def launch(fn, world: int, args=(), backend: str = "gloo") -> list:
-    """``fn(rank, world, *args)`` on ``world`` spawned ranks; returns the
-    ranks' results in rank order."""
-    with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_rank_main, args=(world, backend,
-                                   os.path.join(tmp, "store"), tmp, fn,
-                                   tuple(args)),
-                 nprocs=world, join=True)
-        # written by the ranks above, in this run
-        return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
-                           weights_only=False) for r in range(world)]
 
 
 # --------------------------------------------------------------------------
