@@ -45,6 +45,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      replica batches (tests/torch_kernel_inputs.py mc_scenario) through
      montecarlo.run_replicas, card against CPU, and each replica of the
      card's batch against a solo run of its inputs on the card;
+     [scalar-parity]: the seed scalar hot loops
+     (use_vectorized_hot_loop=False) on dag_chain, one_farm under
+     ROUND_ROBIN at 512 servers, the star with two flow slots, case D's
+     k=4 ROUND_ROBIN run traced and the replicas_r3 batch, card against
+     CPU and each against the card's vectorized run of the same
+     configuration (rtol/atol 1e-6, the rings decoding to the same
+     stream);
   5. the discrete-event main run: farm.simulate on a 65,536-server x
      4-core farm (the largest farm benchmarks/bench_engine.py records)
      under 600 Poisson jobs at 50% utilisation; every job must finish;
@@ -71,7 +78,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (1,024 replicas x 16 servers x 100 jobs, 64 x 64 x 200): every job of
      every replica finishes, K advance launches and one binning launch a
      macro-step, and a batched macro-step within 3% of the launches of a
-     single run of one replica; then the graph audit
+     single run of one replica; then [scalar-main]: the engine main run
+     with use_vectorized_hot_loop=False, every result equal to [main]'s,
+     its events/s against [main]'s and its launches a macro-step; then
+     the graph audit
      (src/repro_torch/analysis/): [simlint] records one macro-step of
      every single-device case of its matrix on the card, and every rule of
      ``python -m repro_torch.analysis.simlint`` must hold (no host sync in
@@ -188,6 +198,8 @@ MC_BINNING = ((1024, 128), (8, 600))
 # [shard-mc]: [mc-parity]'s replicas_r3 batch at this many arrival seeds,
 # split over two ranks
 SHARD_MC_R = 4
+# the seed scalar hot loops ([scalar-parity], [scalar-main])
+SCALAR = {"use_vectorized_hot_loop": False}
 # the serving main run and the card-vs-CPU serving parity run
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "hymba_1_5b", 4, 1536, 32
 LM_MAX_SEQ = 2048
@@ -829,6 +841,18 @@ def run_engine(cfg, arr, specs, tau, dev, topo=None):
     return engine.run(state, cfg, tc)
 
 
+def mc_inputs(name, cfg_kw=None):
+    """(cfg, arrivals, specs, taus, topology) of a replica scenario
+    (tests/torch_kernel_inputs.py mc_scenario), its SimConfig with
+    ``cfg_kw`` applied."""
+    from repro_torch.core import jobs, topology, types
+    from torch_kernel_inputs import mc_config, mc_scenario
+    kw, nested, arrs, specs, taus, net = mc_scenario(name, jobs)
+    cfg = dataclasses.replace(mc_config(types, kw, nested), **(cfg_kw or {}))
+    topo = topology.fat_tree(4, link_cap=1.25e9) if net else None
+    return cfg, arrs, specs, taus, topo
+
+
 def ring_diff(name, g, c, exact: bool) -> str:
     """Two rings (card, CPU) record for record: kind, server and tid
     exactly; time and aux exactly (``exact``) or within rtol 1e-5, as
@@ -1365,19 +1389,17 @@ def ulps(got: torch.Tensor, exp: torch.Tensor) -> float:
     return float(((got.double() - exp.double()).abs() / up).max())
 
 
-def mc_parity(name, dev) -> None:
-    """[mc-parity]: a replica scenario on the card against the CPU (the
-    engine's limits: discrete state and histograms exact, floats rtol
-    1e-5; every replica's ring bit-equal), and each replica of the card's
-    batch against a solo run of its inputs on the card (discrete exact,
-    floats rtol 1e-5, the largest ulp difference printed)."""
-    from repro_torch.core import engine, jobs, montecarlo, topology, types
+def mc_parity(name, dev, cfg_kw=None, tag="[mc-parity]"):
+    """[mc-parity]: a replica scenario (its SimConfig with ``cfg_kw``
+    applied) on the card against the CPU (the engine's limits: discrete
+    state and histograms exact, floats rtol 1e-5; every replica's ring
+    bit-equal), and each replica of the card's batch against a solo run of
+    its inputs on the card (discrete exact, floats rtol 1e-5, the largest
+    ulp difference printed).  Returns the card's final batch."""
+    from repro_torch.core import engine, montecarlo
     from repro_torch.core.types import tree_leaves
     from repro_torch.kernels import ops
-    from torch_kernel_inputs import mc_config, mc_scenario
-    kw, nested, arrs, specs, taus, net = mc_scenario(name, jobs)
-    cfg = mc_config(types, kw, nested)
-    topo = topology.fat_tree(4, link_cap=1.25e9) if net else None
+    cfg, arrs, specs, taus, topo = mc_inputs(name, cfg_kw)
     runs = {}
     for d in ("cpu", dev):
         sb, tc = montecarlo.batched_state(cfg, arrs, specs, taus=taus,
@@ -1431,7 +1453,7 @@ def mc_parity(name, dev) -> None:
                  f", peak {np.round(st['peak_temp'], 3)} C")
     if cfg.has_network:
         more += f"; flows dropped {st['flows_dropped']}"
-    log(f"[mc-parity] {name}, R={R}: card == CPU (discrete exact, floats "
+    log(f"{tag} {name}, R={R}: card == CPU (discrete exact, floats "
         f"max rel err {worst:.3g}); every replica == its solo run on the "
         f"card (discrete exact, floats within {solo_ulp:g} ulp); events "
         f"{gpu.events.tolist()}, steps {gpu.steps.tolist()}, finished "
@@ -1439,6 +1461,7 @@ def mc_parity(name, dev) -> None:
         f"{np.round(st['mean_latency'], 6).tolist()}; launches {counts} "
         f"({steps} macro-steps x K={cfg.events_per_step}); CPU {t_cpu:.2f} "
         f"s, card {t_gpu:.2f} s{more}")
+    return gpu
 
 
 def mc_point(R, n_servers, n_jobs, max_jobs):
@@ -1587,6 +1610,136 @@ def mc_main(dev) -> list:
         rows.append(dict(R=R, n=n, counts=counts, steps=steps,
                          events=events, wall=wall))
     return rows
+
+
+# --------------------------------------------------------------------------
+# the seed scalar hot loops: [scalar-parity], [scalar-main]
+# --------------------------------------------------------------------------
+
+def scalar_vs_vector(name, sca, vec, cfg) -> str:
+    """A scalar-mode final state (one run or a replica batch) against the
+    vectorized run of the same configuration on the card, leaf for leaf
+    within the reference's ``_final_states_equal`` (rtol/atol 1e-6); a
+    traced pair's rings also decode to the same stream
+    (``traceio.diff_traces``).  Returns "bit-equal" or the largest
+    difference."""
+    from repro_torch.core import traceio
+    from repro_torch.core.types import tree_leaves
+    worst, paths = 0.0, []
+    for (path, a), (_, b) in zip(tree_leaves(sca), tree_leaves(vec)):
+        if torch.equal(a, b):
+            continue
+        a64, b64 = a.double(), b.double()
+        if not torch.allclose(a64, b64, rtol=1e-6, atol=1e-6):
+            fail(f"scalar-parity {name}: {path} beyond rtol/atol 1e-6 of "
+                 f"the vectorized run")
+        worst = max(worst, float((a64 - b64).abs().max()))
+        paths.append(path)
+    if cfg.trace.enabled:
+        ev_s, _ = traceio.decode(sca.trace, cfg)
+        ev_v, _ = traceio.decode(vec.trace, cfg)
+        msg = traceio.diff_traces(ev_s, ev_v, check_aux=True,
+                                  names=("scalar", "vectorized"))
+        if msg is not None:
+            fail(f"scalar-parity {name}: rings differ: {msg}")
+    if not paths:
+        return "bit-equal"
+    return (f"not bit-equal: {len(paths)} leaves within abs "
+            f"{worst:.3g} ({', '.join(paths[:6])})")
+
+
+def scalar_parity(dev, vec) -> None:
+    """[scalar-parity]: the seed scalar loops card vs CPU under parity()'s
+    limits, each card run also against the card's vectorized run of the
+    same configuration (``vec``: {name: final state} of phase 4's
+    vectorized card runs; the ROUND_ROBIN one_farm variant's is made
+    here).  A network run's line gives the spawn loop's length: min(JT,
+    N*C) * D edges in every full step."""
+    from repro_torch.core.types import SchedPolicy, TraceConfig
+    t0 = time.perf_counter()
+    c, a, sp, tau = one_farm_cfg(512, 600)
+    c_d, a_d, sp_d, tau_d, topo_d, _ = case_d_cfg(SchedPolicy.ROUND_ROBIN,
+                                                  4, 100, 30.0)
+    cases = (
+        ("dag_chain", "dag_chain SINGLE_TIMER", dag_chain_cfg() + (None,)),
+        ("one_farm_rr", "one_farm ROUND_ROBIN n512 j600",
+         (dataclasses.replace(c, sched_policy=SchedPolicy.ROUND_ROBIN), a,
+          sp, tau, None)),
+        ("star", "star max_flows=2", star_cfg(2)),
+        ("case_d_rr", "case D fat_tree k=4 ROUND_ROBIN 100 jobs",
+         (dataclasses.replace(c_d, trace=TraceConfig(enabled=True)), a_d,
+          sp_d, tau_d, topo_d)))
+    for key, name, (c, a, sp, tau, topo) in cases:
+        g = parity(name, dataclasses.replace(c, **SCALAR), a, sp, tau, dev,
+                   topo, tag="[scalar-parity]")
+        v = vec[key] if key in vec else run_engine(c, a, sp, tau, dev, topo)
+        note = scalar_vs_vector(name, g, v, c)
+        if c.has_network:
+            JT = c.max_jobs * c.tasks_per_job
+            loop = min(JT, c.n_servers * c.n_cores) * c.max_children
+            note += (f"; the spawn loop walks min(JT={JT}, N*C="
+                     f"{c.n_servers * c.n_cores}) x D={c.max_children} = "
+                     f"{loop} edges in each of the {int(g.steps)} full "
+                     f"steps")
+        if key == "star" and int(g.flows.flows_dropped) == 0:
+            fail("scalar-parity: the star with two flow slots dropped no "
+                 "flow")
+        log(f"[scalar-parity] {name}: scalar vs vectorized on the card "
+            f"{note}")
+    g = mc_parity("replicas_r3", dev, SCALAR, tag="[scalar-parity]")
+    note = scalar_vs_vector("replicas_r3", g, vec["replicas_r3"],
+                            mc_inputs("replicas_r3")[0])
+    log(f"[scalar-parity] replicas_r3: scalar vs vectorized batch on the "
+        f"card {note}; the phase took {time.perf_counter() - t0:.1f} s")
+
+
+def scalar_main(dev, main_res) -> dict:
+    """[scalar-main]: the engine main configuration (one_farm 65,536 x 4,
+    600 jobs, K=8, LOAD_BALANCE) through farm.simulate in the seed scalar
+    loops: every job finishes; jobs finished, dropped, wake counts,
+    latencies, energy and the telemetry summary equal [main]'s; the
+    kernels launch steps x K and steps times; events/s against [main]'s,
+    and the launches of a macro-step from a profiled window."""
+    from repro_torch.core import farm
+    from repro_torch.kernels import ops
+    cfg, arr, specs, _ = one_farm_cfg(N_MAIN, JOBS_MAIN)
+    cfg = dataclasses.replace(cfg, **SCALAR)
+    ops.reset_launch_counts()
+    res = farm.simulate(cfg, arr, specs)
+    counts = ops.launch_counts()
+    ri = res.run_info
+    if res.n_finished != JOBS_MAIN:
+        fail(f"scalar-main finished {res.n_finished} of {JOBS_MAIN} jobs")
+    if counts["telemetry_accum"] != ri.steps or \
+            counts["dcsim_advance"] != ri.steps * cfg.events_per_step:
+        fail(f"scalar-main launch counts {counts} for {ri.steps} steps")
+    for f in ("n_finished", "dropped", "events", "wake_count", "latencies",
+              "server_energy", "energy_per_server", "residency",
+              "busy_core_seconds"):
+        if not np.array_equal(getattr(res, f), getattr(main_res, f)):
+            fail(f"scalar-main: {f} differs from [main]'s")
+    ts, tm = res.telemetry, main_res.telemetry
+    for f in dataclasses.fields(ts):
+        a, b = getattr(ts, f.name), getattr(tm, f.name)
+        if not (a is None and b is None) and \
+                not np.array_equal(a, b, equal_nan=True):
+            fail(f"scalar-main: telemetry {f.name} differs from [main]'s")
+    if ri.steps != main_res.run_info.steps:
+        fail(f"scalar-main took {ri.steps} steps, [main] "
+             f"{main_res.run_info.steps}")
+    prof = profile_window(cfg, arr, specs, dev, tag="scalar main run")
+    per = "not measured" if prof["launches"] is None \
+        else f"{prof['launches']:.0f}"
+    main_eps = main_res.run_info.events_per_s
+    log(f"[scalar-main] one_farm {N_MAIN} servers x {C_MAIN} cores, "
+        f"{JOBS_MAIN} jobs, use_vectorized_hot_loop=False: wall "
+        f"{ri.wall_s:.3f} s, events {ri.events}, steps {ri.steps}, "
+        f"{ri.events_per_s:.1f} events/s ({ri.events_per_s / main_eps:.3f}"
+        f" x [main]'s {main_eps:.1f}); {per} launches a "
+        f"macro-step (profiled); kernel launches {counts} (steps x K, "
+        f"steps); results equal [main]'s (jobs, drops, wakes, latencies, "
+        f"energy, telemetry)")
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -2519,7 +2672,9 @@ def main() -> None:
     log(f"[elapsed] phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     # phase 4: card vs CPU
     parity("one_farm n512 j600", *one_farm_cfg(512, 600), dev)
-    parity("dag_chain SINGLE_TIMER", *dag_chain_cfg(), dev)
+    # the vectorized card runs [scalar-parity] holds the scalar loops to
+    vec = {"dag_chain": parity("dag_chain SINGLE_TIMER", *dag_chain_cfg(),
+                               dev)}
     from repro_torch.core.types import SchedPolicy, TraceConfig, TraceKind
     traced = TraceConfig(enabled=True)
     for pol in ("ROUND_ROBIN", "NETWORK_AWARE"):
@@ -2529,6 +2684,8 @@ def main() -> None:
             c = dataclasses.replace(c, trace=traced)
         g = parity(f"case D fat_tree k=4 {pol} 100 jobs", c, a, sp, tau,
                    dev, topo, tag="[net-parity]")
+        if pol == "ROUND_ROBIN":
+            vec["case_d_rr"] = g
         if c.trace.enabled and not {TraceKind.FLOW_SPAWN,
                                     TraceKind.FLOW_FINISH} <= set(
                 g.trace.buf[:int(g.trace.ptr), 0].int().tolist()):
@@ -2538,6 +2695,7 @@ def main() -> None:
                tag="[net-parity]")
     if int(g.flows.flows_dropped) == 0:
         fail("net-parity: the star with two flow slots dropped no flow")
+    vec["star"] = g
     c, a, sp, tau = thermal_main_cfg(512, TH_PAR_JOBS)
     g = parity(f"thermal main config n512 j{TH_PAR_JOBS}",
                dataclasses.replace(c, trace=traced), a, sp, tau, dev,
@@ -2569,7 +2727,13 @@ def main() -> None:
             fail(f"trace-parity: {int(g.trace.dropped)} records dropped at "
                  f"capacity {cap}")
     for name in MC_PARITY:
-        mc_parity(name, dev)
+        g = mc_parity(name, dev)
+        if name == "replicas_r3":
+            vec[name] = g
+    log(f"[elapsed] [scalar-parity] starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    scalar_parity(dev, vec)
+    del vec
     lm_parity(dev)
 
     log(f"[elapsed] phase 5 starts at {time.perf_counter() - t_start:.1f} s")
@@ -2601,6 +2765,9 @@ def main() -> None:
     th_counts, th_cfg, th_arr, th_specs, _ = th
     tr_counts, tr_cfg = trace_main(dev, th)
     mc_rows = mc_main(dev)
+    log(f"[elapsed] [scalar-main] starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    sc_counts = scalar_main(dev, res)
     # the graph audit of every engine path's step, on the card
     log(f"[elapsed] [simlint] starts at {time.perf_counter() - t_start:.1f} s")
     simlint_phase()
@@ -2627,7 +2794,8 @@ def main() -> None:
          "bound_by": times[name]["bound_by"],
          "bound_op": times[name]["bound_op"], "library_ms": None,
          "device_ops": times[name]["ops"], "net_launches": net_counts[name],
-         "thermal_launches": th_counts[name]}
+         "thermal_launches": th_counts[name],
+         "scalar_launches": sc_counts[name]}
         for name, src, replaces, err in (
             ("dcsim_advance", "dcsim_step",
              "src/repro/kernels/dcsim_step.py:68", dc_err),
@@ -2689,7 +2857,8 @@ def main() -> None:
                             f"; {k['launches']} launches in its main run, "
                             f"{k['net_launches']} in the network main run, "
                             f"{k['thermal_launches']} in the thermal main "
-                            f"run")
+                            f"run, {k['scalar_launches']} in the scalar "
+                            f"main run")
             continue
         lib = "" if k["library_ms"] is None else \
             f"; library call {k['library_ms'] * 1e3:.1f} us"

@@ -3,9 +3,11 @@ of ``repro.analysis.matrix`` (the same case names and configurations,
 built through the port).
 
 Each case records one macro-step (``engine._step``): for a (SchedPolicy x
-thermal x trace) configuration, on a float64 clock for the ``f64_`` twins,
-for a replica batch at R = 4 (``montecarlo_vmap``, named as the
-reference's vmapped step so the two line up), or the sharded macro-step
+thermal x trace) configuration, in the seed scalar hot loops for the
+``scalar_`` cases (the port's own: the reference's matrix has none), on a
+float64 clock for the ``f64_`` twins, for a replica batch at R = 4
+(``montecarlo_vmap``, named as the reference's vmapped step so the two
+line up), or the sharded macro-step
 (``shard_sim.sharded_step_graph``: the gathers, the step and the slice
 back) on 1, 2 or 8 ranks (``sharded_d1`` in this process; the others on
 spawned gloo ranks, ``sharded_d8`` only when asked for).  A case carries
@@ -152,6 +154,28 @@ def _cfg_trace_on():
                   trace=TraceConfig(enabled=True)), None, {}
 
 
+def _cfg_scalar(make, **kw):
+    """``make``'s configuration in the seed scalar hot loops
+    (``use_vectorized_hot_loop=False``; the reference's matrix has no such
+    case), with ``kw`` overriding fields."""
+    def build():
+        cfg, topo, wkw = make()
+        return dataclasses.replace(cfg, use_vectorized_hot_loop=False,
+                                   **kw), topo, wkw
+
+    return build
+
+
+def _cfg_scalar_network():
+    """The network case's star under ROUND_ROBIN, so that a step runs all
+    three scalar loops: the round-robin assignment, the drain and the
+    flow spawn."""
+    from ..core.types import SchedPolicy
+
+    return _cfg_scalar(_cfg_network_aware,
+                       sched_policy=SchedPolicy.ROUND_ROBIN)()
+
+
 def _cfg_f64(make):
     def build():
         cfg, topo, wkw = make()
@@ -171,6 +195,8 @@ ENGINE_CONFIGS = {
     "thermal_tracking": _cfg_thermal_tracking,
     "thermal_throttling": _cfg_thermal_throttling,
     "trace_on": _cfg_trace_on,
+    "scalar_round_robin": _cfg_scalar(_cfg_round_robin),
+    "scalar_network": _cfg_scalar_network,
 }
 
 F64_CONFIGS = {

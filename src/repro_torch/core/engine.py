@@ -2,9 +2,11 @@
 ``repro.core.engine``: the main path, network mode (flows over a
 topology, switch states) and the thermal subsystem with its control plane
 (throttling, the setpoint controller, THERMAL_AWARE placement and
-CARBON_AWARE deferral) and the flight recorder (``core/trace.py``); the
-scalar paths are refused by ``check_scope``.  Rack-sharded runs
-(``core/shard_sim.py``) call ``_step`` on gathered full states.
+CARBON_AWARE deferral) and the flight recorder (``core/trace.py``), in
+both hot-loop modes: the batched drain, round-robin assignment and flow
+spawn, or (``SimConfig(use_vectorized_hot_loop=False)``) the seed scalar
+loops, the reference's semantic oracle for the batched ones.  Rack-sharded
+runs (``core/shard_sim.py``) call ``_step`` on gathered full states.
 
 The paper's sequential priority-queue loop becomes dense tensor work:
 
@@ -17,7 +19,9 @@ The paper's sequential priority-queue loop becomes dense tensor work:
 Every ``lax.cond`` of the reference becomes masked work, so a macro-step
 runs without waiting for the device; ``run``'s Python loop reads the
 ``done`` flag and the event count once per macro-step, in place of the
-reference's ``lax.while_loop``.
+reference's ``lax.while_loop``.  Each ``fori_loop`` of the scalar paths is
+a Python loop of the reference's static length whose body is masked by
+the reference's ``lax.cond`` predicate.
 
 Macro-stepping (``cfg.events_per_step`` = K): a step runs K-1 cheap passes,
 each gated by ``_cheap_gate``; a pass whose gate (or an earlier one) is
@@ -77,12 +81,9 @@ F32 = torch.float32
 # ==========================================================================
 
 def check_scope(cfg: SimConfig) -> None:
-    """Refuse configurations this slice of the port does not run yet,
-    naming the ROADMAP item (Queue 1) that will bring them."""
-    if not cfg.use_vectorized_hot_loop:
-        raise NotImplementedError(
-            "repro_torch does not run use_vectorized_hot_loop=False yet: it "
-            "comes with ROADMAP.md Queue 1 item 12 (seed scalar paths)")
+    """Refuse configurations the engine cannot run as asked.  Both hot-loop
+    modes run (``use_vectorized_hot_loop``: the batched drain, assignment
+    and flow spawn, or the seed scalar loops)."""
     if cfg.n_present > cfg.n_servers:
         raise ValueError(
             f"n_present={cfg.n_present} exceeds n_servers={cfg.n_servers}")
@@ -321,7 +322,7 @@ def _apply_wakeups(farm: ServerFarm, cfg, now):
 
 
 def _resolve_edges(jobs: JobTable, flows, net, cfg: SimConfig, tc,
-                   done_task, now, recs=None):
+                   done_task, now, recs=None, cheap: bool = False):
     """DAG edges of the tasks in ``done_task``, then BLOCKED -> READY.
     Without a network every edge resolves immediately, decrementing the
     child's dep_count.  In network mode same-server and zero-byte edges
@@ -333,7 +334,10 @@ def _resolve_edges(jobs: JobTable, flows, net, cfg: SimConfig, tc,
     identity when nothing finished.  It walks every task row: the
     reference compacts the finishing tasks to N*C rows in ascending task
     id, so both take the needed edges in the same order (and stage their
-    FLOW_SPAWN records in it).  Returns (jobs, flows, net)."""
+    FLOW_SPAWN records in it).  The seed scalar path spawns one flow at a
+    time (``_spawn_scalar``), in a full step only: the cheap gate keeps a
+    ``cheap`` pass only when no edge of it needs a flow, so there the loop
+    would be the identity.  Returns (jobs, flows, net)."""
     ch = jobs.children                                     # (*B, JT, D)
     flat = ch.shape[:-2] + (-1,)                           # (*B, JT*D)
     chc = ch.clamp(min=0).reshape(flat).to(I64)
@@ -347,9 +351,16 @@ def _resolve_edges(jobs: JobTable, flows, net, cfg: SimConfig, tc,
             -1, chc, -(ch_valid & ~needs_flow).reshape(flat).to(I32))
         need = needs_flow.reshape(flat)
         src = jobs.server[..., None].expand(ch.shape).reshape(flat)
-        flows, net, ok = network.spawn_flows_many(
-            flows, net, tc.net, cfg, need, src, dst_srv.reshape(flat),
-            jobs.edge_bytes.reshape(flat), ch.reshape(flat), now)
+        edges = (need, src, dst_srv.reshape(flat),
+                 jobs.edge_bytes.reshape(flat), ch.reshape(flat))
+        if cfg.use_vectorized_hot_loop:
+            flows, net, ok = network.spawn_flows_many(
+                flows, net, tc.net, cfg, *edges, now)
+        elif cheap:
+            ok = need               # empty in every cheap pass that is kept
+        else:
+            flows, net, ok = _spawn_scalar(flows, net, tc, cfg, done_task,
+                                           *edges, now)
         # a full flow table drop-resolves the edge, as a queue drop does
         dep_count = dep_count.scatter_add(-1, chc, -(need & ~ok).to(I32))
         if cfg.trace.enabled:
@@ -365,8 +376,49 @@ def _resolve_edges(jobs: JobTable, flows, net, cfg: SimConfig, tc,
                    edge_sent=edge_sent), flows, net
 
 
+def _spawn_scalar(flows, net, tc, cfg: SimConfig, done_task, need, src,
+                  dst, nbytes, child, now):
+    """The seed path's flow spawn: one ``network.spawn_flow`` an edge, in
+    the reference's order and number.  At most N*C tasks finish at once
+    (each held a core), so when the task table is wider the finishing
+    tasks are first compacted into Kd = N*C rows in ascending task id;
+    the loop walks their Kd*D edges, row by row, each column in order.
+    The edges' arguments are (*B, JT*D) lanes; returns (flows, net, ok)
+    on those lanes, ``ok`` where a needed edge got a slot."""
+    JT = done_task.shape[-1]
+    D = need.shape[-1] // JT
+    B = done_task.shape[:-1]
+    dev = done_task.device
+    Kd = min(JT, cfg.n_servers * cfg.n_cores)
+    if Kd < JT:
+        rows, valid, _ = server.compact_mask(done_task, Kd)
+    else:
+        rows = torch.arange(JT, dtype=I32, device=dev).expand(B + (JT,))
+        valid = torch.ones(B + (JT,), dtype=torch.bool, device=dev)
+    lanes = (rows.clamp(min=0).to(I64)[..., None] * D
+             + torch.arange(D, device=dev)).flatten(-2)   # (*B, Kd*D)
+    valid = torch.repeat_interleave(valid, D, dim=-1)
+    need_l = take(need, lanes) & valid
+    src_l, dst_l, nb_l, ch_l = (take(x, lanes)
+                                for x in (src, dst, nbytes, child))
+    routes = network.flow_routes(tc.net, net, cfg, src_l, dst_l)
+    nb = len(B)
+    oks = []
+    for i in range(Kd * D):
+        flows, net, ok = network.spawn_flow(
+            flows, net, tc.net, cfg, src_l[..., i], dst_l[..., i],
+            nb_l[..., i], ch_l[..., i], now, need_l[..., i],
+            routes.at(i, nb))
+        oks.append(ok)
+    failed = need_l & ~torch.stack(oks, dim=-1)
+    # back on the JT*D lanes (the valid lanes are distinct)
+    failed = set_drop(torch.zeros(need.shape, dtype=torch.bool, device=dev),
+                      torch.where(valid, lanes, need.shape[-1]), failed)
+    return flows, net, need & ~failed
+
+
 def _apply_completions(state: SimState, cfg: SimConfig, tc,
-                       recs=None) -> SimState:
+                       recs=None, cheap: bool = False) -> SimState:
     """Handle all tasks whose task_end <= now: mark them DONE, update job
     bookkeeping, resolve DAG edges (immediately, or by spawning flows).
     Elementwise in task space."""
@@ -397,7 +449,7 @@ def _apply_completions(state: SimState, cfg: SimConfig, tc,
     flows, net = state.flows, state.net
     if cfg.tasks_per_job > 1:
         jobs, flows, net = _resolve_edges(jobs, flows, net, cfg, tc,
-                                          done_task, now, recs)
+                                          done_task, now, recs, cheap)
     return replace(state, farm=farm, jobs=jobs, flows=flows, net=net)
 
 
@@ -480,10 +532,13 @@ def _apply_arrival(state: SimState, cfg: SimConfig, tc,
     root = is_valid & (take(jobs.dep_count, gather) <= 0)
 
     if cfg.sched_policy == SchedPolicy.ROUND_ROBIN:
-        # all K*T assignments in one shot (round-robin rank matching)
-        srvs, rr_new = scheduler.pick_servers_for_job(farm, cfg, sched,
-                                                      is_valid)
-        sched = replace(sched, rr_ptr=rr_new)
+        if cfg.use_vectorized_hot_loop:
+            # all K*T assignments in one shot (round-robin rank matching)
+            srvs, rr_new = scheduler.pick_servers_for_job(farm, cfg, sched,
+                                                          is_valid)
+            sched = replace(sched, rr_ptr=rr_new)
+        else:
+            srvs, sched = _assign_scalar(farm, cfg, sched, is_valid)
     else:
         # one pick per job against the shared snapshot; job k sees the
         # roots committed by jobs 0..k-1 of the batch as extra load
@@ -516,6 +571,21 @@ def _apply_arrival(state: SimState, cfg: SimConfig, tc,
             stage(recs, adm, TraceKind.ADMIT, job_srv, jid,
                   take(farm.q_len, job_srv.clamp(min=0)))
     return replace(state, jobs=jobs, sched=sched)
+
+
+def _assign_scalar(farm, cfg: SimConfig, sched, is_valid):
+    """The seed path's round-robin assignment: K*T ``pick_server`` calls,
+    the pointer advancing only past valid tasks.  The farm does not change
+    during admission, so its load is computed once.  Returns (servers
+    (*B, K*T), sched)."""
+    load = scheduler.server_load(farm, cfg).to(F32)
+    srvs = []
+    for i in range(is_valid.shape[-1]):
+        srv, rr = scheduler.pick_server(farm, cfg, sched, load=load)
+        sched = replace(sched, rr_ptr=torch.where(is_valid[..., i], rr,
+                                                  sched.rr_ptr))
+        srvs.append(srv)
+    return torch.stack(srvs, dim=-1), sched
 
 
 def _batch_picks(farm, cfg: SimConfig, sched, load, root_kt, net_cost=None,
@@ -658,8 +728,17 @@ def _resolve_drops(state: SimState, cfg: SimConfig, dropped,
 def _drain_ready(state: SimState, cfg: SimConfig, recs=None) -> SimState:
     """Enqueue up to cfg.ready_per_step READY tasks (first K in task-id
     order) at their servers: FIFO stamps written into their own task rows,
-    sleeping destinations woken.  With no READY task every update below is
-    the identity, so the reference's gate needs no mask."""
+    sleeping destinations woken.  Queue-full drops are resolved afterwards
+    (``_resolve_drops``)."""
+    if cfg.use_vectorized_hot_loop:
+        return _drain_ready_batched(state, cfg, recs)
+    return _drain_ready_scalar(state, cfg, recs)
+
+
+def _drain_ready_batched(state: SimState, cfg: SimConfig,
+                         recs=None) -> SimState:
+    """One multi-push.  With no READY task every update below is the
+    identity, so the reference's gate needs no mask."""
     jobs, farm = state.jobs, state.farm
     K = cfg.ready_per_step
     JT = jobs.status.shape[-1]
@@ -690,6 +769,35 @@ def _drain_ready(state: SimState, cfg: SimConfig, recs=None) -> SimState:
                     jobs=replace(jobs, status=status, enqueue_seq=enq))
     dropped = set_drop(torch.zeros(B + (JT,), dtype=torch.bool, device=dev),
                        torch.where(valid & ~ok, tids, JT), True)
+    return _resolve_drops(state, cfg, dropped, recs)
+
+
+def _drain_ready_scalar(state: SimState, cfg: SimConfig,
+                        recs=None) -> SimState:
+    """The seed path: ready_per_step iterations, each taking the first
+    READY task to its server's queue (``queue_push``, then
+    ``begin_wake``), masked by "any task READY".  A push becomes QUEUED
+    with its stamp, a drop DONE; the READY -> DONE transitions are the
+    drops."""
+    jobs, farm = state.jobs, state.farm
+    status0 = jobs.status
+    status, enq = jobs.status, jobs.enqueue_seq
+    ar = torch.arange(status.shape[-1], device=status.device)
+    for _ in range(cfg.ready_per_step):
+        is_ready = status == TaskStatus.READY
+        any_ready = is_ready.any(dim=-1)
+        tid = torch.argmax(is_ready.to(I32), dim=-1)        # first READY
+        srv = take(jobs.server, tid[..., None])[..., 0]
+        farm, ok, seq = server.queue_push(farm, cfg, srv, tid, any_ready)
+        farm = server.begin_wake(farm, cfg, srv, state.t, any_ready)
+        hit = (ar == lift(tid)) & lift(any_ready)
+        queued = hit & lift(ok)
+        status = torch.where(queued, TaskStatus.QUEUED,
+                             torch.where(hit, TaskStatus.DONE, status))
+        enq = torch.where(queued, lift(seq), enq)
+    state = replace(state, farm=farm,
+                    jobs=replace(jobs, status=status, enqueue_seq=enq))
+    dropped = (status0 == TaskStatus.READY) & (status == TaskStatus.DONE)
     return _resolve_drops(state, cfg, dropped, recs)
 
 
@@ -732,7 +840,7 @@ def _apply_events(state: SimState, cfg: SimConfig, tc, cheap: bool,
             stage(recs, woke, TraceKind.WAKEUP,
                   torch.arange(cfg.n_servers, dtype=I32, device=dev))
     state = replace(state, farm=_apply_wakeups(state.farm, cfg, state.t))
-    state = _apply_completions(state, cfg, tc, recs)
+    state = _apply_completions(state, cfg, tc, recs, cheap)
     if cfg.has_network and not cheap:
         state = _apply_flow_completions(state, cfg, recs)
     hold = None

@@ -18,8 +18,9 @@ latency to the flow's ``extra`` budget.
 Every function is dense tensor work with no host read, so the engine's
 macro-step stays free of synchronisations.  The flow table and the switch
 state may carry a leading replica batch shape; the topology's arrays
-(``TopoConsts``) are shared by every replica.  The scalar seed path
-(``spawn_flow``) is not ported: ROADMAP Queue 1 item 12.
+(``TopoConsts``) are shared by every replica.  ``spawn_flow`` is the seed
+scalar path's spawn (``SimConfig(use_vectorized_hot_loop=False)``): one
+flow a replica, under a mask in place of the reference's ``lax.cond``.
 """
 from __future__ import annotations
 
@@ -32,9 +33,9 @@ from ..kernels.ref import _const, _fma, _fms
 from .types import (INF, FlowTable, LinecardState, NetState, PortState,
                     SimConfig, lift, replace, set_drop, take)
 
-__all__ = ["TopoConsts", "topo_consts", "route_wake_cost",
-           "spawn_flows_many", "recompute_rates", "advance_flows",
-           "complete_flows", "update_switch_states"]
+__all__ = ["TopoConsts", "topo_consts", "route_wake_cost", "flow_routes",
+           "spawn_flow", "spawn_flows_many", "recompute_rates",
+           "advance_flows", "complete_flows", "update_switch_states"]
 
 I32 = torch.int32
 I64 = torch.int64
@@ -99,6 +100,110 @@ def route_wake_cost(tc: TopoConsts, net: NetState, src, dst):
     sws = sws.expand(net.sw_awake.shape[:-1] + sws.shape)
     asleep = ~take(net.sw_awake, sws.clamp(min=0))
     return ((sws >= 0) & asleep).sum(dim=-1, dtype=I32)
+
+
+@dataclasses.dataclass
+class FlowRoutes:
+    """What a spawn reads of its route, for edges of any shape (*S,):
+    the switches at the ends of its links (``ends`` (*S, 2H), -1 for a
+    server end or a padding link), its switches as a mask (``sw_hit``
+    (*S, W)), and its ``extra`` latency budget with no switch to wake
+    (``extra0``) and with one (``extra1``), float32.  Spawns change only
+    ``sw_awake``, so a loop of spawns reads the routes (and the ports'
+    LPI states) once, before its first spawn."""
+
+    ends: torch.Tensor
+    sw_hit: torch.Tensor
+    extra0: torch.Tensor
+    extra1: torch.Tensor
+
+    def at(self, i: int, nb: int) -> "FlowRoutes":
+        """Edge ``i`` of routes whose edge axis is axis ``nb`` (a view)."""
+        return FlowRoutes(*(getattr(self, f.name).select(nb, i)
+                            for f in dataclasses.fields(self)))
+
+
+def flow_routes(tc: TopoConsts, net: NetState, cfg: SimConfig, src, dst):
+    """The routes src -> dst (int32 of one shape (*S,), with the switch
+    state's batch shape leading) as ``spawn_flow`` reads them."""
+    W = net.sw_awake.shape[-1]
+    P = net.port_state.shape[-1]
+    swp = cfg.switch_power
+    srcc = src.clamp(min=0).to(I64)
+    dstc = dst.clamp(min=0).to(I64)
+    links = tc.routes[srcc, dstc]                             # (*S, H)
+    lmask = links >= 0
+    lc = links.clamp(min=0).to(I64)
+    sw_a, sw_b = tc.link_sw[lc, 0], tc.link_sw[lc, 1]
+    pt_a = tc.link_port[lc, 0].clamp(min=0).to(I64)
+    port_lpi = (take(net.port_state.flatten(-2),
+                     sw_a.clamp(min=0).to(I64) * P + pt_a)
+                == PortState.LPI) & (sw_a >= 0)
+    n_lpi = (lmask & port_lpi).sum(dim=-1, dtype=I32)
+    ends = torch.cat([torch.where(lmask & (sw_a >= 0), sw_a, -1),
+                      torch.where(lmask & (sw_b >= 0), sw_b, -1)], dim=-1)
+    sws = tc.route_sw[srcc, dstc]                             # (*S, H)
+    sw_hit = set_drop(torch.zeros(sws.shape[:-1] + (W,), dtype=torch.bool,
+                                  device=sws.device),
+                      torch.where(sws >= 0, sws, W), True)
+    hops = tc.route_len[srcc, dstc].to(F32)
+    # the multiply-adds round once, as in spawn_flows_many
+    extras = []
+    for woke in (0.0, 1.0):
+        extra = _fma(n_lpi, _const(swp.t_lpi_wake, hops),
+                     torch.full_like(hops, woke)
+                     * _const(swp.t_switch_wake, hops), F32)
+        if cfg.comm_model == 1:  # packet store-and-forward serialization
+            cap0 = tc.link_cap[links[..., 0].clamp(min=0).to(I64)]
+            extra = _fma(hops, _const(cfg.hop_latency, hops), extra, F32) \
+                + torch.clamp(hops - 1.0, min=0.0) \
+                * _const(cfg.flow_mtu, hops) / cap0
+        extras.append(extra)
+    return FlowRoutes(ends=ends.to(I64), sw_hit=sw_hit, extra0=extras[0],
+                      extra1=extras[1])
+
+
+def spawn_flow(flows: FlowTable, net: NetState, tc: TopoConsts,
+               cfg: SimConfig, src, dst, nbytes, child, now, mask=None,
+               route: FlowRoutes | None = None):
+    """Allocate the first free slot (lowest index) for one flow src -> dst
+    a replica: ``src``/``dst``/``child`` (*B,) int32, ``nbytes`` (*B,),
+    ``mask`` (*B,) bool or None (all true).  Its ``extra`` budget pays each
+    LPI port on the route and, once, a sleeping switch; every switch on
+    the route wakes, also when the table is full, which counts in
+    ``flows_dropped``.  ``route`` is ``flow_routes`` of this edge, read
+    before a loop of spawns.  Returns (flows, net, ok): ``ok`` is "a slot
+    was free" (and ``mask``)."""
+    if route is None:
+        route = flow_routes(tc, net, cfg, src, dst)
+    F = flows.active.shape[-1]
+    if mask is None:
+        mask = torch.ones(src.shape, dtype=torch.bool, device=src.device)
+    free = ~flows.active
+    ok = free.any(dim=-1) & mask
+    slot = torch.argmax(free.to(I32), dim=-1)                 # first free
+    asleep = (route.ends >= 0) \
+        & ~take(net.sw_awake, route.ends.clamp(min=0))
+    extra = torch.where(asleep.any(dim=-1), route.extra1, route.extra0)
+    hit = (torch.arange(F, device=slot.device) == lift(slot)) & lift(ok)
+
+    def put(arr, val):
+        return torch.where(hit, lift(val) if torch.is_tensor(val) else val,
+                           arr)
+
+    flows = replace(
+        flows,
+        src=put(flows.src, src.to(I32)),
+        dst=put(flows.dst, dst.to(I32)),
+        rem=put(flows.rem, nbytes.to(F32)),
+        rate=put(flows.rate, 0.0),
+        extra=put(flows.extra, extra.to(flows.extra.dtype)),
+        done_at=put(flows.done_at, INF),
+        child=put(flows.child, child.to(I32)),
+        active=flows.active | hit,
+        flows_dropped=flows.flows_dropped + (mask & ~ok).to(I32))
+    return flows, replace(net, sw_awake=net.sw_awake
+                          | (route.sw_hit & lift(mask))), ok
 
 
 def spawn_flows_many(flows: FlowTable, net: NetState, tc: TopoConsts,

@@ -15,6 +15,12 @@ the sentinel column off (``types.set_drop``).
 Every function takes states with a leading batch shape (``()`` for one
 run, ``(R,)`` for a replica batch): reductions, ranks and gathers run
 along the trailing server, core and task axes.
+
+The scalar primitives (``queue_push``, ``begin_wake``), which the seed
+hot loops call (``SimConfig(use_vectorized_hot_loop=False)``), take one
+server index and one task id a replica and a ``mask`` in place of the
+reference's ``lax.cond``: where it is false every leaf is returned bit for
+bit as it came in.
 """
 from __future__ import annotations
 
@@ -24,11 +30,33 @@ from ..kernels.ref import _const, _fma, div_const, inv_f32
 from .types import (INF, JobTable, ServerFarm, SimConfig, SrvState,
                     TaskStatus, lift, replace, set_drop, take)
 
-__all__ = ["queue_push_many", "queued_rank", "try_start", "wake_latency",
-           "begin_wake_mask", "refresh_idle_state"]
+__all__ = ["queue_push", "queue_push_many", "queued_rank", "compact_mask",
+           "try_start", "wake_latency", "begin_wake", "begin_wake_mask",
+           "refresh_idle_state"]
 
 I32 = torch.int32
 I64 = torch.int64
+
+
+def queue_push(farm: ServerFarm, cfg: SimConfig, server, tid, mask=None):
+    """Push one task onto ``server``'s queue: ``server``/``tid`` (*B,)
+    int32, ``mask`` (*B,) bool or None (all true).  A full queue adds 0 to
+    ``q_len`` and ``q_seq`` and 1 to ``dropped``.  Returns (farm, ok,
+    seq): ``ok`` is "the queue had room" (read only where ``mask``), and
+    ``seq`` the counter before the push, the FIFO stamp the caller writes
+    into ``jobs.enqueue_seq[tid]`` when ok (int32, wrapping as XLA's
+    does)."""
+    s = server.clamp(min=0).to(I64)[..., None]
+    full = take(farm.q_len, s)[..., 0] >= cfg.local_q
+    push, drop = ~full, full
+    if mask is not None:
+        push, drop = push & mask, drop & mask
+    return (replace(farm,
+                    q_len=farm.q_len.scatter_add(-1, s,
+                                                 push.to(I32)[..., None]),
+                    q_seq=farm.q_seq + push.to(I32),
+                    dropped=farm.dropped + drop.to(I32)),
+            ~full, farm.q_seq)
 
 
 def queue_push_many(farm: ServerFarm, cfg: SimConfig, servers, tids, valid):
@@ -63,6 +91,16 @@ def wake_latency(cfg: SimConfig, state):
     lat = torch.where(state == SrvState.OFF, sp.t_wake_off, lat)
     lat = torch.where(state == SrvState.S3, sp.t_wake_s3, lat)
     return torch.where(state == SrvState.PKG_C6, sp.t_wake_pkg_c6, lat)
+
+
+def begin_wake(farm: ServerFarm, cfg: SimConfig, server, now, mask=None):
+    """Start waking ``server`` ((*B,) int32) if it is in a sleep state:
+    ``begin_wake_mask`` on that one server; idempotent.  ``mask`` (*B,)
+    bool or None (all true)."""
+    hit = torch.arange(cfg.n_servers, device=server.device) == lift(server)
+    if mask is not None:
+        hit = hit & lift(mask)
+    return begin_wake_mask(farm, cfg, hit, now)
 
 
 def begin_wake_mask(farm: ServerFarm, cfg: SimConfig, mask, now):
@@ -104,6 +142,20 @@ def queued_rank(jobs: JobTable, cfg: SimConfig, queued, q_seq):
     rank_o = ar - take(first, srv_o.clamp(0, N - 1))
     return torch.zeros(B + (JT,), dtype=I32, device=dev).scatter(
         -1, order, rank_o)
+
+
+def compact_mask(mask, K: int):
+    """The first K set task ids of ``mask`` (*B, JT) in a (*B, K) batch in
+    ascending id order: one cumsum and one K-slot scatter.  Returns (tids
+    (*B, K) int32, -1 in an empty slot; valid (*B, K); covered (*B,),
+    true iff the batch holds every set task)."""
+    JT = mask.shape[-1]
+    r = torch.cumsum(mask, -1, dtype=I32) - 1
+    tids = set_drop(torch.full(mask.shape[:-1] + (K,), -1, dtype=I32,
+                               device=mask.device),
+                    torch.where(mask & (r < K), r, K),
+                    torch.arange(JT, dtype=I32, device=mask.device))
+    return tids, tids >= 0, r[..., -1] < K
 
 
 def _end_at(now, service, core_freq: float, dtype):

@@ -29,8 +29,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (engine, farm, jobs, network, power, topology,
-                              trace, traceio, types, workload)
+from repro_torch.core import (engine, farm, jobs, network, power, server,
+                              topology, trace, traceio, types, workload)
 from repro_torch.core.types import (SchedPolicy, SimConfig, SleepPolicy,
                                     SrvState, ThermalConfig, TraceConfig,
                                     TraceKind, tree_leaves)
@@ -834,7 +834,8 @@ def test_sharded_two_ranks_on_the_card_match_engine_run(cuda):
 
 @pytest.mark.parametrize("name", [
     "policy_load_balance", "policy_network_aware", "thermal_throttling",
-    "trace_on", "montecarlo_vmap", "f64_thermal_throttling"])
+    "trace_on", "montecarlo_vmap", "f64_thermal_throttling",
+    "scalar_round_robin", "scalar_network"])
 def test_graph_audit_on_card_matches_cpu(cuda, name):
     """A matrix case's macro-step recorded on the card: every rule of
     simlint holds (the histogram's drift advisory under another torch than
@@ -908,3 +909,119 @@ def test_library_ops_launch_once_a_node_on_the_card(cuda):
         assert [(m.shape, m.dtype) for m in meta] == \
             [(r.shape, r.dtype) for r in inv.result]
         assert ops.launch_counts()[name] == before + 1
+
+
+# --------------------------------------------------------------------------
+# the seed scalar hot loops (SimConfig(use_vectorized_hot_loop=False))
+# --------------------------------------------------------------------------
+
+def test_scalar_primitives_on_card_match_cpu(cuda):
+    """queue_push, begin_wake, compact_mask and spawn_flow on a batch of
+    three replicas, each under a mask that is false for one of them, at a
+    full queue and a full flow table: the card's result equals the CPU's
+    bit for bit, and a masked replica keeps every leaf."""
+    cfg = SimConfig(n_servers=6, n_cores=2, local_q=3, max_jobs=16)
+    rng = np.random.default_rng(11)
+    farm = types.init_farm(cfg, "cpu")
+    farm = dataclasses.replace(
+        farm,
+        q_len=torch.from_numpy(rng.integers(0, 4, (3, 6)).astype(np.int32)),
+        q_seq=torch.tensor([5, 2 ** 31 - 1, 9], dtype=torch.int32),
+        dropped=torch.zeros(3, dtype=torch.int32),
+        srv_state=torch.from_numpy(rng.integers(0, 6, (3, 6))
+                                   .astype(np.int32)),
+        srv_wake_at=torch.full((3, 6), types.INF),
+        wake_count=torch.zeros((3, 6), dtype=torch.int32))
+    srv = torch.tensor([1, 3, 5], dtype=torch.int32)
+    tid = torch.tensor([0, 7, 15], dtype=torch.int32)
+    mask = torch.tensor([True, True, False])
+    now = torch.full((3,), 0.5)
+    masks = torch.from_numpy(rng.random((3, 40)) < 0.3)
+    topo = topology.fat_tree(4, link_cap=1.25e9)
+    fcfg = SimConfig(n_servers=16, max_jobs=16, tasks_per_job=2,
+                     max_flows=12, has_network=True)
+    (cf, cn), (gf, gn) = _net_pair(topo, 12, fcfg.n_tasks, 5, cuda,
+                                   n_active=11)
+    e = edge_inputs(16, fcfg.n_tasks, 7, E=4)
+    out = {}
+    for d, f, n in (("cpu", cf, cn), (cuda, gf, gn)):
+        fd = types.ServerFarm(**{k: getattr(farm, k).to(d)
+                                 for k in farm.__dataclass_fields__})
+        pushed = server.queue_push(fd, cfg, srv.to(d), tid.to(d),
+                                   mask.to(d))
+        woke = server.begin_wake(pushed[0], cfg, srv.to(d), now.to(d),
+                                 mask.to(d))
+        compact = server.compact_mask(masks.to(d), 5)
+        tc = network.topo_consts(topo, d)
+        spawned = []
+        for i in range(4):
+            args = [torch.tensor(max(int(e[k][i]), 0) if k != "nbytes"
+                                 else float(e[k][i])).to(d)
+                    for k in ("src", "dst", "nbytes", "child")]
+            f, n, ok = network.spawn_flow(f, n, tc, fcfg, *args,
+                                          torch.tensor(1.0).to(d),
+                                          torch.tensor(i != 2).to(d))
+            spawned.append(ok)
+        out[str(d)] = (pushed, (woke,), compact,
+                       (f, n, torch.stack(spawned)))
+    for nm, g, c in zip(("push", "wake", "compact", "spawn"),
+                        out[str(cuda)], out["cpu"]):
+        for k, (gg, cc) in enumerate(zip(g, c)):
+            _same(gg, cc, f"{nm}[{k}]")
+    pushed, (woke,) = out["cpu"][:2]
+    full = int(farm.q_len[1, 3]) >= cfg.local_q
+    assert int(pushed[0].q_seq[1]) == (2 ** 31 - 1 if full else -2 ** 31)
+    for f in farm.__dataclass_fields__:
+        assert torch.equal(getattr(woke, f)[2], getattr(farm, f)[2]), f
+    f, n, ok = out["cpu"][3]
+    assert int(ok.sum()) == 1 and int(f.flows_dropped) == 2 + int(
+        cf.flows_dropped)
+
+
+@pytest.mark.parametrize("name", ["star", "dag_chain_rr"])
+def test_scalar_engine_on_card_matches_cpu(cuda, name):
+    """A scalar-mode run on the card against the same run on the CPU
+    (discrete exact, float reductions rtol 1e-5) and against the card's
+    vectorized run of the same configuration (rtol/atol 1e-6): the star
+    with two flow slots (all three loops, spawns refused) and three-task
+    chains under ROUND_ROBIN with delay timers (assignment, drain and
+    wakes)."""
+    if name == "star":
+        cfg, arr, specs, topo = _star_scenario(2)
+        tau = None
+    else:
+        rng = np.random.default_rng(13)
+        arr = workload.poisson_arrivals(40.0, 80, seed=6)
+        specs = [jobs.dag_chain(rng.exponential(0.01, size=3))
+                 for _ in range(80)]
+        cfg = SimConfig(n_servers=4, n_cores=2, max_jobs=128,
+                        tasks_per_job=3, sched_policy=SchedPolicy.ROUND_ROBIN,
+                        sleep_policy=SleepPolicy.SINGLE_TIMER,
+                        sleep_state=SrvState.S3, max_events=50_000)
+        topo, tau = None, 0.05
+    scalar = dataclasses.replace(cfg, use_vectorized_hot_loop=False)
+    finals = {}
+    for key, c, d in (("cpu", scalar, "cpu"), ("card", scalar, cuda),
+                      ("card vec", cfg, cuda)):
+        jt = jobs.build_jobs(c, arr, specs, device=d)
+        state, tc = engine.init_state(c, jt, topo)
+        if tau is not None:
+            state.farm.srv_tau = torch.full_like(state.farm.srv_tau, tau)
+        ops.reset_launch_counts()
+        finals[key] = engine.run(state, c, tc)
+        if key == "card":
+            counts = ops.launch_counts()
+    gpu, cpu, vec = finals["card"], finals["cpu"], finals["card vec"]
+    for (path, g), (_, c), (_, v) in zip(tree_leaves(gpu), tree_leaves(cpu),
+                                         tree_leaves(vec)):
+        g = g.cpu()
+        if path in ("farm.energy", "farm.residency", "farm.busy_core_seconds",
+                    "telem.win", "telem.win_overflow", "net.sw_energy"):
+            assert torch.allclose(g, c, rtol=1e-5, atol=1e-6), path
+        else:
+            assert torch.equal(g, c), path
+        assert np.allclose(g.double().numpy(), v.cpu().double().numpy(),
+                           rtol=1e-6, atol=1e-6), path
+    assert bool(gpu.done)
+    assert counts["dcsim_advance"] == int(gpu.steps) * cfg.events_per_step
+    assert counts["telemetry_accum"] == int(gpu.steps)

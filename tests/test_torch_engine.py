@@ -174,11 +174,11 @@ def item10_on_two_ranks():
 @pytest.mark.parametrize("kw,item", _SCOPE_CASES)
 def test_out_of_scope_configurations_are_refused(kw, item, request,
                                                  tmp_path):
-    """The scalar paths are still refused, with thermal on as well.  The
-    flight recorder (Queue 1 item 8) and rack sharding (item 10) run since
-    their slices: their cases, refused before, now finish; the traced ones
-    decode their ring, the sharded ones (network and thermal among them)
-    equal the unsharded run on a mesh of 1 and on two ranks."""
+    """The configurations once refused, each naming the Queue 1 item that
+    brought it, now finish: the flight recorder (item 8) decodes its
+    ring; rack sharding (item 10, network and thermal among them) equals
+    the unsharded run on a mesh of 1 and on two ranks; the seed scalar
+    paths (item 12, thermal on as well) equal the vectorized run."""
     cfg = SimConfig(n_servers=4, max_jobs=8, **kw)
     if item == "item 10":
         net = _ITEM10_NET if cfg.has_network else {}
@@ -215,8 +215,17 @@ def test_out_of_scope_configurations_are_refused(kw, item, request,
                          TraceKind.JOB_FINISH]
         assert res.trace_events["time"][-1] == pytest.approx(0.11)
         return
-    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
-        tfarm.simulate(cfg, [0.1], [tjobs.dag_single(0.01)], device="cpu")
+    assert item == "item 12" and not cfg.use_vectorized_hot_loop
+    args = ([0.1, 0.1, 0.2], [tjobs.dag_single(0.01)] * 3)
+    got = tfarm.simulate(cfg, *args, device="cpu")
+    exp = tfarm.simulate(dataclasses.replace(
+        cfg, use_vectorized_hot_loop=True), *args, device="cpu")
+    assert got.n_finished == 3
+    assert (got.run_info.events, got.run_info.steps) == \
+        (exp.run_info.events, exp.run_info.steps)
+    assert_results_equal(dataclasses.replace(got, run_info=None),
+                         dataclasses.replace(exp, run_info=None),
+                         f"{kw}: scalar vs vectorized")
 
 
 @pytest.mark.parametrize("policy", [SchedPolicy.THERMAL_AWARE,

@@ -1021,3 +1021,144 @@ def jax_x64_finals(names, tmp_dir) -> dict:
         with np.load(f"{tmp_dir}/{name}.npz") as z:
             finals[name] = {k: z[k] for k in z.files}
     return finals
+
+
+# --------------------------------------------------------------------------
+# the seed scalar hot loops (SimConfig(use_vectorized_hot_loop=False)):
+# the scenarios of tests/test_engine_vectorized.py and
+# tests/test_network_flows.py that hold vectorized == scalar.  Each maker
+# takes a jobs module (and, for the network ones, a topology module) of
+# either package and returns (SimConfig kwargs, arrivals, specs, tau[,
+# topology]).
+# --------------------------------------------------------------------------
+
+SCALAR = dict(use_vectorized_hot_loop=False)
+
+
+def close_leaves(got, exp, context):
+    """The reference's ``_final_states_equal``: every leaf of two port
+    states within rtol/atol 1e-6, as float64."""
+    for (path, a), (_, b) in zip(tree_leaves(got), tree_leaves(exp)):
+        np.testing.assert_allclose(to_np(a).astype(np.float64),
+                                   to_np(b).astype(np.float64), rtol=1e-6,
+                                   atol=1e-6,
+                                   err_msg=f"{context}: leaf {path}")
+
+
+def scalar_three(jcfg, arr, jspecs, tspecs, tau=None, jtopo=None,
+                 ttopo=None, ctx=""):
+    """A scenario through the reference's engine and the port's in scalar
+    mode, and the port's in vectorized mode: port scalar == JAX scalar
+    leaf for leaf (``assert_state_matches``), == port vectorized within
+    ``close_leaves``.  Returns the port's scalar final state."""
+    jcfg = dataclasses.replace(jcfg, **SCALAR)
+    tree = jax_tree(jax_run(jcfg, arr, jspecs, tau, None, jtopo))
+    pcfg = port_cfg(jcfg)
+    fin = port_run(pcfg, arr, tspecs, tau, topo=ttopo)
+    assert bool(fin.done), ctx
+    assert_state_matches(fin, tree, f"{ctx}: port scalar vs JAX scalar")
+    vec = port_run(dataclasses.replace(pcfg, use_vectorized_hot_loop=True),
+                   arr, tspecs, tau, topo=ttopo)
+    close_leaves(fin, vec, f"{ctx}: scalar vs vectorized")
+    return fin
+
+
+def _s_overflow_dag(mod):
+    rng = np.random.default_rng(3)
+    arr = np.sort(rng.uniform(0, 0.2, 25))
+    specs = [mod.dag_chain(rng.uniform(0.2, 0.6, size=3)) for _ in range(25)]
+    return dict(n_servers=2, n_cores=1, local_q=2, max_jobs=32,
+                tasks_per_job=3, sleep_policy=SleepPolicy.SINGLE_TIMER,
+                sleep_state=SrvState.S3), arr, specs, 0.05
+
+
+def _s_rr_overflow(mod):
+    rng = np.random.default_rng(5)
+    arr = np.sort(rng.uniform(0, 0.5, 40))
+    specs = [mod.dag_single(rng.uniform(0.3, 0.8)) for _ in range(40)]
+    return dict(n_servers=3, n_cores=1, local_q=1, max_jobs=64,
+                sched_policy=SchedPolicy.ROUND_ROBIN,
+                sleep_policy=SleepPolicy.ALWAYS_ON), arr, specs, None
+
+
+def _s_single_server_overflow(mod):
+    arr = 0.1 * (1 + np.arange(30))
+    specs = [mod.dag_chain([100.0, 100.0]) for _ in range(30)]
+    return dict(n_servers=1, n_cores=1, local_q=1, max_jobs=32,
+                tasks_per_job=2, sleep_policy=SleepPolicy.ALWAYS_ON), \
+        arr, specs, None
+
+
+def _s_overflow_burst(mod):
+    arr = np.linspace(0.0, 0.029, 30)
+    rng = np.random.default_rng(0)
+    specs = [mod.dag_chain(rng.uniform(0.5, 1.0, size=3)) for _ in range(30)]
+    return dict(n_servers=2, n_cores=1, local_q=2, max_jobs=32,
+                tasks_per_job=3, sleep_policy=SleepPolicy.ALWAYS_ON), \
+        arr, specs, None
+
+
+def _s_burst(policy):
+    def make(mod):
+        rng = np.random.default_rng(13)
+        arr = np.repeat(np.arange(1, 6) * 0.3, 7)
+        specs = [mod.dag_single(rng.exponential(0.03)) for _ in range(35)]
+        return dict(n_servers=5, n_cores=1, max_jobs=64, sched_policy=policy,
+                    sleep_policy=SleepPolicy.ALWAYS_ON, max_events=40_000,
+                    arrivals_per_step=8), arr, specs, None
+    return make
+
+
+SCALAR_FARM_SCENARIOS = {
+    # tests/test_engine_vectorized.py
+    "overflow_dag": _s_overflow_dag,
+    "rr_overflow": _s_rr_overflow,
+    "single_server_overflow": _s_single_server_overflow,
+    "overflow_burst": _s_overflow_burst,
+    # tests/test_network_flows.py's burst admission
+    "burst_load_balance": _s_burst(SchedPolicy.LOAD_BALANCE),
+    "burst_round_robin": _s_burst(SchedPolicy.ROUND_ROBIN),
+}
+
+
+def _s_fat_tree(sched):
+    def make(mod, topo_mod):
+        rng = np.random.default_rng(7)
+        arr = np.sort(rng.uniform(0, 2.0, 40))
+        specs = [mod.dag_chain(rng.uniform(0.01, 0.05, size=2),
+                               edge_bytes=100e6) for _ in range(40)]
+        kw = dict(n_servers=16, n_cores=2, max_jobs=64, tasks_per_job=2,
+                  max_children=2, max_flows=128, local_q=8,
+                  sched_policy=sched, sleep_policy=SleepPolicy.SINGLE_TIMER,
+                  sleep_state=SrvState.S3, has_network=True,
+                  max_events=60_000)
+        return kw, arr, specs, 0.1, topo_mod.fat_tree(4, link_cap=1.25e9)
+    return make
+
+
+def _s_star(max_flows, n_jobs, seed, comm_model=0):
+    """tests/test_network_flows.py's _star_cfg and _star_workload."""
+    def make(mod, topo_mod):
+        rng = np.random.default_rng(seed)
+        arr = workload.poisson_arrivals(25.0, n_jobs, seed=seed)
+        specs = [mod.dag_chain(rng.uniform(0.01, 0.04, size=2),
+                               edge_bytes=float(rng.uniform(4e6, 8e6)))
+                 for _ in range(n_jobs)]
+        kw = dict(n_servers=6, n_cores=2, max_jobs=64, tasks_per_job=2,
+                  max_children=2, max_flows=max_flows, local_q=32,
+                  sched_policy=SchedPolicy.ROUND_ROBIN,
+                  sleep_policy=SleepPolicy.ALWAYS_ON, has_network=True,
+                  comm_model=comm_model, max_events=60_000)
+        return kw, arr, specs, None, topo_mod.star(6, link_cap=1.0e8)
+    return make
+
+
+SCALAR_NET_SCENARIOS = {
+    # tests/test_engine_vectorized.py's network property
+    "fat_tree_round_robin": _s_fat_tree(SchedPolicy.ROUND_ROBIN),
+    "fat_tree_network_aware": _s_fat_tree(SchedPolicy.NETWORK_AWARE),
+    # tests/test_network_flows.py's flow exhaustion, and its star under
+    # the packet model
+    "star_exhaustion": _s_star(3, 25, 5),
+    "star_packet": _s_star(64, 30, 2, comm_model=1),
+}

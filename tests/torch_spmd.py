@@ -56,14 +56,18 @@ def count_collectives():
 # the CPU tests' ranks (tests/test_torch_sharding.py, test_torch_engine.py)
 # --------------------------------------------------------------------------
 
-def shard_initial(name, device="cpu"):
+def shard_initial(name, device="cpu", cfg_kw=None):
     """(cfg, state, tc) of a pinned sharding scenario
     (torch_kernel_inputs.shard_scenario) in the port, as the reference's
-    test builds it: tau written to every server after ``init_state``."""
+    test builds it: tau written to every server after ``init_state``.
+    ``cfg_kw`` overrides fields of its SimConfig."""
+    import dataclasses
     import numpy as np
     from repro_torch.core import engine, jobs, topology, types
     from torch_kernel_inputs import shard_scenario
     cfg, arr, specs, topo, tau = shard_scenario(name, jobs, topology, types)
+    if cfg_kw:
+        cfg = dataclasses.replace(cfg, **cfg_kw)
     jt = jobs.build_jobs(cfg, np.asarray(arr), specs, device=device)
     state, tc = engine.init_state(cfg, jt, topo)
     if tau is not None:
@@ -71,15 +75,15 @@ def shard_initial(name, device="cpu"):
     return cfg, state, tc
 
 
-def sharded_runs(rank, world, names, device="cpu"):
-    """Each named scenario through ``run_sharded`` on a ``world``-rank
-    mesh on ``device``: {name: (final state, {collective: calls}, sharded
-    leaves)}."""
+def sharded_runs(rank, world, names, device="cpu", cfg_kw=None):
+    """Each named scenario (its SimConfig with ``cfg_kw`` applied) through
+    ``run_sharded`` on a ``world``-rank mesh on ``device``: {name: (final
+    state, {collective: calls}, sharded leaves)}."""
     from repro_torch.core import shard_sim
     mesh = shard_sim.make_mesh(world, device=device)
     out = {}
     for name in names:
-        cfg, state, tc = shard_initial(name, device)
+        cfg, state, tc = shard_initial(name, device, cfg_kw)
         n = shard_sim.n_sharded_leaves(state, cfg, mesh)
         with count_collectives() as calls:
             final = shard_sim.run_sharded(state, cfg, tc, mesh)
