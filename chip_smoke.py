@@ -31,7 +31,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      cut to 2 layers in float32 (prefill and decode logits, greedy tokens,
      one launch of each LM kernel per layer, attention on its float32
      CUDA-core instance); [thermal-parity]: the thermal main configuration
-     at 512 servers and 300 jobs (throttling must engage and deferral must
+     at 512 servers and 150 jobs (throttling must engage and deferral must
      park jobs), examples/thermal_case.py's THERMAL_AWARE scenario behind
      its throttle guard, and one_farm at 512 servers on a float64 clock
      (the advance's float64 instance launched K times a step); the flight
@@ -51,20 +51,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      k=4 ROUND_ROBIN run traced and the replicas_r3 batch, card against
      CPU and each against the card's vectorized run of the same
      configuration (rtol/atol 1e-6, the rings decoding to the same
-     stream);
+     stream); the CPU side of every engine run held card against CPU
+     here and in phase 7 is computed ahead by a worker process (this
+     script with --cpu-sides DIR: no card, one thread) while this
+     process runs the card sides;
   5. the discrete-event main run: farm.simulate on a 65,536-server x
      4-core farm (the largest farm benchmarks/bench_engine.py records)
-     under 600 Poisson jobs at 50% utilisation; every job must finish;
+     under 300 Poisson jobs at 50% utilisation; every job must finish;
      then the network main run: farm.simulate with topo= on a k=16
      fat-tree (1,024 servers, 320 switches, two line cards each) under
-     case study D's workload scaled to that width (300 two-task chains
+     case study D's workload scaled to that width (100 two-task chains
      with 100 MB edges, round-robin placement, so every chain ships one
      flow); every job must finish, no flow may be dropped, and the
      switch-power windows must integrate to the switch energy; then the
      thermal main run ([thermal-main]): farm.simulate on 65,536 servers x
      4 cores with the thermal subsystem and its whole control plane
-     (benchmarks/bench_engine.py control_plane_farm with throttling armed):
-     all 600 jobs finish, jobs are deferred, servers throttle, the
+     (benchmarks/bench_engine.py control_plane_farm with throttling armed)
+     under 200 jobs: all finish, jobs are deferred, servers throttle, the
      setpoint controller moves the setpoints, and the cooling-power windows
      integrate to the cooling energy; then the same run with the flight
      recorder on ([trace-main], a 2^21-slot ring): the ring must hold the
@@ -96,7 +99,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   6. the serving main run: ServeEngine.generate on hymba-1.5b (32 layers,
      bf16, seeded random weights) for 4 prompts of 1,536 tokens and 32 new
      tokens, greedy; exactly one launch of each LM kernel per layer, the
-     attention on its bf16 tensor-core instance.
+     attention on its bf16 tensor-core instance.  (Phase 3 also holds the
+     attention at moonshot-v1-16b-a3b's prefill shape, hd 128, 16 heads
+     over 16, causal, to its plain version.)
   Each kernel is then timed at its main path's shapes beside its bound
   (the largest of its bytes, its flops and its exponentials at their peak
   rates), its plain version and, where one exists, the library call
@@ -108,6 +113,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   model's bytes and operations and their bound on the H100 against the
   profiled macro-step's device time, and the state footprint predicted
   on fake tensors against the allocator's rise across init_state.
+  Then MoE serving (models/moe.py), after hymba's weights are freed:
+  [moe-layer] runs one MoE layer of moonshot-v1-16b-a3b and of
+  qwen3-moe-235b-a22b at full width on B=1 x 1,536 random bf16 hidden
+  states (moe_scatter == the einsum oracle on the card within 2e-2, dropped
+  equal; moonshot's card == CPU); [moe-parity] runs moonshot at full width
+  cut to 2 layers in float32, card against CPU (prefill and 4 decode
+  steps' logits within 1e-3, generate's greedy tokens, the attention once
+  a layer on its CUDA-core instance); both hold a differing route only at
+  a near-tie (the route-flip rule of tests/torch_kernel_inputs.py);
+  [moe-main] runs ServeEngine.generate on moonshot's full configuration
+  (48 layers, bf16, 28.9 B seeded random parameters) for [lm-main]'s
+  traffic: 48 tensor-core attention launches, no scan, first token,
+  decode per step, tokens/s, peak memory, a [profile] of one prefill, one
+  decode step and one MoE layer at each of their shapes; then the
+  attention is timed at moonshot's prefill shape beside SDPA with
+  is_causal=True.
   7. rack sharding, last, so that its process group and profiler windows
      come after every earlier timing: [shard-parity] runs
      tests/test_sharding.py's four pinned configurations
@@ -145,15 +166,19 @@ checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import atexit
 import copy
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -171,16 +196,28 @@ from repro_torch.analysis.costmodel import (  # noqa: E402
     H100_BF16_FLOP_S as PEAK_BF16_FLOP_S,
     H100_EXP_PER_SM_CLOCK as EXP_PER_SM_CLOCK,
     H100_F32_OPS_S as PEAK_F32_OPS_S, H100_HBM_BYTES_S as PEAK_BYTES_S)
-N_MAIN, C_MAIN, JOBS_MAIN = 65_536, 4, 600
+# the engine main run's jobs: bench_engine.py's sweep point has 600, cut
+# to 300 for the script's clock (every [main]-based run halves with it)
+N_MAIN, C_MAIN, JOBS_MAIN = 65_536, 4, 300
 # the traced thermal main run's ring: 40 MB of float32 records
 TRACE_CAP = 1 << 21
-# [thermal-parity]'s run of the thermal main configuration at 512 servers,
-# cut from the main run's 600 jobs so the whole script stays within 800 s
+# Depth cuts that keep the whole script within about two thirds of its
+# 1,200 s limit on a slow host; each run keeps its width and every check
+# still fires at the cut depth:
+# the thermal main run ([thermal-main], [trace-main]), cut from the
+# reference's 600 jobs (throttle seconds a server do not depend on the
+# width: 15.9 at 512 and at 65,536 servers under 300 jobs)
+TH_MAIN_JOBS = 200
+# [thermal-parity]'s run of the thermal main configuration at 512 servers
 # (it still throttles, defers and ticks the controller)
-TH_PAR_JOBS = 300
+TH_PAR_JOBS = 150
+# [parity]'s and [scalar-parity]'s one_farm at 512 servers
+FARM_PAR_JOBS = 300
+# [net-parity]'s and [scalar-parity]'s case D runs at k=4 (flows recorded)
+CASE_D_PAR_JOBS = 30
 # the network main run: case study D (benchmarks/case_d_network.py) on a
 # k=16 fat-tree, its 30 jobs/s over 16 servers scaled to 1,024 servers
-NET_K, NET_JOBS, NET_LAM = 16, 300, 1920.0
+NET_K, NET_JOBS, NET_LAM = 16, 100, 1920.0
 NET_SERVERS = NET_K ** 3 // 4           # a k-ary fat-tree's servers
 # [mc-main]: benchmarks/bench_engine.py replica_throughput's two largest
 # points, (replicas, servers, jobs a replica, max_jobs)
@@ -204,6 +241,14 @@ SCALAR = {"use_vectorized_hot_loop": False}
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "hymba_1_5b", 4, 1536, 32
 LM_MAX_SEQ = 2048
 PAR_LAYERS, PAR_BATCH, PAR_PROMPT, PAR_NEW = 2, 2, 1100, 4
+# MoE serving: the main run (moonshot at full size, [lm-main]'s traffic),
+# its card-vs-CPU parity run cut to 2 layers (B x prompt sized so the CPU
+# side takes seconds and still drops tokens) and one full-width layer of
+# each MoE configuration on B=1 x 1,536 random hidden states
+MOE_ARCH, MOE_LAYER_ARCHS = "moonshot_v1_16b_a3b", ("moonshot_v1_16b_a3b",
+                                                    "qwen3_moe_235b_a22b")
+MOE_LAYER_S = 1536
+MOE_PAR_LAYERS, MOE_PAR_BATCH, MOE_PAR_PROMPT, MOE_PAR_NEW = 2, 2, 512, 4
 
 
 T_START = time.perf_counter()           # the script's start, for [elapsed]
@@ -777,7 +822,7 @@ def star_cfg(max_flows):
     return SimConfig(**kw), arr, specs, tau, topo
 
 
-def thermal_main_cfg(n_servers, n_jobs=JOBS_MAIN):
+def thermal_main_cfg(n_servers, n_jobs=TH_MAIN_JOBS):
     """The thermal slice's main configuration (tests/torch_kernel_inputs.py
     thermal_main_scenario: bench_engine.control_plane_farm with throttling
     armed), with telemetry windows of 1 s so that the 256 windows cover
@@ -853,6 +898,179 @@ def mc_inputs(name, cfg_kw=None):
     return cfg, arrs, specs, taus, topo
 
 
+def parity_cases() -> dict:
+    """Every engine run the script holds card against CPU ([parity],
+    [net-parity], [thermal-parity], [trace-parity], [mc-parity],
+    [scalar-parity], [shard-parity]), in the order it runs them:
+    {"tag name": (kind, build, cfg_kw)}.  ``build()`` gives an "engine"
+    run's (cfg, arr, specs, tau, topo) or an "mc" batch's scenario name;
+    ``cfg_kw`` is applied to its SimConfig."""
+    from repro_torch.core import jobs, topology, types
+    from repro_torch.core.types import SchedPolicy, TraceConfig
+    from torch_kernel_inputs import SHARD_SCENARIOS, shard_scenario
+    traced = TraceConfig(enabled=True)
+    rep = dataclasses.replace
+
+    def case_d(pol, trace):
+        c, a, sp, tau, topo, _ = case_d_cfg(pol, 4, CASE_D_PAR_JOBS, 30.0)
+        return (rep(c, trace=traced) if trace else c), a, sp, tau, topo
+
+    def thermal_main():
+        c, a, sp, tau = thermal_main_cfg(512, TH_PAR_JOBS)
+        return rep(c, trace=traced), a, sp, tau, None
+
+    def f64_farm():
+        c, a, sp, tau = one_farm_cfg(512, FARM_PAR_JOBS)
+        return rep(c, time_dtype=torch.float64), a, sp, tau, None
+
+    def one_farm_rr():
+        c, a, sp, tau = one_farm_cfg(512, FARM_PAR_JOBS)
+        return rep(c, sched_policy=SchedPolicy.ROUND_ROBIN), a, sp, tau, None
+
+    def shard(name):
+        cfg, arr, specs, topo, tau = shard_scenario(name, jobs, topology,
+                                                    types)
+        return cfg, arr, specs, tau, topo
+
+    rr, na = SchedPolicy.ROUND_ROBIN, SchedPolicy.NETWORK_AWARE
+    n_d = CASE_D_PAR_JOBS
+    engine = [
+        ("[parity]", f"one_farm n512 j{FARM_PAR_JOBS}",
+         lambda: one_farm_cfg(512, FARM_PAR_JOBS) + (None,)),
+        ("[parity]", "dag_chain SINGLE_TIMER",
+         lambda: dag_chain_cfg() + (None,)),
+        ("[net-parity]", f"case D fat_tree k=4 ROUND_ROBIN {n_d} jobs",
+         lambda: case_d(rr, True)),
+        ("[net-parity]", f"case D fat_tree k=4 NETWORK_AWARE {n_d} jobs",
+         lambda: case_d(na, False)),
+        ("[net-parity]", "star max_flows=2", lambda: star_cfg(2)),
+        ("[thermal-parity]", f"thermal main config n512 j{TH_PAR_JOBS}",
+         thermal_main),
+        ("[thermal-parity]", "thermal_case THERMAL_AWARE guard 500 jobs",
+         lambda: thermal_case_cfg() + (None,)),
+        ("[thermal-parity]", f"one_farm n512 j{FARM_PAR_JOBS} float64 clock",
+         f64_farm)]
+    out = {f"{t} {n}": ("engine", b, {}) for t, n, b in engine}
+    for cap in (65536, 64):
+        out[f"[trace-parity] rich scenario capacity {cap}"] = (
+            "engine", lambda cap=cap: (rich_trace_cfg(cap),
+                                       *rich_trace_inputs(), None), {})
+    for name in MC_PARITY:
+        out[f"[mc-parity] {name}"] = ("mc", lambda name=name: name, {})
+    for n, b in (("dag_chain SINGLE_TIMER", lambda: dag_chain_cfg() + (None,)),
+                 (f"one_farm ROUND_ROBIN n512 j{FARM_PAR_JOBS}", one_farm_rr),
+                 ("star max_flows=2", lambda: star_cfg(2)),
+                 (f"case D fat_tree k=4 ROUND_ROBIN {n_d} jobs",
+                  lambda: case_d(rr, True))):
+        out[f"[scalar-parity] {n}"] = ("engine", b, SCALAR)
+    out["[scalar-parity] replicas_r3"] = ("mc", lambda: "replicas_r3",
+                                          SCALAR)
+    for name in SHARD_SCENARIOS:
+        out[f"[shard-parity] {name}"] = ("engine",
+                                         lambda name=name: shard(name), {})
+    return out
+
+
+def case_inputs(key):
+    """(cfg, arr, specs, tau, topo) of an "engine" parity_cases() run,
+    its cfg_kw applied."""
+    kind, build, kw = parity_cases()[key]
+    cfg, arr, specs, tau, topo = build()
+    return dataclasses.replace(cfg, **kw), arr, specs, tau, topo
+
+
+def cpu_side(key):
+    """The CPU run of one parity_cases() entry: an engine run's final
+    state, or a replica batch's."""
+    from repro_torch.core import montecarlo
+    kind, build, kw = parity_cases()[key]
+    if kind == "engine":
+        cfg, arr, specs, tau, topo = case_inputs(key)
+        return run_engine(cfg, arr, specs, tau, "cpu", topo)
+    cfg, arrs, specs, taus, topo = mc_inputs(build(), kw)
+    sb, tc = montecarlo.batched_state(cfg, arrs, specs, taus=taus,
+                                      topo=topo, device="cpu")
+    return montecarlo.run_replicas(cfg, sb, tc)
+
+
+def cpu_sides_worker(out_dir: str) -> None:
+    """``--cpu-sides DIR``: every parity_cases() CPU run in order, on one
+    thread and no card, each final state saved to DIR/<index>.pt (renamed
+    into place when whole) with its seconds; stops when its parent
+    does."""
+    torch.set_num_threads(1)
+    parent = os.getppid()
+    out = pathlib.Path(out_dir)
+    for i, key in enumerate(parity_cases()):
+        if os.getppid() != parent:
+            return
+        t0 = time.perf_counter()
+        state = cpu_side(key)
+        tmp = out / f"{i}.tmp"
+        torch.save({"key": key, "state": state,
+                    "secs": time.perf_counter() - t0}, tmp)
+        os.replace(tmp, out / f"{i}.pt")
+
+
+class CpuSides:
+    """The CPU sides of the parity runs, computed ahead by a worker process
+    (this script with ``--cpu-sides``, no card, one thread) while this
+    one runs the card sides, which take longer; a run the worker has not
+    delivered by the time it exits is computed here."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_cpu_")
+        self.keys = list(parity_cases())
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+        self.proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--cpu-sides",
+             self.dir], env=env)
+        atexit.register(self.close)
+
+    def take(self, key, compute):
+        """(state, seconds) of ``key``'s CPU run: the worker's, else
+        ``compute()``'s here."""
+        if key in self.keys:
+            path = pathlib.Path(self.dir) / f"{self.keys.index(key)}.pt"
+            while not path.exists() and self.proc.poll() is None:
+                time.sleep(0.02)
+            if path.exists():
+                got = torch.load(path, weights_only=False)
+                path.unlink()
+                if got["key"] != key:
+                    fail(f"cpu side {key}: the worker delivered {got['key']}")
+                return got["state"], got["secs"]
+        t0 = time.perf_counter()
+        state = compute()
+        return state, time.perf_counter() - t0
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+CPU_SIDES: CpuSides | None = None       # set by main()
+
+
+def take_cpu_side(key, compute):
+    """(state, seconds) of a parity run's CPU side: from the worker where
+    main() started one, else computed here."""
+    if CPU_SIDES is not None:
+        return CPU_SIDES.take(key, compute)
+    t0 = time.perf_counter()
+    state = compute()
+    return state, time.perf_counter() - t0
+
+
+def parity_case(key, dev, **kw):
+    """parity() of one "engine" parity_cases() entry."""
+    tag, name = key.split(" ", 1)
+    cfg, arr, specs, tau, topo = case_inputs(key)
+    return parity(name, cfg, arr, specs, tau, dev, topo, tag=tag, **kw)
+
+
 def ring_diff(name, g, c, exact: bool) -> str:
     """Two rings (card, CPU) record for record: kind, server and tid
     exactly; time and aux exactly (``exact``) or within rtol 1e-5, as
@@ -874,9 +1092,8 @@ def parity(name, cfg, arr, specs, tau, dev, topo=None, tag="[parity]",
     from repro_torch.core import traceio
     from repro_torch.core.types import TraceKind, tree_leaves
     from repro_torch.kernels import ops
-    t0 = time.perf_counter()
-    cpu = run_engine(cfg, arr, specs, tau, "cpu", topo)
-    t_cpu = time.perf_counter() - t0
+    cpu, t_cpu = take_cpu_side(
+        f"{tag} {name}", lambda: run_engine(cfg, arr, specs, tau, "cpu", topo))
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     gpu = run_engine(cfg, arr, specs, tau, dev, topo)
@@ -1089,8 +1306,9 @@ def thermal_main(dev):
     res = farm.simulate(cfg, arr, specs)
     counts = ops.launch_counts()
     ri = res.run_info
-    if res.n_finished != JOBS_MAIN:
-        fail(f"thermal-main finished {res.n_finished} of {JOBS_MAIN} jobs")
+    if res.n_finished != TH_MAIN_JOBS:
+        fail(f"thermal-main finished {res.n_finished} of {TH_MAIN_JOBS} "
+             f"jobs")
     if not res.deferred_jobs > 0:
         fail("thermal-main deferred no job")
     if not res.throttle_seconds > 0:
@@ -1116,8 +1334,8 @@ def thermal_main(dev):
             counts["dcsim_advance"] != ri.steps * cfg.events_per_step:
         fail(f"thermal-main launch counts {counts} for {ri.steps} steps")
     n_thr = int((res.peak_temps >= cfg.thermal.t_throttle - 1e-3).sum())
-    log(f"[thermal-main] {N_MAIN} servers x {C_MAIN} cores, {JOBS_MAIN} jobs "
-        f"(every second one deferrable), CARBON_AWARE, throttling at "
+    log(f"[thermal-main] {N_MAIN} servers x {C_MAIN} cores, {TH_MAIN_JOBS} "
+        f"jobs (every second one deferrable), CARBON_AWARE, throttling at "
         f"{cfg.thermal.t_throttle}/{cfg.thermal.t_release} C: wall "
         f"{ri.wall_s:.3f} s, events {ri.events}, steps {ri.steps}, "
         f"{ri.events_per_s:.1f} events/s; sim time {res.sim_time:.4f} s; "
@@ -1204,7 +1422,6 @@ def trace_main(dev, th):
     flight recorder on.  ``th`` is [thermal-main]'s (launch counts, cfg,
     arr, specs, result); the traced run must leave every result of it as
     it was.  Returns (launch counts, cfg)."""
-    import tempfile
     from repro_torch.core import engine, farm, traceio
     from repro_torch.core.types import TraceConfig, TraceKind
     from repro_torch.kernels import ops
@@ -1236,11 +1453,12 @@ def trace_main(dev, th):
     ev = res.trace_events
     kinds = np.bincount(ev["kind"], minlength=TraceKind.NUM)
     K = TraceKind
-    want = {K.ARRIVAL: JOBS_MAIN, K.ADMIT: JOBS_MAIN,
-            K.RELEASE: res.deferred_jobs, K.START: JOBS_MAIN,
-            K.FINISH: JOBS_MAIN, K.JOB_FINISH: JOBS_MAIN}
-    if res.n_finished != JOBS_MAIN:
-        fail(f"trace-main finished {res.n_finished} of {JOBS_MAIN} jobs")
+    n_jobs = TH_MAIN_JOBS
+    want = {K.ARRIVAL: n_jobs, K.ADMIT: n_jobs,
+            K.RELEASE: res.deferred_jobs, K.START: n_jobs,
+            K.FINISH: n_jobs, K.JOB_FINISH: n_jobs}
+    if res.n_finished != n_jobs:
+        fail(f"trace-main finished {res.n_finished} of {n_jobs} jobs")
     if ptr != len(ev):
         fail(f"trace-main: ptr {ptr} but {len(ev)} decoded records")
     for k, n in want.items():
@@ -1302,8 +1520,10 @@ def trace_main(dev, th):
         f"launches {counts}")
     # the two whole runs above ran one after the other, and this host's
     # wall clock wanders between runs: the overhead in turns, on the same
-    # macro-steps
-    secs = windows_in_turns({"off": th_cfg, "on": cfg}, arr, specs, dev)
+    # macro-steps; two rounds (a b b a), since the script runs near its
+    # 1,200 s limit on a slow host (PERF.md §4)
+    secs = windows_in_turns({"off": th_cfg, "on": cfg}, arr, specs, dev,
+                            rounds=2)
     ratio = [b / a for a, b in zip(secs["off"], secs["on"])]
     log(f"[trace-main] in turns, 10 macro-steps a window from step 20: "
         f"untraced {[round(x, 4) for x in secs['off']]} s, traced "
@@ -1400,19 +1620,20 @@ def mc_parity(name, dev, cfg_kw=None, tag="[mc-parity]"):
     from repro_torch.core.types import tree_leaves
     from repro_torch.kernels import ops
     cfg, arrs, specs, taus, topo = mc_inputs(name, cfg_kw)
-    runs = {}
-    for d in ("cpu", dev):
+
+    def on_cpu():
         sb, tc = montecarlo.batched_state(cfg, arrs, specs, taus=taus,
-                                          topo=topo, device=d)
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        out = montecarlo.run_replicas(cfg, sb, tc)
-        if d != "cpu":
-            torch.cuda.synchronize()
-        runs[str(d)] = (sb, tc, out, ops.launch_counts(),
-                        time.perf_counter() - t0)
-    sb, tc, gpu, counts, t_gpu = runs[str(dev)]
-    cpu, t_cpu = runs["cpu"][2], runs["cpu"][4]
+                                          topo=topo, device="cpu")
+        return montecarlo.run_replicas(cfg, sb, tc)
+
+    cpu, t_cpu = take_cpu_side(f"{tag} {name}", on_cpu)
+    sb, tc = montecarlo.batched_state(cfg, arrs, specs, taus=taus,
+                                      topo=topo, device=dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    gpu = montecarlo.run_replicas(cfg, sb, tc)
+    torch.cuda.synchronize()
+    counts, t_gpu = ops.launch_counts(), time.perf_counter() - t0
     R = arrs.shape[0]
     worst, ring = 0.0, ""
     for (path, g), (_, c) in zip(tree_leaves(gpu), tree_leaves(cpu)):
@@ -1655,23 +1876,16 @@ def scalar_parity(dev, vec) -> None:
     vectorized card runs; the ROUND_ROBIN one_farm variant's is made
     here).  A network run's line gives the spawn loop's length: min(JT,
     N*C) * D edges in every full step."""
-    from repro_torch.core.types import SchedPolicy, TraceConfig
     t0 = time.perf_counter()
-    c, a, sp, tau = one_farm_cfg(512, 600)
-    c_d, a_d, sp_d, tau_d, topo_d, _ = case_d_cfg(SchedPolicy.ROUND_ROBIN,
-                                                  4, 100, 30.0)
-    cases = (
-        ("dag_chain", "dag_chain SINGLE_TIMER", dag_chain_cfg() + (None,)),
-        ("one_farm_rr", "one_farm ROUND_ROBIN n512 j600",
-         (dataclasses.replace(c, sched_policy=SchedPolicy.ROUND_ROBIN), a,
-          sp, tau, None)),
-        ("star", "star max_flows=2", star_cfg(2)),
-        ("case_d_rr", "case D fat_tree k=4 ROUND_ROBIN 100 jobs",
-         (dataclasses.replace(c_d, trace=TraceConfig(enabled=True)), a_d,
-          sp_d, tau_d, topo_d)))
-    for key, name, (c, a, sp, tau, topo) in cases:
-        g = parity(name, dataclasses.replace(c, **SCALAR), a, sp, tau, dev,
-                   topo, tag="[scalar-parity]")
+    cases = (("dag_chain", "dag_chain SINGLE_TIMER"),
+             ("one_farm_rr", f"one_farm ROUND_ROBIN n512 j{FARM_PAR_JOBS}"),
+             ("star", "star max_flows=2"),
+             ("case_d_rr", f"case D fat_tree k=4 ROUND_ROBIN "
+              f"{CASE_D_PAR_JOBS} jobs"))
+    for key, name in cases:
+        g = parity_case(f"[scalar-parity] {name}", dev)
+        # the same configuration with the vectorized loops
+        c, a, sp, tau, topo = parity_cases()[f"[scalar-parity] {name}"][1]()
         v = vec[key] if key in vec else run_engine(c, a, sp, tau, dev, topo)
         note = scalar_vs_vector(name, g, v, c)
         if c.has_network:
@@ -1695,7 +1909,7 @@ def scalar_parity(dev, vec) -> None:
 
 def scalar_main(dev, main_res) -> dict:
     """[scalar-main]: the engine main configuration (one_farm 65,536 x 4,
-    600 jobs, K=8, LOAD_BALANCE) through farm.simulate in the seed scalar
+    300 jobs, K=8, LOAD_BALANCE) through farm.simulate in the seed scalar
     loops: every job finishes; jobs finished, dropped, wake counts,
     latencies, energy and the telemetry summary equal [main]'s; the
     kernels launch steps x K and steps times; events/s against [main]'s,
@@ -1810,7 +2024,7 @@ def simlint_phase() -> None:
 
 def simlint_main(dev, main_prof) -> None:
     """[simlint-main]: one macro-step of [main]'s configuration (65,536 x
-    4, 600 jobs) recorded on the card: its ops, scatters and host syncs,
+    4, 300 jobs) recorded on the card: its ops, scatters and host syncs,
     each kernel one node a launch, the cost model's bytes and operations
     and its bound on the H100, against the device time of a macro-step in
     [main]'s profiler window (``main_prof``); and the state footprint the
@@ -2073,23 +2287,17 @@ def shard_phases(dev, main_res) -> dict:
     CPU's as parity() holds them.  ``main_res`` is [main]'s SimResult.
     Returns {"K=1": launches, "K=2": [launches of each rank]} of the
     [shard-main] runs."""
-    import tempfile
     import torch.distributed as dist
-    from repro_torch.core import (engine, jobs, montecarlo, shard_sim,
-                                  topology, types)
+    from repro_torch.core import engine, jobs, montecarlo, shard_sim
     from repro_torch.core.types import tree_leaves
     from repro_torch.kernels import ops
-    from torch_kernel_inputs import SHARD_SCENARIOS, shard_scenario
+    from torch_kernel_inputs import SHARD_SCENARIOS
     from torch_spmd import count_collectives, shard_initial
 
     # the reference runs: the unsharded engine on the card (against the
     # CPU for the four configurations)
-    unsharded = {}
-    for name in SHARD_SCENARIOS:
-        cfg, arr, specs, topo, tau = shard_scenario(name, jobs, topology,
-                                                    types)
-        unsharded[name] = parity(name, cfg, arr, specs, tau, dev, topo,
-                                 tag="[shard-parity]")
+    unsharded = {name: parity_case(f"[shard-parity] {name}", dev)
+                 for name in SHARD_SCENARIOS}
     cfg_main, arr_main, specs_main, _ = one_farm_cfg(N_MAIN, JOBS_MAIN)
     jt = jobs.build_jobs(cfg_main, np.asarray(arr_main), specs_main,
                          device=dev)
@@ -2252,6 +2460,10 @@ FLASH_RAGGED = [
 # P and the output rounded to bf16 give a few 1e-3; a faulty key tile
 # reads far above (flash_row_controls)
 FA_ROW_TOL = 0.03
+# moonshot-v1-16b-a3b's prefill: hd 128, 16 heads over 16, causal, no
+# window (the shape at which SDPA's own flash backend applies)
+FLASH_MOE = (LM_BATCH, 16, 16, LM_PROMPT, LM_PROMPT, 128, True, 0, 0.0,
+             "bfloat16")
 SSM_MAIN = (LM_BATCH, LM_PROMPT, 3200, 16)      # hymba-1.5b's prefill
 SSM_RAGGED = [(3, 37, 200, 16)]
 
@@ -2600,12 +2812,364 @@ def lm_kernel_entries(flash_main, ssm_main, counts, fa_err, ss_err, dev):
 
 
 # --------------------------------------------------------------------------
+# MoE serving (models/moe.py): [moe-layer], [moe-parity], [moe-main]
+# --------------------------------------------------------------------------
+
+def flip_note(flips, n_layers) -> str:
+    """Where the routes differ: (forward, layer, batch, token, CPU gap),
+    a forward being the prefill or one decode step."""
+    return ", ".join(f"forward {i // n_layers} layer {i % n_layers} batch "
+                     f"{b} token {t} (CPU gap {g:.3g})"
+                     for i, b, t, g in flips)
+
+
+def moe_layer(dev) -> None:
+    """[moe-layer]: one MoE layer of each MoE configuration at full width
+    (the port's seeded init, bf16 experts, float32 router) on random bf16
+    hidden states, B=1 x MOE_LAYER_S: on the card moe_scatter == the
+    einsum oracle at 2e-2 with equal dropped; for moonshot also the card
+    == the CPU's moe_scatter under the route-flip rule."""
+    from repro_torch import configs
+    from repro_torch.models import moe, transformer
+    from torch_kernel_inputs import ROUTE_GAP, recorded_routes, route_flips
+    for arch in MOE_LAYER_ARCHS:
+        t0 = time.perf_counter()
+        cfg = configs.get_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        p = transformer.Params(transformer._moe_params(
+            cfg, transformer._Init(cfg, gen, dev)))
+        x = torch.randn((1, MOE_LAYER_S, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        C = moe.capacity(cfg, MOE_LAYER_S)
+        with torch.inference_mode():
+            with recorded_routes(moe) as got:
+                out, aux, dropped = moe.moe_scatter(p, x, cfg)
+            oe, ae, de = moe.moe_einsum(p, x, cfg)
+        torch.cuda.synchronize()
+        err = float((out.float() - oe.float()).abs().max())
+        if not torch.isfinite(out.float()).all() or not torch.allclose(
+                out.float(), oe.float(), atol=2e-2, rtol=2e-2) or \
+                int(dropped) != int(de) or \
+                abs(float(aux) - float(ae)) > 1e-5 * abs(float(ae)):
+            fail(f"moe-layer {arch}: scatter against einsum on the card: max "
+                 f"abs err {err}, dropped {int(dropped)} against {int(de)}, "
+                 f"aux {float(aux)} against {float(ae)}")
+        per_e = torch.bincount(got[0][0].flatten().long(),
+                               minlength=cfg.n_experts)
+        cpu = ""
+        if arch == MOE_ARCH:
+            tc0 = time.perf_counter()
+            with torch.inference_mode(), recorded_routes(moe) as exp:
+                oc, ac, dc = moe.moe_scatter(copy.deepcopy(p).cpu(), x.cpu(),
+                                             cfg)
+            flips = route_flips(got, exp)
+            if flips:
+                cpu = (f"; card against CPU: routes differ only at near-ties "
+                       f"(CPU gap under {ROUTE_GAP}) at "
+                       f"{flip_note(flips, 1)}, outputs not compared")
+            else:
+                cerr = float((out.cpu().float() - oc.float()).abs().max())
+                if not torch.allclose(out.cpu().float(), oc.float(),
+                                      atol=2e-2, rtol=2e-2) or \
+                        int(dc) != int(dropped) or \
+                        abs(float(ac) - float(aux)) > 1e-5 * abs(float(ac)):
+                    fail(f"moe-layer {arch}: card against CPU: max abs err "
+                         f"{cerr}, dropped {int(dropped)} against {int(dc)}")
+                cpu = (f"; card == CPU: routes equal (route-flip bound "
+                       f"{ROUTE_GAP}), dropped equal, output within 2e-2 "
+                       f"(max abs err {cerr:.3g}), aux rel 1e-5 (CPU side "
+                       f"{time.perf_counter() - tc0:.1f} s)")
+        log(f"[moe-layer] {cfg.name}: E={cfg.n_experts} top-{cfg.top_k} "
+            f"d_expert={cfg.d_expert} shared={cfg.n_shared_experts}, B=1 x "
+            f"{MOE_LAYER_S} bf16 tokens, capacity {C}: scatter == einsum on "
+            f"the card within 2e-2 (max abs err {err:.3g}), dropped "
+            f"{int(dropped)} of {MOE_LAYER_S * cfg.top_k} choices in both, "
+            f"aux {float(aux):.6f}; tokens per expert min {int(per_e.min())} "
+            f"max {int(per_e.max())}{cpu}; "
+            f"{time.perf_counter() - t0:.2f} s")
+        del p, x, out, oe
+        torch.cuda.empty_cache()
+
+
+def moe_parity(dev) -> None:
+    """[moe-parity]: moonshot at full width cut to MOE_PAR_LAYERS layers,
+    float32, card against CPU: the prefill and MOE_PAR_NEW decode steps
+    fed the same tokens (the CPU's greedy ones), their logits within 1e-3
+    when no route differs (route-flip rule), then ServeEngine.generate on
+    both, the same greedy tokens; the attention launched once a layer on
+    its CUDA-core instance."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.models import moe, transformer
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import step
+    from torch_kernel_inputs import ROUTE_GAP, recorded_routes, route_flips
+    full = configs.get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_PAR_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    t0 = time.perf_counter()
+    p_gpu = transformer.make_params(cfg,
+                                    torch.Generator(device=dev).manual_seed(0))
+    p_cpu = copy.deepcopy(p_gpu).cpu()
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        1, cfg.vocab, (MOE_PAR_BATCH, MOE_PAR_PROMPT)))
+    prefill, decode = step.make_prefill(cfg), step.make_serve_step(cfg)
+    log(f"[moe-parity] {cfg.name} at full width cut to {MOE_PAR_LAYERS} of "
+        f"{full.n_layers} layers (the one cut), float32; B={MOE_PAR_BATCH}, "
+        f"prompts of {MOE_PAR_PROMPT} tokens (capacity "
+        f"{moe.capacity(cfg, MOE_PAR_PROMPT)}), {MOE_PAR_NEW} new tokens")
+
+    def run(params, device, feed):
+        """Logits of the prefill and of each decode step, each step fed
+        ``feed``'s token (None: this run's own greedy one)."""
+        with torch.inference_mode():
+            cache = transformer.init_cache(cfg, MOE_PAR_BATCH, LM_MAX_SEQ,
+                                           device=device)
+            lg, cache = prefill(params, toks.to(device), cache)
+            out = [lg.cpu()]
+            for i in range(MOE_PAR_NEW):
+                tok = (out[-1] if feed is None else feed[i]).argmax(-1)
+                lg, cache = decode(params, cache, tok[:, None].to(device),
+                                   MOE_PAR_PROMPT + i)
+                out.append(lg.cpu())
+        return out
+
+    with recorded_routes(moe) as exp:
+        l_cpu = run(p_cpu, "cpu", None)
+    t_cpu = time.perf_counter() - t0
+    C = moe.capacity(cfg, MOE_PAR_PROMPT)
+    drops = [int((moe._positions_in_expert(t, cfg) >= C).sum())
+             for t, _ in exp[:MOE_PAR_LAYERS]]
+    with recorded_routes(moe) as got:
+        l_gpu = run(p_gpu, dev, l_cpu)
+    flips = route_flips(got, exp)
+    worst = 0.0
+    if flips:
+        logits = (f"routes differ only at near-ties (CPU gap under "
+                  f"{ROUTE_GAP}) at {flip_note(flips, MOE_PAR_LAYERS)}: "
+                  f"logits not compared")
+    else:
+        for i, (g, c) in enumerate(zip(l_gpu, l_cpu)):
+            worst = max(worst, float((g - c).abs().max()))
+            if not torch.isfinite(g).all() or \
+                    not torch.allclose(g, c, rtol=1e-3, atol=1e-3):
+                fail(f"moe-parity: {'prefill' if i == 0 else f'decode {i}'} "
+                     f"logits differ between card and CPU (max abs err "
+                     f"{float((g - c).abs().max())})")
+        logits = (f"routes equal in every layer of the prefill and the "
+                  f"{MOE_PAR_NEW} decode steps (route-flip bound "
+                  f"{ROUTE_GAP}); their logits within 1e-3 (max abs err "
+                  f"{worst:.3g})")
+    prompts = toks.tolist()
+    with recorded_routes(moe) as exp:
+        r_cpu = ServeEngine(cfg, p_cpu, max_batch=MOE_PAR_BATCH,
+                            max_seq=LM_MAX_SEQ, device="cpu").generate(
+            prompts, max_new=MOE_PAR_NEW)
+    ops.reset_launch_counts()
+    with recorded_routes(moe) as got:
+        r_gpu = ServeEngine(cfg, p_gpu, max_batch=MOE_PAR_BATCH,
+                            max_seq=LM_MAX_SEQ).generate(
+            prompts, max_new=MOE_PAR_NEW)
+    counts = ops.launch_counts()
+    inst = dict(flash_attention.INSTANCE_LAUNCHES)
+    if inst != {flash_attention.TENSOR_CORE: 0,
+                flash_attention.CUDA_CORE: MOE_PAR_LAYERS} or \
+            counts["flash_attention"] != MOE_PAR_LAYERS or counts["ssm_scan"]:
+        fail(f"moe-parity: launches {counts}, attention instances {inst}: "
+             f"expected the CUDA-core attention once a layer, no scan")
+    gen_flips = route_flips(got, exp)
+    new_g = [r.tokens[MOE_PAR_PROMPT:] for r in r_gpu]
+    new_c = [r.tokens[MOE_PAR_PROMPT:] for r in r_cpu]
+    if gen_flips:
+        tokens = (f"generate's routes differ only at near-ties at "
+                  f"{flip_note(gen_flips, MOE_PAR_LAYERS)}: tokens {new_g} "
+                  f"against {new_c}, not compared")
+    elif new_g != new_c:
+        fail(f"moe-parity: generate gave other greedy tokens on the card: "
+             f"{new_g} against {new_c}")
+    else:
+        tokens = f"generate gave the same greedy tokens {new_g}"
+    log(f"[moe-parity] card == CPU: {logits}; the prefill dropped {drops} "
+        f"choices a layer on the CPU; {tokens}; launches {counts}, "
+        f"attention instances {inst}; CPU side of the steps {t_cpu:.1f} s, "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+
+
+def moe_layer_ops(cfg, p, x, tag) -> dict:
+    """The MoE layer's device time by operation: one moe_scatter call on
+    ``x`` under the profiler (after one warm call)."""
+    from repro_torch.models import moe
+    with torch.inference_mode():
+        moe.moe_scatter(p, x, cfg)
+
+        def call():
+            with torch.inference_mode():
+                moe.moe_scatter(p, x, cfg)
+        ks, wall = device_kernels(call)
+    return report_profile(f"MoE layer ({tag})", ks, wall, (), 1, "call")
+
+
+def moe_main(dev) -> int:
+    """[moe-main]: moonshot-v1-16b-a3b's full configuration (48 layers,
+    bf16) with the port's seeded random weights on the card,
+    ServeEngine(max_batch=4, max_seq=2048).generate of 4 prompts of 1,536
+    tokens, 32 new tokens, greedy ([lm-main]'s traffic); then a [profile]
+    of one prefill and one decode step and of one MoE layer at each of
+    their shapes.  Returns the attention's launches in the run."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import step
+    cfg = configs.get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    params = transformer.make_params(
+        cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"[moe-main] {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k} + "
+        f"{cfg.n_shared_experts} shared, {n_params / 1e9:.3f} B parameters "
+        f"({cfg.param_dtype}, router float32; param_count() "
+        f"{cfg.param_count() / 1e9:.3f} B), random init on the card in "
+        f"{init_s:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    engine = ServeEngine(cfg, params, max_batch=LM_BATCH, max_seq=LM_MAX_SEQ)
+    prompts = np.random.default_rng(7).integers(
+        1, cfg.vocab, (LM_BATCH, LM_PROMPT)).tolist()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = engine.generate(prompts, max_new=LM_NEW)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    inst = dict(flash_attention.INSTANCE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if counts["flash_attention"] != cfg.n_layers or counts["ssm_scan"]:
+        fail(f"moe-main: launch counts {counts}, expected {cfg.n_layers} "
+             f"attention launches (one a layer of the one prefill), no scan")
+    if inst != {flash_attention.TENSOR_CORE: cfg.n_layers,
+                flash_attention.CUDA_CORE: 0}:
+        fail(f"moe-main: bf16 attention ran on instances {inst}, expected "
+             f"the tensor-core one once a layer")
+    for r, p in zip(res, prompts):
+        new = r.tokens[len(p):]
+        if r.tokens[:len(p)] != p or len(new) != LM_NEW or \
+                not all(0 <= t < cfg.vocab for t in new):
+            fail(f"moe-main: bad generation {new}")
+    tm = engine.timings
+    del engine
+    toks = torch.tensor(prompts, device=dev)
+    prefill, decode = step.make_prefill(cfg), step.make_serve_step(cfg)
+    box = {}
+
+    def run_prefill():
+        box.pop("cache", None)             # one cache at a time: 3.2 GB
+        with torch.inference_mode():
+            cache = transformer.init_cache(cfg, LM_BATCH, LM_MAX_SEQ)
+            box["lg"], box["cache"] = prefill(params, toks, cache)
+
+    def run_decode():
+        with torch.inference_mode():
+            box["lg2"], _ = decode(params, box["cache"],
+                                   box["lg"].argmax(-1)[:, None], LM_PROMPT)
+
+    run_prefill()
+    run_decode()
+    if not (torch.isfinite(box["lg"]).all() and
+            torch.isfinite(box["lg2"]).all()):
+        fail("moe-main: non-finite logits")
+    decode_ms = tm["decode_s"] / tm["decode_steps"] * 1e3
+    log(f"[moe-main] generate: {LM_BATCH} x {LM_PROMPT} prompt tokens, "
+        f"{LM_NEW} new each: wall {wall:.3f} s; first token (prefill) "
+        f"{tm['first_token_s'] * 1e3:.1f} ms; decode {decode_ms:.2f} ms per "
+        f"step over {tm['decode_steps']} steps; "
+        f"{LM_BATCH * LM_NEW / wall:.1f} generated tokens/s; prefill "
+        f"{LM_BATCH * LM_PROMPT / tm['first_token_s']:.0f} tokens/s; peak "
+        f"memory {peak / 2**30:.2f} GiB; launches {counts}, attention "
+        f"instances {inst}; logits finite; first new tokens "
+        f"{[r.tokens[LM_PROMPT:LM_PROMPT + 4] for r in res]}")
+    ks, pwall = device_kernels(run_prefill)
+    pre = report_profile(f"moonshot prefill ({LM_BATCH} x {LM_PROMPT:,} "
+                         f"tokens)", ks, pwall, ("flash_attention",), 1,
+                         "prefill")
+    ks, dwall = device_kernels(run_decode)
+    dec = report_profile("moonshot decode step", ks, dwall,
+                         ("flash_attention",), 1, "step")
+    p0 = params["layers"][0]["ffn"]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    layer = {}
+    for tag, S in (("prefill", LM_PROMPT), ("decode", 1)):
+        x = torch.randn((LM_BATCH, S, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        layer[tag] = moe_layer_ops(cfg, p0, x, f"{tag} shape, {LM_BATCH} x "
+                                   f"{S} tokens, layer 0")
+    shares = []
+    for tag, whole in (("prefill", pre), ("decode step", dec)):
+        one = layer[tag.split()[0]]["busy_us"]
+        shares.append(f"{tag} " + ("not measured" if one is None or
+                                    whole["busy_us"] is None else
+                                    f"{100 * cfg.n_layers * one / whole['busy_us']:.1f}%"))
+    log(f"[moe-main] the MoE layers' share of the device time ({cfg.n_layers} "
+        f"x one layer's): " + ", ".join(shares))
+    del params, box
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
+
+
+def moe_flash_entry(args, kw, err, launches, dev) -> dict:
+    """The attention at moonshot's prefill shape (FLASH_MOE) beside its
+    bound, its plain version and SDPA with is_causal=True."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref
+    q, k, v = args
+    B, H, KV, S, _, hd, causal, W, _, _ = FLASH_MOE
+    ms = time_ms(lambda: flash_attention.flash_attention(q, k, v, **kw),
+                 reps=50, warmup=5)
+    plain = time_ms(lambda: ref.mha_reference(q, k, v, **kw), reps=10,
+                    warmup=2)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), reps=50, warmup=5)
+    out = flash_attention.flash_attention(q, k, v, **kw)
+    inst = flash_attention.LAST_INSTANCE
+    pairs = attn_pairs(S, S, causal, W) * B * H
+    bound, by, op = bound_ms(
+        nbytes(q, k, v, out), {"bf16 tensor-core flops":
+                               (4 * hd * pairs, PEAK_BF16_FLOP_S),
+                               "exponentials": (pairs, exp_per_s())})
+    dev_us = kernel_device_us(
+        lambda: flash_attention.flash_attention(q, k, v, **kw),
+        ["flash_attention_bf16_kernel"], reps=20)
+    entry = {"name": "flash_attention (hd 128)", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:83",
+             "launches": launches, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+             "bound_op": op, "library_ms": lib, "instance": inst,
+             "device_ms": None if dev_us is None else dev_us / 1e3}
+    log(f"[time] flash_attention ({inst}) at moonshot's prefill B,H,KV,S,hd="
+        f"{(B, H, KV, S, hd)} causal, no window: {ms * 1e3:.1f} us per call "
+        f"on the stream, "
+        f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'} of "
+        f"device time (profiler); bound {bound * 1e3:.3f} us by {op} "
+        f"({4 * hd * pairs / 1e9:.1f} GFLOP, {pairs / 1e6:.1f} M "
+        f"exponentials, {nbytes(q, k, v, out) / 1e6:.0f} MB); plain version "
+        f"{plain * 1e3:.1f} us; SDPA (is_causal=True) {lib * 1e3:.1f} us; "
+        f"{launches} launches in [moe-main]")
+    return entry
+
+
+# --------------------------------------------------------------------------
 
 def main() -> None:
     t_start = T_START
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs "
              "an NVIDIA GPU")
+    global CPU_SIDES
+    CPU_SIDES = CpuSides()
     from repro_torch.core import farm
     from repro_torch.kernels import build, ops
     from torch_kernel_inputs import FLASH_TC_EDGES, SSM_EDGES
@@ -2659,6 +3223,7 @@ def main() -> None:
                  "telemetry_accum large"):
         engine_repeat_and_graph(name, dev)
     fa_q, fa_kw, fa_err = check_flash(FLASH_MAIN, dev)
+    fa_moe, fa_moe_kw, fa_moe_err = check_flash(FLASH_MOE, dev)
     for case in FLASH_RAGGED:
         fa_err = max(fa_err, check_flash(case, dev)[2])
     for case in FLASH_TC_EDGES:         # the tensor-core instance's edges
@@ -2671,35 +3236,25 @@ def main() -> None:
 
     log(f"[elapsed] phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     # phase 4: card vs CPU
-    parity("one_farm n512 j600", *one_farm_cfg(512, 600), dev)
+    from repro_torch.core.types import TraceKind
+    n_d = CASE_D_PAR_JOBS
+    parity_case(f"[parity] one_farm n512 j{FARM_PAR_JOBS}", dev)
     # the vectorized card runs [scalar-parity] holds the scalar loops to
-    vec = {"dag_chain": parity("dag_chain SINGLE_TIMER", *dag_chain_cfg(),
-                               dev)}
-    from repro_torch.core.types import SchedPolicy, TraceConfig, TraceKind
-    traced = TraceConfig(enabled=True)
+    vec = {"dag_chain": parity_case("[parity] dag_chain SINGLE_TIMER", dev)}
     for pol in ("ROUND_ROBIN", "NETWORK_AWARE"):
-        c, a, sp, tau, topo, _ = case_d_cfg(getattr(SchedPolicy, pol), 4,
-                                            100, 30.0)
-        if pol == "ROUND_ROBIN":
-            c = dataclasses.replace(c, trace=traced)
-        g = parity(f"case D fat_tree k=4 {pol} 100 jobs", c, a, sp, tau,
-                   dev, topo, tag="[net-parity]")
+        g = parity_case(f"[net-parity] case D fat_tree k=4 {pol} {n_d} jobs",
+                        dev)
         if pol == "ROUND_ROBIN":
             vec["case_d_rr"] = g
-        if c.trace.enabled and not {TraceKind.FLOW_SPAWN,
-                                    TraceKind.FLOW_FINISH} <= set(
-                g.trace.buf[:int(g.trace.ptr), 0].int().tolist()):
-            fail("net-parity: the traced case D run recorded no flows")
-    c, a, sp, tau, topo = star_cfg(2)
-    g = parity("star max_flows=2", c, a, sp, tau, dev, topo,
-               tag="[net-parity]")
+            if not {TraceKind.FLOW_SPAWN, TraceKind.FLOW_FINISH} <= set(
+                    g.trace.buf[:int(g.trace.ptr), 0].int().tolist()):
+                fail("net-parity: the traced case D run recorded no flows")
+    g = parity_case("[net-parity] star max_flows=2", dev)
     if int(g.flows.flows_dropped) == 0:
         fail("net-parity: the star with two flow slots dropped no flow")
     vec["star"] = g
-    c, a, sp, tau = thermal_main_cfg(512, TH_PAR_JOBS)
-    g = parity(f"thermal main config n512 j{TH_PAR_JOBS}",
-               dataclasses.replace(c, trace=traced), a, sp, tau, dev,
-               tag="[thermal-parity]")
+    g = parity_case(f"[thermal-parity] thermal main config n512 "
+                    f"j{TH_PAR_JOBS}", dev)
     if not (float(g.thermal.throttle_seconds.sum()) > 0
             and int(g.thermal.defer_count) > 0):
         fail("thermal-parity: the main configuration at 512 servers did "
@@ -2709,20 +3264,17 @@ def main() -> None:
             g.trace.buf[:int(g.trace.ptr), 0].int().tolist()):
         fail("thermal-parity: the traced run recorded no crossing, release "
              "or controller tick")
-    g = parity("thermal_case THERMAL_AWARE guard 500 jobs",
-               *thermal_case_cfg(), dev, tag="[thermal-parity]")
+    g = parity_case("[thermal-parity] thermal_case THERMAL_AWARE guard 500 "
+                    "jobs", dev)
     if not float(g.thermal.throttle_seconds.sum()) > 0:
         fail("thermal-parity: thermal_case's guard never throttled")
-    c, a, sp, tau = one_farm_cfg(512, 600)
     from repro_torch.kernels import dcsim_step
-    parity("one_farm n512 j600 float64 clock",
-           dataclasses.replace(c, time_dtype=torch.float64), a, sp, tau, dev,
-           tag="[thermal-parity]")
+    parity_case(f"[thermal-parity] one_farm n512 j{FARM_PAR_JOBS} float64 "
+                f"clock", dev)
     f64_launches = dcsim_step.CLOCK_LAUNCHES["float64"]
     for cap in (65536, 64):
-        g = parity(f"rich scenario capacity {cap}", rich_trace_cfg(cap),
-                   *rich_trace_inputs(), dev, tag="[trace-parity]",
-                   ring_exact=True)
+        g = parity_case(f"[trace-parity] rich scenario capacity {cap}", dev,
+                        ring_exact=True)
         if (int(g.trace.dropped) > 0) != (cap == 64):
             fail(f"trace-parity: {int(g.trace.dropped)} records dropped at "
                  f"capacity {cap}")
@@ -2885,6 +3437,22 @@ def main() -> None:
     profile_window(tr_cfg, th_arr, th_specs, dev, tag="traced thermal run")
     profile_serving(lm_cfg, lm_params, lm_toks, dev)
 
+    # MoE serving, after hymba's weights are freed: moonshot's 57.8 GB of
+    # weights leave room for little else
+    del lm_params, lm_toks
+    torch.cuda.empty_cache()
+    log(f"[elapsed] [moe-layer] starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    moe_layer(dev)
+    log(f"[elapsed] [moe-parity] starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    moe_parity(dev)
+    log(f"[elapsed] [moe-main] starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    moe_fa_launches = moe_main(dev)
+    kernels.append(moe_flash_entry(fa_moe, fa_moe_kw, fa_moe_err,
+                                   moe_fa_launches, dev))
+
     # rack sharding last: its process group and profiler windows come
     # after every kernel timing and profile of the earlier paths
     log(f"[elapsed] phase 7 starts at {time.perf_counter() - t_start:.1f} s")
@@ -2908,6 +3476,8 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--engine-calls"] and len(sys.argv) == 3:
         engine_calls_of(sys.argv[2])
+    elif sys.argv[1:2] == ["--cpu-sides"] and len(sys.argv) == 3:
+        cpu_sides_worker(sys.argv[2])
     elif len(sys.argv) > 1:
         fail(f"usage: {sys.argv[0]} [--engine-calls ROOT]")
     else:

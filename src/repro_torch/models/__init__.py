@@ -1,2 +1,3 @@
 """The LM substrate's models in PyTorch: configuration, layers, the Mamba
-mixer and the decoder assembly (attn/swa/hymba blocks)."""
+mixer, the MoE layer and the decoder assembly (attn/swa/hymba blocks with
+a dense or an MoE feed-forward)."""

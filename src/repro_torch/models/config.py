@@ -6,10 +6,11 @@ One frozen dataclass drives every assigned architecture: dense GQA
 transformers, MoE (GShard-style routed experts), gemma2-style local/global
 alternation with logit softcaps, hybrid attention+SSM (hymba), xLSTM
 (sLSTM/mLSTM alternation), early-fusion VLM (chameleon) and encoder-decoder
-audio (whisper).  The port's forward runs the attn/swa/hymba kinds and
-refuses the rest (``models.transformer``); the runtime knobs (``remat``,
-``scan_layers``, ``fsdp_embed``, ``microbatches``, ``use_flash``,
-``attn_chunk``, ``attn_bf16_scores``) are carried and not read.
+audio (whisper).  The port's forward runs the attn/swa/hymba kinds, dense
+or MoE, and refuses the rest (``models.transformer``); the runtime knobs
+(``remat``, ``scan_layers``, ``fsdp_embed``, ``microbatches``,
+``use_flash``, ``attn_chunk``, ``attn_bf16_scores``) are carried and not
+read.
 
 Block kinds (``block_pattern``; ``n_layers`` must be divisible by
 ``len(block_pattern)``):

@@ -1,0 +1,183 @@
+"""Mixture-of-Experts layer in PyTorch (port of ``repro.models.moe``):
+GShard-style top-k routing with token dropping at a capacity factor, for
+qwen3-moe and moonshot.
+
+Function by function as the reference, on one device:
+
+  1. ``route``: the router product in float32, top-k experts per token,
+     gates renormalised over the chosen k, the switch load-balance loss
+     plus ``router_zloss`` times the z-loss;
+  2. ``_positions_in_expert``: the running index of each (token, choice)
+     within its expert, capacity C = ceil(S·k·cf / E);
+  3. ``_dispatch``: the inverse map (B, E, C) -> source token, overflow
+     written to a sentinel column C and sliced away, then one gather;
+  4. ``_expert_ffn``: three batched products over the experts, in the
+     activations' dtype (the reference leaves them to XLA outside any
+     Pallas kernel; here they go to ``torch.einsum``);
+  5. ``_combine_local``: each token's k expert outputs, gate-weighted,
+     added one choice at a time in the expert output's dtype.
+
+``moe_einsum`` is the reference's one-hot oracle.  The mesh path of the
+reference (experts sharded over "model", a ``shard_map`` combine and one
+``psum``) comes with ROADMAP Queue 1 item 17: ``moe_scatter`` refuses a
+mesh with more than one model shard.  The router product must run in full
+float32: on the card that needs TF32 off for matrix products, PyTorch's
+default (``torch.backends.cuda.matmul.allow_tf32`` False).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from . import layers
+
+
+def capacity(cfg, S: int) -> int:
+    return max(1, math.ceil(S * cfg.top_k * cfg.capacity_factor
+                            / cfg.n_experts))
+
+
+def route(p, x, cfg):
+    """Returns (topi (B,S,k) int32, gates (B,S,k) f32, aux_loss f32)."""
+    logits = x.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.topk(logits, cfg.top_k, dim=-1)
+    gates = torch.softmax(topv, dim=-1)                # renormalized over k
+    # switch load-balance loss: E * mean(f_e * p_e)
+    ohot = F.one_hot(topi[..., 0], cfg.n_experts).float()
+    frac = ohot.mean(dim=(0, 1))
+    mean_p = probs.mean(dim=(0, 1))
+    lb = cfg.n_experts * torch.sum(frac * mean_p)
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return topi.to(torch.int32), gates, lb + cfg.router_zloss * z
+
+
+def _positions_in_expert(topi, cfg):
+    """topi (B, S, k) -> pos (B, S, k) int32: the running index of each
+    (token, choice) within its expert, token-major over the flattened S·k
+    choices.  Integer work, so one unchunked one-hot cumsum gives the
+    reference's chunked scan's answer.  The one-hot is laid out (B, E,
+    S·k), so the count scans its last dim: along the token axis of a (B,
+    S·k, E) layout, an outer-dim scan, it took 1.6 ms a layer on an H100
+    at B·S = 6,144, E = 64, k = 6 (chip_smoke.py's [profile])."""
+    B, S, k = topi.shape
+    ek = topi.reshape(B, 1, S * k).long()
+    experts = torch.arange(cfg.n_experts, device=topi.device)[:, None]
+    oh = (ek == experts).to(torch.int32)                     # (B, E, S*k)
+    within = torch.cumsum(oh, dim=-1, dtype=torch.int32) - oh
+    pos = torch.gather(within, 1, ek)[:, 0]
+    return pos.reshape(B, S, k)
+
+
+def _dispatch(x, topi, pos, keep, C, cfg):
+    """Batched-gather dispatch -> ((B, E, C, D), inv (B, E, C)); empty
+    slots are zero (they read the sentinel token S, a zero row)."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    slot_e = topi.reshape(B, -1).long()                            # (B, S*k)
+    slot_c = torch.where(keep, pos, C).reshape(B, -1).long()       # overflow->C
+    src = torch.arange(S, dtype=torch.int32,
+                       device=x.device).repeat_interleave(k)
+    b_ix = torch.arange(B, device=x.device)[:, None].expand_as(slot_e)
+    inv = torch.full((B, E, C + 1), S, dtype=torch.int32, device=x.device)
+    inv[b_ix, slot_e, slot_c] = src.expand_as(slot_e)
+    inv = inv[:, :, :C]                                            # (B, E, C)
+    x_pad = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)
+    out = torch.gather(x_pad, 1, inv.reshape(B, E * C, 1).long()
+                       .expand(B, E * C, D))
+    return out.reshape(B, E, C, D), inv
+
+
+def _expert_ffn(p, h, cfg):
+    """h (B, E, C, D) -> (B, E, C, D); the weights cast to h's dtype (a
+    no-op when they already are: bf16 weights stay bf16)."""
+    dt = h.dtype
+    g = torch.einsum("becd,edf->becf", h, p["wg"].to(dt))
+    u = torch.einsum("becd,edf->becf", h, p["wu"].to(dt))
+    a = F.silu(g) * u
+    return torch.einsum("becf,efd->becd", a, p["wd"].to(dt))
+
+
+def _combine_local(expert_out, topi, pos, keep, gates, e_base, E_loc, S):
+    """Sum each token's local-expert outputs, one choice at a time in the
+    expert output's dtype, each gate cast to it first (the reference's
+    order and roundings).  The slots and weights of all k choices are
+    computed, and their rows gathered, at once: the same values the
+    reference's per-choice loop takes, in a few launches."""
+    B, _, C, D = expert_out.shape
+    k = topi.shape[-1]
+    sel = (topi >= e_base) & (topi < e_base + E_loc) & keep      # (B, S, k)
+    el = torch.clamp(topi - e_base, 0, E_loc - 1)
+    cj = torch.clamp(pos, 0, C - 1)
+    flat = (el * C + cj).long().reshape(B, S * k, 1)
+    vals = torch.gather(expert_out.reshape(B, -1, D), 1,
+                        flat.expand(B, S * k, D)).reshape(B, S, k, D)
+    w = (gates * sel).to(expert_out.dtype)
+    out = expert_out.new_zeros((B, S, D))
+    for j in range(k):                                 # static k loop
+        out = out + vals[:, :, j] * w[:, :, j, None]
+    return out
+
+
+def moe_scatter(p, x, cfg, mesh=None, mesh_axes=("data", "model")):
+    """The production MoE path on one device.  Returns (out (B, S, D) in
+    x's dtype, aux f32, dropped int32: the kept-out (token, choice) pairs
+    with a nonzero gate)."""
+    if mesh is not None:
+        from ..sharding.partition import mesh_sizes  # imports core: lazily
+        n = mesh_sizes(mesh).get(mesh_axes[-1], 1)
+        if n > 1:
+            raise NotImplementedError(
+                f"moe_scatter over a mesh with {n} {mesh_axes[-1]!r} "
+                f"shards: the expert-parallel combine is not ported yet "
+                f"(item 17) -- see ROADMAP.md Queue 1")
+    B, S, D = x.shape
+    E = cfg.n_experts
+    C = capacity(cfg, S)
+    topi, gates, aux = route(p, x, cfg)
+    pos = _positions_in_expert(topi, cfg)
+    keep = pos < C
+    dropped = torch.sum(~keep & (gates > 0), dtype=torch.int32)
+    h, _ = _dispatch(x, topi, pos, keep, C, cfg)        # (B, E, C, D)
+    h = _expert_ffn(p, h, cfg)
+    out = _combine_local(h, topi, pos, keep, gates, 0, E, S)
+    if cfg.n_shared_experts:
+        out = out + layers.mlp(p["shared"], x, "silu")
+    return out.to(x.dtype), aux, dropped
+
+
+# --------------------------------------------------------------------------
+# small-shape oracle: classic GShard one-hot einsum dispatch/combine
+# --------------------------------------------------------------------------
+
+def moe_einsum(p, x, cfg):
+    B, S, D = x.shape
+    E = cfg.n_experts
+    C = capacity(cfg, S)
+    topi, gates, aux = route(p, x, cfg)
+    pos = _positions_in_expert(topi, cfg)
+    keep = pos < C
+    oh_e = F.one_hot(topi.long(), E).float()                      # (B,S,k,E)
+    # jax.nn.one_hot of the overflow index C over C classes is all zeros
+    oh_c = F.one_hot(torch.where(keep, pos, C).long(),
+                     C + 1)[..., :C].float()                      # (B,S,k,C)
+    disp = torch.einsum("bske,bskc->bsec", oh_e, oh_c)            # bool-ish
+    # the top-k experts are distinct, so each (e, c) sums one gate: exact
+    comb = torch.einsum("bske,bskc->bsec", oh_e * gates[..., None], oh_c)
+    h = torch.einsum("bsec,bsd->becd", disp.to(x.dtype), x)
+    h = _expert_ffn(p, h, cfg)
+    out = torch.einsum("bsec,becd->bsd", comb.to(x.dtype), h)
+    if cfg.n_shared_experts:
+        out = out + layers.mlp(p["shared"], x, "silu")
+    dropped = torch.sum(~keep & (gates > 0), dtype=torch.int32)
+    return out.to(x.dtype), aux, dropped
+
+
+def moe_block(p, x, cfg, mesh=None, mesh_axes=("data", "model")):
+    """``moe_impl == "einsum"`` runs the oracle; anything else ("scatter",
+    "dense") the scatter path, as in the reference."""
+    if cfg.moe_impl == "einsum":
+        return moe_einsum(p, x, cfg)
+    return moe_scatter(p, x, cfg, mesh, mesh_axes)

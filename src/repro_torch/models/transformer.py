@@ -1,6 +1,7 @@
 """Model assembly in PyTorch (port of ``repro.models.transformer``):
 parameters, decode caches and the forward pass, for decoder-only models
-whose blocks are ``attn``, ``swa`` or ``hymba``.
+whose blocks are ``attn``, ``swa`` or ``hymba``, with a dense or an MoE
+feed-forward (``models.moe``).
 
 The reference stacks each pattern position's parameters over periods and
 scans over them; here every layer has its own parameters (``Params``, an
@@ -21,7 +22,7 @@ import torch
 from torch import nn
 
 from ..core.types import resolve_device
-from . import layers, ssm
+from . import layers, moe, ssm
 from .config import ModelConfig
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -41,8 +42,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for what this slice of the port does not
     run, naming the ROADMAP Queue 1 item that brings it."""
     refused = []
-    if cfg.is_moe:
-        refused.append("MoE blocks (item 14)")
     for kind in sorted(set(cfg.block_pattern) - set(KINDS)):
         refused.append(f"block kind {kind!r} (item 15)")
     if cfg.is_enc_dec or cfg.cross_attn:
@@ -123,11 +122,23 @@ def _attn_params(cfg, init):
     return p
 
 
-def _mlp_params(cfg, init):
-    D, F = cfg.d_model, cfg.d_ff
+def _mlp_params(cfg, init, d_ff=None):
+    D, F = cfg.d_model, d_ff or cfg.d_ff
     p = {"wu": init.dense(D, (D, F)), "wd": init.dense(F, (F, D))}
     if cfg.act in ("silu", "geglu"):
         p["wg"] = init.dense(D, (D, F))
+    return p
+
+
+def _moe_params(cfg, init):
+    """The router stays float32 whatever ``param_dtype`` is."""
+    D, E, F = cfg.d_model, cfg.n_experts, cfg.d_expert
+    p = {"router": init.dense(D, (D, E), torch.float32),
+         "wg": init.dense(D, (E, D, F)), "wu": init.dense(D, (E, D, F)),
+         "wd": init.dense(F, (E, F, D))}
+    if cfg.n_shared_experts:
+        p["shared"] = _mlp_params(cfg, init,
+                                  d_ff=cfg.n_shared_experts * cfg.d_expert)
     return p
 
 
@@ -155,9 +166,10 @@ def _block_params(cfg, kind, init):
                       "ssm": _ssm_params(cfg, init)}
     else:
         p["mixer"] = _attn_params(cfg, init)
-    if cfg.d_ff > 0:
+    if cfg.d_ff > 0 or cfg.is_moe:
         p["ln2"] = init.zeros((D,))
-        p["ffn"] = _mlp_params(cfg, init)
+        p["ffn"] = _moe_params(cfg, init) if cfg.is_moe \
+            else _mlp_params(cfg, init)
     return p
 
 
@@ -222,6 +234,9 @@ def init_cache(cfg: ModelConfig, B: int, S: int, dtype=None, device=None):
 # ==========================================================================
 
 def _apply_block(cfg, kind, p, x, *, mode, cache, pos):
+    """One layer: (x, new_cache, aux), aux the MoE loss (None without
+    one, so a dense layer launches nothing for it)."""
+    aux = None
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     new_cache = {}
     if kind in ("attn", "swa"):
@@ -246,8 +261,12 @@ def _apply_block(cfg, kind, p, x, *, mode, cache, pos):
     x = x + mix
     if "ffn" in p:
         h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + layers.mlp(p["ffn"], h2, cfg.act)
-    return x, new_cache
+        if cfg.is_moe:
+            f, aux, _ = moe.moe_block(p["ffn"], h2, cfg)
+        else:
+            f = layers.mlp(p["ffn"], h2, cfg.act)
+        x = x + f
+    return x, new_cache, aux
 
 
 def head(cfg, params, x):
@@ -259,8 +278,9 @@ def head(cfg, params, x):
 def forward(cfg: ModelConfig, params, tokens, *, mode="train", cache=None,
             pos=0, skip_head=False):
     """tokens (B, S) integer.  Returns (logits, new_cache, aux) as the
-    reference does (aux, the MoE loss, is 0 here); with skip_head=True
-    returns the final hidden states instead of logits."""
+    reference does (aux, the layers' MoE losses summed in float32; 0
+    without MoE); with skip_head=True returns the final hidden states
+    instead of logits."""
     check_supported(cfg)
     dt = cdtype(cfg)
     x = params["embed"][tokens.long()].to(dt)
@@ -270,14 +290,16 @@ def forward(cfg: ModelConfig, params, tokens, *, mode="train", cache=None,
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=dt,
                            device=x.device)
     new_caches = [] if cache is not None else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["layers"]):
         c = cache[i] if cache is not None else None
-        x, nc = _apply_block(cfg, layer_kind(cfg, i), p, x, mode=mode,
-                             cache=c, pos=pos)
+        x, nc, a = _apply_block(cfg, layer_kind(cfg, i), p, x, mode=mode,
+                                cache=c, pos=pos)
+        if a is not None:
+            aux = aux + a
         if cache is not None:
             new_caches.append(nc if nc else c)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if skip_head:
         return x, new_caches, aux
     return head(cfg, params, x), new_caches, aux

@@ -4,8 +4,10 @@ step-synchronous decode with greedy or temperature sampling.
 As in the reference, prompts are right-padded with token 0 to the longest
 prompt, every sequence decodes from that common position, and the cache
 holds ``max_seq`` positions (a ring of ``sliding_window`` slots for
-swa/hymba layers).  The sampled tokens stay on the device as the next
-step's input; the host reads them once per token.  ``timings`` holds the
+swa/hymba layers).  MoE layers route every prompt position, padding
+included, and take capacity from it, as in the reference; the MoE aux
+loss ``forward`` returns is discarded.  The sampled tokens stay on the
+device as the next step's input; the host reads them once per token.  ``timings`` holds the
 last ``generate``'s host-clock seconds to the first token (cache, prefill,
 first sample) and of the decode steps; each ends in that host read, so
 the device work is inside it.

@@ -22,7 +22,11 @@ The flight recorder's ring: exact, card against CPU (its flush is
 elementwise work, a cumsum of integers and one scatter to distinct
 slots).  Rack-sharded runs (one rank over NCCL; two ranks over NCCL on
 two cards, else over gloo on one): bitwise equal to engine.run on the
-card."""
+card.  MoE (models/moe.py): the routes equal, or a differing one only at
+a near-tie (the CPU's gap under torch_kernel_inputs.ROUTE_GAP, the route
+flip rule); with equal routes, dropped equal, the layer's output within
+1e-5 in float32 and 2e-2 in bfloat16 and aux rel 1e-5."""
+import copy
 import dataclasses
 
 import numpy as np
@@ -39,9 +43,9 @@ from repro_torch.kernels import (dcsim_step, flash_attention, ops, ref,
 
 from torch_kernel_inputs import (FLASH_TC_EDGES, SSM_EDGES, dcsim_inputs,
                                  edge_inputs, flash_inputs, graph_ops,
-                                 net_inputs, ssm_inputs, star_scenario,
-                                 tb_inputs, thermal_main_scenario,
-                                 torch_args)
+                                 net_inputs, recorded_routes, route_flips,
+                                 ssm_inputs, star_scenario, tb_inputs,
+                                 thermal_main_scenario, torch_args)
 
 pytestmark = pytest.mark.cuda
 
@@ -1025,3 +1029,71 @@ def test_scalar_engine_on_card_matches_cpu(cuda, name):
     assert bool(gpu.done)
     assert counts["dcsim_advance"] == int(gpu.steps) * cfg.events_per_step
     assert counts["telemetry_accum"] == int(gpu.steps)
+
+
+# --------------------------------------------------------------------------
+# MoE serving (models/moe.py)
+# --------------------------------------------------------------------------
+
+def _moe_cfg(dtype, **kw):
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_smoke("moonshot_v1_16b_a3b"),
+                               param_dtype=dtype, compute_dtype=dtype, **kw)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_scatter_on_card_matches_cpu(cuda, dtype):
+    """One MoE layer at a small width (256 wide, 16 experts, top 4, one
+    shared expert, capacity factor 0.5 so that tokens drop), 2 x 300
+    tokens, card against CPU under the route-flip rule; the card's scatter
+    path also against its einsum oracle."""
+    from repro_torch.models import moe, transformer
+    cfg = _moe_cfg(dtype, d_model=256, n_experts=16, top_k=4, d_expert=128,
+                   capacity_factor=0.5)
+    p = transformer.Params(transformer._moe_params(cfg, transformer._Init(
+        cfg, torch.Generator().manual_seed(0), torch.device("cpu"))))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 300, cfg.d_model)).astype(np.float32)).to(p["wg"].dtype)
+    pg, xg = copy.deepcopy(p).to(cuda), x.to(cuda)
+    with recorded_routes(moe) as got:
+        og, ag, dg = moe.moe_scatter(pg, xg, cfg)
+    with recorded_routes(moe) as exp:
+        oc, ac, dc = moe.moe_scatter(p, x, cfg)
+    torch.cuda.synchronize()
+    if route_flips(got, exp):        # near-ties only: nothing else holds
+        return
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    assert og.dtype == x.dtype and int(dg) == int(dc) > 0
+    torch.testing.assert_close(og.cpu().float(), oc.float(), atol=tol,
+                               rtol=tol)
+    assert float(ag) == pytest.approx(float(ac), rel=1e-5)
+    oe, _, de = moe.moe_einsum(pg, xg, cfg)
+    assert int(de) == int(dg)
+    torch.testing.assert_close(oe.float(), og.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_moe_generate_on_card_matches_cpu(cuda):
+    """Smoke moonshot, float32, parameters made on the card by default and
+    copied to the CPU: ServeEngine.generate on ragged prompts gives the
+    same greedy tokens on both, under the route-flip rule; the prefill
+    launches the attention once a layer, on its CUDA-core instance."""
+    from repro_torch.models import moe, transformer
+    from repro_torch.serve.engine import ServeEngine
+    cfg = _moe_cfg("float32")
+    pg = transformer.make_params(cfg, torch.Generator(cuda).manual_seed(0))
+    pc = copy.deepcopy(pg).cpu()
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in (19, 13, 9)]
+    ops.reset_launch_counts()
+    with recorded_routes(moe) as got:
+        rg = ServeEngine(cfg, pg, max_batch=4, max_seq=40).generate(
+            prompts, max_new=6)
+    counts = dict(flash_attention.INSTANCE_LAUNCHES)
+    with recorded_routes(moe) as exp:
+        rc = ServeEngine(cfg, pc, max_batch=4, max_seq=40,
+                         device="cpu").generate(prompts, max_new=6)
+    assert counts == {flash_attention.TENSOR_CORE: 0,
+                      flash_attention.CUDA_CORE: cfg.n_layers}
+    if route_flips(got, exp):        # near-ties only: nothing else holds
+        return
+    assert [r.tokens for r in rg] == [r.tokens for r in rc]

@@ -261,7 +261,7 @@ def test_params_from_jax_layer_order_and_bits():
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch,cfg_kw,item", [
-    ("qwen3_moe_235b_a22b", {}, "item 14"),
+    ("qwen3_moe_235b_a22b", {"pos": "learned"}, "item 16"),
     ("xlstm_350m", {}, "item 15"),
     ("hymba_1_5b", {"block_pattern": ("mamba",)}, "item 15"),
     ("whisper_large_v3", {}, "item 16"),
@@ -295,6 +295,7 @@ def test_device_rule_serving():
 
 def test_serving_modules_import_no_jax():
     code = ("import sys\n"
+            "import repro_torch.models.moe\n"      # first: no import cycle
             "import repro_torch.serve.engine, repro_torch.models.transformer\n"
             "import repro_torch.train.step, repro_torch.configs.hymba_1_5b\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -8,6 +8,7 @@ Imports neither JAX nor pytest, so it loads on a machine with a card and
 PyTorch alone."""
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -530,3 +531,61 @@ def graph_ops(fn) -> dict:
         out[key] = out.get(key, 0) + 1
     del g
     return out
+
+
+# --------------------------------------------------------------------------
+# the MoE route-flip rule: two devices sum the router product in other
+# orders, so a token whose top-k logits hold a near-tie may route to
+# another expert on each (its row then differs by O(1)); a differing route
+# is accepted only where the CPU's gap is under ROUTE_GAP
+# --------------------------------------------------------------------------
+
+ROUTE_GAP = 1e-5       # absolute, on float32 router logits of O(1)
+
+
+def route_gaps(p, x, k) -> torch.Tensor:
+    """(B, S): the smallest gap between neighbours among each token's k+1
+    largest router logits (an order flip inside the top k or a swap of the
+    k-th and (k+1)-th expert needs one of them to be a near-tie)."""
+    top = torch.topk(x.float() @ p["router"].float(), k + 1, dim=-1).values
+    return (top[..., :-1] - top[..., 1:]).min(dim=-1).values
+
+
+@contextlib.contextmanager
+def recorded_routes(moe_mod):
+    """While inside, every ``moe_mod.route`` call (one per MoE layer of a
+    forward) appends (topi, gaps) as CPU tensors to the yielded list."""
+    calls, orig = [], moe_mod.route
+
+    def route(p, x, cfg):
+        out = orig(p, x, cfg)
+        calls.append((out[0].cpu(), route_gaps(p, x, cfg.top_k).cpu()))
+        return out
+
+    moe_mod.route = route
+    try:
+        yield calls
+    finally:
+        moe_mod.route = orig
+
+
+def route_flips(got, exp, bound=ROUTE_GAP) -> list:
+    """Compare two runs' recorded routes call by call (``exp`` the CPU's).
+    Returns the flips of the first call that has any, as (call, batch,
+    token, CPU gap); later calls are not held, since their inputs already
+    differ by the flip.  Raises AssertionError for a flip whose CPU gap is
+    not under ``bound``, or for runs of a different number of calls."""
+    if len(got) != len(exp):
+        raise AssertionError(f"{len(got)} routed layers against {len(exp)}")
+    for i, ((ti, _), (te, gap)) in enumerate(zip(got, exp)):
+        diff = (ti != te).any(dim=-1).nonzero().tolist()
+        if not diff:
+            continue
+        flips = [(i, b, s, float(gap[b, s])) for b, s in diff]
+        wide = [f for f in flips if not f[3] < bound]
+        if wide:
+            raise AssertionError(
+                f"routes differ at (call, batch, token, CPU gap) {wide}, "
+                f"gaps not under {bound}: not a near-tie")
+        return flips
+    return []
