@@ -129,6 +129,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   decode step and one MoE layer at each of their shapes; then the
   attention is timed at moonshot's prefill shape beside SDPA with
   is_causal=True.
+  Then recurrent serving (models/ssm.py): [xlstm-parity] runs
+  xlstm-350m at full width cut to 2 layers (one mLSTM, one sLSTM) in
+  float32 on B=2 x 1,100-token prompts (the mLSTM's parallel form in
+  three query chunks of 512, the last ragged), card against CPU (prefill
+  and 4 decode steps' logits within 1e-3, generate's greedy tokens, no
+  kernel launched), the decode-equals-train law of tests/test_archs.py on
+  the card (5e-2), and hymba's full width with block_pattern=("mamba",)
+  cut to 2 layers the same way (the CUDA scan once a layer in the
+  prefill); [xlstm-main] runs ServeEngine.generate on xlstm-350m's full
+  configuration (24 layers, bf16, seeded random weights) for [lm-main]'s
+  traffic: valid tokens, finite logits, no kernel launched, first token,
+  decode per step, tokens/s, peak memory, and a [profile] of one mLSTM
+  and one sLSTM layer's prefill at the main shape and of one decode step,
+  scaled to a prefill's launches and device time.
   7. rack sharding, last, so that its process group and profiler windows
      come after every earlier timing: [shard-parity] runs
      tests/test_sharding.py's four pinned configurations
@@ -249,6 +263,10 @@ MOE_ARCH, MOE_LAYER_ARCHS = "moonshot_v1_16b_a3b", ("moonshot_v1_16b_a3b",
                                                     "qwen3_moe_235b_a22b")
 MOE_LAYER_S = 1536
 MOE_PAR_LAYERS, MOE_PAR_BATCH, MOE_PAR_PROMPT, MOE_PAR_NEW = 2, 2, 512, 4
+# recurrent serving: xlstm-350m's main run ([lm-main]'s traffic) and its
+# card-vs-CPU parity run, cut to one layer of each kind; the mamba block
+# kind at hymba's width, cut the same way ([lm-parity]'s B x prompt)
+XLSTM_ARCH, XLSTM_PAR_LAYERS = "xlstm_350m", 2
 
 
 T_START = time.perf_counter()           # the script's start, for [elapsed]
@@ -3162,6 +3180,250 @@ def moe_flash_entry(args, kw, err, launches, dev) -> dict:
 
 
 # --------------------------------------------------------------------------
+# recurrent serving (models/ssm.py): [xlstm-parity], [xlstm-main]
+# --------------------------------------------------------------------------
+
+def recurrent_parity(tag, cfg, dev, scans):
+    """``cfg`` (float32, cut to a few layers) on the card against the CPU:
+    the serve steps on PAR_BATCH x PAR_PROMPT random tokens and PAR_NEW
+    decode steps (logits within 1e-3), then ServeEngine.generate on both
+    (the same greedy tokens); the card's generate must launch the scan
+    ``scans`` times a layer and no attention.  Returns (the scan's
+    launches in the card's generate, the card's parameters, the prompt
+    tokens on the card)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import step
+    p_cpu = transformer.make_params(cfg, torch.Generator().manual_seed(0),
+                                    device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to(dev)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        1, cfg.vocab, (PAR_BATCH, PAR_PROMPT)))
+    prefill, decode = step.make_prefill(cfg), step.make_serve_step(cfg)
+    worst = 0.0
+
+    def agree(what, g, c):
+        nonlocal worst
+        g = g.cpu()
+        if not torch.isfinite(g).all() or \
+                not torch.allclose(g, c, rtol=1e-3, atol=1e-3):
+            fail(f"{tag}: {what} logits differ between card and CPU "
+                 f"(max abs err {float((g - c).abs().max())})")
+        worst = max(worst, float((g - c).abs().max()))
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        c_cpu = transformer.init_cache(cfg, PAR_BATCH, LM_MAX_SEQ,
+                                       device="cpu")
+        c_gpu = transformer.init_cache(cfg, PAR_BATCH, LM_MAX_SEQ,
+                                       device=dev)
+        l_cpu, c_cpu = prefill(p_cpu, toks, c_cpu)
+        l_gpu, c_gpu = prefill(p_gpu, toks.to(dev), c_gpu)
+        agree("prefill", l_gpu, l_cpu)
+        for i in range(PAR_NEW):
+            tok = l_cpu.argmax(-1)[:, None]
+            l_cpu, c_cpu = decode(p_cpu, c_cpu, tok, PAR_PROMPT + i)
+            l_gpu, c_gpu = decode(p_gpu, c_gpu, tok.to(dev), PAR_PROMPT + i)
+            agree(f"decode step {i}", l_gpu, l_cpu)
+    prompts = toks.tolist()
+    r_cpu = ServeEngine(cfg, p_cpu, max_batch=PAR_BATCH,
+                        max_seq=LM_MAX_SEQ, device="cpu").generate(
+        prompts, max_new=PAR_NEW)
+    ops.reset_launch_counts()
+    r_gpu = ServeEngine(cfg, p_gpu, max_batch=PAR_BATCH,
+                        max_seq=LM_MAX_SEQ, device=dev).generate(
+        prompts, max_new=PAR_NEW)
+    counts = ops.launch_counts()
+    if [r.tokens for r in r_gpu] != [r.tokens for r in r_cpu]:
+        fail(f"{tag}: generate gave other greedy tokens on the card: "
+             f"{[r.tokens[PAR_PROMPT:] for r in r_gpu]} against "
+             f"{[r.tokens[PAR_PROMPT:] for r in r_cpu]}")
+    if counts["ssm_scan"] != scans * cfg.n_layers or \
+            counts["flash_attention"]:
+        fail(f"{tag}: launch counts {counts}, expected {scans} scan a layer "
+             f"({cfg.n_layers} layers) and no attention")
+    log(f"{tag} {cfg.name} {cfg.block_pattern} at full width (d_model "
+        f"{cfg.d_model}) cut to {cfg.n_layers} layers, float32, B="
+        f"{PAR_BATCH} x {PAR_PROMPT} tokens: card == CPU: prefill and "
+        f"{PAR_NEW} decode steps' logits within 1e-3 (max abs err "
+        f"{worst:.3g}); generate gave the same greedy tokens "
+        f"{[r.tokens[PAR_PROMPT:] for r in r_gpu]}; launches {counts}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return counts["ssm_scan"], p_gpu, toks.to(dev)
+
+
+def law(tag, cfg, params, toks, dev) -> None:
+    """tests/test_archs.py's law on the card: prefill(S) then decode at
+    S..S+PAR_NEW-1 equals the train forward at those positions (5e-2)."""
+    from repro_torch.models import transformer
+    S = toks.shape[1]
+    extra = np.random.default_rng(6).integers(1, cfg.vocab,
+                                              (toks.shape[0], PAR_NEW))
+    full = torch.cat([toks, torch.from_numpy(extra).to(dev)], dim=1)
+    worst = 0.0
+    with torch.inference_mode():
+        cache = transformer.init_cache(cfg, toks.shape[0], LM_MAX_SEQ)
+        _, cache, _ = transformer.forward(cfg, params, full[:, :S],
+                                          mode="prefill", cache=cache,
+                                          skip_head=True)
+        for t in range(S, S + PAR_NEW):
+            dec, cache, _ = transformer.forward(
+                cfg, params, full[:, t:t + 1], mode="decode", cache=cache,
+                pos=t)
+            x, _, _ = transformer.forward(cfg, params, full[:, :t + 1],
+                                          skip_head=True)
+            train = transformer.head(cfg, params, x[:, -1:])
+            err = float((dec - train).abs().max())
+            if not torch.allclose(dec, train, atol=5e-2, rtol=5e-2):
+                fail(f"{tag}: decode at position {t} differs from the train "
+                     f"forward (max abs err {err})")
+            worst = max(worst, err)
+    log(f"{tag} decode == train on the card at positions {S}..."
+        f"{S + PAR_NEW - 1}: max abs err {worst:.3g} (limit 5e-2 + 5e-2 "
+        f"rel, tests/test_archs.py)")
+
+
+def xlstm_parity(dev) -> int:
+    """[xlstm-parity]: xlstm-350m and the mamba block kind at full width,
+    cut to XLSTM_PAR_LAYERS layers, float32, card against CPU.  Returns
+    the scan's launches in the mamba run's generate."""
+    from repro_torch import configs
+    f32 = dict(param_dtype="float32", compute_dtype="float32",
+               n_layers=XLSTM_PAR_LAYERS)
+    full = configs.get_config(XLSTM_ARCH)
+    chunks = -(-PAR_PROMPT // full.attn_chunk)
+    log(f"[xlstm-parity] {full.name} cut to {XLSTM_PAR_LAYERS} of "
+        f"{full.n_layers} layers (one of each kind, the one cut); the "
+        f"mLSTM's parallel form in {chunks} query chunks of "
+        f"{full.attn_chunk}, the last of {PAR_PROMPT % full.attn_chunk}")
+    cfg = dataclasses.replace(full, **f32)
+    _, params, toks = recurrent_parity("[xlstm-parity]", cfg, dev, 0)
+    law("[xlstm-parity]", cfg, params, toks, dev)
+    del params
+    mamba = dataclasses.replace(configs.get_config(LM_ARCH),
+                                block_pattern=("mamba",), **f32)
+    return recurrent_parity("[xlstm-parity]", mamba, dev, 1)[0]
+
+
+def xlstm_main(dev) -> None:
+    """[xlstm-main]: xlstm-350m's full configuration (24 layers, bf16)
+    with the port's seeded random weights on the card,
+    ServeEngine(max_batch=4, max_seq=2048).generate of 4 prompts of 1,536
+    tokens, 32 new tokens, greedy ([lm-main]'s traffic); then a [profile]
+    of one layer of each kind at the prefill shape and of one decode
+    step."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import step
+    cfg = configs.get_config(XLSTM_ARCH)
+    t0 = time.perf_counter()
+    params = transformer.make_params(
+        cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    state = sum(t.numel() * t.element_size() for c in transformer.init_cache(
+        cfg, LM_BATCH, LM_MAX_SEQ) for t in c.values())
+    log(f"[xlstm-main] {cfg.name}: {cfg.n_layers} layers "
+        f"{cfg.block_pattern}, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"of {cfg.head_dim}, vocab {cfg.vocab}: {n_params:,} parameters, "
+        f"{n_bytes / 1e9:.3f} GB ({cfg.param_dtype}, the mLSTM's wi/wf and "
+        f"the sLSTM's b/R float32; param_count() "
+        f"{cfg.param_count() / 1e6:.1f} M), random init on the card in "
+        f"{init_s:.1f} s; decode state {state / 1e6:.1f} MB at B="
+        f"{LM_BATCH}")
+    engine = ServeEngine(cfg, params, max_batch=LM_BATCH, max_seq=LM_MAX_SEQ)
+    prompts = np.random.default_rng(7).integers(
+        1, cfg.vocab, (LM_BATCH, LM_PROMPT)).tolist()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = engine.generate(prompts, max_new=LM_NEW)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()):
+        fail(f"xlstm-main: launch counts {counts}: the xLSTM path runs no "
+             f"kernel (the reference runs none there)")
+    for r, p in zip(res, prompts):
+        new = r.tokens[len(p):]
+        if r.tokens[:len(p)] != p or len(new) != LM_NEW or \
+                not all(0 <= t < cfg.vocab for t in new):
+            fail(f"xlstm-main: bad generation {new}")
+    tm = engine.timings
+    del engine
+    toks = torch.tensor(prompts, device=dev)
+    prefill, decode = step.make_prefill(cfg), step.make_serve_step(cfg)
+    box = {}
+    with torch.inference_mode():
+        cache = transformer.init_cache(cfg, LM_BATCH, LM_MAX_SEQ)
+        box["lg"], box["cache"] = prefill(params, toks, cache)
+        box["lg2"], _ = decode(params, box["cache"],
+                               box["lg"].argmax(-1)[:, None], LM_PROMPT)
+    if not (torch.isfinite(box["lg"]).all() and
+            torch.isfinite(box["lg2"]).all()):
+        fail("xlstm-main: non-finite logits")
+    decode_ms = tm["decode_s"] / tm["decode_steps"] * 1e3
+    log(f"[xlstm-main] generate: {LM_BATCH} x {LM_PROMPT} prompt tokens, "
+        f"{LM_NEW} new each: wall {wall:.3f} s; first token (prefill) "
+        f"{tm['first_token_s'] * 1e3:.1f} ms; decode {decode_ms:.2f} ms per "
+        f"step over {tm['decode_steps']} steps; "
+        f"{LM_BATCH * LM_NEW / wall:.1f} generated tokens/s; prefill "
+        f"{LM_BATCH * LM_PROMPT / tm['first_token_s']:.0f} tokens/s; peak "
+        f"memory {peak / 2**30:.2f} GiB; launches {counts}; logits finite; "
+        f"first new tokens {[r.tokens[LM_PROMPT:LM_PROMPT + 4] for r in res]}")
+    # one layer of each kind at the prefill shape, on random hidden states
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((LM_BATCH, LM_PROMPT, cfg.d_model), generator=gen,
+                    device=dev).to(transformer.cdtype(cfg))
+    layer = {}
+    for i in range(cfg.period):
+        kind = transformer.layer_kind(cfg, i)
+        c0 = transformer.init_cache(cfg, LM_BATCH, LM_MAX_SEQ)[i]
+
+        def run_layer(i=i, kind=kind, c0=c0):
+            with torch.inference_mode():
+                transformer._apply_block(cfg, kind, params["layers"][i], x,
+                                         mode="prefill", cache=c0, pos=0)
+
+        run_layer()                                   # warm
+        ks, lwall = device_kernels(run_layer)
+        layer[kind] = report_profile(
+            f"xlstm {kind} layer prefill ({LM_BATCH} x {LM_PROMPT:,} "
+            f"tokens, layer {i})", ks, lwall, (), 1, "layer")
+
+    def run_decode():
+        with torch.inference_mode():
+            decode(params, box["cache"], box["lg"].argmax(-1)[:, None],
+                   LM_PROMPT)
+
+    ks, dwall = device_kernels(run_decode)
+    dec = report_profile(f"xlstm decode step ({cfg.n_layers} layers)", ks,
+                         dwall, (), 1, "step")
+    per = cfg.n_periods
+    if all(v["launches"] is not None for v in layer.values()):
+        n_pre = per * sum(v["launches"] for v in layer.values())
+        busy = per * sum(v["busy_us"] for v in layer.values()) / 1e3
+        sl = layer["slstm"]["launches"]
+        log(f"[xlstm-main] a prefill's layers, scaled from one layer of "
+            f"each kind x {per}: {n_pre:,.0f} launches ({sl:,.0f} a sLSTM "
+            f"layer, {sl / LM_PROMPT:.1f} a recurrence step), device busy "
+            f"{busy:.2f} ms against a first token of "
+            f"{tm['first_token_s'] * 1e3:.1f} ms "
+            f"({100 * busy / (tm['first_token_s'] * 1e3):.1f}% busy); "
+            f"decode step {dec['launches']} launches")
+    else:
+        log("[xlstm-main] the profiler recorded no device time: a "
+            "prefill's launches and busy share not measured")
+    del params, box, x
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
 
 def main() -> None:
     t_start = T_START
@@ -3452,6 +3714,17 @@ def main() -> None:
     moe_fa_launches = moe_main(dev)
     kernels.append(moe_flash_entry(fa_moe, fa_moe_kw, fa_moe_err,
                                    moe_fa_launches, dev))
+
+    # recurrent serving: the xLSTM mixers and the mamba block kind
+    log(f"[elapsed] [xlstm-parity] starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    mamba_scans = xlstm_parity(dev)
+    for k in kernels:
+        if k["name"] == "ssm_scan":
+            k["mamba_launches"] = mamba_scans
+    log(f"[elapsed] [xlstm-main] starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    xlstm_main(dev)
 
     # rack sharding last: its process group and profiler windows come
     # after every kernel timing and profile of the earlier paths

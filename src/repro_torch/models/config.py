@@ -6,11 +6,12 @@ One frozen dataclass drives every assigned architecture: dense GQA
 transformers, MoE (GShard-style routed experts), gemma2-style local/global
 alternation with logit softcaps, hybrid attention+SSM (hymba), xLSTM
 (sLSTM/mLSTM alternation), early-fusion VLM (chameleon) and encoder-decoder
-audio (whisper).  The port's forward runs the attn/swa/hymba kinds, dense
-or MoE, and refuses the rest (``models.transformer``); the runtime knobs
-(``remat``, ``scan_layers``, ``fsdp_embed``, ``microbatches``,
-``use_flash``, ``attn_chunk``, ``attn_bf16_scores``) are carried and not
-read.
+audio (whisper).  The port's forward runs every decoder block kind below,
+dense, MoE or without a feed-forward, and refuses the encoder-decoder and
+the front ends (``models.transformer``); the runtime knobs (``remat``,
+``scan_layers``, ``fsdp_embed``, ``microbatches``, ``use_flash``,
+``attn_bf16_scores``) are carried and not read, and ``attn_chunk`` is read
+by the mLSTM's parallel form only.
 
 Block kinds (``block_pattern``; ``n_layers`` must be divisible by
 ``len(block_pattern)``):

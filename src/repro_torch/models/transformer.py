@@ -1,16 +1,18 @@
 """Model assembly in PyTorch (port of ``repro.models.transformer``):
 parameters, decode caches and the forward pass, for decoder-only models
-whose blocks are ``attn``, ``swa`` or ``hymba``, with a dense or an MoE
-feed-forward (``models.moe``).
+whose blocks are ``attn``, ``swa``, ``hymba``, ``mamba``, ``mlstm`` or
+``slstm`` (the mixers of the last three in ``models.ssm``), with a dense
+or an MoE feed-forward (``models.moe``) or none (``d_ff=0``, xLSTM).
 
 The reference stacks each pattern position's parameters over periods and
 scans over them; here every layer has its own parameters (``Params``, an
 ``nn.Module`` that reads like the reference's nested dict) and a plain
-Python loop runs the layers.  Caches are one dict per layer.  Mesh
-sharding, ``remat``, ``scan_layers``, ``fsdp_embed``, ``microbatches``
-and ``use_flash`` have no counterpart on one card, and ``attn_chunk`` and
-``attn_bf16_scores`` tune the reference's jnp attention, which the flash
-kernel replaces: they are carried in the config and not read.
+Python loop runs the layers.  Caches are one dict per layer, holding what
+its kind needs.  Mesh sharding, ``remat``, ``scan_layers``,
+``fsdp_embed``, ``microbatches`` and ``use_flash`` have no counterpart on
+one card, and ``attn_bf16_scores`` tunes the reference's jnp attention,
+which the flash kernel replaces: they are carried in the config and not
+read.  ``attn_chunk`` is read by the mLSTM's parallel form only.
 Everything else the reference's forward supports raises
 ``NotImplementedError`` naming the ROADMAP item that will bring it.
 """
@@ -27,7 +29,7 @@ from .config import ModelConfig
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
-KINDS = ("attn", "swa", "hymba")
+KINDS = ("attn", "swa", "hymba", "mamba", "mlstm", "slstm")
 
 
 def cdtype(cfg):
@@ -39,11 +41,13 @@ def pdtype(cfg):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what this slice of the port does not
-    run, naming the ROADMAP Queue 1 item that brings it."""
+    """Raise ValueError for a block kind the reference does not know either,
+    and NotImplementedError for what the port does not run yet, naming the
+    ROADMAP Queue 1 item that brings it."""
+    unknown = sorted(set(cfg.block_pattern) - set(KINDS))
+    if unknown:
+        raise ValueError(f"{cfg.name}: unknown block kinds {unknown}")
     refused = []
-    for kind in sorted(set(cfg.block_pattern) - set(KINDS)):
-        refused.append(f"block kind {kind!r} (item 15)")
     if cfg.is_enc_dec or cfg.cross_attn:
         refused.append("encoder-decoder / cross_attn (item 16)")
     if cfg.pos != "rope":
@@ -158,6 +162,34 @@ def _ssm_params(cfg, init):
             "out_proj": init.dense(Dss, (Dss, cfg.d_model))}
 
 
+def _mlstm_params(cfg, init):
+    """The gates' ``wi`` and ``wf`` stay float32 whatever ``param_dtype``
+    is."""
+    D, Qd, H = cfg.d_model, cfg.q_dim, cfg.n_heads
+    return {"wq": init.dense(D, (D, Qd)), "wk": init.dense(D, (D, Qd)),
+            "wv": init.dense(D, (D, Qd)),
+            "wi": init.dense(D, (D, H), torch.float32),
+            "wf": init.dense(D, (D, H), torch.float32),
+            "wo_gate": init.dense(D, (D, Qd)),
+            "out_proj": init.dense(Qd, (Qd, D))}
+
+
+def _slstm_params(cfg, init):
+    """The bias ``b`` and the recurrent ``R`` stay float32 whatever
+    ``param_dtype`` is."""
+    D, H = cfg.d_model, cfg.n_heads
+    dh = D // H
+    return {"W": init.dense(D, (D, 4 * D)),
+            "b": init.zeros((4 * D,)),
+            "R": init.dense(dh, (H, dh, 4 * dh), torch.float32),
+            "out_proj": init.dense(D, (D, D))}
+
+
+_MIXERS = {"attn": _attn_params, "swa": _attn_params,
+           "mamba": _ssm_params, "mlstm": _mlstm_params,
+           "slstm": _slstm_params}
+
+
 def _block_params(cfg, kind, init):
     D = cfg.d_model
     p = {"ln1": init.zeros((D,))}
@@ -165,7 +197,7 @@ def _block_params(cfg, kind, init):
         p["mixer"] = {"attn": _attn_params(cfg, init),
                       "ssm": _ssm_params(cfg, init)}
     else:
-        p["mixer"] = _attn_params(cfg, init)
+        p["mixer"] = _MIXERS[kind](cfg, init)
     if cfg.d_ff > 0 or cfg.is_moe:
         p["ln2"] = init.zeros((D,))
         p["ffn"] = _moe_params(cfg, init) if cfg.is_moe \
@@ -208,9 +240,10 @@ def cache_len_for(cfg, kind, S):
 
 
 def init_cache(cfg: ModelConfig, B: int, S: int, dtype=None, device=None):
-    """Decoder state for the serve step: one dict per layer (ring caches of
-    rotated keys for swa/hymba, full caches for attn, plus the SSM state
-    for hymba)."""
+    """Decoder state for the serve step: one dict per layer, by its kind
+    (ring caches of rotated keys for swa/hymba, full caches for attn; the
+    SSM state for hymba/mamba; the float32 recurrent states C/n/m for
+    mlstm and h/c/n/m for slstm, whose size does not depend on S)."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or cdtype(cfg)
@@ -218,13 +251,19 @@ def init_cache(cfg: ModelConfig, B: int, S: int, dtype=None, device=None):
     caches = []
     for i in range(cfg.n_layers):
         kind = layer_kind(cfg, i)
-        W = cache_len_for(cfg, kind, S)
-        c = {"k": torch.zeros((B, W, kv, hd), dtype=dt, device=dev),
-             "v": torch.zeros((B, W, kv, hd), dtype=dt, device=dev),
-             "pos_ids": torch.full((B, W), -1, dtype=torch.int32,
-                                   device=dev)}
-        if kind == "hymba":
+        c = {}
+        if kind in ("attn", "swa", "hymba"):
+            W = cache_len_for(cfg, kind, S)
+            c = {"k": torch.zeros((B, W, kv, hd), dtype=dt, device=dev),
+                 "v": torch.zeros((B, W, kv, hd), dtype=dt, device=dev),
+                 "pos_ids": torch.full((B, W), -1, dtype=torch.int32,
+                                       device=dev)}
+        if kind in ("hymba", "mamba"):
             c["ssm"] = ssm.ssm_init_state(cfg, B, dt, dev)
+        if kind == "mlstm":
+            c.update(ssm.mlstm_init_state(cfg, B, dt, dev))
+        if kind == "slstm":
+            c.update(ssm.slstm_init_state(cfg, B, dt, dev))
         caches.append(c)
     return caches
 
@@ -244,7 +283,7 @@ def _apply_block(cfg, kind, p, x, *, mode, cache, pos):
             p["mixer"], h, cfg, kind=kind, mode=mode, cache=cache, pos=pos)
         if kv_cache:
             new_cache.update(kv_cache)
-    else:                                                # hymba
+    elif kind == "hymba":
         a_cache = {k: cache[k] for k in ("k", "v", "pos_ids")} \
             if cache else None
         mix_a, kv_cache = layers.attention_block(
@@ -258,6 +297,19 @@ def _apply_block(cfg, kind, p, x, *, mode, cache, pos):
             new_cache.update(kv_cache)
         if s_state:
             new_cache["ssm"] = s_state
+    elif kind == "mamba":
+        mix, s_state = ssm.mamba_mixer(
+            p["mixer"], h, cfg, mode=mode,
+            state=cache.get("ssm") if cache else None)
+        if s_state:
+            new_cache["ssm"] = s_state
+    elif kind in ("mlstm", "slstm"):
+        mixer = ssm.mlstm_mixer if kind == "mlstm" else ssm.slstm_mixer
+        mix, st = mixer(p["mixer"], h, cfg, mode=mode, state=cache)
+        if st:
+            new_cache.update(st)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
     x = x + mix
     if "ffn" in p:
         h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)

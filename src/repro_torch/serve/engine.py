@@ -4,9 +4,12 @@ step-synchronous decode with greedy or temperature sampling.
 As in the reference, prompts are right-padded with token 0 to the longest
 prompt, every sequence decodes from that common position, and the cache
 holds ``max_seq`` positions (a ring of ``sliding_window`` slots for
-swa/hymba layers).  MoE layers route every prompt position, padding
-included, and take capacity from it, as in the reference; the MoE aux
-loss ``forward`` returns is discarded.  The sampled tokens stay on the
+swa/hymba layers; mamba, mLSTM and sLSTM layers keep fixed-size
+recurrent states instead).  MoE layers route every prompt position,
+padding included, and take capacity from it, and the recurrent mixers
+run through the pad positions, so a shorter prompt's state has absorbed
+them, as in the reference; the MoE aux loss ``forward`` returns is
+discarded.  The sampled tokens stay on the
 device as the next step's input; the host reads them once per token.  ``timings`` holds the
 last ``generate``'s host-clock seconds to the first token (cache, prefill,
 first sample) and of the decode steps; each ends in that host read, so

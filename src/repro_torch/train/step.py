@@ -1,7 +1,8 @@
 """Serve step builders (port of the serving part of
 ``repro.train.step``): ``make_prefill`` and ``make_serve_step`` return
 plain functions of (params, tensors), for every configuration the model
-runs (attn/swa/hymba blocks, dense or MoE); as in the reference they
+runs (attn/swa/hymba/mamba/mlstm/slstm blocks, dense, MoE or no FFN); as
+in the reference they
 discard ``forward``'s aux (the MoE loss).  The train step is not ported
 yet (ROADMAP Queue 1 item 17)."""
 from __future__ import annotations

@@ -25,7 +25,10 @@ two cards, else over gloo on one): bitwise equal to engine.run on the
 card.  MoE (models/moe.py): the routes equal, or a differing one only at
 a near-tie (the CPU's gap under torch_kernel_inputs.ROUTE_GAP, the route
 flip rule); with equal routes, dropped equal, the layer's output within
-1e-5 in float32 and 2e-2 in bfloat16 and aux rel 1e-5."""
+1e-5 in float32 and 2e-2 in bfloat16 and aux rel 1e-5.  Recurrent
+mixers (models/ssm.py): the mLSTM and sLSTM at 1,100 tokens within 1e-3
+in float32 (their products add in another order); smoke xLSTM and mamba
+generate, the same greedy tokens."""
 import copy
 import dataclasses
 
@@ -1096,4 +1099,76 @@ def test_moe_generate_on_card_matches_cpu(cuda):
                       flash_attention.CUDA_CORE: cfg.n_layers}
     if route_flips(got, exp):        # near-ties only: nothing else holds
         return
+    assert [r.tokens for r in rg] == [r.tokens for r in rc]
+
+
+# --------------------------------------------------------------------------
+# recurrent serving (models/ssm.py): the xLSTM mixers and the mamba kind
+# --------------------------------------------------------------------------
+
+def _xlstm_cfg(**kw):
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_smoke("xlstm_350m"),
+                               param_dtype="float32",
+                               compute_dtype="float32", **kw)
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_xlstm_mixer_on_card_matches_cpu(cuda, kind):
+    """One mixer at a small width (256 wide, 4 heads of 64), float32,
+    B = 2 x 1,100 tokens (the mLSTM's parallel form in three query chunks
+    of 512, the last ragged): prefill output and final state, then two
+    decode steps, card against CPU within 1e-3 (the products and, for the
+    parallel form, exp of differences of the running gate sum, add in
+    another order; the sum itself is taken in float64 on both)."""
+    from repro_torch.models import ssm, transformer
+    cfg = _xlstm_cfg(d_model=256, head_dim=64)
+    fn = {"mlstm": transformer._mlstm_params,
+          "slstm": transformer._slstm_params}[kind]
+    p = transformer.Params(fn(cfg, transformer._Init(
+        cfg, torch.Generator().manual_seed(0), torch.device("cpu"))))
+    pg = copy.deepcopy(p).to(cuda)
+    mixer = getattr(ssm, f"{kind}_mixer")
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 1102, cfg.d_model)).astype(np.float32))
+    oc, sc = mixer(p, x[:, :1100], cfg, mode="prefill")
+    og, sg = mixer(pg, x[:, :1100].to(cuda), cfg, mode="prefill")
+    for t in (1100, 1101):
+        assert og.device.type == "cuda"
+        torch.testing.assert_close(og.cpu(), oc, atol=1e-3, rtol=1e-3)
+        for k in sc:
+            assert sg[k].device.type == "cuda"
+            torch.testing.assert_close(sg[k].cpu(), sc[k], atol=1e-3,
+                                       rtol=1e-3)
+        oc, sc = mixer(p, x[:, t:t + 1], cfg, mode="decode", state=sc)
+        og, sg = mixer(pg, x[:, t:t + 1].to(cuda), cfg, mode="decode",
+                       state=sg)
+    torch.testing.assert_close(og.cpu(), oc, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("arch,kw,scans", [
+    ("xlstm_350m", {}, 0), ("hymba_1_5b", {"block_pattern": ("mamba",)}, 1)])
+def test_recurrent_generate_on_card_matches_cpu(cuda, arch, kw, scans):
+    """Smoke xLSTM and a smoke mamba stack, float32, parameters made on
+    the card by default and copied to the CPU: ServeEngine.generate on
+    ragged prompts gives the same greedy tokens on both.  The xLSTM
+    launches no kernel; the mamba prefill launches the CUDA scan once a
+    layer."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    cfg = dataclasses.replace(configs.get_smoke(arch), param_dtype="float32",
+                              compute_dtype="float32", **kw)
+    pg = transformer.make_params(cfg, torch.Generator(cuda).manual_seed(0))
+    pc = copy.deepcopy(pg).cpu()
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in (19, 13, 9)]
+    ops.reset_launch_counts()
+    rg = ServeEngine(cfg, pg, max_batch=4, max_seq=40).generate(
+        prompts, max_new=6)
+    counts = ops.launch_counts()
+    rc = ServeEngine(cfg, pc, max_batch=4, max_seq=40,
+                     device="cpu").generate(prompts, max_new=6)
+    assert counts["ssm_scan"] == scans * cfg.n_layers
+    assert counts["flash_attention"] == 0
     assert [r.tokens for r in rg] == [r.tokens for r in rc]

@@ -262,8 +262,6 @@ def test_params_from_jax_layer_order_and_bits():
 
 @pytest.mark.parametrize("arch,cfg_kw,item", [
     ("qwen3_moe_235b_a22b", {"pos": "learned"}, "item 16"),
-    ("xlstm_350m", {}, "item 15"),
-    ("hymba_1_5b", {"block_pattern": ("mamba",)}, "item 15"),
     ("whisper_large_v3", {}, "item 16"),
     ("chameleon_34b", {}, "item 16"),
     ("llama3_2_1b", {"pos": "learned"}, "item 16"),
