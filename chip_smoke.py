@@ -143,6 +143,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   decode per step, tokens/s, peak memory, and a [profile] of one mLSTM
   and one sLSTM layer's prefill at the main shape and of one decode step,
   scaled to a prefill's launches and device time.
+  Then the encoder-decoder and the VQ-token front end: [whisper-parity]
+  runs whisper-large-v3 at full width cut to 2 encoder + 2 decoder
+  layers in float32 on 2 seeded windows of 1,500 frames and 100-token
+  prompts, card against CPU (the encoder output, the prefill's and 3
+  decode steps' logits within 1e-3, the same greedy tokens, the
+  attention on its CUDA-core instance), then the decode-equals-train law
+  on the card; [whisper-main] serves whisper-large-v3's full
+  configuration (32 + 32 layers, bf16, seeded random weights) to 4
+  requests of 1,500 frames and 224 prompt tokens, 32 new, greedy, through
+  make_prefill and make_serve_step in a loop that mirrors generate: the
+  encoder, first token, decode per step, tokens/s, peak memory, the
+  attention's launches by shape (encoder, decoder prefill, cross prefill,
+  cross decode), and a [profile] of one prefill and one decode step;
+  [vlm-main] runs ServeEngine.generate on chameleon-34b's full
+  configuration (48 layers, 34.3 B parameters, bf16) for [lm-main]'s
+  traffic.  Phase 3 holds the attention at these five shapes to its
+  plain version (2e-2 and the row check), and each is timed beside its
+  bound, its plain version and SDPA at the same mask.
   7. rack sharding, last, so that its process group and profiler windows
      come after every earlier timing: [shard-parity] runs
      tests/test_sharding.py's four pinned configurations
@@ -267,6 +285,15 @@ MOE_PAR_LAYERS, MOE_PAR_BATCH, MOE_PAR_PROMPT, MOE_PAR_NEW = 2, 2, 512, 4
 # card-vs-CPU parity run, cut to one layer of each kind; the mamba block
 # kind at hymba's width, cut the same way ([lm-parity]'s B x prompt)
 XLSTM_ARCH, XLSTM_PAR_LAYERS = "xlstm_350m", 2
+# the encoder-decoder: whisper-large-v3's main run (30 s windows of 1,500
+# frames, a prompt of previous text at half the 448-token text context,
+# greedy) and its card-vs-CPU parity run cut to 2 + 2 layers in float32
+WH_ARCH, WH_BATCH, WH_PROMPT, WH_NEW, WH_MAX_SEQ = (
+    "whisper_large_v3", 4, 224, 32, 448)
+WH_PAR_LAYERS, WH_PAR_BATCH, WH_PAR_PROMPT, WH_PAR_NEW = 2, 2, 100, 4
+# the VQ-token front end: chameleon-34b at full width on [lm-main]'s
+# traffic; its depth is the one thing to cut if the script runs long
+VLM_ARCH, VLM_LAYERS = "chameleon_34b", 48
 
 
 T_START = time.perf_counter()           # the script's start, for [elapsed]
@@ -2478,12 +2505,28 @@ FLASH_RAGGED = [
 # P and the output rounded to bf16 give a few 1e-3; a faulty key tile
 # reads far above (flash_row_controls)
 FA_ROW_TOL = 0.03
-# moonshot-v1-16b-a3b's prefill: hd 128, 16 heads over 16, causal, no
-# window (the shape at which SDPA's own flash backend applies)
-FLASH_MOE = (LM_BATCH, 16, 16, LM_PROMPT, LM_PROMPT, 128, True, 0, 0.0,
-             "bfloat16")
 SSM_MAIN = (LM_BATCH, LM_PROMPT, 3200, 16)      # hymba-1.5b's prefill
 SSM_RAGGED = [(3, 37, 200, 16)]
+# the attention at the serving main runs' shapes, each checked in phase 3
+# and timed beside SDPA: moonshot-v1-16b-a3b's prefill (hd 128, 16 heads
+# over 16, causal, no window: the shape at which SDPA's own flash backend
+# applies), the encoder-decoder's ([whisper-main]: 4 windows of 1,500
+# frames, 20 heads of 64, prompts of 224 tokens) and chameleon-34b's
+# prefill (GQA 64/8, hd 128, causal): name -> case
+FLASH_SERVING = {
+    "hd 128": (LM_BATCH, 16, 16, LM_PROMPT, LM_PROMPT, 128, True, 0, 0.0,
+               "bfloat16"),
+    "whisper encoder": (WH_BATCH, 20, 20, 1500, 1500, 64, False, 0, 0.0,
+                        "bfloat16"),
+    "whisper cross prefill": (WH_BATCH, 20, 20, WH_PROMPT, 1500, 64, False,
+                              0, 0.0, "bfloat16"),
+    "whisper cross decode": (WH_BATCH, 20, 20, 1, 1500, 64, False, 0, 0.0,
+                             "bfloat16"),
+    "whisper decoder prefill": (WH_BATCH, 20, 20, WH_PROMPT, WH_PROMPT, 64,
+                                True, 0, 0.0, "bfloat16"),
+    "chameleon prefill": (LM_BATCH, 64, 8, LM_PROMPT, LM_PROMPT, 128, True,
+                          0, 0.0, "bfloat16"),
+}
 
 
 def flash_args(case, dev, seed=31):
@@ -3137,48 +3180,6 @@ def moe_main(dev) -> int:
     return counts["flash_attention"]
 
 
-def moe_flash_entry(args, kw, err, launches, dev) -> dict:
-    """The attention at moonshot's prefill shape (FLASH_MOE) beside its
-    bound, its plain version and SDPA with is_causal=True."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention, ref
-    q, k, v = args
-    B, H, KV, S, _, hd, causal, W, _, _ = FLASH_MOE
-    ms = time_ms(lambda: flash_attention.flash_attention(q, k, v, **kw),
-                 reps=50, warmup=5)
-    plain = time_ms(lambda: ref.mha_reference(q, k, v, **kw), reps=10,
-                    warmup=2)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), reps=50, warmup=5)
-    out = flash_attention.flash_attention(q, k, v, **kw)
-    inst = flash_attention.LAST_INSTANCE
-    pairs = attn_pairs(S, S, causal, W) * B * H
-    bound, by, op = bound_ms(
-        nbytes(q, k, v, out), {"bf16 tensor-core flops":
-                               (4 * hd * pairs, PEAK_BF16_FLOP_S),
-                               "exponentials": (pairs, exp_per_s())})
-    dev_us = kernel_device_us(
-        lambda: flash_attention.flash_attention(q, k, v, **kw),
-        ["flash_attention_bf16_kernel"], reps=20)
-    entry = {"name": "flash_attention (hd 128)", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "replaces": "src/repro/kernels/flash_attention.py:83",
-             "launches": launches, "max_abs_err": err, "ms": ms,
-             "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-             "bound_op": op, "library_ms": lib, "instance": inst,
-             "device_ms": None if dev_us is None else dev_us / 1e3}
-    log(f"[time] flash_attention ({inst}) at moonshot's prefill B,H,KV,S,hd="
-        f"{(B, H, KV, S, hd)} causal, no window: {ms * 1e3:.1f} us per call "
-        f"on the stream, "
-        f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'} of "
-        f"device time (profiler); bound {bound * 1e3:.3f} us by {op} "
-        f"({4 * hd * pairs / 1e9:.1f} GFLOP, {pairs / 1e6:.1f} M "
-        f"exponentials, {nbytes(q, k, v, out) / 1e6:.0f} MB); plain version "
-        f"{plain * 1e3:.1f} us; SDPA (is_causal=True) {lib * 1e3:.1f} us; "
-        f"{launches} launches in [moe-main]")
-    return entry
-
-
 # --------------------------------------------------------------------------
 # recurrent serving (models/ssm.py): [xlstm-parity], [xlstm-main]
 # --------------------------------------------------------------------------
@@ -3253,26 +3254,28 @@ def recurrent_parity(tag, cfg, dev, scans):
     return counts["ssm_scan"], p_gpu, toks.to(dev)
 
 
-def law(tag, cfg, params, toks, dev) -> None:
+def law(tag, cfg, params, toks, dev, frames=None,
+        max_seq=LM_MAX_SEQ) -> None:
     """tests/test_archs.py's law on the card: prefill(S) then decode at
-    S..S+PAR_NEW-1 equals the train forward at those positions (5e-2)."""
+    S..S+PAR_NEW-1 equals the train forward at those positions (5e-2); an
+    encoder-decoder's prefill and train forwards take ``frames``."""
     from repro_torch.models import transformer
-    S = toks.shape[1]
+    S, n = toks.shape[1], PAR_NEW
     extra = np.random.default_rng(6).integers(1, cfg.vocab,
-                                              (toks.shape[0], PAR_NEW))
+                                              (toks.shape[0], n))
     full = torch.cat([toks, torch.from_numpy(extra).to(dev)], dim=1)
     worst = 0.0
     with torch.inference_mode():
-        cache = transformer.init_cache(cfg, toks.shape[0], LM_MAX_SEQ)
+        cache = transformer.init_cache(cfg, toks.shape[0], max_seq)
         _, cache, _ = transformer.forward(cfg, params, full[:, :S],
                                           mode="prefill", cache=cache,
-                                          skip_head=True)
-        for t in range(S, S + PAR_NEW):
+                                          frames=frames, skip_head=True)
+        for t in range(S, S + n):
             dec, cache, _ = transformer.forward(
                 cfg, params, full[:, t:t + 1], mode="decode", cache=cache,
                 pos=t)
             x, _, _ = transformer.forward(cfg, params, full[:, :t + 1],
-                                          skip_head=True)
+                                          frames=frames, skip_head=True)
             train = transformer.head(cfg, params, x[:, -1:])
             err = float((dec - train).abs().max())
             if not torch.allclose(dec, train, atol=5e-2, rtol=5e-2):
@@ -3280,7 +3283,7 @@ def law(tag, cfg, params, toks, dev) -> None:
                      f"forward (max abs err {err})")
             worst = max(worst, err)
     log(f"{tag} decode == train on the card at positions {S}..."
-        f"{S + PAR_NEW - 1}: max abs err {worst:.3g} (limit 5e-2 + 5e-2 "
+        f"{S + n - 1}: max abs err {worst:.3g} (limit 5e-2 + 5e-2 "
         f"rel, tests/test_archs.py)")
 
 
@@ -3424,6 +3427,352 @@ def xlstm_main(dev) -> None:
 
 
 # --------------------------------------------------------------------------
+# the encoder-decoder and the VQ-token front end: [whisper-parity],
+# [whisper-main], [vlm-main], and the attention at their shapes
+# --------------------------------------------------------------------------
+
+def whisper_parity(dev) -> None:
+    """[whisper-parity]: whisper-large-v3 at full width cut to
+    WH_PAR_LAYERS encoder and WH_PAR_LAYERS decoder layers, float32, card
+    against CPU: B = WH_PAR_BATCH seeded N(0, 1) windows of 1,500 frames
+    and prompts of WH_PAR_PROMPT tokens; the encoder's output, then the
+    prefill's and each decode step's logits (1e-3) on the CPU's greedy
+    tokens, whose argmax must agree; the attention on its CUDA-core
+    instance once an encoder layer, twice a decoder layer in the prefill
+    and once a decoder layer a step; then the decode-equals-train law on
+    the card."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.models import transformer
+    from repro_torch.train import step
+    full = configs.get_config(WH_ARCH)
+    cfg = dataclasses.replace(full, n_layers=WH_PAR_LAYERS,
+                              enc_layers=WH_PAR_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    log(f"[whisper-parity] {cfg.name} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, enc_seq {cfg.enc_seq}) cut to {WH_PAR_LAYERS} + "
+        f"{WH_PAR_LAYERS} of {full.enc_layers} + {full.n_layers} layers "
+        f"(the one cut), float32; B={WH_PAR_BATCH}, prompts of "
+        f"{WH_PAR_PROMPT} tokens, {WH_PAR_NEW} new, max_seq {WH_MAX_SEQ}")
+    t0 = time.perf_counter()
+    p_cpu = transformer.make_params(cfg, torch.Generator().manual_seed(0),
+                                    device="cpu", max_seq=WH_MAX_SEQ)
+    p_gpu = copy.deepcopy(p_cpu).to(dev)
+    rng = np.random.default_rng(8)
+    frames = torch.from_numpy(rng.standard_normal(
+        (WH_PAR_BATCH, cfg.enc_seq, cfg.d_model), dtype=np.float32))
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab,
+                                         (WH_PAR_BATCH, WH_PAR_PROMPT)))
+    prefill, decode = step.make_prefill(cfg), step.make_serve_step(cfg)
+    worst = {"encoder": 0.0, "logits": 0.0}
+
+    def agree(what, kind, g, c):
+        g = g.cpu()
+        err = float((g - c).abs().max())
+        if g.shape != c.shape or not torch.isfinite(g).all() or \
+                not torch.allclose(g, c, rtol=1e-3, atol=1e-3):
+            fail(f"whisper-parity: {what} differs between card and CPU "
+                 f"(max abs err {err})")
+        worst[kind] = max(worst[kind], err)
+
+    greedy = []
+    with torch.inference_mode():
+        agree("the encoder output", "encoder",
+              transformer.encode(cfg, p_gpu, frames.to(dev)),
+              transformer.encode(cfg, p_cpu, frames))
+        c_cpu = transformer.init_cache(cfg, WH_PAR_BATCH, WH_MAX_SEQ,
+                                       device="cpu")
+        c_gpu = transformer.init_cache(cfg, WH_PAR_BATCH, WH_MAX_SEQ,
+                                       device=dev)
+        l_cpu, c_cpu = prefill(p_cpu, toks, c_cpu, frames)
+        ops.reset_launch_counts()
+        l_gpu, c_gpu = prefill(p_gpu, toks.to(dev), c_gpu, frames.to(dev))
+        agree("the prefill's logits", "logits", l_gpu, l_cpu)
+        for i in range(WH_PAR_NEW):
+            tok = l_cpu.argmax(-1)
+            if not torch.equal(l_gpu.argmax(-1).cpu(), tok):
+                fail(f"whisper-parity: greedy token {i} differs: card "
+                     f"{l_gpu.argmax(-1).tolist()}, CPU {tok.tolist()}")
+            greedy.append(tok.tolist())
+            if i == WH_PAR_NEW - 1:
+                break
+            l_cpu, c_cpu = decode(p_cpu, c_cpu, tok[:, None],
+                                  WH_PAR_PROMPT + i)
+            l_gpu, c_gpu = decode(p_gpu, c_gpu, tok[:, None].to(dev),
+                                  WH_PAR_PROMPT + i)
+            agree(f"decode step {i}'s logits", "logits", l_gpu, l_cpu)
+    counts = ops.launch_counts()
+    inst = dict(flash_attention.INSTANCE_LAUNCHES)
+    want = cfg.enc_layers + 2 * cfg.n_layers + \
+        (WH_PAR_NEW - 1) * cfg.n_layers
+    if inst != {flash_attention.TENSOR_CORE: 0,
+                flash_attention.CUDA_CORE: want} or counts["ssm_scan"]:
+        fail(f"whisper-parity: launch counts {counts}, attention instances "
+             f"{inst}; expected {want} CUDA-core attention launches "
+             f"(encoder layers + 2 x decoder layers in the prefill, decoder "
+             f"layers a decode step) and no scan")
+    log(f"[whisper-parity] card == CPU: encoder output within 1e-3 (max abs "
+        f"err {worst['encoder']:.3g}); the prefill's and "
+        f"{WH_PAR_NEW - 1} decode steps' logits within 1e-3 (max abs err "
+        f"{worst['logits']:.3g}); the same greedy tokens "
+        f"{[list(t) for t in zip(*greedy)]}; attention launches {want}, "
+        f"instances {inst}; {time.perf_counter() - t0:.1f} s")
+    law("[whisper-parity]", cfg, p_gpu, toks.to(dev), dev,
+        frames=frames.to(dev), max_seq=WH_MAX_SEQ)
+    del p_gpu, c_gpu
+    torch.cuda.empty_cache()
+
+
+def whisper_main(dev) -> dict:
+    """[whisper-main]: whisper-large-v3's full configuration (32 encoder +
+    32 decoder layers, bf16) with the port's seeded random weights on the
+    card, serving WH_BATCH requests, each a 30 s window of 1,500 seeded
+    frames and a WH_PROMPT-token prompt, WH_NEW new tokens, greedy, max_seq
+    WH_MAX_SEQ, through make_prefill and make_serve_step in a loop that
+    mirrors ServeEngine.generate (one host read a token, host clock); then
+    a [profile] of one prefill and one decode step.  Returns the
+    attention's launches by FLASH_SERVING name."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.models import transformer
+    from repro_torch.train import step
+    cfg = configs.get_config(WH_ARCH)
+    t0 = time.perf_counter()
+    params = transformer.make_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), max_seq=WH_MAX_SEQ)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"[whisper-main] {cfg.name}: {cfg.enc_layers} encoder + "
+        f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}: {n_params:,} parameters at max_seq {WH_MAX_SEQ}, "
+        f"{n_bytes / 1e9:.3f} GB ({cfg.param_dtype}, norms float32), random "
+        f"init on the card in {init_s:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    frames = torch.randn((WH_BATCH, cfg.enc_seq, cfg.d_model), generator=gen,
+                         device=dev)
+    toks = torch.from_numpy(np.random.default_rng(10).integers(
+        1, cfg.vocab, (WH_BATCH, WH_PROMPT))).to(dev)
+    prefill, decode = step.make_prefill(cfg), step.make_serve_step(cfg)
+    with torch.inference_mode():
+        transformer.encode(cfg, params, frames)             # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        transformer.encode(cfg, params, frames)
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = []
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        cache = transformer.init_cache(cfg, WH_BATCH, WH_MAX_SEQ)
+        lg, cache = prefill(params, toks, cache, frames)
+        last = lg.argmax(-1)
+        out.append(last.tolist())                 # the one host read
+        t1 = time.perf_counter()
+        first = lg
+        for pos in range(WH_PROMPT, WH_PROMPT + WH_NEW - 1):
+            lg, cache = decode(params, cache, last[:, None], pos)
+            last = lg.argmax(-1)
+            out.append(last.tolist())
+        t2 = time.perf_counter()
+    counts = ops.launch_counts()
+    inst = dict(flash_attention.INSTANCE_LAUNCHES)
+    got = dict(flash_attention.SHAPE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.inference_mode():            # a second, warm first token
+        t3 = time.perf_counter()
+        c = transformer.init_cache(cfg, WH_BATCH, WH_MAX_SEQ)
+        prefill(params, toks, c, frames)[0].argmax(-1).tolist()
+        warm_ms = (time.perf_counter() - t3) * 1e3
+        del c
+    keys = {name: case[:8] for name, case in FLASH_SERVING.items()
+            if name.startswith("whisper")}
+    want = {keys["whisper encoder"]: cfg.enc_layers,
+            keys["whisper decoder prefill"]: cfg.n_layers,
+            keys["whisper cross prefill"]: cfg.n_layers,
+            keys["whisper cross decode"]: cfg.n_layers * (WH_NEW - 1)}
+    if got != want or counts["ssm_scan"] or \
+            inst[flash_attention.CUDA_CORE]:
+        fail(f"whisper-main: attention launches by shape {got}, expected "
+             f"{want}; instances {inst}; launch counts {counts}")
+    new = [list(t) for t in zip(*out)]
+    if len(new) != WH_BATCH or any(
+            len(t) != WH_NEW or not all(0 <= x < cfg.vocab for x in t)
+            for t in new):
+        fail(f"whisper-main: bad generation {new}")
+    if not (torch.isfinite(first).all() and torch.isfinite(lg).all()):
+        fail("whisper-main: non-finite logits")
+    wall = t2 - t0
+    steps = WH_NEW - 1
+    log(f"[whisper-main] {WH_BATCH} requests x ({cfg.enc_seq:,} frames + "
+        f"{WH_PROMPT} prompt tokens), {WH_NEW} new each, greedy: encoder "
+        f"{enc_ms:.1f} ms (warm, alone); first token {(t1 - t0) * 1e3:.1f} "
+        f"ms cold (the first prefill at these shapes: cache, encoder, cross "
+        f"keys and values, decoder prefill, sample), {warm_ms:.1f} ms warm "
+        f"(a second prefill, after the run); decode {(t2 - t1) / steps * 1e3:.2f} ms per step over "
+        f"{steps} steps; {WH_BATCH * WH_NEW / wall:.1f} generated tokens/s; "
+        f"wall {wall:.3f} s; peak memory {peak / 2**30:.2f} GiB; all "
+        f"{WH_BATCH * WH_NEW} tokens produced, logits finite; attention "
+        f"launches by shape "
+        + ", ".join(f"{n} {got[k]}" for n, k in keys.items())
+        + f", instances {inst}; first new tokens {[t[:4] for t in new]}")
+    box = {}
+
+    def run_prefill():
+        box.pop("cache", None)
+        with torch.inference_mode():
+            c = transformer.init_cache(cfg, WH_BATCH, WH_MAX_SEQ)
+            box["lg"], box["cache"] = prefill(params, toks, c, frames)
+
+    def run_decode():
+        with torch.inference_mode():
+            decode(params, box["cache"], box["lg"].argmax(-1)[:, None],
+                   WH_PROMPT)
+
+    run_prefill()
+    ks, pwall = device_kernels(run_prefill)
+    report_profile(f"whisper prefill ({WH_BATCH} x 1,500 frames + "
+                   f"{WH_PROMPT} tokens, the encoder included)", ks, pwall,
+                   ("flash_attention",), 1, "prefill")
+    ks, dwall = device_kernels(run_decode)
+    report_profile("whisper decode step", ks, dwall, ("flash_attention",),
+                   1, "step")
+    del params, box, cache, frames, lg, first
+    torch.cuda.empty_cache()
+    return {n: got[k] for n, k in keys.items()}
+
+
+def vlm_main(dev) -> int:
+    """[vlm-main]: chameleon-34b (the VQ-token front end: image tokens are
+    ids of the shared vocab) at full width and VLM_LAYERS of its 48
+    layers, bf16, seeded random weights on the card,
+    ServeEngine(max_batch=4, max_seq=2048).generate of 4 prompts of 1,536
+    random ids, 32 new tokens, greedy ([lm-main]'s traffic).  Returns the
+    attention's launches."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import step
+    full = configs.get_config(VLM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = transformer.make_params(
+        cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"[vlm-main] {cfg.name}: {cfg.n_layers} of {full.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, QK-norm, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"frontend {cfg.frontend}: {n_params:,} parameters, "
+        f"{n_bytes / 2**30:.2f} GiB ({cfg.param_dtype}), random init on the "
+        f"card in {init_s:.1f} s")
+    engine = ServeEngine(cfg, params, max_batch=LM_BATCH, max_seq=LM_MAX_SEQ)
+    prompts = np.random.default_rng(11).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT)).tolist()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = engine.generate(prompts, max_new=LM_NEW)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    inst = dict(flash_attention.INSTANCE_LAUNCHES)
+    got = dict(flash_attention.SHAPE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {FLASH_SERVING["chameleon prefill"][:8]: cfg.n_layers}
+    if got != want or counts["ssm_scan"] or \
+            inst[flash_attention.CUDA_CORE]:
+        fail(f"vlm-main: attention launches by shape {got}, expected "
+             f"{want}; instances {inst}; launch counts {counts}")
+    for r, p in zip(res, prompts):
+        new = r.tokens[len(p):]
+        if r.tokens[:len(p)] != p or len(new) != LM_NEW or \
+                not all(0 <= t < cfg.vocab for t in new):
+            fail(f"vlm-main: bad generation {new}")
+    tm = engine.timings
+    del engine
+    with torch.inference_mode():           # logits finite (not counted)
+        cache = transformer.init_cache(cfg, LM_BATCH, LM_MAX_SEQ)
+        lg, cache = step.make_prefill(cfg)(
+            params, torch.tensor(prompts, device=dev), cache)
+        if not torch.isfinite(lg).all():
+            fail("vlm-main: non-finite logits")
+    log(f"[vlm-main] generate: {LM_BATCH} x {LM_PROMPT} prompt tokens, "
+        f"{LM_NEW} new each: wall {wall:.3f} s; first token (prefill) "
+        f"{tm['first_token_s'] * 1e3:.1f} ms; decode "
+        f"{tm['decode_s'] / tm['decode_steps'] * 1e3:.2f} ms per step over "
+        f"{tm['decode_steps']} steps; {LM_BATCH * LM_NEW / wall:.1f} "
+        f"generated tokens/s; prefill "
+        f"{LM_BATCH * LM_PROMPT / tm['first_token_s']:.0f} tokens/s; peak "
+        f"memory {peak / 2**30:.2f} GiB; launches {counts}, attention "
+        f"instances {inst}; logits finite; first new tokens "
+        f"{[r.tokens[LM_PROMPT:LM_PROMPT + 4] for r in res]}")
+    del params, cache, lg
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
+
+
+def serving_flash_entries(errs, launches, dev) -> list:
+    """The attention at each FLASH_SERVING shape beside its bound, its plain
+    version and SDPA at the same mask (is_causal, enable_gqa); its
+    launches in the main run that gives it that shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref
+    sfu = exp_per_s()
+    entries = []
+    for name, case in FLASH_SERVING.items():
+        (q, k, v), kw = flash_args(case, dev)
+        B, H, KV, Sq, Skv, hd, causal, W, _, _ = case
+
+        def call(q=q, k=k, v=v, kw=kw):
+            return flash_attention.flash_attention(q, k, v, **kw)
+
+        ms = time_ms(call, reps=50, warmup=5)
+        plain = time_ms(lambda: ref.mha_reference(q, k, v, **kw), reps=5,
+                        warmup=1)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), reps=50, warmup=5)
+        out = call()
+        inst = flash_attention.LAST_INSTANCE
+        pairs = attn_pairs(Sq, Skv, causal, W) * B * H
+        bound, by, op = bound_ms(
+            nbytes(q, k, v, out), {"bf16 tensor-core flops":
+                                   (4 * hd * pairs, PEAK_BF16_FLOP_S),
+                                   "exponentials": (pairs, sfu)})
+        dev_us = kernel_device_us(call, ["flash_attention_bf16_kernel"],
+                                  reps=20)
+        entries.append({
+            "name": f"flash_attention ({name})", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:83",
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "bound_op": op, "library_ms": lib, "instance": inst,
+            "device_ms": None if dev_us is None else dev_us / 1e3,
+            "shape": list(case[:8])})
+        log(f"[time] flash_attention ({inst}) at {name} B,H,KV,Sq,Skv,hd="
+            f"{(B, H, KV, Sq, Skv, hd)} {'causal' if causal else 'no mask'}: "
+            f"{ms * 1e3:.1f} us per call on the stream, "
+            f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'} of "
+            f"device time (profiler); bound {bound * 1e3:.3f} us by {op} "
+            f"({4 * hd * pairs / 1e9:.2f} GFLOP, {pairs / 1e6:.1f} M "
+            f"exponentials, {nbytes(q, k, v, out) / 1e6:.1f} MB); plain "
+            f"version {plain * 1e3:.1f} us; SDPA (is_causal={causal}, "
+            f"enable_gqa) {lib * 1e3:.1f} us, the kernel {ms / lib:.2f}x its "
+            f"time; {launches[name]} launches in its main run")
+        del q, k, v, out
+    return entries
+
+
+# --------------------------------------------------------------------------
 
 def main() -> None:
     t_start = T_START
@@ -3485,11 +3834,14 @@ def main() -> None:
                  "telemetry_accum large"):
         engine_repeat_and_graph(name, dev)
     fa_q, fa_kw, fa_err = check_flash(FLASH_MAIN, dev)
-    fa_moe, fa_moe_kw, fa_moe_err = check_flash(FLASH_MOE, dev)
     for case in FLASH_RAGGED:
         fa_err = max(fa_err, check_flash(case, dev)[2])
     for case in FLASH_TC_EDGES:         # the tensor-core instance's edges
         fa_err = max(fa_err, check_flash(case + ("bfloat16",), dev)[2])
+    # the serving main runs' shapes: moonshot's, the encoder-decoder's and
+    # chameleon's
+    serving_errs = {name: check_flash(case, dev)[2]
+                    for name, case in FLASH_SERVING.items()}
     flash_row_controls(dev)
     ss_main, ss_err = check_ssm(*SSM_MAIN, dev)
     for case in SSM_RAGGED + SSM_EDGES:
@@ -3712,8 +4064,6 @@ def main() -> None:
     log(f"[elapsed] [moe-main] starts at "
         f"{time.perf_counter() - t_start:.1f} s")
     moe_fa_launches = moe_main(dev)
-    kernels.append(moe_flash_entry(fa_moe, fa_moe_kw, fa_moe_err,
-                                   moe_fa_launches, dev))
 
     # recurrent serving: the xLSTM mixers and the mamba block kind
     log(f"[elapsed] [xlstm-parity] starts at "
@@ -3725,6 +4075,20 @@ def main() -> None:
     log(f"[elapsed] [xlstm-main] starts at "
         f"{time.perf_counter() - t_start:.1f} s")
     xlstm_main(dev)
+
+    # the encoder-decoder, then the VQ-token front end (chameleon's 63.9
+    # GiB of weights leave room for little else)
+    log(f"[elapsed] [whisper-parity] starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    whisper_parity(dev)
+    log(f"[elapsed] [whisper-main] starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    serving_launches = whisper_main(dev)
+    serving_launches["hd 128"] = moe_fa_launches
+    log(f"[elapsed] [vlm-main] starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    serving_launches["chameleon prefill"] = vlm_main(dev)
+    kernels += serving_flash_entries(serving_errs, serving_launches, dev)
 
     # rack sharding last: its process group and profiler windows come
     # after every kernel timing and profile of the earlier paths

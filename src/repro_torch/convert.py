@@ -14,7 +14,8 @@ member table (``core.types.ThermalState``).  A replica batch (the
 reference's ``montecarlo.batched_state``, a leading R on every leaf)
 comes across as a port batch, leaf for leaf.
 ``params_from_jax`` turns the reference's LM parameter tree (numpy
-leaves, stacked over periods) into the port's per-layer ``Params``.
+leaves, stacked over periods; an encoder's blocks stacked over
+``enc_layers``) into the port's per-layer ``Params``.
 Nothing here imports JAX.
 """
 from __future__ import annotations
@@ -137,12 +138,22 @@ def params_from_jax(cfg, tree: dict, device=None):
     """The port's ``Params`` for ``cfg`` from the reference's parameter
     tree (``repro.models.transformer.make_params(...)[0]`` with numpy
     leaves): ``tree["layers"][j]`` holds pattern position j stacked over
-    periods, so layer i is ``tree["layers"][i % period][i // period]``."""
+    periods, so layer i is ``tree["layers"][i % period][i // period]``
+    (with its ``ln_x`` and ``cross`` in an encoder-decoder);
+    ``tree["enc"]["layers"]`` is one dict stacked over ``enc_layers``, so
+    encoder layer i is its slice i.  ``dec_pos`` comes across whole.
+    Every leaf keeps its bits."""
     from .models.transformer import Params, check_supported
     check_supported(cfg)
     dev = T.resolve_device(device)
     conv = functools.partial(_param_tensor, device=dev)
-    port = {k: _map_tree(v, conv) for k, v in tree.items() if k != "layers"}
+    port = {k: _map_tree(v, conv) for k, v in tree.items()
+            if k not in ("layers", "enc")}
+    if "enc" in tree:
+        enc = tree["enc"]
+        port["enc"] = {"final_norm": conv(enc["final_norm"]), "layers": [
+            _map_tree(enc["layers"], lambda a, j=j: conv(a[j]))
+            for j in range(cfg.enc_layers)]}
     stacks = tree["layers"]
     if len(stacks) != cfg.period:
         raise ValueError(f"{len(stacks)} stacked pattern positions, config "

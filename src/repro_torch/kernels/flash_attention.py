@@ -9,7 +9,9 @@ and what its design does about it.
 Two hand-written instances, chosen by dtype in ``plan``: bfloat16 runs on
 the tensor cores (``mma_bf16``), float32 on the CUDA cores (``simt_f32``).
 ``LAUNCHES`` counts the kernel's launches, ``INSTANCE_LAUNCHES`` splits
-them by instance and ``LAST_INSTANCE`` names the instance of the latest.
+them by instance, ``SHAPE_LAUNCHES`` by shape and mask ((B, H, KV, Sq,
+Skv, hd, causal, window) -> launches), and ``LAST_INSTANCE`` names the
+instance of the latest.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from . import build
 LAUNCHES = 0
 TENSOR_CORE, CUDA_CORE = "mma_bf16", "simt_f32"
 INSTANCE_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
+SHAPE_LAUNCHES: dict = {}
 LAST_INSTANCE = None
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -111,5 +114,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
                            f"failed: cudaError {err}")
     LAUNCHES += 1
     INSTANCE_LAUNCHES[instance] += 1
+    shape = (B, H, KV, Sq, Skv, hd, bool(causal), int(window))
+    SHAPE_LAUNCHES[shape] = SHAPE_LAUNCHES.get(shape, 0) + 1
     LAST_INSTANCE = instance
     return out

@@ -22,8 +22,8 @@ raises on what it cannot take -- nothing falls back); on a CPU tensor the
 plain PyTorch version in ``ref`` (a recording runs it inside the region
 ``kernel_ref/<name>``, ``core/regions.py``).  ``launch_counts`` reads
 each kernel's launch counter (the wrappers count where they launch);
-``reset_launch_counts`` zeroes them, flash attention's per-instance
-counts and the advance's per-clock counts.
+``reset_launch_counts`` zeroes them, flash attention's per-instance and
+per-shape counts and the advance's per-clock counts.
 """
 from __future__ import annotations
 
@@ -187,3 +187,4 @@ def reset_launch_counts() -> None:
     dcsim_step.CLOCK_LAUNCHES.update(dict.fromkeys(dcsim_step.CLOCK_LAUNCHES,
                                                    0))
     _fa.INSTANCE_LAUNCHES.update(dict.fromkeys(_fa.INSTANCE_LAUNCHES, 0))
+    _fa.SHAPE_LAUNCHES.clear()

@@ -7,11 +7,16 @@ transformers, MoE (GShard-style routed experts), gemma2-style local/global
 alternation with logit softcaps, hybrid attention+SSM (hymba), xLSTM
 (sLSTM/mLSTM alternation), early-fusion VLM (chameleon) and encoder-decoder
 audio (whisper).  The port's forward runs every decoder block kind below,
-dense, MoE or without a feed-forward, and refuses the encoder-decoder and
-the front ends (``models.transformer``); the runtime knobs (``remat``,
-``scan_layers``, ``fsdp_embed``, ``microbatches``, ``use_flash``,
-``attn_bf16_scores``) are carried and not read, and ``attn_chunk`` is read
-by the mLSTM's parallel form only.
+dense, MoE or without a feed-forward, rotary or learned positions, and
+whisper's encoder (``enc_layers`` bidirectional blocks over ``enc_seq``
+frame embeddings with sinusoidal positions) with ``cross_attn`` in every
+decoder block (``models.transformer``).  ``frontend`` is carried and not
+read: the reference stubs both front ends (frames arrive as embeddings;
+VQ image tokens are ids of the shared vocab).  ``skip_attention`` raises
+NotImplementedError (ROADMAP Queue 1 item 19); the runtime knobs
+(``remat``, ``scan_layers``, ``fsdp_embed``, ``microbatches``,
+``use_flash``, ``attn_bf16_scores``) are carried and not read, and
+``attn_chunk`` is read by the mLSTM's parallel form only.
 
 Block kinds (``block_pattern``; ``n_layers`` must be divisible by
 ``len(block_pattern)``):

@@ -1,16 +1,17 @@
 """Layer primitives of the LM substrate in PyTorch (port of
-``repro.models.layers``: norms, activations, rotary positions, the dense
-MLP and self-attention).
+``repro.models.layers``: norms, activations, rotary and sinusoidal
+positions, the dense MLP, self-attention and whisper's cross-attention).
 
 Every function takes parameters as a mapping (``p["wq"]``, ``"q_norm" in
 p``) and tensors in the reference's layouts: activations (B, S, D),
-queries and keys (B, S, heads, head_dim).  Prefill and train attention go
-through ``kernels.ops.flash_attention`` (the CUDA kernel on the card, its
-plain version on the CPU); decode attention over the ring cache, which
-needs key positions and a query offset the kernel does not take, is plain
-tensor code here (``attend``), as it is jnp outside any Pallas kernel in
-the reference.  Mesh sharding constraints of the reference have no
-counterpart on one card.
+queries and keys (B, S, heads, head_dim).  Prefill and train
+self-attention (causal in a decoder, bidirectional in an encoder) and
+cross-attention in every mode go through ``kernels.ops.flash_attention``
+(the CUDA kernel on the card, its plain version on the CPU); decode
+self-attention over the ring cache, which needs key positions and a query
+offset the kernel does not take, is plain tensor code here (``attend``),
+as it is jnp outside any Pallas kernel in the reference.  Mesh sharding
+constraints of the reference have no counterpart on one card.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core.types import resolve_device
 from ..kernels import ops
 
 NEG_INF = -1e30
@@ -67,6 +69,29 @@ def apply_rope(x, positions, theta):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=8)
+def _sinusoid_table(seq: int, dim: int, device: torch.device):
+    """The reference's float32 table (seq, dim), built once on the CPU and
+    moved to ``device`` once, so the card and the CPU add the same table.
+    Its products and the division round as the reference's float32 steps
+    do; exp, sin and cos are taken in float64 and rounded once (XLA:CPU's
+    float32 ones are not correctly rounded: the reference's own eager and
+    jitted tables differ by up to 1.2e-4 at 1,500 positions)."""
+    half = dim // 2
+    e = (torch.tensor(-math.log(10000.0), dtype=torch.float32) *
+         torch.arange(half, dtype=torch.float32)) / max(half - 1, 1)
+    freq = torch.exp(e.double()).float()
+    ang = (torch.arange(seq, dtype=torch.float32)[:, None] * freq).double()
+    table = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).float()
+    return table.to(device)
+
+
+def sinusoidal_pos(seq, dim, dtype=torch.float32, device=None):
+    """(seq, dim) sinusoidal positions (sines, then cosines) in ``dtype``,
+    on the card unless ``device`` says otherwise."""
+    return _sinusoid_table(seq, dim, resolve_device(device)).to(dtype)
 
 
 # --------------------------------------------------------------------------
@@ -144,8 +169,10 @@ def attend(q, k, v, *, causal, q_offset=0, window=0, attn_softcap=0.0,
 
 
 def attention_block(p, x, cfg, *, kind, mode, cache=None, pos=0):
-    """Self-attention mixer.  kind in {attn, swa, hymba}; mode in {train,
-    prefill, decode}.  Returns (out, new_cache).
+    """Self-attention mixer.  kind in {attn, swa, hymba, enc}; mode in
+    {train, prefill, decode}.  Returns (out, new_cache).  ``enc`` (the
+    encoder's blocks) is bidirectional; queries and keys are rotated only
+    when ``cfg.pos == "rope"``.
 
     Caches hold *rotated* keys plus the absolute position of each slot
     (``pos_ids``; -1 = empty).  Sliding-window caches are rings of size W
@@ -154,10 +181,12 @@ def attention_block(p, x, cfg, *, kind, mode, cache=None, pos=0):
     window = cfg.sliding_window if kind in ("swa", "hymba") else 0
     q, k, v = qkv_proj(p, x, cfg)
 
+    rope = cfg.pos == "rope"
     if mode == "decode":
-        positions = torch.full((B, S), pos, device=x.device)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if rope:
+            positions = torch.full((B, S), pos, device=x.device)
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
         cache_k, cache_v, slot_pos = cache["k"], cache["v"], cache["pos_ids"]
         W = cache_k.shape[1]
         slot = pos % W if window else pos
@@ -171,14 +200,11 @@ def attention_block(p, x, cfg, *, kind, mode, cache=None, pos=0):
         new_cache = {"k": cache_k, "v": cache_v, "pos_ids": slot_pos}
     else:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        # the kernel's (B, H, S, hd) interface over the model's (B, S, H,
-        # hd) tensors: strided views, no copies
-        out = ops.flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, window=window, softcap=cfg.attn_softcap
-        ).transpose(1, 2)
+        if rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        out = _flash(q, k, v, causal=kind != "enc", window=window,
+                     softcap=cfg.attn_softcap)
         new_cache = None
         if mode == "prefill" and cache is not None:
             W = cache["k"].shape[1]
@@ -199,3 +225,22 @@ def attention_block(p, x, cfg, *, kind, mode, cache=None, pos=0):
 
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     return out @ p["wo"], new_cache
+
+
+def _flash(q, k, v, **kw):
+    """The kernel's (B, H, S, hd) interface over the model's (B, S, H, hd)
+    tensors: strided views, no copies."""
+    return ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), **kw).transpose(1, 2)
+
+
+def cross_attention(p, x, enc_k, enc_v, cfg):
+    """Decoder -> encoder cross-attention (whisper).  enc_k/v are already
+    projected per layer: (B, Senc, H, hd).  q from ``wq`` (no bias, no
+    QK-norm), attention over every encoder position (no mask, no key
+    positions), then ``wo``; the flash kernel in every mode, decode's
+    single query too."""
+    B, S, D = x.shape
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    out = _flash(q, enc_k, enc_v, causal=False)
+    return out.reshape(B, S, -1) @ p["wo"]

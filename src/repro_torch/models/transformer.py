@@ -1,8 +1,16 @@
 """Model assembly in PyTorch (port of ``repro.models.transformer``):
-parameters, decode caches and the forward pass, for decoder-only models
-whose blocks are ``attn``, ``swa``, ``hymba``, ``mamba``, ``mlstm`` or
-``slstm`` (the mixers of the last three in ``models.ssm``), with a dense
-or an MoE feed-forward (``models.moe``) or none (``d_ff=0``, xLSTM).
+parameters, decode caches, the encoder and the forward pass, for models
+whose decoder blocks are ``attn``, ``swa``, ``hymba``, ``mamba``,
+``mlstm`` or ``slstm`` (the mixers of the last three in ``models.ssm``),
+with a dense or an MoE feed-forward (``models.moe``) or none (``d_ff=0``,
+xLSTM), rotary or learned positions (``pos``), and whisper's
+encoder-decoder: a stack of bidirectional ``enc`` blocks over frame
+embeddings plus sinusoidal positions (``encode``), and cross-attention in
+every decoder block (``cross_attn``), whose encoder keys and values the
+prefill stores in the cache.  The front ends are stubs in the reference
+too: whisper's frames arrive as embeddings (B, enc_seq, d_model), and
+chameleon's VQ image tokens are ordinary ids of the shared vocab, so
+``frontend`` is carried and not read.
 
 The reference stacks each pattern position's parameters over periods and
 scans over them; here every layer has its own parameters (``Params``, an
@@ -12,9 +20,10 @@ its kind needs.  Mesh sharding, ``remat``, ``scan_layers``,
 ``fsdp_embed``, ``microbatches`` and ``use_flash`` have no counterpart on
 one card, and ``attn_bf16_scores`` tunes the reference's jnp attention,
 which the flash kernel replaces: they are carried in the config and not
-read.  ``attn_chunk`` is read by the mLSTM's parallel form only.
-Everything else the reference's forward supports raises
-``NotImplementedError`` naming the ROADMAP item that will bring it.
+read.  ``attn_chunk`` is read by the mLSTM's parallel form only.  The
+one thing the reference's forward supports that the port does not,
+``skip_attention`` (a roofline probe), raises ``NotImplementedError``
+naming ROADMAP Queue 1 item 19.
 """
 from __future__ import annotations
 
@@ -41,25 +50,17 @@ def pdtype(cfg):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ValueError for a block kind the reference does not know either,
-    and NotImplementedError for what the port does not run yet, naming the
-    ROADMAP Queue 1 item that brings it."""
+    """Raise ValueError for a decoder block kind the reference does not
+    know either, and NotImplementedError for ``skip_attention``, which the
+    port does not run yet, naming the ROADMAP Queue 1 item that brings
+    it."""
     unknown = sorted(set(cfg.block_pattern) - set(KINDS))
     if unknown:
         raise ValueError(f"{cfg.name}: unknown block kinds {unknown}")
-    refused = []
-    if cfg.is_enc_dec or cfg.cross_attn:
-        refused.append("encoder-decoder / cross_attn (item 16)")
-    if cfg.pos != "rope":
-        refused.append(f"pos={cfg.pos!r} (item 16)")
-    if cfg.frontend != "none":
-        refused.append(f"frontend={cfg.frontend!r} (item 16)")
     if cfg.skip_attention:
-        refused.append("skip_attention, a roofline probe (item 19)")
-    if refused:
         raise NotImplementedError(
-            f"{cfg.name}: not ported yet: {'; '.join(refused)} -- see "
-            f"ROADMAP.md Queue 1")
+            f"{cfg.name}: not ported yet: skip_attention, a roofline probe "
+            f"(item 19) -- see ROADMAP.md Queue 1")
 
 
 # ==========================================================================
@@ -112,10 +113,16 @@ class _Init:
         return torch.full(shape, val, dtype=torch.float32, device=self.dev)
 
 
-def _attn_params(cfg, init):
-    D, Qd, KVd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+def _attn_params(cfg, init, cross=False):
+    """Self-attention, or with ``cross`` a decoder block's cross-attention:
+    its ``wk``/``wv`` project the encoder output to all n_heads heads
+    (D, q_dim), and it has no bias and no QK-norm."""
+    D, Qd = cfg.d_model, cfg.q_dim
+    KVd = Qd if cross else cfg.kv_dim
     p = {"wq": init.dense(D, (D, Qd)), "wk": init.dense(D, (D, KVd)),
          "wv": init.dense(D, (D, KVd)), "wo": init.dense(Qd, (Qd, D))}
+    if cross:
+        return p
     if cfg.attn_bias:
         dt = pdtype(cfg)
         p |= {"bq": init.zeros((Qd,), dt), "bk": init.zeros((KVd,), dt),
@@ -185,12 +192,14 @@ def _slstm_params(cfg, init):
             "out_proj": init.dense(D, (D, D))}
 
 
-_MIXERS = {"attn": _attn_params, "swa": _attn_params,
+_MIXERS = {"attn": _attn_params, "swa": _attn_params, "enc": _attn_params,
            "mamba": _ssm_params, "mlstm": _mlstm_params,
            "slstm": _slstm_params}
 
 
-def _block_params(cfg, kind, init):
+def _block_params(cfg, kind, init, *, is_encoder=False):
+    """A decoder block, or with ``is_encoder`` an encoder block: no
+    cross-attention and a dense feed-forward even in an MoE model."""
     D = cfg.d_model
     p = {"ln1": init.zeros((D,))}
     if kind == "hymba":
@@ -198,9 +207,12 @@ def _block_params(cfg, kind, init):
                       "ssm": _ssm_params(cfg, init)}
     else:
         p["mixer"] = _MIXERS[kind](cfg, init)
+    if cfg.cross_attn and not is_encoder:
+        p["ln_x"] = init.zeros((D,))
+        p["cross"] = _attn_params(cfg, init, cross=True)
     if cfg.d_ff > 0 or cfg.is_moe:
         p["ln2"] = init.zeros((D,))
-        p["ffn"] = _moe_params(cfg, init) if cfg.is_moe \
+        p["ffn"] = _moe_params(cfg, init) if cfg.is_moe and not is_encoder \
             else _mlp_params(cfg, init)
     return p
 
@@ -210,10 +222,16 @@ def layer_kind(cfg, i: int) -> str:
 
 
 def make_params(cfg: ModelConfig, generator: torch.Generator,
-                device=None) -> Params:
+                device=None, max_seq: int = 0) -> Params:
     """Random parameters from ``generator`` on ``device`` (the card unless
-    the caller asks for the CPU; the generator must live there too)."""
+    the caller asks for the CPU; the generator must live there too).
+    Learned positions (``pos="learned"``) take ``max_seq`` rows of
+    ``dec_pos``, so they need ``max_seq > 0``; an encoder-decoder gets
+    ``enc`` = {"layers": enc_layers blocks, "final_norm"}."""
     check_supported(cfg)
+    if cfg.pos == "learned" and max_seq <= 0:
+        raise ValueError(f"{cfg.name}: learned positions need max_seq > 0 "
+                         f"at init, got {max_seq}")
     dev = resolve_device(device)
     if torch.device(generator.device).type != dev.type:
         raise ValueError(f"the generator is on {generator.device}, the "
@@ -226,6 +244,14 @@ def make_params(cfg: ModelConfig, generator: torch.Generator,
     tree["final_norm"] = init.zeros((cfg.d_model,))
     if not cfg.tie_embeddings:
         tree["lm_head"] = init.dense(cfg.d_model, (cfg.d_model, cfg.vocab))
+    if cfg.pos == "learned":
+        tree["dec_pos"] = init.normal((max_seq, cfg.d_model), 0.02).to(
+            pdtype(cfg))
+    if cfg.is_enc_dec:
+        tree["enc"] = {
+            "layers": [_block_params(cfg, "enc", init, is_encoder=True)
+                       for _ in range(cfg.enc_layers)],
+            "final_norm": init.zeros((cfg.d_model,))}
     return Params(tree)
 
 
@@ -243,7 +269,10 @@ def init_cache(cfg: ModelConfig, B: int, S: int, dtype=None, device=None):
     """Decoder state for the serve step: one dict per layer, by its kind
     (ring caches of rotated keys for swa/hymba, full caches for attn; the
     SSM state for hymba/mamba; the float32 recurrent states C/n/m for
-    mlstm and h/c/n/m for slstm, whose size does not depend on S)."""
+    mlstm and h/c/n/m for slstm, whose size does not depend on S); with
+    ``cross_attn``, every layer also holds the encoder's projected keys
+    and values, ``cross_k``/``cross_v`` (B, enc_seq, n_heads, head_dim),
+    which the prefill writes."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or cdtype(cfg)
@@ -264,6 +293,10 @@ def init_cache(cfg: ModelConfig, B: int, S: int, dtype=None, device=None):
             c.update(ssm.mlstm_init_state(cfg, B, dt, dev))
         if kind == "slstm":
             c.update(ssm.slstm_init_state(cfg, B, dt, dev))
+        if cfg.cross_attn:
+            shape = (B, cfg.enc_seq, cfg.n_heads, hd)
+            c["cross_k"] = torch.zeros(shape, dtype=dt, device=dev)
+            c["cross_v"] = torch.zeros(shape, dtype=dt, device=dev)
         caches.append(c)
     return caches
 
@@ -272,13 +305,15 @@ def init_cache(cfg: ModelConfig, B: int, S: int, dtype=None, device=None):
 # forward pass
 # ==========================================================================
 
-def _apply_block(cfg, kind, p, x, *, mode, cache, pos):
+def _apply_block(cfg, kind, p, x, *, mode, cache, pos, enc_out=None):
     """One layer: (x, new_cache, aux), aux the MoE loss (None without
-    one, so a dense layer launches nothing for it)."""
+    one, so a dense layer launches nothing for it).  A decoder block of an
+    encoder-decoder attends to ``enc_out`` after its mixer (prefill and
+    train), or to the cache's ``cross_k``/``cross_v`` (decode)."""
     aux = None
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     new_cache = {}
-    if kind in ("attn", "swa"):
+    if kind in ("attn", "swa", "enc"):
         mix, kv_cache = layers.attention_block(
             p["mixer"], h, cfg, kind=kind, mode=mode, cache=cache, pos=pos)
         if kv_cache:
@@ -311,9 +346,21 @@ def _apply_block(cfg, kind, p, x, *, mode, cache, pos):
     else:
         raise ValueError(f"unknown block kind {kind!r}")
     x = x + mix
+    if cfg.cross_attn and kind != "enc":
+        hx = layers.rms_norm(x, p["ln_x"], cfg.norm_eps)
+        if mode == "decode":
+            ek, ev = cache["cross_k"], cache["cross_v"]
+        else:
+            B, Se, _ = enc_out.shape
+            shape = (B, Se, cfg.n_heads, cfg.head_dim)
+            ek = (enc_out @ p["cross"]["wk"]).reshape(shape)
+            ev = (enc_out @ p["cross"]["wv"]).reshape(shape)
+        x = x + layers.cross_attention(p["cross"], hx, ek, ev, cfg)
+        if mode != "train":
+            new_cache["cross_k"], new_cache["cross_v"] = ek, ev
     if "ffn" in p:
         h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-        if cfg.is_moe:
+        if cfg.is_moe and kind != "enc":
             f, aux, _ = moe.moe_block(p["ffn"], h2, cfg)
         else:
             f = layers.mlp(p["ffn"], h2, cfg.act)
@@ -327,12 +374,43 @@ def head(cfg, params, x):
     return layers.softcap(x @ w.to(x.dtype), cfg.final_softcap)
 
 
+def encode(cfg: ModelConfig, params, frames):
+    """Whisper's encoder over stubbed frame embeddings (B, enc_seq, D):
+    the frames in the compute dtype plus the sinusoidal table rounded to
+    it, the bidirectional ``enc`` blocks, then ``enc.final_norm``."""
+    x = frames.to(cdtype(cfg))
+    x = x + layers.sinusoidal_pos(x.shape[1], cfg.d_model, x.dtype,
+                                  x.device)[None]
+    for p in params["enc"]["layers"]:
+        x, _, _ = _apply_block(cfg, "enc", p, x, mode="train", cache=None,
+                               pos=0)
+    return layers.rms_norm(x, params["enc"]["final_norm"], cfg.norm_eps)
+
+
+def _learned_pos(cfg, params, S, mode, pos):
+    """Rows of ``dec_pos`` for the tokens: [:S], or row ``pos`` in
+    decode.  Where the reference would clamp (decode) or fail to
+    broadcast (a longer prompt), this raises ValueError."""
+    rows = params["dec_pos"].shape[0]
+    if mode == "decode":
+        if not 0 <= pos < rows:
+            raise ValueError(f"{cfg.name}: decode position {pos} outside "
+                             f"the {rows} learned positions (max_seq)")
+        return params["dec_pos"][pos:pos + 1]
+    if S > rows:
+        raise ValueError(f"{cfg.name}: {S} tokens exceed the {rows} "
+                         f"learned positions (max_seq)")
+    return params["dec_pos"][:S]
+
+
 def forward(cfg: ModelConfig, params, tokens, *, mode="train", cache=None,
-            pos=0, skip_head=False):
-    """tokens (B, S) integer.  Returns (logits, new_cache, aux) as the
-    reference does (aux, the layers' MoE losses summed in float32; 0
-    without MoE); with skip_head=True returns the final hidden states
-    instead of logits."""
+            pos=0, frames=None, skip_head=False):
+    """tokens (B, S) integer; ``frames`` (B, enc_seq, D) the encoder's
+    input for an encoder-decoder in train and prefill modes (decode reads
+    the cache's cross keys and values instead).  Returns (logits,
+    new_cache, aux) as the reference does (aux, the layers' MoE losses
+    summed in float32; 0 without MoE); with skip_head=True returns the
+    final hidden states instead of logits."""
     check_supported(cfg)
     dt = cdtype(cfg)
     x = params["embed"][tokens.long()].to(dt)
@@ -341,12 +419,21 @@ def forward(cfg: ModelConfig, params, tokens, *, mode="train", cache=None,
         # reference's weakly typed Python float does
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=dt,
                            device=x.device)
+    if cfg.pos == "learned":
+        x = x + _learned_pos(cfg, params, tokens.shape[1], mode,
+                             pos)[None].to(dt)
+    enc_out = None
+    if cfg.is_enc_dec and mode != "decode":
+        if frames is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder needs frames "
+                             f"in {mode} mode")
+        enc_out = encode(cfg, params, frames)
     new_caches = [] if cache is not None else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["layers"]):
         c = cache[i] if cache is not None else None
         x, nc, a = _apply_block(cfg, layer_kind(cfg, i), p, x, mode=mode,
-                                cache=c, pos=pos)
+                                cache=c, pos=pos, enc_out=enc_out)
         if a is not None:
             aux = aux + a
         if cache is not None:

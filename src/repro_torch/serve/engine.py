@@ -9,11 +9,15 @@ recurrent states instead).  MoE layers route every prompt position,
 padding included, and take capacity from it, and the recurrent mixers
 run through the pad positions, so a shorter prompt's state has absorbed
 them, as in the reference; the MoE aux loss ``forward`` returns is
-discarded.  The sampled tokens stay on the
-device as the next step's input; the host reads them once per token.  ``timings`` holds the
-last ``generate``'s host-clock seconds to the first token (cache, prefill,
-first sample) and of the decode steps; each ends in that host read, so
-the device work is inside it.
+discarded.  Rotary and learned positions both serve; an
+encoder-decoder (whisper) does not: the reference's ``generate`` passes
+no frames to its prefill, so it cannot run one either, and its serving
+entry points are ``make_prefill(cfg)(params, tokens, cache, frames)``
+then ``make_serve_step(cfg)``.  The sampled tokens stay on the device as
+the next step's input; the host reads them once per token.  ``timings``
+holds the last ``generate``'s host-clock seconds to the first token
+(cache, prefill, first sample) and of the decode steps; each ends in
+that host read, so the device work is inside it.
 """
 from __future__ import annotations
 
@@ -64,7 +68,15 @@ class ServeEngine:
         """Generate for up to max_batch prompts (batched, left-aligned).
         Greedy (``temperature <= 0``) takes the argmax, ties to the lowest
         index; otherwise tokens are drawn from a ``torch.Generator`` seeded
-        with ``seed`` (not the reference's ``jax.random`` stream)."""
+        with ``seed`` (not the reference's ``jax.random`` stream).  An
+        encoder-decoder raises ValueError (see the module's note)."""
+        if self.cfg.is_enc_dec:
+            raise ValueError(
+                f"{self.cfg.name} is an encoder-decoder: generate passes no "
+                f"frames to the prefill, as the reference's does, so it "
+                f"cannot run it; serve it with make_prefill(cfg)(params, "
+                f"tokens, cache, frames) and make_serve_step(cfg) "
+                f"(repro_torch.train.step)")
         if len(prompts) > self.max_batch:
             raise ValueError(f"{len(prompts)} prompts exceed max_batch="
                              f"{self.max_batch}")

@@ -28,7 +28,9 @@ flip rule); with equal routes, dropped equal, the layer's output within
 1e-5 in float32 and 2e-2 in bfloat16 and aux rel 1e-5.  Recurrent
 mixers (models/ssm.py): the mLSTM and sLSTM at 1,100 tokens within 1e-3
 in float32 (their products add in another order); smoke xLSTM and mamba
-generate, the same greedy tokens."""
+generate, the same greedy tokens.  The encoder-decoder: smoke whisper's
+serve steps with 37 frames, logits within 1e-3 in float32 and the same
+greedy tokens, the attention through the kernel in every mode."""
 import copy
 import dataclasses
 
@@ -271,6 +273,13 @@ FLASH_CASES = [   # B, H, KV, Sq, Skv, hd, causal, window, softcap, dtype
     (2, 4, 2, 260, 260, 128, True, 64, 0.0, torch.float32),
     (1, 2, 1, 300, 90, 16, True, 40, 0.0, torch.float32),   # empty rows
     (1, 2, 2, 129, 129, 256, True, 0, 30.0, torch.bfloat16),
+    # the encoder-decoder's and chameleon's shapes, batch and length cut:
+    # whisper's encoder (bidirectional over 1,500 frames), its
+    # cross-attention in prefill and in decode, chameleon's GQA 64/8
+    (1, 20, 20, 1500, 1500, 64, False, 0, 0.0, torch.bfloat16),
+    (1, 20, 20, 224, 1500, 64, False, 0, 0.0, torch.bfloat16),
+    (2, 20, 20, 1, 1500, 64, False, 0, 0.0, torch.bfloat16),
+    (1, 64, 8, 512, 512, 128, True, 0, 0.0, torch.bfloat16),
 ] + [case + (torch.bfloat16,) for case in FLASH_TC_EDGES]
 
 
@@ -1172,3 +1181,52 @@ def test_recurrent_generate_on_card_matches_cpu(cuda, arch, kw, scans):
     assert counts["ssm_scan"] == scans * cfg.n_layers
     assert counts["flash_attention"] == 0
     assert [r.tokens for r in rg] == [r.tokens for r in rc]
+
+
+# --------------------------------------------------------------------------
+# the encoder-decoder (whisper): encoder, cross-attention, learned positions
+# --------------------------------------------------------------------------
+
+def test_whisper_serve_steps_on_card_match_cpu(cuda):
+    """Smoke whisper at enc_seq 37, float32, parameters made on the card
+    and copied to the CPU: the prefill with frames and 5 serve steps,
+    logits within 1e-3 and the same greedy tokens.  The prefill launches
+    the attention once an encoder layer and twice a decoder layer (its
+    self-attention and its cross-attention), each decode step once a
+    decoder layer (the cross-attention), all on the CUDA-core instance."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.train import step
+    cfg = dataclasses.replace(configs.get_smoke("whisper_large_v3"),
+                              enc_seq=37, param_dtype="float32",
+                              compute_dtype="float32")
+    pg = transformer.make_params(cfg, torch.Generator(cuda).manual_seed(0),
+                                 max_seq=24)
+    pc = copy.deepcopy(pg).cpu()
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 12)))
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, 37, cfg.d_model)).astype(np.float32))
+    prefill, decode = step.make_prefill(cfg), step.make_serve_step(cfg)
+    cc = transformer.init_cache(cfg, 2, 24, device="cpu")
+    cg = transformer.init_cache(cfg, 2, 24)
+    lc, cc = prefill(pc, toks, cc, frames)
+    ops.reset_launch_counts()
+    lg, cg = prefill(pg, toks.to(cuda), cg, frames.to(cuda))
+    assert flash_attention.INSTANCE_LAUNCHES == {
+        flash_attention.TENSOR_CORE: 0,
+        flash_attention.CUDA_CORE: cfg.enc_layers + 2 * cfg.n_layers}
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    assert flash_attention.SHAPE_LAUNCHES == {
+        (2, H, KV, 37, 37, hd, False, 0): cfg.enc_layers,
+        (2, H, KV, 12, 12, hd, True, 0): cfg.n_layers,
+        (2, H, H, 12, 37, hd, False, 0): cfg.n_layers}
+    for t in range(12, 17):
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-3, rtol=1e-3)
+        tok = lc.argmax(-1)
+        assert torch.equal(lg.argmax(-1).cpu(), tok)
+        lc, cc = decode(pc, cc, tok[:, None], t)
+        lg, cg = decode(pg, cg, tok[:, None].to(cuda), t)
+    assert ops.launch_counts()["flash_attention"] == \
+        cfg.enc_layers + 2 * cfg.n_layers + 5 * cfg.n_layers
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-3, rtol=1e-3)

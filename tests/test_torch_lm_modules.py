@@ -2,8 +2,9 @@
 same numpy inputs and the same weights (carried across with
 ``convert.params_from_jax``): the config copies, the layer functions,
 self-attention in prefill (S < W, S = W, S > W) and decode on the ring
-cache, the Mamba mixer in prefill and decode; plus the configurations the
-slice refuses, the device rule and the package's independence from JAX.
+cache, the Mamba mixer in prefill and decode; plus the configuration the
+port refuses, the ones it refused until the encoder-decoder slice, the
+device rule and the package's independence from JAX.
 
 Tolerances: float32 1e-5 (both packages round the same ops; contractions
 sum in their own order), bfloat16 5e-2, the reference's own bf16
@@ -261,10 +262,6 @@ def test_params_from_jax_layer_order_and_bits():
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch,cfg_kw,item", [
-    ("qwen3_moe_235b_a22b", {"pos": "learned"}, "item 16"),
-    ("whisper_large_v3", {}, "item 16"),
-    ("chameleon_34b", {}, "item 16"),
-    ("llama3_2_1b", {"pos": "learned"}, "item 16"),
     ("llama3_2_1b", {"skip_attention": True}, "item 19"),
 ])
 def test_refused_configs_name_their_roadmap_item(arch, cfg_kw, item):
@@ -274,6 +271,35 @@ def test_refused_configs_name_their_roadmap_item(arch, cfg_kw, item):
         ttransformer.make_params(cfg, gen, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         ttransformer.forward(cfg, None, torch.zeros((1, 2), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("arch,cfg_kw", [
+    ("qwen3_moe_235b_a22b", {"pos": "learned"}),
+    ("whisper_large_v3", {}),
+    ("chameleon_34b", {}),
+    ("llama3_2_1b", {"pos": "learned"}),
+])
+def test_once_refused_configs_run_and_match_jax(arch, cfg_kw):
+    """The configurations the port refused until ROADMAP Queue 1 item 16
+    landed (learned positions, the encoder-decoder, the ``vq_tokens``
+    front end) run through the port's train forward, equal to JAX's in
+    float32 (1e-4, the slices' logits tolerance)."""
+    jcfg, tcfg = _cfg(arch, **cfg_kw)
+    max_seq = 12 if jcfg.pos == "learned" else 0
+    jp, _ = jtransformer.make_params(jcfg, jax.random.key(0), max_seq)
+    tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, jcfg.vocab, (2, 12)).astype(np.int32)
+    frames = rng.standard_normal((2, jcfg.enc_seq, jcfg.d_model),
+                                 dtype=np.float32) if jcfg.is_enc_dec \
+        else None
+    jl, _, _ = jtransformer.forward(
+        jcfg, jp, jnp.asarray(toks),
+        frames=None if frames is None else jnp.asarray(frames))
+    tl, _, _ = ttransformer.forward(
+        tcfg, tp, torch.from_numpy(toks),
+        frames=None if frames is None else torch.from_numpy(frames))
+    np.testing.assert_allclose(_np(tl), _np(jl), atol=1e-4, rtol=1e-4)
 
 
 def test_device_rule_serving():
