@@ -161,6 +161,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   traffic.  Phase 3 holds the attention at these five shapes to its
   plain version (2e-2 and the row check), and each is timed beside its
   bound, its plain version and SDPA at the same mask.
+  Training (train/step.py): phase 3 also holds both backward kernels
+  (flash_attention_backward, ssm_scan_backward) against their plain
+  versions: the attention at hymba-1.5b's training shape (4, 25/5, 4,096,
+  hd 64, causal, window 1,024), moonshot's hd 128, gemma2's hd 256 with
+  window and softcap 50, whisper's encoder and cross-attention, ragged
+  lengths, the float32 instance and the forward's tensor-core edges,
+  within 2e-2 of each output's largest magnitude in bf16 and 1e-4 in
+  f32; the scan at (4, 4,096, 3,200, 16), (3, 37, 200, 16) and the lane
+  edges, with and without a final-state gradient, within 1e-4.
+  [train-parity] (after [lm-parity]) runs two train steps of hymba-1.5b at
+  full width cut to 2 layers in float32 on 2 x 1,100 tokens, card against
+  CPU: loss, nll, aux, grad_norm (1e-5) and lr (1e-6) at each step, the
+  gradients (1e-4 of each leaf's largest magnitude), the moments and the
+  parameters (tests/torch_kernel_inputs.py adamw_param_check), and the
+  launches of each LM kernel.  [train-main] (after the serving profiles,
+  with hymba's serving weights freed) runs init_state + make_train_step on
+  hymba-1.5b's full configuration (32 layers, bf16, remat "dots",
+  AdamWConfig(warmup_steps=0)) for 5 steps on one batch of 4 x 4,096
+  seeded tokens: finite metrics, the last loss below the first, the
+  forward kernels twice a layer a step (the forward and its recompute)
+  and each backward kernel once; step time (median of steps 2-5),
+  tokens/s, peak memory and a [profile] of a sixth step with the backward
+  kernels' share; then both backward kernels are timed at its shapes
+  beside their bounds, plain versions and (attention) SDPA's backward.
   7. rack sharding, last, so that its process group and profiler windows
      come after every earlier timing: [shard-parity] runs
      tests/test_sharding.py's four pinned configurations
@@ -291,6 +315,9 @@ XLSTM_ARCH, XLSTM_PAR_LAYERS = "xlstm_350m", 2
 WH_ARCH, WH_BATCH, WH_PROMPT, WH_NEW, WH_MAX_SEQ = (
     "whisper_large_v3", 4, 224, 32, 448)
 WH_PAR_LAYERS, WH_PAR_BATCH, WH_PAR_PROMPT, WH_PAR_NEW = 2, 2, 100, 4
+# training: hymba-1.5b at train_4k's sequence length and the batch one
+# card holds (its global batch of 256 is a pod's), steps on one batch
+TR_BATCH, TR_SEQ, TR_STEPS = 4, 4096, 5
 # the VQ-token front end: chameleon-34b at full width on [lm-main]'s
 # traffic; its depth is the one thing to cut if the script runs long
 VLM_ARCH, VLM_LAYERS = "chameleon_34b", 48
@@ -3773,6 +3800,407 @@ def serving_flash_entries(errs, launches, dev) -> list:
 
 
 # --------------------------------------------------------------------------
+# training (train/step.py): the backward kernels, [train-parity],
+# [train-main]
+# --------------------------------------------------------------------------
+
+# the attention's backward: hymba-1.5b's training shape (train_4k's
+# sequence, the batch one card holds), moonshot's hd 128, gemma2's hd 256
+# with its window and softcap 50, whisper's encoder and cross-attention,
+# ragged lengths and the float32 instance
+FLASH_BWD_MAIN = (TR_BATCH, 25, 5, TR_SEQ, TR_SEQ, 64, True, 1024, 0.0,
+                  "bfloat16")
+FLASH_BWD_CASES = [
+    (LM_BATCH, 16, 16, LM_PROMPT, LM_PROMPT, 128, True, 0, 0.0, "bfloat16"),
+    (2, 16, 8, LM_PROMPT, LM_PROMPT, 256, True, 4096, 50.0, "bfloat16"),
+    (WH_BATCH, 20, 20, 1500, 1500, 64, False, 0, 0.0, "bfloat16"),
+    (WH_BATCH, 20, 20, WH_PROMPT, 1500, 64, False, 0, 0.0, "bfloat16"),
+    (2, 4, 2, 37, 300, 64, True, 0, 0.0, "bfloat16"),
+    (2, 4, 2, 300, 37, 64, False, 0, 0.0, "bfloat16"),
+    (2, 8, 4, 777, 777, 128, True, 256, 0.0, "float32"),
+]
+SSM_BWD_MAIN = (TR_BATCH, TR_SEQ, 3200, 16)
+SSM_BWD_CASES = [(3, 37, 200, 16)]
+
+
+def bwd_inputs(case, dev, seed=51):
+    """q/k/v as flash_args makes them, the forward's output and a seeded
+    output gradient laid out like the model's, (B, S, H, hd) seen as (B,
+    H, S, hd)."""
+    from repro_torch.kernels import flash_attention
+    (q, k, v), kw = flash_args(case, dev, seed)
+    B, H, _, Sq, _, hd = case[:6]
+    out = flash_attention.flash_attention(q, k, v, **kw)
+    dout = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (B, Sq, H, hd), dtype=np.float32)).to(dev, q.dtype).transpose(1, 2)
+    return (q, k, v, out, dout), kw
+
+
+def check_flash_bwd(case, dev):
+    """dq, dk, dv against the plain version: 2e-2 of each output's largest
+    magnitude in bf16, 1e-4 in f32 (float32 sums in another order; bf16
+    outputs rounded once)."""
+    from repro_torch.kernels import flash_attention, ref
+    args, kw = bwd_inputs(case, dev)
+    got = flash_attention.flash_attention_backward(*args, **kw)
+    q, k, v, out, dout = args
+    exp = ref.mha_backward_reference(q, k, v, out, None, dout, **kw)
+    torch.cuda.synchronize()
+    tol = 2e-2 if case[-1] == "bfloat16" else 1e-4
+    errs, abs_err = [], 0.0
+    for name, g, e in zip(("dq", "dk", "dv"), got, exp):
+        if g.shape != e.shape or g.dtype != e.dtype:
+            fail(f"flash_attention_backward {case}: {name} {g.dtype}"
+                 f"{tuple(g.shape)}, plain {e.dtype}{tuple(e.shape)}")
+        top = float(e.float().abs().max())
+        err = float((g.float() - e.float()).abs().max())
+        if not torch.isfinite(g.float()).all() or err > tol * top:
+            fail(f"flash_attention_backward {case}: {name} max abs err "
+                 f"{err} beyond {tol} of its largest magnitude {top}")
+        errs.append(err / top)
+        abs_err = max(abs_err, err)
+    del exp, args, got
+    log(f"[kernels] flash_attention_backward B,H,KV,Sq,Skv,hd={case[:6]} "
+        f"causal={case[6]} window={case[7]} softcap={case[8]} {case[9]}: "
+        f"dq, dk, dv within {tol} of their largest magnitudes (relative "
+        f"errors {', '.join(f'{x:.3g}' for x in errs)})")
+    return abs_err
+
+
+def ssm_bwd_inputs(B, S, Dss, N, dev, seed=53, with_dh=False):
+    """(dt, Bm, Cm, x, A) as check_ssm makes them, a seeded dy and, with
+    ``with_dh``, a seeded final-state gradient (else None)."""
+    from torch_kernel_inputs import ssm_inputs, torch_args
+    args = torch_args(ssm_inputs(B, S, Dss, N, seed), dev)
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.from_numpy(rng.standard_normal((B, S, Dss),
+                                              dtype=np.float32)).to(dev)
+    dh = torch.from_numpy(rng.standard_normal(
+        (B, Dss, N), dtype=np.float32)).to(dev) if with_dh else None
+    return (*args, dy, dh)
+
+
+def check_ssm_bwd(B, S, Dss, N, dev, with_dh=False):
+    """ddt, dB, dC, dx, dA against the plain version within 1e-4 of each
+    output's largest magnitude (dB, dC and dA add with float atomics)."""
+    from repro_torch.kernels import ref, ssm_scan
+    args = ssm_bwd_inputs(B, S, Dss, N, dev, with_dh=with_dh)
+    got = ssm_scan.ssm_scan_backward(*args)
+    exp = ref.ssm_scan_backward_reference(*args)
+    torch.cuda.synchronize()
+    errs, abs_err = [], 0.0
+    for name, g, e in zip(("ddt", "dB", "dC", "dx", "dA"), got, exp):
+        top = float(e.abs().max())
+        err = float((g - e).abs().max())
+        abs_err = max(abs_err, err)
+        if g.shape != e.shape or not torch.isfinite(g).all() or \
+                err > 1e-4 * top:
+            fail(f"ssm_scan_backward {(B, S, Dss, N)}: {name} max abs err "
+                 f"{err} beyond 1e-4 of its largest magnitude {top}")
+        errs.append(err / top)
+    del exp, got, args
+    log(f"[kernels] ssm_scan_backward B,S,Dss,N={(B, S, Dss, N)} "
+        f"dh={'yes' if with_dh else 'no'}: within 1e-4 of each output's "
+        f"largest magnitude (relative errors "
+        f"{', '.join(f'{x:.3g}' for x in errs)})")
+    return abs_err
+
+
+def train_batch(cfg, B, S, seed, dev):
+    """numpy tokens from a fixed seed; labels the next token, the last
+    position masked (-1)."""
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (B, S)))
+    labels = torch.cat([toks[:, 1:], torch.full((B, 1), -1)], dim=1)
+    return {"tokens": toks.to(dev), "labels": labels.to(dev)}
+
+
+def train_parity(dev) -> None:
+    """hymba-1.5b at full width cut to PAR_LAYERS layers, float32, on
+    B=PAR_BATCH x PAR_PROMPT tokens (past the 1,024 window), train steps on
+    the card against the CPU, each from one state: the first from the same
+    parameters, the second from the CPU's state after the first, copied to
+    the card (so each step is held to the step's own error, not to the
+    first step's carried over into the second's gradient).  At each step:
+    loss, nll, aux, grad_norm within 1e-5 relative and lr within 1e-6; the
+    gradients (read off the moments: m = b1 m0 + (1 - b1) g scale) within
+    1e-4 of each leaf's largest magnitude; m and v within 1e-5 relative
+    plus 1e-4 of their largest magnitude; the parameters within
+    tests/torch_kernel_inputs.py adamw_param_check's bound."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.train import optim, step
+    from torch_kernel_inputs import adamw_param_check
+    full = configs.get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=PAR_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    opt = optim.AdamWConfig(warmup_steps=0)
+    log(f"[train-parity] {cfg.name} at full width cut to {PAR_LAYERS} of "
+        f"{full.n_layers} layers, float32, remat {cfg.remat!r}; B="
+        f"{PAR_BATCH} x {PAR_PROMPT} tokens, 2 train steps, card vs CPU")
+    t0 = time.perf_counter()
+    p_cpu = transformer.make_params(cfg, torch.Generator().manual_seed(0),
+                                    device="cpu")
+    states = {"card": step.train_state(copy.deepcopy(p_cpu).to(dev)),
+              "cpu": step.train_state(p_cpu)}
+    batches = {"card": train_batch(cfg, PAR_BATCH, PAR_PROMPT, 9, dev),
+               "cpu": train_batch(cfg, PAR_BATCH, PAR_PROMPT, 9, "cpu")}
+    ts = step.make_train_step(cfg, opt)
+
+    def snap(st):
+        return {k: {n: t.detach().float().cpu().clone() for n, t in tree}
+                for k, tree in (("p", st["params"].named_parameters()),
+                                ("m", st["opt"]["m"].items()),
+                                ("v", st["opt"]["v"].items()))}
+
+    b1, eps = opt.b1, opt.eps
+    before = snap(states["cpu"])
+    worst, g_err, loose, total = {}, 0.0, 0, 0
+    counts = dict.fromkeys(ops.FORWARD + ops.BACKWARD, 0)
+    for i in range(2):
+        got, metrics = {}, {}
+        for side in ("card", "cpu"):
+            ops.reset_launch_counts()
+            states[side], m = ts(states[side], batches[side])
+            if side == "card":
+                for k, n in ops.launch_counts(ops.FORWARD
+                                              + ops.BACKWARD).items():
+                    counts[k] += n
+            metrics[side] = {k: float(v) for k, v in m.items()}
+            got[side] = snap(states[side])
+        mg, mc = metrics["card"], metrics["cpu"]
+        for k in ("loss", "nll", "aux", "grad_norm", "lr"):
+            rel = abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30)
+            worst[k] = max(worst.get(k, 0.0), rel)
+            if not math.isfinite(mg[k]) or \
+                    rel > (1e-6 if k == "lr" else 1e-5) and \
+                    abs(mg[k] - mc[k]) > 1e-7:
+                fail(f"train-parity: step {i} {k} card {mg[k]} CPU {mc[k]}")
+        t = np.float32(i + 1)
+        c1, c2 = (float(1 - np.float32(b) ** t) for b in (opt.b1, opt.b2))
+        g, c = got["card"], got["cpu"]
+        scale = {s: min(1.0, opt.grad_clip / (metrics[s]["grad_norm"]
+                                              + 1e-9)) for s in metrics}
+        for n in c["p"]:
+            gg = (g["m"][n] - b1 * before["m"][n]) / ((1 - b1)
+                                                      * scale["card"])
+            gc = (c["m"][n] - b1 * before["m"][n]) / ((1 - b1)
+                                                      * scale["cpu"])
+            top = float(gc.abs().max())
+            err = float((gg - gc).abs().max())
+            g_err = max(g_err, err / max(top, 1e-30))
+            if err > 1e-4 * top + 1e-12:
+                fail(f"train-parity: step {i} gradient of {n} differs by "
+                     f"{err} (largest {top})")
+            for k in ("m", "v"):
+                d = (g[k][n] - c[k][n]).abs()
+                if (d > 1e-5 * c[k][n].abs()
+                        + 1e-4 * float(c[k][n].abs().max())).any():
+                    fail(f"train-parity: step {i} {k} of {n} differs by "
+                         f"{float(d.max())}, "
+                         f"{float(d.max()) / float(c[k][n].abs().max()):.3g}"
+                         f" of its largest magnitude")
+            diff, bad, nl = adamw_param_check(
+                g["p"][n], c["p"][n], before["p"][n], g["m"][n], c["m"][n],
+                g["v"][n], c["v"][n], mc["lr"], c1, c2, eps,
+                torch.zeros_like(c["p"][n]))
+            if bad:
+                fail(f"train-parity: step {i} parameter {n}: {bad} elements "
+                     f"beyond the bound (max diff {float(diff.max())})")
+            loose += nl
+            total += diff.numel()
+        # the second step starts on the card from the CPU's state
+        with torch.no_grad():
+            card = states["card"]
+            for (n, pg), (_, pc) in zip(card["params"].named_parameters(),
+                                        states["cpu"]["params"]
+                                        .named_parameters()):
+                pg.copy_(pc)
+            for k in ("m", "v"):
+                for n, tg in card["opt"][k].items():
+                    tg.copy_(states["cpu"]["opt"][k][n])
+        before = c
+    want = {"flash_attention": 4 * PAR_LAYERS, "ssm_scan": 4 * PAR_LAYERS,
+            "flash_attention_backward": 2 * PAR_LAYERS,
+            "ssm_scan_backward": 2 * PAR_LAYERS}
+    if any(counts[k] != n for k, n in want.items()):
+        fail(f"train-parity: launches {counts} in two card steps, expected "
+             f"{want} (forward and its recompute under remat 'dots', one "
+             f"backward a layer a step)")
+    log(f"[train-parity] card == CPU, each step from one state: losses "
+        f"{[mg['loss']]} at step 2 (CPU {[mc['loss']]}); largest relative "
+        f"differences {', '.join(f'{k} {v:.3g}' for k, v in worst.items())}; "
+        f"gradients within {g_err:.3g} of each leaf's largest magnitude; "
+        f"moments within bound; parameters within bound ({loose} of "
+        f"{total} elements beyond 1e-5 and within the moments' part); "
+        f"launches {counts}; {time.perf_counter() - t0:.1f} s")
+
+
+def train_main(dev) -> dict:
+    """The training main run through the user's entry points:
+    hymba-1.5b's full config (bf16, remat "dots") with seeded random
+    weights on the card, init_state + make_train_step, TR_STEPS steps of
+    AdamWConfig(warmup_steps=0) on one batch of TR_BATCH x TR_SEQ tokens.
+    Every loss, grad_norm and lr finite, the last loss below the first;
+    each step launches the forward kernels twice a layer (the forward and
+    its recompute under "dots") and each backward kernel once a layer."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.train import optim, step
+    cfg = configs.get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    state = step.init_state(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    log(f"[train-main] {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters "
+        f"({cfg.param_dtype}), float32 moments, remat {cfg.remat!r}; "
+        f"{TR_BATCH} x {TR_SEQ} tokens a step, {TR_STEPS} steps on one "
+        f"batch; init on the card {time.perf_counter() - t0:.1f} s")
+    batch = train_batch(cfg, TR_BATCH, TR_SEQ, 11, dev)
+    ts = step.make_train_step(cfg, optim.AdamWConfig(warmup_steps=0))
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, per_step = [], [], []
+    for i in range(TR_STEPS):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = ts(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        per_step.append(ops.launch_counts(ops.FORWARD + ops.BACKWARD))
+        vals = {k: float(v) for k, v in m.items()}
+        if not all(math.isfinite(vals[k]) for k in ("loss", "grad_norm",
+                                                    "lr")):
+            fail(f"train-main: step {i} metrics {vals}")
+        losses.append(vals["loss"])
+        log(f"[train-main] step {i + 1}: {walls[-1]:.3f} s, loss "
+            f"{vals['loss']:.4f}, nll {vals['nll']:.4f}, grad_norm "
+            f"{vals['grad_norm']:.4f}, lr {vals['lr']:.3g}")
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    want = {"dcsim_advance": 0, "telemetry_accum": 0,
+            "flash_attention": 2 * L, "ssm_scan": 2 * L,
+            "flash_attention_backward": L, "ssm_scan_backward": L}
+    if any(c != want for c in per_step):
+        fail(f"train-main: launches a step {per_step}, expected {want}")
+    if not losses[-1] < losses[0]:
+        fail(f"train-main: the loss did not fall: {losses}")
+    med = statistics.median(walls[1:])
+    tokens = TR_BATCH * TR_SEQ
+    log(f"[train-main] {TR_STEPS} steps: step time {med:.3f} s (median of "
+        f"steps 2-{TR_STEPS}; first {walls[0]:.3f} s), {tokens / med:.0f} "
+        f"tokens/s, peak memory {peak / 2**30:.2f} GiB; launches a step "
+        f"{per_step[-1]} (forward and its recompute, backward); losses "
+        f"{[round(x, 4) for x in losses]}")
+
+    def one_step():
+        nonlocal state
+        state, _ = ts(state, batch)
+
+    ks, wall = device_kernels(one_step)
+    prof = report_profile("train step (hymba-1.5b, 4 x 4,096 tokens)", ks,
+                          wall, ("fa_bwd_", "ssm_scan_bwd"), 1, "step")
+    if prof["busy_us"] is not None:
+        shares = {n: sum(t for k, (_, t) in ks.items() if p in k)
+                  / prof["busy_us"] for n, p in (
+                      ("flash_attention_backward", "fa_bwd_"),
+                      ("ssm_scan_backward", "ssm_scan_bwd"),
+                      ("flash_attention", "flash_attention_bf16_kernel"),
+                      ("ssm_scan", "ssm_scan_kernel"))}
+        log("[profile] train step: " + ", ".join(
+            f"{n} {100 * v:.1f}%" for n, v in shares.items())
+            + " of the device time")
+    del state
+    torch.cuda.empty_cache()
+    return {"launches": per_step[-1], "step_s": med}
+
+
+def train_kernel_entries(launches, fa_err, ss_err, dev):
+    """Both backward kernels at the training main run's shapes (phase 3's
+    inputs, made again) beside their bounds, plain versions and
+    (attention) SDPA's backward at the same mask (enable_gqa)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref, ssm_scan
+    (q, k, v, out, dout), kw = bwd_inputs(FLASH_BWD_MAIN, dev)
+    ss_args = ssm_bwd_inputs(*SSM_BWD_MAIN, dev)
+    B, H, KV, S, _, hd, causal, W, _, _ = FLASH_BWD_MAIN
+    sfu = exp_per_s()
+
+    def fa_call():
+        return flash_attention.flash_attention_backward(q, k, v, out, dout,
+                                                        **kw)
+
+    fa_ms = time_ms(fa_call, reps=10, warmup=2)
+    fa_plain = time_ms(lambda: ref.mha_backward_reference(
+        q, k, v, out, None, dout, **kw), reps=2, warmup=1)
+    pos = torch.arange(S, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                             enable_gqa=True)
+    fa_lib = time_ms(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), dout, retain_graph=True), reps=10, warmup=2)
+    del lib_out, ql, kl, vl
+    pairs = attn_pairs(S, S, causal, W) * B * H
+    dq, dk, dv = fa_call()
+    # per unmasked pair: five products of 2 hd flops (q.k, dout.v, P^T
+    # dout, dS^T q, dS k) and one exponential
+    fa_bound, fa_by, fa_op = bound_ms(
+        nbytes(q, k, v, out, dout, dq, dk, dv),
+        {"bf16 tensor-core flops": (10 * hd * pairs, PEAK_BF16_FLOP_S),
+         "exponentials": (pairs, sfu)})
+    del dq, dk, dv
+
+    def ss_call():
+        return ssm_scan.ssm_scan_backward(*ss_args)
+
+    ss_ms = time_ms(ss_call, reps=10, warmup=2)
+    ss_plain = time_ms(lambda: ref.ssm_scan_backward_reference(*ss_args),
+                       reps=2, warmup=1)
+    outs = ss_call()
+    Bs, Ss, Dss, N = SSM_BWD_MAIN
+    elems = Bs * Ss * Dss * N
+    # per state element and step: the state's recompute (4 operations),
+    # the reverse recurrence and the five gradients' terms (12), one
+    # exponential
+    ss_bound, ss_by, ss_op = bound_ms(
+        nbytes(*ss_args, *outs), {"f32 operations": (16 * elems,
+                                                     PEAK_F32_OPS_S),
+                                  "exponentials": (elems, sfu)})
+    del outs
+    dev_us = {"flash_attention_backward": kernel_device_us(
+        fa_call, ["fa_bwd_"], reps=5),
+        "ssm_scan_backward": kernel_device_us(ss_call, ["ssm_scan_bwd"],
+                                              reps=5)}
+    del q, k, v, out, dout
+    entries = [
+        {"name": "flash_attention_backward", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/models/layers.py:105",
+         "replaces_note": "no TPU kernel: the reference's gradient is "
+                          "autodiff of its jnp attend",
+         "launches": launches["flash_attention_backward"],
+         "max_abs_err": fa_err, "ms": fa_ms, "plain_ms": fa_plain,
+         "bound_ms": fa_bound, "bound_by": fa_by, "bound_op": fa_op,
+         "library_ms": fa_lib, "instance": flash_attention.BWD_INSTANCE,
+         "shape": list(FLASH_BWD_MAIN[:8])},
+        {"name": "ssm_scan_backward", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+         "replaces": "src/repro/models/ssm.py:76",
+         "replaces_note": "no TPU kernel: the reference's gradient is "
+                          "autodiff of its lax.scan",
+         "launches": launches["ssm_scan_backward"], "max_abs_err": ss_err,
+         "ms": ss_ms, "plain_ms": ss_plain, "bound_ms": ss_bound,
+         "bound_by": ss_by, "bound_op": ss_op, "library_ms": None,
+         "instance": "lanes{}x{}".format(*ssm_scan.lanes_for(N)),
+         "shape": list(SSM_BWD_MAIN)},
+    ]
+    return entries, dev_us
+
+
+# --------------------------------------------------------------------------
 
 def main() -> None:
     t_start = T_START
@@ -3846,6 +4274,15 @@ def main() -> None:
     ss_main, ss_err = check_ssm(*SSM_MAIN, dev)
     for case in SSM_RAGGED + SSM_EDGES:
         ss_err = max(ss_err, check_ssm(*case, dev)[1])
+    # the backward kernels (training)
+    fb_err = check_flash_bwd(FLASH_BWD_MAIN, dev)
+    for case in FLASH_BWD_CASES + [c + ("bfloat16",) for c in FLASH_TC_EDGES]:
+        fb_err = max(fb_err, check_flash_bwd(case, dev))
+    sb_err = check_ssm_bwd(*SSM_BWD_MAIN, dev)
+    for case in SSM_BWD_CASES + SSM_EDGES[:4]:
+        for with_dh in (False, True):
+            sb_err = max(sb_err, check_ssm_bwd(*case, dev, with_dh=with_dh))
+    torch.cuda.empty_cache()
     mc_err = mc_kernels(dev)
 
     log(f"[elapsed] phase 4 starts at {time.perf_counter() - t_start:.1f} s")
@@ -3901,6 +4338,9 @@ def main() -> None:
     scalar_parity(dev, vec)
     del vec
     lm_parity(dev)
+    log(f"[elapsed] [train-parity] starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    train_parity(dev)
 
     log(f"[elapsed] phase 5 starts at {time.perf_counter() - t_start:.1f} s")
     # phase 5: the discrete-event main run through the user's entry point
@@ -4054,6 +4494,28 @@ def main() -> None:
     # MoE serving, after hymba's weights are freed: moonshot's 57.8 GB of
     # weights leave room for little else
     del lm_params, lm_toks
+    torch.cuda.empty_cache()
+
+    # training, on the freed card: the main run, then both backward
+    # kernels timed at its shapes
+    log(f"[elapsed] [train-main] starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    tr = train_main(dev)
+    tr_entries, tr_dev_us = train_kernel_entries(tr["launches"], fb_err,
+                                                 sb_err, dev)
+    for k in tr_entries:
+        d = tr_dev_us[k["name"]]
+        k["device_ms"] = None if d is None else d / 1e3
+        log(f"[time] {k['name']} ({k['instance']}) at "
+            f"{tuple(k['shape'])}: {k['ms'] * 1e3:.1f} us per call on the "
+            f"stream, {'not measured' if d is None else f'{d:.2f} us'} of "
+            f"device time (profiler); bound {k['bound_ms'] * 1e3:.3f} us by "
+            f"{k['bound_op']}; plain version {k['plain_ms'] * 1e3:.1f} us"
+            + ("" if k["library_ms"] is None else
+               f"; SDPA's backward {k['library_ms'] * 1e3:.1f} us, the "
+               f"kernel {k['ms'] / k['library_ms']:.2f}x its time")
+            + f"; {k['launches']} launches a step of [train-main]")
+    kernels += tr_entries
     torch.cuda.empty_cache()
     log(f"[elapsed] [moe-layer] starts at "
         f"{time.perf_counter() - t_start:.1f} s")

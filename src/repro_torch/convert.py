@@ -15,7 +15,9 @@ reference's ``montecarlo.batched_state``, a leading R on every leaf)
 comes across as a port batch, leaf for leaf.
 ``params_from_jax`` turns the reference's LM parameter tree (numpy
 leaves, stacked over periods; an encoder's blocks stacked over
-``enc_layers``) into the port's per-layer ``Params``.
+``enc_layers``) into the port's per-layer ``Params``;
+``train_state_from_jax`` carries a whole train state (parameters, AdamW
+moments, step) across through the same leaf map.
 Nothing here imports JAX.
 """
 from __future__ import annotations
@@ -163,3 +165,21 @@ def params_from_jax(cfg, tree: dict, device=None):
                   lambda a, j=i // cfg.period: conv(a[j]))
         for i in range(cfg.n_layers)]
     return Params(port)
+
+
+def train_state_from_jax(cfg, state: dict, device=None) -> dict:
+    """The port's train state (``train.step.init_state``'s layout) from the
+    reference's ``{"params", "opt": {"m", "v"}, "step"}`` with numpy
+    leaves: the parameters through ``params_from_jax`` (gradients on), the
+    moments through the same leaf map, keyed by the parameters' names, and
+    the step as an int32 0-d tensor."""
+    from .train.step import train_state
+    dev = T.resolve_device(device)
+    params = params_from_jax(cfg, state["params"], device=dev)
+    opt = {k: dict(params_from_jax(cfg, state["opt"][k],
+                                   device=dev).named_parameters())
+           for k in ("m", "v")}
+    opt = {k: {n: p.detach() for n, p in v.items()} for k, v in opt.items()}
+    step = torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                        device=dev)
+    return train_state(params, opt, step)

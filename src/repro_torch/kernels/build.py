@@ -21,7 +21,8 @@ import subprocess
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("dcsim_step", "telemetry_bin", "flash_attention", "ssm_scan")
+SOURCES = ("dcsim_step", "telemetry_bin", "flash_attention", "ssm_scan",
+           "flash_attention_bwd", "ssm_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -139,6 +140,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "ssm_scan":
         fn = lib.ssm_scan_launch
         fn.argtypes = [P] * 7 + [I] * 5 + [P]
+    elif name == "flash_attention_bwd":
+        fn = lib.flash_attention_bwd_launch
+        fn.argtypes = [P] * 10 + [I] * 7 + [P, I, I, F, F, P]
+    elif name == "ssm_scan_bwd":
+        fn = lib.ssm_scan_bwd_launch
+        fn.argtypes = [P] * 13 + [I] * 5 + [P]
     else:
         raise ValueError(f"unknown kernel source {name!r}")
     fn.restype = I

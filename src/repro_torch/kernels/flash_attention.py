@@ -31,19 +31,13 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
-def plan(q, k, v, *, window=0) -> str:
-    """The instance that takes this call, or ValueError with the reason.
-
-    Pure: reads dtypes, shapes, strides and addresses only, so it runs on
-    CPU tensors.  q (B, H, Sq, hd), k/v (B, KV, Skv, hd), one dtype, head
-    dimension contiguous, H % KV == 0, hd in ``HEAD_DIMS``.  The bf16
-    instance copies 16-byte row chunks asynchronously, so there the base
-    addresses and the batch, head and sequence strides must be multiples
-    of 16 bytes (8 elements); a bf16 call that breaks this raises and
-    never runs on the f32 instance."""
+def _check(q, k, v, *others, window=0) -> None:
+    """The checks every instance and the backward share (``others``, named
+    tensors shaped like q: the backward's out and dout), or ValueError
+    with the reason."""
     if q.dtype not in DTYPES:
         raise ValueError(f"q must be one of {list(DTYPES)}, got {q.dtype}")
-    for x, name in ((q, "q"), (k, "k"), (v, "v")):
+    for x, name in ((q, "q"), (k, "k"), (v, "v")) + others:
         if x.dim() != 4:
             raise ValueError(f"{name} must have 4 dims, got {tuple(x.shape)}")
         if x.dtype != q.dtype:
@@ -56,6 +50,10 @@ def plan(q, k, v, *, window=0) -> str:
         raise ValueError(f"k/v must have shape (B, KV, Skv, hd) = "
                          f"{(B, KV, Skv, hd)}, got {tuple(k.shape)} and "
                          f"{tuple(v.shape)}")
+    for x, name in others:
+        if tuple(x.shape) != tuple(q.shape):
+            raise ValueError(f"{name} must have q's shape {tuple(q.shape)}, "
+                             f"got {tuple(x.shape)}")
     if H % KV:
         raise ValueError(f"{H} query heads are not a multiple of {KV} kv "
                          f"heads")
@@ -66,6 +64,19 @@ def plan(q, k, v, *, window=0) -> str:
         raise ValueError(f"empty attention, negative window or grid too "
                          f"large: B={B} H={H} Sq={Sq} Skv={Skv} "
                          f"window={window}")
+
+
+def plan(q, k, v, *, window=0) -> str:
+    """The instance that takes this call, or ValueError with the reason.
+
+    Pure: reads dtypes, shapes, strides and addresses only, so it runs on
+    CPU tensors.  q (B, H, Sq, hd), k/v (B, KV, Skv, hd), one dtype, head
+    dimension contiguous, H % KV == 0, hd in ``HEAD_DIMS``.  The bf16
+    instance copies 16-byte row chunks asynchronously, so there the base
+    addresses and the batch, head and sequence strides must be multiples
+    of 16 bytes (8 elements); a bf16 call that breaks this raises and
+    never runs on the f32 instance."""
+    _check(q, k, v, window=window)
     if q.dtype == torch.float32:
         return CUDA_CORE
     for x, name in ((q, "q"), (k, "k"), (v, "v")):
@@ -118,3 +129,66 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     SHAPE_LAUNCHES[shape] = SHAPE_LAUNCHES.get(shape, 0) + 1
     LAST_INSTANCE = instance
     return out
+
+
+# --------------------------------------------------------------------------
+# the backward kernel (csrc/flash_attention_bwd.cu)
+# --------------------------------------------------------------------------
+
+BWD_LAUNCHES = 0
+BWD_INSTANCE = "simt_f32"
+
+
+def plan_backward(q, k, v, out, dout, *, window=0) -> str:
+    """The backward instance that takes this call, or ValueError with the
+    reason.  Pure, like ``plan``: what the forward takes (q (B, H, Sq,
+    hd), k/v (B, KV, Skv, hd), one dtype of ``DTYPES``, the head dimension
+    contiguous, hd in ``HEAD_DIMS``), with ``out`` and ``dout`` shaped and
+    typed like q.  The backward reads rows element by element, so it puts
+    no alignment rule on bf16 tensors."""
+    _check(q, k, v, (out, "out"), (dout, "dout"), window=window)
+    return BWD_INSTANCE
+
+
+def flash_attention_backward(q, k, v, out, dout, *, causal=True, window=0,
+                             softcap=0.0):
+    """The attention's gradient on the card: (dq, dk, dv), each shaped,
+    typed and laid out like q, k and v (``empty_like``), from the forward's
+    inputs, its output ``out`` and the output's gradient ``dout`` (see
+    ``plan_backward``; ``ref.mha_backward_reference`` is the plain
+    version).  Two kernels on the stream: the first recomputes each row's
+    log-sum-exp and D = rowsum(dout * out) into (B, H, Sq) float32 scratch
+    and accumulates dq, the second accumulates dk and dv over each kv
+    head's group; one launch of this wrapper counts once."""
+    global BWD_LAUNCHES
+    for x, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out"),
+                    (dout, "dout")):
+        if x.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+        if x.device != q.device:
+            raise ValueError(f"all inputs must be on {q.device}, got "
+                             f"{x.device}")
+    instance = plan_backward(q, k, v, out, dout, window=window)
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    lib = build.load("flash_attention_bwd")
+    dev = q.device
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    dd = torch.empty_like(lse)
+    strides = (ctypes.c_longlong * 24)(
+        *(t.stride(i) for t in (q, k, v, out, dout, dq, dk, dv)
+          for i in range(3)))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), dd.data_ptr(), B, H, KV, Sq, Skv, hd,
+            DTYPES[q.dtype], strides, int(causal), int(window),
+            1.0 / math.sqrt(hd), float(softcap), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward kernel ({instance}) "
+                           f"launch failed: cudaError {err}")
+    BWD_LAUNCHES += 1
+    return dq, dk, dv

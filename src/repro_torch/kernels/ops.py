@@ -6,8 +6,12 @@ A registered op is one node to PyTorch's dispatcher: a recording under a
 as one ``repro_torch::<name>`` op, as the reference's jaxpr holds one
 ``pallas_call`` equation, and a fake implementation gives its output
 shapes and dtypes without running it (the ``meta`` device, fake tensors;
-inputs on more than one device raise).  None of the four writes its
-arguments (no schema marks one written): each returns fresh outputs.  The
+inputs on more than one device raise).  None of the six writes its
+arguments (no schema marks one written): each returns fresh outputs.
+The two backward ops (``flash_attention_backward``, ``ssm_scan_backward``)
+are the gradients of ``flash_attention`` and ``ssm_scan``, wired to them
+by ``torch.autograd.Function``s that the entry points take only when a
+gradient is wanted, so serving dispatches the forward ops as before.  The
 scratch words of the engine kernels' in-kernel reductions are the
 wrappers' own (``dcsim_step.scratch``, ``telemetry_bin.scratch``), not
 arguments.
@@ -133,6 +137,96 @@ _register(
     _ssm.ssm_scan, ref.ssm_scan_reference, _ssm_scan_fake)
 
 
+def _mha_backward_plain(q, k, v, out, dout, *, causal, window, softcap):
+    """The backward op's plain version: the row statistics recomputed, as
+    the kernel does."""
+    return ref.mha_backward_reference(q, k, v, out, None, dout,
+                                      causal=causal, window=window,
+                                      softcap=softcap)
+
+
+def _flash_attention_backward_fake(q, k, v, out, dout, *, causal, window,
+                                   softcap):
+    _one_device("flash_attention_backward", q, k, v, out, dout)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+_register(
+    "flash_attention_backward",
+    "(Tensor q, Tensor k, Tensor v, Tensor out, Tensor dout, *, "
+    "bool causal, int window, float softcap) -> (Tensor, Tensor, Tensor)",
+    _fa.flash_attention_backward, _mha_backward_plain,
+    _flash_attention_backward_fake)
+
+
+def _ssm_scan_backward_fake(dt, Bm, Cm, x, A, dy, dh):
+    _one_device("ssm_scan_backward", dt, Bm, Cm, x, A, dy, dh)
+    f32 = dict(dtype=torch.float32)
+    return (x.new_empty(x.shape, **f32), Bm.new_empty(Bm.shape, **f32),
+            Cm.new_empty(Cm.shape, **f32), x.new_empty(x.shape, **f32),
+            A.new_empty(A.shape, **f32))
+
+
+_register(
+    "ssm_scan_backward",
+    "(Tensor dt, Tensor Bm, Tensor Cm, Tensor x, Tensor A, Tensor dy, "
+    "Tensor? dh) -> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+    _ssm.ssm_scan_backward, ref.ssm_scan_backward_reference,
+    _ssm_scan_backward_fake)
+
+
+# --------------------------------------------------------------------------
+# gradients: the backward ops, wired to the forward ops by autograd
+# --------------------------------------------------------------------------
+
+class _FlashAttention(torch.autograd.Function):
+    """The attention op with its gradient: the forward op saves its inputs
+    and output, the backward op recomputes the row statistics from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        out = torch.ops.repro_torch.flash_attention(
+            q, k, v, causal=causal, window=window, softcap=softcap)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = dict(causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv = torch.ops.repro_torch.flash_attention_backward(
+            q, k, v, out, dout, **ctx.mask)
+        return dq, dk, dv, None, None, None
+
+
+class _SsmScan(torch.autograd.Function):
+    """The scan op with its gradient; the final state's gradient is None
+    when the state is not used (train mode), and the kernel then takes
+    none."""
+
+    @staticmethod
+    def forward(ctx, dt, Bm, Cm, x, A):
+        y, h = torch.ops.repro_torch.ssm_scan(dt, Bm, Cm, x, A)
+        ctx.save_for_backward(dt, Bm, Cm, x, A)
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        dt, Bm, Cm, x, A = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dh is not None:
+            dh = dh.contiguous()
+        return torch.ops.repro_torch.ssm_scan_backward(dt, Bm, Cm, x, A, dy,
+                                                       dh)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 # --------------------------------------------------------------------------
 # the port's entry points
 # --------------------------------------------------------------------------
@@ -159,7 +253,13 @@ def telemetry_accum(job_vals, job_wts, task_vals, task_wts,
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     """Streaming-softmax attention, q (B, H, Sq, hd), k/v (B, KV, Skv, hd)
-    (see ``ref.mha_reference``)."""
+    (see ``ref.mha_reference``).  Where a gradient is wanted the call goes
+    through ``_FlashAttention``, whose backward is the
+    ``flash_attention_backward`` op; elsewhere (serving) it is the forward
+    op alone."""
+    if _needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                     float(softcap))
     return torch.ops.repro_torch.flash_attention(
         q, k, v, causal=bool(causal), window=int(window),
         softcap=float(softcap))
@@ -167,23 +267,38 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
 
 def ssm_scan(dt, Bm, Cm, x, A):
     """Selective-SSM scan returning (y, h_final) (see
-    ``ref.ssm_scan_reference``)."""
+    ``ref.ssm_scan_reference``); with a gradient wanted, through
+    ``_SsmScan``, whose backward is the ``ssm_scan_backward`` op."""
+    if _needs_grad(dt, Bm, Cm, x, A):
+        return _SsmScan.apply(dt, Bm, Cm, x, A)
     return torch.ops.repro_torch.ssm_scan(dt, Bm, Cm, x, A)
 
 
-_KERNELS = {"dcsim_advance": dcsim_step, "telemetry_accum": telemetry_bin,
-            "flash_attention": _fa, "ssm_scan": _ssm}
+# each kernel's launch counter: (module, attribute)
+_COUNTERS = {"dcsim_advance": (dcsim_step, "LAUNCHES"),
+             "telemetry_accum": (telemetry_bin, "LAUNCHES"),
+             "flash_attention": (_fa, "LAUNCHES"),
+             "ssm_scan": (_ssm, "LAUNCHES"),
+             "flash_attention_backward": (_fa, "BWD_LAUNCHES"),
+             "ssm_scan_backward": (_ssm, "BWD_LAUNCHES")}
+# the forward kernels, which launch_counts reports by default; the
+# backward kernels run in training only
+FORWARD = ("dcsim_advance", "telemetry_accum", "flash_attention",
+           "ssm_scan")
+BACKWARD = ("flash_attention_backward", "ssm_scan_backward")
 # the registered op of each kernel, by the name launch_counts uses
-OPS = {name: f"{NAMESPACE}.{name}" for name in _KERNELS}
+OPS = {name: f"{NAMESPACE}.{name}" for name in _COUNTERS}
 
 
-def launch_counts() -> dict:
-    return {name: mod.LAUNCHES for name, mod in _KERNELS.items()}
+def launch_counts(names=FORWARD) -> dict:
+    """{kernel: launches since the last reset} of ``names`` (the forward
+    kernels unless asked; ``FORWARD + BACKWARD`` for all six)."""
+    return {name: getattr(*_COUNTERS[name]) for name in names}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNELS.values():
-        mod.LAUNCHES = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)
     dcsim_step.CLOCK_LAUNCHES.update(dict.fromkeys(dcsim_step.CLOCK_LAUNCHES,
                                                    0))
     _fa.INSTANCE_LAUNCHES.update(dict.fromkeys(_fa.INSTANCE_LAUNCHES, 0))

@@ -174,6 +174,18 @@ def dcsim_advance_reference(core_busy, srv_state, energy, busy_seconds,
     return new_busy, done, energy, busy_seconds, next_cand
 
 
+def _attn_mask(Sq, Skv, causal, window, device):
+    """(Sq, Skv) bool: the unmasked (query, key) pairs."""
+    q_pos = torch.arange(Sq, device=device)[:, None]
+    k_pos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
 def mha_reference(q, k, v, *, causal=True, window=0, softcap=0.0):
     """Dense softmax attention.  q (B, H, Sq, hd); k/v (B, KV, Skv, hd)
     with H % KV == 0 (kv head = q head // (H / KV)); any strides.  Scores,
@@ -188,13 +200,7 @@ def mha_reference(q, k, v, *, causal=True, window=0, softcap=0.0):
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(f32)) / math.sqrt(hd)
     if softcap:
         s = torch.tanh(s / softcap) * softcap
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
-    k_pos = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window:
-        mask &= k_pos > q_pos - window
+    mask = _attn_mask(Sq, Skv, causal, window, q.device)
     s = torch.where(mask, s, _const(NEG_INF, s))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(f32))
@@ -221,3 +227,130 @@ def ssm_scan_reference(dt, Bm, Cm, x, A):
         ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, t]))
     y = torch.stack(ys, dim=1) if ys else xf.new_zeros((Bsz, 0, Dss))
     return y.to(x.dtype), h
+
+
+def _attn_dead_rows(Sq, Skv, window, device):
+    """(Sq,) bool: the query rows with no unmasked key (a window that ends
+    before the first key: q >= Skv + window - 1), whose softmax is the
+    uniform average of every key, so no score gets a gradient there."""
+    q_pos = torch.arange(Sq, device=device)
+    return (q_pos >= Skv + window - 1) if window else \
+        torch.zeros(Sq, dtype=torch.bool, device=device)
+
+
+def mha_lse_reference(q, k, *, causal=True, window=0, softcap=0.0):
+    """Each query row's log-sum-exp of its masked scores, (B, H, Sq)
+    float32, as the backward kernel recomputes it; a row with no unmasked
+    key gets NEG_INF (its probabilities do not come from it)."""
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    s = torch.einsum("bkgqd,bksd->bkgqs",
+                     q.reshape(B, KV, H // KV, Sq, hd).float(),
+                     k.float()) / math.sqrt(hd)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(_attn_mask(Sq, Skv, causal, window, q.device), s,
+                    _const(NEG_INF, s))
+    lse = torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    dead = _attn_dead_rows(Sq, Skv, window, q.device)
+    return torch.where(dead, _const(NEG_INF, lse), lse)
+
+
+def mha_backward_reference(q, k, v, out, lse, dout, *, causal=True,
+                           window=0, softcap=0.0):
+    """The gradient of ``mha_reference``: (dq, dk, dv) in the dtypes of q,
+    k and v, from the forward's inputs, its output ``out`` and the output's
+    gradient ``dout`` (both (B, H, Sq, hd)).  Dense, in float32, one batch
+    row at a time (a (H, Sq, Skv) score block at a time bounds the memory
+    at training shapes):
+
+      P  = exp(s - lse) on unmasked scores, 0 on masked ones (s as the
+           forward has it: scaled, softcapped); a row with no unmasked key
+           averages every key uniformly, P = 1 / Skv, as the forward does
+      D  = rowsum(dout * out)
+      dS = P * (dout . v^T - D), times tanh' = 1 - (s / cap)^2 with a
+           softcap; 0 where masked
+      dq = dS . k * scale;  dk = sum over the G heads of a kv head of
+           dS^T . q * scale;  dv = that sum of P^T . dout
+
+    ``lse`` (B, H, Sq) float32 is each row's log-sum-exp; None recomputes
+    it (``mha_lse_reference``), as the backward kernel does."""
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    G = H // KV
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(hd)
+    if lse is None:
+        lse = mha_lse_reference(q, k, causal=causal, window=window,
+                                softcap=softcap)
+    mask = _attn_mask(Sq, Skv, causal, window, q.device)
+    dead = _attn_dead_rows(Sq, Skv, window, q.device)[:, None]
+    dq, dk, dv = [], [], []
+    for b in range(B):
+        qb = q[b].reshape(KV, G, Sq, hd).to(f32)
+        kb, vb = k[b].to(f32), v[b].to(f32)
+        dob = dout[b].reshape(KV, G, Sq, hd).to(f32)
+        ob = out[b].reshape(KV, G, Sq, hd).to(f32)
+        s = torch.einsum("kgqd,ksd->kgqs", qb, kb) * scale
+        if softcap:
+            t = torch.tanh(s / softcap)
+            s = t * softcap
+        lb = lse[b].reshape(KV, G, Sq, 1).to(f32)
+        p = torch.where(mask, torch.exp(s - lb),
+                        torch.where(dead, _const(1.0 / Skv, s),
+                                    _const(0.0, s)))
+        dp = torch.einsum("kgqd,ksd->kgqs", dob, vb)
+        dd = (dob * ob).sum(-1, keepdim=True)
+        ds = torch.where(mask, p * (dp - dd), _const(0.0, s))
+        if softcap:
+            ds = ds * (1.0 - t * t)
+        dq.append(torch.einsum("kgqs,ksd->kgqd", ds, kb) * scale)
+        dk.append(torch.einsum("kgqs,kgqd->ksd", ds, qb) * scale)
+        dv.append(torch.einsum("kgqs,kgqd->ksd", p, dob))
+    return (torch.stack(dq).reshape(B, H, Sq, hd).to(q.dtype),
+            torch.stack(dk).to(k.dtype), torch.stack(dv).to(v.dtype))
+
+
+def ssm_scan_backward_reference(dt, Bm, Cm, x, A, dy, dh_final=None):
+    """The gradient of ``ssm_scan_reference``: (ddt, dBm, dCm, dx, dA), all
+    float32, from its inputs, the gradient of y (B, S, Dss) and that of
+    the final state (B, Dss, N) (None: zero).  The states h_t are
+    recomputed by the forward recurrence, then a reverse loop over time
+    carries g_t, the gradient of h_t:
+
+      g_t    = dy_t C_t + exp(dt_{t+1} A) g_{t+1}   (+ dh_final at S - 1)
+      dC_t   = sum_d dy_t h_t            dB_t = sum_d g_t dt_t x_t
+      dx_t   = dt_t sum_n g_t B_t
+      ddt_t  = x_t sum_n g_t B_t + sum_n g_t h_{t-1} A exp(dt_t A)
+      dA    += sum_b g_t h_{t-1} dt_t exp(dt_t A)"""
+    Bsz, S, Dss = x.shape
+    N = Bm.shape[-1]
+    f32 = torch.float32
+    dt, Bm, Cm, xf, A, dy = (t.to(f32) for t in (dt, Bm, Cm, x, A, dy))
+    h = torch.zeros((Bsz, Dss, N), dtype=f32, device=x.device)
+    hs = [h]
+    for t in range(S):
+        dt_t = dt[:, t]
+        da = torch.exp(dt_t[..., None] * A[None])
+        h = da * h + (dt_t * xf[:, t])[..., None] * Bm[:, t][:, None, :]
+        hs.append(h)
+    g = torch.zeros_like(h) if dh_final is None else dh_final.to(f32)
+    ddt, dB, dC, dx = ([None] * S for _ in range(4))
+    dA = torch.zeros_like(A)
+    for t in reversed(range(S)):
+        dt_t, x_t, dy_t = dt[:, t], xf[:, t], dy[:, t]
+        g = g + dy_t[..., None] * Cm[:, t][:, None, :]
+        dC[t] = torch.einsum("bdn,bd->bn", hs[t + 1], dy_t)
+        da = torch.exp(dt_t[..., None] * A[None])
+        gb = (g * Bm[:, t][:, None, :]).sum(-1)
+        gh = g * hs[t] * da
+        dx[t] = dt_t * gb
+        ddt[t] = x_t * gb + (gh * A[None]).sum(-1)
+        dB[t] = torch.einsum("bdn,bd->bn", g, dt_t * x_t)
+        dA = dA + (gh * dt_t[..., None]).sum(0)
+        g = g * da
+    if S == 0:
+        empty = xf.new_zeros((Bsz, 0, Dss))
+        return empty, Bm.clone(), Cm.clone(), empty.clone(), dA
+    return (torch.stack(ddt, 1), torch.stack(dB, 1), torch.stack(dC, 1),
+            torch.stack(dx, 1), dA)

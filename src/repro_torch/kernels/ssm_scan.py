@@ -81,3 +81,71 @@ def ssm_scan(dt, Bm, Cm, x, A):
     LAUNCHES += 1
     LAST_INSTANCE = f"lanes{G}x{E}"
     return y, h
+
+
+# --------------------------------------------------------------------------
+# the backward kernel (csrc/ssm_scan_bwd.cu)
+# --------------------------------------------------------------------------
+
+BWD_LAUNCHES = 0
+CKPT_STEPS = 64                 # the backward's checkpoint interval (SB_T)
+
+
+def plan_backward(dt, Bm, Cm, x, A, dy, dh=None) -> tuple:
+    """``plan``'s checks, plus dy (B, S, Dss) and dh (B, Dss, N) or None,
+    float32 and contiguous.  Returns (G, E) of ``lanes_for``."""
+    lanes = plan(dt, Bm, Cm, x, A)
+    B, S, Dss = x.shape
+    N = Bm.shape[-1]
+    for t, name, shape in ((dy, "dy", (B, S, Dss)), (dh, "dh", (B, Dss, N))):
+        if t is None and name == "dh":
+            continue
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be {torch.float32}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return lanes
+
+
+def ssm_scan_backward(dt, Bm, Cm, x, A, dy, dh=None):
+    """The scan's gradient on the card: (ddt, dBm, dCm, dx, dA), float32,
+    from its inputs, the gradient dy of y and dh of the final state (None:
+    zero); see ``plan_backward``, and ``ref.ssm_scan_backward_reference``
+    for the plain version.  The kernel recomputes the states from
+    checkpoints every ``CKPT_STEPS`` steps, kept in (B, ceil(S / 64), Dss,
+    N) float32 scratch, and adds dBm, dCm and dA with float atomics into
+    zeroed outputs."""
+    global BWD_LAUNCHES
+    dev = x.device
+    for t, name in ((dt, "dt"), (Bm, "Bm"), (Cm, "Cm"), (x, "x"), (A, "A"),
+                    (dy, "dy"), (dh, "dh")):
+        if t is None:
+            continue
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.device != dev:
+            raise ValueError(f"all inputs must be on {dev}, got {t.device}")
+    G, _ = plan_backward(dt, Bm, Cm, x, A, dy, dh)
+    B, S, Dss = x.shape
+    N = Bm.shape[-1]
+    lib = build.load("ssm_scan_bwd")
+    f32 = dict(dtype=torch.float32, device=dev)
+    ddt, dx = torch.empty((B, S, Dss), **f32), torch.empty((B, S, Dss), **f32)
+    dBm, dCm = torch.zeros((B, S, N), **f32), torch.zeros((B, S, N), **f32)
+    dA = torch.zeros((Dss, N), **f32)
+    ckpt = torch.empty((B, -(-S // CKPT_STEPS), Dss, N), **f32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ssm_scan_bwd_launch(
+            dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), x.data_ptr(),
+            A.data_ptr(), dy.data_ptr(), 0 if dh is None else dh.data_ptr(),
+            ckpt.data_ptr(), ddt.data_ptr(), dBm.data_ptr(), dCm.data_ptr(),
+            dx.data_ptr(), dA.data_ptr(), B, S, Dss, N, G, stream)
+    if err != 0:
+        raise RuntimeError(f"ssm_scan backward kernel launch failed: "
+                           f"cudaError {err}")
+    BWD_LAUNCHES += 1
+    return ddt, dBm, dCm, dx, dA

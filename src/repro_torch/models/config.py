@@ -13,10 +13,11 @@ frame embeddings with sinusoidal positions) with ``cross_attn`` in every
 decoder block (``models.transformer``).  ``frontend`` is carried and not
 read: the reference stubs both front ends (frames arrive as embeddings;
 VQ image tokens are ids of the shared vocab).  ``skip_attention`` raises
-NotImplementedError (ROADMAP Queue 1 item 19); the runtime knobs
-(``remat``, ``scan_layers``, ``fsdp_embed``, ``microbatches``,
-``use_flash``, ``attn_bf16_scores``) are carried and not read, and
-``attn_chunk`` is read by the mLSTM's parallel form only.
+NotImplementedError (ROADMAP Queue 1 item 19).  Of the runtime knobs,
+``remat`` (train mode's checkpointing), ``microbatches`` and
+``xent_chunk`` (the train step's) are read; ``scan_layers``,
+``fsdp_embed``, ``use_flash`` and ``attn_bf16_scores`` are carried and not
+read, and ``attn_chunk`` is read by the mLSTM's parallel form only.
 
 Block kinds (``block_pattern``; ``n_layers`` must be divisible by
 ``len(block_pattern)``):

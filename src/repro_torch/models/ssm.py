@@ -13,7 +13,9 @@ Training/prefill forms:
     a Python loop over the sequence, as the reference's ``lax.scan``.
 
 Decode forms are single O(1)-state steps.  Every recurrent state is
-float32 whatever the compute dtype is, and no step reads the host.
+float32 whatever the compute dtype is, and no step reads the host.  The
+train forms write no tensor in place, so autograd differentiates them (the
+scan's gradient is the ``ssm_scan_backward`` kernel's).
 """
 from __future__ import annotations
 
@@ -164,7 +166,7 @@ def mlstm_mixer(p, x, cfg, mode="train", state=None, chunk=None):
     i_keys = i_t.transpose(1, 2)[:, :, None, :]
     cum_q = cum.transpose(1, 2)                          # (B, H, S)
     t_idx = torch.arange(S, device=x.device)
-    out = torch.empty((B, H, S, hd), dtype=torch.float32, device=x.device)
+    outs = []                            # the chunks' outputs, in order
     for c0 in range(0, S, chunk):
         c1 = min(c0 + chunk, S)          # the last chunk's padded queries
         # D~[t, s] = cum_f[t] - cum_f[s] + i~[s]   for s <= t
@@ -175,7 +177,8 @@ def mlstm_mixer(p, x, cfg, mode="train", state=None, chunk=None):
         w = torch.exp(dmat - mrow[..., None])
         s = (qf[:, :, c0:c1] @ kh.transpose(-1, -2)) * w
         den = torch.maximum(s.sum(-1).abs(), torch.exp(-mrow))[..., None]
-        out[:, :, c0:c1] = (s @ vh) / den
+        outs.append((s @ vh) / den)
+    out = torch.cat(outs, dim=2)                         # (B, H, S, hd)
     out = (out.transpose(1, 2) * o_t.float()).reshape(B, S, H * hd)
     new_state = None
     if mode == "prefill":                                # the final state
@@ -238,10 +241,11 @@ def slstm_mixer(p, x, cfg, mode="train", state=None):
     else:
         carry = tuple(x.new_zeros((B, D), dtype=torch.float32)
                       for _ in range(4))
-    hs = torch.empty((B, S, D), dtype=torch.float32, device=x.device)
+    hs = []
     for t in range(S):
         carry = _slstm_step(carry, xw[:, t], R, B, H, dh)
-        hs[:, t] = carry[0]
+        hs.append(carry[0])
+    hs = torch.stack(hs, dim=1)                          # (B, S, D)
     new_state = dict(zip(("h", "c", "n", "m"), carry)) \
         if mode != "train" else None
     return hs.to(x.dtype) @ p["out_proj"], new_state

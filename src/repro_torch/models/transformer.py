@@ -16,21 +16,32 @@ The reference stacks each pattern position's parameters over periods and
 scans over them; here every layer has its own parameters (``Params``, an
 ``nn.Module`` that reads like the reference's nested dict) and a plain
 Python loop runs the layers.  Caches are one dict per layer, holding what
-its kind needs.  Mesh sharding, ``remat``, ``scan_layers``,
-``fsdp_embed``, ``microbatches`` and ``use_flash`` have no counterpart on
-one card, and ``attn_bf16_scores`` tunes the reference's jnp attention,
-which the flash kernel replaces: they are carried in the config and not
-read.  ``attn_chunk`` is read by the mLSTM's parallel form only.  The
+its kind needs.  ``remat`` is read in train mode when a gradient is
+wanted, as the reference's ``jax.checkpoint`` of its scan body: each
+period of the block pattern (and each encoder block) runs under
+``torch.utils.checkpoint`` (non-reentrant); ``"full"`` recomputes the
+whole period in the backward pass, ``"dots"`` saves the outputs of the
+products without batch dimensions (``aten.mm``/``aten.addmm``, the 2-D
+weight products) through a selective-checkpoint policy, as
+``checkpoint_dots_with_no_batch_dims`` does, and ``"nothing"`` saves
+everything; the numbers do not depend on it.  ``microbatches`` is read by
+the train step (``train/step.py``).  Mesh sharding, ``scan_layers``,
+``fsdp_embed`` and ``use_flash`` have no counterpart on one card, and
+``attn_bf16_scores`` tunes the reference's jnp attention, which the flash
+kernel replaces: they are carried in the config and not read.
+``attn_chunk`` is read by the mLSTM's parallel form only.  The
 one thing the reference's forward supports that the port does not,
 ``skip_attention`` (a roofline probe), raises ``NotImplementedError``
 naming ROADMAP Queue 1 item 19.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from ..core.types import resolve_device
 from . import layers, moe, ssm
@@ -69,9 +80,11 @@ def check_supported(cfg: ModelConfig) -> None:
 
 class Params(nn.Module):
     """A nested parameter dictionary as an ``nn.Module``: tensors are
-    parameters (no gradients: the port serves), dicts are submodules,
-    lists are ``nn.ModuleList``s.  Read like the reference's pytree:
-    ``p["mixer"]["attn"]["wq"]``, ``"q_norm" in p``."""
+    parameters (without gradients: serving; ``train.step.init_state``
+    turns them on), dicts are submodules, lists are ``nn.ModuleList``s.
+    Read like the reference's pytree: ``p["mixer"]["attn"]["wq"]``,
+    ``"q_norm" in p``; ``named_parameters()`` names a leaf by its path
+    (``"layers.3.mixer.attn.wq"``)."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -374,16 +387,54 @@ def head(cfg, params, x):
     return layers.softcap(x @ w.to(x.dtype), cfg.final_softcap)
 
 
+# the products the "dots" policy saves: 2-D ones, no batch dimension (a
+# (B, S, D) @ (D, F) product reaches the dispatcher as one aten.mm)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return _ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _run_period(cfg, kinds, ps, x, aux, enc_out):
+    """Train-mode blocks of one period: (x, aux), aux summed in the
+    forward's order."""
+    for kind, p in zip(kinds, ps):
+        x, _, a = _apply_block(cfg, kind, p, x, mode="train", cache=None,
+                               pos=0, enc_out=enc_out)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def _remat(cfg):
+    """The period runner for ``cfg.remat``: the plain call where nothing is
+    recomputed (or no gradient is wanted), else it under a non-reentrant
+    checkpoint, selective for "dots"."""
+    if cfg.remat == "nothing" or not torch.is_grad_enabled():
+        return _run_period
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"{cfg.name}: unknown remat {cfg.remat!r}")
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(_ckpt.checkpoint, _run_period,
+                             use_reentrant=False, **kw)
+
+
 def encode(cfg: ModelConfig, params, frames):
     """Whisper's encoder over stubbed frame embeddings (B, enc_seq, D):
     the frames in the compute dtype plus the sinusoidal table rounded to
-    it, the bidirectional ``enc`` blocks, then ``enc.final_norm``."""
+    it, the bidirectional ``enc`` blocks (each one period for ``remat``,
+    as the reference's encoder scan), then ``enc.final_norm``."""
     x = frames.to(cdtype(cfg))
     x = x + layers.sinusoidal_pos(x.shape[1], cfg.d_model, x.dtype,
                                   x.device)[None]
+    run = _remat(cfg)
     for p in params["enc"]["layers"]:
-        x, _, _ = _apply_block(cfg, "enc", p, x, mode="train", cache=None,
-                               pos=0)
+        x, _ = run(cfg, ("enc",), (p,), x, None, None)
     return layers.rms_norm(x, params["enc"]["final_norm"], cfg.norm_eps)
 
 
@@ -430,15 +481,79 @@ def forward(cfg: ModelConfig, params, tokens, *, mode="train", cache=None,
         enc_out = encode(cfg, params, frames)
     new_caches = [] if cache is not None else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, p in enumerate(params["layers"]):
-        c = cache[i] if cache is not None else None
-        x, nc, a = _apply_block(cfg, layer_kind(cfg, i), p, x, mode=mode,
-                                cache=c, pos=pos, enc_out=enc_out)
-        if a is not None:
-            aux = aux + a
-        if cache is not None:
-            new_caches.append(nc if nc else c)
+    if mode == "train" and cache is None:
+        # period by period, each under cfg.remat's checkpoint
+        run, P = _remat(cfg), cfg.period
+        blocks = params["layers"]
+        for i0 in range(0, len(blocks), P):
+            ps = tuple(blocks[i0:i0 + P])
+            kinds = tuple(layer_kind(cfg, i0 + j) for j in range(len(ps)))
+            x, aux = run(cfg, kinds, ps, x, aux, enc_out)
+    else:
+        for i, p in enumerate(params["layers"]):
+            c = cache[i] if cache is not None else None
+            x, nc, a = _apply_block(cfg, layer_kind(cfg, i), p, x,
+                                    mode=mode, cache=c, pos=pos,
+                                    enc_out=enc_out)
+            if a is not None:
+                aux = aux + a
+            if cache is not None:
+                new_caches.append(nc if nc else c)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if skip_head:
         return x, new_caches, aux
     return head(cfg, params, x), new_caches, aux
+
+
+# ==========================================================================
+# losses
+# ==========================================================================
+
+def _xent_parts(lg, labels):
+    """(lse, gold, mask) float32 of logits lg (..., V) against labels
+    (labels < 0 are padding): the row max in lg's dtype, then exp, sum and
+    log in float32, and the gold logit read at max(label, 0) (the
+    reference's one-hot masked sum picks the same single value)."""
+    m = lg.amax(dim=-1).float()
+    lf = lg.float()
+    lse = torch.log(torch.exp(lf - m[..., None]).sum(dim=-1)) + m
+    gold = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    return lse, gold, (labels >= 0).float()
+
+
+def lm_loss(cfg, logits, labels, aux, aux_coef=0.01, z_coef=1e-4):
+    """Masked token cross-entropy (port of the reference's ``lm_loss``):
+    (nll + z_coef * mean((lse * mask)^2) + aux_coef * aux, {"nll", "aux"}),
+    the means over the unpadded tokens (at least 1)."""
+    lse, gold, mask = _xent_parts(logits, labels)
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    loss = ((lse - gold) * mask).sum() / denom
+    zloss = z_coef * ((lse * mask) ** 2).sum() / denom
+    return loss + zloss + aux_coef * aux, {"nll": loss, "aux": aux}
+
+
+def lm_loss_chunked(cfg, x, head, labels, aux, aux_coef=0.01, z_coef=1e-4,
+                    final_softcap=0.0):
+    """The same loss from the final hidden states x (B, S, D) and the head
+    (D, V), the sequence cut into ``cfg.xent_chunk`` chunks (a Python
+    loop, as the reference's): each chunk's logits are made, softcapped and
+    reduced to its sums before the next, so the whole (B, S, V) logits are
+    never one tensor."""
+    S = x.shape[1]
+    n = max(1, cfg.xent_chunk)
+    c = -(-S // n)
+    nll_sum = z_sum = None
+    for i in range(n):
+        xs = x[:, i * c:(i + 1) * c]
+        if xs.shape[1] == 0:                # the reference's empty chunk
+            continue                        # adds zeros
+        lg = layers.softcap(xs @ head, final_softcap)
+        lse, gold, msk = _xent_parts(lg, labels[:, i * c:i * c + xs.shape[1]])
+        nll = ((lse - gold) * msk).sum()
+        z = ((lse * msk) ** 2).sum()
+        nll_sum = nll if nll_sum is None else nll_sum + nll
+        z_sum = z if z_sum is None else z_sum + z
+    denom = torch.clamp_min((labels >= 0).sum().float(), 1.0)
+    loss = nll_sum / denom
+    zloss = z_coef * z_sum / denom
+    return loss + zloss + aux_coef * aux, {"nll": loss, "aux": aux}

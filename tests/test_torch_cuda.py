@@ -30,7 +30,12 @@ mixers (models/ssm.py): the mLSTM and sLSTM at 1,100 tokens within 1e-3
 in float32 (their products add in another order); smoke xLSTM and mamba
 generate, the same greedy tokens.  The encoder-decoder: smoke whisper's
 serve steps with 37 frames, logits within 1e-3 in float32 and the same
-greedy tokens, the attention through the kernel in every mode."""
+greedy tokens, the attention through the kernel in every mode.  Training:
+the attention's backward within 2e-2 of each output's largest magnitude
+in bfloat16 and 1e-4 in float32, the scan's within 1e-4 (float atomics
+add its sums over channels, batch and time in a run-dependent order); a
+smoke train step card against CPU, loss and grad_norm rel 1e-5,
+parameters 1e-4."""
 import copy
 import dataclasses
 
@@ -1230,3 +1235,104 @@ def test_whisper_serve_steps_on_card_match_cpu(cuda):
     assert ops.launch_counts()["flash_attention"] == \
         cfg.enc_layers + 2 * cfg.n_layers + 5 * cfg.n_layers
     torch.testing.assert_close(lg.cpu(), lc, atol=1e-3, rtol=1e-3)
+
+
+# --------------------------------------------------------------------------
+# training: the backward kernels, and a train step card against CPU
+# --------------------------------------------------------------------------
+
+FLASH_BWD_CASES = [   # B, H, KV, Sq, Skv, hd, causal, window, softcap, dtype
+    (2, 25, 5, 1100, 1100, 64, True, 1024, 0.0, torch.bfloat16),  # hymba
+    (1, 16, 8, 300, 300, 256, True, 4096, 50.0, torch.bfloat16),  # gemma2
+    (2, 4, 2, 37, 300, 64, True, 0, 0.0, torch.bfloat16),         # ragged
+    (2, 8, 8, 224, 1500, 64, False, 0, 0.0, torch.bfloat16),      # cross
+    (2, 8, 4, 777, 777, 128, True, 256, 0.0, torch.float32),
+] + [c + (torch.bfloat16,) for c in FLASH_TC_EDGES]
+
+
+def _max_rel(got, exp):
+    return float((got.float() - exp.float()).abs().max()) / \
+        max(float(exp.float().abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_attention_backward_matches_plain(cuda, case):
+    """dq, dk, dv within 2e-2 of each output's largest magnitude in bf16
+    and 1e-4 in f32 (the kernel sums in float32 in its own order; bf16
+    outputs round once)."""
+    B, H, KV, Sq, Skv, hd, causal, window, cap, dt = case
+    kw = dict(causal=causal, window=window, softcap=cap)
+    q, k, v = (torch.from_numpy(a).to(cuda, dt)
+               for a in flash_inputs(B, H, KV, Sq, Skv, hd, 41))
+    out = flash_attention.flash_attention(q, k, v, **kw)
+    dout = torch.from_numpy(np.random.default_rng(42).standard_normal(
+        (B, H, Sq, hd), dtype=np.float32)).to(cuda, dt)
+    before = ops.launch_counts(ops.BACKWARD)["flash_attention_backward"]
+    got = flash_attention.flash_attention_backward(q, k, v, out, dout, **kw)
+    exp = ref.mha_backward_reference(q, k, v, out, None, dout, **kw)
+    assert ops.launch_counts(ops.BACKWARD)["flash_attention_backward"] == \
+        before + 1
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+    for g, e in zip(got, exp):
+        assert g.dtype == e.dtype and g.shape == e.shape
+        assert torch.isfinite(g.float()).all()
+        assert _max_rel(g, e) <= tol
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 200, 16), (2, 300, 500, 16)]
+                         + SSM_EDGES)
+@pytest.mark.parametrize("with_dh", [False, True])
+def test_ssm_scan_backward_matches_plain(cuda, shape, with_dh):
+    """ddt, dB, dC, dx and dA within 1e-4 of each output's largest
+    magnitude (dB, dC and dA add with float atomics in a run-dependent
+    order)."""
+    args = torch_args(ssm_inputs(*shape, 43), cuda)
+    B, S, D, N = shape
+    rng = np.random.default_rng(44)
+    dy = torch.from_numpy(rng.standard_normal((B, S, D),
+                                              dtype=np.float32)).to(cuda)
+    dh = torch.from_numpy(rng.standard_normal(
+        (B, D, N), dtype=np.float32)).to(cuda) if with_dh else None
+    got = ssm_scan.ssm_scan_backward(*args, dy, dh)
+    exp = ref.ssm_scan_backward_reference(*args, dy, dh)
+    for g, e in zip(got, exp):
+        assert g.shape == e.shape and g.dtype == torch.float32
+        assert _max_rel(g, e) <= 1e-4
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """Smoke hymba in float32 under remat "dots": two train steps on the
+    card against the CPU from the same parameters, the loss and grad_norm
+    within 1e-5 relative, the parameters within 1e-4; each step launches
+    the forward kernels twice a layer (the forward, then its recompute)
+    and each backward kernel once."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.train import optim, step
+    cfg = dataclasses.replace(configs.get_smoke("hymba_1_5b"),
+                              param_dtype="float32", compute_dtype="float32",
+                              remat="dots")
+    p = transformer.make_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    sc = step.train_state(p)
+    sg = step.train_state(copy.deepcopy(p).to(cuda))
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 40)))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    ts = step.make_train_step(cfg, optim.AdamWConfig(warmup_steps=0))
+    for _ in range(2):
+        sc, mc = ts(sc, batch)
+        ops.reset_launch_counts()
+        sg, mg = ts(sg, {k: v.to(cuda) for k, v in batch.items()})
+        assert ops.launch_counts(ops.FORWARD + ops.BACKWARD) == {
+            "dcsim_advance": 0, "telemetry_accum": 0,
+            "flash_attention": 2 * cfg.n_layers,
+            "ssm_scan": 2 * cfg.n_layers,
+            "flash_attention_backward": cfg.n_layers,
+            "ssm_scan_backward": cfg.n_layers}
+        for k in ("loss", "grad_norm"):
+            assert abs(float(mg[k]) - float(mc[k])) <= 1e-5 * abs(float(mc[k]))
+    for (n, a), (_, b) in zip(sg["params"].named_parameters(),
+                              sc["params"].named_parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), atol=1e-4,
+                                   rtol=1e-4, msg=n)

@@ -589,3 +589,26 @@ def route_flips(got, exp, bound=ROUTE_GAP) -> list:
                 f"gaps not under {bound}: not a near-tie")
         return flips
     return []
+
+
+def adamw_param_check(got, exp, prev, got_m, exp_m, got_v, exp_v, lr, c1,
+                      c2, eps, carried):
+    """One AdamW step's parameter leaf on two sides (``got`` against the
+    reference ``exp``, float32): the difference may be 1e-5 relative to
+    the larger of the element before (``prev``) and after the step, or lr
+    (a zero-initialized element's first step is -lr u; a step may cancel
+    an element to near zero), plus what the moments' own differences move
+    the update lr m / (sqrt(v) + eps) by (c1, c2 the bias corrections),
+    plus ``carried``, the difference before the step.  Returns (diff,
+    elements beyond that bound, elements that needed the moments' part)."""
+    diff = (got - exp).abs()
+    strict = 1e-5 * torch.maximum(torch.maximum(exp.abs(), prev.abs()),
+                                  torch.full_like(exp, lr))
+    mh = exp_m / c1
+    sv = torch.sqrt(exp_v / c2)
+    dm = (got_m - exp_m).abs() / c1
+    dv = (got_v - exp_v).abs() / c2
+    du = (dm + mh.abs() / (sv + eps) * dv / (2 * sv + 1e-30)) / (sv + eps)
+    base = strict + 1.01 * carried
+    bad = int((diff > base + 2 * lr * du).sum())
+    return diff, bad, int((diff > base).sum())
