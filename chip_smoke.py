@@ -169,7 +169,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   lengths, the float32 instance and the forward's tensor-core edges,
   within 2e-2 of each output's largest magnitude in bf16 and 1e-4 in
   f32; the scan at (4, 4,096, 3,200, 16), (3, 37, 200, 16) and the lane
-  edges, with and without a final-state gradient, within 1e-4.
+  edges, with and without a final-state gradient, within 1e-4.  At every
+  one of these cases a second call must give bit-equal outputs (neither
+  backward kernel adds with atomics), and the [kernels] line names the
+  instance that ran (the attention's bf16 head dims 16-128 on the tensor
+  cores, mma_bf16; f32 and bf16 hd 256 on the CUDA cores, simt_f32; the
+  scan's lane split).
   [train-parity] (after [lm-parity]) runs two train steps of hymba-1.5b at
   full width cut to 2 layers in float32 on 2 x 1,100 tokens, card against
   CPU: loss, nll, aux, grad_norm (1e-5) and lr (1e-6) at each step, the
@@ -181,10 +186,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   AdamWConfig(warmup_steps=0)) for 5 steps on one batch of 4 x 4,096
   seeded tokens: finite metrics, the last loss below the first, the
   forward kernels twice a layer a step (the forward and its recompute)
-  and each backward kernel once; step time (median of steps 2-5),
-  tokens/s, peak memory and a [profile] of a sixth step with the backward
-  kernels' share; then both backward kernels are timed at its shapes
-  beside their bounds, plain versions and (attention) SDPA's backward.
+  and each backward kernel once, the attention's on its tensor-core
+  instance; step time (median of steps 2-5), tokens/s, peak memory and a
+  [profile] of a sixth step with the backward kernels' share; then both
+  backward kernels are timed at its shapes (and the attention's at
+  moonshot's hd 128, causal, 4 x 16 heads x 1,536) beside their bounds,
+  plain versions and (attention) SDPA's backward: stream time from CUDA
+  events around each call, device time from CUDA events around 20
+  back-to-back calls, the device operations of one call counted in a
+  CUDA graph (graph_ops), and the profiler's time of each of the call's
+  kernels where it records them.
   7. rack sharding, last, so that its process group and profiler windows
      come after every earlier timing: [shard-parity] runs
      tests/test_sharding.py's four pinned configurations
@@ -495,6 +506,7 @@ def sass_census(built) -> None:
     if not tool.is_file():
         fail(f"{tool} not found: the attention's SASS cannot be inspected")
     for name, ops in (("flash_attention", ("HMMA", "LDGSTS")),
+                      ("flash_attention_bwd", ("HMMA", "LDGSTS")),
                       ("ssm_scan", ("HMMA", "LDGSTS")),
                       ("telemetry_bin", ("ATOMS.POPC.INC",
                                          "ATOMS.CAST.SPIN"))):
@@ -505,9 +517,10 @@ def sass_census(built) -> None:
         log(f"[build] {name}: SASS holds "
             + " and ".join(f"{c} {op}" for op, c in n.items())
             + " instructions")
-        if name == "flash_attention" and not (n["HMMA"] and n["LDGSTS"]):
-            fail("flash_attention was not compiled to tensor-core "
-                 "instructions fed by asynchronous copies")
+        if name.startswith("flash_attention") and not (n["HMMA"]
+                                                      and n["LDGSTS"]):
+            fail(f"{name} was not compiled to tensor-core instructions fed "
+                 f"by asynchronous copies")
 
 
 # --------------------------------------------------------------------------
@@ -3810,8 +3823,11 @@ def serving_flash_entries(errs, launches, dev) -> list:
 # ragged lengths and the float32 instance
 FLASH_BWD_MAIN = (TR_BATCH, 25, 5, TR_SEQ, TR_SEQ, 64, True, 1024, 0.0,
                   "bfloat16")
+# moonshot's hd 128, causal: also timed beside SDPA's flash backward
+FLASH_BWD_HD128 = (LM_BATCH, 16, 16, LM_PROMPT, LM_PROMPT, 128, True, 0, 0.0,
+                   "bfloat16")
 FLASH_BWD_CASES = [
-    (LM_BATCH, 16, 16, LM_PROMPT, LM_PROMPT, 128, True, 0, 0.0, "bfloat16"),
+    FLASH_BWD_HD128,
     (2, 16, 8, LM_PROMPT, LM_PROMPT, 256, True, 4096, 50.0, "bfloat16"),
     (WH_BATCH, 20, 20, 1500, 1500, 64, False, 0, 0.0, "bfloat16"),
     (WH_BATCH, 20, 20, WH_PROMPT, 1500, 64, False, 0, 0.0, "bfloat16"),
@@ -3839,10 +3855,16 @@ def bwd_inputs(case, dev, seed=51):
 def check_flash_bwd(case, dev):
     """dq, dk, dv against the plain version: 2e-2 of each output's largest
     magnitude in bf16, 1e-4 in f32 (float32 sums in another order; bf16
-    outputs rounded once)."""
+    outputs rounded once); a second call bit-equal to the first."""
     from repro_torch.kernels import flash_attention, ref
     args, kw = bwd_inputs(case, dev)
     got = flash_attention.flash_attention_backward(*args, **kw)
+    inst = flash_attention.LAST_BWD_INSTANCE
+    again = flash_attention.flash_attention_backward(*args, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"flash_attention_backward {case} ({inst}): two calls on the "
+             f"same inputs differ")
+    del again
     q, k, v, out, dout = args
     exp = ref.mha_backward_reference(q, k, v, out, None, dout, **kw)
     torch.cuda.synchronize()
@@ -3860,10 +3882,11 @@ def check_flash_bwd(case, dev):
         errs.append(err / top)
         abs_err = max(abs_err, err)
     del exp, args, got
-    log(f"[kernels] flash_attention_backward B,H,KV,Sq,Skv,hd={case[:6]} "
-        f"causal={case[6]} window={case[7]} softcap={case[8]} {case[9]}: "
-        f"dq, dk, dv within {tol} of their largest magnitudes (relative "
-        f"errors {', '.join(f'{x:.3g}' for x in errs)})")
+    log(f"[kernels] flash_attention_backward ({inst}) B,H,KV,Sq,Skv,hd="
+        f"{case[:6]} causal={case[6]} window={case[7]} softcap={case[8]} "
+        f"{case[9]}: dq, dk, dv within {tol} of their largest magnitudes "
+        f"(relative errors {', '.join(f'{x:.3g}' for x in errs)}); a second "
+        f"call bit-equal")
     return abs_err
 
 
@@ -3882,10 +3905,17 @@ def ssm_bwd_inputs(B, S, Dss, N, dev, seed=53, with_dh=False):
 
 def check_ssm_bwd(B, S, Dss, N, dev, with_dh=False):
     """ddt, dB, dC, dx, dA against the plain version within 1e-4 of each
-    output's largest magnitude (dB, dC and dA add with float atomics)."""
+    output's largest magnitude (sums over the state, the channels and time
+    in the kernel's fixed order); a second call bit-equal to the first."""
     from repro_torch.kernels import ref, ssm_scan
     args = ssm_bwd_inputs(B, S, Dss, N, dev, with_dh=with_dh)
     got = ssm_scan.ssm_scan_backward(*args)
+    inst = ssm_scan.LAST_BWD_INSTANCE
+    again = ssm_scan.ssm_scan_backward(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"ssm_scan_backward {(B, S, Dss, N)} ({inst}): two calls on "
+             f"the same inputs differ")
+    del again
     exp = ref.ssm_scan_backward_reference(*args)
     torch.cuda.synchronize()
     errs, abs_err = [], 0.0
@@ -3899,10 +3929,10 @@ def check_ssm_bwd(B, S, Dss, N, dev, with_dh=False):
                  f"{err} beyond 1e-4 of its largest magnitude {top}")
         errs.append(err / top)
     del exp, got, args
-    log(f"[kernels] ssm_scan_backward B,S,Dss,N={(B, S, Dss, N)} "
+    log(f"[kernels] ssm_scan_backward ({inst}) B,S,Dss,N={(B, S, Dss, N)} "
         f"dh={'yes' if with_dh else 'no'}: within 1e-4 of each output's "
         f"largest magnitude (relative errors "
-        f"{', '.join(f'{x:.3g}' for x in errs)})")
+        f"{', '.join(f'{x:.3g}' for x in errs)}); a second call bit-equal")
     return abs_err
 
 
@@ -4046,7 +4076,7 @@ def train_main(dev) -> dict:
     each step launches the forward kernels twice a layer (the forward and
     its recompute under "dots") and each backward kernel once a layer."""
     from repro_torch import configs
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention, ops
     from repro_torch.train import optim, step
     cfg = configs.get_config(LM_ARCH)
     t0 = time.perf_counter()
@@ -4061,7 +4091,7 @@ def train_main(dev) -> dict:
     batch = train_batch(cfg, TR_BATCH, TR_SEQ, 11, dev)
     ts = step.make_train_step(cfg, optim.AdamWConfig(warmup_steps=0))
     torch.cuda.reset_peak_memory_stats()
-    walls, losses, per_step = [], [], []
+    walls, losses, per_step, bwd_inst = [], [], [], []
     for i in range(TR_STEPS):
         ops.reset_launch_counts()
         torch.cuda.synchronize()
@@ -4070,6 +4100,7 @@ def train_main(dev) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t1)
         per_step.append(ops.launch_counts(ops.FORWARD + ops.BACKWARD))
+        bwd_inst.append(dict(flash_attention.BWD_INSTANCE_LAUNCHES))
         vals = {k: float(v) for k, v in m.items()}
         if not all(math.isfinite(vals[k]) for k in ("loss", "grad_norm",
                                                     "lr")):
@@ -4085,6 +4116,11 @@ def train_main(dev) -> dict:
             "flash_attention_backward": L, "ssm_scan_backward": L}
     if any(c != want for c in per_step):
         fail(f"train-main: launches a step {per_step}, expected {want}")
+    want_inst = {flash_attention.TENSOR_CORE: L,
+                 flash_attention.CUDA_CORE: 0}
+    if any(c != want_inst for c in bwd_inst):
+        fail(f"train-main: the attention's backward by instance a step "
+             f"{bwd_inst}, expected {want_inst}")
     if not losses[-1] < losses[0]:
         fail(f"train-main: the loss did not fall: {losses}")
     med = statistics.median(walls[1:])
@@ -4092,7 +4128,8 @@ def train_main(dev) -> dict:
     log(f"[train-main] {TR_STEPS} steps: step time {med:.3f} s (median of "
         f"steps 2-{TR_STEPS}; first {walls[0]:.3f} s), {tokens / med:.0f} "
         f"tokens/s, peak memory {peak / 2**30:.2f} GiB; launches a step "
-        f"{per_step[-1]} (forward and its recompute, backward); losses "
+        f"{per_step[-1]} (forward and its recompute, backward; the "
+        f"attention's backward by instance {bwd_inst[-1]}); losses "
         f"{[round(x, 4) for x in losses]}")
 
     def one_step():
@@ -4117,46 +4154,124 @@ def train_main(dev) -> dict:
     return {"launches": per_step[-1], "step_s": med}
 
 
-def train_kernel_entries(launches, fa_err, ss_err, dev):
+def events_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: CUDA events around ``reps``
+    back-to-back calls (after ``warmup``), over ``reps``.  The calls queue
+    ahead of the device, so the host's share of a call is hidden unless it
+    is the larger."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def bwd_timing(fn, names, expect_ops):
+    """(device ms from events_ms, {operation: count} of one call from a
+    CUDA graph, {kernel: profiler us a call}) of a backward call; fails
+    unless the graph holds exactly ``expect_ops`` device operations, each
+    a kernel whose name holds one of ``names``."""
+    from torch_kernel_inputs import graph_ops
+    ops_ = graph_ops(fn)
+    ours = {k: c for k, c in ops_.items() if any(n in k for n in names)}
+    if sum(ops_.values()) != expect_ops or sum(ours.values()) != expect_ops:
+        fail(f"a backward call holds {ops_} in its graph, expected "
+             f"{expect_ops} kernels named {names}")
+    ks, _ = device_kernels(lambda: [fn() for _ in range(5)])
+    split = {k.split("(")[0].replace("void ", ""): t / c
+             for k, (c, t) in ks.items() if any(n in k for n in names)}
+    return events_ms(fn), ops_, split
+
+
+def train_kernel_entries(launches, fa_errs, ss_err, dev):
     """Both backward kernels at the training main run's shapes (phase 3's
-    inputs, made again) beside their bounds, plain versions and
-    (attention) SDPA's backward at the same mask (enable_gqa)."""
+    inputs, made again), and the attention's at moonshot's hd 128 causal
+    shape, beside their bounds, plain versions and (attention) SDPA's
+    backward at the same mask: boolean window mask with enable_gqa at
+    hymba's, is_causal on its flash backend at hd 128.  Stream time from
+    events around each call (``time_ms``), device time from events around
+    20 back-to-back calls (``events_ms``), the device operations of one
+    call from a CUDA graph (``graph_ops``) and the profiler's time of
+    each kernel of the call where it records them.  ``fa_errs``: the
+    attention rows' max_abs_err by name."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import flash_attention, ref, ssm_scan
-    (q, k, v, out, dout), kw = bwd_inputs(FLASH_BWD_MAIN, dev)
-    ss_args = ssm_bwd_inputs(*SSM_BWD_MAIN, dev)
-    B, H, KV, S, _, hd, causal, W, _, _ = FLASH_BWD_MAIN
     sfu = exp_per_s()
+    entries, split = [], {}
+    for name, case in (("flash_attention_backward", FLASH_BWD_MAIN),
+                       ("flash_attention_backward (hd 128)",
+                        FLASH_BWD_HD128)):
+        (q, k, v, out, dout), kw = bwd_inputs(case, dev)
+        B, H, KV, S, _, hd, causal, W, _, _ = case
 
-    def fa_call():
-        return flash_attention.flash_attention_backward(q, k, v, out, dout,
-                                                        **kw)
+        def fa_call(q=q, k=k, v=v, out=out, dout=dout, kw=kw):
+            return flash_attention.flash_attention_backward(q, k, v, out,
+                                                            dout, **kw)
 
-    fa_ms = time_ms(fa_call, reps=10, warmup=2)
-    fa_plain = time_ms(lambda: ref.mha_backward_reference(
-        q, k, v, out, None, dout, **kw), reps=2, warmup=1)
-    pos = torch.arange(S, device=dev)
-    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
-    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
-                                             enable_gqa=True)
-    fa_lib = time_ms(lambda: torch.autograd.grad(
-        lib_out, (ql, kl, vl), dout, retain_graph=True), reps=10, warmup=2)
-    del lib_out, ql, kl, vl
-    pairs = attn_pairs(S, S, causal, W) * B * H
-    dq, dk, dv = fa_call()
-    # per unmasked pair: five products of 2 hd flops (q.k, dout.v, P^T
-    # dout, dS^T q, dS k) and one exponential
-    fa_bound, fa_by, fa_op = bound_ms(
-        nbytes(q, k, v, out, dout, dq, dk, dv),
-        {"bf16 tensor-core flops": (10 * hd * pairs, PEAK_BF16_FLOP_S),
-         "exponentials": (pairs, sfu)})
-    del dq, dk, dv
+        fa_ms = time_ms(fa_call, reps=20, warmup=3)
+        inst = flash_attention.LAST_BWD_INSTANCE
+        dev_ms, ops_, split[name] = bwd_timing(fa_call, ["fa_bwd_"], 2)
+        fa_plain = time_ms(lambda: ref.mha_backward_reference(
+            q, k, v, out, None, dout, **kw), reps=2, warmup=1)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        if W:
+            pos = torch.arange(S, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) \
+                & (pos[None, :] > pos[:, None] - W)
+            lib_out = F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=mask, enable_gqa=True)
+            lib_how = "boolean window mask, enable_gqa"
+        else:
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                lib_out = F.scaled_dot_product_attention(ql, kl, vl,
+                                                         is_causal=True)
+            lib_how = "is_causal, flash backend"
+        fa_lib = time_ms(lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), dout, retain_graph=True), reps=10,
+            warmup=2)
+        del lib_out, ql, kl, vl
+        pairs = attn_pairs(S, S, causal, W) * B * H
+        dq, dk, dv = fa_call()
+        # per unmasked pair: five products of 2 hd flops (q.k, dout.v, P^T
+        # dout, dS^T q, dS k) and one exponential
+        fa_bound, fa_by, fa_op = bound_ms(
+            nbytes(q, k, v, out, dout, dq, dk, dv),
+            {"bf16 tensor-core flops": (10 * hd * pairs, PEAK_BF16_FLOP_S),
+             "exponentials": (pairs, sfu)})
+        del dq, dk, dv, q, k, v, out, dout
+        entries.append(
+            {"name": name, "route": "cuda",
+             "source":
+                 "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             "replaces": "src/repro/models/layers.py:105",
+             "replaces_note": "no TPU kernel: the reference's gradient is "
+                              "autodiff of its jnp attend",
+             # no training run at moonshot's shape: 0 launches there
+             "launches": launches[name] if name in launches else 0,
+             "max_abs_err": fa_errs[name], "ms": fa_ms,
+             "plain_ms": fa_plain,
+             "bound_ms": fa_bound, "bound_by": fa_by, "bound_op": fa_op,
+             "library_ms": fa_lib, "library_call": lib_how,
+             "instance": inst, "device_ms": dev_ms,
+             "graph_ops": sum(ops_.values()), "shape": list(case[:8])})
+        torch.cuda.empty_cache()
+
+    ss_args = ssm_bwd_inputs(*SSM_BWD_MAIN, dev)
 
     def ss_call():
         return ssm_scan.ssm_scan_backward(*ss_args)
 
     ss_ms = time_ms(ss_call, reps=10, warmup=2)
+    ss_inst = ssm_scan.LAST_BWD_INSTANCE
+    ss_dev, ss_ops, split["ssm_scan_backward"] = bwd_timing(
+        ss_call, ["ssm_scan_bwd"], 2)
     ss_plain = time_ms(lambda: ref.ssm_scan_backward_reference(*ss_args),
                        reps=2, warmup=1)
     outs = ss_call()
@@ -4169,23 +4284,8 @@ def train_kernel_entries(launches, fa_err, ss_err, dev):
         nbytes(*ss_args, *outs), {"f32 operations": (16 * elems,
                                                      PEAK_F32_OPS_S),
                                   "exponentials": (elems, sfu)})
-    del outs
-    dev_us = {"flash_attention_backward": kernel_device_us(
-        fa_call, ["fa_bwd_"], reps=5),
-        "ssm_scan_backward": kernel_device_us(ss_call, ["ssm_scan_bwd"],
-                                              reps=5)}
-    del q, k, v, out, dout
-    entries = [
-        {"name": "flash_attention_backward", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-         "replaces": "src/repro/models/layers.py:105",
-         "replaces_note": "no TPU kernel: the reference's gradient is "
-                          "autodiff of its jnp attend",
-         "launches": launches["flash_attention_backward"],
-         "max_abs_err": fa_err, "ms": fa_ms, "plain_ms": fa_plain,
-         "bound_ms": fa_bound, "bound_by": fa_by, "bound_op": fa_op,
-         "library_ms": fa_lib, "instance": flash_attention.BWD_INSTANCE,
-         "shape": list(FLASH_BWD_MAIN[:8])},
+    del outs, ss_args
+    entries.append(
         {"name": "ssm_scan_backward", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
          "replaces": "src/repro/models/ssm.py:76",
@@ -4194,10 +4294,9 @@ def train_kernel_entries(launches, fa_err, ss_err, dev):
          "launches": launches["ssm_scan_backward"], "max_abs_err": ss_err,
          "ms": ss_ms, "plain_ms": ss_plain, "bound_ms": ss_bound,
          "bound_by": ss_by, "bound_op": ss_op, "library_ms": None,
-         "instance": "lanes{}x{}".format(*ssm_scan.lanes_for(N)),
-         "shape": list(SSM_BWD_MAIN)},
-    ]
-    return entries, dev_us
+         "instance": ss_inst, "device_ms": ss_dev,
+         "graph_ops": sum(ss_ops.values()), "shape": list(SSM_BWD_MAIN)})
+    return entries, split
 
 
 # --------------------------------------------------------------------------
@@ -4276,8 +4375,12 @@ def main() -> None:
         ss_err = max(ss_err, check_ssm(*case, dev)[1])
     # the backward kernels (training)
     fb_err = check_flash_bwd(FLASH_BWD_MAIN, dev)
+    fb_errs = {}
     for case in FLASH_BWD_CASES + [c + ("bfloat16",) for c in FLASH_TC_EDGES]:
-        fb_err = max(fb_err, check_flash_bwd(case, dev))
+        fb_errs[case] = check_flash_bwd(case, dev)
+    fb_errs = {"flash_attention_backward": max(fb_err, *fb_errs.values()),
+               "flash_attention_backward (hd 128)":
+                   fb_errs[FLASH_BWD_HD128]}
     sb_err = check_ssm_bwd(*SSM_BWD_MAIN, dev)
     for case in SSM_BWD_CASES + SSM_EDGES[:4]:
         for with_dh in (False, True):
@@ -4501,20 +4604,25 @@ def main() -> None:
     log(f"[elapsed] [train-main] starts at "
         f"{time.perf_counter() - t_start:.1f} s")
     tr = train_main(dev)
-    tr_entries, tr_dev_us = train_kernel_entries(tr["launches"], fb_err,
-                                                 sb_err, dev)
+    t_entries = time.perf_counter()
+    tr_entries, tr_split = train_kernel_entries(tr["launches"], fb_errs,
+                                                sb_err, dev)
     for k in tr_entries:
-        d = tr_dev_us[k["name"]]
-        k["device_ms"] = None if d is None else d / 1e3
         log(f"[time] {k['name']} ({k['instance']}) at "
             f"{tuple(k['shape'])}: {k['ms'] * 1e3:.1f} us per call on the "
-            f"stream, {'not measured' if d is None else f'{d:.2f} us'} of "
-            f"device time (profiler); bound {k['bound_ms'] * 1e3:.3f} us by "
-            f"{k['bound_op']}; plain version {k['plain_ms'] * 1e3:.1f} us"
+            f"stream, {k['device_ms'] * 1e3:.1f} us of device time (events "
+            f"around 20 calls; {k['graph_ops']} kernels a call: "
+            + ", ".join(f"{n} {t:.1f} us" for n, t in
+                        tr_split[k['name']].items())
+            + f"); bound {k['bound_ms'] * 1e3:.3f} us by {k['bound_op']}; "
+            f"plain version {k['plain_ms'] * 1e3:.1f} us"
             + ("" if k["library_ms"] is None else
-               f"; SDPA's backward {k['library_ms'] * 1e3:.1f} us, the "
-               f"kernel {k['ms'] / k['library_ms']:.2f}x its time")
+               f"; SDPA's backward ({k['library_call']}) "
+               f"{k['library_ms'] * 1e3:.1f} us, the kernel "
+               f"{k['ms'] / k['library_ms']:.2f}x its time")
             + f"; {k['launches']} launches a step of [train-main]")
+    log(f"[time] the backward kernels' timings took "
+        f"{time.perf_counter() - t_entries:.1f} s")
     kernels += tr_entries
     torch.cuda.empty_cache()
     log(f"[elapsed] [moe-layer] starts at "

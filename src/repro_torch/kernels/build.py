@@ -4,9 +4,11 @@ Each source in ``csrc/`` is compiled by ``nvcc`` into a shared library with
 a plain C interface and loaded with ``ctypes`` -- no PyTorch headers, so a
 build takes seconds.  Libraries go into ``build/repro_torch_kernels/`` at
 the root of the checkout (or ``$REPRO_TORCH_BUILD_DIR``), named by a hash
-of the source and the flags, so an edited source is rebuilt at first use
-and an unchanged one is loaded as it is.  ``build_all`` starts one ``nvcc``
-per source, all at once.  A build or load failure raises.
+of the source, the headers it includes from ``csrc/`` (``#include "..."``,
+followed into the headers' own) and the flags, so an edited source or
+header is rebuilt at first use and an unchanged one is loaded as it is.
+``build_all`` starts one ``nvcc`` per source, all at once.  A build or
+load failure raises.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -61,10 +64,27 @@ def nvcc_path() -> str:
         "repro_torch are built from source at first use")
 
 
+def sources_of(name: str) -> list:
+    """The files a build of ``name`` reads from ``csrc/``: its ``.cu`` and
+    every header it includes with quotes, directly or through another
+    header, each once, in the order they are first met."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo += [CSRC / h for h in re.findall(r'^\s*#\s*include\s+"([^"]+)"',
+                                              path.read_text(), re.M)]
+    return files
+
+
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_dir() / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256()
+    for path in sources_of(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=SOURCES) -> dict:
@@ -142,10 +162,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn.argtypes = [P] * 7 + [I] * 5 + [P]
     elif name == "flash_attention_bwd":
         fn = lib.flash_attention_bwd_launch
-        fn.argtypes = [P] * 10 + [I] * 7 + [P, I, I, F, F, P]
+        fn.argtypes = [P] * 10 + [I] * 8 + [P, I, I, F, F, P]
     elif name == "ssm_scan_bwd":
         fn = lib.ssm_scan_bwd_launch
-        fn.argtypes = [P] * 13 + [I] * 5 + [P]
+        fn.argtypes = [P] * 15 + [I] * 6 + [P]
     else:
         raise ValueError(f"unknown kernel source {name!r}")
     fn.restype = I

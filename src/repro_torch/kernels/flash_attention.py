@@ -11,7 +11,9 @@ the tensor cores (``mma_bf16``), float32 on the CUDA cores (``simt_f32``).
 ``LAUNCHES`` counts the kernel's launches, ``INSTANCE_LAUNCHES`` splits
 them by instance, ``SHAPE_LAUNCHES`` by shape and mask ((B, H, KV, Sq,
 Skv, hd, causal, window) -> launches), and ``LAST_INSTANCE`` names the
-instance of the latest.
+instance of the latest.  The backward (``csrc/flash_attention_bwd.cu``)
+has the same two instances, chosen in ``plan_backward``, and counts in
+``BWD_LAUNCHES``, ``BWD_INSTANCE_LAUNCHES`` and ``LAST_BWD_INSTANCE``.
 """
 from __future__ import annotations
 
@@ -66,6 +68,24 @@ def _check(q, k, v, *others, window=0) -> None:
                          f"window={window}")
 
 
+def rows_aligned(x) -> bool:
+    """Whether x's base address and its batch, head and sequence strides
+    are multiples of 16 bytes (8 bf16 elements), as the tensor-core
+    instances' 16-byte row copies need."""
+    return x.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in x.stride()[:3])
+
+
+def _check_aligned(tensors) -> None:
+    for x, name in tensors:
+        if not rows_aligned(x):
+            raise ValueError(
+                f"{name}: the bf16 tensor-core instance loads 16-byte rows "
+                f"asynchronously, so its base address and its batch, head "
+                f"and sequence strides must be multiples of 16 bytes; got "
+                f"address {x.data_ptr()} (storage offset "
+                f"{x.storage_offset()}) and strides {x.stride()}")
+
+
 def plan(q, k, v, *, window=0) -> str:
     """The instance that takes this call, or ValueError with the reason.
 
@@ -79,14 +99,7 @@ def plan(q, k, v, *, window=0) -> str:
     _check(q, k, v, window=window)
     if q.dtype == torch.float32:
         return CUDA_CORE
-    for x, name in ((q, "q"), (k, "k"), (v, "v")):
-        if x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:3]):
-            raise ValueError(
-                f"{name}: the bf16 tensor-core instance loads 16-byte rows "
-                f"asynchronously, so its base address and its batch, head "
-                f"and sequence strides must be multiples of 16 bytes; got "
-                f"address {x.data_ptr()} (storage offset "
-                f"{x.storage_offset()}) and strides {x.stride()}")
+    _check_aligned(((q, "q"), (k, "k"), (v, "v")))
     return TENSOR_CORE
 
 
@@ -136,7 +149,13 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
 # --------------------------------------------------------------------------
 
 BWD_LAUNCHES = 0
-BWD_INSTANCE = "simt_f32"
+# the backward's launches by instance, and the instance of the latest
+BWD_INSTANCE_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
+LAST_BWD_INSTANCE = None
+# head dims the backward's tensor-core instance takes: at 256 its dk and
+# dv would hold 128 registers each a thread, so bf16 hd 256 runs on the
+# CUDA cores
+BWD_TENSOR_CORE_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def plan_backward(q, k, v, out, dout, *, window=0) -> str:
@@ -144,10 +163,19 @@ def plan_backward(q, k, v, out, dout, *, window=0) -> str:
     reason.  Pure, like ``plan``: what the forward takes (q (B, H, Sq,
     hd), k/v (B, KV, Skv, hd), one dtype of ``DTYPES``, the head dimension
     contiguous, hd in ``HEAD_DIMS``), with ``out`` and ``dout`` shaped and
-    typed like q.  The backward reads rows element by element, so it puts
-    no alignment rule on bf16 tensors."""
+    typed like q.  bfloat16 at the head dims of
+    ``BWD_TENSOR_CORE_HEAD_DIMS`` takes the tensor cores (``mma_bf16``),
+    under the forward's alignment rule for q, k, v, out and dout: a call
+    that breaks it raises and never runs on another instance.  float32,
+    and bfloat16 at hd 256, take the CUDA cores (``simt_f32``), which read
+    rows element by element and put no alignment rule on their inputs."""
     _check(q, k, v, (out, "out"), (dout, "dout"), window=window)
-    return BWD_INSTANCE
+    if q.dtype == torch.float32 or \
+            q.shape[-1] not in BWD_TENSOR_CORE_HEAD_DIMS:
+        return CUDA_CORE
+    _check_aligned(((q, "q"), (k, "k"), (v, "v"), (out, "out"),
+                    (dout, "dout")))
+    return TENSOR_CORE
 
 
 def flash_attention_backward(q, k, v, out, dout, *, causal=True, window=0,
@@ -156,11 +184,13 @@ def flash_attention_backward(q, k, v, out, dout, *, causal=True, window=0,
     typed and laid out like q, k and v (``empty_like``), from the forward's
     inputs, its output ``out`` and the output's gradient ``dout`` (see
     ``plan_backward``; ``ref.mha_backward_reference`` is the plain
-    version).  Two kernels on the stream: the first recomputes each row's
+    version).  Two kernels on the stream, no atomics, so two calls on the
+    same inputs give the same bits: the first recomputes each row's
     log-sum-exp and D = rowsum(dout * out) into (B, H, Sq) float32 scratch
     and accumulates dq, the second accumulates dk and dv over each kv
-    head's group; one launch of this wrapper counts once."""
-    global BWD_LAUNCHES
+    head's group.  One call counts once, in ``BWD_LAUNCHES`` and under
+    its instance in ``BWD_INSTANCE_LAUNCHES``."""
+    global BWD_LAUNCHES, LAST_BWD_INSTANCE
     for x, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out"),
                     (dout, "dout")):
         if x.device.type != "cuda":
@@ -185,10 +215,13 @@ def flash_attention_backward(q, k, v, out, dout, *, causal=True, window=0,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             lse.data_ptr(), dd.data_ptr(), B, H, KV, Sq, Skv, hd,
-            DTYPES[q.dtype], strides, int(causal), int(window),
+            DTYPES[q.dtype], int(instance == TENSOR_CORE), strides,
+            int(causal), int(window),
             1.0 / math.sqrt(hd), float(softcap), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward kernel ({instance}) "
                            f"launch failed: cudaError {err}")
     BWD_LAUNCHES += 1
+    BWD_INSTANCE_LAUNCHES[instance] += 1
+    LAST_BWD_INSTANCE = instance
     return dq, dk, dv

@@ -194,8 +194,12 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
-        if dout.stride(-1) != 1:
-            dout = dout.contiguous()
+        if dout.stride(-1) != 1 or (dout.dtype == torch.bfloat16
+                                    and not _fa.rows_aligned(dout)):
+            # a fresh dense copy: the head dimension contiguous and rows
+            # 16-byte aligned, as the backward's instances take them (q, k,
+            # v and out passed the forward's plan)
+            dout = dout.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = torch.ops.repro_torch.flash_attention_backward(
             q, k, v, out, dout, **ctx.mask)
         return dq, dk, dv, None, None, None
@@ -302,4 +306,6 @@ def reset_launch_counts() -> None:
     dcsim_step.CLOCK_LAUNCHES.update(dict.fromkeys(dcsim_step.CLOCK_LAUNCHES,
                                                    0))
     _fa.INSTANCE_LAUNCHES.update(dict.fromkeys(_fa.INSTANCE_LAUNCHES, 0))
+    _fa.BWD_INSTANCE_LAUNCHES.update(
+        dict.fromkeys(_fa.BWD_INSTANCE_LAUNCHES, 0))
     _fa.SHAPE_LAUNCHES.clear()

@@ -32,10 +32,11 @@ generate, the same greedy tokens.  The encoder-decoder: smoke whisper's
 serve steps with 37 frames, logits within 1e-3 in float32 and the same
 greedy tokens, the attention through the kernel in every mode.  Training:
 the attention's backward within 2e-2 of each output's largest magnitude
-in bfloat16 and 1e-4 in float32, the scan's within 1e-4 (float atomics
-add its sums over channels, batch and time in a run-dependent order); a
-smoke train step card against CPU, loss and grad_norm rel 1e-5,
-parameters 1e-4."""
+in bfloat16 and 1e-4 in float32, the scan's within 1e-4 (the kernel sums
+over the state, channels, batch and time in its own fixed order), two
+calls of each bit-equal; a smoke train step card against CPU, loss and
+grad_norm rel 1e-5, parameters 1e-4, and a bf16 one on the attention
+backward's tensor-core instance."""
 import copy
 import dataclasses
 
@@ -1284,8 +1285,8 @@ def test_flash_attention_backward_matches_plain(cuda, case):
 @pytest.mark.parametrize("with_dh", [False, True])
 def test_ssm_scan_backward_matches_plain(cuda, shape, with_dh):
     """ddt, dB, dC, dx and dA within 1e-4 of each output's largest
-    magnitude (dB, dC and dA add with float atomics in a run-dependent
-    order)."""
+    magnitude (the kernel sums over the state, the channels and time in
+    its own fixed order, the plain version in torch's)."""
     args = torch_args(ssm_inputs(*shape, 43), cuda)
     B, S, D, N = shape
     rng = np.random.default_rng(44)
@@ -1298,6 +1299,83 @@ def test_ssm_scan_backward_matches_plain(cuda, shape, with_dh):
     for g, e in zip(got, exp):
         assert g.shape == e.shape and g.dtype == torch.float32
         assert _max_rel(g, e) <= 1e-4
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_attention_backward_is_deterministic(cuda, case):
+    """Two calls on the same inputs give bit-equal dq, dk and dv (no
+    atomics in either instance), each counted once under its instance:
+    bf16 at hd 16-128 on mma_bf16, f32 and bf16 hd 256 on simt_f32."""
+    B, H, KV, Sq, Skv, hd, causal, window, cap, dt = case
+    kw = dict(causal=causal, window=window, softcap=cap)
+    q, k, v = (torch.from_numpy(a).to(cuda, dt)
+               for a in flash_inputs(B, H, KV, Sq, Skv, hd, 45))
+    out = flash_attention.flash_attention(q, k, v, **kw)
+    dout = torch.from_numpy(np.random.default_rng(46).standard_normal(
+        (B, H, Sq, hd), dtype=np.float32)).to(cuda, dt)
+    ops.reset_launch_counts()
+    first = flash_attention.flash_attention_backward(q, k, v, out, dout, **kw)
+    again = flash_attention.flash_attention_backward(q, k, v, out, dout, **kw)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    inst = flash_attention.TENSOR_CORE if dt == torch.bfloat16 and \
+        hd <= 128 else flash_attention.CUDA_CORE
+    assert flash_attention.LAST_BWD_INSTANCE == inst
+    assert flash_attention.BWD_INSTANCE_LAUNCHES == {
+        inst: 2, ({flash_attention.TENSOR_CORE, flash_attention.CUDA_CORE}
+                  - {inst}).pop(): 0}
+    assert ops.launch_counts(ops.BACKWARD)["flash_attention_backward"] == 2
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 200, 16), (2, 300, 500, 16)]
+                         + SSM_EDGES)
+def test_ssm_scan_backward_is_deterministic(cuda, shape):
+    """Two calls on the same inputs give bit-equal ddt, dB, dC, dx and dA:
+    the sums over the channels and over batch and time are per-block
+    partials added in a fixed order by a second kernel, no float atomics;
+    dB, dC and dA are written whole, with no zeroing launch (two kernels a
+    call in a CUDA graph, nothing else)."""
+    args = torch_args(ssm_inputs(*shape, 47), cuda)
+    B, S, D, N = shape
+    rng = np.random.default_rng(48)
+    dy = torch.from_numpy(rng.standard_normal((B, S, D),
+                                              dtype=np.float32)).to(cuda)
+    dh = torch.from_numpy(rng.standard_normal(
+        (B, D, N), dtype=np.float32)).to(cuda)
+    for h in (None, dh):
+        first = ssm_scan.ssm_scan_backward(*args, dy, h)
+        again = ssm_scan.ssm_scan_backward(*args, dy, h)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+    G, E = ssm_scan.backward_lanes(N)
+    assert ssm_scan.LAST_BWD_INSTANCE == f"lanes{G}x{E}"
+    got = graph_ops(lambda: ssm_scan.ssm_scan_backward(*args, dy, dh))
+    assert sum(got.values()) == 2
+    assert all("ssm_scan_bwd" in k for k in got)
+
+
+def test_train_step_launches_the_tensor_core_backward(cuda):
+    """One train step of the 2-layer smoke hymba (bf16, hd 16) on the card
+    runs the attention's backward once a layer, every time on its
+    tensor-core instance, with finite metrics."""
+    from repro_torch import configs
+    from repro_torch.train import optim, step
+    cfg = configs.get_smoke("hymba_1_5b")
+    assert cfg.compute_dtype == "bfloat16"
+    state = step.init_state(cfg, torch.Generator(cuda).manual_seed(0))
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 40))).to(cuda)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    ts = step.make_train_step(cfg, optim.AdamWConfig(warmup_steps=0))
+    ops.reset_launch_counts()
+    state, m = ts(state, batch)
+    assert all(np.isfinite(float(v)) for v in m.values())
+    assert flash_attention.BWD_INSTANCE_LAUNCHES == {
+        flash_attention.TENSOR_CORE: cfg.n_layers,
+        flash_attention.CUDA_CORE: 0}
+    assert ops.launch_counts(ops.BACKWARD) == {
+        "flash_attention_backward": cfg.n_layers,
+        "ssm_scan_backward": cfg.n_layers}
 
 
 def test_train_step_on_card_matches_cpu(cuda):
