@@ -175,16 +175,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   instance that ran (the attention's bf16 head dims 16-128 on the tensor
   cores, mma_bf16; f32 and bf16 hd 256 on the CUDA cores, simt_f32; the
   scan's lane split).
-  [train-parity] (after [lm-parity]) runs two train steps of hymba-1.5b at
-  full width cut to 2 layers in float32 on 2 x 1,100 tokens, card against
+  [train-parity] (after the serving profiles, with hymba's serving
+  weights freed; its CPU steps run in the CPU sides' worker, one thread,
+  from the script's start) runs two train steps of hymba-1.5b at full
+  width cut to 2 layers in float32 on 2 x 1,100 tokens, card against
   CPU: loss, nll, aux, grad_norm (1e-5) and lr (1e-6) at each step, the
   gradients (1e-4 of each leaf's largest magnitude), the moments and the
   parameters (tests/torch_kernel_inputs.py adamw_param_check), and the
-  launches of each LM kernel.  [train-main] (after the serving profiles,
-  with hymba's serving weights freed) runs init_state + make_train_step on
-  hymba-1.5b's full configuration (32 layers, bf16, remat "dots",
-  AdamWConfig(warmup_steps=0)) for 5 steps on one batch of 4 x 4,096
-  seeded tokens: finite metrics, the last loss below the first, the
+  launches of each LM kernel.  [train-main] (next) runs init_state +
+  make_train_step on hymba-1.5b's full configuration (32 layers, bf16,
+  remat "dots", AdamWConfig(warmup_steps=0)) for 5 steps on one batch of
+  4 x 4,096 seeded tokens: finite metrics, the last loss below the first, the
   forward kernels twice a layer a step (the forward and its recompute)
   and each backward kernel once, the attention's on its tensor-core
   instance; step time (median of steps 2-5), tokens/s, peak memory and a
@@ -215,6 +216,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      runs [mc-parity]'s replicas_r3 batch at R = 4 on a (2, 1)
      ("replicas", "racks") mesh of the two ranks, equal to run_replicas
      without a mesh.
+  8. the mesh side of training and the launcher, after phase 7's process
+     groups: [launch-train] runs repro_torch.launch.train.main in this
+     process with no process group on smollm-360m's full configuration,
+     8 x 2,048 tokens: run A 4 steps saving async at step 2 and blocking
+     at 4, run B --resume from step 2, whose step 4 must equal A's within
+     the train bands (bit-equality printed), the seconds of each save
+     and of the restore; [mesh-parity] holds make_train_step(cfg, mesh)
+     to the one-rank step on the card in [train-parity]'s bands: hymba
+     cut to 2 layers in f32 on 4 x 1,100 tokens of the port's pipeline
+     on a (1, 1) mesh over NCCL in this process and on (2, 1) and (1, 2)
+     over two gloo ranks on card 0 (and a batch whose halves hold
+     different numbers of valid labels), moonshot cut to 2 layers: the
+     (1, 2) prefill (routes and drops exact, logits 1e-4) and one train
+     step, the (2, 1) forward's global loss and aux (routes under the
+     near-tie rule); [mesh-main] runs hymba cut to 4 layers in bf16 on
+     (2, 1), 4 steps of 4 x 4,096 tokens: step time, tokens/s, peak
+     memory a rank, the losses within 5e-2 of one rank's; then a fifth
+     step with a card sync and a barrier before each collective: the
+     bytes handed to collectives, the calls' seconds and the ranks'
+     waits for each other, apart.
 
     python3 chip_smoke.py --engine-calls ROOT
 
@@ -234,6 +255,7 @@ checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import copy
 import dataclasses
 import json
@@ -274,17 +296,17 @@ TRACE_CAP = 1 << 21
 # the thermal main run ([thermal-main], [trace-main]), cut from the
 # reference's 600 jobs (throttle seconds a server do not depend on the
 # width: 15.9 at 512 and at 65,536 servers under 300 jobs)
-TH_MAIN_JOBS = 200
+TH_MAIN_JOBS = 120
 # [thermal-parity]'s run of the thermal main configuration at 512 servers
 # (it still throttles, defers and ticks the controller)
 TH_PAR_JOBS = 150
 # [parity]'s and [scalar-parity]'s one_farm at 512 servers
-FARM_PAR_JOBS = 300
+FARM_PAR_JOBS = 150
 # [net-parity]'s and [scalar-parity]'s case D runs at k=4 (flows recorded)
-CASE_D_PAR_JOBS = 30
+CASE_D_PAR_JOBS = 15
 # the network main run: case study D (benchmarks/case_d_network.py) on a
 # k=16 fat-tree, its 30 jobs/s over 16 servers scaled to 1,024 servers
-NET_K, NET_JOBS, NET_LAM = 16, 100, 1920.0
+NET_K, NET_JOBS, NET_LAM = 16, 50, 1920.0
 NET_SERVERS = NET_K ** 3 // 4           # a k-ary fat-tree's servers
 # [mc-main]: benchmarks/bench_engine.py replica_throughput's two largest
 # points, (replicas, servers, jobs a replica, max_jobs)
@@ -1064,10 +1086,21 @@ def case_inputs(key):
     return dataclasses.replace(cfg, **kw), arr, specs, tau, topo
 
 
+TRAIN_PARITY = "[train-parity]"
+
+
+def cpu_keys() -> list:
+    """The CPU runs the worker computes, in order: every parity_cases()
+    entry, then [train-parity]'s two steps."""
+    return list(parity_cases()) + [TRAIN_PARITY]
+
+
 def cpu_side(key):
-    """The CPU run of one parity_cases() entry: an engine run's final
-    state, or a replica batch's."""
+    """The CPU run of one cpu_keys() entry: an engine run's final state, a
+    replica batch's, or [train-parity]'s states and metrics."""
     from repro_torch.core import montecarlo
+    if key == TRAIN_PARITY:
+        return train_cpu_steps()
     kind, build, kw = parity_cases()[key]
     if kind == "engine":
         cfg, arr, specs, tau, topo = case_inputs(key)
@@ -1079,14 +1112,14 @@ def cpu_side(key):
 
 
 def cpu_sides_worker(out_dir: str) -> None:
-    """``--cpu-sides DIR``: every parity_cases() CPU run in order, on one
+    """``--cpu-sides DIR``: every cpu_keys() CPU run in order, on one
     thread and no card, each final state saved to DIR/<index>.pt (renamed
     into place when whole) with its seconds; stops when its parent
     does."""
     torch.set_num_threads(1)
     parent = os.getppid()
     out = pathlib.Path(out_dir)
-    for i, key in enumerate(parity_cases()):
+    for i, key in enumerate(cpu_keys()):
         if os.getppid() != parent:
             return
         t0 = time.perf_counter()
@@ -1105,7 +1138,7 @@ class CpuSides:
 
     def __init__(self):
         self.dir = tempfile.mkdtemp(prefix="chip_smoke_cpu_")
-        self.keys = list(parity_cases())
+        self.keys = cpu_keys()
         env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
         self.proc = subprocess.Popen(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--cpu-sides",
@@ -3945,61 +3978,87 @@ def train_batch(cfg, B, S, seed, dev):
     return {"tokens": toks.to(dev), "labels": labels.to(dev)}
 
 
+def train_parity_setup():
+    """[train-parity]'s configuration, optimizer, initial parameters (on
+    the CPU, from a seeded CPU generator) and CPU batch."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.train import optim
+    full = configs.get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=PAR_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    p_cpu = transformer.make_params(cfg, torch.Generator().manual_seed(0),
+                                    device="cpu")
+    return (full, cfg, optim.AdamWConfig(warmup_steps=0), p_cpu,
+            train_batch(cfg, PAR_BATCH, PAR_PROMPT, 9, "cpu"))
+
+
+def train_snap(st):
+    """Float32 copies of a train state's parameters and moments, on its
+    device."""
+    return {k: {n: t.detach().float().clone() for n, t in tree}
+            for k, tree in (("p", st["params"].named_parameters()),
+                            ("m", st["opt"]["m"].items()),
+                            ("v", st["opt"]["v"].items()))}
+
+
+def train_cpu_steps() -> dict:
+    """[train-parity]'s two CPU steps from one state: the state before and
+    after each step, and the metrics."""
+    from repro_torch.train import step
+    _, cfg, opt, p_cpu, batch = train_parity_setup()
+    state = step.train_state(p_cpu)
+    ts = step.make_train_step(cfg, opt_cfg=opt)
+    snaps, metrics = [train_snap(state)], []
+    for _ in range(2):
+        state, m = ts(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        snaps.append(train_snap(state))
+    return {"snaps": snaps, "metrics": metrics}
+
+
 def train_parity(dev) -> None:
     """hymba-1.5b at full width cut to PAR_LAYERS layers, float32, on
     B=PAR_BATCH x PAR_PROMPT tokens (past the 1,024 window), train steps on
     the card against the CPU, each from one state: the first from the same
     parameters, the second from the CPU's state after the first, copied to
     the card (so each step is held to the step's own error, not to the
-    first step's carried over into the second's gradient).  At each step:
-    loss, nll, aux, grad_norm within 1e-5 relative and lr within 1e-6; the
-    gradients (read off the moments: m = b1 m0 + (1 - b1) g scale) within
-    1e-4 of each leaf's largest magnitude; m and v within 1e-5 relative
+    first step's carried over into the second's gradient).  The CPU's two
+    steps run ahead in the CPU sides' worker (``train_cpu_steps``).  At
+    each step: loss, nll, aux, grad_norm within 1e-5 relative and lr
+    within 1e-6; the gradients (read off the moments: m = b1 m0 + (1 -
+    b1) g scale) within 1e-4 of each leaf's largest magnitude; m and v within 1e-5 relative
     plus 1e-4 of their largest magnitude; the parameters within
     tests/torch_kernel_inputs.py adamw_param_check's bound."""
-    from repro_torch import configs
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer
-    from repro_torch.train import optim, step
+    from repro_torch.train import step
     from torch_kernel_inputs import adamw_param_check
-    full = configs.get_config(LM_ARCH)
-    cfg = dataclasses.replace(full, n_layers=PAR_LAYERS,
-                              param_dtype="float32", compute_dtype="float32")
-    opt = optim.AdamWConfig(warmup_steps=0)
+    full, cfg, opt, p_cpu, _ = train_parity_setup()
     log(f"[train-parity] {cfg.name} at full width cut to {PAR_LAYERS} of "
         f"{full.n_layers} layers, float32, remat {cfg.remat!r}; B="
         f"{PAR_BATCH} x {PAR_PROMPT} tokens, 2 train steps, card vs CPU")
     t0 = time.perf_counter()
-    p_cpu = transformer.make_params(cfg, torch.Generator().manual_seed(0),
-                                    device="cpu")
-    states = {"card": step.train_state(copy.deepcopy(p_cpu).to(dev)),
-              "cpu": step.train_state(p_cpu)}
-    batches = {"card": train_batch(cfg, PAR_BATCH, PAR_PROMPT, 9, dev),
-               "cpu": train_batch(cfg, PAR_BATCH, PAR_PROMPT, 9, "cpu")}
-    ts = step.make_train_step(cfg, opt)
-
-    def snap(st):
-        return {k: {n: t.detach().float().cpu().clone() for n, t in tree}
-                for k, tree in (("p", st["params"].named_parameters()),
-                                ("m", st["opt"]["m"].items()),
-                                ("v", st["opt"]["v"].items()))}
-
+    card = step.train_state(p_cpu.to(dev))
+    batch = train_batch(cfg, PAR_BATCH, PAR_PROMPT, 9, dev)
+    ts = step.make_train_step(cfg, opt_cfg=opt)
+    t_wait = time.perf_counter()
+    cpu, cpu_secs = take_cpu_side(TRAIN_PARITY, train_cpu_steps)
+    waited = time.perf_counter() - t_wait
     b1, eps = opt.b1, opt.eps
-    before = snap(states["cpu"])
     worst, g_err, loose, total = {}, 0.0, 0, 0
     counts = dict.fromkeys(ops.FORWARD + ops.BACKWARD, 0)
     for i in range(2):
-        got, metrics = {}, {}
-        for side in ("card", "cpu"):
-            ops.reset_launch_counts()
-            states[side], m = ts(states[side], batches[side])
-            if side == "card":
-                for k, n in ops.launch_counts(ops.FORWARD
-                                              + ops.BACKWARD).items():
-                    counts[k] += n
-            metrics[side] = {k: float(v) for k, v in m.items()}
-            got[side] = snap(states[side])
-        mg, mc = metrics["card"], metrics["cpu"]
+        ops.reset_launch_counts()
+        card, m = ts(card, batch)
+        for k, n in ops.launch_counts(ops.FORWARD + ops.BACKWARD).items():
+            counts[k] += n
+        mg, mc = {k: float(v) for k, v in m.items()}, cpu["metrics"][i]
+        metrics = {"card": mg, "cpu": mc}
+        g = train_snap(card)
+        # the CPU's states, compared on the card
+        c, before = ({k: {n: t.to(dev) for n, t in tree.items()}
+                      for k, tree in snap.items()}
+                     for snap in (cpu["snaps"][i + 1], cpu["snaps"][i]))
         for k in ("loss", "nll", "aux", "grad_norm", "lr"):
             rel = abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30)
             worst[k] = max(worst.get(k, 0.0), rel)
@@ -4009,7 +4068,6 @@ def train_parity(dev) -> None:
                 fail(f"train-parity: step {i} {k} card {mg[k]} CPU {mc[k]}")
         t = np.float32(i + 1)
         c1, c2 = (float(1 - np.float32(b) ** t) for b in (opt.b1, opt.b2))
-        g, c = got["card"], got["cpu"]
         scale = {s: min(1.0, opt.grad_clip / (metrics[s]["grad_norm"]
                                               + 1e-9)) for s in metrics}
         for n in c["p"]:
@@ -4042,15 +4100,11 @@ def train_parity(dev) -> None:
             total += diff.numel()
         # the second step starts on the card from the CPU's state
         with torch.no_grad():
-            card = states["card"]
-            for (n, pg), (_, pc) in zip(card["params"].named_parameters(),
-                                        states["cpu"]["params"]
-                                        .named_parameters()):
-                pg.copy_(pc)
+            for n, pg in card["params"].named_parameters():
+                pg.copy_(c["p"][n])
             for k in ("m", "v"):
                 for n, tg in card["opt"][k].items():
-                    tg.copy_(states["cpu"]["opt"][k][n])
-        before = c
+                    tg.copy_(c[k][n])
     want = {"flash_attention": 4 * PAR_LAYERS, "ssm_scan": 4 * PAR_LAYERS,
             "flash_attention_backward": 2 * PAR_LAYERS,
             "ssm_scan_backward": 2 * PAR_LAYERS}
@@ -4064,7 +4118,9 @@ def train_parity(dev) -> None:
         f"gradients within {g_err:.3g} of each leaf's largest magnitude; "
         f"moments within bound; parameters within bound ({loose} of "
         f"{total} elements beyond 1e-5 and within the moments' part); "
-        f"launches {counts}; {time.perf_counter() - t0:.1f} s")
+        f"launches {counts}; the CPU's steps took {cpu_secs:.1f} s in "
+        f"the worker, {waited:.1f} s of it waited for here; "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def train_main(dev) -> dict:
@@ -4089,7 +4145,7 @@ def train_main(dev) -> dict:
         f"{TR_BATCH} x {TR_SEQ} tokens a step, {TR_STEPS} steps on one "
         f"batch; init on the card {time.perf_counter() - t0:.1f} s")
     batch = train_batch(cfg, TR_BATCH, TR_SEQ, 11, dev)
-    ts = step.make_train_step(cfg, optim.AdamWConfig(warmup_steps=0))
+    ts = step.make_train_step(cfg, opt_cfg=optim.AdamWConfig(warmup_steps=0))
     torch.cuda.reset_peak_memory_stats()
     walls, losses, per_step, bwd_inst = [], [], [], []
     for i in range(TR_STEPS):
@@ -4300,6 +4356,639 @@ def train_kernel_entries(launches, fa_errs, ss_err, dev):
 
 
 # --------------------------------------------------------------------------
+# the mesh side of training and the launcher: [launch-train],
+# [mesh-parity], [mesh-main]
+# --------------------------------------------------------------------------
+
+# [launch-train]: the reference launcher's default --arch at its full
+# configuration; [mesh-parity]: hymba-1.5b at full width cut to 2 layers
+# in float32 on a global batch of 4 x 1,100 tokens from the port's
+# pipeline, moonshot cut to [moe-parity]'s 2 layers and B x prompt;
+# [mesh-main]: hymba-1.5b cut to 4 layers in bf16 on [train-main]'s
+# 4 x 4,096 tokens, 4 steps
+LAUNCH_ARGS = ("--arch", "smollm-360m", "--batch", "8", "--seq", "2048")
+MESH_LAYERS, MESH_BATCH, MESH_SEQ = 2, 4, 1100
+MESH_MAIN_LAYERS, MESH_MAIN_STEPS = 4, 4
+
+
+def launch_train(dev) -> dict:
+    """[launch-train]: repro_torch.launch.train.main in this process, no
+    process group, on smollm-360m's full configuration.  Run A: 4 steps,
+    saving async at step 2 and blocking at 4, into a fresh directory;
+    A's step 4 is set aside.  Run B: --resume in the same directory
+    restores step 2 and writes step 4 again, which must equal A's within
+    the train bands (f32 leaves 1e-5 relative plus 1e-4 of the leaf's
+    largest magnitude, bf16 ones 5e-2 in norm); whether it is bit-equal
+    is printed.  The seconds of each save (the synchronous host copy,
+    then the write) and of the restore, and the bytes a checkpoint
+    writes; the attention's launches a step.  The directory is removed
+    at exit."""
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    times = {"save": [], "write": [], "restore": []}
+
+    class Timed(checkpoint.Checkpointer):
+        def save(self, *a, **kw):
+            t0 = time.perf_counter()
+            super().save(*a, **kw)
+            times["save"].append(time.perf_counter() - t0)
+
+        def _write(self, *a, **kw):
+            t0 = time.perf_counter()
+            super()._write(*a, **kw)
+            times["write"].append(time.perf_counter() - t0)
+
+        def restore(self, *a, **kw):
+            t0 = time.perf_counter()
+            out = super().restore(*a, **kw)
+            times["restore"].append(time.perf_counter() - t0)
+            return out
+
+    d = pathlib.Path(tempfile.mkdtemp(prefix="launch_train_"))
+    real = launcher.Checkpointer
+    launcher.Checkpointer = Timed
+    t0 = time.perf_counter()
+    try:
+        base = list(LAUNCH_ARGS) + ["--ckpt-dir", str(d), "--log-every", "1"]
+        ops.reset_launch_counts()
+        rc = launcher.main(base + ["--steps", "4", "--ckpt-every", "2"])
+        launches = ops.launch_counts(ops.FORWARD + ops.BACKWARD)
+        if rc != 0 or sorted(checkpoint.Checkpointer(d).all_steps()) \
+                != [2, 4]:
+            fail(f"launch-train: run A returned {rc}, checkpoints "
+                 f"{checkpoint.Checkpointer(d).all_steps()}")
+        a_dir = d / "a_step_4"
+        os.replace(d / "step_0000000004", a_dir)
+        n_bytes = sum(f.stat().st_size for f in a_dir.iterdir())
+        rc = launcher.main(base + ["--steps", "4", "--resume"])
+        if rc != 0:
+            fail(f"launch-train: run B returned {rc}")
+        man = json.loads((a_dir / "manifest.json").read_text())
+        man_b = json.loads((d / "step_0000000004" / "manifest.json")
+                           .read_text())
+        if man != man_b:
+            fail("launch-train: run B's manifest is not run A's")
+        bit_equal, worst = True, 0.0
+        for m in man["leaves"]:
+            a = np.load(a_dir / f"{m['name']}.npy")
+            b = np.load(d / "step_0000000004" / f"{m['name']}.npy")
+            if np.array_equal(a, b):
+                continue
+            bit_equal = False
+            if m["dtype"] == "bfloat16":
+                a = (a.astype(np.uint32) << 16).view(np.float32)
+                b = (b.astype(np.uint32) << 16).view(np.float32)
+                err = float(np.linalg.norm(a.astype(np.float64) - b))
+                ok = err <= 5e-2 * float(np.linalg.norm(a)) + 1e-12
+            else:
+                err = float(np.abs(a - b).max())
+                ok = bool((np.abs(a - b) <= 1e-5 * np.abs(a)
+                           + 1e-4 * float(np.abs(a).max())).all())
+            worst = max(worst, err)
+            if not ok:
+                fail(f"launch-train: run B's {m['path']} differs from run "
+                     f"A's by {err}")
+    finally:
+        launcher.Checkpointer = real
+        shutil.rmtree(d, ignore_errors=True)
+    L = 32
+    want = {"flash_attention": 4 * 2 * L, "flash_attention_backward": 4 * L}
+    if any(launches[k] != n for k, n in want.items()):
+        fail(f"launch-train: launches in run A's 4 steps {launches}, "
+             f"expected {want}")
+    log(f"[launch-train] python -m repro_torch.launch.train "
+        f"{' '.join(LAUNCH_ARGS)}: A --steps 4 --ckpt-every 2 (async save "
+        f"at 2, blocking at 4), B --resume --steps 4 from step 2: B's step "
+        f"4 {'bit-equal to' if bit_equal else f'within the train bands of (largest difference {worst:.3g})'} "
+        f"A's; {n_bytes / 2**30:.3f} GiB a checkpoint; saves "
+        f"{[round(t, 3) for t in times['save']]} s on the loop (the host "
+        f"copy, and the write of the blocking ones), writes "
+        f"{[round(t, 3) for t in times['write']]} s, restore "
+        f"{[round(t, 3) for t in times['restore']]} s; launches in A "
+        f"{launches}; {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "bit_equal": bit_equal,
+            "bytes": n_bytes, **times}
+
+
+def mesh_cfgs():
+    """hymba and moonshot for [mesh-parity], hymba for [mesh-main]."""
+    from repro_torch import configs
+    f32 = dict(param_dtype="float32", compute_dtype="float32",
+               microbatches=1)
+    return (dataclasses.replace(configs.get_config(LM_ARCH),
+                                n_layers=MESH_LAYERS, **f32),
+            dataclasses.replace(configs.get_config(MOE_ARCH),
+                                n_layers=MOE_PAR_LAYERS, **f32),
+            dataclasses.replace(configs.get_config(LM_ARCH),
+                                n_layers=MESH_MAIN_LAYERS, microbatches=1))
+
+
+def seeded_params(cfg, dev):
+    """The same parameters in every process: a CUDA generator's draw."""
+    from repro_torch.models import transformer
+    return transformer.make_params(
+        cfg, torch.Generator(device=dev).manual_seed(5), device=dev)
+
+
+def mesh_batch(cfg, B, S, dev, unequal=False):
+    """Step 0's global batch of the port's pipeline; ``unequal``: the
+    first half's rows keep their first 100 labels only."""
+    from repro_torch.data.pipeline import DataConfig, get_batch
+    b = get_batch(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                             seed=21), 0, device=dev)
+    if unequal:
+        b["labels"][:B // 2, 100:] = -1
+    return b
+
+
+def host_copy(tree: dict) -> dict:
+    return {n: t.detach().to("cpu", copy=True) for n, t in tree.items()}
+
+
+def mesh_reference(cfg, batch, opt, steps, dev, full=True,
+                   routes=False) -> dict:
+    """The one-rank make_train_step (no mesh) on the card from the seeded
+    parameters, kept on the host: each step's metrics and moments (with
+    ``full`` its parameters, and those before the first step), with
+    ``routes`` the first forward's routes."""
+    from repro_torch.models import moe
+    from repro_torch.train import step
+    from torch_kernel_inputs import recorded_routes
+    state = step.train_state(seeded_params(cfg, dev))
+    ref = {"metrics": [], "steps": []}
+    if full:
+        ref["before"] = host_copy(dict(state["params"].named_parameters()))
+    ts = step.make_train_step(cfg, opt_cfg=opt)
+    for i in range(steps):
+        with recorded_routes(moe) as rec:
+            state, m = ts(state, batch)
+        ref["metrics"].append({k: float(v) for k, v in m.items()})
+        if routes and i == 0:
+            ref["routes"] = rec[:cfg.n_layers]
+        snap = {"m": host_copy(state["opt"]["m"])}
+        if full:
+            snap["v"] = host_copy(state["opt"]["v"])
+            snap["p"] = host_copy(dict(state["params"].named_parameters()))
+        ref["steps"].append(snap)
+    del state
+    torch.cuda.empty_cache()
+    return ref
+
+
+def mesh_train_check(tag, cfg, mesh, batch, opt, steps, ref, dev,
+                     full=True) -> dict:
+    """make_train_step(cfg, mesh) from the seeded parameters sharded over
+    ``mesh``, held step by step to the one-rank reference ``ref``
+    (``mesh_reference``) on this rank's blocks, in [train-parity]'s bands: loss, nll, aux,
+    grad_norm 1e-5 and lr 1e-6; the gradients read off the moments within
+    1e-4 of the full leaf's largest magnitude; with ``full`` m and v
+    within 1e-5 relative plus 1e-4 of their largest magnitude and the
+    parameters within adamw_param_check's bound (the elements that need
+    the moments' part counted once, on the rank that owns them)."""
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import spmd
+    from repro_torch.train import step
+    from torch_kernel_inputs import adamw_param_check
+    from torch_spmd import count_collectives
+    ctx = spmd.Ctx.of(mesh)
+    sh, _ = step.state_shardings(cfg, mesh)
+    specs = {n: s.spec for n, s in sh["params"].items()}
+    state = step.train_state(step.shard_params(seeded_params(cfg, dev),
+                                               sh["params"]))
+    torch.cuda.empty_cache()
+    ts = step.make_train_step(cfg, mesh, opt_cfg=opt)
+    rm = ref["metrics"]
+    b1 = opt.b1
+    out = {"worst": {}, "g_err": 0.0, "loose": 0, "total": 0, "calls": [],
+           "launches": [], "walls": []}
+    prev_m = {n: torch.zeros_like(t) for n, t in state["opt"]["m"].items()}
+    carried = {}
+    for i in range(steps):
+        ops.reset_launch_counts()
+        with count_collectives() as calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = ts(state, batch)
+            got = {k: float(v) for k, v in m.items()}
+            out["walls"].append(time.perf_counter() - t0)
+        out["calls"].append(dict(calls))
+        out["launches"].append(ops.launch_counts(ops.FORWARD + ops.BACKWARD))
+        exp = rm[i]
+        for k in ("loss", "nll", "aux", "grad_norm", "lr"):
+            rel = abs(got[k] - exp[k]) / max(abs(exp[k]), 1e-30)
+            out["worst"][k] = max(out["worst"].get(k, 0.0), rel)
+            if not math.isfinite(got[k]) or \
+                    rel > (1e-6 if k == "lr" else 1e-5) and \
+                    abs(got[k] - exp[k]) > 1e-7:
+                fail(f"{tag}: step {i} {k} {got[k]}, one rank {exp[k]}")
+        t = np.float32(i + 1)
+        c1, c2 = (float(1 - np.float32(b) ** t) for b in (opt.b1, opt.b2))
+        sg, se = (min(1.0, opt.grad_clip / (x["grad_norm"] + 1e-9))
+                  for x in (got, exp))
+        for n, p in state["params"].named_parameters():
+            spec = specs[n]
+
+            def blk(x):
+                return spmd.block(x, spec, ctx)
+            em = ref["steps"][i]["m"][n].to(dev)
+            pm = torch.zeros_like(em) if i == 0 else \
+                ref["steps"][i - 1]["m"][n].to(dev)
+            ge = (em - b1 * pm) / ((1 - b1) * se)
+            top = float(ge.abs().max())
+            gm = state["opt"]["m"][n]
+            gg = (gm - b1 * prev_m[n]) / ((1 - b1) * sg)
+            err = float((gg - blk(ge)).abs().max())
+            out["g_err"] = max(out["g_err"], err / max(top, 1e-30))
+            if err > 1e-4 * top + 1e-12:
+                fail(f"{tag}: step {i} gradient of {n} differs by {err} "
+                     f"(largest {top})")
+            prev_m[n] = gm.clone()
+            if not full:
+                continue
+            ev = ref["steps"][i]["v"][n].to(dev)
+            for k, g, e in (("m", gm, em), ("v", state["opt"]["v"][n], ev)):
+                d = (g - blk(e)).abs()
+                if (d > 1e-5 * blk(e).abs()
+                        + 1e-4 * float(e.abs().max())).any():
+                    fail(f"{tag}: step {i} {k} of {n} differs by "
+                         f"{float(d.max())}")
+            ep = ref["steps"][i]["p"][n].to(dev)
+            before = (ref["before"] if i == 0
+                      else ref["steps"][i - 1]["p"])[n].to(dev)
+            diff, bad, loose = adamw_param_check(
+                p.detach(), blk(ep), blk(before), gm, blk(em),
+                state["opt"]["v"][n], blk(ev), exp["lr"], c1, c2, opt.eps,
+                carried.get(n, torch.zeros_like(p.detach())))
+            if bad:
+                fail(f"{tag}: step {i} parameter {n}: {bad} elements beyond "
+                     f"the bound (max diff {float(diff.max())})")
+            carried[n] = diff
+            if spmd.owns(spec, ctx):
+                out["loose"] += loose
+                out["total"] += diff.numel()
+        out["loss"] = got["loss"]
+    if out["loose"] > 0.01 * out["total"] * steps:
+        fail(f"{tag}: {out['loose']} of {out['total']} parameter elements "
+             f"needed the moments' part of the bound over {steps} steps")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_prefill_check(tag, cfg, mesh, batch, ref, dev) -> dict:
+    """make_prefill(cfg, mesh) of moonshot's blocks against the one-rank
+    prefill: routes and the drops they give exact, logits within 1e-4 of
+    their largest magnitude."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe, transformer
+    from repro_torch.train import step
+    from torch_kernel_inputs import recorded_routes
+    B, S = batch["tokens"].shape
+    C = moe.capacity(cfg, S)
+    params = seeded_params(cfg, dev)
+    if mesh is not None:
+        sh, _ = step.state_shardings(cfg, mesh)
+        params = step.shard_params(params, sh["params"])
+    cache = transformer.init_cache(cfg, B, S, device=dev)
+    ops.reset_launch_counts()
+    with torch.inference_mode(), recorded_routes(moe) as routes:
+        logits, _ = step.make_prefill(cfg, mesh)(params, batch["tokens"],
+                                                 cache)
+    drops = [int((moe._positions_in_expert(t, cfg) >= C).sum())
+             for t, _ in routes]
+    got = {"logits": logits.float().cpu(), "routes": routes, "drops": drops,
+           "launches": ops.launch_counts()}
+    del params, cache
+    torch.cuda.empty_cache()
+    if ref is None:
+        return got
+    exp = ref["prefill"]
+    bad = [i for i, ((a, _), (b, _)) in enumerate(zip(routes,
+                                                      exp["routes"]))
+           if not torch.equal(a, b)]
+    if bad or drops != exp["drops"]:
+        fail(f"{tag}: routes differ in layers {bad}, drops {drops} against "
+             f"{exp['drops']}")
+    top = float(exp["logits"].abs().max())
+    err = float((got["logits"] - exp["logits"]).abs().max())
+    if err > 1e-4 * top:
+        fail(f"{tag}: prefill logits differ by {err} (largest {top})")
+    got["err"] = err / top
+    return got
+
+
+def moe_split_check(tag, cfg, mesh, batch, ref, dev) -> dict:
+    """A train-mode forward and loss of moonshot over ``mesh`` with the
+    batch split: the global loss and aux equal the one-rank train step's
+    (1e-5), a route differs only at a near-tie."""
+    from repro_torch.models import moe, transformer
+    from repro_torch.sharding import spmd
+    from repro_torch.train import step
+    from torch_kernel_inputs import recorded_routes, route_flips
+    ctx = spmd.Ctx.of(mesh).for_batch(batch["tokens"].shape[0])
+    sh, _ = step.state_shardings(cfg, mesh)
+    blocks = step.shard_params(seeded_params(cfg, dev), sh["params"])
+    torch.cuda.empty_cache()
+    full = step.gather_params(blocks, step.param_plan(cfg, mesh, blocks),
+                              ctx)
+    del blocks
+    with torch.no_grad(), recorded_routes(moe) as routes:
+        logits, _, aux = transformer.forward(
+            cfg, full, ctx.batch_rows(batch["tokens"]), mode="train",
+            ctx=ctx)
+        loss, parts = transformer.lm_loss(
+            cfg, logits, ctx.batch_rows(batch["labels"]), aux, ctx=ctx)
+    loss, aux = ctx.batch_sum(torch.stack([loss, parts["aux"]])).tolist()
+    rows = lambda t: spmd.gather(t.to(dev), (ctx.batch_axes,), ctx).cpu()
+    routes = [(rows(t), rows(g)) for t, g in routes]
+    del full, logits
+    torch.cuda.empty_cache()
+    exp = ref["metrics"][0]
+    for k, v in (("loss", loss), ("aux", aux)):
+        if abs(v - exp[k]) > 1e-5 * abs(exp[k]):
+            fail(f"{tag}: {k} {v}, one rank {exp[k]}")
+    flips = route_flips(routes, ref["routes"])
+    return {"loss": loss, "aux": aux, "flips": flips,
+            "rel": {k: abs(v - exp[k]) / abs(exp[k])
+                    for k, v in (("loss", loss), ("aux", aux))}}
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Seconds, calls and bytes of every torch.distributed collective
+    called inside.  Before each call the rank finishes its card work and
+    waits at a barrier of the call's group for the other ranks (both
+    ranks share one card, so a rank's wait holds the other's compute):
+    ``wait_s`` sums those waits, ``s`` the calls themselves, from the
+    barrier to the card's synchronisation after the call (gloo's calls
+    block the host anyway)."""
+    import torch.distributed as dist
+    acc = {"s": 0.0, "wait_s": 0.0, "bytes": {}, "calls": 0}
+    saved = {}
+    for name in ("all_gather_single", "all_gather_into_tensor",
+                 "reduce_scatter_single", "reduce_scatter_tensor",
+                 "all_reduce"):
+        fn = getattr(dist, name, None)
+        if fn is None:
+            continue
+        saved[name] = fn
+
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.barrier(group=kw.get("group"))
+            t1 = time.perf_counter()
+            r = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            acc["wait_s"] += t1 - t0
+            acc["s"] += time.perf_counter() - t1
+            acc["calls"] += 1
+            # the bytes the call hands in (a reduce-scatter's full input,
+            # an all-gather's own block, an all-reduce's tensor)
+            t = a[1] if _name.startswith(("all_gather", "reduce_scatter")) \
+                else a[0]
+            kind = _name.split("_")[0] + "_" + _name.split("_")[1]
+            acc["bytes"][kind] = acc["bytes"].get(kind, 0) \
+                + t.numel() * t.element_size()
+            return r
+        setattr(dist, name, wrapped)
+    try:
+        yield acc
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def mesh_main_rank(cfg, mesh, dev) -> dict:
+    """[mesh-main] on this rank: hymba cut to MESH_MAIN_LAYERS layers in
+    bf16 (remat "dots") sharded over ``mesh``, MESH_MAIN_STEPS steps of
+    [train-main]'s batch through make_train_step(cfg, mesh), timed
+    without instrumentation, then one more step under
+    ``timed_collectives`` for the collectives' bytes and seconds."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import optim, step
+    sh, _ = step.state_shardings(cfg, mesh)
+    state = step.train_state(step.shard_params(seeded_params(cfg, dev),
+                                               sh["params"]))
+    torch.cuda.empty_cache()
+    batch = train_batch(cfg, TR_BATCH, TR_SEQ, 11, dev)
+    ts = step.make_train_step(cfg, mesh, opt_cfg=optim.AdamWConfig(
+        warmup_steps=0))
+    torch.cuda.reset_peak_memory_stats()
+    out = {"walls": [], "losses": [], "launches": []}
+    for i in range(MESH_MAIN_STEPS + 1):
+        timed = i == MESH_MAIN_STEPS
+        ops.reset_launch_counts()
+        with (timed_collectives() if timed
+              else contextlib.nullcontext()) as acc:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = ts(state, batch)
+            loss = float(m["loss"])
+            wall = time.perf_counter() - t0
+        if not math.isfinite(loss):
+            fail(f"mesh-main: step {i} loss {loss}")
+        if timed:
+            out["comm"], out["timed_wall"] = acc, wall
+        else:
+            out["walls"].append(wall)
+            out["losses"].append(loss)
+        out["launches"].append(ops.launch_counts(ops.FORWARD + ops.BACKWARD))
+    out["peak"] = torch.cuda.max_memory_allocated()
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank(rank, world, dev):
+    """The two gloo ranks of [mesh-parity] and [mesh-main], both on
+    ``dev`` (card 0): hymba on (2, 1) and (1, 2), the unequal batch on
+    (2, 1), moonshot's prefill and train step on (1, 2) and its
+    split-batch forward on (2, 1), then [mesh-main] on (2, 1).  Each rank
+    computes the one-rank references it is held to (moonshot's one rank
+    at a time: its full train state leaves room for one)."""
+    import torch.distributed as dist
+    from repro_torch.train import optim
+    from torch_spmd import mesh_of
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hy, mo, mn = mesh_cfgs()
+    opt = optim.AdamWConfig(warmup_steps=0)
+    out, secs, t0 = {}, {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        secs[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+    for key in ("a", "u"):
+        batch = mesh_batch(hy, MESH_BATCH, MESH_SEQ, dev, key == "u")
+        ref = mesh_reference(hy, batch, opt, 2, dev)
+        for shape in (((2, 1), (1, 2)) if key == "a" else ((2, 1),)):
+            out[f"hymba {shape} {key}"] = mesh_train_check(
+                f"mesh-parity hymba {shape} {key} rank {rank}", hy,
+                mesh_of(shape, device=dev.type), batch, opt, 2, ref, dev)
+        del ref
+        lap(f"hymba {key}")
+    batch = mesh_batch(mo, MOE_PAR_BATCH, MOE_PAR_PROMPT, dev)
+    for r in range(world):
+        if r == rank:
+            ref = mesh_reference(mo, batch, opt, 1, dev, full=False,
+                                 routes=True)
+            pre = moe_prefill_check("", mo, None, batch, None, dev)
+            ref["prefill"] = {k: pre[k] for k in ("logits", "routes",
+                                                  "drops")}
+        dist.barrier()
+    lap("moonshot references")
+    m12 = mesh_of((1, 2), device=dev.type)
+    out["moe prefill"] = moe_prefill_check(
+        f"mesh-parity moonshot (1, 2) prefill rank {rank}", mo, m12, batch,
+        ref, dev)
+    del out["moe prefill"]["logits"], out["moe prefill"]["routes"]
+    lap("moonshot prefill")
+    out["moe train"] = mesh_train_check(
+        f"mesh-parity moonshot (1, 2) rank {rank}", mo, m12, batch, opt, 1,
+        ref, dev, full=False)
+    lap("moonshot train step")
+    out["moe split"] = moe_split_check(
+        f"mesh-parity moonshot (2, 1) rank {rank}", mo,
+        mesh_of((2, 1), device=dev.type), batch, ref, dev)
+    del ref
+    lap("moonshot split batch")
+    out["main"] = mesh_main_rank(mn, mesh_of((2, 1), device=dev.type), dev)
+    lap("mesh-main")
+    out["secs"] = secs
+    return out
+
+
+def mesh_phases(dev) -> dict:
+    """[launch-train] (no process group), then [mesh-parity]: a mesh of one
+    over NCCL in this process, and two gloo ranks on card 0 (NCCL refuses
+    two ranks on one card), then [mesh-main] on those ranks, each held
+    to the one-rank make_train_step without a mesh on the card.  Returns
+    the LM kernels' launches in the phase's runs."""
+    import torch.distributed as dist
+    from repro_torch.core import shard_sim
+    from repro_torch.train import optim
+    from torch_spmd import mesh_of
+    t0 = time.perf_counter()
+    lt = launch_train(dev)
+    hy, mo, mn = mesh_cfgs()
+    opt = optim.AdamWConfig(warmup_steps=0)
+    L = MESH_LAYERS
+    main_ref = mesh_reference(
+        mn, train_batch(mn, TR_BATCH, TR_SEQ, 11, dev), opt,
+        MESH_MAIN_STEPS, dev, full=False)["metrics"]
+    # a mesh of one over NCCL, in this process
+    batch = mesh_batch(hy, MESH_BATCH, MESH_SEQ, dev)
+    ref = mesh_reference(hy, batch, opt, 2, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            one = mesh_train_check(
+                "mesh-parity hymba (1, 1)", hy,
+                mesh_of((1, 1), device=dev.type), batch, opt, 2, ref, dev)
+        finally:
+            dist.destroy_process_group()
+    del ref
+    t1 = time.perf_counter()
+    ranks = shard_sim.spawn(mesh_rank, 2, (dev,), backend="gloo")
+    t_spawn = time.perf_counter() - t1
+
+    want = {"flash_attention": 2 * L, "ssm_scan": 2 * L,
+            "flash_attention_backward": L, "ssm_scan_backward": L}
+
+    def report(tag, r):
+        bad = [c for c in r["launches"]
+               if any(c[k] != n for k, n in want.items())]
+        if bad:
+            fail(f"{tag}: launches a step {r['launches']}, expected {want}")
+        log(f"{tag}: == one rank at each of {len(r['walls'])} steps: "
+            f"largest relative differences "
+            f"{', '.join(f'{k} {v:.3g}' for k, v in r['worst'].items())}; "
+            f"gradients within {r['g_err']:.3g} of each leaf's largest "
+            f"magnitude; moments within bound; parameters within bound "
+            f"({r['loose']} of {r['total']} elements beyond 1e-5 and within "
+            f"the moments' part); collectives a step {r['calls']}; launches "
+            f"a step {r['launches'][-1]}; step walls "
+            f"{[round(w, 3) for w in r['walls']]} s")
+
+    report(f"[mesh-parity] hymba-1.5b {L} layers f32, {MESH_BATCH} x "
+           f"{MESH_SEQ} tokens, mesh (1, 1) over NCCL", one)
+    launches = {"(1, 1)": one["launches"]}
+    for rk, out in enumerate(ranks):
+        for key in ("(2, 1) a", "(1, 2) a", "(2, 1) u"):
+            r = out[f"hymba {key}"]
+            what = "the unequal batch (100 valid labels a row in the first " \
+                "half)" if key.endswith("u") else "the batch"
+            report(f"[mesh-parity] hymba {key[:6]} rank {rk} (gloo), {what}",
+                   r)
+            launches[f"{key} rank {rk}"] = r["launches"]
+        p, t, s = out["moe prefill"], out["moe train"], out["moe split"]
+        log(f"[mesh-parity] moonshot {MOE_PAR_LAYERS} layers f32, "
+            f"{MOE_PAR_BATCH} x {MOE_PAR_PROMPT} tokens, rank {rk}: (1, 2) "
+            f"{mo.n_experts // 2} experts a rank: make_prefill(cfg, mesh) "
+            f"routes and drops {p['drops']} == one rank, logits within "
+            f"{p['err']:.3g} of the largest; one train step == one rank: "
+            f"{', '.join(f'{k} {v:.3g}' for k, v in t['worst'].items())}, "
+            f"gradients within {t['g_err']:.3g}; collectives "
+            f"{t['calls'][0]}; launches {t['launches'][0]} (prefill "
+            f"{p['launches']}); (2, 1) batch split: loss {s['loss']:.6f} "
+            f"and aux {s['aux']:.6f} == one rank (relative "
+            f"{s['rel']['loss']:.3g}, {s['rel']['aux']:.3g}); "
+            + ("routes equal to one rank's" if not s["flips"] else
+               "routes differ only at near-ties: "
+               + flip_note(s["flips"], MOE_PAR_LAYERS)))
+        if not (t["launches"][0]["flash_attention"]
+                and t["launches"][0]["flash_attention_backward"]):
+            fail(f"mesh-parity: moonshot's train step launched "
+                 f"{t['launches'][0]}")
+    mm = ranks[0]["main"]
+    for rk, out in enumerate(ranks):
+        r = out["main"]
+        for i, (a, b) in enumerate(zip(r["losses"], main_ref)):
+            if not abs(a - b["loss"]) <= 5e-2 * abs(b["loss"]):
+                fail(f"mesh-main: rank {rk} step {i} loss {a}, one rank "
+                     f"{b['loss']}")
+        Lm = MESH_MAIN_LAYERS
+        wm = {"flash_attention": 2 * Lm, "ssm_scan": 2 * Lm,
+              "flash_attention_backward": Lm, "ssm_scan_backward": Lm}
+        if any(any(c[k] != n for k, n in wm.items()) for c in r["launches"]):
+            fail(f"mesh-main: rank {rk} launches {r['launches']}")
+    med = statistics.median(mm["walls"][1:])
+    tokens = TR_BATCH * TR_SEQ
+    comm = [o["main"]["comm"] for o in ranks]
+    tw = [o["main"]["timed_wall"] for o in ranks]
+    log(f"[mesh-main] hymba-1.5b cut to {MESH_MAIN_LAYERS} layers, bf16, "
+        f"remat 'dots', mesh (2, 1) over gloo (both ranks on card 0), "
+        f"{TR_BATCH} x {TR_SEQ} tokens a step, {MESH_MAIN_STEPS} steps: step "
+        f"time {med:.3f} s (median of steps 2-{MESH_MAIN_STEPS}, rank 0; "
+        f"first {mm['walls'][0]:.3f} s; {[round(w, 3) for w in mm['walls']]}"
+        f"), {tokens / med:.0f} tokens/s; peak memory a rank "
+        f"{[round(o['main']['peak'] / 2**30, 2) for o in ranks]} GiB; one "
+        f"more step, instrumented (a card sync and a barrier before each "
+        f"collective), hands {comm[0]['bytes']} bytes to {comm[0]['calls']} "
+        f"collectives a rank: the calls take "
+        f"{[round(c['s'], 3) for c in comm]} s and the waits for the other "
+        f"rank at the barriers {[round(c['wait_s'], 3) for c in comm]} s of "
+        f"the step's {[round(w, 3) for w in tw]} s (ranks 0, 1): the calls "
+        f"{[round(100 * c['s'] / w, 1) for c, w in zip(comm, tw)]}% of the "
+        f"instrumented step, {[round(100 * c['s'] / med, 1) for c in comm]}"
+        f"% of the uninstrumented median; losses "
+        f"{[round(x, 4) for x in mm['losses']]} (one rank "
+        f"{[round(x['loss'], 4) for x in main_ref]}, within 5e-2); launches "
+        f"a step {mm['launches'][-1]}")
+    log(f"[mesh] the two-rank spawn took {t_spawn:.1f} s wall, start-up "
+        f"included (rank 0's parts, s: {ranks[0]['secs']}); the phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"launch-train": lt["launches"], "mesh-parity": launches,
+            "mesh-main": mm["launches"][-1]}
+
+
+# --------------------------------------------------------------------------
 
 def main() -> None:
     t_start = T_START
@@ -4441,9 +5130,6 @@ def main() -> None:
     scalar_parity(dev, vec)
     del vec
     lm_parity(dev)
-    log(f"[elapsed] [train-parity] starts at "
-        f"{time.perf_counter() - t_start:.1f} s")
-    train_parity(dev)
 
     log(f"[elapsed] phase 5 starts at {time.perf_counter() - t_start:.1f} s")
     # phase 5: the discrete-event main run through the user's entry point
@@ -4599,8 +5285,12 @@ def main() -> None:
     del lm_params, lm_toks
     torch.cuda.empty_cache()
 
-    # training, on the freed card: the main run, then both backward
-    # kernels timed at its shapes
+    # training, on the freed card: the parity run (its CPU steps, in the
+    # worker since the script started, are ready by now), the main run,
+    # then both backward kernels timed at its shapes
+    log(f"[elapsed] [train-parity] starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    train_parity(dev)
     log(f"[elapsed] [train-main] starts at "
         f"{time.perf_counter() - t_start:.1f} s")
     tr = train_main(dev)
@@ -4670,6 +5360,21 @@ def main() -> None:
             "K=2": [c[k["name"]] for c in shard_counts["K=2"]]}
         log(f"[shard] {k['name']}: {k['shard_launches']['K=1']} launches in "
             f"[shard-main] K=1, {k['shard_launches']['K=2']} a rank at K=2")
+
+    # the mesh side of training and the launcher, after the rack-sharded
+    # runs' process groups: [launch-train] runs with none, then its own
+    log(f"[elapsed] phase 8 starts at {time.perf_counter() - t_start:.1f} s")
+    mesh_counts = mesh_phases(dev)
+    for k in kernels:
+        if k["name"] in ("flash_attention", "ssm_scan",
+                         "flash_attention_backward", "ssm_scan_backward"):
+            k["mesh_launches"] = {
+                "launch-train": mesh_counts["launch-train"].get(k["name"], 0),
+                "mesh-parity": {case: [c[k["name"]] for c in steps]
+                                for case, steps in
+                                mesh_counts["mesh-parity"].items()},
+                "mesh-main": mesh_counts["mesh-main"][k["name"]]}
+            log(f"[mesh] {k['name']}: {k['mesh_launches']}")
 
     log(f"[total] chip_smoke.py wall {time.perf_counter() - t_start:.1f} s, "
         f"the kernels' builds included")

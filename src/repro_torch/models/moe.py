@@ -2,7 +2,7 @@
 GShard-style top-k routing with token dropping at a capacity factor, for
 qwen3-moe and moonshot.
 
-Function by function as the reference, on one device:
+Function by function as the reference:
 
   1. ``route``: the router product in float32, top-k experts per token,
      gates renormalised over the chosen k, the switch load-balance loss
@@ -17,12 +17,25 @@ Function by function as the reference, on one device:
   5. ``_combine_local``: each token's k expert outputs, gate-weighted,
      added one choice at a time in the expert output's dtype.
 
-``moe_einsum`` is the reference's one-hot oracle.  The mesh path of the
-reference (experts sharded over "model", a ``shard_map`` combine and one
-``psum``) comes with ROADMAP Queue 1 item 17: ``moe_scatter`` refuses a
-mesh with more than one model shard.  The router product must run in full
-float32: on the card that needs TF32 off for matrix products, PyTorch's
-default (``torch.backends.cuda.matmul.allow_tf32`` False).
+``moe_einsum`` is the reference's one-hot oracle.  Under a mesh
+(``ctx``, a ``sharding.spmd.Ctx``) with n "model" shards and E % n == 0,
+the experts are parallel as in the reference: each rank holds E/n
+experts' weights, runs ``_expert_ffn`` on its slice of the dispatched
+(B, E, C, D) tensor and ``_combine_local`` at its ``e_base``, and the
+partial outputs are summed over "model" (the reference's ``shard_map``
+combine and ``psum``).  Every model rank routes the same tokens and
+computes the same loss from the sum, so the sum passes its gradient
+through unchanged, and the gradients of the replicated dispatch and
+gates are summed over "model" (``spmd.model_slice``/``model_copy``).
+With E % n != 0 the experts are replicated (``resolve_spec``'s rail) and
+the local path runs.  When the batch is split over the batch axes
+(``ctx.split``), ``route``'s aux is this rank's share of the global one:
+the top-1 fractions are summed over the batch ranks (they carry no
+gradient), the mean probabilities and the z-loss are this rank's sums
+over the global token count, so the shares add up to the reference's
+aux and their gradients to its gradient.  The router product must run in
+full float32: on the card that needs TF32 off for matrix products,
+PyTorch's default (``torch.backends.cuda.matmul.allow_tf32`` False).
 """
 from __future__ import annotations
 
@@ -31,6 +44,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..sharding import spmd
 from . import layers
 
 
@@ -39,18 +53,26 @@ def capacity(cfg, S: int) -> int:
                             / cfg.n_experts))
 
 
-def route(p, x, cfg):
-    """Returns (topi (B,S,k) int32, gates (B,S,k) f32, aux_loss f32)."""
+def route(p, x, cfg, ctx=None):
+    """Returns (topi (B,S,k) int32, gates (B,S,k) f32, aux_loss f32);
+    with a split batch (``ctx.split``) aux is this rank's share."""
     logits = x.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)
     topv, topi = torch.topk(logits, cfg.top_k, dim=-1)
     gates = torch.softmax(topv, dim=-1)                # renormalized over k
     # switch load-balance loss: E * mean(f_e * p_e)
     ohot = F.one_hot(topi[..., 0], cfg.n_experts).float()
-    frac = ohot.mean(dim=(0, 1))
-    mean_p = probs.mean(dim=(0, 1))
+    lse2 = torch.logsumexp(logits, dim=-1) ** 2
+    if ctx is not None and ctx.split:
+        tokens = x.shape[0] * x.shape[1] * ctx.n_batch
+        frac = ctx.batch_sum(ohot.sum(dim=(0, 1))) / tokens
+        mean_p = probs.sum(dim=(0, 1)) / tokens
+        z = lse2.sum() / tokens
+    else:
+        frac = ohot.mean(dim=(0, 1))
+        mean_p = probs.mean(dim=(0, 1))
+        z = torch.mean(lse2)
     lb = cfg.n_experts * torch.sum(frac * mean_p)
-    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return topi.to(torch.int32), gates, lb + cfg.router_zloss * z
 
 
@@ -121,28 +143,41 @@ def _combine_local(expert_out, topi, pos, keep, gates, e_base, E_loc, S):
     return out
 
 
-def moe_scatter(p, x, cfg, mesh=None, mesh_axes=("data", "model")):
-    """The production MoE path on one device.  Returns (out (B, S, D) in
-    x's dtype, aux f32, dropped int32: the kept-out (token, choice) pairs
-    with a nonzero gate)."""
-    if mesh is not None:
-        from ..sharding.partition import mesh_sizes  # imports core: lazily
-        n = mesh_sizes(mesh).get(mesh_axes[-1], 1)
-        if n > 1:
-            raise NotImplementedError(
-                f"moe_scatter over a mesh with {n} {mesh_axes[-1]!r} "
-                f"shards: the expert-parallel combine is not ported yet "
-                f"(item 17) -- see ROADMAP.md Queue 1")
+def expert_parallel(cfg, ctx) -> bool:
+    """Whether the experts are split over "model" under ``ctx``: more
+    than one model shard, and E a multiple of their number."""
+    return ctx is not None and ctx.n_model > 1 \
+        and cfg.n_experts % ctx.n_model == 0
+
+
+def moe_scatter(p, x, cfg, ctx=None):
+    """The production MoE path.  Returns (out (B, S, D) in x's dtype, aux
+    f32, dropped int32: the kept-out (token, choice) pairs with a nonzero
+    gate).  Under expert parallelism (``expert_parallel``) ``p``'s expert
+    weights are this rank's E/n experts."""
     B, S, D = x.shape
     E = cfg.n_experts
     C = capacity(cfg, S)
-    topi, gates, aux = route(p, x, cfg)
+    ep = expert_parallel(cfg, ctx)
+    E_loc = E // ctx.n_model if ep else E
+    if p["wg"].shape[0] != E_loc:
+        raise ValueError(
+            f"{cfg.name}: the expert weights hold {p['wg'].shape[0]} "
+            f"experts; this rank runs {E_loc} of {E} "
+            f"({ctx.n_model if ep else 1} model shard(s))")
+    topi, gates, aux = route(p, x, cfg, ctx)
     pos = _positions_in_expert(topi, cfg)
     keep = pos < C
     dropped = torch.sum(~keep & (gates > 0), dtype=torch.int32)
     h, _ = _dispatch(x, topi, pos, keep, C, cfg)        # (B, E, C, D)
-    h = _expert_ffn(p, h, cfg)
-    out = _combine_local(h, topi, pos, keep, gates, 0, E, S)
+    if ep:
+        h = _expert_ffn(p, spmd.model_slice(h, 1, ctx), cfg)
+        out = _combine_local(h, topi, pos, keep, spmd.model_copy(gates, ctx),
+                             ctx.model_index * E_loc, E_loc, S)
+        out = spmd.model_sum(out, ctx)
+    else:
+        h = _expert_ffn(p, h, cfg)
+        out = _combine_local(h, topi, pos, keep, gates, 0, E, S)
     if cfg.n_shared_experts:
         out = out + layers.mlp(p["shared"], x, "silu")
     return out.to(x.dtype), aux, dropped
@@ -152,11 +187,11 @@ def moe_scatter(p, x, cfg, mesh=None, mesh_axes=("data", "model")):
 # small-shape oracle: classic GShard one-hot einsum dispatch/combine
 # --------------------------------------------------------------------------
 
-def moe_einsum(p, x, cfg):
+def moe_einsum(p, x, cfg, ctx=None):
     B, S, D = x.shape
     E = cfg.n_experts
     C = capacity(cfg, S)
-    topi, gates, aux = route(p, x, cfg)
+    topi, gates, aux = route(p, x, cfg, ctx)
     pos = _positions_in_expert(topi, cfg)
     keep = pos < C
     oh_e = F.one_hot(topi.long(), E).float()                      # (B,S,k,E)
@@ -175,9 +210,14 @@ def moe_einsum(p, x, cfg):
     return out.to(x.dtype), aux, dropped
 
 
-def moe_block(p, x, cfg, mesh=None, mesh_axes=("data", "model")):
-    """``moe_impl == "einsum"`` runs the oracle; anything else ("scatter",
-    "dense") the scatter path, as in the reference."""
+def moe_block(p, x, cfg, ctx=None):
+    """``moe_impl == "einsum"`` runs the oracle, anything else ("scatter",
+    "dense") the scatter path, as in the reference.  The oracle holds
+    every expert: under expert parallelism it raises ValueError."""
     if cfg.moe_impl == "einsum":
-        return moe_einsum(p, x, cfg)
-    return moe_scatter(p, x, cfg, mesh, mesh_axes)
+        if expert_parallel(cfg, ctx):
+            raise ValueError(f"{cfg.name}: the einsum oracle holds every "
+                             f"expert; moe_impl='scatter' splits them over "
+                             f"{ctx.n_model} model shards")
+        return moe_einsum(p, x, cfg, ctx)
+    return moe_scatter(p, x, cfg, ctx)

@@ -25,7 +25,10 @@ products without batch dimensions (``aten.mm``/``aten.addmm``, the 2-D
 weight products) through a selective-checkpoint policy, as
 ``checkpoint_dots_with_no_batch_dims`` does, and ``"nothing"`` saves
 everything; the numbers do not depend on it.  ``microbatches`` is read by
-the train step (``train/step.py``).  Mesh sharding, ``scan_layers``,
+the train step (``train/step.py``).  Mesh sharding lives in the steps
+(``train/step.py``, ``sharding/spmd.py``): the forward runs on a rank's
+rows with its parameters gathered, and only the MoE layers and the losses
+read the mesh (``ctx``).  ``scan_layers``,
 ``fsdp_embed`` and ``use_flash`` have no counterpart on one card, and
 ``attn_bf16_scores`` tunes the reference's jnp attention, which the flash
 kernel replaces: they are carried in the config and not read.
@@ -240,13 +243,16 @@ def make_params(cfg: ModelConfig, generator: torch.Generator,
     the caller asks for the CPU; the generator must live there too).
     Learned positions (``pos="learned"``) take ``max_seq`` rows of
     ``dec_pos``, so they need ``max_seq > 0``; an encoder-decoder gets
-    ``enc`` = {"layers": enc_layers blocks, "final_norm"}."""
+    ``enc`` = {"layers": enc_layers blocks, "final_norm"}.  On
+    ``device="meta"`` (generator None) the leaves have their shapes and
+    dtypes and no storage."""
     check_supported(cfg)
     if cfg.pos == "learned" and max_seq <= 0:
         raise ValueError(f"{cfg.name}: learned positions need max_seq > 0 "
                          f"at init, got {max_seq}")
-    dev = resolve_device(device)
-    if torch.device(generator.device).type != dev.type:
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
+    if not meta and torch.device(generator.device).type != dev.type:
         raise ValueError(f"the generator is on {generator.device}, the "
                          f"parameters go to {dev}")
     init = _Init(cfg, generator, dev)
@@ -266,6 +272,166 @@ def make_params(cfg: ModelConfig, generator: torch.Generator,
                        for _ in range(cfg.enc_layers)],
             "final_norm": init.zeros((cfg.d_model,))}
     return Params(tree)
+
+
+# ==========================================================================
+# logical specs
+# ==========================================================================
+# The reference's logical axis names a dim of every parameter and cache
+# leaf (``repro.models.transformer.make_params``/``init_cache``), without
+# its leading stacked-period axis: the port keeps one tensor a layer.
+
+def _attn_specs(cfg, cross=False):
+    s = {"wq": ("embed", "heads"), "wk": ("embed", "kv"),
+         "wv": ("embed", "kv"), "wo": ("heads", "embed")}
+    if cross:
+        return s | {"wk": ("embed", "heads"), "wv": ("embed", "heads")}
+    if cfg.attn_bias:
+        s |= {"bq": ("heads",), "bk": ("kv",), "bv": ("kv",)}
+    if cfg.qk_norm:
+        s |= {"q_norm": (None,), "k_norm": (None,)}
+    return s
+
+
+def _mlp_specs(cfg):
+    s = {"wu": ("embed", "ff"), "wd": ("ff", "embed")}
+    if cfg.act in ("silu", "geglu"):
+        s["wg"] = ("embed", "ff")
+    return s
+
+
+def _moe_specs(cfg):
+    s = {"router": ("embed", None),
+         "wg": ("expert", "embed", "e_ff"),
+         "wu": ("expert", "embed", "e_ff"),
+         "wd": ("expert", "e_ff", "embed")}
+    if cfg.n_shared_experts:
+        s["shared"] = _mlp_specs(cfg)
+    return s
+
+
+def _ssm_specs(cfg):
+    return {"in_proj": ("embed", "ssm"), "conv_w": (None, "ssm"),
+            "conv_b": ("ssm",), "dt_w": ("ssm",), "dt_b": ("ssm",),
+            "w_B": ("ssm", None), "w_C": ("ssm", None),
+            "A_log": ("ssm", None), "d_skip": ("ssm",),
+            "out_proj": ("ssm", "embed")}
+
+
+def _mlstm_specs(cfg):
+    return {"wq": ("embed", "heads"), "wk": ("embed", "heads"),
+            "wv": ("embed", "heads"), "wi": ("embed", None),
+            "wf": ("embed", None), "wo_gate": ("embed", "heads"),
+            "out_proj": ("heads", "embed")}
+
+
+def _slstm_specs(cfg):
+    return {"W": ("embed", None), "b": (None,), "R": (None, None, None),
+            "out_proj": (None, "embed")}
+
+
+_MIXER_SPECS = {"attn": _attn_specs, "swa": _attn_specs, "enc": _attn_specs,
+                "mamba": _ssm_specs, "mlstm": _mlstm_specs,
+                "slstm": _slstm_specs}
+
+
+def _block_specs(cfg, kind, *, is_encoder=False):
+    s = {"ln1": (None,)}
+    if kind == "hymba":
+        s["mixer"] = {"attn": _attn_specs(cfg), "ssm": _ssm_specs(cfg)}
+    else:
+        s["mixer"] = _MIXER_SPECS[kind](cfg)
+    if cfg.cross_attn and not is_encoder:
+        s["ln_x"] = (None,)
+        s["cross"] = _attn_specs(cfg, cross=True)
+    if cfg.d_ff > 0 or cfg.is_moe:
+        s["ln2"] = (None,)
+        s["ffn"] = _moe_specs(cfg) if cfg.is_moe and not is_encoder \
+            else _mlp_specs(cfg)
+    return s
+
+
+def _flatten(tree, prefix=""):
+    """{dotted path: leaf} of nested dicts and lists, named and ordered as
+    ``Params(tree).named_parameters()``: a node's own leaves first, then
+    its subtrees."""
+    items = list(tree.items() if isinstance(tree, dict)
+                 else enumerate(tree))
+    sub = lambda v: isinstance(v, (dict, list))
+    out = {f"{prefix}{k}": v for k, v in items if not sub(v)}
+    for k, v in items:
+        if sub(v):
+            out.update(_flatten(v, f"{prefix}{k}."))
+    return out
+
+
+def param_specs(cfg: ModelConfig, max_seq: int = 0) -> dict:
+    """{name: logical spec} of every parameter ``make_params(cfg, ...,
+    max_seq=max_seq)`` makes, keyed as its ``named_parameters()`` (and in
+    that order): the reference's spec of the leaf without the stacked
+    layer axis."""
+    check_supported(cfg)
+    tree = {"embed": ("vocab", "embed"),
+            "layers": [_block_specs(cfg, layer_kind(cfg, i))
+                       for i in range(cfg.n_layers)],
+            "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ("embed", "vocab")
+    if cfg.pos == "learned":
+        tree["dec_pos"] = (None, "embed")
+    if cfg.is_enc_dec:
+        tree["enc"] = {"layers": [_block_specs(cfg, "enc", is_encoder=True)
+                                  for _ in range(cfg.enc_layers)],
+                       "final_norm": (None,)}
+    return _flatten(tree)
+
+
+def cache_specs(cfg: ModelConfig, B: int, S: int) -> list:
+    """The logical specs of ``init_cache(cfg, B, S)``, in its layout (one
+    dict a layer): the reference's without the stacked layer axis."""
+    check_supported(cfg)
+    out = []
+    for i in range(cfg.n_layers):
+        kind = layer_kind(cfg, i)
+        sp = {}
+        if kind in ("attn", "swa", "hymba"):
+            seq_ax = "kv_seq" if kind == "attn" else None
+            sp["k"] = ("batch", seq_ax, "kv_heads", None)
+            sp["v"] = ("batch", seq_ax, "kv_heads", None)
+            sp["pos_ids"] = ("batch", seq_ax)
+        if kind in ("hymba", "mamba"):
+            sp["ssm"] = {"conv": ("batch", None, "ssm"),
+                         "h": ("batch", "ssm", None)}
+        if kind == "mlstm":
+            sp |= {"C": ("batch", None, None, None), "n": ("batch", None, None),
+                   "m": ("batch", None)}
+        if kind == "slstm":
+            sp |= {k: ("batch", None) for k in ("h", "c", "n", "m")}
+        if cfg.cross_attn:
+            sp["cross_k"] = ("batch", None, None, None)
+            sp["cross_v"] = ("batch", None, None, None)
+        out.append(sp)
+    return out
+
+
+def params_from_named(named: dict) -> Params:
+    """A ``Params`` holding the given tensors (not copied), from {dotted
+    name: tensor} as ``named_parameters()`` names them; a numeric path
+    component is a list index."""
+    root: dict = {}
+    for name, t in named.items():
+        node, parts = root, name.split(".")
+        for a in parts[:-1]:
+            node = node.setdefault(a, {})
+        node[parts[-1]] = t
+
+    def build(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [build(node[str(i)]) for i in range(len(node))]
+        return {k: build(v) for k, v in node.items()}
+    return Params(build(root))
 
 
 # ==========================================================================
@@ -318,7 +484,8 @@ def init_cache(cfg: ModelConfig, B: int, S: int, dtype=None, device=None):
 # forward pass
 # ==========================================================================
 
-def _apply_block(cfg, kind, p, x, *, mode, cache, pos, enc_out=None):
+def _apply_block(cfg, kind, p, x, *, mode, cache, pos, enc_out=None,
+                 ctx=None):
     """One layer: (x, new_cache, aux), aux the MoE loss (None without
     one, so a dense layer launches nothing for it).  A decoder block of an
     encoder-decoder attends to ``enc_out`` after its mixer (prefill and
@@ -374,7 +541,7 @@ def _apply_block(cfg, kind, p, x, *, mode, cache, pos, enc_out=None):
     if "ffn" in p:
         h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
         if cfg.is_moe and kind != "enc":
-            f, aux, _ = moe.moe_block(p["ffn"], h2, cfg)
+            f, aux, _ = moe.moe_block(p["ffn"], h2, cfg, ctx)
         else:
             f = layers.mlp(p["ffn"], h2, cfg.act)
         x = x + f
@@ -397,12 +564,12 @@ def _dots_policy(ctx, op, *args, **kwargs):
         else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _run_period(cfg, kinds, ps, x, aux, enc_out):
+def _run_period(cfg, kinds, ps, x, aux, enc_out, ctx=None):
     """Train-mode blocks of one period: (x, aux), aux summed in the
     forward's order."""
     for kind, p in zip(kinds, ps):
         x, _, a = _apply_block(cfg, kind, p, x, mode="train", cache=None,
-                               pos=0, enc_out=enc_out)
+                               pos=0, enc_out=enc_out, ctx=ctx)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -455,13 +622,16 @@ def _learned_pos(cfg, params, S, mode, pos):
 
 
 def forward(cfg: ModelConfig, params, tokens, *, mode="train", cache=None,
-            pos=0, frames=None, skip_head=False):
+            pos=0, frames=None, skip_head=False, ctx=None):
     """tokens (B, S) integer; ``frames`` (B, enc_seq, D) the encoder's
     input for an encoder-decoder in train and prefill modes (decode reads
     the cache's cross keys and values instead).  Returns (logits,
     new_cache, aux) as the reference does (aux, the layers' MoE losses
     summed in float32; 0 without MoE); with skip_head=True returns the
-    final hidden states instead of logits."""
+    final hidden states instead of logits.  ``ctx`` (a
+    ``sharding.spmd.Ctx``) is a sharded step's view of the mesh, which
+    only the MoE layers read (``models/moe.py``): the rest of the forward
+    runs on this rank's rows as on one device."""
     check_supported(cfg)
     dt = cdtype(cfg)
     x = params["embed"][tokens.long()].to(dt)
@@ -488,13 +658,13 @@ def forward(cfg: ModelConfig, params, tokens, *, mode="train", cache=None,
         for i0 in range(0, len(blocks), P):
             ps = tuple(blocks[i0:i0 + P])
             kinds = tuple(layer_kind(cfg, i0 + j) for j in range(len(ps)))
-            x, aux = run(cfg, kinds, ps, x, aux, enc_out)
+            x, aux = run(cfg, kinds, ps, x, aux, enc_out, ctx)
     else:
         for i, p in enumerate(params["layers"]):
             c = cache[i] if cache is not None else None
             x, nc, a = _apply_block(cfg, layer_kind(cfg, i), p, x,
                                     mode=mode, cache=c, pos=pos,
-                                    enc_out=enc_out)
+                                    enc_out=enc_out, ctx=ctx)
             if a is not None:
                 aux = aux + a
             if cache is not None:
@@ -521,24 +691,34 @@ def _xent_parts(lg, labels):
     return lse, gold, (labels >= 0).float()
 
 
-def lm_loss(cfg, logits, labels, aux, aux_coef=0.01, z_coef=1e-4):
+def _denom(count, ctx):
+    """The loss's divisor: the unpadded tokens of the whole batch (summed
+    over the batch ranks when it is split), at least 1."""
+    return torch.clamp_min(count if ctx is None else ctx.batch_sum(count),
+                           1.0)
+
+
+def lm_loss(cfg, logits, labels, aux, aux_coef=0.01, z_coef=1e-4,
+            ctx=None):
     """Masked token cross-entropy (port of the reference's ``lm_loss``):
     (nll + z_coef * mean((lse * mask)^2) + aux_coef * aux, {"nll", "aux"}),
-    the means over the unpadded tokens (at least 1)."""
+    the means over the unpadded tokens (at least 1).  With a split batch
+    (``ctx.split``) the means are this rank's sums over the global count:
+    its share of the global loss, the shares adding up to it."""
     lse, gold, mask = _xent_parts(logits, labels)
-    denom = torch.clamp_min(mask.sum(), 1.0)
+    denom = _denom(mask.sum(), ctx)
     loss = ((lse - gold) * mask).sum() / denom
     zloss = z_coef * ((lse * mask) ** 2).sum() / denom
     return loss + zloss + aux_coef * aux, {"nll": loss, "aux": aux}
 
 
 def lm_loss_chunked(cfg, x, head, labels, aux, aux_coef=0.01, z_coef=1e-4,
-                    final_softcap=0.0):
+                    final_softcap=0.0, ctx=None):
     """The same loss from the final hidden states x (B, S, D) and the head
     (D, V), the sequence cut into ``cfg.xent_chunk`` chunks (a Python
     loop, as the reference's): each chunk's logits are made, softcapped and
     reduced to its sums before the next, so the whole (B, S, V) logits are
-    never one tensor."""
+    never one tensor.  ``ctx`` as ``lm_loss``'s."""
     S = x.shape[1]
     n = max(1, cfg.xent_chunk)
     c = -(-S // n)
@@ -553,7 +733,7 @@ def lm_loss_chunked(cfg, x, head, labels, aux, aux_coef=0.01, z_coef=1e-4,
         z = ((lse * msk) ** 2).sum()
         nll_sum = nll if nll_sum is None else nll_sum + nll
         z_sum = z if z_sum is None else z_sum + z
-    denom = torch.clamp_min((labels >= 0).sum().float(), 1.0)
+    denom = _denom((labels >= 0).sum().float(), ctx)
     loss = nll_sum / denom
     zloss = z_coef * z_sum / denom
     return loss + zloss + aux_coef * aux, {"nll": loss, "aux": aux}

@@ -18,6 +18,14 @@ the next step's input; the host reads them once per token.  ``timings``
 holds the last ``generate``'s host-clock seconds to the first token
 (cache, prefill, first sample) and of the decode steps; each ends in
 that host read, so the device work is inside it.
+
+With ``mesh`` (a ``DeviceMesh`` over the ranks of the default process
+group, ``launch/mesh.py``) every rank runs ``generate`` on the same
+prompts with its blocks of the parameters (``train.step.shard_state``'s
+layout; the steps gather them each call, the experts kept split over
+"model"), its rows of the batch when the batch axes divide it, and the
+cache of those rows; the logits of every row are gathered each step, so
+every rank samples the same tokens and returns the same results.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import torch
 from ..core.types import resolve_device
 from ..models import transformer
 from ..models.config import ModelConfig
+from ..sharding import spmd
 from ..train import step as step_lib
 
 
@@ -43,10 +52,10 @@ class GenResult:
 
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
-                 max_seq: int = 256, device=None):
+                 max_seq: int = 256, mesh=None, device=None):
         """``params`` from ``transformer.make_params`` or
-        ``convert.params_from_jax``, on ``device`` (the card unless the
-        caller asks for the CPU)."""
+        ``convert.params_from_jax`` (this rank's blocks with ``mesh``), on
+        ``device`` (the card unless the caller asks for the CPU)."""
         transformer.check_supported(cfg)
         self.device = resolve_device(device)
         where = {p.device.type for p in params.parameters()}
@@ -57,8 +66,10 @@ class ServeEngine:
         self.params = params
         self.max_batch = max_batch
         self.max_seq = max_seq
-        self._prefill = step_lib.make_prefill(cfg)
-        self._decode = step_lib.make_serve_step(cfg)
+        self.mesh = mesh
+        self._ctx = None if mesh is None else spmd.Ctx.of(mesh)
+        self._prefill = step_lib.make_prefill(cfg, mesh)
+        self._decode = step_lib.make_serve_step(cfg, mesh)
         self.timings: dict = {}
 
     @torch.inference_mode()
@@ -87,7 +98,11 @@ class ServeEngine:
             toks[i, :len(p)] = p                 # right-pad with 0
         dev = self.device
         t0 = time.perf_counter()
-        cache = transformer.init_cache(self.cfg, B, self.max_seq, device=dev)
+        rows = B                          # this rank's rows of the cache
+        if self._ctx is not None and self._ctx.for_batch(B).split:
+            rows = B // self._ctx.n_batch
+        cache = transformer.init_cache(self.cfg, rows, self.max_seq,
+                                       device=dev)
         logits, cache = self._prefill(self.params,
                                       torch.from_numpy(toks).to(dev), cache)
 

@@ -1,2 +1,3 @@
-"""Mesh axis rules of the port (the simulator's part of
-``repro.sharding``)."""
+"""Mesh axis rules of the port (``repro.sharding``: the model side and
+the simulator's), and the collectives of the sharded steps
+(``spmd``)."""

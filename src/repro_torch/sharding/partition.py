@@ -1,5 +1,5 @@
-"""Logical-axis sharding rules for the simulator's state, port of the
-simulator part of ``repro.sharding.partition``.
+"""Logical-axis sharding rules (port of ``repro.sharding.partition``):
+the model side (parameters, caches, batches) and the simulator's state.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` (or any object
 with its ``mesh_dim_names`` and ``shape``): the axis names and their
@@ -7,7 +7,22 @@ sizes are all the rules read.  A spec is a plain tuple with one entry per
 leading dim, each ``None`` (replicated), a mesh axis name or a tuple of
 names, trailing ``None``s dropped: the port's stand-in for the
 reference's ``PartitionSpec``, so ``()`` is replicated and ``("racks",)``
-splits axis 0 over "racks".
+splits axis 0 over "racks".  ``tree_shardings`` gives one ``Sharding``
+record (mesh, spec) a leaf, the port's ``NamedSharding``;
+``sharding/spmd.py`` cuts and gathers tensors by them.
+
+Parameters and caches carry logical axis names per dim
+(``models/transformer.py``'s ``param_specs``/``cache_specs``), resolved
+against a mesh with the reference's two rails: a dim whose size the
+assigned mesh axes do not divide is replicated instead, and one mesh axis
+shards at most one dim of an array.  The default rules are the
+reference's (tensor and expert parallelism over "model", FSDP and data
+parallelism over the batch axes "pod" and "data"):
+
+  vocab/heads/ff/expert/ssm -> model
+  embed                     -> pod,data     (FSDP)
+  batch                     -> pod,data     (data parallelism)
+  kv_seq                    -> model        (decode KV cache sequence dim)
 
 The simulator's state has exactly two shardable logical axes: "server"
 (the rack-major per-server axis of ``ServerFarm`` and ``ThermalState``)
@@ -19,9 +34,7 @@ telemetry windows, the trace ring, scalars) is replicated.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
-
-from ..core.types import tree_leaves
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 SIM_AXIS = "racks"
 
@@ -70,6 +83,97 @@ def resolve_spec(logical: Tuple[Optional[str], ...], shape: Tuple[int, ...],
     return tuple(out)
 
 
+# --------------------------------------------------------------------------
+# the model side: parameters, caches, batches
+# --------------------------------------------------------------------------
+
+class Sharding(NamedTuple):
+    """One leaf's placement, the port's ``NamedSharding``: the mesh and
+    the resolved spec."""
+    mesh: Any
+    spec: tuple
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+
+
+def default_rules(mesh, *, fsdp: bool = True) -> Dict[str, Any]:
+    bax = batch_axes(mesh)
+    return {
+        "vocab": ("model",),
+        "heads": ("model",),
+        "kv": None,                  # kv_dim: covered by embed-FSDP instead
+        "kv_heads": None,
+        "ff": ("model",),
+        "expert": ("model",),
+        "e_ff": None,                # expert hidden: see serve_rules
+        "ssm": ("model",),
+        "embed": bax if fsdp else None,
+        "batch": bax,
+        "kv_seq": ("model",),
+        "seq": None,
+    }
+
+
+def serve_rules(mesh) -> Dict[str, Any]:
+    """The reference's weights-stationary decode rules: no FSDP over the
+    contraction dim; the experts' hidden dim over the batch axes
+    instead."""
+    r = default_rules(mesh, fsdp=False)
+    r["e_ff"] = batch_axes(mesh)
+    return r
+
+
+def is_spec(x) -> bool:
+    """A logical or resolved spec: a tuple of names, name tuples and
+    Nones (``()`` included)."""
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, str)
+        or (isinstance(e, tuple) and all(isinstance(a, str) for a in e))
+        for e in x)
+
+
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts and lists whose leaves are
+    specs (``is_spec``), with ``rest`` trees of the same layout."""
+    if is_spec(tree):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    raise TypeError(f"not a spec tree node: {type(tree).__name__}")
+
+
+def tree_pspecs(specs, shapes, mesh, rules=None):
+    """specs: nested dicts/lists of logical tuples; shapes: the same
+    layout of tensors (or anything with ``.shape``).  Returns the same
+    layout of resolved specs."""
+    rules = rules or default_rules(mesh)
+    return _tree_map(
+        lambda sp, a: resolve_spec(sp, tuple(a.shape), mesh, rules),
+        specs, shapes)
+
+
+def tree_shardings(specs, shapes, mesh, rules=None):
+    """``tree_pspecs`` with every resolved spec in a ``Sharding``."""
+    return _tree_map(lambda p: Sharding(mesh, p),
+                     tree_pspecs(specs, shapes, mesh, rules))
+
+
+def batch_pspec(mesh, global_batch: Optional[int] = None) -> tuple:
+    """Batch sharding over (pod, data); replicated when the batch is not
+    divisible (the B=1 long-context decode shape, for one)."""
+    bax = batch_axes(mesh)
+    sizes = mesh_sizes(mesh)
+    if global_batch is not None and global_batch % _axes_size(sizes, bax):
+        return ()
+    return (bax if len(bax) > 1 else bax[0],)
+
+
 def sim_rules(axis: str = SIM_AXIS) -> Dict[str, Any]:
     return {"server": (axis,), "rack": (axis,)}
 
@@ -82,6 +186,7 @@ def sim_state_specs(state, cfg, mesh, axis: str = SIM_AXIS) -> tuple:
     shardings, so a farm the mesh does not divide degrades to
     replication; ``shard_sim.run_sharded`` validates divisibility up
     front and never reaches that fallback."""
+    from ..core.types import tree_leaves     # core imports this module
     rules = sim_rules(axis)
     N = cfg.n_servers
     out = []
@@ -103,4 +208,6 @@ def sim_state_specs(state, cfg, mesh, axis: str = SIM_AXIS) -> tuple:
 
 
 __all__ = ["SIM_AXIS", "THERMAL_SERVER_FIELDS", "THERMAL_RACK_FIELDS",
-           "mesh_sizes", "resolve_spec", "sim_rules", "sim_state_specs"]
+           "Sharding", "batch_axes", "batch_pspec", "default_rules",
+           "is_spec", "mesh_sizes", "resolve_spec", "serve_rules",
+           "sim_rules", "sim_state_specs", "tree_pspecs", "tree_shardings"]

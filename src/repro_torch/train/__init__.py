@@ -1,1 +1,2 @@
-"""Step builders of the LM substrate (serving steps only so far)."""
+"""Train and serve steps of the LM substrate, on one device or a
+mesh."""

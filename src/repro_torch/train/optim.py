@@ -89,12 +89,17 @@ def global_norm(grads) -> torch.Tensor:
 
 
 def adamw_update(cfg: AdamWConfig, named_params, grads, moments,
-                 step) -> dict:
+                 step, gnorm=None) -> dict:
     """One AdamW step, in place: ``named_params`` [(name, parameter)],
     ``grads`` the gradients in that order, ``moments`` {"m", "v"} of
     ``init_moments``, ``step`` the int32 step count before this update.
-    Returns {"grad_norm", "lr"} as float32 0-d tensors."""
-    gnorm = global_norm(grads)
+    Returns {"grad_norm", "lr"} as float32 0-d tensors.  A sharded step
+    passes blocks of the parameters, gradients and moments, and
+    ``gnorm``, the norm of the full logical gradient
+    (``sharding.spmd.global_norm``), which clips as the reference's
+    ``global_norm`` does; without it the norm is ``global_norm(grads)``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0) \
         if cfg.grad_clip else 1.0
     lr = lr_at(cfg, step)

@@ -1366,7 +1366,7 @@ def test_train_step_launches_the_tensor_core_backward(cuda):
     rng = np.random.default_rng(6)
     toks = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 40))).to(cuda)
     batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
-    ts = step.make_train_step(cfg, optim.AdamWConfig(warmup_steps=0))
+    ts = step.make_train_step(cfg, opt_cfg=optim.AdamWConfig(warmup_steps=0))
     ops.reset_launch_counts()
     state, m = ts(state, batch)
     assert all(np.isfinite(float(v)) for v in m.values())
@@ -1397,7 +1397,7 @@ def test_train_step_on_card_matches_cpu(cuda):
     rng = np.random.default_rng(5)
     toks = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 40)))
     batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
-    ts = step.make_train_step(cfg, optim.AdamWConfig(warmup_steps=0))
+    ts = step.make_train_step(cfg, opt_cfg=optim.AdamWConfig(warmup_steps=0))
     for _ in range(2):
         sc, mc = ts(sc, batch)
         ops.reset_launch_counts()

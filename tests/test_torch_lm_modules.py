@@ -322,6 +322,9 @@ def test_serving_modules_import_no_jax():
             "import repro_torch.models.moe\n"      # first: no import cycle
             "import repro_torch.serve.engine, repro_torch.models.transformer\n"
             "import repro_torch.train.step, repro_torch.configs.hymba_1_5b\n"
+            "import repro_torch.sharding.spmd, repro_torch.launch.mesh\n"
+            "import repro_torch.launch.train, repro_torch.data.pipeline\n"
+            "import repro_torch.ckpt.checkpoint\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"

@@ -211,24 +211,30 @@ def test_moe_block_picks_as_the_reference(impl, oracle, monkeypatch):
     assert called == (["einsum"] if oracle else ["scatter"])
 
 
-class _Mesh:                       # a DeviceMesh's names and sizes alone
-    def __init__(self, **axes):
-        self.mesh_dim_names, self.shape = tuple(axes), tuple(axes.values())
+def _ctx(**sizes):                 # a mesh's sizes alone, at rank 0
+    from repro_torch.sharding import spmd
+    return spmd.Ctx(None, sizes, {a: 0 for a in sizes})
 
 
 def test_mesh_with_model_shards_is_refused():
-    """Expert parallelism (the reference's shard_map combine and psum) is
-    Queue 1 item 17; a mesh with one model shard runs the local path."""
+    """With more than one model shard dividing E, the experts are split
+    (tests/test_torch_mesh_moe.py runs them on spawned ranks): the full
+    expert weights are refused, so is the one-hot oracle, which holds
+    every expert.  A mesh with one model shard, or one whose shards do not
+    divide E, runs the local path."""
     jcfg, tcfg = _cfgs()
     _, tp = _params(jcfg)
     _, tx = _x((2, 8, tcfg.d_model), "float32")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tmoe.moe_scatter(tp, tx, tcfg, mesh=_Mesh(data=1, model=2))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tmoe.moe_block(tp, tx, tcfg, mesh=_Mesh(data=2, model=4))
+    with pytest.raises(ValueError, match="this rank runs"):
+        tmoe.moe_scatter(tp, tx, tcfg, _ctx(data=1, model=2))
+    with pytest.raises(ValueError, match="this rank runs"):
+        tmoe.moe_block(tp, tx, tcfg, _ctx(data=2, model=4))
+    with pytest.raises(ValueError, match="every expert"):
+        tmoe.moe_block(tp, tx, dataclasses.replace(tcfg, moe_impl="einsum"),
+                       _ctx(data=1, model=2))
     ref = tmoe.moe_scatter(tp, tx, tcfg)
-    for mesh in (_Mesh(data=4, model=1), _Mesh(data=2)):
-        got = tmoe.moe_block(tp, tx, tcfg, mesh=mesh)
+    for ctx in (_ctx(data=4, model=1), _ctx(data=2), _ctx(model=3)):
+        got = tmoe.moe_block(tp, tx, tcfg, ctx)
         torch.testing.assert_close(got[0], ref[0], atol=0, rtol=0)
 
 

@@ -356,7 +356,7 @@ def test_train_step_records_no_host_sync():
     cfg = dataclasses.replace(tconfigs.get_smoke("hymba_1_5b"), **F32)
     state = tstep.init_state(cfg, torch.Generator().manual_seed(0),
                              device="cpu")
-    ts = tstep.make_train_step(cfg, toptim.AdamWConfig(warmup_steps=0))
+    ts = tstep.make_train_step(cfg, opt_cfg=toptim.AdamWConfig(warmup_steps=0))
     inv = graph_audit.record(ts, state, _smoke_batch(cfg))
     assert inv.count(graph_audit.HOST_SYNC_OPS) == 0, [
         f"{s.op} at {s.src}" for s in inv.sites_of(graph_audit.HOST_SYNC_OPS)]

@@ -557,8 +557,8 @@ def recorded_routes(moe_mod):
     forward) appends (topi, gaps) as CPU tensors to the yielded list."""
     calls, orig = [], moe_mod.route
 
-    def route(p, x, cfg):
-        out = orig(p, x, cfg)
+    def route(p, x, cfg, *ctx):
+        out = orig(p, x, cfg, *ctx)
         calls.append((out[0].cpu(), route_gaps(p, x, cfg.top_k).cpu()))
         return out
 

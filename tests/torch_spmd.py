@@ -22,8 +22,8 @@ COLLECTIVES = ("all_gather_single", "all_gather_into_tensor", "all_gather",
                "all_gather_object", "all_reduce", "all_to_all",
                "all_to_all_single", "barrier", "broadcast",
                "broadcast_object_list", "gather", "irecv", "isend", "recv",
-               "reduce", "reduce_scatter", "reduce_scatter_tensor", "scatter",
-               "send")
+               "reduce", "reduce_scatter", "reduce_scatter_single",
+               "reduce_scatter_tensor", "scatter", "send")
 GATHERS = ("all_gather_single", "all_gather_into_tensor", "all_gather")
 
 
@@ -116,6 +116,255 @@ def replica_runs(rank, world, cfg, arrs, specs, mesh_shape, axes):
     mesh = init_device_mesh("cpu", mesh_shape, mesh_dim_names=axes)
     sb, tc = montecarlo.batched_state(cfg, arrs, specs, device="cpu")
     return montecarlo.run_replicas(cfg, sb, tc, mesh=mesh)
+
+
+# --------------------------------------------------------------------------
+# the LM substrate's sharded steps (tests/test_torch_mesh_train.py,
+# tests/test_torch_mesh_moe.py, tests/test_torch_mesh_serve.py,
+# tests/test_torch_data_ckpt.py, tests/test_torch_launch.py, chip_smoke.py)
+# --------------------------------------------------------------------------
+
+def plain_state(state):
+    """A train state as plain dicts ({"params": {name: tensor}, "opt",
+    "step"}), detached: what crosses a spawn."""
+    return {"params": {n: p.detach() for n, p in
+                       state["params"].named_parameters()},
+            "opt": {k: dict(v) for k, v in state["opt"].items()},
+            "step": state["step"]}
+
+
+def train_state_of(plain):
+    """A port train state from ``plain_state``'s dicts (copied)."""
+    from repro_torch.models import transformer
+    from repro_torch.train import step
+    params = transformer.params_from_named(
+        {n: t.clone() for n, t in plain["params"].items()})
+    return step.train_state(
+        params, {k: {n: t.clone() for n, t in v.items()}
+                 for k, v in plain["opt"].items()}, plain["step"].clone())
+
+
+def mesh_of(shape, axes=("data", "model"), device="cpu"):
+    """A DeviceMesh of ``shape`` named ``axes`` over the default group's
+    first ranks."""
+    from torch.distributed.device_mesh import DeviceMesh
+    import math
+    return DeviceMesh(torch.device(device).type,
+                      torch.arange(math.prod(shape)).reshape(shape),
+                      mesh_dim_names=tuple(axes))
+
+
+def gathered(state, shardings, ctx):
+    """Every leaf of a sharded train state gathered to full:
+    ``plain_state``'s layout."""
+    from repro_torch.sharding import spmd
+    flat = plain_state(state)
+    def full(t, sh):
+        return spmd.gather(t, sh.spec, ctx).clone()
+    return {"params": {n: full(t, shardings["params"][n])
+                       for n, t in flat["params"].items()},
+            "opt": {k: {n: full(t, shardings["opt"][k][n])
+                        for n, t in v.items()}
+                    for k, v in flat["opt"].items()},
+            "step": flat["step"].clone()}
+
+
+def mesh_train(rank, world, cfg, plain, batches, opt, shape,
+               axes=("data", "model"), device="cpu"):
+    """``make_train_step(cfg, mesh)`` from the full state ``plain``
+    (``plain_state``'s layout) sharded over a mesh of ``shape``, one step
+    a batch: [(metrics as floats, the state gathered to full, {collective:
+    calls})] a step."""
+    from repro_torch.sharding import spmd
+    from repro_torch.train import step
+    mesh = mesh_of(shape, axes, device)
+    ctx = spmd.Ctx.of(mesh)
+    sh, _ = step.state_shardings(cfg, mesh)
+    state = step.shard_state(train_state_of(plain), sh)
+    ts = step.make_train_step(cfg, mesh, opt_cfg=opt)
+    out = []
+    for b in batches:
+        with count_collectives() as calls:
+            state, m = ts(state, b)
+            metrics = {k: float(v) for k, v in m.items()}
+        out.append((metrics, gathered(state, sh, ctx), dict(calls)))
+    return out
+
+
+def mesh_moe_forward(rank, world, cfg, plain_params, tokens, shape,
+                     axes=("data", "model"), device="cpu"):
+    """A train-mode forward of an MoE model over a mesh of ``shape`` from
+    full parameters (``plain_state``'s {name: tensor}), with the step's
+    gathered parameters and context: (logits of every row, the global
+    aux, [(topi, gaps) a layer] of every row, tokens dropped a layer over
+    every row)."""
+    from repro_torch.models import moe, transformer
+    from repro_torch.sharding import spmd
+    from repro_torch.train import step
+    from torch_kernel_inputs import recorded_routes
+    mesh = mesh_of(shape, axes, device)
+    ctx = spmd.Ctx.of(mesh).for_batch(tokens.shape[0])
+    sh, _ = step.state_shardings(cfg, mesh)
+    params = transformer.params_from_named(plain_params)
+    blocks = step.shard_state(step.train_state(params), sh)["params"]
+    full = step.gather_params(blocks, step.param_plan(cfg, mesh, blocks),
+                              ctx)
+    drops, scatter = [], moe.moe_scatter
+
+    def counting(*a):
+        out = scatter(*a)
+        drops.append(out[2])
+        return out
+    moe.moe_scatter = counting
+    try:
+        with torch.no_grad(), contextlib.ExitStack() as stack:
+            routes = stack.enter_context(recorded_routes(moe))
+            logits, _, aux = transformer.forward(
+                cfg, full, ctx.batch_rows(tokens), mode="train", ctx=ctx)
+    finally:
+        moe.moe_scatter = scatter
+    if ctx.split:
+        rows = lambda t: spmd.gather(t, (ctx.batch_axes,), ctx)
+        logits, aux = rows(logits), ctx.batch_sum(aux)
+        routes = [(rows(t), rows(g)) for t, g in routes]
+        drops = [ctx.batch_sum(d) for d in drops]
+    return logits, float(aux), routes, [int(d) for d in drops]
+
+
+def mesh_serve(rank, world, cfg, plain_params, tokens, steps, prompts,
+               shape, max_seq, axes=("data", "model"), device="cpu"):
+    """The sharded serving entry points over a mesh of ``shape`` from full
+    parameters (``plain_state``'s {name: tensor}), cut to this rank's
+    blocks: ``make_prefill(cfg, mesh)`` on ``tokens`` (B, S) into a cache
+    of this rank's rows, ``make_serve_step(cfg, mesh)`` on each (B, 1)
+    token of ``steps`` at positions S, S + 1, ..., then
+    ``ServeEngine(mesh=)`` greedy on each prompt list of ``prompts``:
+    (logits of every row a call, [tokens a prompt] a list, the cache's
+    rows, {collective: calls} of the first serve step)."""
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding import spmd
+    from repro_torch.train import step
+    mesh = mesh_of(shape, axes, device)
+    sh, _ = step.state_shardings(cfg, mesh)
+    blocks = step.shard_params(transformer.params_from_named(
+        dict(plain_params)), sh["params"])
+    B, S = tokens.shape
+    ctx = spmd.Ctx.of(mesh).for_batch(B)
+    rows = B // ctx.n_batch if ctx.split else B
+    cache = transformer.init_cache(cfg, rows, max_seq, device=device)
+    prefill = step.make_prefill(cfg, mesh)
+    serve_step = step.make_serve_step(cfg, mesh)
+    with torch.no_grad():
+        logits, cache = prefill(blocks, tokens, cache)
+        out, calls = [logits], None
+        for i, tok in enumerate(steps):
+            with count_collectives() as counted:
+                logits, cache = serve_step(blocks, cache, tok, S + i)
+            calls = dict(counted) if calls is None else calls
+            out.append(logits)
+    engine = ServeEngine(cfg, blocks, max_batch=B, max_seq=max_seq,
+                         mesh=mesh, device=device)
+    gens = [[g.tokens for g in engine.generate(p, max_new=len(steps) + 2)]
+            for p in prompts]
+    return out, gens, rows, calls
+
+
+def ckpt_reshard(rank, world, cfg, plain, other, directory, save_shape,
+                 load_shape):
+    """Save the full state ``plain`` from its blocks on a ``save_shape``
+    mesh (rank 0 writes), then restore it on a ``load_shape`` mesh into
+    the blocks of the state ``other``: the restored state gathered to
+    full, and its step."""
+    from repro_torch.ckpt.checkpoint import Checkpointer
+    from repro_torch.sharding import spmd
+    from repro_torch.train import step
+    mesh = mesh_of(save_shape)
+    sh, _ = step.state_shardings(cfg, mesh)
+    ck = Checkpointer(directory)
+    ck.save(step.shard_state(train_state_of(plain), sh), 7, shardings=sh)
+    dist.barrier()
+    mesh = mesh_of(load_shape)
+    sh, _ = step.state_shardings(cfg, mesh)
+    like = step.shard_state(train_state_of(other), sh)
+    state, at = ck.restore(like, shardings=sh)
+    return gathered(state, sh, spmd.Ctx.of(mesh)), at
+
+
+def mesh_refusal(rank, world, cfg, plain, batch, shape):
+    """The message of the NotImplementedError a sharded step raises for
+    ``cfg`` (microbatches the batch ranks do not divide)."""
+    from repro_torch.train import step
+    mesh = mesh_of(shape)
+    sh, _ = step.state_shardings(cfg, mesh)
+    state = step.shard_state(train_state_of(plain), sh)
+    try:
+        step.make_train_step(cfg, mesh)(state, batch)
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def launch_main(rank, world, argv):
+    """``repro_torch.launch.train.main(argv)`` on this rank: its return
+    code."""
+    from repro_torch.launch import train
+    return train.main(argv)
+
+
+def spmd_laws(rank, world, shape, axes=("data", "model")):
+    """``sharding/spmd.py``'s pieces on a CPU mesh of ``shape``, from
+    full tensors every rank draws alike (seeded): {law: value} for the
+    test to hold (tests/test_torch_partition.py)."""
+    from repro_torch.sharding import spmd
+    mesh = mesh_of(shape, axes)
+    ctx = spmd.Ctx.of(mesh)
+    g = torch.Generator().manual_seed(7)
+    full = torch.randn(8, 6, generator=g)
+    out = {}
+    specs = [(), ("data",), (None, "data"), ("model", "data"),
+             (("data", "model"),), ("data", "model")]
+    out["roundtrip"] = [
+        torch.equal(spmd.gather(spmd.block(full, sp, ctx), sp, ctx), full)
+        for sp in specs]
+    # a rank's gradient of a full leaf: its batch rank's share, the same
+    # on every model rank
+    grad = full * (1 + ctx.batch_index)
+    total = sum(full * (1 + r) for r in range(ctx.n_batch))
+    split = dataclasses_replace(ctx, split=True)
+    out["reduce_split"] = [
+        float((spmd.reduce_grad(grad, sp, split)
+               - spmd.block(total if split.n_batch > 1 else grad, sp, ctx)
+               ).abs().max()) for sp in specs]
+    out["reduce_replicated"] = [
+        torch.equal(spmd.reduce_grad(full, sp, ctx), spmd.block(full, sp, ctx))
+        for sp in specs]
+    # the norm of blocks counts a replicated leaf once
+    leaves = [torch.randn(8, 6, generator=g), torch.randn(5, generator=g),
+              torch.randn(4, 4, generator=g)]
+    lspecs = [("data", "model"), (), ("model",)]
+    blocks = [spmd.block(t, sp, ctx) for t, sp in zip(leaves, lspecs)]
+    out["norm"] = (float(spmd.global_norm(blocks, lspecs, ctx)),
+                   float(torch.sqrt(sum((t * t).sum() for t in leaves))))
+    # the expert-parallel region: y = sum_r f_r(slice_r(x)), replicated
+    x = torch.randn(3, 4, 2, generator=g, requires_grad=True)
+    w = torch.randn(3, 4, 2, generator=g)
+    xs = spmd.model_slice(x, 1, ctx)
+    ws = spmd.block(w, (None, "model"), ctx)
+    c = spmd.model_copy(x.sum(dim=(1, 2)), ctx)
+    y = spmd.model_sum((xs * ws).sum(dim=(1, 2)) * c, ctx)
+    (gx,) = torch.autograd.grad((y ** 2).sum(), x)
+    x1 = x.detach().clone().requires_grad_(True)
+    y1 = (x1 * w).sum(dim=(1, 2)) * x1.sum(dim=(1, 2))
+    (gx1,) = torch.autograd.grad((y1 ** 2).sum(), x1)
+    out["ep"] = (float((y - y1).detach().abs().max()),
+                 float((gx - gx1).abs().max()), float(gx1.abs().max()))
+    return out
+
+
+def dataclasses_replace(obj, **kw):
+    import dataclasses
+    return dataclasses.replace(obj, **kw)
 
 
 def plan(rank, world, steps):
