@@ -113,6 +113,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   model's bytes and operations and their bound on the H100 against the
   profiled macro-step's device time, and the state footprint predicted
   on fake tensors against the allocator's rise across init_state.
+  [roofline] (on [lm-main]'s weights, at most about 40 s): [skip-attn]
+  times hymba's warm prefill of [lm-main]'s prompts with and without
+  skip_attention (the roofline probe: projections kept, attention
+  dropped), three of each in turns by CUDA events, with the launches of
+  each (flash_attention 32 against 0, ssm_scan 32 in both), the
+  difference beside flash_attention's own time, and holds the ablated
+  prefill of [lm-parity]'s 2-layer float32 cut card against CPU (logits
+  1e-3); [dryrun-main] prints the roofline terms and predicted peak of
+  the port's dry run (repro_torch.launch.dryrun's lower_cell, a
+  subprocess over a fake process group and fake tensors, started with
+  the script) of [train-main]'s work on a one-rank mesh; after
+  [train-main] the predicted peak must lie within 0.80-1.02 of the
+  measured max_memory_allocated, and the measured step over the
+  estimate is printed.
   Then MoE serving (models/moe.py), after hymba's weights are freed:
   [moe-layer] runs one MoE layer of moonshot-v1-16b-a3b and of
   qwen3-moe-235b-a22b at full width on B=1 x 1,536 random bf16 hidden
@@ -258,6 +272,7 @@ import atexit
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -3846,6 +3861,183 @@ def serving_flash_entries(errs, launches, dev) -> list:
 
 
 # --------------------------------------------------------------------------
+# [roofline]: [skip-attn] and [dryrun-main]
+# --------------------------------------------------------------------------
+
+# the dry run of [train-main]'s work (hymba-1.5b, remat "dots", 4 x 4,096
+# tokens) on a one-rank mesh, through the dry run's own cell function, in
+# a process of its own: its fake process group stays out of this one
+DRYRUN_MAIN = r"""
+import json, sys
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models.config import ShapeSpec
+dryrun.init_fake(1)
+cell = dryrun.lower_cell(sys.argv[1], ShapeSpec(
+    "train_main", "train", int(sys.argv[3]), int(sys.argv[2])),
+    make_local_mesh(1, 1, device="cuda"))
+print(json.dumps(cell))
+"""
+# the predicted peak over [train-main]'s measured one must lie in this band
+DRYRUN_PEAK_BAND = (0.80, 1.02)
+
+
+def start_dryrun_main():
+    """Start [dryrun-main]'s subprocess (with the script: it traces on the
+    host while the card runs the phases before [roofline]); killed at exit
+    if it is still running."""
+    proc = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_MAIN, LM_ARCH, str(TR_BATCH),
+         str(TR_SEQ)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def finish_dryrun_main(proc) -> dict:
+    """The dry run's cell for [train-main]'s work; fails on an error."""
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    lines = out.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail(f"dryrun-main: the dry run exited {proc.returncode}: "
+             f"{err[-3000:]}")
+    cell = json.loads(lines[-1])
+    if "error" in cell:
+        fail(f"dryrun-main: the cell recorded an error: {cell['error']}")
+    log(f"[dryrun-main] {cell['arch']} at [train-main]'s work ({TR_BATCH} x "
+        f"{TR_SEQ} tokens, its config's remat) on a one-rank mesh, traced on fake {cell['fake_device']} tensors in "
+        f"{cell['t_compile'] + cell['t_probes']:.1f} s of host time: "
+        f"t_compute {cell['t_compute'] * 1e3:.1f} ms, t_memory "
+        f"{cell['t_memory'] * 1e3:.1f} ms, step_time_est "
+        f"{cell['step_time_est'] * 1e3:.1f} ms ({cell['dominant']}), "
+        f"model_flops {cell['model_flops']:.4e}, operations "
+        f"{cell['flops']:.4e}, bytes {cell['bytes_accessed']:.4e}, "
+        f"roofline fraction {cell['roofline_fraction']:.4f}, predicted peak "
+        f"{cell['bytes_per_device'] / 2**30:.2f} GiB (state "
+        f"{cell['memory']['state_bytes'] / 2**30:.2f} GiB)")
+    return cell
+
+
+def check_dryrun_main(cell: dict, tr: dict) -> None:
+    """[dryrun-main]'s predicted peak against [train-main]'s measured one
+    (the band fails the script), and the measured step over the
+    estimate (printed)."""
+    pred, peak = cell["bytes_per_device"], tr["peak"]
+    lo, hi = DRYRUN_PEAK_BAND
+    ratio = pred / peak
+    log(f"[dryrun-main] predicted peak {pred / 2**30:.2f} GiB over "
+        f"[train-main]'s torch.cuda.max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB: {ratio:.4f} (band {lo}-{hi}); live "
+        f"storages of a real [train-main] step counted the same way "
+        f"(LiveBytes on the card) {tr['live_peak'] / 2**30:.2f} GiB, that "
+        f"step's allocator peak {tr['live_alloc_peak'] / 2**30:.2f} GiB; "
+        f"measured step {tr['step_s']:.3f} s over step_time_est "
+        f"{cell['step_time_est']:.4f} s: {tr['step_s'] / cell['step_time_est']:.2f}x "
+        f"(t_compute {cell['t_compute']:.4f} s: "
+        f"{tr['step_s'] / cell['t_compute']:.2f}x)")
+    if not lo <= ratio <= hi:
+        fail(f"dryrun-main: predicted peak {pred} B is {ratio:.4f} of the "
+             f"measured {peak} B, outside {lo}-{hi}")
+
+
+def skip_attn(dev, cfg, params, toks, fa_ms) -> dict:
+    """[skip-attn]: hymba-1.5b's warm prefill of [lm-main]'s prompts with
+    and without ``skip_attention``, three of each in turns, CUDA events
+    around each call; the launches of each; then the ablated prefill of
+    [lm-parity]'s 2-layer float32 cut, card against CPU."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.train import step
+    variants = {"attention": cfg,
+                "skip_attention": dataclasses.replace(cfg,
+                                                      skip_attention=True)}
+    calls, launches = {}, {}
+    with torch.inference_mode():
+        for name, c in variants.items():
+            cache = transformer.init_cache(c, LM_BATCH, LM_MAX_SEQ)
+            calls[name] = functools.partial(step.make_prefill(c), params,
+                                            toks, cache)
+            calls[name]()                                   # warm
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            lg, _ = calls[name]()
+            torch.cuda.synchronize()
+            launches[name] = ops.launch_counts()
+            if not torch.isfinite(lg).all():
+                fail(f"skip-attn: non-finite logits ({name})")
+        ms = {name: [] for name in calls}
+        for _ in range(3):
+            for name, fn in calls.items():
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                fn()
+                e.record()
+                torch.cuda.synchronize()
+                ms[name].append(s.elapsed_time(e))
+    L = cfg.n_layers
+    want = {"attention": (L, L), "skip_attention": (0, L)}
+    for name, (fa, ss) in want.items():
+        if (launches[name]["flash_attention"], launches[name]["ssm_scan"]) \
+                != (fa, ss):
+            fail(f"skip-attn: {name} prefill launched {launches[name]}, "
+                 f"expected flash_attention {fa} and ssm_scan {ss}")
+    full, abl = (statistics.median(ms[n]) for n in calls)
+    fa_total = L * fa_ms
+    log(f"[skip-attn] {cfg.name}, {L} layers, bf16, {LM_BATCH} x "
+        f"{LM_PROMPT} tokens, warm prefill (CUDA events, 3 in turns): "
+        f"{full:.2f} ms with attention {[round(x, 2) for x in ms['attention']]}, "
+        f"{abl:.2f} ms with skip_attention "
+        f"{[round(x, 2) for x in ms['skip_attention']]}; the attention's "
+        f"share by difference {full - abl:.2f} ms "
+        f"({100 * (full - abl) / full:.1f}%); launches flash_attention "
+        f"{launches['attention']['flash_attention']} against "
+        f"{launches['skip_attention']['flash_attention']}, ssm_scan "
+        f"{launches['attention']['ssm_scan']} against "
+        f"{launches['skip_attention']['ssm_scan']}; flash_attention alone "
+        f"{L} x {fa_ms:.4f} ms = {fa_total:.2f} ms ([time] above), so "
+        f"{full - abl - fa_total:.2f} ms of the difference is what else the "
+        f"ablation drops: the RoPE of q and k, the (B, H, S, hd) views' "
+        f"copies and the prefill's cache writes (the last window of k, v "
+        f"and positions, rolled and cast)")
+
+    # card against CPU, the ablated 2-layer float32 cut
+    cut = dataclasses.replace(cfg, n_layers=PAR_LAYERS, skip_attention=True,
+                              param_dtype="float32", compute_dtype="float32")
+    p_cpu = transformer.make_params(cut, torch.Generator().manual_seed(0),
+                                    device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to(dev)
+    t = torch.from_numpy(np.random.default_rng(5).integers(
+        1, cut.vocab, (PAR_BATCH, PAR_PROMPT)))
+    prefill = step.make_prefill(cut)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        g, _ = prefill(p_gpu, t.to(dev), transformer.init_cache(
+            cut, PAR_BATCH, LM_MAX_SEQ, device=dev))
+        counts = ops.launch_counts()
+        c, _ = prefill(p_cpu, t, transformer.init_cache(
+            cut, PAR_BATCH, LM_MAX_SEQ, device="cpu"))
+    g = g.cpu()
+    err = float((g - c).abs().max())
+    if not torch.isfinite(g).all() or \
+            not torch.allclose(g, c, rtol=1e-3, atol=1e-3):
+        fail(f"skip-attn: the ablated prefill's logits differ between card "
+             f"and CPU (max abs err {err})")
+    if (counts["flash_attention"], counts["ssm_scan"]) != (0, PAR_LAYERS):
+        fail(f"skip-attn: the ablated cut launched {counts}")
+    log(f"[skip-attn] card == CPU: the ablated prefill of {cut.name} cut to "
+        f"{PAR_LAYERS} layers, float32, {PAR_BATCH} x {PAR_PROMPT} tokens, "
+        f"logits within 1e-3 (max abs err {err:.3g}); launches {counts}")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # training (train/step.py): the backward kernels, [train-parity],
 # [train-main]
 # --------------------------------------------------------------------------
@@ -4192,6 +4384,20 @@ def train_main(dev) -> dict:
         nonlocal state
         state, _ = ts(state, batch)
 
+    # one more step with its live storages counted as the dry run counts
+    # them ([dryrun-main]), beside the allocator's peak of that step
+    from repro_torch.roofline.analysis import LiveBytes
+    mem = LiveBytes()
+    mem.add(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with mem:
+        one_step()
+    torch.cuda.synchronize()
+    live = {"live_peak": mem.peak,
+            "live_alloc_peak": torch.cuda.max_memory_allocated()}
+    del mem
+
     ks, wall = device_kernels(one_step)
     prof = report_profile("train step (hymba-1.5b, 4 x 4,096 tokens)", ks,
                           wall, ("fa_bwd_", "ssm_scan_bwd"), 1, "step")
@@ -4207,7 +4413,7 @@ def train_main(dev) -> dict:
             + " of the device time")
     del state
     torch.cuda.empty_cache()
-    return {"launches": per_step[-1], "step_s": med}
+    return {"launches": per_step[-1], "step_s": med, "peak": peak, **live}
 
 
 def events_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -4997,6 +5203,7 @@ def main() -> None:
              "an NVIDIA GPU")
     global CPU_SIDES
     CPU_SIDES = CpuSides()
+    dryrun_proc = start_dryrun_main()
     from repro_torch.core import farm
     from repro_torch.kernels import build, ops
     from torch_kernel_inputs import FLASH_TC_EDGES, SSM_EDGES
@@ -5280,6 +5487,20 @@ def main() -> None:
     profile_window(tr_cfg, th_arr, th_specs, dev, tag="traced thermal run")
     profile_serving(lm_cfg, lm_params, lm_toks, dev)
 
+    # [roofline]: the attention's share by ablation on [lm-main]'s weights;
+    # the dry run of [train-main]'s work, traced in a subprocess since the
+    # script started
+    t_roof = time.perf_counter()
+    log(f"[elapsed] [roofline] starts at {t_roof - t_start:.1f} s")
+    fa_ms = next(k["ms"] for k in kernels if k["name"] == "flash_attention")
+    roof_launches = skip_attn(dev, lm_cfg, lm_params, lm_toks, fa_ms)
+    dryrun_cell = finish_dryrun_main(dryrun_proc)
+    for k in kernels:
+        if k["name"] in ("flash_attention", "ssm_scan"):
+            k["skip_attn_launches"] = {n: c[k["name"]]
+                                       for n, c in roof_launches.items()}
+    log(f"[roofline] phase took {time.perf_counter() - t_roof:.1f} s")
+
     # MoE serving, after hymba's weights are freed: moonshot's 57.8 GB of
     # weights leave room for little else
     del lm_params, lm_toks
@@ -5294,6 +5515,7 @@ def main() -> None:
     log(f"[elapsed] [train-main] starts at "
         f"{time.perf_counter() - t_start:.1f} s")
     tr = train_main(dev)
+    check_dryrun_main(dryrun_cell, tr)
     t_entries = time.perf_counter()
     tr_entries, tr_split = train_kernel_entries(tr["launches"], fb_errs,
                                                 sb_err, dev)

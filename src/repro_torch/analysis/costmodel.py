@@ -82,7 +82,14 @@ def _numel(shape) -> int:
 
 def kernel_ops(site) -> int:
     """Operations of one kernel op, by what it computes (the counts
-    ``chip_smoke.py``'s bounds use)."""
+    ``chip_smoke.py``'s bounds use).  The attention counts every (query,
+    key) pair, masked or not, as XLA's cost analysis counts the
+    reference's dense jnp attention (a recording holds no mask; the
+    bounds in ``chip_smoke.py`` count the unmasked pairs only): two
+    products of 2 hd flops a pair forward, five backward (q.k and dout.v
+    recomputed, P^T dout, dS^T q, dS k).  The scan: 6 operations a state
+    element and step forward, 16 backward (the state's recompute, the
+    reverse recurrence and the five gradients' terms)."""
     name = site.op.split(".", 1)[1]
     if name == "dcsim_advance":
         *_, n, c = site.in_shapes[0]                     # core_busy
@@ -95,9 +102,14 @@ def kernel_ops(site) -> int:
         B, H, Sq, hd = site.in_shapes[0]
         Skv = site.in_shapes[1][2]
         return 4 * B * H * Sq * Skv * hd
-    if name == "ssm_scan":
+    if name == "flash_attention_backward":
+        B, H, Sq, hd = site.in_shapes[0]
+        Skv = site.in_shapes[1][2]
+        return 10 * B * H * Sq * Skv * hd
+    if name in ("ssm_scan", "ssm_scan_backward"):
         B, S, Dss = site.in_shapes[3]
-        return 6 * B * S * Dss * site.in_shapes[1][-1]
+        per = 6 if name == "ssm_scan" else 16
+        return per * B * S * Dss * site.in_shapes[1][-1]
     return 0
 
 

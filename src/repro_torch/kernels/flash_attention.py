@@ -21,6 +21,7 @@ import ctypes
 import math
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from . import build
 
@@ -71,8 +72,13 @@ def _check(q, k, v, *others, window=0) -> None:
 def rows_aligned(x) -> bool:
     """Whether x's base address and its batch, head and sequence strides
     are multiples of 16 bytes (8 bf16 elements), as the tensor-core
-    instances' 16-byte row copies need."""
-    return x.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in x.stride()[:3])
+    instances' 16-byte row copies need.  A tensor without storage (fake or
+    meta; the dry run's) has its offset into an aligned allocation."""
+    if is_fake(x) or x.is_meta:
+        base = x.storage_offset() * x.element_size()
+    else:
+        base = x.data_ptr()
+    return base % 16 == 0 and all(s % 8 == 0 for s in x.stride()[:3])
 
 
 def _check_aligned(tensors) -> None:

@@ -111,6 +111,22 @@ _register(
     _telemetry_accum_fake)
 
 
+def _like(ref_t, t):
+    """``t`` laid out like ``ref_t`` (a copy where the strides differ): the
+    attention kernels return their outputs ``empty_like`` their inputs,
+    so the plain versions do too, and the ops after them (a reshape of the
+    transposed output) are the card's on the CPU."""
+    if t.stride() == ref_t.stride():
+        return t
+    return torch.empty_like(ref_t, dtype=t.dtype).copy_(t)
+
+
+def _mha_plain(q, k, v, *, causal, window, softcap):
+    """The attention op's plain version, its output laid out like q."""
+    return _like(q, ref.mha_reference(q, k, v, causal=causal, window=window,
+                                      softcap=softcap))
+
+
 def _flash_attention_fake(q, k, v, *, causal, window, softcap):
     _one_device("flash_attention", q, k, v)
     return torch.empty_like(q)
@@ -120,7 +136,7 @@ _register(
     "flash_attention",
     "(Tensor q, Tensor k, Tensor v, *, bool causal, int window, "
     "float softcap) -> Tensor",
-    _fa.flash_attention, ref.mha_reference, _flash_attention_fake)
+    _fa.flash_attention, _mha_plain, _flash_attention_fake)
 
 
 def _ssm_scan_fake(dt, Bm, Cm, x, A):
@@ -139,10 +155,11 @@ _register(
 
 def _mha_backward_plain(q, k, v, out, dout, *, causal, window, softcap):
     """The backward op's plain version: the row statistics recomputed, as
-    the kernel does."""
-    return ref.mha_backward_reference(q, k, v, out, None, dout,
-                                      causal=causal, window=window,
-                                      softcap=softcap)
+    the kernel does; dq, dk, dv laid out like q, k, v."""
+    grads = ref.mha_backward_reference(q, k, v, out, None, dout,
+                                       causal=causal, window=window,
+                                       softcap=softcap)
+    return tuple(_like(t, g) for t, g in zip((q, k, v), grads))
 
 
 def _flash_attention_backward_fake(q, k, v, out, dout, *, causal, window,

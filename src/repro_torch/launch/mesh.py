@@ -22,6 +22,15 @@ def _ranks() -> int:
     return dist.get_world_size() if dist.is_initialized() else 0
 
 
+def _device_type(device) -> str:
+    """The mesh's device type: CUDA unless the caller asks for the CPU
+    (``resolve_device``).  Over a fake process group (the dry run's,
+    ``launch/dryrun.py``) a CUDA mesh needs no card."""
+    if dist.get_backend() == "fake":
+        return torch.device("cuda" if device is None else device).type
+    return resolve_device(device).type
+
+
 def _mesh(shape, axes, device):
     from torch.distributed.device_mesh import DeviceMesh
     n = _ranks()
@@ -34,7 +43,7 @@ def _mesh(shape, axes, device):
             f"has {n}; launch them (torchrun --nproc-per-node {need}, or "
             f"core.shard_sim.spawn) and call "
             f"torch.distributed.init_process_group in each first")
-    return DeviceMesh(resolve_device(device).type,
+    return DeviceMesh(_device_type(device),
                       torch.arange(need).reshape(shape),
                       mesh_dim_names=axes)
 

@@ -12,8 +12,8 @@ whisper's encoder (``enc_layers`` bidirectional blocks over ``enc_seq``
 frame embeddings with sinusoidal positions) with ``cross_attn`` in every
 decoder block (``models.transformer``).  ``frontend`` is carried and not
 read: the reference stubs both front ends (frames arrive as embeddings;
-VQ image tokens are ids of the shared vocab).  ``skip_attention`` raises
-NotImplementedError (ROADMAP Queue 1 item 19).  Of the runtime knobs,
+VQ image tokens are ids of the shared vocab).  ``skip_attention`` (the
+roofline probe) drops the attention outside decode.  Of the runtime knobs,
 ``remat`` (train mode's checkpointing), ``microbatches`` and
 ``xent_chunk`` (the train step's) are read; ``scan_layers``,
 ``fsdp_embed``, ``use_flash`` and ``attn_bf16_scores`` are carried and not

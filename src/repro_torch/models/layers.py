@@ -90,8 +90,18 @@ def _sinusoid_table(seq: int, dim: int, device: torch.device):
 
 def sinusoidal_pos(seq, dim, dtype=torch.float32, device=None):
     """(seq, dim) sinusoidal positions (sines, then cosines) in ``dtype``,
-    on the card unless ``device`` says otherwise."""
-    return _sinusoid_table(seq, dim, resolve_device(device)).to(dtype)
+    on the card unless ``device`` says otherwise (``meta``: no storage)."""
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
+    return _sinusoid_table(seq, dim, dev).to(dtype)
+
+
+def clear_tables() -> None:
+    """Drop the cached rotary frequencies and sinusoidal tables, each made
+    once a process: the next call makes them again (a dry run's traces
+    each count them)."""
+    _inv_freq.cache_clear()
+    _sinusoid_table.cache_clear()
 
 
 # --------------------------------------------------------------------------
@@ -172,7 +182,8 @@ def attention_block(p, x, cfg, *, kind, mode, cache=None, pos=0):
     """Self-attention mixer.  kind in {attn, swa, hymba, enc}; mode in
     {train, prefill, decode}.  Returns (out, new_cache).  ``enc`` (the
     encoder's blocks) is bidirectional; queries and keys are rotated only
-    when ``cfg.pos == "rope"``.
+    when ``cfg.pos == "rope"``.  ``cfg.skip_attention`` (a roofline probe)
+    drops the attention itself outside decode and returns no cache.
 
     Caches hold *rotated* keys plus the absolute position of each slot
     (``pos_ids``; -1 = empty).  Sliding-window caches are rings of size W
@@ -180,6 +191,16 @@ def attention_block(p, x, cfg, *, kind, mode, cache=None, pos=0):
     B, S, D = x.shape
     window = cfg.sliding_window if kind in ("swa", "hymba") else 0
     q, k, v = qkv_proj(p, x, cfg)
+
+    if cfg.skip_attention and mode != "decode":
+        # the roofline probe: the projections kept, the S x S scores,
+        # softmax and values dropped (their share is measured by
+        # difference); v repeated over each kv head's query group, no RoPE
+        # and no cache, as the reference's
+        G = cfg.n_heads // cfg.n_kv_heads
+        out = v[:, :, :, None].expand(B, S, cfg.n_kv_heads, G, cfg.head_dim)
+        out = out.to(q.dtype).reshape(B, S, cfg.n_heads * cfg.head_dim)
+        return out @ p["wo"], None
 
     rope = cfg.pos == "rope"
     if mode == "decode":

@@ -33,9 +33,13 @@ the local path runs.  When the batch is split over the batch axes
 the top-1 fractions are summed over the batch ranks (they carry no
 gradient), the mean probabilities and the z-loss are this rank's sums
 over the global token count, so the shares add up to the reference's
-aux and their gradients to its gradient.  The router product must run in
-full float32: on the card that needs TF32 off for matrix products,
-PyTorch's default (``torch.backends.cuda.matmul.allow_tf32`` False).
+aux and their gradients to its gradient.  In a segment of a microbatch
+that crosses the batch ranks (``ctx.share``, ``spmd.Share``) the
+fractions are the microbatch's, summed once after the forward, so the
+balance term's value and gradient come from them then (``_Balance``).
+The router product must run in full float32: on the card that needs
+TF32 off for matrix products, PyTorch's default
+(``torch.backends.cuda.matmul.allow_tf32`` False).
 """
 from __future__ import annotations
 
@@ -53,16 +57,46 @@ def capacity(cfg, S: int) -> int:
                             / cfg.n_experts))
 
 
+class _Balance(torch.autograd.Function):
+    """The load-balance term E sum(frac mean_p) of a microbatch's segment,
+    whose fractions are known only after the forward (``spmd.Share``): 0
+    forward (the step adds the value once the fractions are summed), E
+    frac backward, read from the layer's record then."""
+
+    @staticmethod
+    def forward(ctx_, mean_p, record, n_experts):
+        ctx_.record, ctx_.n_experts = record, n_experts
+        return mean_p.new_zeros(())
+
+    @staticmethod
+    def backward(ctx_, g):
+        return g * ctx_.n_experts * ctx_.record.frac, None, None
+
+
 def route(p, x, cfg, ctx=None):
     """Returns (topi (B,S,k) int32, gates (B,S,k) f32, aux_loss f32);
-    with a split batch (``ctx.split``) aux is this rank's share."""
+    with a split batch (``ctx.split``) aux is this rank's share, and in a
+    microbatch's segment (``ctx.share``) its share less the balance term,
+    which the step adds once the fractions are summed."""
     logits = x.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)
     topv, topi = torch.topk(logits, cfg.top_k, dim=-1)
     gates = torch.softmax(topv, dim=-1)                # renormalized over k
     # switch load-balance loss: E * mean(f_e * p_e)
-    ohot = F.one_hot(topi[..., 0], cfg.n_experts).float()
+    # the top-1 one-hot as a comparison: F.one_hot reads its indices' range
+    # back to the host on the CPU
+    ohot = (topi[..., :1] == torch.arange(cfg.n_experts,
+                                          device=x.device)).float()
     lse2 = torch.logsumexp(logits, dim=-1) ** 2
+    if ctx is not None and ctx.share is not None:
+        # a microbatch's segment: its fractions are summed over the batch
+        # ranks after the forward (spmd.Share)
+        tokens = ctx.share.rows * x.shape[1]
+        mean_p = probs.sum(dim=(0, 1)) / tokens
+        z = lse2.sum() / tokens
+        r = ctx.share.route(id(p), ohot.sum(dim=(0, 1)), mean_p, z, tokens)
+        lb = _Balance.apply(mean_p, r, cfg.n_experts)
+        return topi.to(torch.int32), gates, lb + cfg.router_zloss * z
     if ctx is not None and ctx.split:
         tokens = x.shape[0] * x.shape[1] * ctx.n_batch
         frac = ctx.batch_sum(ohot.sum(dim=(0, 1))) / tokens

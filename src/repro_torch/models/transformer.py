@@ -32,10 +32,8 @@ read the mesh (``ctx``).  ``scan_layers``,
 ``fsdp_embed`` and ``use_flash`` have no counterpart on one card, and
 ``attn_bf16_scores`` tunes the reference's jnp attention, which the flash
 kernel replaces: they are carried in the config and not read.
-``attn_chunk`` is read by the mLSTM's parallel form only.  The
-one thing the reference's forward supports that the port does not,
-``skip_attention`` (a roofline probe), raises ``NotImplementedError``
-naming ROADMAP Queue 1 item 19.
+``attn_chunk`` is read by the mLSTM's parallel form only.
+``skip_attention`` (a roofline probe) is read by ``layers.attention_block``.
 """
 from __future__ import annotations
 
@@ -65,16 +63,10 @@ def pdtype(cfg):
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ValueError for a decoder block kind the reference does not
-    know either, and NotImplementedError for ``skip_attention``, which the
-    port does not run yet, naming the ROADMAP Queue 1 item that brings
-    it."""
+    know either."""
     unknown = sorted(set(cfg.block_pattern) - set(KINDS))
     if unknown:
         raise ValueError(f"{cfg.name}: unknown block kinds {unknown}")
-    if cfg.skip_attention:
-        raise NotImplementedError(
-            f"{cfg.name}: not ported yet: skip_attention, a roofline probe "
-            f"(item 19) -- see ROADMAP.md Queue 1")
 
 
 # ==========================================================================
@@ -451,9 +443,11 @@ def init_cache(cfg: ModelConfig, B: int, S: int, dtype=None, device=None):
     mlstm and h/c/n/m for slstm, whose size does not depend on S); with
     ``cross_attn``, every layer also holds the encoder's projected keys
     and values, ``cross_k``/``cross_v`` (B, enc_seq, n_heads, head_dim),
-    which the prefill writes."""
+    which the prefill writes.  On ``device="meta"`` the leaves have their
+    shapes and dtypes and no storage."""
     check_supported(cfg)
-    dev = resolve_device(device)
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
     dt = dtype or cdtype(cfg)
     kv, hd = cfg.n_kv_heads, cfg.head_dim
     caches = []
@@ -693,12 +687,20 @@ def _xent_parts(lg, labels):
 
 def _denom(count, ctx):
     """The loss's divisor: the unpadded tokens of the whole batch (summed
-    over the batch ranks when it is split), at least 1."""
-    return torch.clamp_min(count if ctx is None else ctx.batch_sum(count),
-                           1.0)
+    over the batch ranks when it is split; a microbatch's global count in
+    its segment, ``ctx.share``), at least 1."""
+    if ctx is not None and ctx.share is not None:
+        count = ctx.share.count
+    elif ctx is not None:
+        count = ctx.batch_sum(count)
+    return torch.clamp_min(count, 1.0)
 
 
-def lm_loss(cfg, logits, labels, aux, aux_coef=0.01, z_coef=1e-4,
+# the MoE loss's weight in the train loss
+AUX_COEF = 0.01
+
+
+def lm_loss(cfg, logits, labels, aux, aux_coef=AUX_COEF, z_coef=1e-4,
             ctx=None):
     """Masked token cross-entropy (port of the reference's ``lm_loss``):
     (nll + z_coef * mean((lse * mask)^2) + aux_coef * aux, {"nll", "aux"}),
@@ -712,8 +714,8 @@ def lm_loss(cfg, logits, labels, aux, aux_coef=0.01, z_coef=1e-4,
     return loss + zloss + aux_coef * aux, {"nll": loss, "aux": aux}
 
 
-def lm_loss_chunked(cfg, x, head, labels, aux, aux_coef=0.01, z_coef=1e-4,
-                    final_softcap=0.0, ctx=None):
+def lm_loss_chunked(cfg, x, head, labels, aux, aux_coef=AUX_COEF,
+                    z_coef=1e-4, final_softcap=0.0, ctx=None):
     """The same loss from the final hidden states x (B, S, D) and the head
     (D, V), the sequence cut into ``cfg.xent_chunk`` chunks (a Python
     loop, as the reference's): each chunk's logits are made, softcapped and

@@ -34,18 +34,74 @@ from . import partition
 MODEL = "model"
 
 
+class Share:
+    """A rank's segment of one microbatch in a sharded train step whose
+    microbatches cross the batch ranks (``train/step.py``): the segment's
+    losses are its sums over the microbatch's global ``rows`` and label
+    ``count``, so the segments' shares add up to the microbatch's means.
+    The MoE load-balance term needs the microbatch's top-1 fractions,
+    summed over the ranks that hold its rows; ``models.moe.route``
+    registers each layer's counts here (``route``), the step sums them
+    over the batch ranks between the segment's forward and its backward
+    (``set_fractions``), and the term's gradient and value read the sums
+    (``balance``)."""
+
+    class Route:
+        """One MoE layer's share: its top-1 counts and mean
+        probabilities, and the microbatch's fractions once summed."""
+        counts = mean_p = z = frac = tokens = None
+
+    def __init__(self, rows: int, count: torch.Tensor):
+        self.rows, self.count = rows, count
+        self.routes: Dict[int, "Share.Route"] = {}
+
+    def route(self, key: int, counts, mean_p, z, tokens: int) -> "Share.Route":
+        """The layer ``key``'s record (the same one when a checkpoint
+        recomputes the layer), with this forward's values; ``tokens`` the
+        microbatch's."""
+        r = self.routes.setdefault(key, Share.Route())
+        r.counts, r.mean_p, r.z = counts, mean_p.detach(), z.detach()
+        r.tokens = tokens
+        return r
+
+    def counts(self) -> torch.Tensor:
+        """(layers, E) top-1 counts of this segment, in forward order."""
+        return torch.stack([r.counts for r in self.routes.values()])
+
+    def set_fractions(self, summed: torch.Tensor) -> None:
+        """The microbatch's fractions from its (layers, E) counts summed
+        over the batch ranks."""
+        for r, c in zip(self.routes.values(), summed):
+            r.frac = c / r.tokens
+
+    def balance(self, n_experts: int, zloss: float) -> tuple:
+        """(sum over layers of the balance terms E sum(frac mean_p), sum of
+        the layers' whole aux shares in forward order): what the forward's
+        aux left out, and the aux share it should have been."""
+        lb_sum = aux = None
+        for r in self.routes.values():
+            lb = n_experts * torch.sum(r.frac * r.mean_p)
+            a = lb + zloss * r.z
+            lb_sum = lb if lb_sum is None else lb_sum + lb
+            aux = a if aux is None else aux + a
+        return lb_sum, aux
+
+
 @dataclasses.dataclass(frozen=True)
 class Ctx:
     """A rank's view of the mesh for one step: the axes' sizes, its
     coordinate on each, and whether the step's batch is split over the
     batch axes (``split``: this rank holds its block of the rows, so
-    means over the batch are global sums over global counts).  ``mesh``
-    gives the per-axis process groups; a context of a mesh whose axes
-    are all 1 calls no collective."""
+    means over the batch are global sums over global counts).  ``share``
+    is set inside a microbatch's segment (``Share``): means are over the
+    microbatch's global rows and labels.  ``mesh`` gives the per-axis
+    process groups; a context of a mesh whose axes are all 1 calls no
+    collective."""
     mesh: object
     sizes: Dict[str, int]
     coord: Dict[str, int]
     split: bool = False
+    share: Optional[Share] = None
 
     @classmethod
     def of(cls, mesh, split: bool = False) -> "Ctx":
@@ -95,8 +151,7 @@ class Ctx:
 
     def local(self) -> "Ctx":
         """This context with the rank's rows taken as a whole batch: means
-        over them are local (serving, whose MoE aux is discarded, and a
-        rank's own microbatches)."""
+        over them are local (serving, whose MoE aux is discarded)."""
         return dataclasses.replace(self, split=False)
 
     def size(self, axes: Sequence[str]) -> int:
@@ -320,6 +375,6 @@ def model_slice(x: torch.Tensor, dim: int, ctx: Ctx) -> torch.Tensor:
     return _ModelSlice.apply(x, dim, ctx)
 
 
-__all__ = ["Ctx", "ONE_DEVICE", "all_gather", "block", "gather", "global_norm",
-           "model_copy", "model_slice", "model_sum", "owns", "reduce_grad",
-           "reduce_scatter"]
+__all__ = ["Ctx", "ONE_DEVICE", "Share", "all_gather", "block", "gather",
+           "global_norm", "model_copy", "model_slice", "model_sum", "owns",
+           "reduce_grad", "reduce_scatter"]

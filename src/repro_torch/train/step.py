@@ -41,9 +41,10 @@ one device, where every gather, sum and cut is the leaf itself.
 
 The non-expert compute is repeated on every "model" rank: the same
 results as the reference's, without its split of heads and ff.  With
-microbatches and a split batch, each rank runs whole microbatches of its
-own rows, so ``microbatches`` must be a multiple of the batch ranks
-(else ``NotImplementedError``, ROADMAP Queue 1 item 24).
+microbatches and a split batch, a microbatch may span several batch
+ranks and a rank's rows several microbatches, whatever the two numbers
+are: each rank runs one gradient for each of its rows' segments of a
+microbatch (``split_microbatch_grads``).
 
 ``make_prefill`` and ``make_serve_step`` return plain functions of
 (params, tensors); as in the reference they discard ``forward``'s aux
@@ -55,6 +56,7 @@ axes, replicated over "model"), and return the logits of every row.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -96,10 +98,13 @@ def train_state(params, opt=None, step=None) -> dict:
             if step is None else step}
 
 
+@functools.lru_cache(maxsize=64)
 def state_shapes_and_specs(cfg: ModelConfig, max_seq: int = 0):
     """(state_shapes, state_logical_specs) without allocating anything:
     the shapes are tensors on ``torch.device("meta")``, in the train
-    state's layout with the parameters as {name: tensor}."""
+    state's layout with the parameters as {name: tensor}; made once a
+    (cfg, max_seq), as the reference's, so a sharded step's plan makes no
+    tensor after its first (a dry run's memory count sees none)."""
     params = transformer.make_params(cfg, None, device="meta",
                                      max_seq=max_seq)
     pshapes = {n: p.detach() for n, p in params.named_parameters()}
@@ -189,16 +194,11 @@ def gather_params(params, plan: dict, ctx: spmd.Ctx, grad: bool = False):
     return full
 
 
-def make_grad_fn(cfg: ModelConfig, ctx=None):
-    """(params, batch) -> (loss, parts, grads): the train step's loss, its
-    parts and the gradient of every parameter in ``named_parameters``
-    order (zeros for one the loss does not reach), microbatched as
-    ``cfg.microbatches`` says.  ``ctx`` is a sharded step's view of the
-    mesh (``sharding.spmd.Ctx``): with a split batch the loss and its
-    parts are this rank's shares of the global ones."""
+def _loss_fn(cfg: ModelConfig):
+    """(params, tokens, labels, frames, ctx) -> (loss, {"nll", "aux"}) of
+    one (micro)batch; ``ctx`` as ``transformer.lm_loss``'s."""
 
-    def loss_fn(params, tokens, labels, frames):
-        """(loss, {"nll", "aux"}) of one (micro)batch."""
+    def loss_fn(params, tokens, labels, frames, ctx):
         if cfg.xent_chunk:
             x, _, aux = transformer.forward(cfg, params, tokens, mode="train",
                                             frames=frames, skip_head=True,
@@ -212,31 +212,49 @@ def make_grad_fn(cfg: ModelConfig, ctx=None):
                                              mode="train", frames=frames,
                                              ctx=ctx)
         return transformer.lm_loss(cfg, logits, labels, aux, ctx=ctx)
+    return loss_fn
 
-    def grads_of(loss, leaves):
-        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return [torch.zeros_like(p) if g is None else g
-                for p, g in zip(leaves, gs)]
+
+def _grads_of(loss, leaves):
+    gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, gs)]
+
+
+def _check_microbatches(cfg: ModelConfig, B: int) -> None:
+    if B % cfg.microbatches:
+        raise ValueError(f"{cfg.name}: batch {B} is not a multiple of "
+                         f"{cfg.microbatches} microbatches")
+
+
+def make_grad_fn(cfg: ModelConfig, ctx=None):
+    """(params, batch) -> (loss, parts, grads): the train step's loss, its
+    parts and the gradient of every parameter in ``named_parameters``
+    order (zeros for one the loss does not reach), microbatched as
+    ``cfg.microbatches`` says, each microbatch on every row it holds.
+    ``ctx`` is a sharded step's view of the mesh (``sharding.spmd.Ctx``):
+    with a split batch the loss and its parts are this rank's shares of
+    the global ones (one microbatch; ``split_microbatch_grads`` runs
+    more)."""
+    loss_fn = _loss_fn(cfg)
 
     def grad_fn(params, batch):
         leaves = [p for _, p in params.named_parameters()]
         tokens, labels = batch["tokens"], batch["labels"]
         frames = batch.get("frames")
         B, mb = tokens.shape[0], cfg.microbatches
-        if B % mb:
-            raise ValueError(f"{cfg.name}: batch {B} is not a multiple of "
-                             f"{mb} microbatches")
+        _check_microbatches(cfg, B)
         if mb == 1:
-            loss, parts = loss_fn(params, tokens, labels, frames)
+            loss, parts = loss_fn(params, tokens, labels, frames, ctx)
             return loss.detach(), {k: v.detach() for k, v in parts.items()}, \
-                grads_of(loss, leaves)
+                _grads_of(loss, leaves)
         n = B // mb
         acc, loss_sum, seen = None, None, []
         for i in range(mb):
             sl = slice(i * n, (i + 1) * n)
             loss, parts = loss_fn(params, tokens[sl], labels[sl],
-                                  None if frames is None else frames[sl])
-            gs = grads_of(loss, leaves)
+                                  None if frames is None else frames[sl], ctx)
+            gs = _grads_of(loss, leaves)
             acc = [g.float() for g in gs] if acc is None else \
                 [a + g.float() for a, g in zip(acc, gs)]
             loss_sum = loss.detach() if loss_sum is None \
@@ -246,6 +264,99 @@ def make_grad_fn(cfg: ModelConfig, ctx=None):
         return div_const(loss_sum, mb), parts, [div_const(a, mb) for a in acc]
 
     return grad_fn
+
+
+def segments(B: int, mb: int, n: int, r: int) -> list:
+    """[(i, lo, hi)]: the rows of microbatch i (the global rows [i B/mb,
+    (i+1) B/mb)) that batch rank r holds (its block [r B/n, (r+1) B/n)),
+    as rows lo:hi of its block, in microbatch order."""
+    m, per = B // mb, B // n
+    out = []
+    for i in range(mb):
+        lo, hi = max(i * m, r * per), min((i + 1) * m, (r + 1) * per)
+        if lo < hi:
+            out.append((i, lo - r * per, hi - r * per))
+    return out
+
+
+def waves(B: int, mb: int, n: int) -> list:
+    """The wave of each microbatch over n batch ranks: one after the
+    wave of the microbatch before it when the two share a rank, else 0.
+    A wave holds at most one segment a rank, and every segment of a
+    microbatch runs in the same wave."""
+    m, per = B // mb, B // n
+    out = [0]
+    for i in range(1, mb):
+        out.append(out[-1] + 1 if (i * m) % per else 0)
+    return out
+
+
+def split_microbatch_grads(cfg: ModelConfig, ctx: spmd.Ctx, params,
+                           batch: dict):
+    """``make_grad_fn``'s (loss, parts, grads) as this rank's shares, for
+    ``cfg.microbatches`` > 1 over a split batch (the global batch in
+    ``batch``; this rank holds the block ``ctx.batch_rows``).  Microbatch
+    i is the global rows [i B/mb, (i+1) B/mb), as in the reference; the
+    rank runs one gradient a segment (its rows of a microbatch,
+    ``segments``), whose losses are sums over the microbatch's global
+    label count (one all-reduce of the (mb,) counts over the batch axes)
+    and rows, so the ranks' shares add up to the microbatch's means.  The
+    loss, parts and float32 gradients are the segments' sums over mb: the
+    reference's means over the microbatches once summed over the batch
+    ranks.  With MoE layers the segments run in ``waves``, every rank in
+    step, each wave's forward followed by one all-reduce of its (mb,
+    layers, E) top-1 counts (``spmd.Share``) before its backward."""
+    loss_fn = _loss_fn(cfg)
+    leaves = [p for _, p in params.named_parameters()]
+    B, mb, n = batch["tokens"].shape[0], cfg.microbatches, ctx.n_batch
+    _check_microbatches(cfg, B)
+    rows = {k: ctx.batch_rows(v) for k, v in batch.items()}
+    mine = {i: (lo, hi) for i, lo, hi in segments(B, mb, n, ctx.batch_index)}
+    labels = rows["labels"]
+    zero = torch.zeros((), dtype=torch.float32, device=labels.device)
+    counts = ctx.sum_over(torch.stack([
+        (labels[mine[i][0]:mine[i][1]] >= 0).sum(dtype=torch.float32)
+        if i in mine else zero for i in range(mb)]), ctx.batch_axes)
+    n_moe = sum("ffn" in p for p in params["layers"]) if cfg.is_moe else 0
+    if n_moe:
+        wave = waves(B, mb, n)
+        schedule = [[i for i in mine if wave[i] == w]
+                    for w in range(max(wave) + 1)]
+    else:
+        schedule = [[i] for i in mine]
+    acc = loss_sum = parts_sum = None
+    for group in schedule:
+        if group:
+            (i,) = group
+            lo, hi = mine[i]
+            share = spmd.Share(B // mb, counts[i])
+            loss, parts = loss_fn(
+                params, rows["tokens"][lo:hi], labels[lo:hi],
+                rows["frames"][lo:hi] if "frames" in rows else None,
+                dataclasses.replace(ctx, split=False, share=share))
+        if n_moe:           # the wave's top-1 counts, summed
+            c = torch.zeros((mb, n_moe, cfg.n_experts), dtype=torch.float32,
+                            device=labels.device)
+            if group:
+                c[i] = share.counts()
+            c = ctx.sum_over(c, ctx.batch_axes)
+            if group:
+                share.set_fractions(c[i])
+        if not group:
+            continue
+        gs = _grads_of(loss, leaves)
+        loss, parts = loss.detach(), {k: v.detach() for k, v in parts.items()}
+        if n_moe:
+            lb, parts["aux"] = share.balance(cfg.n_experts, cfg.router_zloss)
+            loss = loss + transformer.AUX_COEF * lb
+        acc = [g.float() for g in gs] if acc is None else \
+            [a + g.float() for a, g in zip(acc, gs)]
+        loss_sum = loss if loss_sum is None else loss_sum + loss
+        parts_sum = parts if parts_sum is None else \
+            {k: parts_sum[k] + v for k, v in parts.items()}
+    return (div_const(loss_sum, mb),
+            {k: div_const(v, mb) for k, v in parts_sum.items()},
+            [div_const(a, mb) for a in acc])
 
 
 def make_train_step(cfg: ModelConfig, mesh=None,
@@ -272,22 +383,11 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         plan = planner(params)
         ctx = base.for_batch(batch["tokens"].shape[0])
         full = gather_params(params, plan, ctx, grad=True)
-        rows = {k: ctx.batch_rows(v) for k, v in batch.items()}
-        mb, n = cfg.microbatches, ctx.n_batch
-        if ctx.split and mb > 1:
-            # whole microbatches of this rank's rows: local means
-            if mb % n:
-                raise NotImplementedError(
-                    f"{cfg.name}: {mb} microbatches over {n} batch ranks: "
-                    f"not ported yet: microbatches the batch ranks do not "
-                    f"divide (item 24) -- see ROADMAP.md Queue 1")
-            loss, parts, grads = make_grad_fn(
-                dataclasses.replace(cfg, microbatches=mb // n), ctx.local())(
-                    full, rows)
-            loss, grads = div_const(loss, n), [div_const(g, n) for g in grads]
-            parts = {k: div_const(v, n) for k, v in parts.items()}
+        if ctx.split and cfg.microbatches > 1:
+            loss, parts, grads = split_microbatch_grads(cfg, ctx, full, batch)
         else:
-            loss, parts, grads = make_grad_fn(cfg, ctx)(full, rows)
+            loss, parts, grads = make_grad_fn(cfg, ctx)(
+                full, {k: ctx.batch_rows(v) for k, v in batch.items()})
         del full
         named = list(params.named_parameters())
         specs = [plan[nm][0] for nm, _ in named]
@@ -357,7 +457,14 @@ def make_prefill(cfg: ModelConfig, mesh=None):
 def make_serve_step(cfg: ModelConfig, mesh=None):
     """One-token decode: (params, cache, token (B, 1), pos int) ->
     (logits (B, vocab), new_cache).  With ``mesh``: see the module's
-    note."""
+    note; ``cfg.serve_weights_stationary`` (the reference's
+    ``partition.serve_rules`` layout) raises NotImplementedError there,
+    naming its ROADMAP Queue 1 item."""
+    if mesh is not None and cfg.serve_weights_stationary:
+        raise NotImplementedError(
+            f"{cfg.name}: not ported yet: the weights-stationary decode "
+            f"layout, serve_weights_stationary (item 24) -- see ROADMAP.md "
+            f"Queue 1")
     setup = None if mesh is None else _sharded_serving(cfg, mesh)
 
     def serve_step(params, cache, token, pos):

@@ -262,15 +262,23 @@ def test_params_from_jax_layer_order_and_bits():
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch,cfg_kw,item", [
-    ("llama3_2_1b", {"skip_attention": True}, "item 19"),
+    ("llama3_2_1b", {"serve_weights_stationary": True}, "item 24"),
 ])
 def test_refused_configs_name_their_roadmap_item(arch, cfg_kw, item):
+    """The sharded decode step refuses the weights-stationary layout; one
+    device, where the flag changes nothing, serves it."""
+    from repro_torch.train import step as tstep
     cfg = dataclasses.replace(tconfigs.get_smoke(arch), **cfg_kw)
-    gen = torch.Generator().manual_seed(0)
+    mesh = type("Mesh", (), {"mesh_dim_names": ("data", "model"),
+                             "shape": (2, 1)})()
     with pytest.raises(NotImplementedError, match=item):
-        ttransformer.make_params(cfg, gen, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        ttransformer.forward(cfg, None, torch.zeros((1, 2), dtype=torch.int64))
+        tstep.make_serve_step(cfg, mesh)
+    params = ttransformer.make_params(cfg, torch.Generator().manual_seed(0),
+                                      device="cpu")
+    cache = ttransformer.init_cache(cfg, 1, 4, device="cpu")
+    logits, _ = tstep.make_serve_step(cfg)(
+        params, cache, torch.zeros((1, 1), dtype=torch.int64), 0)
+    assert logits.shape == (1, cfg.vocab)
 
 
 @pytest.mark.parametrize("arch,cfg_kw", [
@@ -324,7 +332,8 @@ def test_serving_modules_import_no_jax():
             "import repro_torch.train.step, repro_torch.configs.hymba_1_5b\n"
             "import repro_torch.sharding.spmd, repro_torch.launch.mesh\n"
             "import repro_torch.launch.train, repro_torch.data.pipeline\n"
-            "import repro_torch.ckpt.checkpoint\n"
+            "import repro_torch.ckpt.checkpoint, repro_torch.launch.dryrun\n"
+            "import repro_torch.roofline.analysis, repro_torch.roofline.table\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"

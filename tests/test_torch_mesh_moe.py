@@ -13,8 +13,9 @@ in float32 with drops (capacity factor 0.5).
     route may differ only at a near-tie (``torch_kernel_inputs.route_flips``,
     the top-(k+1) logits closer than 1e-5); the train steps as above.
   * The collectives a sharded step calls, counted by name against what
-    the specs say it must call; microbatches the batch ranks do not
-    divide are refused, naming their ROADMAP item.
+    the specs say it must call, with microbatches the batch ranks do not
+    divide too (their counts' all-reduce, and one of the top-1 counts a
+    wave for MoE).
 """
 import dataclasses
 
@@ -121,10 +122,12 @@ class _Mesh:                       # a DeviceMesh's names and sizes alone
         self.mesh_dim_names, self.shape = ("data", "model"), tuple(shape)
 
 
-def _expected_calls(cfg, shape):
+def _expected_calls(cfg, shape, B=4):
     """The collectives one sharded step must call on a (data, model) mesh
-    of ``shape`` on a batch it splits (smoke configs: remat "nothing",
-    one microbatch, no chunked loss)."""
+    of ``shape`` on a batch of ``B`` rows it splits (smoke configs: remat
+    "nothing", no chunked loss; with microbatches, one all-reduce of
+    their label counts and, for MoE, one of the top-1 counts a wave in
+    place of one a layer)."""
     sizes = {"data": shape[0], "model": shape[1]}
     sh, _ = tstep.state_shardings(cfg, _Mesh(shape))
     logical = ttransformer.param_specs(cfg)
@@ -146,7 +149,10 @@ def _expected_calls(cfg, shape):
     reduces += 2 * moe_layers if ep else 0      # the sum, the copy's bwd
     axes_over_1 = sum(v > 1 for v in sizes.values())
     reduces += axes_over_1                      # the norm
-    if split:
+    if split and cfg.microbatches > 1:
+        waves = max(tstep.waves(B, cfg.microbatches, shape[0])) + 1
+        reduces += 2 + (waves if moe_layers else 0)   # counts, stats, waves
+    elif split:
         reduces += 2 + moe_layers               # count, stats, fractions
     calls = {"all_gather_single": gathers, "all_reduce": reduces}
     if scatters:
@@ -166,14 +172,18 @@ def test_collectives_a_step_counted():
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 8)))
         batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
         cases.append((cfg, shape, torch_spmd.plain_state(st), batch))
-    mb3 = dataclasses.replace(cases[0][0], microbatches=3)
+    # 3 microbatches over 2 ranks (one all-reduce of the label counts; 3
+    # waves of MoE counts) and 2 over 2
+    rows6 = {k: torch.cat([v, v[:2]]) for k, v in cases[3][3].items()}
+    for i, mb, batch in ((0, 3, rows6), (3, 3, rows6), (3, 2, None)):
+        cfg, shape, plain, b = cases[i]
+        cases.append((dataclasses.replace(cfg, microbatches=mb), shape,
+                      plain, batch or b))
     res = shard_sim.spawn(torch_spmd.plan, 2, ([
         ("mesh_train", (cfg, plain, [batch], toptim.AdamWConfig(), shape))
-        for cfg, shape, plain, batch in cases]
-        + [("mesh_refusal", (mb3, cases[0][2], cases[0][3], (2, 1)))],))
+        for cfg, shape, plain, batch in cases],))
     for outs, _ in res:
-        assert "item 24" in outs[-1]       # 3 microbatches over 2 ranks
-        for (cfg, shape, _, _), steps in zip(cases, outs):
+        for (cfg, shape, _, batch), steps in zip(cases, outs):
             calls = steps[0][2]
             rs = calls.pop("reduce_scatter_tensor", 0)
             if rs:
@@ -181,5 +191,7 @@ def test_collectives_a_step_counted():
             ag = calls.pop("all_gather_into_tensor", 0)
             if ag:
                 calls["all_gather_single"] = ag
-            assert calls == _expected_calls(cfg, shape), (cfg.name, shape,
-                                                          calls)
+            assert calls == _expected_calls(
+                cfg, shape, batch["tokens"].shape[0]), (cfg.name, shape,
+                                                        cfg.microbatches,
+                                                        calls)

@@ -291,20 +291,6 @@ def ckpt_reshard(rank, world, cfg, plain, other, directory, save_shape,
     return gathered(state, sh, spmd.Ctx.of(mesh)), at
 
 
-def mesh_refusal(rank, world, cfg, plain, batch, shape):
-    """The message of the NotImplementedError a sharded step raises for
-    ``cfg`` (microbatches the batch ranks do not divide)."""
-    from repro_torch.train import step
-    mesh = mesh_of(shape)
-    sh, _ = step.state_shardings(cfg, mesh)
-    state = step.shard_state(train_state_of(plain), sh)
-    try:
-        step.make_train_step(cfg, mesh)(state, batch)
-    except NotImplementedError as e:
-        return str(e)
-    return None
-
-
 def launch_main(rank, world, argv):
     """``repro_torch.launch.train.main(argv)`` on this rank: its return
     code."""
