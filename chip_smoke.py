@@ -241,15 +241,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      cut to 2 layers in f32 on 4 x 1,100 tokens of the port's pipeline
      on a (1, 1) mesh over NCCL in this process and on (2, 1) and (1, 2)
      over two gloo ranks on card 0 (and a batch whose halves hold
-     different numbers of valid labels), moonshot cut to 2 layers: the
-     (1, 2) prefill (routes and drops exact, logits 1e-4) and one train
-     step, the (2, 1) forward's global loss and aux (routes under the
-     near-tie rule); [mesh-main] runs hymba cut to 4 layers in bf16 on
-     (2, 1), 4 steps of 4 x 4,096 tokens: step time, tokens/s, peak
-     memory a rank, the losses within 5e-2 of one rank's; then a fifth
-     step with a card sync and a barrier before each collective: the
-     bytes handed to collectives, the calls' seconds and the ranks'
-     waits for each other, apart.
+     different numbers of valid labels; on (1, 2) the compute splits over
+     "model", its heads 13 and 12 of 25, and each step starts from the
+     one-rank state before it, as [train-parity]'s do), llama3.2-1b cut
+     to 2 layers in f32 on (1, 2) (heads, ff and vocab split), moonshot
+     cut to 2 layers: the (1, 2) prefill (routes and drops exact, logits
+     1e-4) and one train step, the (2, 1) forward's global loss and aux
+     (routes under the near-tie rule); [mesh-main] runs hymba cut to 4
+     layers in bf16 on (2, 1), 4 steps of 4 x 4,096 tokens, its blocks
+     gathered a period at a time: step time, tokens/s, peak memory a rank
+     (against 7.13 GiB, the step that gathered the whole model), the
+     losses within 5e-2 of one rank's;
+     then a fifth step with a card sync and a barrier before each
+     collective: the bytes handed to collectives, the calls' seconds and
+     the ranks' waits for each other, apart; [tp-main] runs llama3.2-1b
+     at full width cut to 4 of its 16 layers in bf16 (remat "dots") the
+     same way on (1, 2) over the gloo ranks and then (1, 1) over NCCL in
+     this process: the attention at 16 of 32 query heads over 4 kv heads
+     a rank, forward and backward, the (1, 2) peak a rank below (1, 1)'s,
+     the losses within 5e-2.  Phase 3 holds the kernels at those ranks'
+     shapes (llama's 16/4 heads at 4 x 4,096, hymba's 13 heads, the SSM's
+     1,600 channels) against their plain versions, and rows of the
+     kernels line time them after phase 8.
 
     python3 chip_smoke.py --engine-calls ROOT
 
@@ -301,8 +314,9 @@ from repro_torch.analysis.costmodel import (  # noqa: E402
     H100_EXP_PER_SM_CLOCK as EXP_PER_SM_CLOCK,
     H100_F32_OPS_S as PEAK_F32_OPS_S, H100_HBM_BYTES_S as PEAK_BYTES_S)
 # the engine main run's jobs: bench_engine.py's sweep point has 600, cut
-# to 300 for the script's clock (every [main]-based run halves with it)
-N_MAIN, C_MAIN, JOBS_MAIN = 65_536, 4, 300
+# to 150 for the script's clock (every [main]-based run follows it; still
+# 38 macro-steps, past the profile windows' 20 + 10)
+N_MAIN, C_MAIN, JOBS_MAIN = 65_536, 4, 150
 # the traced thermal main run's ring: 40 MB of float32 records
 TRACE_CAP = 1 << 21
 # Depth cuts that keep the whole script within about two thirds of its
@@ -321,7 +335,7 @@ FARM_PAR_JOBS = 150
 CASE_D_PAR_JOBS = 15
 # the network main run: case study D (benchmarks/case_d_network.py) on a
 # k=16 fat-tree, its 30 jobs/s over 16 servers scaled to 1,024 servers
-NET_K, NET_JOBS, NET_LAM = 16, 50, 1920.0
+NET_K, NET_JOBS, NET_LAM = 16, 30, 1920.0
 NET_SERVERS = NET_K ** 3 // 4           # a k-ary fat-tree's servers
 # [mc-main]: benchmarks/bench_engine.py replica_throughput's two largest
 # points, (replicas, servers, jobs a replica, max_jobs)
@@ -4575,6 +4589,27 @@ def train_kernel_entries(launches, fa_errs, ss_err, dev):
 LAUNCH_ARGS = ("--arch", "smollm-360m", "--batch", "8", "--seq", "2048")
 MESH_LAYERS, MESH_BATCH, MESH_SEQ = 2, 4, 1100
 MESH_MAIN_LAYERS, MESH_MAIN_STEPS = 4, 4
+# [mesh-main]'s peak a rank when its step gathered the whole model before
+# the forward (H100 80GB HBM3), which the per-period gathers are held under
+MESH_MAIN_WHOLE_GIB = 7.13
+# tensor parallelism: [mesh-parity]'s llama3.2-1b at full width (d_model
+# 2,048, 32/8 heads, d_ff 8,192, vocab 128,256, tied) cut to TP_PAR_LAYERS
+# layers in float32 on (1, 2); [tp-main]: the same cut to TP_LAYERS of its
+# 16 layers in bf16 (remat "dots"), TP_STEPS steps of [train-main]'s 4 x
+# 4,096 tokens on (1, 2) and then (1, 1)
+TP_ARCH, TP_PAR_LAYERS, TP_LAYERS, TP_STEPS = "llama3_2_1b", 2, 4, 4
+# the kernels at the tensor-parallel ranks' shapes, checked in phase 3 and
+# timed after phase 8: [tp-main]'s llama rank (16 of 32 query heads over
+# kv heads 0-3 or 4-7), [mesh-parity]'s hymba (1, 2) rank 0 (13 of 25
+# heads, which start mid-group, so a kv head a query head: 13 over 13)
+# and its SSM (1,600 of 3,200 channels a rank)
+FLASH_TP = {
+    "llama tp rank": (TR_BATCH, 16, 4, TR_SEQ, TR_SEQ, 64, True, 0, 0.0,
+                      "bfloat16"),
+    "hymba 13 heads": (MESH_BATCH, 13, 13, MESH_SEQ, MESH_SEQ, 64, True,
+                       1024, 0.0, "float32"),
+}
+SSM_TP = (MESH_BATCH, MESH_SEQ, 1600, 16)
 
 
 def launch_train(dev) -> dict:
@@ -4690,6 +4725,16 @@ def mesh_cfgs():
                                 n_layers=MESH_MAIN_LAYERS, microbatches=1))
 
 
+def tp_cfgs():
+    """llama3.2-1b for [mesh-parity] (float32) and [tp-main] (bf16)."""
+    from repro_torch import configs
+    full = configs.get_config(TP_ARCH)
+    return (dataclasses.replace(full, n_layers=TP_PAR_LAYERS,
+                                param_dtype="float32",
+                                compute_dtype="float32"),
+            dataclasses.replace(full, n_layers=TP_LAYERS))
+
+
 def seeded_params(cfg, dev):
     """The same parameters in every process: a CUDA generator's draw."""
     from repro_torch.models import transformer
@@ -4743,7 +4788,7 @@ def mesh_reference(cfg, batch, opt, steps, dev, full=True,
 
 
 def mesh_train_check(tag, cfg, mesh, batch, opt, steps, ref, dev,
-                     full=True) -> dict:
+                     full=True, restart=False) -> dict:
     """make_train_step(cfg, mesh) from the seeded parameters sharded over
     ``mesh``, held step by step to the one-rank reference ``ref``
     (``mesh_reference``) on this rank's blocks, in [train-parity]'s bands: loss, nll, aux,
@@ -4751,7 +4796,13 @@ def mesh_train_check(tag, cfg, mesh, batch, opt, steps, ref, dev,
     1e-4 of the full leaf's largest magnitude; with ``full`` m and v
     within 1e-5 relative plus 1e-4 of their largest magnitude and the
     parameters within adamw_param_check's bound (the elements that need
-    the moments' part counted once, on the rank that owns them)."""
+    the moments' part counted once, on the rank that owns them).  With
+    ``restart`` (and ``full``) each step after the first starts from the
+    reference's state before it, cut to this rank's blocks, as
+    [train-parity]'s steps do: a mesh whose compute splits over "model"
+    sums in another order, and an element whose gradient is near zero may
+    take an update of the other sign (AdamW's m / sqrt(v)), which the next
+    step's gradients would carry (``chain_drift`` reads how far)."""
     from repro_torch.kernels import ops
     from repro_torch.sharding import spmd
     from repro_torch.train import step
@@ -4771,6 +4822,16 @@ def mesh_train_check(tag, cfg, mesh, batch, opt, steps, ref, dev,
     prev_m = {n: torch.zeros_like(t) for n, t in state["opt"]["m"].items()}
     carried = {}
     for i in range(steps):
+        if restart and i:
+            prev = ref["steps"][i - 1]
+            with torch.no_grad():
+                for n, p in state["params"].named_parameters():
+                    p.copy_(spmd.block(prev["p"][n].to(dev), specs[n], ctx))
+                    for k in ("m", "v"):
+                        state["opt"][k][n].copy_(spmd.block(
+                            prev[k][n].to(dev), specs[n], ctx))
+                    prev_m[n] = state["opt"]["m"][n].clone()
+            carried = {}
         ops.reset_launch_counts()
         with count_collectives() as calls:
             torch.cuda.synchronize()
@@ -4780,6 +4841,7 @@ def mesh_train_check(tag, cfg, mesh, batch, opt, steps, ref, dev,
             out["walls"].append(time.perf_counter() - t0)
         out["calls"].append(dict(calls))
         out["launches"].append(ops.launch_counts(ops.FORWARD + ops.BACKWARD))
+        out["shapes"] = shape_launches()
         exp = rm[i]
         for k in ("loss", "nll", "aux", "grad_norm", "lr"):
             rel = abs(got[k] - exp[k]) / max(abs(exp[k]), 1e-30)
@@ -4842,6 +4904,76 @@ def mesh_train_check(tag, cfg, mesh, batch, opt, steps, ref, dev,
     return out
 
 
+def chain_drift(cfg, mesh, batch, opt, ref, dev) -> dict:
+    """A reading, not a check: make_train_step(cfg, mesh) two steps chained
+    from the seeded parameters, against the one-rank reference ``ref``
+    on this rank's blocks.  Step 1: the gradient elements whose sign
+    differs from one rank's (``flips``; the largest of their one-rank
+    magnitudes over the leaf's largest, ``flip_top``), and the largest
+    parameter difference after it over the step's lr (``p_lr``: AdamW's
+    m / sqrt(v) gives such an element about lr of the other sign).  Step
+    2: each leaf's gradient elements beyond mesh_train_check's band, 1e-4
+    of the leaf's largest magnitude (``over``), and the leaf whose error
+    over its largest is worst (``worst``).  It says why a restarted check
+    (``mesh_train_check(restart=True)``) restarts."""
+    from repro_torch.sharding import spmd
+    from repro_torch.train import step
+    ctx = spmd.Ctx.of(mesh)
+    sh, _ = step.state_shardings(cfg, mesh)
+    specs = {n: s.spec for n, s in sh["params"].items()}
+    state = step.train_state(step.shard_params(seeded_params(cfg, dev),
+                                               sh["params"]))
+    ts = step.make_train_step(cfg, mesh, opt_cfg=opt)
+    b1 = opt.b1
+    prev_m = {n: torch.zeros_like(t) for n, t in state["opt"]["m"].items()}
+    out = {"flips": 0, "flip_top": 0.0, "p_lr": 0.0, "over": {},
+           "worst": ("", 0.0)}
+    for i in range(2):
+        state, m = ts(state, batch)
+        exp = ref["metrics"][i]
+        sg, se = (min(1.0, opt.grad_clip / (g + 1e-9))
+                  for g in (float(m["grad_norm"]), exp["grad_norm"]))
+        for n, p in state["params"].named_parameters():
+            em = ref["steps"][i]["m"][n].to(dev)
+            pm = torch.zeros_like(em) if i == 0 else \
+                ref["steps"][i - 1]["m"][n].to(dev)
+            ge = (em - b1 * pm) / ((1 - b1) * se)
+            top = max(float(ge.abs().max()), 1e-30)
+            ge = spmd.block(ge, specs[n], ctx)
+            gm = state["opt"]["m"][n]
+            gg = (gm - b1 * prev_m[n]) / ((1 - b1) * sg)
+            prev_m[n] = gm.clone()
+            if i == 0:
+                flip = torch.sign(gg) != torch.sign(ge)
+                out["flips"] += int(flip.sum())
+                if flip.any():
+                    out["flip_top"] = max(out["flip_top"],
+                                          float(ge[flip].abs().max()) / top)
+                ep = spmd.block(ref["steps"][0]["p"][n].to(dev), specs[n], ctx)
+                out["p_lr"] = max(out["p_lr"], float(
+                    (p.detach() - ep).abs().max()) / exp["lr"])
+                continue
+            d = (gg - ge).abs()
+            k = int((d > 1e-4 * top + 1e-12).sum())
+            if k:
+                out["over"][n] = k
+            if float(d.max()) / top > out["worst"][1]:
+                out["worst"] = (n, float(d.max()) / top)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def shape_launches() -> dict:
+    """The attention's launches since the last reset by shape, forward
+    and backward, and the scan's: {"fwd": {shape: n}, "bwd": {shape: n},
+    "ssm_scan": n}."""
+    from repro_torch.kernels import flash_attention, ops
+    return {"fwd": dict(flash_attention.SHAPE_LAUNCHES),
+            "bwd": dict(flash_attention.BWD_SHAPE_LAUNCHES),
+            "ssm_scan": ops.launch_counts()["ssm_scan"]}
+
+
 def moe_prefill_check(tag, cfg, mesh, batch, ref, dev) -> dict:
     """make_prefill(cfg, mesh) of moonshot's blocks against the one-rank
     prefill: routes and the drops they give exact, logits within 1e-4 of
@@ -4896,8 +5028,7 @@ def moe_split_check(tag, cfg, mesh, batch, ref, dev) -> dict:
     sh, _ = step.state_shardings(cfg, mesh)
     blocks = step.shard_params(seeded_params(cfg, dev), sh["params"])
     torch.cuda.empty_cache()
-    full = step.gather_params(blocks, step.param_plan(cfg, mesh, blocks),
-                              ctx)
+    full = step.gather_params(blocks, step.tp_plan(cfg, mesh, blocks), ctx)
     del blocks
     with torch.no_grad(), recorded_routes(moe) as routes:
         logits, _, aux = transformer.forward(
@@ -4966,14 +5097,16 @@ def timed_collectives():
             setattr(dist, name, fn)
 
 
-def mesh_main_rank(cfg, mesh, dev) -> dict:
-    """[mesh-main] on this rank: hymba cut to MESH_MAIN_LAYERS layers in
-    bf16 (remat "dots") sharded over ``mesh``, MESH_MAIN_STEPS steps of
-    [train-main]'s batch through make_train_step(cfg, mesh), timed
-    without instrumentation, then one more step under
-    ``timed_collectives`` for the collectives' bytes and seconds."""
+def mesh_main_rank(cfg, mesh, dev, steps=MESH_MAIN_STEPS) -> dict:
+    """[mesh-main] (and [tp-main]) on this rank: ``cfg`` in bf16 (remat
+    "dots") sharded over ``mesh``, ``steps`` steps of [train-main]'s batch
+    through make_train_step(cfg, mesh), timed without instrumentation,
+    then one more step under ``timed_collectives`` for the collectives'
+    bytes and seconds; the peak of allocated memory over the steps, and
+    what was allocated before the state was made (``base``)."""
     from repro_torch.kernels import ops
     from repro_torch.train import optim, step
+    base = torch.cuda.memory_allocated(dev)
     sh, _ = step.state_shardings(cfg, mesh)
     state = step.train_state(step.shard_params(seeded_params(cfg, dev),
                                                sh["params"]))
@@ -4982,9 +5115,9 @@ def mesh_main_rank(cfg, mesh, dev) -> dict:
     ts = step.make_train_step(cfg, mesh, opt_cfg=optim.AdamWConfig(
         warmup_steps=0))
     torch.cuda.reset_peak_memory_stats()
-    out = {"walls": [], "losses": [], "launches": []}
-    for i in range(MESH_MAIN_STEPS + 1):
-        timed = i == MESH_MAIN_STEPS
+    out = {"walls": [], "losses": [], "launches": [], "base": base}
+    for i in range(steps + 1):
+        timed = i == steps
         ops.reset_launch_counts()
         with (timed_collectives() if timed
               else contextlib.nullcontext()) as acc:
@@ -5001,6 +5134,7 @@ def mesh_main_rank(cfg, mesh, dev) -> dict:
             out["walls"].append(wall)
             out["losses"].append(loss)
         out["launches"].append(ops.launch_counts(ops.FORWARD + ops.BACKWARD))
+        out["shapes"] = shape_launches()
     out["peak"] = torch.cuda.max_memory_allocated()
     del state
     torch.cuda.empty_cache()
@@ -5022,6 +5156,7 @@ def mesh_rank(rank, world, dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     hy, mo, mn = mesh_cfgs()
+    ll, tp = tp_cfgs()
     opt = optim.AdamWConfig(warmup_steps=0)
     out, secs, t0 = {}, {}, time.perf_counter()
 
@@ -5038,6 +5173,19 @@ def mesh_rank(rank, world, dev):
                 mesh_of(shape, device=dev.type), batch, opt, 2, ref, dev)
         del ref
         lap(f"hymba {key}")
+    # tensor parallelism over "model": llama's heads, ff and vocab split;
+    # its second step restarts from one rank's state, and the chained
+    # steps' drift is read beside it (chain_drift)
+    batch = mesh_batch(ll, MESH_BATCH, MESH_SEQ, dev)
+    ref = mesh_reference(ll, batch, opt, 2, dev)
+    out["llama (1, 2)"] = mesh_train_check(
+        f"mesh-parity llama (1, 2) rank {rank}", ll,
+        mesh_of((1, 2), device=dev.type), batch, opt, 2, ref, dev,
+        restart=True)
+    out["llama chained"] = chain_drift(ll, mesh_of((1, 2), device=dev.type),
+                                       batch, opt, ref, dev)
+    del ref
+    lap("llama (1, 2)")
     batch = mesh_batch(mo, MOE_PAR_BATCH, MOE_PAR_PROMPT, dev)
     for r in range(world):
         if r == rank:
@@ -5065,6 +5213,9 @@ def mesh_rank(rank, world, dev):
     lap("moonshot split batch")
     out["main"] = mesh_main_rank(mn, mesh_of((2, 1), device=dev.type), dev)
     lap("mesh-main")
+    out["tp"] = mesh_main_rank(tp, mesh_of((1, 2), device=dev.type), dev,
+                               TP_STEPS)
+    lap("tp-main (1, 2)")
     out["secs"] = secs
     return out
 
@@ -5103,11 +5254,24 @@ def mesh_phases(dev) -> dict:
     t1 = time.perf_counter()
     ranks = shard_sim.spawn(mesh_rank, 2, (dev,), backend="gloo")
     t_spawn = time.perf_counter() - t1
+    # [tp-main] on a mesh of one over NCCL in this process, after the
+    # two ranks' (1, 2) run
+    ll, tp = tp_cfgs()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            tp_one = mesh_main_rank(tp, mesh_of((1, 1), device=dev.type),
+                                    dev, TP_STEPS)
+        finally:
+            dist.destroy_process_group()
+    t_tp_one = time.perf_counter() - t1
 
     want = {"flash_attention": 2 * L, "ssm_scan": 2 * L,
             "flash_attention_backward": L, "ssm_scan_backward": L}
 
-    def report(tag, r):
+    def report(tag, r, want=want):
         bad = [c for c in r["launches"]
                if any(c[k] != n for k, n in want.items())]
         if bad:
@@ -5133,6 +5297,22 @@ def mesh_phases(dev) -> dict:
             report(f"[mesh-parity] hymba {key[:6]} rank {rk} (gloo), {what}",
                    r)
             launches[f"{key} rank {rk}"] = r["launches"]
+        Lt = TP_PAR_LAYERS
+        report(f"[mesh-parity] llama3.2-1b {Lt} layers f32 (1, 2) rank {rk} "
+               f"(gloo), {MESH_BATCH} x {MESH_SEQ} tokens: heads, ff and "
+               f"vocab split over 'model'", out["llama (1, 2)"],
+               {"flash_attention": 2 * Lt, "ssm_scan": 0,
+                "flash_attention_backward": Lt, "ssm_scan_backward": 0})
+        launches[f"llama (1, 2) rank {rk}"] = out["llama (1, 2)"]["launches"]
+        c = out["llama chained"]
+        log(f"[mesh-parity] llama3.2-1b (1, 2) rank {rk}, its second step "
+            f"above restarts from one rank's state; the same two steps "
+            f"chained (a reading): step 1 {c['flips']} gradient elements of "
+            f"the other sign (one-rank magnitudes up to {c['flip_top']:.3g} "
+            f"of their leaf's largest), parameters then up to "
+            f"{c['p_lr']:.3g} lr apart; step 2 gradient elements beyond "
+            f"1e-4 of their leaf's largest {c['over'] or 'none'}, the worst "
+            f"leaf {c['worst'][0]} at {c['worst'][1]:.3g}")
         p, t, s = out["moe prefill"], out["moe train"], out["moe split"]
         log(f"[mesh-parity] moonshot {MOE_PAR_LAYERS} layers f32, "
             f"{MOE_PAR_BATCH} x {MOE_PAR_PROMPT} tokens, rank {rk}: (1, 2) "
@@ -5187,11 +5367,199 @@ def mesh_phases(dev) -> dict:
         f"{[round(x, 4) for x in mm['losses']]} (one rank "
         f"{[round(x['loss'], 4) for x in main_ref]}, within 5e-2); launches "
         f"a step {mm['launches'][-1]}")
+    peaks = [round(o["main"]["peak"] / 2**30, 2) for o in ranks]
+    if any(o["main"]["peak"] / 2**30 >= MESH_MAIN_WHOLE_GIB for o in ranks):
+        fail(f"mesh-main: peak a rank {peaks} GiB, not below the "
+             f"{MESH_MAIN_WHOLE_GIB} GiB of the whole model gathered")
+    log(f"[mesh-main] peak a rank {peaks} "
+        f"GiB with the blocks gathered a period at a time: below the "
+        f"{MESH_MAIN_WHOLE_GIB} GiB with the whole model gathered")
+    tp_out = tp_main_report(ranks, tp_one, tp)
+    log(f"[tp-main] (1, 1) over NCCL in this process: {t_tp_one:.1f} s")
     log(f"[mesh] the two-rank spawn took {t_spawn:.1f} s wall, start-up "
         f"included (rank 0's parts, s: {ranks[0]['secs']}); the phase "
         f"{time.perf_counter() - t0:.1f} s")
+    hy13 = FLASH_TP["hymba 13 heads"][:8]
+    sh = ranks[0]["hymba (1, 2) a"]["shapes"]
     return {"launch-train": lt["launches"], "mesh-parity": launches,
-            "mesh-main": mm["launches"][-1]}
+            "mesh-main": mm["launches"][-1],
+            "tp": {"llama tp rank": tp_out,
+                   "hymba 13 heads": {"fwd": sh["fwd"].get(hy13, 0),
+                                      "bwd": sh["bwd"].get(hy13, 0)},
+                   "ssm_scan": sh["ssm_scan"]}}
+
+
+def tp_kernel_entries(errs, launches, dev) -> list:
+    """The kernels at the tensor-parallel ranks' shapes (FLASH_TP, SSM_TP;
+    phase 3's inputs, made again) beside their bounds, plain versions and
+    (attention) SDPA at the same mask, forward and backward; ``launches``
+    the phase's counts by shape (``mesh_phases``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref, ssm_scan
+    sfu = exp_per_s()
+    entries = []
+
+    def sdpa(q, k, v, causal, W, S):
+        if W:
+            pos = torch.arange(S, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) \
+                & (pos[None, :] > pos[:, None] - W)
+            return lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)
+
+    def row(name, source, replaces, n, ms, plain, lib, n_bytes, ops_, inst,
+            case):
+        bound, by, op = bound_ms(n_bytes, ops_)
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n, "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "bound_op": op, "library_ms": lib, "instance": inst,
+            "shape": list(case)})
+        log(f"[time] {name} ({inst}) at {tuple(case)}: {ms * 1e3:.1f} us a "
+            f"call; bound {bound * 1e3:.3f} us by {op}; plain version "
+            f"{plain * 1e3:.1f} us; library "
+            + ("none" if lib is None else f"{lib * 1e3:.1f} us")
+            + f"; {n} launches a step in its main run")
+
+    for name, case in FLASH_TP.items():
+        B, H, KV, S, _, hd, causal, W, _, dt = case
+        f32 = dt == "float32"
+        peak = ("f32 operations", PEAK_F32_OPS_S) if f32 \
+            else ("bf16 tensor-core flops", PEAK_BF16_FLOP_S)
+        pairs = attn_pairs(S, S, causal, W) * B * H
+        n = launches[name] if name in launches else launches["llama tp rank"]
+        nf = n["fwd"] if isinstance(n, dict) else n
+        nb = n["bwd"] if isinstance(n, dict) else n
+        (q, k, v), kw = flash_args(case, dev)
+
+        def call(q=q, k=k, v=v, kw=kw):
+            return flash_attention.flash_attention(q, k, v, **kw)
+
+        ms = time_ms(call, reps=20, warmup=3)
+        inst = flash_attention.LAST_INSTANCE
+        plain = time_ms(lambda: ref.mha_reference(q, k, v, **kw), reps=2,
+                        warmup=1)
+        lib = time_ms(sdpa(q, k, v, causal, W, S), reps=20, warmup=3)
+        out = call()
+        row(f"flash_attention ({name})",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:83", nf, ms, plain, lib,
+            nbytes(q, k, v, out), {peak[0]: (4 * hd * pairs, peak[1]),
+                                   "exponentials": (pairs, sfu)}, inst,
+            case[:8])
+        del q, k, v, out
+        (q, k, v, out, dout), kw = bwd_inputs(case, dev)
+
+        def bcall(q=q, k=k, v=v, out=out, dout=dout, kw=kw):
+            return flash_attention.flash_attention_backward(q, k, v, out,
+                                                            dout, **kw)
+
+        ms = time_ms(bcall, reps=10, warmup=2)
+        inst = flash_attention.LAST_BWD_INSTANCE
+        plain = time_ms(lambda: ref.mha_backward_reference(
+            q, k, v, out, None, dout, **kw), reps=2, warmup=1)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        lib_out = sdpa(ql, kl, vl, causal, W, S)()
+        lib = time_ms(lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), dout, retain_graph=True), reps=5,
+            warmup=1)
+        del lib_out, ql, kl, vl
+        dq, dk, dv = bcall()
+        row(f"flash_attention_backward ({name})",
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/models/layers.py:105", nb, ms, plain, lib,
+            nbytes(q, k, v, out, dout, dq, dk, dv),
+            {peak[0]: (10 * hd * pairs, peak[1]),
+             "exponentials": (pairs, sfu)}, inst, case[:8])
+        del q, k, v, out, dout, dq, dk, dv
+        torch.cuda.empty_cache()
+    from torch_kernel_inputs import ssm_inputs, torch_args
+    args = torch_args(ssm_inputs(*SSM_TP, 33), dev)
+    ms = time_ms(lambda: ssm_scan.ssm_scan(*args), reps=20, warmup=3)
+    inst = ssm_scan.LAST_INSTANCE
+    plain = time_ms(lambda: ref.ssm_scan_reference(*args), reps=2, warmup=1)
+    y, h = ssm_scan.ssm_scan(*args)
+    Bs, Ss, Dss, N = SSM_TP
+    elems = Bs * Ss * Dss * N
+    row("ssm_scan (1,600 channels)",
+        "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "src/repro/kernels/ssm_scan.py:52", launches["ssm_scan"], ms, plain,
+        None, nbytes(*args, y, h), {"f32 operations": (7 * elems,
+                                                       PEAK_F32_OPS_S),
+                                    "exponentials": (elems, sfu)}, inst,
+        SSM_TP)
+    bargs = ssm_bwd_inputs(*SSM_TP, dev)
+    ms = time_ms(lambda: ssm_scan.ssm_scan_backward(*bargs), reps=10,
+                 warmup=2)
+    inst = ssm_scan.LAST_BWD_INSTANCE
+    plain = time_ms(lambda: ref.ssm_scan_backward_reference(*bargs), reps=2,
+                    warmup=1)
+    outs = ssm_scan.ssm_scan_backward(*bargs)
+    row("ssm_scan_backward (1,600 channels)",
+        "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+        "src/repro/models/ssm.py:76", launches["ssm_scan"] // 2, ms, plain,
+        None, nbytes(*bargs, *outs), {"f32 operations": (16 * elems,
+                                                         PEAK_F32_OPS_S),
+                                      "exponentials": (elems, sfu)}, inst,
+        SSM_TP)
+    return entries
+
+
+def tp_main_report(ranks, one, cfg) -> dict:
+    """[tp-main]'s lines: llama3.2-1b cut to TP_LAYERS layers on (1, 2)
+    (the two gloo ranks' ``out["tp"]``) and on (1, 1) (``one``): step time,
+    tokens/s, peak memory a rank, the collectives of the instrumented
+    step, the attention's launches at 16 of 32 query heads over 4 kv heads
+    a rank (forward and recompute, and the backward, a layer a step); the
+    (1, 2) losses within 5e-2 of (1, 1)'s and its peak below (1, 1)'s.
+    Returns rank 0's launches of the attention at that shape a step."""
+    tokens = TR_BATCH * TR_SEQ
+    shape = FLASH_TP["llama tp rank"][:8]
+    want = {"fwd": 2 * TP_LAYERS, "bwd": TP_LAYERS}
+    for rk, o in enumerate(ranks):
+        r = o["tp"]
+        got = {k: r["shapes"][k].get(shape, 0) for k in ("fwd", "bwd")}
+        if got != want or sum(r["shapes"]["fwd"].values()) != want["fwd"]:
+            fail(f"tp-main: rank {rk} launched the attention "
+                 f"{r['shapes']}, expected {want} at {shape}")
+        for i, (a, b) in enumerate(zip(r["losses"], one["losses"])):
+            if not (math.isfinite(a) and abs(a - b) <= 5e-2 * abs(b)):
+                fail(f"tp-main: rank {rk} step {i} loss {a}, (1, 1) {b}")
+    peaks = [o["tp"]["peak"] - o["tp"]["base"] for o in ranks]
+    one_peak = one["peak"] - one["base"]
+    if max(peaks) >= one_peak:
+        fail(f"tp-main: peak a rank {peaks} on (1, 2), not below (1, 1)'s "
+             f"{one_peak}")
+    for name, runs in (("(1, 2)", [o["tp"] for o in ranks]), ("(1, 1)",
+                                                             [one])):
+        r = runs[0]
+        med = statistics.median(r["walls"][1:])
+        comm = [x["comm"] for x in runs]
+        tw = [x["timed_wall"] for x in runs]
+        log(f"[tp-main] {cfg.name} cut to {TP_LAYERS} of 16 layers at full "
+            f"width, bf16, remat 'dots', mesh {name}"
+            + (" over gloo (both ranks on card 0)" if name == "(1, 2)"
+               else " over NCCL") + f", {TR_BATCH} x {TR_SEQ} tokens a "
+            f"step, {TP_STEPS} steps: step time {med:.3f} s (median of "
+            f"steps 2-{TP_STEPS}, rank 0; {[round(w, 3) for w in r['walls']]}"
+            f"), {tokens / med:.0f} tokens/s; peak memory a rank "
+            f"{[round((x['peak'] - x['base']) / 2**30, 2) for x in runs]} "
+            f"GiB; one more step, instrumented: {comm[0]['bytes']} bytes "
+            f"handed to {comm[0]['calls']} collectives a rank, the calls "
+            f"{[round(c['s'], 3) for c in comm]} s, the waits "
+            f"{[round(c['wait_s'], 3) for c in comm]} s of "
+            f"{[round(w, 3) for w in tw]} s; losses "
+            f"{[round(x, 4) for x in r['losses']]}; attention launches a "
+            f"step by shape {r['shapes']['fwd']}, backward "
+            f"{r['shapes']['bwd']}")
+    gib = [round(p / 2**30, 2) for p in peaks]
+    log(f"[tp-main] peak a rank on (1, 2) {gib} GiB, below (1, 1)'s "
+        f"{one_peak / 2**30:.2f} GiB; the attention at 16/4 heads a rank: "
+        f"{want['fwd']} forward and {want['bwd']} backward launches a step")
+    return want
 
 
 # --------------------------------------------------------------------------
@@ -5281,6 +5649,15 @@ def main() -> None:
     for case in SSM_BWD_CASES + SSM_EDGES[:4]:
         for with_dh in (False, True):
             sb_err = max(sb_err, check_ssm_bwd(*case, dev, with_dh=with_dh))
+    # the tensor-parallel ranks' shapes ([tp-main], [mesh-parity])
+    tp_errs = {}
+    for name, case in FLASH_TP.items():
+        tp_errs[f"flash_attention ({name})"] = check_flash(case, dev)[2]
+        tp_errs[f"flash_attention_backward ({name})"] = \
+            check_flash_bwd(case, dev)
+    tp_errs["ssm_scan (1,600 channels)"] = check_ssm(*SSM_TP, dev)[1]
+    tp_errs["ssm_scan_backward (1,600 channels)"] = check_ssm_bwd(*SSM_TP,
+                                                                  dev)
     torch.cuda.empty_cache()
     mc_err = mc_kernels(dev)
 
@@ -5597,6 +5974,7 @@ def main() -> None:
                                 mesh_counts["mesh-parity"].items()},
                 "mesh-main": mesh_counts["mesh-main"][k["name"]]}
             log(f"[mesh] {k['name']}: {k['mesh_launches']}")
+    kernels += tp_kernel_entries(tp_errs, mesh_counts["tp"], dev)
 
     log(f"[total] chip_smoke.py wall {time.perf_counter() - t_start:.1f} s, "
         f"the kernels' builds included")

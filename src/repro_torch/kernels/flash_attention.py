@@ -13,7 +13,8 @@ them by instance, ``SHAPE_LAUNCHES`` by shape and mask ((B, H, KV, Sq,
 Skv, hd, causal, window) -> launches), and ``LAST_INSTANCE`` names the
 instance of the latest.  The backward (``csrc/flash_attention_bwd.cu``)
 has the same two instances, chosen in ``plan_backward``, and counts in
-``BWD_LAUNCHES``, ``BWD_INSTANCE_LAUNCHES`` and ``LAST_BWD_INSTANCE``.
+``BWD_LAUNCHES``, ``BWD_INSTANCE_LAUNCHES``, ``BWD_SHAPE_LAUNCHES`` and
+``LAST_BWD_INSTANCE``.
 """
 from __future__ import annotations
 
@@ -157,6 +158,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
 BWD_LAUNCHES = 0
 # the backward's launches by instance, and the instance of the latest
 BWD_INSTANCE_LAUNCHES = {TENSOR_CORE: 0, CUDA_CORE: 0}
+BWD_SHAPE_LAUNCHES: dict = {}
 LAST_BWD_INSTANCE = None
 # head dims the backward's tensor-core instance takes: at 256 its dk and
 # dv would hold 128 registers each a thread, so bf16 hd 256 runs on the
@@ -229,5 +231,7 @@ def flash_attention_backward(q, k, v, out, dout, *, causal=True, window=0,
                            f"launch failed: cudaError {err}")
     BWD_LAUNCHES += 1
     BWD_INSTANCE_LAUNCHES[instance] += 1
+    shape = (B, H, KV, Sq, Skv, hd, bool(causal), int(window))
+    BWD_SHAPE_LAUNCHES[shape] = BWD_SHAPE_LAUNCHES.get(shape, 0) + 1
     LAST_BWD_INSTANCE = instance
     return dq, dk, dv

@@ -326,3 +326,4 @@ def reset_launch_counts() -> None:
     _fa.BWD_INSTANCE_LAUNCHES.update(
         dict.fromkeys(_fa.BWD_INSTANCE_LAUNCHES, 0))
     _fa.SHAPE_LAUNCHES.clear()
+    _fa.BWD_SHAPE_LAUNCHES.clear()

@@ -10,8 +10,15 @@ cross-attention in every mode go through ``kernels.ops.flash_attention``
 (the CUDA kernel on the card, its plain version on the CPU); decode
 self-attention over the ring cache, which needs key positions and a query
 offset the kernel does not take, is plain tensor code here (``attend``),
-as it is jnp outside any Pallas kernel in the reference.  Mesh sharding
-constraints of the reference have no counterpart on one card.
+as it is jnp outside any Pallas kernel in the reference.
+
+Tensor parallelism over "model" (a sharded step's ``ctx``,
+``sharding/spmd.py``): when ``wq`` holds a model rank's heads only (its
+compute form, ``train/step.py``'s plan), ``attention_block`` and
+``cross_attention`` run those heads and return the rank's partial output
+of ``wo``, which the caller sums over "model"; the keys and values of
+self-attention are computed whole, and each query head reads its own kv
+head of them (``kv_heads``).
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch.nn.functional as F
 
 from ..core.types import resolve_device
 from ..kernels import ops
+from ..sharding import spmd
 
 NEG_INF = -1e30
 
@@ -129,14 +137,47 @@ def _qk_norm(q, k, p, eps):
     return q, k
 
 
-def qkv_proj(p, x, cfg):
+def part_of(ctx, w, full: int, n: int):
+    """[lo, hi): the heads or channels of ``n`` that this model rank
+    computes when the compute form ``w`` holds a part of its ``full`` last
+    dim (a tensor-parallel region), else None."""
+    return ctx.part(n) if spmd.is_part(w, full, ctx) else None
+
+
+def kv_heads(lo: int, hi: int, n_heads: int, n_kv: int):
+    """The kv heads that query heads [lo, hi) read: a ``slice`` of them
+    when local head j reads kv head j // G' of it (G' = its heads a kv
+    head, the kernel's mapping), else the kv head of each query head in
+    turn (a rank that starts or ends mid-group, G' = 1)."""
+    G = n_heads // n_kv
+    kv = [h // G for h in range(lo, hi)]
+    a, n, m = kv[0], hi - lo, kv[-1] + 1 - kv[0]
+    if n % m == 0 and all(kv[j] - a == j // (n // m) for j in range(n)):
+        return slice(a, a + m)
+    return kv
+
+
+def _kv_of(t, sel):
+    """The kv heads ``sel`` (``kv_heads``) of keys or values (B, S, KV,
+    hd)."""
+    if sel is None:
+        return t
+    if isinstance(sel, slice):
+        return t[:, :, sel]
+    return t.index_select(2, torch.tensor(sel, device=t.device))
+
+
+def qkv_proj(p, x, cfg, n_heads=None):
+    """Queries of ``n_heads`` heads (all of them by default; a model
+    rank's with a tensor-parallel ``wq``), keys and values of every kv
+    head."""
     B, S, D = x.shape
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.attn_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    q = q.reshape(B, S, n_heads or cfg.n_heads, cfg.head_dim)
     k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     q, k = _qk_norm(q, k, p, cfg.norm_eps)
@@ -178,28 +219,36 @@ def attend(q, k, v, *, causal, q_offset=0, window=0, attn_softcap=0.0,
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def attention_block(p, x, cfg, *, kind, mode, cache=None, pos=0):
+def attention_block(p, x, cfg, *, kind, mode, cache=None, pos=0,
+                    ctx=None):
     """Self-attention mixer.  kind in {attn, swa, hymba, enc}; mode in
     {train, prefill, decode}.  Returns (out, new_cache).  ``enc`` (the
     encoder's blocks) is bidirectional; queries and keys are rotated only
     when ``cfg.pos == "rope"``.  ``cfg.skip_attention`` (a roofline probe)
-    drops the attention itself outside decode and returns no cache.
+    drops the attention itself outside decode and returns no cache.  With
+    a tensor-parallel ``wq`` (``part_of``) ``out`` is this model rank's
+    partial sum; the cache holds every kv head still.
 
     Caches hold *rotated* keys plus the absolute position of each slot
     (``pos_ids``; -1 = empty).  Sliding-window caches are rings of size W
     written at ``pos % W``; full caches are written at ``pos``."""
     B, S, D = x.shape
     window = cfg.sliding_window if kind in ("swa", "hymba") else 0
-    q, k, v = qkv_proj(p, x, cfg)
+    part = part_of(ctx, p["wq"], cfg.q_dim, cfg.n_heads)
+    H = cfg.n_heads if part is None else part[1] - part[0]
+    kv_sel = None if part is None else kv_heads(*part, cfg.n_heads,
+                                                cfg.n_kv_heads)
+    q, k, v = qkv_proj(p, x, cfg, H)
 
     if cfg.skip_attention and mode != "decode":
         # the roofline probe: the projections kept, the S x S scores,
         # softmax and values dropped (their share is measured by
         # difference); v repeated over each kv head's query group, no RoPE
         # and no cache, as the reference's
-        G = cfg.n_heads // cfg.n_kv_heads
-        out = v[:, :, :, None].expand(B, S, cfg.n_kv_heads, G, cfg.head_dim)
-        out = out.to(q.dtype).reshape(B, S, cfg.n_heads * cfg.head_dim)
+        v = _kv_of(v, kv_sel)
+        KV = v.shape[2]
+        out = v[:, :, :, None].expand(B, S, KV, H // KV, cfg.head_dim)
+        out = out.to(q.dtype).reshape(B, S, H * cfg.head_dim)
         return out @ p["wo"], None
 
     rope = cfg.pos == "rope"
@@ -215,16 +264,17 @@ def attention_block(p, x, cfg, *, kind, mode, cache=None, pos=0):
         cache_k = torch.where(sel, k.to(cache_k.dtype), cache_k)
         cache_v = torch.where(sel, v.to(cache_v.dtype), cache_v)
         slot_pos = torch.where(sel[..., 0, 0], pos, slot_pos)
-        out = attend(q, cache_k, cache_v, causal=True, q_offset=pos,
-                     window=window, attn_softcap=cfg.attn_softcap,
-                     kv_positions=slot_pos)
+        out = attend(q, _kv_of(cache_k, kv_sel), _kv_of(cache_v, kv_sel),
+                     causal=True, q_offset=pos, window=window,
+                     attn_softcap=cfg.attn_softcap, kv_positions=slot_pos)
         new_cache = {"k": cache_k, "v": cache_v, "pos_ids": slot_pos}
     else:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         if rope:
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
-        out = _flash(q, k, v, causal=kind != "enc", window=window,
+        out = _flash(q, _kv_of(k, kv_sel), _kv_of(v, kv_sel),
+                     causal=kind != "enc", window=window,
                      softcap=cfg.attn_softcap)
         new_cache = None
         if mode == "prefill" and cache is not None:
@@ -244,7 +294,7 @@ def attention_block(p, x, cfg, *, kind, mode, cache=None, pos=0):
                          "v": vs.to(cache["v"].dtype),
                          "pos_ids": ps.to(torch.int32)}
 
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    out = out.reshape(B, S, H * cfg.head_dim)
     return out @ p["wo"], new_cache
 
 
@@ -257,11 +307,12 @@ def _flash(q, k, v, **kw):
 
 def cross_attention(p, x, enc_k, enc_v, cfg):
     """Decoder -> encoder cross-attention (whisper).  enc_k/v are already
-    projected per layer: (B, Senc, H, hd).  q from ``wq`` (no bias, no
-    QK-norm), attention over every encoder position (no mask, no key
-    positions), then ``wo``; the flash kernel in every mode, decode's
-    single query too."""
+    projected per layer: (B, Senc, H, hd), H the heads of ``wq`` (a model
+    rank's with a tensor-parallel ``wq``, whose ``wo`` then gives its
+    partial sum).  q from ``wq`` (no bias, no QK-norm), attention over
+    every encoder position (no mask, no key positions), then ``wo``; the
+    flash kernel in every mode, decode's single query too."""
     B, S, D = x.shape
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    q = (x @ p["wq"]).reshape(B, S, -1, cfg.head_dim)
     out = _flash(q, enc_k, enc_v, causal=False)
     return out.reshape(B, S, -1) @ p["wo"]

@@ -28,8 +28,11 @@ computes the same loss from the sum, so the sum passes its gradient
 through unchanged, and the gradients of the replicated dispatch and
 gates are summed over "model" (``spmd.model_slice``/``model_copy``).
 With E % n != 0 the experts are replicated (``resolve_spec``'s rail) and
-the local path runs.  When the batch is split over the batch axes
-(``ctx.split``), ``route``'s aux is this rank's share of the global one:
+the local path runs.  The shared experts' "ff" splits over "model" like
+a dense MLP's when their compute form holds a rank's columns; their
+partial output joins the experts' before the sum.  When the batch is
+split over the batch axes (``ctx.split``), ``route``'s aux is this rank's
+share of the global one:
 the top-1 fractions are summed over the batch ranks (they carry no
 gradient), the mean probabilities and the z-loss are this rank's sums
 over the global token count, so the shares add up to the reference's
@@ -204,17 +207,41 @@ def moe_scatter(p, x, cfg, ctx=None):
     keep = pos < C
     dropped = torch.sum(~keep & (gates > 0), dtype=torch.int32)
     h, _ = _dispatch(x, topi, pos, keep, C, cfg)        # (B, E, C, D)
+    # the shared experts' "ff" splits over "model" like a dense MLP's (its
+    # compute form holds a rank's columns): its partial sum joins the
+    # experts' before their one sum over "model"
+    sp = p["shared"] if cfg.n_shared_experts else None
+    tp_shared = sp is not None and _shared_split(sp, cfg, ctx)
     if ep:
         h = _expert_ffn(p, spmd.model_slice(h, 1, ctx), cfg)
         out = _combine_local(h, topi, pos, keep, spmd.model_copy(gates, ctx),
                              ctx.model_index * E_loc, E_loc, S)
+        if tp_shared:
+            out = out + layers.mlp(sp, spmd.model_copy(x, ctx), "silu")
         out = spmd.model_sum(out, ctx)
+        if sp is not None and not tp_shared:
+            out = out + layers.mlp(sp, x, "silu")
     else:
         h = _expert_ffn(p, h, cfg)
         out = _combine_local(h, topi, pos, keep, gates, 0, E, S)
-    if cfg.n_shared_experts:
-        out = out + layers.mlp(p["shared"], x, "silu")
+        if sp is not None:
+            out = out + _shared(sp, x, cfg, ctx)
     return out.to(x.dtype), aux, dropped
+
+
+def _shared_split(sp, cfg, ctx) -> bool:
+    """Whether the shared experts' compute form holds a rank's columns of
+    "ff" (``spmd.is_part``)."""
+    return spmd.is_part(sp["wu"], cfg.n_shared_experts * cfg.d_expert, ctx)
+
+
+def _shared(sp, x, cfg, ctx):
+    """The shared experts' output, summed over "model" when their compute
+    form holds a rank's columns of "ff"."""
+    if _shared_split(sp, cfg, ctx):
+        return spmd.model_sum(layers.mlp(sp, spmd.model_copy(x, ctx),
+                                         "silu"), ctx)
+    return layers.mlp(sp, x, "silu")
 
 
 # --------------------------------------------------------------------------
@@ -239,7 +266,7 @@ def moe_einsum(p, x, cfg, ctx=None):
     h = _expert_ffn(p, h, cfg)
     out = torch.einsum("bsec,becd->bsd", comb.to(x.dtype), h)
     if cfg.n_shared_experts:
-        out = out + layers.mlp(p["shared"], x, "silu")
+        out = out + _shared(p["shared"], x, cfg, ctx)
     dropped = torch.sum(~keep & (gates > 0), dtype=torch.int32)
     return out.to(x.dtype), aux, dropped
 

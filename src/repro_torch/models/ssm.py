@@ -16,6 +16,17 @@ Decode forms are single O(1)-state steps.  Every recurrent state is
 float32 whatever the compute dtype is, and no step reads the host.  The
 train forms write no tensor in place, so autograd differentiates them (the
 scan's gradient is the ``ssm_scan_backward`` kernel's).
+
+Tensor parallelism over "model" (a sharded step's ``ctx``): when the
+compute form of a mamba mixer holds a model rank's channels (its
+``conv_b``) or of an mLSTM a rank's heads (its ``wq``), the mixer runs
+those and returns the rank's partial product of ``out_proj``, which the
+caller sums over "model".  The mamba's B and C are products over the
+channels, so the ranks' partial ones are summed (``spmd.model_reduce``);
+the mLSTM's gates ``wi``/``wf`` are computed whole and sliced.  The
+recurrent states a prefill or decode returns are gathered whole over
+"model" (``spmd.model_gather``): the caches stay replicated over it.  The
+sLSTM has no "model" dim and runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -26,7 +37,8 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from ..kernels.ref import div_const
-from .layers import NEG_INF
+from ..sharding import spmd
+from .layers import NEG_INF, part_of
 
 
 def ssm_init_state(cfg, B, dtype, device):
@@ -70,17 +82,37 @@ def _ssm_coeffs(p, xc, cfg):
     return dt, Bm, Cm, A
 
 
-def mamba_mixer(p, x, cfg, mode="train", state=None):
-    """x (B, S, D) -> (out, new_state)."""
+def _ssm_coeffs_tp(p, xc, cfg, ctx):
+    """``_ssm_coeffs`` on a model rank's channels: B and C are products
+    over all of them, so the ranks' partial ones (one product, float32)
+    are summed over "model"."""
+    dt = _softplus(xc * p["dt_w"] + p["dt_b"]).float()
+    bc = (xc @ torch.cat([p["w_B"], p["w_C"]], dim=-1)).float()
+    Bm, Cm = (t.contiguous() for t in
+              spmd.model_reduce(bc, ctx).chunk(2, dim=-1))
+    A = -torch.exp(p["A_log"].float())
+    return dt, Bm, Cm, A
+
+
+def mamba_mixer(p, x, cfg, mode="train", state=None, ctx=None):
+    """x (B, S, D) -> (out, new_state); with a tensor-parallel compute
+    form (``conv_b`` a model rank's channels) ``out`` is the rank's
+    partial sum (see the module's note)."""
+    part = part_of(ctx, p["conv_b"], cfg.d_ssm, cfg.d_ssm)
     x_in, z = _ssm_proj(p, x, cfg)
-    prev = state["conv"] if mode == "decode" else None
+    if mode == "decode":
+        prev, h = state["conv"], state["h"]
+        if part is not None:
+            prev, h = prev[..., part[0]:part[1]], h[:, part[0]:part[1]]
+    else:
+        prev = None
     xc, conv_tail = _causal_conv(x_in, p["conv_w"], prev)
     xc = F.silu(xc + p["conv_b"])
-    dt, Bm, Cm, A = _ssm_coeffs(p, xc, cfg)
+    dt, Bm, Cm, A = _ssm_coeffs(p, xc, cfg) if part is None \
+        else _ssm_coeffs_tp(p, xc, cfg, ctx)
     xf = xc.float()
 
     if mode == "decode":                                # S == 1 single step
-        h = state["h"]
         da = torch.exp(dt[:, 0, :, None] * A[None])     # (B, Dss, N)
         h = da * h + (dt[:, 0] * xf[:, 0])[..., None] * Bm[:, 0][:, None, :]
         y = torch.einsum("bdn,bn->bd", h, Cm[:, 0])[:, None, :]
@@ -88,6 +120,9 @@ def mamba_mixer(p, x, cfg, mode="train", state=None):
     else:
         y, h = ops.ssm_scan(dt, Bm, Cm, xf, A)
         new_state = {"conv": conv_tail, "h": h} if mode == "prefill" else None
+    if new_state is not None and part is not None:
+        new_state = {"conv": spmd.model_gather(conv_tail, 2, ctx, cfg.d_ssm),
+                     "h": spmd.model_gather(h, 1, ctx, cfg.d_ssm)}
 
     y = y + xf * p["d_skip"].float()
     y = (y * F.silu(z.float())).to(x.dtype)
@@ -106,29 +141,49 @@ def mlstm_init_state(cfg, B, dtype, device):
             "m": torch.zeros((B, H), **f32)}
 
 
-def _mlstm_qkvg(p, x, cfg):
+def _mlstm_qkvg(p, x, cfg, part=None):
     """The projections; the gates' weights are float32, so x is cast up
-    for them (exact), as the reference's promotion does."""
+    for them (exact), as the reference's promotion does.  ``part`` [lo,
+    hi): a model rank's heads, whose gates are sliced from whole ones."""
     B, S, D = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
+    if part is not None:
+        H = part[1] - part[0]
     q = (x @ p["wq"]).reshape(B, S, H, hd)
     k = div_const((x @ p["wk"]).reshape(B, S, H, hd), math.sqrt(hd))
     v = (x @ p["wv"]).reshape(B, S, H, hd)
     xf = x.float()
     i_t = xf @ p["wi"].float()                           # (B, S, H)
     f_t = xf @ p["wf"].float()
+    if part is not None:
+        i_t, f_t = i_t[..., part[0]:part[1]], f_t[..., part[0]:part[1]]
     o_t = torch.sigmoid(x @ p["wo_gate"]).reshape(B, S, H, hd)
     return q, k, v, i_t, f_t, o_t
 
 
-def mlstm_mixer(p, x, cfg, mode="train", state=None, chunk=None):
+def mlstm_mixer(p, x, cfg, mode="train", state=None, chunk=None, ctx=None):
     """x (B, S, D) -> (out, new_state); new_state the final (C, n, m) in
-    prefill and decode, None in train."""
+    prefill and decode, None in train.  With a tensor-parallel compute
+    form (``wq`` a model rank's heads) ``out`` is the rank's partial sum
+    (see the module's note)."""
+    part = part_of(ctx, p["wq"], cfg.q_dim, cfg.n_heads)
+    out, new_state = _mlstm(p, x, cfg, mode, state, chunk, part)
+    if new_state is not None and part is not None:
+        new_state = {k: spmd.model_gather(t, 1, ctx, cfg.n_heads)
+                     for k, t in new_state.items()}
+    return out, new_state
+
+
+def _mlstm(p, x, cfg, mode, state, chunk, part):
     B, S, D = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
+    if part is not None:
+        H = part[1] - part[0]
+        if state is not None:
+            state = {k: state[k][:, part[0]:part[1]] for k in ("C", "n", "m")}
     if chunk is None:
         chunk = cfg.attn_chunk or S
-    q, k, v, i_t, f_t, o_t = _mlstm_qkvg(p, x, cfg)
+    q, k, v, i_t, f_t, o_t = _mlstm_qkvg(p, x, cfg, part)
     logf = _log_sigmoid(f_t)                             # (B, S, H)
 
     if mode == "decode":

@@ -27,8 +27,11 @@ weight products) through a selective-checkpoint policy, as
 everything; the numbers do not depend on it.  ``microbatches`` is read by
 the train step (``train/step.py``).  Mesh sharding lives in the steps
 (``train/step.py``, ``sharding/spmd.py``): the forward runs on a rank's
-rows with its parameters gathered, and only the MoE layers and the losses
-read the mesh (``ctx``).  ``scan_layers``,
+rows; with a sharded step's context (``ctx``) it gathers a period's
+parameters at a time (``ctx.gather``, the next period's in flight) and
+computes each tensor-parallel region on the rank's heads, ff columns,
+SSM channels or vocab rows (``tp_layout``, ``_apply_block``), the MoE
+layers expert-parallel, the losses' means global.  ``scan_layers``,
 ``fsdp_embed`` and ``use_flash`` have no counterpart on one card, and
 ``attn_bf16_scores`` tunes the reference's jnp attention, which the flash
 kernel replaces: they are carried in the config and not read.
@@ -45,6 +48,7 @@ from torch import nn
 from torch.utils import checkpoint as _ckpt
 
 from ..core.types import resolve_device
+from ..sharding import spmd
 from . import layers, moe, ssm
 from .config import ModelConfig
 
@@ -410,6 +414,13 @@ def params_from_named(named: dict) -> Params:
     """A ``Params`` holding the given tensors (not copied), from {dotted
     name: tensor} as ``named_parameters()`` names them; a numeric path
     component is a list index."""
+    return Params(nested(named))
+
+
+def nested(named: dict) -> dict:
+    """{dotted name: tensor} as nested dicts and lists, read like a
+    ``Params`` (``p["mixer"]["wq"]``, ``"ffn" in p``) but making no new
+    leaves: a sharded step's compute forms keep their autograd history."""
     root: dict = {}
     for name, t in named.items():
         node, parts = root, name.split(".")
@@ -423,7 +434,103 @@ def params_from_named(named: dict) -> Params:
         if node and all(k.isdigit() for k in node):
             return [build(node[str(i)]) for i in range(len(node))]
         return {k: build(v) for k, v in node.items()}
-    return Params(build(root))
+    return build(root)
+
+
+def _on_model(spec: tuple, d: int) -> bool:
+    """Whether "model" splits dim ``d`` under a resolved spec."""
+    e = spec[d] if d < len(spec) else None
+    return e is not None and "model" in ((e,) if isinstance(e, str) else e)
+
+
+def tp_layout(cfg: ModelConfig, specs: dict, n: int, r: int) -> dict:
+    """{name: (dims kept as blocks, take, partial)}: how model rank ``r``
+    of ``n`` computes on each parameter (``specs`` {name: resolved spec};
+    the fields of ``sharding.spmd.LeafPlan`` but the spec), the
+    reference's tensor parallelism over "model":
+
+      * attention and whisper's cross-attention: ``wq`` (and the cross
+        ``wk``/``wv``) column-parallel over the heads, ``wo`` row-parallel,
+        where "model" splits ``wq`` and every rank gets a head; the
+        self-attention's ``wk``, ``wv``, ``bk``, ``bv`` and QK-norm scales
+        stay whole on every rank, their gradients shares (``partial``);
+      * the dense MLP and the shared experts: ``wg``, ``wu`` over "ff",
+        ``wd`` row-parallel;
+      * the mamba mixer over its channels where "model" splits them
+        (``conv_b``): ``in_proj`` [x | z] taken as the rank's x and z
+        columns, the rest of its "ssm" dims kept;
+      * the mLSTM over its heads as the attention (``wi``, ``wf`` whole,
+        ``partial``);
+      * ``embed`` over the vocab's rows and ``lm_head`` over its columns
+        (vocab-parallel).
+
+    A block that cuts a head (``H % n != 0``: hymba's 25 heads over 2,
+    qwen1.5's 20 over 16) is gathered over "model" and the rank's heads
+    taken, 13 and 12 of 25 (``spmd.split_range``).  A leaf the rules
+    replicate over "model", or a group with fewer heads than ranks, runs
+    whole on every rank, as in the reference; so does the sLSTM, which has
+    no "model" dim.  The routed experts keep their own split (the step's
+    expert dims)."""
+    out = {name: ((), None, False) for name in specs}
+    if n == 1:
+        return out
+    groups: dict = {}
+    for name in specs:
+        prefix, _, leaf = name.rpartition(".")
+        groups.setdefault(prefix, set()).add(leaf)
+
+    def key(prefix, leaf):
+        return f"{prefix}.{leaf}" if prefix else leaf
+
+    def heads(prefix, leaves, cols, partial, count, unit):
+        if not _on_model(specs[key(prefix, "wq")], 1) or count < n:
+            return
+        lo, hi = spmd.split_range(count, n, r)
+        for leaf, dim in cols.items():
+            if leaf not in leaves:
+                continue
+            if count % n == 0:
+                out[key(prefix, leaf)] = ((dim,), None, False)
+            else:
+                out[key(prefix, leaf)] = (
+                    (), (dim, [(lo * unit, hi * unit)], count * unit), False)
+        for leaf in partial & leaves:
+            out[key(prefix, leaf)] = ((), None, True)
+
+    H, hd = cfg.n_heads, cfg.head_dim
+    for prefix, leaves in groups.items():
+        if "router" in leaves or "R" in leaves:         # routed experts,
+            continue                                    # the sLSTM
+        if "in_proj" in leaves:                         # mamba
+            Dss = cfg.d_ssm
+            if not _on_model(specs[key(prefix, "conv_b")], 0):
+                continue
+            lo, hi = spmd.split_range(Dss, n, r)
+            for leaf, dim in (("conv_w", 1), ("conv_b", 0), ("dt_w", 0),
+                              ("dt_b", 0), ("w_B", 0), ("w_C", 0),
+                              ("A_log", 0), ("d_skip", 0), ("out_proj", 0)):
+                out[key(prefix, leaf)] = ((dim,), None, False)
+            out[key(prefix, "in_proj")] = (
+                (), (1, [(lo, hi), (Dss + lo, Dss + hi)], 2 * Dss), False)
+        elif "wi" in leaves:                            # mLSTM
+            heads(prefix, leaves, {"wq": 1, "wk": 1, "wv": 1, "wo_gate": 1,
+                                   "out_proj": 0}, {"wi", "wf"}, H, hd)
+        elif "wq" in leaves:                            # attention
+            cols = {"wq": 1, "bq": 0, "wo": 0}
+            partial = {"wk", "wv", "bk", "bv", "q_norm", "k_norm"}
+            if prefix.endswith("cross"):
+                cols |= {"wk": 1, "wv": 1}
+                partial = set()
+            heads(prefix, leaves, cols, partial, H, hd)
+        elif "wu" in leaves:                            # dense MLP
+            if _on_model(specs[key(prefix, "wu")], 1):
+                for leaf, dim in (("wg", 1), ("wu", 1), ("wd", 0)):
+                    if leaf in leaves:
+                        out[key(prefix, leaf)] = ((dim,), None, False)
+    for name, dim in (("embed", 0), ("lm_head", 1)):
+        if name in specs and _on_model(specs[name], dim):
+            out[name] = ((dim,), None, False)
+    return out
 
 
 # ==========================================================================
@@ -483,69 +590,151 @@ def _apply_block(cfg, kind, p, x, *, mode, cache, pos, enc_out=None,
     """One layer: (x, new_cache, aux), aux the MoE loss (None without
     one, so a dense layer launches nothing for it).  A decoder block of an
     encoder-decoder attends to ``enc_out`` after its mixer (prefill and
-    train), or to the cache's ``cross_k``/``cross_v`` (decode)."""
+    train), or to the cache's ``cross_k``/``cross_v`` (decode).
+
+    A part whose compute form is a model rank's (``spmd.is_part``) is a
+    tensor-parallel region: its input enters through ``spmd.model_copy``
+    and its partial output leaves through ``spmd.model_sum`` (hymba's
+    attention and SSM heads share one of each), so ``x`` stays whole on
+    every model rank between the parts, the reference's layout."""
     aux = None
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     new_cache = {}
+    pm = p["mixer"]
     if kind in ("attn", "swa", "enc"):
+        tp = spmd.is_part(pm["wq"], cfg.q_dim, ctx)
         mix, kv_cache = layers.attention_block(
-            p["mixer"], h, cfg, kind=kind, mode=mode, cache=cache, pos=pos)
+            pm, spmd.model_copy(h, ctx) if tp else h, cfg, kind=kind,
+            mode=mode, cache=cache, pos=pos, ctx=ctx)
+        if tp:
+            mix = spmd.model_sum(mix, ctx)
         if kv_cache:
             new_cache.update(kv_cache)
     elif kind == "hymba":
+        ta = spmd.is_part(pm["attn"]["wq"], cfg.q_dim, ctx)
+        ts = spmd.is_part(pm["ssm"]["conv_b"], cfg.d_ssm, ctx)
+        hc = spmd.model_copy(h, ctx) if ta or ts else h
         a_cache = {k: cache[k] for k in ("k", "v", "pos_ids")} \
             if cache else None
         mix_a, kv_cache = layers.attention_block(
-            p["mixer"]["attn"], h, cfg, kind="hymba", mode=mode,
-            cache=a_cache, pos=pos)
+            pm["attn"], hc if ta else h, cfg, kind="hymba", mode=mode,
+            cache=a_cache, pos=pos, ctx=ctx)
         mix_s, s_state = ssm.mamba_mixer(
-            p["mixer"]["ssm"], h, cfg, mode=mode,
-            state=cache.get("ssm") if cache else None)
-        mix = 0.5 * (mix_a + mix_s)
+            pm["ssm"], hc if ts else h, cfg, mode=mode,
+            state=cache.get("ssm") if cache else None, ctx=ctx)
+        if ta and ts:
+            mix = spmd.model_sum(0.5 * (mix_a + mix_s), ctx)
+        else:
+            if ta:
+                mix_a = spmd.model_sum(mix_a, ctx)
+            if ts:
+                mix_s = spmd.model_sum(mix_s, ctx)
+            mix = 0.5 * (mix_a + mix_s)
         if kv_cache:
             new_cache.update(kv_cache)
         if s_state:
             new_cache["ssm"] = s_state
     elif kind == "mamba":
+        tp = spmd.is_part(pm["conv_b"], cfg.d_ssm, ctx)
         mix, s_state = ssm.mamba_mixer(
-            p["mixer"], h, cfg, mode=mode,
-            state=cache.get("ssm") if cache else None)
+            pm, spmd.model_copy(h, ctx) if tp else h, cfg, mode=mode,
+            state=cache.get("ssm") if cache else None, ctx=ctx)
+        if tp:
+            mix = spmd.model_sum(mix, ctx)
         if s_state:
             new_cache["ssm"] = s_state
-    elif kind in ("mlstm", "slstm"):
-        mixer = ssm.mlstm_mixer if kind == "mlstm" else ssm.slstm_mixer
-        mix, st = mixer(p["mixer"], h, cfg, mode=mode, state=cache)
+    elif kind == "mlstm":
+        tp = spmd.is_part(pm["wq"], cfg.q_dim, ctx)
+        mix, st = ssm.mlstm_mixer(pm, spmd.model_copy(h, ctx) if tp else h,
+                                  cfg, mode=mode, state=cache, ctx=ctx)
+        if tp:
+            mix = spmd.model_sum(mix, ctx)
+        if st:
+            new_cache.update(st)
+    elif kind == "slstm":
+        mix, st = ssm.slstm_mixer(pm, h, cfg, mode=mode, state=cache)
         if st:
             new_cache.update(st)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
     x = x + mix
     if cfg.cross_attn and kind != "enc":
+        pc = p["cross"]
+        tc = spmd.is_part(pc["wq"], cfg.q_dim, ctx)
         hx = layers.rms_norm(x, p["ln_x"], cfg.norm_eps)
         if mode == "decode":
             ek, ev = cache["cross_k"], cache["cross_v"]
-        else:
-            B, Se, _ = enc_out.shape
-            shape = (B, Se, cfg.n_heads, cfg.head_dim)
-            ek = (enc_out @ p["cross"]["wk"]).reshape(shape)
-            ev = (enc_out @ p["cross"]["wv"]).reshape(shape)
-        x = x + layers.cross_attention(p["cross"], hx, ek, ev, cfg)
-        if mode != "train":
             new_cache["cross_k"], new_cache["cross_v"] = ek, ev
+            if tc:
+                lo, hi = ctx.part(cfg.n_heads)
+                ek, ev = ek[:, :, lo:hi], ev[:, :, lo:hi]
+        else:
+            eo = spmd.model_copy(enc_out, ctx) if tc else enc_out
+            B, Se, _ = enc_out.shape
+            shape = (B, Se, -1, cfg.head_dim)
+            ek = (eo @ pc["wk"]).reshape(shape)
+            ev = (eo @ pc["wv"]).reshape(shape)
+            if mode != "train":
+                new_cache["cross_k"], new_cache["cross_v"] = (
+                    spmd.model_gather(t, 2, ctx, cfg.n_heads) if tc else t
+                    for t in (ek, ev))
+        c = layers.cross_attention(pc, spmd.model_copy(hx, ctx) if tc
+                                   else hx, ek, ev, cfg)
+        x = x + (spmd.model_sum(c, ctx) if tc else c)
     if "ffn" in p:
         h2 = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
         if cfg.is_moe and kind != "enc":
             f, aux, _ = moe.moe_block(p["ffn"], h2, cfg, ctx)
         else:
-            f = layers.mlp(p["ffn"], h2, cfg.act)
+            tf = spmd.is_part(p["ffn"]["wu"], cfg.d_ff, ctx)
+            f = layers.mlp(p["ffn"], spmd.model_copy(h2, ctx) if tf else h2,
+                           cfg.act)
+            if tf:
+                f = spmd.model_sum(f, ctx)
         x = x + f
     return x, new_cache, aux
 
 
-def head(cfg, params, x):
-    """Final logits of hidden states x (B, S, D)."""
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def _leaf(params, name: str, ctx):
+    """The compute form of a parameter outside the periods (``embed``,
+    ``lm_head``, ``final_norm``, ``dec_pos``, the encoder's
+    ``final_norm``), gathered at its use in a sharded step whose context
+    gathers (``ctx.gather``), else the tensor itself."""
+    t = params
+    for part in name.split("."):
+        t = t[part]
+    if ctx is None or ctx.gather is None:
+        return t
+    return ctx.gather(name, [(name, t)])[0]
+
+
+def head_weight(cfg, params, ctx=None):
+    """The head's (D, V) weight (``embed`` transposed when tied, else
+    ``lm_head``): a model rank's block of the vocab's columns when the
+    head runs vocab-parallel."""
+    if cfg.tie_embeddings:
+        return _leaf(params, "embed", ctx).T
+    return _leaf(params, "lm_head", ctx)
+
+
+def head(cfg, params, x, ctx=None):
+    """Final logits of hidden states x (B, S, D); vocab-parallel (this
+    model rank's block of the vocab, ``x`` entering through
+    ``spmd.model_copy``) when the head's compute form is a block
+    (``full_logits`` gathers them)."""
+    w = head_weight(cfg, params, ctx)
+    if spmd.is_part(w, cfg.vocab, ctx):
+        x = spmd.model_copy(x, ctx)
     return layers.softcap(x @ w.to(x.dtype), cfg.final_softcap)
+
+
+def full_logits(cfg, logits, ctx=None):
+    """Every column of vocab-parallel logits, gathered over "model"
+    (the logits themselves when they are whole)."""
+    if not spmd.is_part(logits, cfg.vocab, ctx):
+        return logits
+    return spmd.all_gather(logits, logits.dim() - 1, ctx.group("model"),
+                           ctx.n_model)
 
 
 # the products the "dots" policy saves: 2-D ones, no batch dimension (a
@@ -558,9 +747,54 @@ def _dots_policy(ctx, op, *args, **kwargs):
         else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _run_period(cfg, kinds, ps, x, aux, enc_out, ctx=None):
+def _period_named(key, ps) -> list:
+    """[(name, block)] of a period's layers ``ps``, ``key`` their name
+    prefixes (``"layers.3."``)."""
+    return [(pre + n, t) for pre, m in zip(key, ps)
+            for n, t in m.named_parameters()]
+
+
+def _period_params(ctx, key, ps):
+    """A period's layers as their compute forms, gathered by the sharded
+    step's ``ctx.gather`` (nested dicts), or ``ps`` as they are."""
+    if ctx is None or ctx.gather is None:
+        return ps
+    named = _period_named(key, ps)
+    flat = dict(zip((n for n, _ in named), ctx.gather(key, named)))
+    return [nested({n[len(pre):]: t for n, t in flat.items()
+                    if n.startswith(pre)}) for pre in key]
+
+
+def _periods(ctx, blocks, prefix: str, P: int):
+    """Yields (layer indices, key) of each period of ``blocks`` in order.
+    In a sharded step whose context gathers, the period's gathers were
+    started one period ahead: its handles are waited on before it is
+    yielded (before its checkpoint), then the next period's gathers are
+    started, so they run while it computes."""
+    g = ctx.gather if ctx is not None else None
+    spans = [tuple(range(i, min(i + P, len(blocks))))
+             for i in range(0, len(blocks), P)]
+    keys = [tuple(f"{prefix}{i}." for i in sp) for sp in spans]
+
+    def start(j):
+        g.prefetch(keys[j], _period_named(keys[j],
+                                          [blocks[i] for i in spans[j]]))
+    if g is not None and spans:
+        start(0)
+    for j, sp in enumerate(spans):
+        if g is not None:
+            g.wait(keys[j])
+            if j + 1 < len(spans):
+                start(j + 1)
+        yield sp, keys[j]
+
+
+def _run_period(cfg, kinds, ps, x, aux, enc_out, ctx=None, key=None):
     """Train-mode blocks of one period: (x, aux), aux summed in the
-    forward's order."""
+    forward's order.  In a sharded step the period's parameters are
+    gathered here, under the period's checkpoint, so a recompute gathers
+    them again."""
+    ps = _period_params(ctx, key, ps)
     for kind, p in zip(kinds, ps):
         x, _, a = _apply_block(cfg, kind, p, x, mode="train", cache=None,
                                pos=0, enc_out=enc_out, ctx=ctx)
@@ -585,7 +819,7 @@ def _remat(cfg):
                              use_reentrant=False, **kw)
 
 
-def encode(cfg: ModelConfig, params, frames):
+def encode(cfg: ModelConfig, params, frames, ctx=None):
     """Whisper's encoder over stubbed frame embeddings (B, enc_seq, D):
     the frames in the compute dtype plus the sinusoidal table rounded to
     it, the bidirectional ``enc`` blocks (each one period for ``remat``,
@@ -594,25 +828,43 @@ def encode(cfg: ModelConfig, params, frames):
     x = x + layers.sinusoidal_pos(x.shape[1], cfg.d_model, x.dtype,
                                   x.device)[None]
     run = _remat(cfg)
-    for p in params["enc"]["layers"]:
-        x, _ = run(cfg, ("enc",), (p,), x, None, None)
-    return layers.rms_norm(x, params["enc"]["final_norm"], cfg.norm_eps)
+    blocks = params["enc"]["layers"]
+    for (i,), key in _periods(ctx, blocks, "enc.layers.", 1):
+        x, _ = run(cfg, ("enc",), (blocks[i],), x, None, None, ctx, key)
+    return layers.rms_norm(x, _leaf(params, "enc.final_norm", ctx),
+                           cfg.norm_eps)
 
 
-def _learned_pos(cfg, params, S, mode, pos):
-    """Rows of ``dec_pos`` for the tokens: [:S], or row ``pos`` in
-    decode.  Where the reference would clamp (decode) or fail to
+def _learned_pos(cfg, table, S, mode, pos):
+    """Rows of the ``dec_pos`` table for the tokens: [:S], or row ``pos``
+    in decode.  Where the reference would clamp (decode) or fail to
     broadcast (a longer prompt), this raises ValueError."""
-    rows = params["dec_pos"].shape[0]
+    rows = table.shape[0]
     if mode == "decode":
         if not 0 <= pos < rows:
             raise ValueError(f"{cfg.name}: decode position {pos} outside "
                              f"the {rows} learned positions (max_seq)")
-        return params["dec_pos"][pos:pos + 1]
+        return table[pos:pos + 1]
     if S > rows:
         raise ValueError(f"{cfg.name}: {S} tokens exceed the {rows} "
                          f"learned positions (max_seq)")
-    return params["dec_pos"][:S]
+    return table[:S]
+
+
+def _embed(cfg, params, tokens, ctx):
+    """The tokens' rows of ``embed`` in the compute dtype.  Vocab-parallel
+    (the compute form a model rank's block of rows): each rank gathers
+    the tokens its block holds and zeros for the others, and the sum over
+    "model" is exact (one rank adds its row to zeros)."""
+    dt = cdtype(cfg)
+    emb = _leaf(params, "embed", ctx)
+    if not spmd.is_part(emb, cfg.vocab, ctx, dim=0):
+        return emb[tokens.long()].to(dt)
+    V = emb.shape[0]
+    local = tokens.long() - ctx.model_index * V
+    own = (local >= 0) & (local < V)
+    rows = torch.where(own[..., None], emb[local.clamp(0, V - 1)], 0)
+    return spmd.model_sum(rows.to(dt), ctx)
 
 
 def forward(cfg: ModelConfig, params, tokens, *, mode="train", cache=None,
@@ -628,56 +880,64 @@ def forward(cfg: ModelConfig, params, tokens, *, mode="train", cache=None,
     runs on this rank's rows as on one device."""
     check_supported(cfg)
     dt = cdtype(cfg)
-    x = params["embed"][tokens.long()].to(dt)
+    x = _embed(cfg, params, tokens, ctx)
     if cfg.family == "audio" or cfg.name.startswith("gemma"):
         # a 0-d tensor of x's dtype: the scale rounds to it first, as the
         # reference's weakly typed Python float does
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=dt,
                            device=x.device)
     if cfg.pos == "learned":
-        x = x + _learned_pos(cfg, params, tokens.shape[1], mode,
-                             pos)[None].to(dt)
+        x = x + _learned_pos(cfg, _leaf(params, "dec_pos", ctx),
+                             tokens.shape[1], mode, pos)[None].to(dt)
     enc_out = None
     if cfg.is_enc_dec and mode != "decode":
         if frames is None:
             raise ValueError(f"{cfg.name}: an encoder-decoder needs frames "
                              f"in {mode} mode")
-        enc_out = encode(cfg, params, frames)
+        enc_out = encode(cfg, params, frames, ctx)
     new_caches = [] if cache is not None else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    blocks = params["layers"]
     if mode == "train" and cache is None:
         # period by period, each under cfg.remat's checkpoint
-        run, P = _remat(cfg), cfg.period
-        blocks = params["layers"]
-        for i0 in range(0, len(blocks), P):
-            ps = tuple(blocks[i0:i0 + P])
-            kinds = tuple(layer_kind(cfg, i0 + j) for j in range(len(ps)))
-            x, aux = run(cfg, kinds, ps, x, aux, enc_out, ctx)
+        run = _remat(cfg)
+        for span, key in _periods(ctx, blocks, "layers.", cfg.period):
+            ps = tuple(blocks[i] for i in span)
+            kinds = tuple(layer_kind(cfg, i) for i in span)
+            x, aux = run(cfg, kinds, ps, x, aux, enc_out, ctx, key)
     else:
-        for i, p in enumerate(params["layers"]):
-            c = cache[i] if cache is not None else None
-            x, nc, a = _apply_block(cfg, layer_kind(cfg, i), p, x,
-                                    mode=mode, cache=c, pos=pos,
-                                    enc_out=enc_out, ctx=ctx)
-            if a is not None:
-                aux = aux + a
-            if cache is not None:
-                new_caches.append(nc if nc else c)
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        for span, key in _periods(ctx, blocks, "layers.", cfg.period):
+            ps = _period_params(ctx, key, [blocks[i] for i in span])
+            for i, p in zip(span, ps):
+                c = cache[i] if cache is not None else None
+                x, nc, a = _apply_block(cfg, layer_kind(cfg, i), p, x,
+                                        mode=mode, cache=c, pos=pos,
+                                        enc_out=enc_out, ctx=ctx)
+                if a is not None:
+                    aux = aux + a
+                if cache is not None:
+                    new_caches.append(nc if nc else c)
+            del ps
+    x = layers.rms_norm(x, _leaf(params, "final_norm", ctx), cfg.norm_eps)
     if skip_head:
         return x, new_caches, aux
-    return head(cfg, params, x), new_caches, aux
+    return head(cfg, params, x, ctx), new_caches, aux
 
 
 # ==========================================================================
 # losses
 # ==========================================================================
 
-def _xent_parts(lg, labels):
+def _xent_parts(lg, labels, cfg=None, ctx=None):
     """(lse, gold, mask) float32 of logits lg (..., V) against labels
     (labels < 0 are padding): the row max in lg's dtype, then exp, sum and
     log in float32, and the gold logit read at max(label, 0) (the
-    reference's one-hot masked sum picks the same single value)."""
+    reference's one-hot masked sum picks the same single value).
+    Vocab-parallel logits (a model rank's block of ``cfg.vocab``) take
+    ``spmd.vocab_xent``'s same steps over "model"."""
+    if spmd.is_part(lg, cfg.vocab, ctx):
+        lse, gold = spmd.vocab_xent(lg, labels, ctx)
+        return lse, gold, (labels >= 0).float()
     m = lg.amax(dim=-1).float()
     lf = lg.float()
     lse = torch.log(torch.exp(lf - m[..., None]).sum(dim=-1)) + m
@@ -707,7 +967,7 @@ def lm_loss(cfg, logits, labels, aux, aux_coef=AUX_COEF, z_coef=1e-4,
     the means over the unpadded tokens (at least 1).  With a split batch
     (``ctx.split``) the means are this rank's sums over the global count:
     its share of the global loss, the shares adding up to it."""
-    lse, gold, mask = _xent_parts(logits, labels)
+    lse, gold, mask = _xent_parts(logits, labels, cfg, ctx)
     denom = _denom(mask.sum(), ctx)
     loss = ((lse - gold) * mask).sum() / denom
     zloss = z_coef * ((lse * mask) ** 2).sum() / denom
@@ -724,13 +984,16 @@ def lm_loss_chunked(cfg, x, head, labels, aux, aux_coef=AUX_COEF,
     S = x.shape[1]
     n = max(1, cfg.xent_chunk)
     c = -(-S // n)
+    if spmd.is_part(head, cfg.vocab, ctx):     # vocab-parallel
+        x = spmd.model_copy(x, ctx)
     nll_sum = z_sum = None
     for i in range(n):
         xs = x[:, i * c:(i + 1) * c]
         if xs.shape[1] == 0:                # the reference's empty chunk
             continue                        # adds zeros
         lg = layers.softcap(xs @ head, final_softcap)
-        lse, gold, msk = _xent_parts(lg, labels[:, i * c:i * c + xs.shape[1]])
+        lse, gold, msk = _xent_parts(
+            lg, labels[:, i * c:i * c + xs.shape[1]], cfg, ctx)
         nll = ((lse - gold) * msk).sum()
         z = ((lse * msk) ** 2).sum()
         nll_sum = nll if nll_sum is None else nll_sum + nll

@@ -1,8 +1,11 @@
 """What XLA's SPMD partitioner inserts into the reference's sharded steps,
 written out for ``torch.distributed``: a rank's block of a leaf under a
-spec, a leaf gathered from its blocks, a full gradient summed and cut
-back to blocks, the expert-parallel combine's all-reduce over "model",
-and the sums of the loss statistics over the batch ranks.
+spec, a leaf's compute form gathered from its blocks a group at a time
+(``Gatherer``, with the next group's gathers in flight) and its gradient
+summed and cut back to blocks, the tensor-parallel region's entry and
+exit over "model" and its vocab-parallel loss, the expert-parallel
+combine's all-reduce, and the sums of the loss statistics over the batch
+ranks.
 
 The program is SPMD, one process a rank (``torchrun``, or
 ``core.shard_sim.spawn``), over a ``DeviceMesh`` with the axes
@@ -22,9 +25,11 @@ gloo takes it on CUDA tensors, staging them through the host.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -102,6 +107,7 @@ class Ctx:
     coord: Dict[str, int]
     split: bool = False
     share: Optional[Share] = None
+    gather: Optional["Gatherer"] = None
 
     @classmethod
     def of(cls, mesh, split: bool = False) -> "Ctx":
@@ -154,6 +160,11 @@ class Ctx:
         over them are local (serving, whose MoE aux is discarded)."""
         return dataclasses.replace(self, split=False)
 
+    def part(self, n: int) -> Tuple[int, int]:
+        """[lo, hi): this model rank's share of ``n`` heads or channels
+        (``split_range``)."""
+        return split_range(n, self.n_model, self.model_index)
+
     def size(self, axes: Sequence[str]) -> int:
         return math.prod(self.sizes[a] for a in axes)
 
@@ -197,6 +208,23 @@ class Ctx:
 ONE_DEVICE = Ctx(None, {"data": 1, "model": 1}, {"data": 0, "model": 0})
 
 
+def is_part(t: torch.Tensor, full: int, ctx: Optional[Ctx],
+            dim: int = -1) -> bool:
+    """Whether the compute form ``t`` is a model rank's part of a leaf
+    whose dim ``dim`` is ``full`` long (``transformer.tp_layout``'s
+    verdict, read off the shape): a tensor-parallel region's weight, or a
+    vocab-parallel head or embedding."""
+    return ctx is not None and t.shape[dim] != full
+
+
+def split_range(n: int, k: int, i: int) -> Tuple[int, int]:
+    """[lo, hi) of part ``i`` of ``n`` items split over ``k`` parts, the
+    first ``n % k`` parts one longer (25 heads over 2: 13 and 12)."""
+    q, r = divmod(n, k)
+    lo = i * q + min(i, r)
+    return lo, lo + q + (i < r)
+
+
 def _axes(entry) -> Tuple[str, ...]:
     return () if entry is None else \
         (entry,) if isinstance(entry, str) else tuple(entry)
@@ -209,12 +237,21 @@ def _axes(entry) -> Tuple[str, ...]:
 def all_gather(x: torch.Tensor, dim: int, group, k: int) -> torch.Tensor:
     """``x`` of the ``k`` ranks of ``group`` concatenated along ``dim`` in
     rank order: one collective."""
+    out, _ = start_gather(x, dim, group, k, async_op=False)
+    return out.movedim(0, dim)
+
+
+def start_gather(x: torch.Tensor, dim: int, group, k: int,
+                 async_op: bool = True):
+    """The collective of ``all_gather``, started: (the gathered buffer
+    with ``dim`` moved first, its work handle, or None when it ran
+    synchronously)."""
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((k * xt.shape[0],) + tuple(xt.shape[1:]))
     single = getattr(dist, "all_gather_single", None) \
         or dist.all_gather_into_tensor
-    single(out, xt, group=group)
-    return out.movedim(0, dim)
+    work = single(out, xt, group=group, async_op=async_op)
+    return out, work
 
 
 def reduce_scatter(x: torch.Tensor, dim: int, group, k: int) -> torch.Tensor:
@@ -363,6 +400,26 @@ class _ModelSlice(torch.autograd.Function):
         return all_gather(g, ctx_.dim, c.group(MODEL), c.n_model), None, None
 
 
+class _ModelReduce(torch.autograd.Function):
+    """Summed over "model" forward and backward: the model ranks' partial
+    products of a tensor that each rank then uses for its own share of the
+    compute only (the SSM's B and C over split channels), so its gradient
+    on a rank is a share too."""
+
+    @staticmethod
+    def forward(ctx_, x, ctx):
+        ctx_.spmd = ctx
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=ctx.group(MODEL))
+        return y
+
+    @staticmethod
+    def backward(ctx_, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx_.spmd.group(MODEL))
+        return g, None
+
+
 def model_copy(x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     return _ModelCopy.apply(x, ctx)
 
@@ -375,6 +432,283 @@ def model_slice(x: torch.Tensor, dim: int, ctx: Ctx) -> torch.Tensor:
     return _ModelSlice.apply(x, dim, ctx)
 
 
-__all__ = ["Ctx", "ONE_DEVICE", "Share", "all_gather", "block", "gather",
-           "global_norm", "model_copy", "model_slice", "model_sum", "owns",
-           "reduce_grad", "reduce_scatter"]
+def model_reduce(x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    return _ModelReduce.apply(x, ctx)
+
+
+# --------------------------------------------------------------------------
+# the tensor-parallel region (models/layers.py, ssm.py, moe.py,
+# transformer.py): Megatron's entry and exit points are ``model_copy``
+# (identity forward, the gradient all-reduced over "model") before a
+# column-parallel product and ``model_sum`` (all-reduced forward) after a
+# row-parallel one; the head and the losses run vocab-parallel
+# --------------------------------------------------------------------------
+
+def vocab_xent(lg: torch.Tensor, labels: torch.Tensor, ctx: Ctx):
+    """(lse, gold) float32 of logits ``lg`` (..., V/n) of this model
+    rank's block of the vocab (block ``model_index``) against ``labels``
+    (< 0: padding, read at 0 as ``_xent_parts`` does): the row max in
+    ``lg``'s dtype, all-reduced (max) over "model" (no gradient: lse's
+    derivative by it is 0), then the sum of exponentials in float32 and
+    the gold logit, from the rank whose block holds its column and 0 on
+    the others, summed over "model" in one all-reduce."""
+    V = lg.shape[-1]
+    m = lg.amax(dim=-1).float().detach().clone()
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=ctx.group(MODEL))
+    lf = lg.float()
+    se = torch.exp(lf - m[..., None]).sum(dim=-1)
+    local = labels.clamp_min(0).long() - ctx.model_index * V
+    own = (local >= 0) & (local < V)
+    gold = torch.gather(lf, -1, local.clamp(0, V - 1)[..., None])[..., 0]
+    both = model_sum(torch.stack([se, torch.where(own, gold, 0.0)]), ctx)
+    return torch.log(both[0]) + m, both[1]
+
+
+def model_gather(x: torch.Tensor, dim: int, ctx: Ctx, n: int) -> torch.Tensor:
+    """The model ranks' parts of ``n`` heads or channels along ``dim``
+    (rank i's ``split_range(n, ...)``), concatenated in rank order, with
+    no gradient: the serving caches' recurrent states and cross keys,
+    which stay whole on every model rank.  Uneven parts are padded for the
+    one all-gather."""
+    k = ctx.n_model
+    if k == 1:
+        return x
+    sizes = [hi - lo for lo, hi in (split_range(n, k, i) for i in range(k))]
+    big = max(sizes)
+    if x.shape[dim] < big:
+        pad = list(x.shape)
+        pad[dim] = big - x.shape[dim]
+        x = torch.cat([x, x.new_zeros(pad)], dim)
+    out = all_gather(x, dim, ctx.group(MODEL), k)
+    if min(sizes) == big:
+        return out
+    return torch.cat([out.narrow(dim, i * big, s)
+                      for i, s in enumerate(sizes)], dim)
+
+
+# --------------------------------------------------------------------------
+# a leaf's compute form: the FSDP gathers and the tensor-parallel blocks
+# --------------------------------------------------------------------------
+
+class LeafPlan(NamedTuple):
+    """How a sharded step turns this rank's block of a leaf into what its
+    compute takes, and the gradient back: ``spec`` the leaf at rest;
+    ``keep`` the dims that stay this rank's block (the experts' dim, and
+    the "model" dims that the compute splits on); ``take`` (dim, [(lo,
+    hi), ...], size): the ranges of the leaf, gathered whole (``size``)
+    over "model" along ``dim``, that this rank computes on (heads that a
+    block cuts mid-head, the mamba ``in_proj``'s x and z halves);
+    ``partial``: a leaf replicated over "model" that the rank uses for its
+    share of a tensor-parallel region only, so its gradient is a share
+    too, summed over "model"."""
+    spec: tuple
+    keep: tuple = ()
+    take: Optional[tuple] = None
+    partial: bool = False
+
+
+def _gather_steps(lp: LeafPlan, ctx: Ctx) -> list:
+    """[(dim, axis)]: the all-gathers from a block to the compute form, in
+    ``gather``'s order (a dim's minor axis first)."""
+    return [(d, a) for d, entry in enumerate(lp.spec) if d not in lp.keep
+            for a in reversed(_axes(entry)) if ctx.sizes[a] > 1]
+
+
+def _take(x: torch.Tensor, take) -> torch.Tensor:
+    """The ranges of ``take`` from a leaf gathered over "model", as a new
+    tensor (a view would hold the whole leaf)."""
+    if take is None:
+        return x
+    dim, ranges, _ = take
+    return torch.cat([x.narrow(dim, lo, hi - lo) for lo, hi in ranges], dim)
+
+
+def _own(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when it is a view into a larger storage."""
+    if t.untyped_storage().nbytes() > t.numel() * t.element_size():
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
+def to_compute(x: torch.Tensor, lp: LeafPlan, ctx: Ctx) -> torch.Tensor:
+    """A leaf's compute form from this rank's block (``LeafPlan``)."""
+    for d, a in _gather_steps(lp, ctx):
+        x = all_gather(x, d, ctx.group(a), ctx.sizes[a])
+    return _take(x, lp.take)
+
+
+def to_block_grad(g: torch.Tensor, lp: LeafPlan, ctx: Ctx) -> torch.Tensor:
+    """The gradient of a leaf's compute form, taken back to this rank's
+    block: the ranges of ``take`` put in a zero leaf and reduce-scattered
+    over "model" (the model ranks' ranges summed, this rank's block kept),
+    then ``reduce_grad`` (the batch ranks' sum, FSDP), then, for a
+    ``partial`` leaf, all-reduced over "model".  A new tensor, never a
+    view into the whole gradient."""
+    keep = lp.keep
+    if lp.take is not None:
+        dim, ranges, size = lp.take
+        shape = list(g.shape)
+        shape[dim] = size
+        z = g.new_zeros(shape)
+        off = 0
+        for lo, hi in ranges:
+            z.narrow(dim, lo, hi - lo).copy_(g.narrow(dim, off, hi - lo))
+            off += hi - lo
+        g = reduce_scatter(z, dim, ctx.group(MODEL), ctx.n_model)
+        keep = keep + (dim,)
+    cut = reduce_grad(g, lp.spec, ctx, keep)
+    g = g if cut is g else _own(cut)
+    if lp.partial and ctx.n_model > 1:
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group(MODEL))
+    return g
+
+
+@functools.cache
+def _selective_modes() -> tuple:
+    """The dispatch modes of ``torch.utils.checkpoint``'s selective
+    checkpoint, or ``RuntimeError`` naming them where this torch has
+    neither (its recompute would then replay no gather)."""
+    from torch.utils import checkpoint as ck
+    names = ("_CachingTorchDispatchMode", "_CachedTorchDispatchMode")
+    sac = tuple(getattr(ck, n) for n in names if hasattr(ck, n))
+    if len(sac) != len(names):
+        raise RuntimeError(
+            f"torch {torch.__version__}: torch.utils.checkpoint lacks "
+            f"{[n for n in names if not hasattr(ck, n)]}; the per-period "
+            f"gathers cannot be hidden from remat 'dots'")
+    return sac
+
+
+@contextlib.contextmanager
+def _unseen_by_selective_checkpoint():
+    """Hide a gather's ops from a selective checkpoint (remat "dots"),
+    whose recompute must replay the ops its forward recorded: a forward
+    that takes prefetched leaves runs none, its recompute gathers.  Other
+    dispatch modes (a recording, fake tensors) still see them.  The
+    selective checkpoint's modes are private classes of
+    ``torch.utils.checkpoint`` (checked on torch 2.11 and 2.13): a torch
+    without them raises here rather than let the gathers be recorded."""
+    from torch.utils import _python_dispatch as pd
+    if isinstance(pd._get_current_dispatch_mode(), _selective_modes()):
+        with pd._pop_mode_temporarily():
+            yield
+    else:
+        yield
+
+
+# hooks a test or a probe may add: fn(event, key, tensors), called by a
+# ``Gatherer`` as it starts a group's gathers ahead ("start", the buffers),
+# finishes them ("wait"), hands them to the group's compute ("take") or
+# gathers a group where it is used ("sync", a recompute's included)
+ON_GATHER: list = []
+
+
+class _Gathered(torch.autograd.Function):
+    """A group's compute forms from this rank's blocks forward
+    (``Gatherer.forward``); each leaf's ``to_block_grad`` backward, so a
+    group's whole gradients are freed as its backward ends."""
+
+    @staticmethod
+    def forward(ctx_, gatherer, key, names, *blocks):
+        ctx_.gatherer, ctx_.names = gatherer, names
+        out = gatherer.forward(key, names, blocks)
+        return tuple(o.view_as(o) if o is b else o
+                     for o, b in zip(out, blocks))
+
+    @staticmethod
+    def backward(ctx_, *grads):
+        return (None, None, None) + tuple(
+            ctx_.gatherer.backward(ctx_.names, grads))
+
+
+class Gatherer:
+    """One step's gathers of the leaves a forward takes from this rank's
+    blocks, a group at a time (a period of the block pattern, or a leaf
+    outside the periods at its use), under ``plan`` ({name: LeafPlan}) on
+    the step's context ``ctx``, whose ``split`` says whether a gradient
+    sums over the batch ranks.
+
+    ``gatherer(key, named)`` returns the compute forms of the blocks
+    ``named`` ([(name, block)]) through ``_Gathered``.  ``prefetch(key,
+    named)`` starts the first all-gather of each leaf of a group ahead
+    (``async_op=True``) and ``wait(key)`` finishes them; the next call
+    with ``key`` takes those tensors, once: a recompute under a checkpoint
+    gathers again, synchronously.  A forward waits on a handle before the
+    checkpoint of the group that uses it, so no handle crosses a
+    checkpoint's boundary unwaited."""
+
+    def __init__(self, ctx: Ctx, plan: dict):
+        self.ctx, self.plan = ctx, plan
+        self.pending: dict = {}
+        self.ready: dict = {}
+
+    @staticmethod
+    def _emit(event, key, tensors) -> None:
+        for fn in ON_GATHER:
+            fn(event, key, tensors)
+
+    def prefetch(self, key, named) -> None:
+        started = []
+        for n, b in named:
+            steps = _gather_steps(self.plan[n], self.ctx)
+            if steps:
+                d, a = steps[0]
+                buf, work = start_gather(b.detach(), d, self.ctx.group(a),
+                                         self.ctx.sizes[a])
+                started.append((buf, work, d))
+            else:
+                started.append((None, None, None))
+        self.pending[key] = (named, started)
+        self._emit("start", key, [s[0] for s in started if s[0] is not None])
+
+    def wait(self, key) -> None:
+        named, started = self.pending.pop(key)
+        out = []
+        for (n, b), (buf, work, d) in zip(named, started):
+            lp = self.plan[n]
+            steps = _gather_steps(lp, self.ctx)
+            if not steps and lp.take is None:
+                out.append(b)
+                continue
+            x = b.detach()
+            if buf is not None:
+                if work is not None:
+                    work.wait()
+                x, steps = buf.movedim(0, d), steps[1:]
+            for dd, a in steps:
+                x = all_gather(x, dd, self.ctx.group(a), self.ctx.sizes[a])
+            out.append(_take(x, lp.take))
+        self.ready[key] = out
+        self._emit("wait", key, [o for o, (_, b) in zip(out, named)
+                                 if o is not b])
+
+    def forward(self, key, names, blocks) -> list:
+        got = self.ready.pop(key, None)
+        if got is not None:
+            self._emit("take", key, [o for o, b in zip(got, blocks)
+                                     if o is not b])
+            return got
+        with _unseen_by_selective_checkpoint():
+            out = [to_compute(b, self.plan[n], self.ctx)
+                   for n, b in zip(names, blocks)]
+        self._emit("sync", key, [o for o, b in zip(out, blocks) if o is not b])
+        return out
+
+    def backward(self, names, grads) -> list:
+        return [to_block_grad(g, self.plan[n], self.ctx)
+                for n, g in zip(names, grads)]
+
+    def __call__(self, key, named) -> list:
+        names = tuple(n for n, _ in named)
+        blocks = [b for _, b in named]
+        if torch.is_grad_enabled() and any(b.requires_grad for b in blocks):
+            return list(_Gathered.apply(self, key, names, *blocks))
+        return self.forward(key, names, blocks)
+
+
+__all__ = ["Ctx", "Gatherer", "LeafPlan", "ON_GATHER", "ONE_DEVICE", "Share",
+           "all_gather", "block", "gather", "global_norm", "model_copy",
+           "model_gather", "model_reduce", "model_slice", "model_sum",
+           "owns", "reduce_grad", "reduce_scatter", "split_range",
+           "start_gather", "to_block_grad", "to_compute", "vocab_xent"]

@@ -24,34 +24,50 @@ block of every leaf (the counterpart of ``jax.device_put(state,
 shardings)``): "embed" over the batch axes (FSDP), vocab, heads, ff,
 expert and ssm over "model".  A step with a mesh takes the global batch
 on every rank and, in the place of XLA's partitioner
-(``sharding/spmd.py``):
+(``sharding/spmd.py``), under ``tp_plan``:
 
-  1. gathers every leaf to full, except the experts' "expert" dim, which
-     stays this rank's E/n (``models/moe.py``'s expert parallelism);
-  2. runs the one-device forward and backward on this rank's rows
+  1. keeps the "model" blocks that its compute splits on (the
+     reference's tensor parallelism: heads, ff, vocab and the SSM's
+     channels, ``transformer.tp_layout``; the experts' dim, expert
+     parallelism), and gathers the rest where it is used: a period of the
+     block pattern at a time, inside the period's ``remat`` checkpoint
+     (a recompute gathers again), the next period's all-gathers started
+     (``async_op=True``) before the current one runs, and the leaves
+     outside the periods (``embed``, ``lm_head``, ``final_norm``,
+     ``dec_pos``, the encoder's) at their use (``spmd.Gatherer``);
+  2. runs the forward and backward on this rank's rows
      (``partition.batch_pspec``; every row when the batch axes do not
-     divide the batch), the losses' means global sums over global counts;
-  3. sums the gradients over the batch ranks and cuts them to blocks
-     (reduce-scatter along the FSDP dim, all-reduce where there is none);
+     divide the batch), each tensor-parallel region between a
+     ``spmd.model_copy`` and a ``spmd.model_sum``, the head and the
+     losses vocab-parallel, the losses' means global sums over global
+     counts;
+  3. cuts each period's gradients back to blocks as its backward ends
+     (``spmd.to_block_grad``: reduce-scatter along the FSDP dim,
+     all-reduce where there is none, and over "model" for a leaf that a
+     region uses whole), so only one period's whole gradients live at a
+     time;
   4. updates the blocks in place, clipped by the norm of the full
      gradient (``spmd.global_norm``).
 
-Without a mesh the same step runs on ``spmd.ONE_DEVICE``, a context of
-one device, where every gather, sum and cut is the leaf itself.
-
-The non-expert compute is repeated on every "model" rank: the same
-results as the reference's, without its split of heads and ff.  With
-microbatches and a split batch, a microbatch may span several batch
-ranks and a rank's rows several microbatches, whatever the two numbers
-are: each rank runs one gradient for each of its rows' segments of a
-microbatch (``split_microbatch_grads``).
+Microbatches whose segments differ between the batch ranks
+(``split_microbatch_grads``) make every compute form up front
+(``gather_params``) and cut the gradients back at the end, so the batch
+ranks' collectives stay in step; their compute splits over "model" all
+the same.  Without a mesh the same step runs on ``spmd.ONE_DEVICE``, a
+context of one device, where every gather, sum and cut is the leaf
+itself.  With microbatches and a split batch, a microbatch may span
+several batch ranks and a rank's rows several microbatches, whatever the
+two numbers are: each rank runs one gradient for each of its rows'
+segments of a microbatch.
 
 ``make_prefill`` and ``make_serve_step`` return plain functions of
 (params, tensors); as in the reference they discard ``forward``'s aux
-(the MoE loss).  With a mesh they take the parameters' blocks (gathered
-each call, the experts kept split), the global tokens and this rank's
-rows of the cache (``transformer.cache_specs``: rows over the batch
-axes, replicated over "model"), and return the logits of every row.
+(the MoE loss).  With a mesh they take the parameters' blocks, gathered
+a period at a time with the same tensor-parallel forward, the global
+tokens and this rank's rows of the cache (``transformer.cache_specs``:
+rows over the batch axes, replicated over "model"; the recurrent states
+a model rank computes in part are gathered whole over "model"), and
+return the logits of every row and every vocab column.
 """
 from __future__ import annotations
 
@@ -158,35 +174,44 @@ def _expert_dims(logical: tuple, spec: tuple) -> tuple:
                  if name == "expert" and entry is not None)
 
 
-def param_plan(cfg: ModelConfig, mesh, params) -> dict:
-    """{name: (spec, kept dims)} of the parameters at rest under the
-    mesh's default rules (learned positions read ``max_seq`` off
-    ``dec_pos``, which no rule splits by rows)."""
+def tp_plan(cfg: ModelConfig, mesh, params) -> dict:
+    """{name: ``spmd.LeafPlan``} of the parameters at rest under the
+    mesh's default rules (``mesh`` a mesh or an ``spmd.Ctx``): the
+    experts' dim and the dims the tensor-parallel compute splits on kept
+    as this rank's blocks, the rest gathered (FSDP), the heads a block
+    cuts taken from the leaf gathered over "model", the leaves whole on
+    every model rank inside a tensor-parallel region marked ``partial``
+    (``transformer.tp_layout``)."""
     max_seq = params["dec_pos"].shape[0] if "dec_pos" in params else 0
     shardings, _ = state_shardings(cfg, mesh, max_seq)
     logical = transformer.param_specs(cfg, max_seq)
-    return {n: (sh.spec, _expert_dims(logical[n], sh.spec))
-            for n, sh in shardings["params"].items()}
+    specs = {n: sh.spec for n, sh in shardings["params"].items()}
+    ctx = mesh if isinstance(mesh, spmd.Ctx) else spmd.Ctx.of(mesh)
+    lay = transformer.tp_layout(cfg, specs, ctx.n_model, ctx.model_index)
+    return {n: spmd.LeafPlan(sp, _expert_dims(logical[n], sp) + lay[n][0],
+                             lay[n][1], lay[n][2])
+            for n, sp in specs.items()}
 
 
 def _planner(cfg: ModelConfig, mesh):
-    """``param_plan`` for a step's parameters, made once a ``max_seq``
+    """``tp_plan`` for a step's parameters, made once a ``max_seq``
     (``mesh`` a mesh or an ``spmd.Ctx``)."""
     plans = {}
 
     def plan(params):
         key = params["dec_pos"].shape[0] if "dec_pos" in params else 0
         if key not in plans:
-            plans[key] = param_plan(cfg, mesh, params)
+            plans[key] = tp_plan(cfg, mesh, params)
         return plans[key]
     return plan
 
 
 def gather_params(params, plan: dict, ctx: spmd.Ctx, grad: bool = False):
-    """A ``Params`` of every leaf gathered from this rank's block (the
-    experts' dim kept split), with gradients on when ``grad``."""
+    """A ``Params`` of every leaf's compute form under ``plan``
+    (``tp_plan``'s, ``spmd.to_compute``) made at once, with gradients on
+    when ``grad``."""
     full = transformer.params_from_named(
-        {n: spmd.gather(p.detach(), plan[n][0], ctx, plan[n][1])
+        {n: spmd.to_compute(p.detach(), plan[n], ctx)
          for n, p in params.named_parameters()})
     if grad:
         for p in full.parameters():
@@ -203,8 +228,7 @@ def _loss_fn(cfg: ModelConfig):
             x, _, aux = transformer.forward(cfg, params, tokens, mode="train",
                                             frames=frames, skip_head=True,
                                             ctx=ctx)
-            head = params["embed"].T if cfg.tie_embeddings \
-                else params["lm_head"]
+            head = transformer.head_weight(cfg, params, ctx)
             return transformer.lm_loss_chunked(
                 cfg, x, head.to(x.dtype), labels, aux,
                 final_softcap=cfg.final_softcap, ctx=ctx)
@@ -382,18 +406,28 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         params = state["params"]
         plan = planner(params)
         ctx = base.for_batch(batch["tokens"].shape[0])
-        full = gather_params(params, plan, ctx, grad=True)
-        if ctx.split and cfg.microbatches > 1:
-            loss, parts, grads = split_microbatch_grads(cfg, ctx, full, batch)
-        else:
-            loss, parts, grads = make_grad_fn(cfg, ctx)(
-                full, {k: ctx.batch_rows(v) for k, v in batch.items()})
-        del full
         named = list(params.named_parameters())
-        specs = [plan[nm][0] for nm, _ in named]
-        blocks = [spmd.reduce_grad(g, plan[nm][0], ctx, plan[nm][1])
-                  for (nm, _), g in zip(named, grads)]
-        del grads
+        rows = {k: ctx.batch_rows(v) for k, v in batch.items()}
+        if mesh is not None and not (ctx.split and cfg.microbatches > 1):
+            # the forward gathers a period at a time, each period's
+            # gradients cut back to blocks as its backward ends
+            gctx = dataclasses.replace(ctx, gather=spmd.Gatherer(ctx, plan))
+            loss, parts, blocks = make_grad_fn(cfg, gctx)(params, rows)
+        else:
+            # one device, or microbatches whose segments differ between
+            # the batch ranks: every compute form made up front and every
+            # gradient cut back at the end
+            full = gather_params(params, plan, ctx, grad=True)
+            if ctx.split and cfg.microbatches > 1:
+                loss, parts, grads = split_microbatch_grads(cfg, ctx, full,
+                                                            batch)
+            else:
+                loss, parts, grads = make_grad_fn(cfg, ctx)(full, rows)
+            del full
+            blocks = [spmd.to_block_grad(g, plan[nm], ctx)
+                      for (nm, _), g in zip(named, grads)]
+            del grads
+        specs = [plan[nm].spec for nm, _ in named]
         gnorm = spmd.global_norm(blocks, specs, ctx)
         stats = optim.adamw_update(opt_cfg, named, blocks, state["opt"],
                                    state["step"], gnorm=gnorm)
@@ -414,13 +448,15 @@ def make_train_step(cfg: ModelConfig, mesh=None,
 
 
 def _sharded_serving(cfg: ModelConfig, mesh):
-    """(params, B) -> (ctx of a call, the parameters gathered) for a serve
-    step over ``mesh``."""
+    """(params, B) -> the context of a serve step's call over ``mesh``,
+    whose forward gathers the blocks a period at a time (``ctx.gather``)
+    and keeps the tensor-parallel blocks."""
     base, planner = spmd.Ctx.of(mesh), _planner(cfg, mesh)
 
     def setup(params, B):
         ctx = base.for_batch(B)
-        return ctx, gather_params(params, planner(params), ctx)
+        return dataclasses.replace(
+            ctx, gather=spmd.Gatherer(ctx, planner(params)))
     return setup
 
 
@@ -442,14 +478,17 @@ def make_prefill(cfg: ModelConfig, mesh=None):
     def prefill(params, tokens, cache, frames=None):
         ctx = None
         if setup is not None:
-            ctx, params = setup(params, tokens.shape[0])
+            ctx = setup(params, tokens.shape[0])
             tokens, frames = ctx.batch_rows(tokens), ctx.batch_rows(frames)
         # serving discards the MoE aux: no collective for its global means
         x, new_cache, _ = transformer.forward(
             cfg, params, tokens, mode="prefill", cache=cache, frames=frames,
             skip_head=True, ctx=ctx and ctx.local())
-        logits = transformer.head(cfg, params, x[:, -1:])[:, 0]
-        return (logits if ctx is None else _all_rows(logits, ctx)), new_cache
+        logits = transformer.head(cfg, params, x[:, -1:], ctx)[:, 0]
+        if ctx is None:
+            return logits, new_cache
+        return _all_rows(transformer.full_logits(cfg, logits, ctx),
+                         ctx), new_cache
 
     return prefill
 
@@ -470,12 +509,15 @@ def make_serve_step(cfg: ModelConfig, mesh=None):
     def serve_step(params, cache, token, pos):
         ctx = None
         if setup is not None:
-            ctx, params = setup(params, token.shape[0])
+            ctx = setup(params, token.shape[0])
             token = ctx.batch_rows(token)
         logits, new_cache, _ = transformer.forward(
             cfg, params, token, mode="decode", cache=cache, pos=pos,
             ctx=ctx and ctx.local())
         logits = logits[:, 0]
-        return (logits if ctx is None else _all_rows(logits, ctx)), new_cache
+        if ctx is None:
+            return logits, new_cache
+        return _all_rows(transformer.full_logits(cfg, logits, ctx),
+                         ctx), new_cache
 
     return serve_step

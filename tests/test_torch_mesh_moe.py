@@ -12,10 +12,12 @@ in float32 with drops (capacity factor 0.5).
     z-loss as shares of the global count) equals one device's, and a
     route may differ only at a near-tie (``torch_kernel_inputs.route_flips``,
     the top-(k+1) logits closer than 1e-5); the train steps as above.
-  * The collectives a sharded step calls, counted by name against what
-    the specs say it must call, with microbatches the batch ranks do not
-    divide too (their counts' all-reduce, and one of the top-1 counts a
-    wave for MoE).
+  * The collectives a sharded step calls, counted by name against the
+    laws of its plan (``_expected_calls``: the gathers a period's leaves
+    take where they are used, the tensor-parallel regions' sums and
+    copies, the vocab-parallel loss's all-reduces), with microbatches the
+    batch ranks do not divide too (their counts' all-reduce, and one of
+    the top-1 counts a wave for MoE).
 """
 import dataclasses
 
@@ -122,34 +124,94 @@ class _Mesh:                       # a DeviceMesh's names and sizes alone
         self.mesh_dim_names, self.shape = ("data", "model"), tuple(shape)
 
 
+def _tp(lp) -> bool:
+    """Whether a leaf's compute form is a model rank's part."""
+    on_model = lambda e: e is not None and "model" in (
+        (e,) if isinstance(e, str) else e)
+    return lp.take is not None or any(
+        on_model(lp.spec[d]) for d in lp.keep if d < len(lp.spec))
+
+
 def _expected_calls(cfg, shape, B=4):
     """The collectives one sharded step must call on a (data, model) mesh
     of ``shape`` on a batch of ``B`` rows it splits (smoke configs: remat
-    "nothing", no chunked loss; with microbatches, one all-reduce of
-    their label counts and, for MoE, one of the top-1 counts a wave in
-    place of one a layer)."""
+    "nothing", no chunked loss), as laws of the step's plan
+    (``train.step.tp_plan``):
+
+      * each leaf's gathers, once a use (a period's leaves in the forward,
+        the tied ``embed`` at the lookup and at the head), or once a step
+        where microbatches cross the batch ranks (every compute form made
+        up front): an all-gather an axis over 1 of every dim it gathers,
+        the taken leaves' over "model" included; backward, a
+        reduce-scatter over "model" for a taken leaf and one an axis for
+        each batch axis of its spec when the batch is split, an
+        all-reduce an axis where the spec names none, and one over
+        "model" for a ``partial`` leaf;
+      * the tensor-parallel regions over "model": a copy (its backward
+        all-reduce) and a sum a region (hymba's attention and SSM share
+        them), the SSM's B and C summed forward and backward, the
+        vocab-parallel lookup's sum, the head's copy and the loss's two
+        all-reduces (the row max, then the exponentials' sum and the gold
+        logit together);
+      * expert parallelism: the slice's backward gather, the combine's
+        sum and the gates' copy a layer (the shared experts' region joins
+        that sum);
+      * the norm's all-reduce an axis over 1; with a split batch the label
+        count's, the stats' and the MoE fractions' a layer (with
+        microbatches, the counts' and one a wave)."""
     sizes = {"data": shape[0], "model": shape[1]}
-    sh, _ = tstep.state_shardings(cfg, _Mesh(shape))
-    logical = ttransformer.param_specs(cfg)
+    ctx = spmd.Ctx(None, sizes, {"data": 0, "model": 0})
+    plan = tstep.tp_plan(cfg, ctx, {})
     split = shape[0] > 1
+    whole = split and cfg.microbatches > 1
+    # the forwards a step runs: a rank's segments, or every microbatch
+    runs = len(tstep.segments(B, cfg.microbatches, shape[0], 0)) if whole \
+        else cfg.microbatches
+    n = shape[1]
     gathers = scatters = reduces = 0
-    for n, s in sh["params"].items():
-        keep = tstep._expert_dims(logical[n], s.spec)
-        axes = [a for d, e in enumerate(s.spec) if d not in keep
-                for a in ((e,) if isinstance(e, str) else e or ())]
-        gathers += sum(sizes[a] > 1 for a in axes)
+    for name, lp in plan.items():
+        uses = 1 if whole else runs * (
+            2 if name == "embed" and cfg.tie_embeddings else 1)
+        axes = {a for e in lp.spec for a in ((e,) if isinstance(e, str)
+                                            else e or ())}
+        gathers += uses * len(spmd._gather_steps(lp, ctx))
+        if lp.take is not None:
+            scatters += uses
         if split:
             if "data" in axes:
-                scatters += 1
+                scatters += uses
             else:
-                reduces += 1
+                reduces += uses
+        if lp.partial and n > 1:
+            reduces += uses
+    tp = tp_gathers = 0
+    if n > 1:
+        for i in range(cfg.n_layers):
+            pre = f"layers.{i}."
+            kind = ttransformer.layer_kind(cfg, i)
+            if kind == "hymba":
+                ta = _tp(plan[pre + "mixer.attn.wq"])
+                ts = _tp(plan[pre + "mixer.ssm.conv_b"])
+                tp += (ta or ts) + (1 if ta and ts else ta + ts) \
+                    + 2 * ts
+            elif kind in ("attn", "swa"):
+                tp += 2 * _tp(plan[pre + "mixer.wq"])
+            if cfg.is_moe:
+                ep = cfg.n_experts % n == 0
+                tp_gathers += ep
+                tp += 2 * ep
+                if cfg.n_shared_experts and _tp(
+                        plan[pre + "ffn.shared.wu"]):
+                    tp += 1 if ep else 2
+            elif cfg.d_ff:
+                tp += 2 * _tp(plan[pre + "ffn.wu"])
+        head = plan["embed" if cfg.tie_embeddings else "lm_head"]
+        tp += _tp(plan["embed"]) + 3 * _tp(head)
+    gathers += runs * tp_gathers
+    reduces += runs * tp
+    reduces += sum(v > 1 for v in sizes.values())     # the norm
     moe_layers = cfg.n_layers if cfg.is_moe else 0
-    ep = cfg.is_moe and cfg.n_experts % shape[1] == 0 and shape[1] > 1
-    gathers += moe_layers if ep else 0          # the slice's backward
-    reduces += 2 * moe_layers if ep else 0      # the sum, the copy's bwd
-    axes_over_1 = sum(v > 1 for v in sizes.values())
-    reduces += axes_over_1                      # the norm
-    if split and cfg.microbatches > 1:
+    if whole:
         waves = max(tstep.waves(B, cfg.microbatches, shape[0])) + 1
         reduces += 2 + (waves if moe_layers else 0)   # counts, stats, waves
     elif split:
@@ -164,7 +226,9 @@ def test_collectives_a_step_counted():
     cases = []
     for arch, shape in (("hymba_1_5b", (2, 1)), ("hymba_1_5b", (1, 2)),
                         ("qwen3_moe_235b_a22b", (1, 2)),
-                        ("qwen3_moe_235b_a22b", (2, 1))):
+                        ("qwen3_moe_235b_a22b", (2, 1)),
+                        ("llama3_2_1b", (1, 2)), ("moonshot_v1_16b_a3b",
+                                                  (1, 2))):
         cfg = _cfg(arch)
         st = tstep.init_state(cfg, torch.Generator().manual_seed(0),
                               device="cpu")

@@ -179,7 +179,9 @@ def mesh_train(rank, world, cfg, plain, batches, opt, shape,
     from repro_torch.train import step
     mesh = mesh_of(shape, axes, device)
     ctx = spmd.Ctx.of(mesh)
-    sh, _ = step.state_shardings(cfg, mesh)
+    pos = plain["params"].get("dec_pos")
+    sh, _ = step.state_shardings(cfg, mesh,
+                                 0 if pos is None else pos.shape[0])
     state = step.shard_state(train_state_of(plain), sh)
     ts = step.make_train_step(cfg, mesh, opt_cfg=opt)
     out = []
@@ -191,11 +193,106 @@ def mesh_train(rank, world, cfg, plain, batches, opt, shape,
     return out
 
 
+def mesh_mm_sites(rank, world, cfg, plain, batch, shape,
+                  axes=("data", "model")):
+    """One ``make_train_step(cfg, mesh)`` recorded on this rank by
+    ``analysis.graph_audit.record``: ([(in_shapes, out_shapes,
+    operations)] of its matrix products (``costmodel.op_cost``), the
+    query shapes of its ``flash_attention`` calls)."""
+    from repro_torch.analysis import costmodel, graph_audit
+    from repro_torch.train import step
+    mesh = mesh_of(shape, axes)
+    sh, _ = step.state_shardings(cfg, mesh)
+    state = step.shard_state(train_state_of(plain), sh)
+    inv = graph_audit.record(step.make_train_step(cfg, mesh), state, batch)
+    return ([(s.in_shapes, s.shapes, costmodel.op_cost(s)[1])
+             for s in inv.sites if s.op in ("aten.mm", "aten.addmm")],
+            [s.in_shapes[0] for s in inv.sites
+             if s.op == "repro_torch.flash_attention"])
+
+
+def kernel_plans(rank, world, cfg, plain, batch, shape,
+                 axes=("data", "model")):
+    """One ``make_train_step(cfg, mesh)`` on this rank with every LM
+    kernel call's inputs put to its wrapper's ``plan`` (pure: the checks
+    the card's wrapper makes before a launch): [(kernel, q's or x's shape,
+    the instance, or the ValueError's text)]."""
+    from repro_torch.kernels import flash_attention, ops, ssm_scan
+    from repro_torch.train import step
+    mesh = mesh_of(shape, axes)
+    sh, _ = step.state_shardings(cfg, mesh)
+    state = step.shard_state(train_state_of(plain), sh)
+    seen, real = [], (ops.flash_attention, ops.ssm_scan)
+
+    def planned(name, fn, *a):
+        try:
+            seen.append((name, tuple(a[0].shape), str(fn(*a))))
+        except ValueError as e:
+            seen.append((name, tuple(a[0].shape), f"ValueError: {e}"))
+
+    def fa(q, k, v, **kw):
+        planned("flash_attention", lambda *x: flash_attention.plan(
+            *x, window=kw.get("window", 0)), q, k, v)
+        return real[0](q, k, v, **kw)
+
+    def ss(*a):
+        planned("ssm_scan", ssm_scan.plan, *a)
+        return real[1](*a)
+    ops.flash_attention, ops.ssm_scan = fa, ss
+    try:
+        step.make_train_step(cfg, mesh)(state, batch)
+    finally:
+        ops.flash_attention, ops.ssm_scan = real
+    return seen
+
+
+def period_watch(rank, world, cfg, plain, batch, shape,
+                 axes=("data", "model")):
+    """One ``make_train_step(cfg, mesh)`` on this rank under
+    ``roofline.analysis.LiveBytes``, its period gathers watched through
+    ``spmd.ON_GATHER``: ([(event, key)] of the periods' keys in order,
+    the most periods whose gathered leaves were alive at once at any
+    event, by the tensors' weak references and by the storages
+    ``LiveBytes`` still counts, {collective: calls})."""
+    import weakref
+    from repro_torch.roofline.analysis import LiveBytes
+    from repro_torch.sharding import spmd
+    from repro_torch.train import step
+    mesh = mesh_of(shape, axes)
+    sh, _ = step.state_shardings(cfg, mesh)
+    state = step.shard_state(train_state_of(plain), sh)
+    ts = step.make_train_step(cfg, mesh)
+    mem = LiveBytes()
+    mem.add(state, batch)
+    events, refs, stores, most = [], {}, {}, [0, 0]
+
+    def hook(event, key, tensors):
+        if not (isinstance(key, tuple) and key[0].startswith("layers.")):
+            return
+        events.append((event, int(key[0].split(".")[1])))
+        refs.setdefault(key, []).extend(weakref.ref(t) for t in tensors)
+        stores.setdefault(key, []).extend(
+            weakref.ref(t.untyped_storage()) for t in tensors)
+        live = sum(any(r() is not None for r in rs) for rs in refs.values())
+        counted = sum(any(r() is not None and id(r()) in mem.live
+                          for r in rs) for rs in stores.values())
+        most[0], most[1] = max(most[0], live), max(most[1], counted)
+    spmd.ON_GATHER.append(hook)
+    try:
+        with count_collectives() as calls, mem:
+            state, m = ts(state, batch)
+            float(m["loss"])
+    finally:
+        spmd.ON_GATHER.remove(hook)
+    return events, tuple(most), dict(calls)
+
+
 def mesh_moe_forward(rank, world, cfg, plain_params, tokens, shape,
                      axes=("data", "model"), device="cpu"):
     """A train-mode forward of an MoE model over a mesh of ``shape`` from
     full parameters (``plain_state``'s {name: tensor}), with the step's
-    gathered parameters and context: (logits of every row, the global
+    compute forms (``tp_plan``) and context: (logits of every row and
+    vocab column, the global
     aux, [(topi, gaps) a layer] of every row, tokens dropped a layer over
     every row)."""
     from repro_torch.models import moe, transformer
@@ -207,8 +304,7 @@ def mesh_moe_forward(rank, world, cfg, plain_params, tokens, shape,
     sh, _ = step.state_shardings(cfg, mesh)
     params = transformer.params_from_named(plain_params)
     blocks = step.shard_state(step.train_state(params), sh)["params"]
-    full = step.gather_params(blocks, step.param_plan(cfg, mesh, blocks),
-                              ctx)
+    full = step.gather_params(blocks, step.tp_plan(cfg, mesh, blocks), ctx)
     drops, scatter = [], moe.moe_scatter
 
     def counting(*a):
@@ -221,6 +317,7 @@ def mesh_moe_forward(rank, world, cfg, plain_params, tokens, shape,
             routes = stack.enter_context(recorded_routes(moe))
             logits, _, aux = transformer.forward(
                 cfg, full, ctx.batch_rows(tokens), mode="train", ctx=ctx)
+            logits = transformer.full_logits(cfg, logits, ctx)
     finally:
         moe.moe_scatter = scatter
     if ctx.split:

@@ -227,3 +227,57 @@ def _compare(tag, ref, tms, tgrads, tsnaps, names, opt, start_step, bf16,
             carried[n] = diff
     total = sum(t.numel() for t in rs[0]["p"].values())
     assert n_loose <= 0.01 * 2 * total, (tag, n_loose, total)
+
+
+def mesh_runs(cfgs, mesh_shape, seed=0):
+    """Two steps of ``make_train_step(cfg, mesh)`` of each configuration
+    (the port's own ``init_state`` from a seeded generator, ``_batch``'s
+    batch) on one spawn of ``prod(mesh_shape)`` CPU ranks, every rank's
+    results equal: [(cfg, the full state before, the batch, rank 0's
+    [(metrics, gathered state, {collective: calls})] a step)]."""
+    import torch_spmd
+    from repro_torch.core import shard_sim
+    opt = toptim.AdamWConfig(warmup_steps=0)
+    items = []
+    for cfg in cfgs:
+        max_seq = 32 if cfg.pos == "learned" else 0
+        st = tstep.init_state(cfg, torch.Generator().manual_seed(seed),
+                              max_seq=max_seq, device="cpu")
+        _, tb = _batch(cfg)
+        items.append((cfg, torch_spmd.plain_state(st), tb))
+    res = shard_sim.spawn(torch_spmd.plan, int(np.prod(mesh_shape)), ([
+        ("mesh_train", (cfg, plain, [tb, tb], opt, tuple(mesh_shape)))
+        for cfg, plain, tb in items],))
+    outs = res[0][0]
+    for r, (other, mods) in enumerate(res):
+        assert not mods, (r, mods)           # the port stands alone
+        for case0, case in zip(outs, other):
+            for (m0, s0, _), (m1, s1, _) in zip(case0, case):
+                assert m0 == m1, r
+                for k in ("m", "v"):
+                    for n, t in s0["opt"][k].items():
+                        assert torch.equal(t, s1["opt"][k][n]), (r, k, n)
+                for n, t in s0["params"].items():
+                    assert torch.equal(t, s1["params"][n]), (r, n)
+    return [item + (steps,) for item, steps in zip(items, outs)]
+
+
+def mesh_vs_one_device(run, mesh_shape):
+    """One of ``mesh_runs``' cases held to two of the port's one-device
+    steps from the same state, within the module's float32 bands (the
+    mesh's first-step gradients read off its moments)."""
+    import torch_spmd
+    cfg, plain, tb, steps = run
+    opt = toptim.AdamWConfig(warmup_steps=0)
+    tms = [{k: torch.tensor(v) for k, v in m.items()} for m, _, _ in steps]
+    tsnaps = [{"p": s["params"], "m": s["opt"]["m"], "v": s["opt"]["v"]}
+              for _, s, _ in steps]
+    scale = min(1.0, opt.grad_clip / (float(tms[0]["grad_norm"]) + 1e-9))
+    names = list(plain["params"])
+    tgrads = [tsnaps[0]["m"][n] / ((1 - opt.b1) * scale) for n in names]
+    before = {n: t.clone() for n, t in plain["params"].items()}
+    g1, snaps1, tms1, _ = _port_steps(cfg, torch_spmd.train_state_of(plain),
+                                      tb, opt)
+    one = {"metrics": tms1, "g": dict(zip(names, g1)), "snaps": snaps1}
+    _compare(f"{cfg.name} {tuple(mesh_shape)} vs one device", one, tms,
+             tgrads, tsnaps, names, opt, 0, False, before)
