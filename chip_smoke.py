@@ -315,8 +315,12 @@ from repro_torch.analysis.costmodel import (  # noqa: E402
     H100_F32_OPS_S as PEAK_F32_OPS_S, H100_HBM_BYTES_S as PEAK_BYTES_S)
 # the engine main run's jobs: bench_engine.py's sweep point has 600, cut
 # to 150 for the script's clock (every [main]-based run follows it; still
-# 38 macro-steps, past the profile windows' 20 + 10)
-N_MAIN, C_MAIN, JOBS_MAIN = 65_536, 4, 150
+# 38 macro-steps, past the profile windows' 20 + 10), then to 120 when the
+# decode layouts' phases took their seconds (30 macro-steps)
+N_MAIN, C_MAIN, JOBS_MAIN = 65_536, 4, 120
+# the macro-steps a profile or timing window of a main run starts after
+# (20 until the decode layouts' phases took their seconds)
+PROFILE_WARM = 5
 # the traced thermal main run's ring: 40 MB of float32 records
 TRACE_CAP = 1 << 21
 # Depth cuts that keep the whole script within about two thirds of its
@@ -327,15 +331,19 @@ TRACE_CAP = 1 << 21
 # width: 15.9 at 512 and at 65,536 servers under 300 jobs)
 TH_MAIN_JOBS = 120
 # [thermal-parity]'s run of the thermal main configuration at 512 servers
-# (it still throttles, defers and ticks the controller)
-TH_PAR_JOBS = 150
+# (it still throttles, defers and ticks the controller at 120; at 100 no
+# server throttles)
+TH_PAR_JOBS = 120
 # [parity]'s and [scalar-parity]'s one_farm at 512 servers
-FARM_PAR_JOBS = 150
+FARM_PAR_JOBS = 100
 # [net-parity]'s and [scalar-parity]'s case D runs at k=4 (flows recorded)
-CASE_D_PAR_JOBS = 15
+CASE_D_PAR_JOBS = 10
+# [net-parity]'s and [scalar-parity]'s star with two flow slots: the first
+# 15 of its 30 jobs (the CPU run drops 5 flows at 15; it must drop some)
+STAR_PAR_JOBS = 15
 # the network main run: case study D (benchmarks/case_d_network.py) on a
 # k=16 fat-tree, its 30 jobs/s over 16 servers scaled to 1,024 servers
-NET_K, NET_JOBS, NET_LAM = 16, 30, 1920.0
+NET_K, NET_JOBS, NET_LAM = 16, 20, 1920.0
 NET_SERVERS = NET_K ** 3 // 4           # a k-ary fat-tree's servers
 # [mc-main]: benchmarks/bench_engine.py replica_throughput's two largest
 # points, (replicas, servers, jobs a replica, max_jobs)
@@ -379,7 +387,7 @@ WH_ARCH, WH_BATCH, WH_PROMPT, WH_NEW, WH_MAX_SEQ = (
 WH_PAR_LAYERS, WH_PAR_BATCH, WH_PAR_PROMPT, WH_PAR_NEW = 2, 2, 100, 4
 # training: hymba-1.5b at train_4k's sequence length and the batch one
 # card holds (its global batch of 256 is a pod's), steps on one batch
-TR_BATCH, TR_SEQ, TR_STEPS = 4, 4096, 5
+TR_BATCH, TR_SEQ, TR_STEPS = 4, 4096, 3
 # the VQ-token front end: chameleon-34b at full width on [lm-main]'s
 # traffic; its depth is the one thing to cut if the script runs long
 VLM_ARCH, VLM_LAYERS = "chameleon_34b", 48
@@ -826,8 +834,8 @@ def engine_calls_of(root: str) -> None:
                                                 NET_K, NET_JOBS, NET_LAM)
     runs.append(("[net-main]", cfg, arr, specs, topo, tau))
     for tag, cfg, arr, specs, topo, tau in runs:
-        prof = profile_window(cfg, arr, specs, dev, topo=topo, tau=tau,
-                              tag=tag)
+        prof = profile_window(cfg, arr, specs, dev, warm=20, topo=topo,
+                              tau=tau, tag=tag)
         turns = dispatch_turns(cfg, arr, specs, dev, topo=topo, tau=tau)
         log(f"[calls] {tag}: wall {prof['wall_ms']:.3f} ms a macro-step "
             f"under the profiler; without it, in turns, "
@@ -949,12 +957,13 @@ def case_d_cfg(policy, k, n_jobs, lam):
 
 def star_cfg(max_flows):
     """tests/test_network_flows.py's star (made by
-    tests/torch_kernel_inputs.py); ``max_flows=2`` runs out of flow slots
-    and drop-resolves edges."""
+    tests/torch_kernel_inputs.py), its first STAR_PAR_JOBS jobs;
+    ``max_flows=2`` runs out of flow slots and drop-resolves edges."""
     from repro_torch.core import jobs, topology
     from repro_torch.core.types import SimConfig
     from torch_kernel_inputs import star_scenario
-    kw, arr, specs, tau, topo = star_scenario(jobs, topology, max_flows)
+    kw, arr, specs, tau, topo = star_scenario(jobs, topology, max_flows,
+                                              n_jobs=STAR_PAR_JOBS)
     return SimConfig(**kw), arr, specs, tau, topo
 
 
@@ -1348,7 +1357,8 @@ def warmed_state(cfg, arr, specs, dev, warm, topo=None, tau=None):
     return state, tc
 
 
-def profile_window(cfg, arr, specs, dev, warm: int = 20, steps: int = 10,
+def profile_window(cfg, arr, specs, dev, warm: int = PROFILE_WARM,
+                   steps: int = 10,
                    topo=None, tau=None, tag="main run"):
     """Where a macro-step's time goes: ``steps`` macro-steps of a main
     run (after ``warm``) under torch.profiler, each the step
@@ -1532,7 +1542,8 @@ def chrome_schema_errors(doc, ev) -> list:
     return errors
 
 
-def windows_in_turns(cfgs, arr, specs, dev, warm=20, steps=10, rounds=4):
+def windows_in_turns(cfgs, arr, specs, dev, warm=PROFILE_WARM, steps=10,
+                     rounds=4):
     """Host wall (ending in a synchronize) of ``steps`` macro-steps of
     each configuration in ``cfgs`` ({name: cfg}), in turns (a b b a a b b
     a ...), each from its own state after ``warm`` steps, so the k-th
@@ -1672,7 +1683,8 @@ def trace_main(dev, th):
     secs = windows_in_turns({"off": th_cfg, "on": cfg}, arr, specs, dev,
                             rounds=2)
     ratio = [b / a for a, b in zip(secs["off"], secs["on"])]
-    log(f"[trace-main] in turns, 10 macro-steps a window from step 20: "
+    log(f"[trace-main] in turns, 10 macro-steps a window from step "
+        f"{PROFILE_WARM}: "
         f"untraced {[round(x, 4) for x in secs['off']]} s, traced "
         f"{[round(x, 4) for x in secs['on']]} s; traced/untraced per "
         f"window {[round(x, 4) for x in ratio]}, median "
@@ -2308,7 +2320,8 @@ def shard_mc_inputs():
     return mc_config(types, kw, nested), arrs, specs
 
 
-def shard_profile(cfg, state, tc, mesh, profiled, warm=20, steps=10):
+def shard_profile(cfg, state, tc, mesh, profiled, warm=PROFILE_WARM,
+                  steps=10):
     """Device time of ``steps`` sharded macro-steps (gather, step, slice,
     as run_sharded's loop body) after ``warm``, and of ``steps`` gather
     phases alone on the same blocks.  Every rank calls it (the gathers are
@@ -4585,10 +4598,11 @@ def train_kernel_entries(launches, fa_errs, ss_err, dev):
 # in float32 on a global batch of 4 x 1,100 tokens from the port's
 # pipeline, moonshot cut to [moe-parity]'s 2 layers and B x prompt;
 # [mesh-main]: hymba-1.5b cut to 4 layers in bf16 on [train-main]'s
-# 4 x 4,096 tokens, 4 steps
+# 4 x 4,096 tokens, 2 steps (4 until the decode layouts' phases took
+# their seconds)
 LAUNCH_ARGS = ("--arch", "smollm-360m", "--batch", "8", "--seq", "2048")
 MESH_LAYERS, MESH_BATCH, MESH_SEQ = 2, 4, 1100
-MESH_MAIN_LAYERS, MESH_MAIN_STEPS = 4, 4
+MESH_MAIN_LAYERS, MESH_MAIN_STEPS = 4, 2
 # [mesh-main]'s peak a rank when its step gathered the whole model before
 # the forward (H100 80GB HBM3), which the per-period gathers are held under
 MESH_MAIN_WHOLE_GIB = 7.13
@@ -4596,8 +4610,9 @@ MESH_MAIN_WHOLE_GIB = 7.13
 # 2,048, 32/8 heads, d_ff 8,192, vocab 128,256, tied) cut to TP_PAR_LAYERS
 # layers in float32 on (1, 2); [tp-main]: the same cut to TP_LAYERS of its
 # 16 layers in bf16 (remat "dots"), TP_STEPS steps of [train-main]'s 4 x
-# 4,096 tokens on (1, 2) and then (1, 1)
-TP_ARCH, TP_PAR_LAYERS, TP_LAYERS, TP_STEPS = "llama3_2_1b", 2, 4, 4
+# 4,096 tokens on (1, 2) and then (1, 1) (4 layers and 4 steps until the
+# decode layouts' phases took their seconds)
+TP_ARCH, TP_PAR_LAYERS, TP_LAYERS, TP_STEPS = "llama3_2_1b", 2, 2, 2
 # the kernels at the tensor-parallel ranks' shapes, checked in phase 3 and
 # timed after phase 8: [tp-main]'s llama rank (16 of 32 query heads over
 # kv heads 0-3 or 4-7), [mesh-parity]'s hymba (1, 2) rank 0 (13 of 25
@@ -5216,6 +5231,8 @@ def mesh_rank(rank, world, dev):
     out["tp"] = mesh_main_rank(tp, mesh_of((1, 2), device=dev.type), dev,
                                TP_STEPS)
     lap("tp-main (1, 2)")
+    out["serve"] = serve_rank(rank, dev)
+    lap("the decode layouts")
     out["secs"] = secs
     return out
 
@@ -5267,6 +5284,7 @@ def mesh_phases(dev) -> dict:
         finally:
             dist.destroy_process_group()
     t_tp_one = time.perf_counter() - t1
+    serve_counts = serve_phases(ranks, dev)
 
     want = {"flash_attention": 2 * L, "ssm_scan": 2 * L,
             "flash_attention_backward": L, "ssm_scan_backward": L}
@@ -5382,7 +5400,7 @@ def mesh_phases(dev) -> dict:
     hy13 = FLASH_TP["hymba 13 heads"][:8]
     sh = ranks[0]["hymba (1, 2) a"]["shapes"]
     return {"launch-train": lt["launches"], "mesh-parity": launches,
-            "mesh-main": mm["launches"][-1],
+            "mesh-main": mm["launches"][-1], "serve": serve_counts,
             "tp": {"llama tp rank": tp_out,
                    "hymba 13 heads": {"fwd": sh["fwd"].get(hy13, 0),
                                       "bwd": sh["bwd"].get(hy13, 0)},
@@ -5560,6 +5578,530 @@ def tp_main_report(ranks, one, cfg) -> dict:
         f"{one_peak / 2**30:.2f} GiB; the attention at 16/4 heads a rank: "
         f"{want['fwd']} forward and {want['bwd']} backward launches a step")
     return want
+
+
+# --------------------------------------------------------------------------
+# the decode layouts, in phase 8's two ranks and then on one rank over
+# NCCL: [kvseq-parity], [ws-parity], [serve-tp-main], [ws-main]
+# --------------------------------------------------------------------------
+
+# [kvseq-parity]: llama3.2-1b cut to KV_PAR_LAYERS layers in float32 with
+# KV_PAR_MAX_SEQ slots, prompts of each of KV_PAR_PROMPTS tokens (at 100,
+# rank 1's slots 128-255 hold no written key through the decode steps),
+# hymba-1.5b cut the same (its SSM channels a rank's half), and
+# llama3.2-1b's 16 layers in float32 with KV_FULL_MAX_SEQ slots and
+# prompts of KV_FULL_PROMPT tokens, so that both ranks hold written slots
+# and the decode steps write on rank 1, all on (1, 2);
+# [ws-parity]: moonshot cut to MOE_PAR_LAYERS layers in float32 on (2, 1)
+# with serve_weights_stationary, WS_PAR_BATCH x WS_PAR_PROMPT tokens;
+# [serve-tp-main]: llama3.2-1b's 16 layers in bf16 through
+# ServeEngine.generate, [lm-main]'s traffic, decode_32k's cache length, on
+# (1, 2) and then (1, 1), whose steps then run again fed (1, 2)'s tokens;
+# [ws-main]: moonshot at full width cut to
+# WS_LAYERS layers in bf16 on (2, 1), WS_BATCH x WS_PROMPT tokens, then
+# WS_PLAIN_STEPS decode steps in the train layout and WS_STEPS in the
+# weights-stationary one, in turns
+KV_PAR_LAYERS, KV_PAR_BATCH, KV_PAR_MAX_SEQ, KV_PAR_NEW = 2, 2, 256, 4
+KV_PAR_PROMPTS = (100, 200)
+KV_FULL_BATCH, KV_FULL_MAX_SEQ, KV_FULL_PROMPT, KV_FULL_NEW = 2, 1024, 600, 8
+WS_PAR_BATCH, WS_PAR_PROMPT, WS_PAR_NEW = 4, 128, 3
+SERVE_TP_MAX_SEQ = 32768
+WS_LAYERS, WS_BATCH, WS_PROMPT, WS_PLAIN_STEPS, WS_STEPS = 2, 4, 256, 2, 8
+# [serve-tp-main]'s near-tie: (1, 1)'s logits of the two tokens within four
+# bf16 steps (2^-8 each) of its largest, where bf16 logits cannot rank them
+SERVE_TP_TIE = 2.0 ** -6
+
+
+def seeded_tokens(cfg, B, S, seed):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        1, cfg.vocab, (B, S)))
+
+
+def step_logits(cfg, params, mesh, toks, max_seq, new, dev, feed=None,
+                calls=None):
+    """make_prefill / make_serve_step(cfg, mesh) on ``toks`` into a cache
+    of ``max_seq`` slots (this rank's blocks with a mesh), then ``new``
+    decode steps, each fed ``feed``'s greedy token (None: its own): the
+    logits of each call on the CPU, in float32.  ``calls`` (a list)
+    receives each decode step's collectives (torch_spmd's
+    ``record_collectives``)."""
+    from repro_torch.models import transformer
+    from repro_torch.train import step
+    from torch_spmd import record_collectives
+    B, S = toks.shape
+    with torch.inference_mode():
+        cache = transformer.init_cache(cfg, B, max_seq, device=dev, ctx=mesh)
+        lg, cache = step.make_prefill(cfg, mesh)(params, toks.to(dev), cache)
+        out = [lg.float().cpu()]
+        decode = step.make_serve_step(cfg, mesh)
+        for i in range(new):
+            tok = (out[-1] if feed is None else feed[i]).argmax(-1)
+            with record_collectives() as rec:
+                lg, cache = decode(params, cache, tok[:, None].to(dev), S + i)
+            if calls is not None:
+                calls.append(rec)
+            out.append(lg.float().cpu())
+    return out, cache
+
+
+def logits_err(tag, got, exp, tol) -> float:
+    """The largest absolute difference of two runs' logits, call by call;
+    ``fail`` past ``tol`` or on a non-finite value."""
+    worst = 0.0
+    for i, (g, e) in enumerate(zip(got, exp)):
+        if not torch.isfinite(g).all():
+            fail(f"{tag}: call {i} logits not finite")
+        worst = max(worst, float((g - e).abs().max()))
+    if worst > tol:
+        fail(f"{tag}: logits differ from one rank's by {worst} (> {tol})")
+    return worst
+
+
+def state_gathers(calls, shapes) -> int:
+    """All-gathers among recorded collectives whose tensor has one of
+    ``shapes`` (a block, or the block with its gathered dim first)."""
+    from torch_spmd import GATHERS
+    return sum(1 for rec in calls for n, s, _ in rec
+               if n in GATHERS and s in shapes)
+
+
+def kvseq_parity_rank(rank, dev) -> dict:
+    """[kvseq-parity] on this rank: llama3.2-1b and hymba-1.5b cut to
+    KV_PAR_LAYERS layers, and llama3.2-1b at its full depth with both
+    ranks' slots written (float32), on (1, 2) against the same calls on
+    one rank (this rank computes them too): logits within 1e-3 and the
+    same greedy token at every call, fed one rank's tokens; the same
+    greedy tokens from ServeEngine(mesh=) as from one rank's engine (the
+    cut cases); whether this rank holds a written slot after the decode
+    steps, the cache's blocks, and hymba's decode steps gathering no SSM
+    state."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import step
+    from torch_spmd import mesh_of
+    m12 = mesh_of((1, 2), device=dev.type)
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    out = {}
+    # (arch, layers (None: all), batch, slots, prompt lengths, new tokens,
+    # the engines compared too)
+    cases = ((TP_ARCH, KV_PAR_LAYERS, KV_PAR_BATCH, KV_PAR_MAX_SEQ,
+              KV_PAR_PROMPTS, KV_PAR_NEW, True),
+             (LM_ARCH, KV_PAR_LAYERS, KV_PAR_BATCH, KV_PAR_MAX_SEQ, (200,),
+              KV_PAR_NEW, True),
+             (TP_ARCH, None, KV_FULL_BATCH, KV_FULL_MAX_SEQ,
+              (KV_FULL_PROMPT,), KV_FULL_NEW, False))
+    for arch, layers, B, max_seq, prompts, new, engines in cases:
+        cfg = configs.get_config(arch)
+        cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers,
+                                  **f32)
+        full = seeded_params(cfg, dev)
+        blocks = step.shard_params(full, step.state_shardings(cfg, m12)[0][
+            "params"])
+        cache = transformer.init_cache(cfg, B, max_seq, device="meta",
+                                       ctx=m12)
+        for S in prompts:
+            tag = f"kvseq-parity {cfg.name} {cfg.n_layers} layers {S} " \
+                  f"rank {rank}"
+            toks = seeded_tokens(cfg, B, S, S)
+            ref, _ = step_logits(cfg, full, None, toks, max_seq, new, dev)
+            calls = []
+            ops.reset_launch_counts()
+            got, got_cache = step_logits(cfg, blocks, m12, toks, max_seq,
+                                         new, dev, feed=ref, calls=calls)
+            launches = ops.launch_counts()
+            err = logits_err(tag, got, ref, 1e-3)
+            differ = [i for i, (g, r) in enumerate(zip(got, ref))
+                      if not torch.equal(g.argmax(-1), r.argmax(-1))]
+            if differ:
+                fail(f"{tag}: greedy tokens differ from one rank's at calls "
+                     f"{differ}")
+            written = bool((got_cache[0]["pos_ids"] >= 0).any())
+            del got_cache
+            if engines:
+                prompts_l = toks.tolist()
+                one = [g.tokens for g in ServeEngine(
+                    cfg, full, max_batch=B, max_seq=max_seq,
+                    device=dev).generate(prompts_l, max_new=new)]
+                sh = [g.tokens for g in ServeEngine(
+                    cfg, blocks, max_batch=B, max_seq=max_seq, mesh=m12,
+                    device=dev).generate(prompts_l, max_new=new)]
+                if sh != one:
+                    fail(f"{tag}: ServeEngine's greedy tokens differ from "
+                         f"one rank's")
+            c0 = cache[0]
+            blk = {k: tuple(v.shape) for k, v in c0.items()
+                   if isinstance(v, torch.Tensor)}
+            if "ssm" in c0:
+                blk |= {f"ssm.{k}": tuple(v.shape)
+                        for k, v in c0["ssm"].items()}
+            Dh = cfg.d_ssm // 2
+            ssm_shapes = {(B, cfg.ssm_conv - 1, Dh), (B, Dh, cfg.ssm_state),
+                          (Dh, B, cfg.ssm_conv - 1), (Dh, B, cfg.ssm_state)}
+            out[f"{cfg.name} {cfg.n_layers} layers {S}"] = {
+                "err": err, "launches": launches, "blocks": blk,
+                "calls": [len(r) for r in calls], "written": written,
+                "layers": cfg.n_layers, "batch": B, "slots": max_seq,
+                "new": new, "engines": engines,
+                "state_gathers": state_gathers(calls, ssm_shapes)
+                if "ssm" in c0 else None}
+        del full, blocks
+        torch.cuda.empty_cache()
+    return out
+
+
+def ws_parity_rank(rank, dev) -> dict:
+    """[ws-parity] on this rank: moonshot cut to MOE_PAR_LAYERS layers
+    (float32) with serve_weights_stationary on (2, 1), its parameters
+    under serve_rules (experts' "e_ff" halved), against one rank: logits
+    within 1e-3 where no route differs (the route-flip rule), the
+    collectives of each decode step, and no parameter gathered."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.sharding import spmd
+    from repro_torch.train import step
+    from torch_kernel_inputs import recorded_routes, route_flips
+    from torch_spmd import mesh_of
+    m21 = mesh_of((2, 1), device=dev.type)
+    cfg = dataclasses.replace(
+        configs.get_config(MOE_ARCH), n_layers=MOE_PAR_LAYERS,
+        param_dtype="float32", compute_dtype="float32",
+        serve_weights_stationary=True)
+    full = seeded_params(cfg, dev)
+    toks = seeded_tokens(cfg, WS_PAR_BATCH, WS_PAR_PROMPT, 17)
+    with recorded_routes(moe) as exp:
+        ref, _ = step_logits(cfg, full, None, toks, LM_MAX_SEQ, WS_PAR_NEW,
+                             dev)
+    blocks = step.shard_params(full, step.serve_shardings(cfg, m21)[0][
+        "params"])
+    del full
+    torch.cuda.empty_cache()
+    taken = []
+
+    def hook(event, key, tensors):
+        taken.extend(tuple(t.shape) for t in tensors)
+    spmd.ON_GATHER.append(hook)
+    calls = []
+    try:
+        with recorded_routes(moe) as got_routes:
+            got, _ = step_logits(cfg, blocks, m21, toks, LM_MAX_SEQ,
+                                 WS_PAR_NEW, dev, feed=ref, calls=calls)
+    finally:
+        spmd.ON_GATHER.remove(hook)
+    flips = route_flips(got_routes, exp)
+    err = None if flips else logits_err(f"ws-parity rank {rank}", got, ref,
+                                        1e-3)
+    rows = WS_PAR_BATCH // 2
+    from torch_spmd import GATHERS
+    acts = {(rows, 1, cfg.d_model), (rows, cfg.vocab)}
+    params_gathered = taken + [s for rec in calls for n, s, _ in rec
+                               if n in GATHERS and s not in acts]
+    if params_gathered:
+        fail(f"ws-parity rank {rank}: parameters gathered {params_gathered}")
+    ef = blocks["layers"][0]["ffn"]["wg"].shape
+    del blocks
+    torch.cuda.empty_cache()
+    return {"err": err, "flips": flips, "calls": calls[0], "wg": tuple(ef)}
+
+
+def serve_tp_main(cfg, mesh, dev, keep=True, forced=None) -> dict:
+    """[serve-tp-main] on this rank: ``cfg`` (llama3.2-1b, bf16) through
+    ServeEngine(mesh=).generate on [lm-main]'s traffic with decode_32k's
+    cache length: first token and decode seconds, peak memory over the
+    run, the cache's bytes a rank, the kernels' launches over the
+    generate call, the generated tokens and, with ``keep``, the logits
+    of every call (the prefill and each decode step, caught at the
+    engine's steps).  ``forced`` (another run's logits a call): after
+    generate, the same prompts' prefill and decode steps through the
+    step functions, each step fed the greedy token of ``forced``'s call
+    before it, and their logits ("forced")."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import step
+    base = torch.cuda.memory_allocated(dev)
+    params = seeded_params(cfg, dev)
+    if mesh is not None:
+        params = step.shard_params(params, step.state_shardings(cfg, mesh)[
+            0]["params"])
+    torch.cuda.empty_cache()
+    prompts = seeded_tokens(cfg, LM_BATCH, LM_PROMPT, 23).tolist()
+    eng = ServeEngine(cfg, params, max_batch=LM_BATCH,
+                      max_seq=SERVE_TP_MAX_SEQ, mesh=mesh, device=dev)
+    seen = []
+    for name in ("_prefill", "_decode"):
+        inner = getattr(eng, name)
+
+        def caught(*a, _inner=inner):
+            lg, cache = _inner(*a)
+            if keep:
+                seen.append(lg.cpu())
+            return lg, cache
+        setattr(eng, name, caught)
+    # the keys, values and their positions (not the slot ids a split
+    # cache also holds)
+    cache_bytes = sum(c[k].numel() * c[k].element_size()
+                      for c in transformer.init_cache(
+                          cfg, LM_BATCH, SERVE_TP_MAX_SEQ, device="meta",
+                          ctx=mesh)
+                      for k in ("k", "v", "pos_ids"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = eng.generate(prompts, max_new=LM_NEW)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    tm = eng.timings
+    del eng
+    torch.cuda.empty_cache()
+    got = None
+    if forced is not None:
+        got, _ = step_logits(cfg, params, mesh, torch.tensor(prompts),
+                             SERVE_TP_MAX_SEQ, len(forced) - 1, dev,
+                             feed=forced)
+    del params
+    torch.cuda.empty_cache()
+    return {"first_s": tm["first_token_s"],
+            "decode_ms": 1e3 * tm["decode_s"] / max(tm["decode_steps"], 1),
+            "steps": tm["decode_steps"], "peak": peak,
+            "cache_bytes": cache_bytes, "launches": launches,
+            "logits": seen, "forced": got,
+            "tokens": [r.tokens[LM_PROMPT:] for r in res]}
+
+
+def ws_main_rank(rank, dev) -> dict:
+    """[ws-main] on this rank: moonshot at full width cut to WS_LAYERS
+    layers (bf16) on (2, 1): the prompts' prefill in the weights-stationary
+    layout, then decode steps in turns from the same cache: one in the
+    train layout (its FSDP blocks gathered each step) and WS_STEPS /
+    WS_PLAIN_STEPS in the weights-stationary one, WS_PLAIN_STEPS rounds;
+    each step timed between card syncs, its collectives' bytes recorded,
+    and each round's train-layout logits beside the first stationary
+    step's, which takes the same cache and token."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.train import step
+    from torch_spmd import mesh_of, record_collectives
+    m21 = mesh_of((2, 1), device=dev.type)
+    ws = dataclasses.replace(configs.get_config(MOE_ARCH),
+                             n_layers=WS_LAYERS, serve_weights_stationary=True)
+    plain = dataclasses.replace(ws, serve_weights_stationary=False)
+    full = seeded_params(ws, dev)
+    train_b = step.shard_params(full, step.state_shardings(plain, m21)[0][
+        "params"])
+    ws_b = step.shard_params(full, step.serve_shardings(ws, m21)[0]["params"])
+    del full
+    torch.cuda.empty_cache()
+    toks = seeded_tokens(ws, WS_BATCH, WS_PROMPT, 29).to(dev)
+    steps = {"train layout": step.make_serve_step(plain, m21),
+             "weights-stationary": step.make_serve_step(ws, m21)}
+    out = {k: {"ms": [], "bytes": []} for k in steps}
+    diffs = []
+    with torch.inference_mode():
+        cache = transformer.init_cache(ws, WS_BATCH, WS_PROMPT + WS_STEPS
+                                       + WS_PLAIN_STEPS, device=dev, ctx=m21)
+        lg, cache = step.make_prefill(ws, m21)(ws_b, toks, cache)
+        pos = WS_PROMPT
+        per_round = WS_STEPS // WS_PLAIN_STEPS
+        for _ in range(WS_PLAIN_STEPS):
+            tok = lg.argmax(-1)[:, None]
+            runs = [("train layout", train_b)] + [("weights-stationary",
+                                                   ws_b)] * per_round
+            first = {}
+            for i, (name, params) in enumerate(runs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with record_collectives() as rec:
+                    lg_i, c_i = steps[name](params, cache, tok, pos)
+                torch.cuda.synchronize()
+                out[name]["ms"].append(1e3 * (time.perf_counter() - t0))
+                out[name]["bytes"].append(sum(b for _, _, b in rec))
+                if i < 2:
+                    first[name] = lg_i.float()
+                if name == "weights-stationary":
+                    cache, lg = c_i, lg_i
+                    pos += 1
+                    tok = lg.argmax(-1)[:, None]
+            diffs.append(float((first["train layout"]
+                                - first["weights-stationary"]).abs().max()))
+            if not all(torch.isfinite(t).all() for t in first.values()):
+                fail(f"ws-main rank {rank}: non-finite logits")
+    out["diffs"] = diffs
+    del train_b, ws_b, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_rank(rank, dev) -> dict:
+    """This slice's phases on one of phase 8's two gloo ranks: each
+    returns what the main process reports, with its seconds."""
+    from torch_spmd import mesh_of
+    from repro_torch import configs
+    out, secs = {}, {}
+    for name, fn in (
+            ("kvseq", lambda: kvseq_parity_rank(rank, dev)),
+            ("ws", lambda: ws_parity_rank(rank, dev)),
+            ("serve-tp", lambda: serve_tp_main(
+                configs.get_config(TP_ARCH), mesh_of((1, 2), device=dev.type),
+                dev, keep=rank == 0)),
+            ("ws-main", lambda: ws_main_rank(rank, dev))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        secs[name] = round(time.perf_counter() - t0, 1)
+    out["secs"] = secs
+    return out
+
+
+def serve_phases(ranks, dev) -> dict:
+    """Report [kvseq-parity], [ws-parity], [serve-tp-main] and [ws-main]
+    from the two gloo ranks' ``serve_rank`` results, after [serve-tp-main]
+    on (1, 1) over NCCL in this process, which then runs the prompts'
+    prefill and decode steps again fed (1, 2)'s tokens: (1, 2)'s logits
+    at every call within the bf16 band of (1, 1)'s on the same tokens,
+    its greedy token the same at every call but at a near-tie
+    (SERVE_TP_TIE), the cache a rank half of (1, 1)'s.  Returns the kernels'
+    launches in this slice's runs."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from torch_spmd import mesh_of
+    t0 = time.perf_counter()
+    cfg = configs.get_config(TP_ARCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            one = serve_tp_main(
+                cfg, mesh_of((1, 1), device=dev.type), dev, keep=False,
+                forced=ranks[0]["serve"]["serve-tp"]["logits"])
+        finally:
+            dist.destroy_process_group()
+    t_one = time.perf_counter() - t0
+    for rk, o in enumerate(ranks):
+        s = o["serve"]
+        for case, r in s["kvseq"].items():
+            kernel = "ssm_scan" if LM_ARCH[:5] in case else "flash_attention"
+            if r["launches"][kernel] == 0:
+                fail(f"kvseq-parity {case} rank {rk}: {kernel} never "
+                     f"launched")
+            extra = "" if r["state_gathers"] is None else \
+                f"; SSM state all-gathers in the decode steps " \
+                f"{r['state_gathers']}"
+            if r["state_gathers"]:
+                fail(f"kvseq-parity {case} rank {rk}: a decode step gathered "
+                     f"the SSM state")
+            log(f"[kvseq-parity] {case} tokens f32, B={r['batch']}, "
+                f"{r['slots']} slots, (1, 2) rank {rk} (gloo): logits of the "
+                f"prefill and {r['new']} decode steps within {r['err']:.3g} "
+                f"of one rank's (limit 1e-3), the same greedy token at every "
+                f"call" + (", ServeEngine(mesh=)'s tokens == one rank's"
+                           if r["engines"] else "")
+                + f"; this rank holds {'a' if r['written'] else 'no'} "
+                f"written slot after the decode steps; layer 0's blocks "
+                f"{r['blocks']}; collectives a decode step {r['calls']}; "
+                f"launches {r['launches']}{extra}")
+        # the trap (rank 1 with no written slot at 100 tokens) and its
+        # opposite (both ranks written at full depth) did occur
+        full = [c for c in s["kvseq"] if c.startswith(
+            f"{cfg.name} {cfg.n_layers} layers")]
+        if not full or not all(s["kvseq"][c]["written"] for c in full):
+            fail(f"kvseq-parity rank {rk}: the full-depth case left this "
+                 f"rank without a written slot")
+        short = f"{cfg.name} {KV_PAR_LAYERS} layers {KV_PAR_PROMPTS[0]}"
+        if rk == 1 and s["kvseq"][short]["written"]:
+            fail(f"kvseq-parity: rank 1 holds a written slot in {short}")
+        w = s["ws"]
+        counts = {}
+        for n, _, b in w["calls"]:
+            c, by = counts.get(n, (0, 0))
+            counts[n] = (c + 1, by + b)
+        log(f"[ws-parity] {MOE_ARCH} {MOE_PAR_LAYERS} layers f32, "
+            f"serve_weights_stationary, (2, 1) rank {rk} (gloo), "
+            f"{WS_PAR_BATCH} x {WS_PAR_PROMPT} tokens, {WS_PAR_NEW} decode "
+            f"steps: " + (f"logits within {w['err']:.3g} of one rank's "
+                          f"(limit 1e-3), routes equal" if w["err"] is not None
+                          else "routes differ only at near-ties: "
+                          + flip_note(w["flips"], MOE_PAR_LAYERS)
+                          + "; logits not compared")
+            + f"; the experts' wg block {w['wg']}; a decode step's "
+            f"collectives (calls, bytes handed in) {counts}; no parameter "
+            f"all-gathered")
+    r12 = [o["serve"]["serve-tp"] for o in ranks]
+    if r12[1]["tokens"] != r12[0]["tokens"]:
+        fail("serve-tp-main: the two ranks generated different tokens")
+    got, ref = r12[0]["logits"], one["forced"]
+    if not len(got) == len(ref) == LM_NEW:
+        fail(f"serve-tp-main: {len(got)} and {len(ref)} calls' logits, not "
+             f"{LM_NEW}")
+    errs, flips = [], []
+    for i, (g, e) in enumerate(zip(got, ref)):
+        g = g.float()
+        if not (torch.isfinite(g).all() and torch.isfinite(e).all()):
+            fail(f"serve-tp-main: call {i} logits not finite")
+        top = float(e.abs().max())
+        errs.append(float((g - e).abs().max()) / top)
+        a12, a11 = g.argmax(-1), e.argmax(-1)
+        for row in (a12 != a11).nonzero().flatten().tolist():
+            flips.append((i, row, float(e[row, a11[row]] - e[row, a12[row]])
+                          / top))
+    if max(errs) > 5e-2:
+        fail(f"serve-tp-main: (1, 2)'s logits differ from (1, 1)'s on the "
+             f"same tokens by {max(errs)} of the largest at call "
+             f"{errs.index(max(errs))} (limit 5e-2)")
+    if any(m > SERVE_TP_TIE for _, _, m in flips):
+        fail(f"serve-tp-main: greedy tokens differ from (1, 1)'s on the same "
+             f"tokens away from a near-tie (call, row, margin of the "
+             f"largest; limit {SERVE_TP_TIE}): {flips}")
+    free = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), None)
+            for x, y in zip(r12[0]["tokens"], one["tokens"])]
+    for r in r12 + [one]:
+        if r["launches"]["flash_attention"] == 0:
+            fail("serve-tp-main: flash_attention never launched")
+        if r is not one and r["cache_bytes"] * 2 != one["cache_bytes"]:
+            fail(f"serve-tp-main: cache a rank {r['cache_bytes']} bytes, not "
+                 f"half of (1, 1)'s {one['cache_bytes']}")
+    for name, runs in (("(1, 2) over gloo (both ranks on card 0)", r12),
+                       ("(1, 1) over NCCL", [one])):
+        r = runs[0]
+        log(f"[serve-tp-main] {cfg.name} (16 layers, bf16), "
+            f"ServeEngine.generate {LM_BATCH} x {LM_PROMPT} tokens, {LM_NEW} "
+            f"new, greedy, {SERVE_TP_MAX_SEQ} slots, mesh {name}: first "
+            f"token {[round(1e3 * x['first_s'], 1) for x in runs]} ms, decode "
+            f"{[round(x['decode_ms'], 2) for x in runs]} ms a step "
+            f"({r['steps']} steps), peak a rank "
+            f"{[round(x['peak'] / 2**30, 2) for x in runs]} GiB, cache a "
+            f"rank {r['cache_bytes'] / 2**30:.3f} GiB; launches {r['launches']}")
+    log(f"[serve-tp-main] (1, 2)'s logits at each of the {LM_NEW} calls "
+        f"against (1, 1)'s fed the same tokens: within {max(errs):.3g} of "
+        f"(1, 1)'s largest (prefill {errs[0]:.3g}, decode steps "
+        f"{max(errs[1:]):.3g}; limit 5e-2); the greedy token the same in "
+        f"{LM_NEW * LM_BATCH - len(flips)} of {LM_NEW * LM_BATCH} "
+        f"(call, row) pairs" + ("" if not flips else
+                                f", the others near-ties (call, row, margin "
+                                f"of the largest; limit {SERVE_TP_TIE}) "
+                                f"{[(i, j, round(m, 4)) for i, j, m in flips]}")
+        + f"; rank 1's tokens == rank 0's; free-running, (1, 1)'s generate "
+        f"first departs from (1, 2)'s at step {free} of each row (None: "
+        f"never)")
+    for rk, o in enumerate(ranks):
+        m = o["serve"]["ws-main"]
+        log(f"[ws-main] {MOE_ARCH} at full width cut to {WS_LAYERS} layers, "
+            f"bf16, (2, 1) rank {rk} (gloo), {WS_BATCH} x {WS_PROMPT} "
+            f"tokens: decode steps in turns from the same cache, "
+            + "; ".join(f"{k}: {len(v['ms'])} steps "
+                        f"{[round(x, 1) for x in v['ms']]} ms (median "
+                        f"{statistics.median(v['ms']):.1f}), "
+                        f"{statistics.median(v['bytes']) / 2**20:.2f} MiB "
+                        f"handed to collectives a step"
+                        for k, v in m.items() if k != "diffs")
+            + f"; the two layouts' logits on the same cache and token "
+              f"differ by at most {[round(d, 4) for d in m['diffs']]}")
+    log(f"[serve] the ranks' seconds {[o['serve']['secs'] for o in ranks]}; "
+        f"(1, 1) [serve-tp-main] {t_one:.1f} s")
+    return {"serve-tp (1, 2)": [r["launches"] for r in r12],
+            "serve-tp (1, 1)": one["launches"],
+            "kvseq": [{c: r["launches"] for c, r in o["serve"]["kvseq"].items()}
+                      for o in ranks]}
 
 
 # --------------------------------------------------------------------------
@@ -5974,6 +6516,19 @@ def main() -> None:
                                 mesh_counts["mesh-parity"].items()},
                 "mesh-main": mesh_counts["mesh-main"][k["name"]]}
             log(f"[mesh] {k['name']}: {k['mesh_launches']}")
+    # this slice's path: the sequence-sharded prefill ([serve-tp-main], the
+    # attention) and the SSM's channels kept ([kvseq-parity] hymba, the scan)
+    sv = mesh_counts["serve"]
+    for k in kernels:
+        if k["name"] == "flash_attention":
+            k["serve_tp_launches"] = {
+                "(1, 2)": [c["flash_attention"] for c in sv["serve-tp (1, 2)"]],
+                "(1, 1)": sv["serve-tp (1, 1)"]["flash_attention"]}
+        if k["name"] in ("flash_attention", "ssm_scan"):
+            k["kvseq_launches"] = [{case: c[k["name"]] for case, c in r.items()}
+                                   for r in sv["kvseq"]]
+            log(f"[serve] {k['name']}: "
+                f"{k.get('serve_tp_launches', '')} {k['kvseq_launches']}")
     kernels += tp_kernel_entries(tp_errs, mesh_counts["tp"], dev)
 
     log(f"[total] chip_smoke.py wall {time.perf_counter() - t_start:.1f} s, "

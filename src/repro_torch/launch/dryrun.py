@@ -14,8 +14,13 @@ the port's own ``make_train_step(cfg, mesh)`` / ``make_prefill`` /
 ``make_serve_step`` once under ``FakeTensorMode`` and
 ``analysis.graph_audit.record``.  Every tensor is fake: the state is rank
 0's blocks (``train.step.state_shardings``; ``partition.serve_rules`` for
-a weights-stationary decode, as the reference's), the inputs the global
-batch every rank takes, the cache rank 0's rows.  The tensors lie on
+a weights-stationary decode, as the reference's, and for its prefill,
+whose parameters the port's steps take in the same layout: there the
+port's cell departs from the reference's, which gives a flagged prefill
+the train layout), the inputs
+the global batch every rank takes, the cache rank 0's blocks (its rows,
+an attn layer's slots and the SSM's channels,
+``transformer.init_cache(..., ctx=)``).  The tensors lie on
 ``cuda`` where the torch build has CUDA, so the kernels' fake
 implementations (``kernels/ops.py``) stand where the card runs the
 kernels and the recording is the card's graph; a build without CUDA
@@ -140,19 +145,15 @@ def input_specs(cfg: ModelConfig, shape, device=None) -> dict:
     raise ValueError(shp.kind)
 
 
-def cache_rows(shape, mesh) -> int:
-    """Rank 0's cache rows: its block of the batch over the batch axes,
-    every row when they do not divide it (``transformer.cache_specs``)."""
-    shp = _shape(shape)
-    ctx = spmd.Ctx.of(mesh).for_batch(shp.global_batch)
-    return shp.global_batch // ctx.n_batch if ctx.split else shp.global_batch
-
-
 def cache_specs(cfg: ModelConfig, shape, mesh, device=None) -> list:
-    """Rank 0's decode cache for the cell: its rows, the full sequence."""
+    """Rank 0's blocks of the cell's decode cache under
+    ``transformer.cache_specs``: its rows, its slots of a full cache and
+    its channels of the SSM state over "model" (``init_cache`` with the
+    mesh)."""
     shp = _shape(shape)
-    return transformer.init_cache(cfg, cache_rows(shp, mesh), shp.seq_len,
-                                  device=device or fake_device())
+    return transformer.init_cache(cfg, shp.global_batch, shp.seq_len,
+                                  device=device or fake_device(),
+                                  ctx=spmd.Ctx.of(mesh))
 
 
 def state_specs(cfg: ModelConfig, mesh, max_seq: int = 0, rules=None,
@@ -184,7 +185,7 @@ def _lower_one(cfg: ModelConfig, shp: ShapeSpec, mesh, device=None):
     blocks, ready to trace."""
     max_seq = shp.seq_len if cfg.pos == "learned" else 0
     rules = None
-    if shp.kind == "decode" and cfg.serve_weights_stationary:
+    if shp.kind in ("prefill", "decode") and cfg.serve_weights_stationary:
         rules = partition.serve_rules(mesh)
     state = state_specs(cfg, mesh, max_seq, rules, device)
     ins = input_specs(cfg, shp, device)

@@ -19,6 +19,14 @@ compute form, ``train/step.py``'s plan), ``attention_block`` and
 of ``wo``, which the caller sums over "model"; the keys and values of
 self-attention are computed whole, and each query head reads its own kv
 head of them (``kv_heads``).
+
+A full (``attn``) decode cache made for a mesh (``transformer.init_cache``
+with a context) holds a model rank's block of the slots, the reference's
+"kv_seq" over "model", and its ``slots`` leaf names them.  Decode then
+takes the reference's flash-decode form: every model rank attends with
+every query head over its own slots (``attend_partial``), the ranks'
+float32 statistics are combined over "model" (``spmd.decode_combine``),
+and each rank takes its own heads into ``wo``.
 """
 from __future__ import annotations
 
@@ -184,25 +192,20 @@ def qkv_proj(p, x, cfg, n_heads=None):
     return q, k, v
 
 
-def attend(q, k, v, *, causal, q_offset=0, window=0, attn_softcap=0.0,
-           kv_positions=None):
-    """GQA attention in plain tensor code (the decode path).
-
-    q (B, Sq, H, hd); k/v (B, Skv, KV, hd) with H % KV == 0.  Scores in
-    float32 (the reference's ``preferred_element_type``: bf16 products are
-    exact in float32, so casting first is the same contraction); the
-    probabilities are cast to v's dtype before the value product, as in
-    the reference.  ``q_offset`` is the absolute position of q[:, 0];
-    ``kv_positions`` (B, Skv) gives each key's absolute position (ring
-    caches, -1 = empty slot).  The reference's query chunking bounds its
-    memory at long Sq and does not change the result; decode has Sq = 1."""
+def _masked_scores(q, k, *, causal, q_offset, window, attn_softcap,
+                   kv_positions):
+    """The float32 scores of q (B, Sq, H, hd) over k (B, Skv, KV, hd),
+    (B, KV, G, Sq, Skv) with G = H // KV, scaled and softcapped, and the
+    mask of the keys each query sees: a written slot (``kv_positions``
+    >= 0), causal and within ``window`` where asked.  Scores in float32
+    (the reference's ``preferred_element_type``: bf16 products are exact
+    in float32, so casting first is the same contraction)."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
-    G = H // KV
     if kv_positions is None:
         kv_positions = torch.arange(Skv, device=q.device)[None].expand(B, Skv)
     kv_pos = kv_positions[:, None, None, None, :]            # (B,1,1,1,Skv)
-    qg = q.reshape(B, Sq, KV, G, hd).float()
+    qg = q.reshape(B, Sq, KV, H // KV, hd).float()
     scale = 1.0 / math.sqrt(hd)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
     if attn_softcap:
@@ -214,9 +217,67 @@ def attend(q, k, v, *, causal, q_offset=0, window=0, attn_softcap=0.0,
         m = m & (kv_pos <= qpos)
     if window:
         m = m & (kv_pos > qpos - window)
+    return s, m
+
+
+def attend(q, k, v, *, causal, q_offset=0, window=0, attn_softcap=0.0,
+           kv_positions=None):
+    """GQA attention in plain tensor code (the decode path).
+
+    q (B, Sq, H, hd); k/v (B, Skv, KV, hd) with H % KV == 0.  Scores as
+    ``_masked_scores``'; the probabilities are cast to v's dtype before
+    the value product, as in the reference.  ``q_offset`` is the absolute
+    position of q[:, 0]; ``kv_positions`` (B, Skv) gives each key's
+    absolute position (ring caches, -1 = empty slot).  The reference's
+    query chunking bounds its memory at long Sq and does not change the
+    result; decode has Sq = 1."""
+    B, Sq, H, hd = q.shape
+    s, m = _masked_scores(q, k, causal=causal, q_offset=q_offset,
+                          window=window, attn_softcap=attn_softcap,
+                          kv_positions=kv_positions)
     p = torch.softmax(torch.where(m, s, NEG_INF), dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
     return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def attend_partial(q, k, v, *, q_offset, kv_positions, window=0,
+                   attn_softcap=0.0):
+    """Causal decode attention over a part of the keys (a model rank's
+    slots of a sequence-sharded cache), as float32 statistics to combine
+    with the other parts' (``spmd.decode_combine``):
+    (m, l, o), m the max score over the part's valid keys (``NEG_INF``
+    where it has none) and l the sum of exp(s - m) over them, (B, Sq, H);
+    o (B, Sq, H, hd) the values weighed by those exponentials, each cast
+    to v's dtype first as ``attend`` casts its probabilities.  Scores and
+    mask as ``attend``'s; a part with no valid key gives l = 0 and
+    o = 0."""
+    B, Sq, H, hd = q.shape
+    s, valid = _masked_scores(q, k, causal=True, q_offset=q_offset,
+                              window=window, attn_softcap=attn_softcap,
+                              kv_positions=kv_positions)
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
+
+    def heads(t):                                       # (B, KV, G, Sq)
+        return t.permute(0, 3, 1, 2).reshape(B, Sq, H)
+    return heads(m[..., 0]), heads(p.sum(dim=-1)), o.reshape(B, Sq, H, hd)
+
+
+def _slot_block(t, S, W, lo, hi, fill=0):
+    """Slots [lo, hi) of ``t`` (B, S, ...) laid into a W-slot cache: the
+    last W right-padded with ``fill`` (W > S) or ring-aligned so that
+    slot == pos % W (W <= S); only the block is made ([0, W) is the
+    whole cache)."""
+    if W <= S:
+        t = t[:, -W:]
+        if S % W:
+            t = torch.roll(t, S % W, dims=1)
+        return t[:, lo:hi]
+    keep = t[:, lo:min(hi, S)]
+    pad = [0, 0] * (t.dim() - 2) + [0, hi - lo - keep.shape[1]]
+    return F.pad(keep, pad, value=fill)
 
 
 def attention_block(p, x, cfg, *, kind, mode, cache=None, pos=0,
@@ -227,11 +288,17 @@ def attention_block(p, x, cfg, *, kind, mode, cache=None, pos=0,
     when ``cfg.pos == "rope"``.  ``cfg.skip_attention`` (a roofline probe)
     drops the attention itself outside decode and returns no cache.  With
     a tensor-parallel ``wq`` (``part_of``) ``out`` is this model rank's
-    partial sum; the cache holds every kv head still.
+    partial sum.
 
-    Caches hold *rotated* keys plus the absolute position of each slot
-    (``pos_ids``; -1 = empty).  Sliding-window caches are rings of size W
-    written at ``pos % W``; full caches are written at ``pos``."""
+    Caches hold *rotated* keys of every kv head plus the absolute
+    position of each slot (``pos_ids``; -1 = empty).  Sliding-window
+    caches are rings of size W written at ``pos % W``; full caches are
+    written at ``pos``.  A cache with ``slots`` (the global slot ids of
+    the block a model rank holds, ``transformer.init_cache`` for a mesh)
+    is that rank's block of the slots: the prefill keeps its slots of the
+    whole cache, and a decode step writes the new key only where a slot
+    id is ``pos`` (a ``where``, on the rank that owns it) and attends in
+    the flash-decode form (see the module's note)."""
     B, S, D = x.shape
     window = cfg.sliding_window if kind in ("swa", "hymba") else 0
     part = part_of(ctx, p["wq"], cfg.q_dim, cfg.n_heads)
@@ -252,6 +319,7 @@ def attention_block(p, x, cfg, *, kind, mode, cache=None, pos=0,
         return out @ p["wo"], None
 
     rope = cfg.pos == "rope"
+    slots = cache.get("slots") if cache is not None else None
     if mode == "decode":
         if rope:
             positions = torch.full((B, S), pos, device=x.device)
@@ -260,14 +328,29 @@ def attention_block(p, x, cfg, *, kind, mode, cache=None, pos=0,
         cache_k, cache_v, slot_pos = cache["k"], cache["v"], cache["pos_ids"]
         W = cache_k.shape[1]
         slot = pos % W if window else pos
-        sel = (torch.arange(W, device=x.device) == slot)[None, :, None, None]
+        ids = torch.arange(W, device=x.device) if slots is None else slots
+        sel = (ids == slot)[None, :, None, None]
         cache_k = torch.where(sel, k.to(cache_k.dtype), cache_k)
         cache_v = torch.where(sel, v.to(cache_v.dtype), cache_v)
         slot_pos = torch.where(sel[..., 0, 0], pos, slot_pos)
-        out = attend(q, _kv_of(cache_k, kv_sel), _kv_of(cache_v, kv_sel),
-                     causal=True, q_offset=pos, window=window,
-                     attn_softcap=cfg.attn_softcap, kv_positions=slot_pos)
         new_cache = {"k": cache_k, "v": cache_v, "pos_ids": slot_pos}
+        if slots is None:
+            out = attend(q, _kv_of(cache_k, kv_sel), _kv_of(cache_v, kv_sel),
+                         causal=True, q_offset=pos, window=window,
+                         attn_softcap=cfg.attn_softcap,
+                         kv_positions=slot_pos)
+        else:
+            # flash-decode: every query head over this rank's slots, the
+            # statistics combined over "model", then the rank's own heads
+            qa = q if part is None else \
+                spmd.model_gather(q, 2, ctx, cfg.n_heads)
+            out = spmd.decode_combine(*attend_partial(
+                qa, cache_k, cache_v, q_offset=pos, kv_positions=slot_pos,
+                window=window, attn_softcap=cfg.attn_softcap), ctx)
+            if part is not None:
+                out = out[:, :, part[0]:part[1]]
+            out = out.to(q.dtype)
+            new_cache["slots"] = slots
     else:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         if rope:
@@ -278,21 +361,18 @@ def attention_block(p, x, cfg, *, kind, mode, cache=None, pos=0,
                      softcap=cfg.attn_softcap)
         new_cache = None
         if mode == "prefill" and cache is not None:
-            W = cache["k"].shape[1]
-            if W <= S:                                  # keep the last W,
-                ks, vs, ps = k[:, -W:], v[:, -W:], positions[:, -W:]
-                if S % W:                               # ring-aligned so that
-                    shift = S % W                       # slot == pos % W
-                    ks = torch.roll(ks, shift, dims=1)
-                    vs = torch.roll(vs, shift, dims=1)
-                    ps = torch.roll(ps, shift, dims=1)
-            else:                                       # right-pad to W
-                ks = F.pad(k, (0, 0, 0, 0, 0, W - S))
-                vs = F.pad(v, (0, 0, 0, 0, 0, W - S))
-                ps = F.pad(positions, (0, W - S), value=-1)
-            new_cache = {"k": ks.to(cache["k"].dtype),
-                         "v": vs.to(cache["v"].dtype),
-                         "pos_ids": ps.to(torch.int32)}
+            # the whole cache's slots, or this rank's block of them
+            Wr = cache["k"].shape[1]
+            W, lo = (Wr, 0) if slots is None else \
+                (Wr * ctx.n_model, Wr * ctx.model_index)
+            dt = cache["k"].dtype
+            new_cache = {
+                "k": _slot_block(k, S, W, lo, lo + Wr).to(dt),
+                "v": _slot_block(v, S, W, lo, lo + Wr).to(dt),
+                "pos_ids": _slot_block(positions, S, W, lo, lo + Wr,
+                                       -1).to(torch.int32)}
+            if slots is not None:
+                new_cache["slots"] = slots
 
     out = out.reshape(B, S, H * cfg.head_dim)
     return out @ p["wo"], new_cache

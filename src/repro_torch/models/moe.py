@@ -40,6 +40,15 @@ aux and their gradients to its gradient.  In a segment of a microbatch
 that crosses the batch ranks (``ctx.share``, ``spmd.Share``) the
 fractions are the microbatch's, summed once after the forward, so the
 balance term's value and gradient come from them then (``_Balance``).
+Under the weights-stationary serve layout (``partition.serve_rules``)
+each rank also holds its block of the experts' hidden dim "e_ff" over
+the batch axes (its ``wg`` narrower than ``d_expert``): the layer
+gathers every batch rank's input rows (``spmd.rows_gather``; activations
+only), routes them (rows are routed apart and capacity is a sequence's,
+so the routes are one device's), runs its "e_ff" block of every expert
+it holds, a partial sum, and sums that over the batch ranks back to its
+own rows (``spmd.rows_reduce``) before the sum over "model"; ``dropped``
+then counts every batch rank's rows.
 The router product must run in full float32: on the card that needs
 TF32 off for matrix products, PyTorch's default
 (``torch.backends.cuda.matmul.allow_tf32`` False).
@@ -187,11 +196,22 @@ def expert_parallel(cfg, ctx) -> bool:
         and cfg.n_experts % ctx.n_model == 0
 
 
+def e_ff_split(p, cfg, ctx) -> bool:
+    """Whether the expert weights hold this rank's block of "e_ff" over
+    the batch axes (the serve layout, ``spmd.is_part``)."""
+    return spmd.is_part(p["wg"], cfg.d_expert, ctx)
+
+
 def moe_scatter(p, x, cfg, ctx=None):
     """The production MoE path.  Returns (out (B, S, D) in x's dtype, aux
     f32, dropped int32: the kept-out (token, choice) pairs with a nonzero
     gate).  Under expert parallelism (``expert_parallel``) ``p``'s expert
-    weights are this rank's E/n experts."""
+    weights are this rank's E/n experts; under the serve layout
+    (``e_ff_split``) their "e_ff" block too (see the module's note)."""
+    rows = x
+    ef = e_ff_split(p, cfg, ctx)
+    if ef and ctx.rows_split:
+        x = spmd.rows_gather(x, ctx)
     B, S, D = x.shape
     E = cfg.n_experts
     C = capacity(cfg, S)
@@ -216,16 +236,20 @@ def moe_scatter(p, x, cfg, ctx=None):
         h = _expert_ffn(p, spmd.model_slice(h, 1, ctx), cfg)
         out = _combine_local(h, topi, pos, keep, spmd.model_copy(gates, ctx),
                              ctx.model_index * E_loc, E_loc, S)
+        if ef:          # the "e_ff" blocks' partial sums, to this rank's rows
+            out = spmd.rows_reduce(out, ctx)
         if tp_shared:
-            out = out + layers.mlp(sp, spmd.model_copy(x, ctx), "silu")
+            out = out + layers.mlp(sp, spmd.model_copy(rows, ctx), "silu")
         out = spmd.model_sum(out, ctx)
         if sp is not None and not tp_shared:
-            out = out + layers.mlp(sp, x, "silu")
+            out = out + layers.mlp(sp, rows, "silu")
     else:
         h = _expert_ffn(p, h, cfg)
         out = _combine_local(h, topi, pos, keep, gates, 0, E, S)
+        if ef:
+            out = spmd.rows_reduce(out, ctx)
         if sp is not None:
-            out = out + _shared(sp, x, cfg, ctx)
+            out = out + _shared(sp, rows, cfg, ctx)
     return out.to(x.dtype), aux, dropped
 
 

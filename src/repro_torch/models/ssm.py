@@ -23,10 +23,15 @@ compute form of a mamba mixer holds a model rank's channels (its
 those and returns the rank's partial product of ``out_proj``, which the
 caller sums over "model".  The mamba's B and C are products over the
 channels, so the ranks' partial ones are summed (``spmd.model_reduce``);
-the mLSTM's gates ``wi``/``wf`` are computed whole and sliced.  The
-recurrent states a prefill or decode returns are gathered whole over
-"model" (``spmd.model_gather``): the caches stay replicated over it.  The
-sLSTM has no "model" dim and runs whole on every rank.
+the mLSTM's gates ``wi``/``wf`` are computed whole and sliced.  A mamba
+state keeps the layout of the cache it came in: a cache made for the
+mesh (``transformer.init_cache`` with a context) holds the rank's block
+of the channels ("ssm" over "model", the split the compute takes too),
+so a prefill or decode step moves no state; a whole state under a split
+compute is sliced in and gathered back whole (``spmd.model_gather``).
+The mLSTM's states stay whole over "model", as in the reference, and are
+gathered after each step.  The sLSTM has no "model" dim and runs whole
+on every rank.
 """
 from __future__ import annotations
 
@@ -94,16 +99,30 @@ def _ssm_coeffs_tp(p, xc, cfg, ctx):
     return dt, Bm, Cm, A
 
 
+def _channels(t, dim, ctx, Dss, split):
+    """A state leaf ``t`` with its channels along ``dim`` in the compute's
+    layout (``split``: the model rank's ``ctx.part(Dss)``, else all
+    ``Dss``): the leaf itself when it has that layout already, else its
+    slice of a whole leaf or the model ranks' blocks gathered whole."""
+    if (t.shape[dim] != Dss) == split:
+        return t
+    if split:
+        lo, hi = ctx.part(Dss)
+        return t.narrow(dim, lo, hi - lo)
+    return spmd.model_gather(t, dim, ctx, Dss)
+
+
 def mamba_mixer(p, x, cfg, mode="train", state=None, ctx=None):
     """x (B, S, D) -> (out, new_state); with a tensor-parallel compute
     form (``conv_b`` a model rank's channels) ``out`` is the rank's
-    partial sum (see the module's note)."""
-    part = part_of(ctx, p["conv_b"], cfg.d_ssm, cfg.d_ssm)
+    partial sum, and the new state has the channel layout of ``state``
+    (see the module's note)."""
+    Dss = cfg.d_ssm
+    part = part_of(ctx, p["conv_b"], Dss, Dss)
     x_in, z = _ssm_proj(p, x, cfg)
     if mode == "decode":
-        prev, h = state["conv"], state["h"]
-        if part is not None:
-            prev, h = prev[..., part[0]:part[1]], h[:, part[0]:part[1]]
+        prev = _channels(state["conv"], 2, ctx, Dss, part is not None)
+        h = _channels(state["h"], 1, ctx, Dss, part is not None)
     else:
         prev = None
     xc, conv_tail = _causal_conv(x_in, p["conv_w"], prev)
@@ -120,9 +139,10 @@ def mamba_mixer(p, x, cfg, mode="train", state=None, ctx=None):
     else:
         y, h = ops.ssm_scan(dt, Bm, Cm, xf, A)
         new_state = {"conv": conv_tail, "h": h} if mode == "prefill" else None
-    if new_state is not None and part is not None:
-        new_state = {"conv": spmd.model_gather(conv_tail, 2, ctx, cfg.d_ssm),
-                     "h": spmd.model_gather(h, 1, ctx, cfg.d_ssm)}
+    if new_state is not None and state is not None:
+        kept = state["h"].shape[1] != Dss       # the cache's own layout
+        new_state = {k: _channels(t, d, ctx, Dss, kept) for k, t, d in
+                     (("conv", conv_tail, 2), ("h", h, 1))}
 
     y = y + xf * p["d_skip"].float()
     y = (y * F.silu(z.float())).to(x.dtype)

@@ -48,7 +48,7 @@ from torch import nn
 from torch.utils import checkpoint as _ckpt
 
 from ..core.types import resolve_device
-from ..sharding import spmd
+from ..sharding import partition, spmd
 from . import layers, moe, ssm
 from .config import ModelConfig
 
@@ -543,7 +543,8 @@ def cache_len_for(cfg, kind, S):
     return S
 
 
-def init_cache(cfg: ModelConfig, B: int, S: int, dtype=None, device=None):
+def init_cache(cfg: ModelConfig, B: int, S: int, dtype=None, device=None,
+               ctx=None):
     """Decoder state for the serve step: one dict per layer, by its kind
     (ring caches of rotated keys for swa/hymba, full caches for attn; the
     SSM state for hymba/mamba; the float32 recurrent states C/n/m for
@@ -551,11 +552,23 @@ def init_cache(cfg: ModelConfig, B: int, S: int, dtype=None, device=None):
     ``cross_attn``, every layer also holds the encoder's projected keys
     and values, ``cross_k``/``cross_v`` (B, enc_seq, n_heads, head_dim),
     which the prefill writes.  On ``device="meta"`` the leaves have their
-    shapes and dtypes and no storage."""
+    shapes and dtypes and no storage.
+
+    With ``ctx`` (a mesh, or a sharded step's ``spmd.Ctx``), ``B`` is the
+    global batch and the cache is this rank's blocks of it under
+    ``cache_specs`` resolved with the mesh's default rules (the
+    reference's layout): its rows over the batch axes, an attn layer's
+    slots ("kv_seq") and the SSM's channels ("ssm") over "model", each
+    whole where the mesh does not divide it, the rest replicated.  An
+    attn layer whose slots are split also holds ``slots``, the int32
+    global ids of the rank's W / n_model slots, which its prefill and
+    decode read (``layers.attention_block``)."""
     check_supported(cfg)
     meta = device is not None and torch.device(device).type == "meta"
     dev = torch.device("meta") if meta else resolve_device(device)
     dt = dtype or cdtype(cfg)
+    if ctx is not None:
+        return _rank_cache(cfg, B, S, dt, dev, ctx)
     kv, hd = cfg.n_kv_heads, cfg.head_dim
     caches = []
     for i in range(cfg.n_layers):
@@ -579,6 +592,31 @@ def init_cache(cfg: ModelConfig, B: int, S: int, dtype=None, device=None):
             c["cross_v"] = torch.zeros(shape, dtype=dt, device=dev)
         caches.append(c)
     return caches
+
+
+def _rank_cache(cfg, B, S, dt, dev, ctx):
+    """``init_cache``'s blocks of one rank (see there)."""
+    if not isinstance(ctx, spmd.Ctx):
+        ctx = spmd.Ctx.of(ctx)
+    whole = init_cache(cfg, B, S, dt, "meta")
+    specs = partition.tree_pspecs(cache_specs(cfg, B, S), whole, ctx)
+
+    def blocks(c, sp):
+        if isinstance(c, dict):
+            return {k: blocks(c[k], sp[k]) for k in c}
+        shape = spmd.block(c, sp, ctx).shape
+        return torch.full(shape, -1 if c.dtype == torch.int32 else 0,
+                          dtype=c.dtype, device=dev)
+    out = []
+    for c, sp in zip(whole, specs):
+        b = blocks(c, sp)
+        if "k" in sp and _on_model(sp["k"], 1):
+            Wr = b["k"].shape[1]
+            b["slots"] = torch.arange(Wr * ctx.model_index,
+                                      Wr * (ctx.model_index + 1),
+                                      dtype=torch.int32, device=dev)
+        out.append(b)
+    return out
 
 
 # ==========================================================================

@@ -23,9 +23,14 @@ With ``mesh`` (a ``DeviceMesh`` over the ranks of the default process
 group, ``launch/mesh.py``) every rank runs ``generate`` on the same
 prompts with its blocks of the parameters (``train.step.shard_state``'s
 layout; the steps gather them each call, the experts kept split over
-"model"), its rows of the batch when the batch axes divide it, and the
-cache of those rows; the logits of every row are gathered each step, so
-every rank samples the same tokens and returns the same results.
+"model"), its rows of the batch when the batch axes divide it, and its
+blocks of the cache of those rows (``transformer.init_cache(...,
+ctx=)``: a full cache's slots and the SSM's channels split over
+"model"); the logits of every row are gathered each step, so every rank
+samples the same tokens and returns the same results.  With
+``cfg.serve_weights_stationary`` the engine lays its blocks out once
+under ``partition.serve_rules`` (``train.step.reshard_params``), and the
+steps gather nothing over the batch axes.
 """
 from __future__ import annotations
 
@@ -54,8 +59,9 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
                  max_seq: int = 256, mesh=None, device=None):
         """``params`` from ``transformer.make_params`` or
-        ``convert.params_from_jax`` (this rank's blocks with ``mesh``), on
-        ``device`` (the card unless the caller asks for the CPU)."""
+        ``convert.params_from_jax`` (this rank's blocks with ``mesh``, in
+        the train layout), on ``device`` (the card unless the caller asks
+        for the CPU)."""
         transformer.check_supported(cfg)
         self.device = resolve_device(device)
         where = {p.device.type for p in params.parameters()}
@@ -63,11 +69,16 @@ class ServeEngine:
             raise ValueError(f"parameters are on {sorted(where)}, the "
                              f"engine runs on {self.device}")
         self.cfg = cfg
-        self.params = params
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.mesh = mesh
         self._ctx = None if mesh is None else spmd.Ctx.of(mesh)
+        if mesh is not None and cfg.serve_weights_stationary:
+            rows = params["dec_pos"].shape[0] if "dec_pos" in params else 0
+            params = step_lib.reshard_params(
+                params, step_lib.state_shardings(cfg, mesh, rows)[0]["params"],
+                step_lib.serve_shardings(cfg, mesh, rows)[0]["params"])
+        self.params = params
         self._prefill = step_lib.make_prefill(cfg, mesh)
         self._decode = step_lib.make_serve_step(cfg, mesh)
         self.timings: dict = {}
@@ -98,11 +109,9 @@ class ServeEngine:
             toks[i, :len(p)] = p                 # right-pad with 0
         dev = self.device
         t0 = time.perf_counter()
-        rows = B                          # this rank's rows of the cache
-        if self._ctx is not None and self._ctx.for_batch(B).split:
-            rows = B // self._ctx.n_batch
-        cache = transformer.init_cache(self.cfg, rows, self.max_seq,
-                                       device=dev)
+        # this rank's blocks of the cache with a mesh
+        cache = transformer.init_cache(self.cfg, B, self.max_seq, device=dev,
+                                       ctx=self._ctx)
         logits, cache = self._prefill(self.params,
                                       torch.from_numpy(toks).to(dev), cache)
 

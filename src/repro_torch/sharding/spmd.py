@@ -101,13 +101,17 @@ class Ctx:
     is set inside a microbatch's segment (``Share``): means are over the
     microbatch's global rows and labels.  ``mesh`` gives the per-axis
     process groups; a context of a mesh whose axes are all 1 calls no
-    collective."""
+    collective.  ``rows_split`` says whether this rank holds its block of
+    the batch's rows: ``split``, kept by ``local`` where the means are
+    local (serving), so a layer whose weights are split over the batch
+    axes (the serve layout's experts) knows whose rows it holds."""
     mesh: object
     sizes: Dict[str, int]
     coord: Dict[str, int]
     split: bool = False
     share: Optional[Share] = None
     gather: Optional["Gatherer"] = None
+    rows_split: bool = False
 
     @classmethod
     def of(cls, mesh, split: bool = False) -> "Ctx":
@@ -153,12 +157,13 @@ class Ctx:
         replicated otherwise."""
         split = self.n_batch > 1 and \
             partition.batch_pspec(self, global_batch) != ()
-        return dataclasses.replace(self, split=split)
+        return dataclasses.replace(self, split=split, rows_split=split)
 
     def local(self) -> "Ctx":
         """This context with the rank's rows taken as a whole batch: means
-        over them are local (serving, whose MoE aux is discarded)."""
-        return dataclasses.replace(self, split=False)
+        over them are local (serving, whose MoE aux is discarded);
+        ``rows_split`` still says whether the rows are a block."""
+        return dataclasses.replace(self, split=False, rows_split=self.split)
 
     def part(self, n: int) -> Tuple[int, int]:
         """[lo, hi): this model rank's share of ``n`` heads or channels
@@ -467,9 +472,11 @@ def vocab_xent(lg: torch.Tensor, labels: torch.Tensor, ctx: Ctx):
 def model_gather(x: torch.Tensor, dim: int, ctx: Ctx, n: int) -> torch.Tensor:
     """The model ranks' parts of ``n`` heads or channels along ``dim``
     (rank i's ``split_range(n, ...)``), concatenated in rank order, with
-    no gradient: the serving caches' recurrent states and cross keys,
-    which stay whole on every model rank.  Uneven parts are padded for the
-    one all-gather."""
+    no gradient: a decode step's queries over a sequence-sharded cache
+    (``decode_combine``), and the serving caches that stay whole on every
+    model rank (the mLSTM's states, whisper's cross keys), or an SSM state
+    whose layout differs from its compute's.  Uneven parts are padded for
+    the one all-gather."""
     k = ctx.n_model
     if k == 1:
         return x
@@ -484,6 +491,59 @@ def model_gather(x: torch.Tensor, dim: int, ctx: Ctx, n: int) -> torch.Tensor:
         return out
     return torch.cat([out.narrow(dim, i * big, s)
                       for i, s in enumerate(sizes)], dim)
+
+
+# --------------------------------------------------------------------------
+# serving: the flash-decode combine over a sequence-sharded cache, and the
+# rows of the serve layout's experts over the batch axes (no gradient)
+# --------------------------------------------------------------------------
+
+def decode_combine(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                   ctx: Ctx) -> torch.Tensor:
+    """Decode attention over a cache whose slots "model" splits, from each
+    model rank's float32 statistics over its own slots
+    (``layers.attend_partial``): the max ``m`` and sum ``l`` (B, Sq, H)
+    and the unnormalised output ``o`` (B, Sq, H, hd).  Two all-reduces
+    over "model": the max of ``m``, then the sums of ``o`` and ``l``, each
+    scaled by exp(m_r - m) first.  A rank with no valid slot has m_r = ``NEG_INF`` (finite) and
+    ``l``, ``o`` zero, so its weight is 0.  Returns (B, Sq, H, hd)
+    float32, the same on every model rank."""
+    if ctx.n_model == 1:
+        return o / l[..., None]
+    g = ctx.group(MODEL)
+    mx = m.clone()
+    dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=g)
+    w = torch.exp(m - mx)
+    both = torch.cat([o * w[..., None], (l * w)[..., None]], dim=-1)
+    dist.all_reduce(both, group=g)
+    return both[..., :-1] / both[..., -1:]
+
+
+def rows_gather(x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """Every batch rank's rows of ``x`` along dim 0, in block order (one
+    all-gather a batch axis of size > 1), with no gradient: the input rows
+    of an MoE layer whose expert weights split "e_ff" over the batch axes
+    (``partition.serve_rules``)."""
+    return gather(x, (ctx.batch_axes,), ctx)
+
+
+def rows_reduce(x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """``x`` (every batch rank's rows, or the same rows on every rank)
+    summed over the batch ranks, with no gradient: reduce-scattered to
+    this rank's rows along dim 0 when it holds a block of them
+    (``ctx.rows_split``), else all-reduced.  The return of
+    ``rows_gather``'s rows through expert weights split over the batch
+    axes."""
+    for a in ctx.batch_axes:
+        k = ctx.sizes[a]
+        if k == 1:
+            continue
+        if ctx.rows_split:
+            x = reduce_scatter(x, 0, ctx.group(a), k)
+        else:
+            x = x.contiguous().clone()
+            dist.all_reduce(x, group=ctx.group(a))
+    return x
 
 
 # --------------------------------------------------------------------------
@@ -708,7 +768,8 @@ class Gatherer:
 
 
 __all__ = ["Ctx", "Gatherer", "LeafPlan", "ON_GATHER", "ONE_DEVICE", "Share",
-           "all_gather", "block", "gather", "global_norm", "model_copy",
-           "model_gather", "model_reduce", "model_slice", "model_sum",
-           "owns", "reduce_grad", "reduce_scatter", "split_range",
-           "start_gather", "to_block_grad", "to_compute", "vocab_xent"]
+           "all_gather", "block", "decode_combine", "gather", "global_norm",
+           "model_copy", "model_gather", "model_reduce", "model_slice",
+           "model_sum", "owns", "reduce_grad", "reduce_scatter",
+           "rows_gather", "rows_reduce", "split_range", "start_gather",
+           "to_block_grad", "to_compute", "vocab_xent"]

@@ -62,12 +62,22 @@ segments of a microbatch.
 
 ``make_prefill`` and ``make_serve_step`` return plain functions of
 (params, tensors); as in the reference they discard ``forward``'s aux
-(the MoE loss).  With a mesh they take the parameters' blocks, gathered
-a period at a time with the same tensor-parallel forward, the global
-tokens and this rank's rows of the cache (``transformer.cache_specs``:
-rows over the batch axes, replicated over "model"; the recurrent states
-a model rank computes in part are gathered whole over "model"), and
-return the logits of every row and every vocab column.
+(the MoE loss).  With a mesh they take the parameters' blocks, the
+global tokens and this rank's blocks of the cache
+(``transformer.init_cache(..., ctx=)`` under ``transformer.cache_specs``:
+rows over the batch axes; an attn layer's slots over "model", attended
+in the flash-decode form; the SSM's channels over "model", the split its
+compute takes, so no state moves; the sliding-window rings, the xLSTM
+states and whisper's cross keys whole on every model rank, gathered
+after each step where a rank computes them in part), run the same
+tensor-parallel forward, and return the logits of every row and every
+vocab column.  The parameters are at rest in the train layout
+(``state_shardings(cfg, mesh)``), whose FSDP blocks the steps gather a
+period at a time each call, or, with ``cfg.serve_weights_stationary``,
+in the reference's weights-stationary layout
+(``state_shardings(cfg, mesh, rules=partition.serve_rules(mesh))``: no
+FSDP, the experts' "e_ff" over the batch axes), where the steps gather
+nothing over the batch axes (``serve_shardings``, ``reshard_params``).
 """
 from __future__ import annotations
 
@@ -166,42 +176,71 @@ def shard_state(state: dict, shardings: dict) -> dict:
                        opt, state["step"].clone())
 
 
-def _expert_dims(logical: tuple, spec: tuple) -> tuple:
-    """The dims a sharded step keeps split: the experts' dim where "model"
-    splits it (expert parallelism)."""
+def _serve_rules(cfg: ModelConfig, mesh):
+    """The serve steps' rules: ``partition.serve_rules`` with
+    ``cfg.serve_weights_stationary``, else None (the train layout's)."""
+    return partition.serve_rules(mesh) if cfg.serve_weights_stationary \
+        else None
+
+
+def serve_shardings(cfg: ModelConfig, mesh, max_seq: int = 0):
+    """``state_shardings`` of the serve steps' parameters (``_serve_rules``:
+    the weights-stationary layout with ``cfg.serve_weights_stationary``,
+    else the train layout)."""
+    return state_shardings(cfg, mesh, max_seq, _serve_rules(cfg, mesh))
+
+
+def reshard_params(params, src: dict, dst: dict):
+    """This rank's blocks under ``dst`` ({name: Sharding}) of parameters
+    held as its blocks under ``src``, a leaf at a time (each gathered
+    whole, then cut), as a new ``Params``: the serve engine's one change
+    from the train layout to the weights-stationary one."""
+    ctx = spmd.Ctx.of(next(iter(dst.values())).mesh)
+    return transformer.params_from_named(
+        {n: p if src[n].spec == dst[n].spec else
+         _cut(spmd.gather(p.detach(), src[n].spec, ctx), dst[n], ctx)
+         for n, p in params.named_parameters()})
+
+
+def _kept_dims(logical: tuple, spec: tuple) -> tuple:
+    """The dims a sharded step keeps split beside the tensor-parallel
+    ones: the experts' dim where "model" splits it (expert parallelism)
+    and their hidden dim where the batch axes split it (the serve
+    layout)."""
     return tuple(d for d, (name, entry) in
                  enumerate(zip(logical, spec + (None,) * len(logical)))
-                 if name == "expert" and entry is not None)
+                 if name in ("expert", "e_ff") and entry is not None)
 
 
-def tp_plan(cfg: ModelConfig, mesh, params) -> dict:
+def tp_plan(cfg: ModelConfig, mesh, params, rules=None) -> dict:
     """{name: ``spmd.LeafPlan``} of the parameters at rest under the
-    mesh's default rules (``mesh`` a mesh or an ``spmd.Ctx``): the
-    experts' dim and the dims the tensor-parallel compute splits on kept
-    as this rank's blocks, the rest gathered (FSDP), the heads a block
-    cuts taken from the leaf gathered over "model", the leaves whole on
-    every model rank inside a tensor-parallel region marked ``partial``
-    (``transformer.tp_layout``)."""
+    mesh's ``rules`` (its default rules unless given; ``mesh`` a mesh or
+    an ``spmd.Ctx``): the experts' dims (and their "e_ff" block under
+    ``partition.serve_rules``) and the dims the tensor-parallel compute
+    splits on kept as this rank's blocks, the rest gathered (FSDP), the
+    heads a block cuts taken from the leaf gathered over "model", the
+    leaves whole on every model rank inside a tensor-parallel region
+    marked ``partial`` (``transformer.tp_layout``)."""
     max_seq = params["dec_pos"].shape[0] if "dec_pos" in params else 0
-    shardings, _ = state_shardings(cfg, mesh, max_seq)
+    shardings, _ = state_shardings(cfg, mesh, max_seq, rules)
     logical = transformer.param_specs(cfg, max_seq)
     specs = {n: sh.spec for n, sh in shardings["params"].items()}
     ctx = mesh if isinstance(mesh, spmd.Ctx) else spmd.Ctx.of(mesh)
     lay = transformer.tp_layout(cfg, specs, ctx.n_model, ctx.model_index)
-    return {n: spmd.LeafPlan(sp, _expert_dims(logical[n], sp) + lay[n][0],
+    return {n: spmd.LeafPlan(sp, _kept_dims(logical[n], sp) + lay[n][0],
                              lay[n][1], lay[n][2])
             for n, sp in specs.items()}
 
 
-def _planner(cfg: ModelConfig, mesh):
-    """``tp_plan`` for a step's parameters, made once a ``max_seq``
-    (``mesh`` a mesh or an ``spmd.Ctx``)."""
+def _planner(cfg: ModelConfig, mesh, rules=None):
+    """``tp_plan`` for a step's parameters under ``rules``, made once a
+    ``max_seq`` (``mesh`` a mesh or an ``spmd.Ctx``)."""
     plans = {}
 
     def plan(params):
         key = params["dec_pos"].shape[0] if "dec_pos" in params else 0
         if key not in plans:
-            plans[key] = tp_plan(cfg, mesh, params)
+            plans[key] = tp_plan(cfg, mesh, params, rules)
         return plans[key]
     return plan
 
@@ -450,8 +489,12 @@ def make_train_step(cfg: ModelConfig, mesh=None,
 def _sharded_serving(cfg: ModelConfig, mesh):
     """(params, B) -> the context of a serve step's call over ``mesh``,
     whose forward gathers the blocks a period at a time (``ctx.gather``)
-    and keeps the tensor-parallel blocks."""
-    base, planner = spmd.Ctx.of(mesh), _planner(cfg, mesh)
+    and keeps the tensor-parallel blocks; with
+    ``cfg.serve_weights_stationary`` the parameters are at rest under
+    ``partition.serve_rules``, and only a leaf whose "model" block is not
+    its compute's split is gathered (over "model")."""
+    base = spmd.Ctx.of(mesh)
+    planner = _planner(cfg, mesh, _serve_rules(cfg, mesh))
 
     def setup(params, B):
         ctx = base.for_batch(B)
@@ -496,14 +539,8 @@ def make_prefill(cfg: ModelConfig, mesh=None):
 def make_serve_step(cfg: ModelConfig, mesh=None):
     """One-token decode: (params, cache, token (B, 1), pos int) ->
     (logits (B, vocab), new_cache).  With ``mesh``: see the module's
-    note; ``cfg.serve_weights_stationary`` (the reference's
-    ``partition.serve_rules`` layout) raises NotImplementedError there,
-    naming its ROADMAP Queue 1 item."""
-    if mesh is not None and cfg.serve_weights_stationary:
-        raise NotImplementedError(
-            f"{cfg.name}: not ported yet: the weights-stationary decode "
-            f"layout, serve_weights_stationary (item 24) -- see ROADMAP.md "
-            f"Queue 1")
+    note (``cfg.serve_weights_stationary`` takes the parameters in the
+    reference's ``partition.serve_rules`` layout)."""
     setup = None if mesh is None else _sharded_serving(cfg, mesh)
 
     def serve_step(params, cache, token, pos):

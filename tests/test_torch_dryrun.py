@@ -9,7 +9,9 @@ and carrying the reference's ``model_flops`` and parameter counts; and
 rank 0's block shape of every parameter on the 16 x 16 mesh against
 ``NamedSharding.shard_shape`` of the reference's ``state_shardings``
 (a JAX subprocess with 256 host devices; ``tests/conftest.py`` keeps
-one in-process) for a dense and an MoE configuration."""
+one in-process) for a dense and an MoE configuration; and the
+weights-stationary decode cell (``--set serve_weights_stationary=True``)
+traces and all-gathers less than the train layout's."""
 import json
 import os
 import pathlib
@@ -158,18 +160,21 @@ def test_shard_shapes_equal_the_references():
         assert got == want, arch
 
 
-def test_weights_stationary_decode_cell_records_its_item(tmp_path):
-    """The reference's decode layout under ``serve_rules`` is not ported: the
-    cell records the NotImplementedError naming its ROADMAP item, and the
-    CLI exits 1 with 0/1 cells traced."""
+def test_weights_stationary_decode_cell_records_its_item(cells, tmp_path):
+    """The reference's decode layout under ``serve_rules``
+    (``--set serve_weights_stationary=True``) traces: the CLI exits 0 with
+    1/1 cells, and a decode step hands fewer bytes to all-gathers than
+    the train layout's, whose FSDP blocks it gathers each step."""
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
          "llama3.2-1b", "--shape", "decode_32k", "--mesh", "pod", "--set",
          "serve_weights_stationary=True", "--out", str(tmp_path)],
         env=_env(), cwd=ROOT, capture_output=True, text=True, timeout=300)
-    assert r.returncode == 1, r.stderr[-3000:]
-    assert "0/1 cells traced" in r.stdout
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "1/1 cells traced" in r.stdout
     (f,) = tmp_path.glob("*.json")
     d = json.loads(f.read_text())
-    assert d["error_type"] == "NotImplementedError"
-    assert "item 24" in d["error"]
+    assert "error" not in d
+    _, _, _, (plain,) = cells[("llama3.2-1b", "decode_32k")]
+    assert 0 < d["collectives"]["all-gather"] \
+        < plain["collectives"]["all-gather"]

@@ -261,24 +261,54 @@ def test_params_from_jax_layer_order_and_bits():
 # scope, device rule, independence from JAX
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch,cfg_kw,item", [
-    ("llama3_2_1b", {"serve_weights_stationary": True}, "item 24"),
-])
-def test_refused_configs_name_their_roadmap_item(arch, cfg_kw, item):
-    """The sharded decode step refuses the weights-stationary layout; one
-    device, where the flag changes nothing, serves it."""
+class _RankZero:
+    """A mesh as ``make_prefill``/``make_serve_step`` read it when they
+    make a sharded step, without a process group: rank 0 of ("data",
+    "model") of the given sizes."""
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, shape):
+        self.shape = shape
+
+    def get_coordinate(self):
+        return [0, 0]
+
+    def get_local_rank(self, axis):
+        return 0
+
+    def get_group(self, axis):
+        return None
+
+
+def test_weights_stationary_decode_serves_and_builds_sharded():
+    """``serve_weights_stationary`` changes nothing on one device, which
+    serves it; over a mesh the serve steps build for it, taking the
+    parameters under ``serve_rules``: no leaf split over the batch axes
+    (no FSDP), the heads and vocab over "model"."""
     from repro_torch.train import step as tstep
-    cfg = dataclasses.replace(tconfigs.get_smoke(arch), **cfg_kw)
-    mesh = type("Mesh", (), {"mesh_dim_names": ("data", "model"),
-                             "shape": (2, 1)})()
-    with pytest.raises(NotImplementedError, match=item):
-        tstep.make_serve_step(cfg, mesh)
+    cfg = dataclasses.replace(tconfigs.get_smoke("llama3_2_1b"),
+                              serve_weights_stationary=True)
+    mesh = _RankZero((2, 2))
+    assert callable(tstep.make_prefill(cfg, mesh))
+    assert callable(tstep.make_serve_step(cfg, mesh))
+    sh, _ = tstep.serve_shardings(cfg, mesh)
+    specs = {n: s.spec for n, s in sh["params"].items()}
+    axes = {a for sp in specs.values() for e in sp if e is not None
+            for a in ((e,) if isinstance(e, str) else e)}
+    assert axes == {"model"}, specs
+    assert specs["embed"] == ("model",)
+    assert specs["layers.0.mixer.wq"] == (None, "model")
     params = ttransformer.make_params(cfg, torch.Generator().manual_seed(0),
                                       device="cpu")
     cache = ttransformer.init_cache(cfg, 1, 4, device="cpu")
     logits, _ = tstep.make_serve_step(cfg)(
         params, cache, torch.zeros((1, 1), dtype=torch.int64), 0)
+    plain = dataclasses.replace(cfg, serve_weights_stationary=False)
+    want, _ = tstep.make_serve_step(plain)(
+        params, ttransformer.init_cache(cfg, 1, 4, device="cpu"),
+        torch.zeros((1, 1), dtype=torch.int64), 0)
     assert logits.shape == (1, cfg.vocab)
+    assert torch.equal(logits, want)
 
 
 @pytest.mark.parametrize("arch,cfg_kw", [

@@ -234,17 +234,18 @@ def edge_inputs(N, n_tasks, seed, E=24):
 # with the jobs and topology modules of either package
 # --------------------------------------------------------------------------
 
-def star_scenario(jobs_mod, topo_mod, max_flows, comm_model=0):
+def star_scenario(jobs_mod, topo_mod, max_flows, comm_model=0, n_jobs=30):
     """tests/test_network_flows.py's star: ROUND_ROBIN splits every
-    two-task chain across servers, so each of the 30 jobs routes one flow
-    over one switch, and the link caps make the transfers overlap."""
+    two-task chain across servers, so each of the 30 jobs (the first
+    ``n_jobs`` of them) routes one flow over one switch, and the link caps
+    make the transfers overlap."""
     from repro_torch.core import workload
     from repro_torch.core.types import SchedPolicy, SleepPolicy
     rng = np.random.default_rng(2)
-    arr = workload.poisson_arrivals(25.0, 30, seed=2)
+    arr = workload.poisson_arrivals(25.0, 30, seed=2)[:n_jobs]
     specs = [jobs_mod.dag_chain(rng.uniform(0.01, 0.04, size=2),
                                 edge_bytes=float(rng.uniform(4e6, 8e6)))
-             for _ in range(30)]
+             for _ in range(30)][:n_jobs]
     kw = dict(n_servers=6, n_cores=2, max_jobs=64, tasks_per_job=2,
               max_children=2, max_flows=max_flows, local_q=32,
               sched_policy=SchedPolicy.ROUND_ROBIN,

@@ -52,6 +52,37 @@ def count_collectives():
             setattr(dist, name, fn)
 
 
+@contextlib.contextmanager
+def record_collectives():
+    """Record every collective called inside as (name, shape, bytes) of
+    the tensor it is handed (an all-gather's block, a reduce-scatter's
+    full input, an all-reduce's tensor), in call order: yields the
+    list."""
+    calls = []
+    saved = {}
+    for name in COLLECTIVES:
+        fn = getattr(dist, name, None)
+        if fn is None:
+            continue
+        saved[name] = fn
+
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            t = a[1] if _name.startswith(("all_gather", "reduce_scatter")) \
+                and len(a) > 1 else (a[0] if a else None)
+            if isinstance(t, torch.Tensor):
+                calls.append((_name, tuple(t.shape),
+                              t.numel() * t.element_size()))
+            else:
+                calls.append((_name, None, 0))
+            return _fn(*a, **kw)
+        setattr(dist, name, wrapped)
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
 # --------------------------------------------------------------------------
 # the CPU tests' ranks (tests/test_torch_sharding.py, test_torch_engine.py)
 # --------------------------------------------------------------------------
@@ -332,10 +363,11 @@ def mesh_serve(rank, world, cfg, plain_params, tokens, steps, prompts,
                shape, max_seq, axes=("data", "model"), device="cpu"):
     """The sharded serving entry points over a mesh of ``shape`` from full
     parameters (``plain_state``'s {name: tensor}), cut to this rank's
-    blocks: ``make_prefill(cfg, mesh)`` on ``tokens`` (B, S) into a cache
-    of this rank's rows, ``make_serve_step(cfg, mesh)`` on each (B, 1)
-    token of ``steps`` at positions S, S + 1, ..., then
-    ``ServeEngine(mesh=)`` greedy on each prompt list of ``prompts``:
+    blocks: ``make_prefill(cfg, mesh)`` on ``tokens`` (B, S) into this
+    rank's blocks of the cache (``init_cache(..., ctx=mesh)``),
+    ``make_serve_step(cfg, mesh)`` on each (B, 1) token of ``steps`` at
+    positions S, S + 1, ..., then ``ServeEngine(mesh=)`` greedy on each
+    prompt list of ``prompts``:
     (logits of every row a call, [tokens a prompt] a list, the cache's
     rows, {collective: calls} of the first serve step)."""
     from repro_torch.models import transformer
@@ -347,9 +379,9 @@ def mesh_serve(rank, world, cfg, plain_params, tokens, steps, prompts,
     blocks = step.shard_params(transformer.params_from_named(
         dict(plain_params)), sh["params"])
     B, S = tokens.shape
-    ctx = spmd.Ctx.of(mesh).for_batch(B)
-    rows = B // ctx.n_batch if ctx.split else B
-    cache = transformer.init_cache(cfg, rows, max_seq, device=device)
+    cache = transformer.init_cache(cfg, B, max_seq, device=device, ctx=mesh)
+    rows = next(t for t in cache[0].values()
+                if isinstance(t, torch.Tensor)).shape[0]
     prefill = step.make_prefill(cfg, mesh)
     serve_step = step.make_serve_step(cfg, mesh)
     with torch.no_grad():
@@ -365,6 +397,62 @@ def mesh_serve(rank, world, cfg, plain_params, tokens, steps, prompts,
     gens = [[g.tokens for g in engine.generate(p, max_new=len(steps) + 2)]
             for p in prompts]
     return out, gens, rows, calls
+
+
+def serve_layout(rank, world, cfg, plain_params, tokens, steps, prompts,
+                 shape, max_seq, axes=("data", "model"), device="cpu"):
+    """The serve steps over a mesh of ``shape`` in the decode layout of
+    ``cfg`` (with ``serve_weights_stationary`` the parameters under
+    ``partition.serve_rules``), from full parameters: the prefill of
+    ``tokens`` (B, S) into this rank's blocks of the cache, a decode step
+    a (B, 1) token of ``steps``, then ``ServeEngine(mesh=)`` greedy on
+    ``prompts`` from the train layout's blocks.  Returns {"logits" a
+    call, "tokens", "cache" {leaf: block shape} of every layer,
+    "decode" [(collective, shape, bytes)] a decode step, "param_gathers"
+    the parameter leaves a step's ``Gatherer`` gathered}."""
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding import spmd
+    from repro_torch.train import step
+    mesh = mesh_of(shape, axes, device)
+    full = transformer.params_from_named(dict(plain_params))
+    train_sh, _ = step.state_shardings(cfg, mesh)
+    blocks = step.shard_params(full, step.serve_shardings(cfg, mesh)[0][
+        "params"])
+    B, S = tokens.shape
+    cache = transformer.init_cache(cfg, B, max_seq, device=device, ctx=mesh)
+    out = {"cache": {}, "decode": [], "param_gathers": 0}
+    for i, c in enumerate(cache):
+        for k, t in c.items():
+            for kk, tt in (t.items() if isinstance(t, dict) else [(None, t)]):
+                out["cache"][".".join(str(x) for x in (i, k, kk)
+                                      if x is not None)] = tuple(tt.shape)
+
+    def hook(event, key, tensors):
+        out["param_gathers"] += len(tensors)
+    spmd.ON_GATHER.append(hook)
+    try:
+        with torch.no_grad():
+            logits, cache = step.make_prefill(cfg, mesh)(blocks, tokens,
+                                                        cache)
+            out["logits"] = [logits]
+            serve_step = step.make_serve_step(cfg, mesh)
+            n_prefill = out["param_gathers"]
+            for i, tok in enumerate(steps):
+                with record_collectives() as calls:
+                    logits, cache = serve_step(blocks, cache, tok, S + i)
+                out["decode"].append(calls)
+                out["logits"].append(logits)
+            out["param_gathers"] = (n_prefill,
+                                    out["param_gathers"] - n_prefill)
+    finally:
+        spmd.ON_GATHER.remove(hook)
+    engine = ServeEngine(cfg, step.shard_params(full, train_sh["params"]),
+                         max_batch=len(prompts), max_seq=max_seq, mesh=mesh,
+                         device=device)
+    out["tokens"] = [g.tokens for g in
+                     engine.generate(prompts, max_new=len(steps) + 2)]
+    return out
 
 
 def ckpt_reshard(rank, world, cfg, plain, other, directory, save_shape,
